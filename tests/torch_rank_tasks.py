@@ -1,0 +1,108 @@
+"""Functions the PyTorch-port tests run on every rank of a gloo pool.
+
+Imported by the pool's rank processes, so it imports torch, NumPy and the
+port only — never JAX.  Every function takes plain data (NumPy arrays,
+tuples describing pencils) and returns NumPy results from rank 0 (``None``
+from the other ranks).  Pencils are described as ``(decomp_dims, perm)``
+with ``perm`` a tuple or ``None``.
+"""
+
+import numpy as np
+import torch
+
+import pencilarrays_tpu_torch as pat
+from pencilarrays_tpu_torch.ops import reductions
+from pencilarrays_tpu_torch.interop import from_numpy_padded, to_numpy_padded
+from pencilarrays_tpu_torch.models import (
+    DiffusionSpectral,
+    NavierStokesSpectral,
+    taylor_green,
+)
+
+_TOPOLOGIES = {}
+
+
+def topology(dims):
+    """One CPU topology per dims per rank process (building one creates
+    process sub-groups, which every rank must do in the same order)."""
+    dims = tuple(dims)
+    if dims not in _TOPOLOGIES:
+        _TOPOLOGIES[dims] = pat.Topology(dims, device="cpu")
+    return _TOPOLOGIES[dims]
+
+
+def pencil(dims, shape, spec):
+    decomp, perm = spec
+    return pat.Pencil(topology(dims), shape, decomp,
+                      permutation=None if perm is None
+                      else pat.Permutation(*perm))
+
+
+def _as_input(padded, bf16):
+    t = torch.from_numpy(np.array(padded, copy=True))
+    return t.view(torch.bfloat16) if bf16 else t
+
+
+def _rank0(value):
+    return value if torch.distributed.get_rank() == 0 else None
+
+
+def transpose_chain(dims, shape, extra, specs, padded, bf16=False):
+    """Load ``padded`` (the JAX package's ``.data`` on ``specs[0]``), hop
+    through ``specs[1:]`` and return, for every pencil after the first,
+    the padded global array, the gathered logical array and the masked
+    global sum.  Odd hops go through the ``Transposition`` object API."""
+    pens = [pencil(dims, shape, s) for s in specs]
+    x = from_numpy_padded(pens[0], _as_input(padded, bf16), extra)
+    out = []
+    for i, pen in enumerate(pens[1:]):
+        if i % 2:
+            t = pat.Transposition(pen, x)
+            t.waitall()
+            x = t.execute()
+        else:
+            x = pat.transpose(x, pen)
+        total = reductions.sum(x.astype(torch.float64)
+                               if bf16 else x).item()
+        out.append((to_numpy_padded(x), pat.gather(x), total))
+    return _rank0(out)
+
+
+def fft_case(dims, shape, kwargs, u):
+    """Forward and backward of a plan on the global input ``u``: the
+    gathered spectrum, the gathered round trip, the schedule's pencils
+    and the plan's collective costs."""
+    plan = pat.PencilFFTPlan(topology(dims), shape, **kwargs)
+    x = pat.PencilArray.from_global(plan.input_pencil, u)
+    uh = plan.forward(x)
+    back = plan.backward(uh)
+    sched = [(s[0], s[1].decomposition, tuple(s[1].permutation.apply(
+        tuple(range(len(shape))))), s[2].decomposition) for s in plan._steps]
+    return _rank0(dict(spectrum=pat.gather(uh), back=pat.gather(back),
+                       schedule=sched, costs=plan.collective_costs(),
+                       out_padded=to_numpy_padded(uh).shape,
+                       scale_factor=plan.scale_factor()))
+
+
+def spectral_case(dims, n, dtype, uh0_padded, dt, nu):
+    """From the JAX package's Taylor–Green state: the port's own
+    Taylor–Green state, two RK2 steps, one RK4 step (all gathered in
+    logical order) and the energies after each."""
+    dtype = getattr(torch, dtype)
+    model = NavierStokesSpectral(topology(dims), n, viscosity=nu,
+                                 dtype=dtype)
+    uh0 = from_numpy_padded(model.plan.output_pencil, uh0_padded, (3,))
+    own = taylor_green(model)
+    s = model.step(model.step(uh0, dt), dt)
+    r4 = model.step_rk4(uh0, dt)
+    return _rank0(dict(own=pat.gather(own), rk2=pat.gather(s),
+                       rk4=pat.gather(r4),
+                       energy=[float(model.energy(v)) for v in (uh0, s, r4)]))
+
+
+def diffusion_case(dims, n, u0, t, kappa):
+    """The port's exact diffusion solve of the global field ``u0``."""
+    model = DiffusionSpectral(topology(dims), n, kappa=kappa,
+                              dtype=torch.float64)
+    x = pat.PencilArray.from_global(model.plan.input_pencil, u0)
+    return _rank0(pat.gather(model.solve(x, t)))
