@@ -22,9 +22,22 @@ when any phase fails.  Phases, each printed on its own lines:
 5. Navier–Stokes (Taylor–Green): 64^3 on the card against the same port
    on the CPU, then 512^3 float32 for 3 RK2 steps (the main path), with
    the energy held to exp(-6 nu t), step time and peak memory;
-6. a ``{"kernels": [...]}`` line: per kernel its launches on the main
-   path, its error against the plain version and its times;
-7. the last line, ``{"ok": true, "device": {...}}``.
+6. kernels K2–K4 (``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd.cu``)
+   against their plain versions on the card: three forward modes, full
+   and partials backward, causal and not, ragged lengths, offsets, rows
+   with no visible key, f32 and bf16, head dims 40 to 1024, and a P = 4
+   causal ring emulated at kernel level;
+7. serving at full width (S = 4096, H = 8, D = 128): Ulysses and causal
+   ring attention over NCCL on a (1,) topology, f32 and bf16, each held
+   to dense attention, with their K1/K2 launches;
+8. training: the block of ``examples/long_context_training.py`` at full
+   width (zigzag causal ring attention, MSE, SGD) for 3 steps: the loss
+   falls, one step's gradients match the plain path, K2–K4 launched;
+9. K2–K4 times at the headline shape, f32 and bf16, causal and not:
+   kernel, plain, SDPA (a yardstick the port never calls) and bound;
+10. a ``{"kernels": [...]}`` line: per kernel its launches on its path,
+    its error against the plain version and its times;
+11. the last line, ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -36,6 +49,7 @@ import tempfile
 import time
 
 SEED = 0
+KERNEL_SOURCES = ["permute", "flash_fwd", "flash_bwd"]
 H100_BW = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
 H100_SXM_BW = 3.35e12  # bytes/s; also the default for an unlisted card
 
@@ -91,7 +105,11 @@ def random_tensor(torch, shape, dtype, gen):
 
 # device kernels by the layer that launches them (substrings of the name)
 KERNEL_GROUPS = [
+    ("k2_flash_fwd", ("flash_fwd_kernel",)),
+    ("k3_flash_dq", ("flash_dq_kernel",)),
+    ("k4_flash_dkv", ("flash_dkv_kernel",)),
     ("k1_permute", ("permute_tiled_kernel", "permute_copy_kernel")),
+    ("gemm", ("gemm", "xmma", "cutlass", "Kernel2")),
     ("cufft", ("fft", "FFT")),
     ("stack_cat", ("CatArrayBatchedCopy",)),
     ("exchange", ("nccl", "Memcpy")),
@@ -135,7 +153,7 @@ def profile(torch, fn, label: str, top: int = 8) -> dict:
     return out
 
 
-def phase_environment(torch, pat, k1, build, dist_dir):
+def phase_environment(torch, pat, build, dist_dir):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -145,13 +163,14 @@ def phase_environment(torch, pat, k1, build, dist_dir):
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    k1._lib()
-    info = build.build_info["permute"]
-    log(f"[env] permute.cu build {info['seconds']:.2f} s "
-        f"(load {time.perf_counter() - t0:.2f} s)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[env] ptxas: {line.strip()}")
+    build.build_all(KERNEL_SOURCES)   # one nvcc per source, all at once
+    log(f"[env] kernel build {time.perf_counter() - t0:.2f} s wall: " + ", ".join(
+        f"{name}.cu {build.build_info[name]['seconds']:.2f} s"
+        for name in KERNEL_SOURCES))
+    for name in KERNEL_SOURCES:
+        for line in build.build_info[name]["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[env] ptxas {name}: {line.strip()}")
     pat.distributed.initialize(
         "nccl", init_method=f"file://{os.path.join(dist_dir, 'rdv')}",
         world_size=1, rank=0)
@@ -399,6 +418,389 @@ def phase_navier_stokes(torch, dist, pat, k1, models):
     return r
 
 
+# Tolerances of K2–K4 against their plain versions, relative to max|plain|
+# of each compared tensor.  The kernels and the plain versions (cuBLAS
+# matmuls over key chunks) sum in different orders; in f32 that moves the
+# forward by ~1e-6 and the backward, a difference of two sums, by a few
+# 1e-6.  In bf16 the kernel and the plain version round P to bf16 at
+# different points of the sum and the output to bf16 (8 bits).
+FLASH_TOL = {("fwd", "float32"): 1e-5, ("bwd", "float32"): 5e-5,
+             ("fwd", "bfloat16"): 2e-2, ("bwd", "bfloat16"): 2e-2}
+FLASH_OFFSETS = [(False, 0, 0), (True, 0, 0), (True, 5, 0), (True, 0, 3),
+                 (True, 17, 9)]
+
+
+def _rel_err(torch, got, want, rows=None) -> float:
+    """max|got - want| / max|want| over the rows selected by the boolean
+    mask ``rows`` along the sequence dim (all rows when None)."""
+    got, want = got.double(), want.double()
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    scale = float(want.abs().max()) or 1.0
+    return float((got - want).abs().max()) / scale
+
+
+def _flash_compare(torch, flash, q, k, v, causal, q_off, kv_off):
+    """K2 (three modes), K3 + K4 (full and partials) against the plain
+    versions on one case; returns {"fwd": err, "bwd": err}, each the worst
+    relative error of the tensors of that direction."""
+    sq = q.shape[0]
+    rows = (q_off + torch.arange(sq, device=q.device)) >= kv_off
+    kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+    fwd, bwd = [], []
+    out, (m, l) = flash.flash_attention_fwd(q, k, v, return_stats=True, **kw)
+    out_p, (m_p, l_p) = flash.flash_attention_fwd_plain(
+        q, k, v, return_stats=True, **kw)
+    if not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError("K2 output is not finite")
+    fwd += [_rel_err(torch, out, out_p, rows),
+            _rel_err(torch, m.t(), m_p.t(), rows),
+            _rel_err(torch, l.t(), l_p.t(), rows),
+            _rel_err(torch, flash.flash_attention_fwd(q, k, v, **kw), out_p,
+                     rows)]
+    parts = flash.flash_attention_fwd(q, k, v, partials=True, **kw)
+    parts_p = flash.flash_attention_fwd_plain(q, k, v, partials=True, **kw)
+    for a, b in zip(parts[:2], parts_p[:2]):   # m, l: (H, B, Sq)
+        fwd.append(_rel_err(torch, a.movedim(-1, 0), b.movedim(-1, 0), rows))
+    fwd.append(_rel_err(torch, parts[2], parts_p[2], rows))
+    # the backward from the SAME residuals on both sides; a zero
+    # cotangent on rows with no visible key, as a loss over defined
+    # outputs has
+    gen = torch.Generator(device=q.device).manual_seed(SEED + 7)
+    do = torch.randn(q.shape, generator=gen, device=q.device)
+    do = (do * rows.view(-1, *([1] * (q.dim() - 1)))).to(q.dtype)
+    got = flash.flash_attention_bwd(q, k, v, out_p, do, m_p, l_p, **kw)
+    want = flash.flash_attention_bwd_plain(q, k, v, out_p, do, m_p, l_p, **kw)
+    bwd += [_rel_err(torch, a, b) for a, b in zip(got, want)]
+    L, D = flash.residuals(out_p, do, m_p, l_p)
+    h, b = q.shape[1], q.shape[2]
+    L, D = L.reshape(h, b, sq), D.reshape(h, b, sq)
+    g32 = do.float()
+    got = flash.flash_attention_bwd_partials(q, k, v, g32, L, D, **kw)
+    want = flash.flash_attention_bwd_partials_plain(q, k, v, g32, L, D, **kw)
+    bwd += [_rel_err(torch, a, b) for a, b in zip(got, want)]
+    return {"fwd": max(fwd), "bwd": max(bwd)}
+
+
+def _ring_emulation(torch, flash, merge, dtype, blk, H, D, P=4):
+    """A causal P-rank ring at kernel level on one card: per rank, P
+    partials calls with each round's offsets, merged, against one call
+    over the whole sequence; per rank, bwd_partials over the P blocks
+    (dq summed, dk/dv per block) against one full bwd_partials call."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    S = P * blk
+    q, k, v = rnd(S, H, 1, D), rnd(S, H, 1, D), rnd(S, H, 1, D)
+    fwd, bwd = [], []
+    for me in range(P):
+        qb = q[me * blk:(me + 1) * blk]
+        carry = None
+        for r in range(P):
+            j = (me - r) % P
+            part = flash.flash_attention_fwd(
+                qb, k[j * blk:(j + 1) * blk], v[j * blk:(j + 1) * blk],
+                causal=True, q_offset=me * blk, kv_offset=j * blk,
+                partials=True)
+            carry = part if carry is None else merge(carry, part)
+        full = flash.flash_attention_fwd(qb, k, v, causal=True,
+                                         q_offset=me * blk, partials=True)
+        out = flash.normalize(carry[1], carry[2], torch.float32)
+        out_full = flash.normalize(full[1], full[2], torch.float32)
+        fwd.append(_rel_err(torch, out, out_full))
+        do = rnd(blk, H, 1, D).float()
+        L, Drow = flash.residuals(out_full, do, full[0].reshape(H, blk),
+                                  full[1].reshape(H, blk))
+        L, Drow = L.reshape(H, 1, blk), Drow.reshape(H, 1, blk)
+        want = flash.flash_attention_bwd_partials(
+            qb, k, v, do, L, Drow, causal=True, q_offset=me * blk)
+        dq = torch.zeros_like(want[0])
+        for j in range(P):
+            g = flash.flash_attention_bwd_partials(
+                qb, k[j * blk:(j + 1) * blk], v[j * blk:(j + 1) * blk], do,
+                L, Drow, causal=True, q_offset=me * blk, kv_offset=j * blk)
+            dq += g[0]
+            for a, w in zip(g[1:], want[1:]):
+                bwd.append(_rel_err(torch, a, w[j * blk:(j + 1) * blk]))
+        bwd.append(_rel_err(torch, dq, want[0]))
+    return max(fwd), max(bwd)
+
+
+def phase_flash_check(torch, flash, merge):
+    """K2–K4 against their plain versions on the card: three forward
+    modes, full and partials backward, causal and not, ragged lengths,
+    the offsets of FLASH_OFFSETS, rows with no visible key, f32 and bf16,
+    head dims across every tile class; then a P = 4 ring emulated at
+    kernel level."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    worst = {}
+    cases = 0
+    sq, skv, H, B = 237, 301, 3, 2    # ragged: no tile size divides them
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for d in (40, 64, 128, 256, 520, 1024):
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen,
+                                   device="cuda").to(dtype)
+            q, k, v = rnd(sq, H, B, d), rnd(skv, H, B, d), rnd(skv, H, B, d)
+            for causal, qo, ko in FLASH_OFFSETS:
+                errs = _flash_compare(torch, flash, q, k, v, causal, qo, ko)
+                for key, err in errs.items():
+                    tol = FLASH_TOL[(key, name)]
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"flash {key} {name} d={d} causal={causal} "
+                            f"offsets=({qo},{ko}): rel err {err} > {tol}")
+                    worst[(key, name)] = max(worst.get((key, name), 0.0), err)
+                cases += 1
+        for blk in (192, 237):
+            f_err, b_err = _ring_emulation(torch, flash, merge, dtype, blk,
+                                           4, 64)
+            for key, err in (("fwd", f_err), ("bwd", b_err)):
+                tol = FLASH_TOL[(key, name)]
+                if not err <= tol:
+                    raise AssertionError(f"ring emulation {key} {name} "
+                                         f"blk={blk}: {err} > {tol}")
+                worst[(key, name)] = max(worst[(key, name)], err)
+    torch.cuda.synchronize()
+    log(f"[flash] K2-K4 within tolerance of the plain versions on the card: "
+        f"{cases} cases (Sq={sq}, Skv={skv}, H={H}, B={B}; d 40 64 128 256 "
+        f"520 1024; f32 bf16; non-causal and causal offsets "
+        f"{[o[1:] for o in FLASH_OFFSETS[1:]]}; out, return_stats, partials, "
+        f"bwd, bwd_partials) + P=4 causal ring emulated at kernel level; "
+        f"worst rel err " + json.dumps({f"{a} {b}": v for (a, b), v in
+                                        worst.items()})
+        + f"; tolerances {json.dumps({f'{a} {b}': v for (a, b), v in FLASH_TOL.items()})}")
+    return worst
+
+
+# The attention path at the repo's full width (bench.py's
+# flash_attention_4096, benchmarks/flash_sweep.py): S tokens, H heads of D.
+S_ATT, H_ATT, D_ATT = 4096, 8, 128
+# peak rates for the bound (NVIDIA H100 SXM data sheet, dense): float32 on
+# the CUDA cores, bfloat16 on the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+SERVE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# a training gradient sums dq/dk/dv (each within 5e-5 of plain) over all
+# S x H rows of the projections
+TRAIN_GRAD_TOL = 1e-4
+
+
+def _counts(k1, flash):
+    return dict(k1=k1.launches, k2=flash.launches_fwd,
+                k3=flash.launches_dq, k4=flash.launches_dkv)
+
+
+def _reset_counts(k1, flash):
+    k1.launches = 0
+    flash.launches_fwd = flash.launches_dq = flash.launches_dkv = 0
+
+
+def phase_serving(torch, pat, models, k1, flash):
+    """Ulysses (non-causal) and causal ring attention over NCCL on a (1,)
+    topology at full width, f32 and bf16, each against dense_attention on
+    the card, with the K1/K2 launches of each scheme."""
+    topo = pat.Topology((1,))
+    pen = pat.Pencil(topo, (S_ATT, H_ATT), (0,))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    out = {"k1": 0, "k2": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        q, k, v = (pat.PencilArray(pen, torch.randn(
+            (S_ATT, H_ATT, D_ATT), generator=gen, device="cuda").to(dtype))
+            for _ in range(3))
+        for scheme, causal, fn in (
+                ("ulysses", False, models.ulysses_attention),
+                ("ring", True, models.ring_attention)):
+            ref = models.dense_attention(q.data.float(), k.data.float(),
+                                         v.data.float(), causal=causal)
+            fn(q, k, v, causal=causal)          # warm-up
+            torch.cuda.synchronize()
+            before = _counts(k1, flash)
+            t0 = time.perf_counter()
+            got = fn(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            n = {key: val - before[key]
+                 for key, val in _counts(k1, flash).items()}
+            err = _rel_err(torch, got.data, ref)
+            if got.data.shape != q.data.shape or got.dtype != dtype:
+                raise AssertionError(f"{scheme} output {got.data.shape}")
+            if not bool(torch.isfinite(got.data.float()).all()):
+                raise AssertionError(f"{scheme} {name}: non-finite output")
+            if not err <= SERVE_TOL[name]:
+                raise AssertionError(f"{scheme} {name}: rel err {err} "
+                                     f"against dense > {SERVE_TOL[name]}")
+            if n["k2"] <= 0 or (scheme == "ulysses" and n["k1"] <= 0):
+                raise AssertionError(f"{scheme} {name} launched {n}")
+            log(f"[serve] {scheme} {'causal' if causal else 'full'} S={S_ATT} "
+                f"H={H_ATT} D={D_ATT} {name} (1,) NCCL: {ms:.3f} ms per call, "
+                f"rel err vs dense {err:.3e} (<= {SERVE_TOL[name]}), "
+                f"launches K1 {n['k1']} K2 {n['k2']}")
+            out["k1"] += n["k1"]
+            out["k2"] += n["k2"]
+            del ref, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_training(torch, pat, models, k1, flash, steps=3):
+    """The block of examples/long_context_training.py with the port's API
+    at full width: replicated D x D projections wq, wk, wv, wo, causal
+    zigzag ring attention on a (1,) topology, MSE loss, SGD with step 0.1.
+    One step's gradients on the kernel path against the plain path, then
+    ``steps`` steps with every count reset just before."""
+    S, H, D = S_ATT, H_ATT, D_ATT
+    topo = pat.Topology((1,))
+    pen = pat.Pencil(topo, (S, H), (0,))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x = models.to_zigzag(pat.PencilArray(pen, rnd(S, H, D))).data
+    target = models.to_zigzag(pat.PencilArray(pen, rnd(S, H, D))).data
+    params = {w: rnd(D, D, scale=D ** -0.5).requires_grad_()
+              for w in ("wq", "wk", "wv", "wo")}
+
+    def loss_and_grads(impl):
+        def proj(w):
+            return pat.PencilArray(pen, x @ params[w], (D,))
+        out = models.ring_attention(proj("wq"), proj("wk"), proj("wv"),
+                                    causal=True, zigzag=True, impl=impl)
+        loss = ((out.data @ params["wo"] - target) ** 2).mean()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return float(loss.detach()), dict(zip(params, grads))
+
+    _, g_kernel = loss_and_grads("kernel")
+    _, g_plain = loss_and_grads("plain")
+    grad_err = max(_rel_err(torch, g_kernel[w], g_plain[w]) for w in params)
+    if not grad_err <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"training grads kernel vs plain: {grad_err}")
+    log(f"[train] one step's grads, kernel path vs plain path on the card: "
+        f"rel err {grad_err:.3e} (<= {TRAIN_GRAD_TOL})")
+
+    def step():
+        loss, grads = loss_and_grads("auto")
+        with torch.no_grad():
+            for w in params:
+                params[w] -= 0.1 * grads[w]
+        return loss
+
+    torch.cuda.synchronize()
+    _reset_counts(k1, flash)
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step())   # float(loss) synchronizes
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    n = _counts(k1, flash)
+    log(f"[train] S={S} H={H} D={D} f32 causal zigzag ring on (1,): losses "
+        f"{losses}, step ms {[round(t, 3) for t in step_ms]}, launches {n}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    if min(n["k2"], n["k3"], n["k4"]) <= 0:
+        raise AssertionError(f"training launched {n}")
+    # after the counts were read: where one step's time goes
+    profile(torch, step, f"training step S={S} H={H} D={D} f32")
+    return dict(losses=losses, step_ms=step_ms, launches=n,
+                grad_err=grad_err)
+
+
+def phase_flash_timing(torch, flash, bw):
+    """K2, K3 and K4 at the headline shape, f32 and bf16, causal and not:
+    kernel ms, plain ms, SDPA ms (a yardstick the port never calls),
+    bound ms and the error against the plain version."""
+    import torch.nn.functional as F
+
+    S, H, D = S_ATT, H_ATT, D_ATT
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        peak = PEAK_FLOPS[name]
+        for causal in (False, True):
+            q, k, v, do = (torch.randn((S, H, 1, D), generator=gen,
+                                       device="cuda").to(dtype)
+                           for _ in range(4))
+            kw = dict(causal=causal, q_offset=0, kv_offset=0)
+            out, (m, l) = flash.flash_attention_fwd(q, k, v,
+                                                    return_stats=True, **kw)
+            out_p = flash.flash_attention_fwd_plain(q, k, v, **kw)
+            L, Dr = flash.residuals(out, do, m, l)
+            qf, kf, vf, dof = (x.reshape(S, H, D) for x in (q, k, v, do))
+            dq = torch.empty_like(qf)
+            dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+            grads_p = flash.flash_attention_bwd_plain(q, k, v, out, do, m, l,
+                                                      **kw)
+            flash.launch_dq(qf, kf, vf, dof, L, Dr, dq, **kw)
+            flash.launch_dkv(qf, kf, vf, dof, L, Dr, dk, dv, **kw)
+            err = {"k2": max_abs_err(torch, out, out_p),
+                   "k3": max_abs_err(torch, dq, grads_p[0].reshape(S, H, D)),
+                   "k4": max(max_abs_err(torch, dk, grads_p[1].reshape(
+                       S, H, D)), max_abs_err(torch, dv, grads_p[2].reshape(
+                           S, H, D)))}
+            it = 5
+            ms = {
+                "k2": cuda_ms(torch, lambda: flash.flash_attention_fwd(
+                    q, k, v, **kw), it),
+                "k3": cuda_ms(torch, lambda: flash.launch_dq(
+                    qf, kf, vf, dof, L, Dr, dq, **kw), it),
+                "k4": cuda_ms(torch, lambda: flash.launch_dkv(
+                    qf, kf, vf, dof, L, Dr, dk, dv, **kw), it)}
+            plain_fwd = cuda_ms(torch, lambda: flash.flash_attention_fwd_plain(
+                q, k, v, **kw), it)
+            plain_bwd = cuda_ms(torch, lambda: flash.flash_attention_bwd_plain(
+                q, k, v, out, do, m, l, **kw), it)
+            qt, kt, vt, got = (x.reshape(S, H, D).transpose(0, 1)[None]
+                               .contiguous() for x in (q, k, v, do))
+            lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), it)
+            qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+
+            def sdpa_fwd_bwd():
+                o = F.scaled_dot_product_attention(qg, kg, vg,
+                                                   is_causal=causal)
+                torch.autograd.grad(o, (qg, kg, vg), got)
+
+            lib_fb = cuda_ms(torch, sdpa_fwd_bwd, it)
+            # FLOPs: 4 S^2 H D forward (QK^T, PV); K3 recomputes QK^T and
+            # dO V^T and forms dS K (6); K4 adds P^T dO and dS^T Q to the
+            # recompute (8); causal halves each
+            f = 0.5 if causal else 1.0
+            flops = {key: c * S * S * H * D * f
+                     for key, c in (("k2", 4), ("k3", 6), ("k4", 8))}
+            isz = q.element_size()
+            nbytes = {"k2": 4 * S * H * D * isz,
+                      "k3": (5 * S * H * D) * isz + 2 * S * H * 4,
+                      "k4": (6 * S * H * D) * isz + 2 * S * H * 4}
+            for key in ("k2", "k3", "k4"):
+                bound = max(flops[key] / peak, nbytes[key] / bw) * 1e3
+                r = dict(kernel=key, dtype=name, causal=causal, ms=ms[key],
+                         plain_ms=plain_fwd if key == "k2" else plain_bwd,
+                         library_ms=lib_fwd if key == "k2"
+                         else lib_fb - lib_fwd,
+                         bound_ms=bound, bound_by="operations"
+                         if flops[key] / peak >= nbytes[key] / bw
+                         else "bytes",
+                         tflops=flops[key] / ms[key] / 1e9,
+                         max_abs_err=err[key])
+                rows.append(r)
+                log(f"[time] {key} S={S} H={H} D={D} {name} "
+                    f"{'causal' if causal else 'full'}: " + json.dumps(r))
+            log(f"[time] SDPA S={S} H={H} D={D} {name} "
+                f"{'causal' if causal else 'full'}: fwd {lib_fwd:.4f} ms, "
+                f"fwd+bwd {lib_fb:.4f} ms; port fwd+bwd "
+                f"{ms['k2'] + ms['k3'] + ms['k4']:.4f} ms (K2+K3+K4); plain "
+                f"fwd+bwd {plain_fwd + plain_bwd:.4f} ms")
+            del q, k, v, do, qt, kt, vt, got, qg, kg, vg
+            torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -410,6 +812,7 @@ def main() -> int:
     import pencilarrays_tpu_torch as pat
     from pencilarrays_tpu_torch import models
     from pencilarrays_tpu_torch.ops import _build as build
+    from pencilarrays_tpu_torch.ops import flash
     from pencilarrays_tpu_torch.ops import permute as k1
     from pencilarrays_tpu_torch.parallel import transpositions as tr
 
@@ -418,13 +821,19 @@ def main() -> int:
     t_start = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as dist_dir:
         try:
-            smi = phase_environment(torch, pat, k1, build, dist_dir)
+            smi = phase_environment(torch, pat, build, dist_dir)
             bw = bandwidth(smi)
             log(f"[env] bound uses {bw / 1e12:.2f} TB/s for '{smi}'")
             timed = phase_kernel(torch, k1, bw)
             phase_cycle(torch, pat, k1, tr)
             phase_fft(torch, pat)
             ns = phase_navier_stokes(torch, dist, pat, k1, models)
+            checks = phase_flash_check(torch, flash,
+                                       models.attention._merge_partials)
+            _reset_counts(k1, flash)
+            serve = phase_serving(torch, pat, models, k1, flash)
+            train = phase_training(torch, pat, models, k1, flash)
+            timing = phase_flash_timing(torch, flash, bw)
         finally:
             pat.distributed.finalize()
     main_case = timed[MAIN_CASE]
@@ -443,6 +852,35 @@ def main() -> int:
         "checked": True,
         "shape": MAIN_CASE,
     }]
+    # K2-K4: launches on the attention path (serving, then training, the
+    # counts set to 0 before each); times at S=4096 H=8 D=128 f32 full
+    launches = {"k2": serve["k2"] + train["launches"]["k2"],
+                "k3": train["launches"]["k3"], "k4": train["launches"]["k4"]}
+    for key, name, src, replaces in (
+            ("k2", "flash_fwd", "flash_fwd.cu",
+             "pencilarrays_tpu/ops/flash_pallas.py:287"),
+            ("k3", "flash_bwd_dq", "flash_bwd.cu",
+             "pencilarrays_tpu/ops/flash_pallas.py:589"),
+            ("k4", "flash_bwd_dkv", "flash_bwd.cu",
+             "pencilarrays_tpu/ops/flash_pallas.py:609")):
+        mine = [r for r in timing if r["kernel"] == key]
+        head = next(r for r in mine
+                    if r["dtype"] == "float32" and not r["causal"])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"pencilarrays_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "checked": True,
+            "shape": f"S={S_ATT} H={H_ATT} D={D_ATT} float32 non-causal",
+            "check_rel_err": {f"{a} {b}": v for (a, b), v in checks.items()
+                              if (a == "fwd") == (key == "k2")},
+            "timings": [{k: r[k] for k in ("dtype", "causal", "ms",
+                                           "plain_ms", "library_ms",
+                                           "bound_ms", "max_abs_err")}
+                        for r in mine]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

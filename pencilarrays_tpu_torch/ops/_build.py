@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library loaded with
 ``ctypes`` — no PyTorch headers, so a build takes seconds.  Builds happen
 at first use, never at import, into ``ops/_build/`` (git-ignored), keyed
-by a hash of the source and the flags: a fresh checkout builds once, an
-edited source rebuilds.
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags: a fresh checkout builds once, an edited source rebuilds.
+:func:`build_all` starts one ``nvcc`` per library at once.
 """
 
 from __future__ import annotations
@@ -17,9 +18,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
-__all__ = ["NVCC_FLAGS", "build", "load", "build_info"]
+__all__ = ["NVCC_FLAGS", "build", "build_all", "load", "build_info"]
 
 _SRC_DIR = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -47,29 +48,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _target(name: str) -> Path:
+    src = _SRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(_SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Path]:
+    """Compile ``csrc/<name>.cu`` for every name not built yet, all
+    ``nvcc`` processes running at once, and return each library's path."""
+    out = {name: _target(name) for name in names}
+    jobs = {}
+    for name, path in out.items():
+        if path.exists():
+            build_info[name] = {"seconds": 0.0, "path": str(path), "log": ""}
+            continue
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        src = _SRC_DIR / f"{name}.cu"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, t0) in jobs.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out[name])  # atomic: concurrent builds agree
+        build_info[name] = {"seconds": seconds, "path": str(out[name]),
+                            "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` (if not built yet) and return the path
     of its shared library."""
-    src = _SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"lib{name}-{digest}.so"
-    if out.exists():
-        build_info[name] = {"seconds": 0.0, "path": str(out), "log": ""}
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
-    os.replace(tmp, out)  # atomic: concurrent builds agree on the result
-    build_info[name] = {"seconds": seconds, "path": str(out), "log": log}
-    return out
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -19,6 +19,12 @@ only moves the tile axis next to dim ``a`` — a straight copy whenever ``a``
 leads the output's memory order.  A hop on a size-1 topology axis still
 runs pack -> exchange -> unpack, as the JAX package does.
 
+A hop is differentiable: for a tensor that requires grad, :func:`transpose`
+runs inside a ``torch.autograd.Function`` whose backward is the inverse hop
+back to the source pencil.  Unpack drops padding where pack zero-fills it,
+so the inverse hop is the exact adjoint.  :func:`ring_shift` is the
+``lax.ppermute`` ring step of the sequence-parallel attention schedules.
+
 Ring/PointToPoint, Pipelined, Auto, Gspmd, ``reshard`` and reduced-
 precision wire formats are not ported yet: they raise ``NotImplementedError``
 naming the ROADMAP item that queues them.
@@ -28,7 +34,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +43,7 @@ import torch.distributed as dist
 from ..ops import permute as k1
 from .arrays import PencilArray, _fwd_axes, _inv_axes
 from .pencil import Pencil
+from .topology import Topology
 
 __all__ = [
     "AllToAll",
@@ -50,6 +57,7 @@ __all__ = [
     "assert_compatible",
     "hop_operand_bytes",
     "reshard",
+    "ring_shift",
     "transpose",
     "transpose_cost",
 ]
@@ -209,20 +217,73 @@ def _exchange_transpose(data: torch.Tensor, pin: Pencil, pout: Pencil, R: int,
     return k1.unpack(tiles, tuple(range(len(to_out))), to_out.index(a), n_a)
 
 
+def _hop(data: torch.Tensor, pin: Pencil, pout: Pencil,
+         extra_ndims: int) -> torch.Tensor:
+    R = assert_compatible(pin, pout)
+    if R is None:
+        return _transpose_local(data, pin, pout, extra_ndims)
+    return _exchange_transpose(data, pin, pout, R, extra_ndims)
+
+
+class _Hop(torch.autograd.Function):
+    """One hop with the inverse hop as its backward (the exact adjoint:
+    both are pack -> exchange -> unpack, and each drops the padding the
+    other zero-fills)."""
+
+    @staticmethod
+    def forward(ctx, data, pin, pout, extra_ndims):
+        ctx.hop = (pout, pin, extra_ndims)
+        return _hop(data, pin, pout, extra_ndims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _hop(grad.contiguous(), *ctx.hop), None, None, None
+
+
 def transpose(src: PencilArray, dest: Pencil, *,
               method: AbstractTransposeMethod = AllToAll()) -> PencilArray:
     """Redistribute ``src`` into the ``dest`` pencil configuration
     (reference ``transpose!``, ``Transpositions.jl:161-180``).  Every rank
-    of the topology calls it; returns a new array."""
+    of the topology calls it; returns a new array.  Differentiable: the
+    gradient runs the inverse hop (every rank must then call backward)."""
     if not isinstance(method, AllToAll):
         raise NotImplementedError(f"transpose method {method!r} is {_LATER}")
     pin = src.pencil
-    R = assert_compatible(pin, dest)
-    if R is None:
-        out = _transpose_local(src.data, pin, dest, src.ndims_extra)
+    nx = src.ndims_extra
+    if src.data.requires_grad and torch.is_grad_enabled():
+        out = _Hop.apply(src.data, pin, dest, nx)
     else:
-        out = _exchange_transpose(src.data, pin, dest, R, src.ndims_extra)
+        out = _hop(src.data, pin, dest, nx)
     return PencilArray(dest, out, src.extra_dims)
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], topology: Topology,
+               axis: int = 0) -> List[torch.Tensor]:
+    """Send each tensor one step around the ring of topology axis ``axis``
+    and return what arrives from the previous rank: the ``lax.ppermute``
+    with ``perm = [(i, (i + 1) % P)]``.  One batched set of point-to-point
+    calls moves all tensors, as raw bytes.  For ``P == 1`` the inputs come
+    back and nothing is sent."""
+    P = topology.dims[axis]
+    if P == 1:
+        return list(tensors)
+    coords = list(topology.coords_local)
+    me = coords[axis]
+    coords[axis] = (me + 1) % P
+    dst = topology.global_rank(topology.rank(coords))
+    coords[axis] = (me - 1) % P
+    src = topology.global_rank(topology.rank(coords))
+    group = topology.subcomm(axis)
+    ops, outs = [], []
+    for t in tensors:
+        send = t.contiguous().reshape(-1).view(torch.uint8)
+        recv = torch.empty_like(send)
+        ops += [dist.P2POp(dist.isend, send, dst, group),
+                dist.P2POp(dist.irecv, recv, src, group)]
+        outs.append(recv.view(t.dtype).reshape(t.shape))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return outs
 
 
 class Transposition:

@@ -44,7 +44,9 @@ def _as_input(padded, bf16):
 
 
 def _rank0(value):
-    return value if torch.distributed.get_rank() == 0 else None
+    dist = torch.distributed
+    return value if not dist.is_initialized() or dist.get_rank() == 0 \
+        else None
 
 
 def transpose_chain(dims, shape, extra, specs, padded, bf16=False):
@@ -106,3 +108,51 @@ def diffusion_case(dims, n, u0, t, kappa):
                               dtype=torch.float64)
     x = pat.PencilArray.from_global(model.plan.input_pencil, u0)
     return _rank0(pat.gather(model.solve(x, t)))
+
+
+def attention_case(P, scheme, causal, impl, q, k, v, ct, bf16=False):
+    """``scheme`` in ("ulysses", "ring", "zigzag") on a (P,) topology of
+    the global (S, H, *batch, D) inputs; ``zigzag`` moves them to zigzag
+    placement first (``ct`` is given in that placement).  Returns the
+    gathered output and q/k/v gradients of ``sum(out * ct)``, and for
+    zigzag the gathered zigzag inputs and the round trip back."""
+    from pencilarrays_tpu_torch.models import attention as A
+
+    topo = topology((P,))
+    pen = pat.Pencil(topo, q.shape[:2], (0,))
+    extra = q.shape[2:]
+    dt = torch.bfloat16 if bf16 else torch.float32
+    arrs = [pat.PencilArray.from_global(pen, x).astype(dt) for x in (q, k, v)]
+    res = {}
+    if scheme == "zigzag":
+        zz = [A.to_zigzag(x) for x in arrs]
+        res["zigzag_in"] = [pat.gather(x) for x in zz]
+        res["round_trip"] = [pat.gather(A.from_zigzag(x)) for x in zz]
+        arrs = zz
+    leaves = [pat.PencilArray(pen, x.data.clone().requires_grad_(), extra)
+              for x in arrs]
+    if scheme == "ulysses":
+        out = A.ulysses_attention(*leaves, causal=causal, impl=impl)
+    else:
+        out = A.ring_attention(*leaves, causal=causal,
+                               zigzag=scheme == "zigzag", impl=impl)
+    ctl = pat.PencilArray.from_global(pen, ct).data.to(dt)
+    (out.data.float() * ctl.float()).sum().backward()
+    res["out"] = pat.gather(out)
+    res["grads"] = [pat.gather(pat.PencilArray(pen, x.data.grad, extra))
+                    for x in leaves]
+    return _rank0(res)
+
+
+def hop_grad_case(dims, shape, extra, specs, padded, ct_padded):
+    """Gradient of ``sum(transpose(x, specs[1]).data * ct)`` with respect
+    to x's padded memory-order data, as the global padded array (the
+    JAX package's ``.data`` layout)."""
+    pin, pout = (pencil(dims, shape, s) for s in specs)
+    x = from_numpy_padded(pin, padded, extra)
+    leaf = x.data.clone().requires_grad_()
+    y = pat.transpose(pat.PencilArray(pin, leaf, x.extra_dims), pout)
+    ct = from_numpy_padded(pout, ct_padded, extra).data
+    (y.data * ct).sum().backward()
+    return _rank0(to_numpy_padded(pat.PencilArray(pin, leaf.grad,
+                                                  x.extra_dims)))
