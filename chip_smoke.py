@@ -25,18 +25,21 @@ when any phase fails.  Phases, each printed on its own lines:
 6. kernels K2–K4 (``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd.cu``)
    against their plain versions on the card: three forward modes, full
    and partials backward, causal and not, ragged lengths, offsets, rows
-   with no visible key, f32 and bf16, head dims 40 to 1024, and a P = 4
-   causal ring emulated at kernel level;
+   with no visible key, f32 and bf16, head dims 40 to 1024, P = 4 naive
+   and zigzag causal rings emulated at kernel level, and flash attention
+   on q/k/v of mixed dtypes, each row held relative to its own scale;
 7. serving at full width (S = 4096, H = 8, D = 128): Ulysses and causal
    ring attention over NCCL on a (1,) topology, f32 and bf16, each held
-   to dense attention, with their K1/K2 launches;
+   to dense attention, with the K1/K2 launches of each call;
 8. training: the block of ``examples/long_context_training.py`` at full
-   width (zigzag causal ring attention, MSE, SGD) for 3 steps: the loss
-   falls, one step's gradients match the plain path, K2–K4 launched;
+   width (causal ring attention, which runs the naive schedule on one
+   rank; MSE; SGD) for 3 steps: the loss falls, one step's gradients
+   match the plain path, K2–K4 launched;
 9. K2–K4 times at the headline shape, f32 and bf16, causal and not:
    kernel, plain, SDPA (a yardstick the port never calls) and bound;
-10. a ``{"kernels": [...]}`` line: per kernel its launches on its path,
-    its error against the plain version and its times;
+10. a ``{"kernels": [...]}`` line: per kernel its launches on each path
+    (each counted from 0 just before its run) and their sum, its error
+    against the plain version and its times;
 11. the last line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -418,32 +421,39 @@ def phase_navier_stokes(torch, dist, pat, k1, models):
     return r
 
 
-# Tolerances of K2–K4 against their plain versions, relative to max|plain|
-# of each compared tensor.  The kernels and the plain versions (cuBLAS
-# matmuls over key chunks) sum in different orders; in f32 that moves the
-# forward by ~1e-6 and the backward, a difference of two sums, by a few
-# 1e-6.  In bf16 the kernel and the plain version round P to bf16 at
-# different points of the sum and the output to bf16 (8 bits).
+# Tolerances of K2–K4 against their plain versions.  Each row of a tensor
+# (its last dim: one query or key position of one head·batch slice) is
+# held relative to its own largest |plain| (see _rel_err).  The kernels
+# and the plain versions (cuBLAS matmuls over key chunks) sum in different
+# orders; in f32 that moves a row by ~1e-6 of its scale in the forward and
+# a few 1e-6 in the backward, a difference of two sums.  In bf16 each side
+# rounds the output once, which is at most one bf16 ulp (2^-7 of the
+# element) apart, and the forward rounds P to bf16 against running maxima
+# that differ between a kernel tile and a plain chunk: 2^-6 allows one ulp
+# for each.
 FLASH_TOL = {("fwd", "float32"): 1e-5, ("bwd", "float32"): 5e-5,
-             ("fwd", "bfloat16"): 2e-2, ("bwd", "bfloat16"): 2e-2}
+             ("fwd", "bfloat16"): 2 ** -6, ("bwd", "bfloat16"): 2 ** -6}
 FLASH_OFFSETS = [(False, 0, 0), (True, 0, 0), (True, 5, 0), (True, 0, 3),
                  (True, 17, 9)]
 
 
 def _rel_err(torch, got, want, rows=None) -> float:
-    """max|got - want| / max|want| over the rows selected by the boolean
-    mask ``rows`` along the sequence dim (all rows when None)."""
+    """Worst error of ``got`` against ``want``, each row relative to its
+    own max|want|: a row is the last dim, and its scale is floored at
+    1e-3 max|want| so that a row of zeros compares nearly absolutely.
+    ``rows`` (a boolean mask along dim 0) selects the rows compared."""
     got, want = got.double(), want.double()
     if rows is not None:
         got, want = got[rows], want[rows]
-    scale = float(want.abs().max()) or 1.0
-    return float((got - want).abs().max()) / scale
+    floor = 1e-3 * float(want.abs().max()) or 1.0
+    scale = want.abs().amax(dim=-1, keepdim=True).clamp_min(floor)
+    return float(((got - want).abs() / scale).max())
 
 
-def _flash_compare(torch, flash, q, k, v, causal, q_off, kv_off):
+def flash_compare(torch, flash, q, k, v, causal, q_off, kv_off):
     """K2 (three modes), K3 + K4 (full and partials) against the plain
     versions on one case; returns {"fwd": err, "bwd": err}, each the worst
-    relative error of the tensors of that direction."""
+    per-row relative error (_rel_err) of the tensors of that direction."""
     sq = q.shape[0]
     rows = (q_off + torch.arange(sq, device=q.device)) >= kv_off
     kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
@@ -483,9 +493,9 @@ def _flash_compare(torch, flash, q, k, v, causal, q_off, kv_off):
 
 
 def _ring_emulation(torch, flash, merge, dtype, blk, H, D, P=4):
-    """A causal P-rank ring at kernel level on one card: per rank, P
-    partials calls with each round's offsets, merged, against one call
-    over the whole sequence; per rank, bwd_partials over the P blocks
+    """The naive causal ring of P ranks at kernel level on one card: per
+    rank, P partials calls with each round's offsets, merged, against one
+    call over the whole sequence; per rank, bwd_partials over the P blocks
     (dq summed, dk/dv per block) against one full bwd_partials call."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
 
@@ -528,16 +538,131 @@ def _ring_emulation(torch, flash, merge, dtype, blk, H, D, P=4):
     return max(fwd), max(bwd)
 
 
-def phase_flash_check(torch, flash, merge):
+def _zigzag_emulation(torch, flash, merge, pairs, dtype, b, H, D, P=4):
+    """The causal zigzag ring of P ranks at kernel level on one card.  Per
+    rank, the partials calls of every round's pairs (``pairs`` is the
+    schedule ring_attention runs, models.attention._zigzag_pairs), merged
+    per q half, against one call of that half over the whole sequence;
+    the bwd_partials of the same pairs, dq summed per q half against the
+    full call's, and dk/dv summed per key block over all ranks against the
+    full calls' sum."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def blk(x, i):
+        return x[i * b:(i + 1) * b]
+
+    S = 2 * P * b
+    q, k, v = rnd(S, H, 1, D), rnd(S, H, 1, D), rnd(S, H, 1, D)
+    f32 = torch.float32
+    dk, dv, dk_full, dv_full = (torch.zeros((S, H, 1, D), dtype=f32,
+                                            device="cuda") for _ in range(4))
+    fwd, bwd = [], []
+    for me in range(P):
+        own = (me, 2 * P - 1 - me)   # global blocks of the lo and hi halves
+        rounds = []
+        for r in range(P):
+            j = (me - r) % P          # the sender of this round's k/v
+            held = (j, 2 * P - 1 - j)
+            for qh, kh, qo, ko in pairs(me, r, P, b):
+                if (qo, ko) != (own[qh] * b, held[kh] * b):
+                    raise AssertionError(f"zigzag pair offsets {qo, ko} of "
+                                         f"rank {me} round {r}")
+                rounds.append((qh, held[kh], qo, ko))
+        stats = [None, None]
+        for qh, kb, qo, ko in rounds:
+            part = flash.flash_attention_fwd(
+                blk(q, own[qh]), blk(k, kb), blk(v, kb), causal=True,
+                q_offset=qo, kv_offset=ko, partials=True)
+            stats[qh] = part if stats[qh] is None else merge(stats[qh], part)
+        resid, dq = [], [None, None]
+        for qh in (0, 1):
+            qq = blk(q, own[qh])
+            full = flash.flash_attention_fwd(qq, k, v, causal=True,
+                                             q_offset=own[qh] * b,
+                                             partials=True)
+            out_full = flash.normalize(full[1], full[2], f32)
+            fwd.append(_rel_err(torch, flash.normalize(
+                stats[qh][1], stats[qh][2], f32), out_full))
+            do = rnd(b, H, 1, D).float()
+            L, Drow = flash.residuals(out_full, do, full[0].reshape(H, b),
+                                      full[1].reshape(H, b))
+            L, Drow = L.reshape(H, 1, b), Drow.reshape(H, 1, b)
+            resid.append((do, L, Drow))
+            want = flash.flash_attention_bwd_partials(
+                qq, k, v, do, L, Drow, causal=True, q_offset=own[qh] * b)
+            dq[qh] = [torch.zeros_like(want[0]), want[0]]
+            dk_full += want[1]
+            dv_full += want[2]
+        for qh, kb, qo, ko in rounds:
+            g = flash.flash_attention_bwd_partials(
+                blk(q, own[qh]), blk(k, kb), blk(v, kb), *resid[qh],
+                causal=True, q_offset=qo, kv_offset=ko)
+            dq[qh][0] += g[0]
+            blk(dk, kb).add_(g[1])
+            blk(dv, kb).add_(g[2])
+        bwd += [_rel_err(torch, got, want) for got, want in dq]
+    bwd += [_rel_err(torch, dk, dk_full), _rel_err(torch, dv, dv_full)]
+    return max(fwd), max(bwd)
+
+
+# q/k/v dtypes of the mixed cases: the kernels read each operand in its
+# own dtype, so impl="auto" must take them
+MIXED_DTYPES = [("bfloat16", "float32", "float32"),
+                ("float32", "bfloat16", "float32"),
+                ("float32", "float32", "bfloat16")]
+
+
+def _mixed_check(torch, flash, attention):
+    """q/k/v of mixed dtypes: K2–K4 against their plain versions
+    (flash_compare), and flash_attention under impl="auto" forward and
+    backward, which must launch K2, K3 and K4 once each, give grads in the
+    leaves' dtypes and the plain K2's output."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for names in MIXED_DTYPES:
+        q, k, v = (torch.randn((173, 2, 2, 64), generator=gen, device="cuda")
+                   .to(getattr(torch, n)) for n in names)
+        for key, err in flash_compare(torch, flash, q, k, v, True, 17,
+                                      9).items():
+            errs[key] = max(errs[key], err)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        n0 = (flash.launches_fwd, flash.launches_dq, flash.launches_dkv)
+        out = attention.flash_attention(*leaves, causal=True)
+        out.float().sum().backward()
+        n = (flash.launches_fwd - n0[0], flash.launches_dq - n0[1],
+             flash.launches_dkv - n0[2])
+        if n != (1, 1, 1):
+            raise AssertionError(f"mixed {names}: impl=auto launched {n}")
+        if any(t.grad.dtype != t.dtype or not bool(torch.isfinite(
+                t.grad.float()).all()) for t in leaves):
+            raise AssertionError(f"mixed {names}: grads")
+        errs["fwd"] = max(errs["fwd"], _rel_err(
+            torch, out.detach(), flash.flash_attention_fwd_plain(
+                q, k, v, causal=True)))
+    return errs
+
+
+def phase_flash_check(torch, flash, attention):
     """K2–K4 against their plain versions on the card: three forward
     modes, full and partials backward, causal and not, ragged lengths,
     the offsets of FLASH_OFFSETS, rows with no visible key, f32 and bf16,
-    head dims across every tile class; then a P = 4 ring emulated at
-    kernel level."""
+    head dims across every tile class; P = 4 naive and zigzag causal rings
+    emulated at kernel level; flash_attention on q/k/v of mixed dtypes."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     worst = {}
     cases = 0
     sq, skv, H, B = 237, 301, 3, 2    # ragged: no tile size divides them
+
+    def keep(what, key, name, err):
+        tol = FLASH_TOL[(key, name)]
+        if not err <= tol:
+            raise AssertionError(f"{what} {key} {name}: rel err {err} > "
+                                 f"{tol}")
+        worst[(key, name)] = max(worst.get((key, name), 0.0), err)
+
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for d in (40, 64, 128, 256, 520, 1024):
@@ -546,32 +671,33 @@ def phase_flash_check(torch, flash, merge):
                                    device="cuda").to(dtype)
             q, k, v = rnd(sq, H, B, d), rnd(skv, H, B, d), rnd(skv, H, B, d)
             for causal, qo, ko in FLASH_OFFSETS:
-                errs = _flash_compare(torch, flash, q, k, v, causal, qo, ko)
+                errs = flash_compare(torch, flash, q, k, v, causal, qo, ko)
                 for key, err in errs.items():
-                    tol = FLASH_TOL[(key, name)]
-                    if not err <= tol:
-                        raise AssertionError(
-                            f"flash {key} {name} d={d} causal={causal} "
-                            f"offsets=({qo},{ko}): rel err {err} > {tol}")
-                    worst[(key, name)] = max(worst.get((key, name), 0.0), err)
+                    keep(f"flash d={d} causal={causal} offsets=({qo},{ko})",
+                         key, name, err)
                 cases += 1
         for blk in (192, 237):
-            f_err, b_err = _ring_emulation(torch, flash, merge, dtype, blk,
-                                           4, 64)
-            for key, err in (("fwd", f_err), ("bwd", b_err)):
-                tol = FLASH_TOL[(key, name)]
-                if not err <= tol:
-                    raise AssertionError(f"ring emulation {key} {name} "
-                                         f"blk={blk}: {err} > {tol}")
-                worst[(key, name)] = max(worst[(key, name)], err)
+            errs = _ring_emulation(torch, flash, attention._merge_partials,
+                                   dtype, blk, 4, 64)
+            for key, err in zip(("fwd", "bwd"), errs):
+                keep(f"naive ring emulation blk={blk}", key, name, err)
+        for b in (96, 119):
+            errs = _zigzag_emulation(torch, flash, attention._merge_partials,
+                                     attention._zigzag_pairs, dtype, b, 4, 64)
+            for key, err in zip(("fwd", "bwd"), errs):
+                keep(f"zigzag ring emulation b={b}", key, name, err)
+    for key, err in _mixed_check(torch, flash, attention).items():
+        keep("mixed dtypes", key, "bfloat16", err)
     torch.cuda.synchronize()
     log(f"[flash] K2-K4 within tolerance of the plain versions on the card: "
         f"{cases} cases (Sq={sq}, Skv={skv}, H={H}, B={B}; d 40 64 128 256 "
         f"520 1024; f32 bf16; non-causal and causal offsets "
         f"{[o[1:] for o in FLASH_OFFSETS[1:]]}; out, return_stats, partials, "
-        f"bwd, bwd_partials) + P=4 causal ring emulated at kernel level; "
-        f"worst rel err " + json.dumps({f"{a} {b}": v for (a, b), v in
-                                        worst.items()})
+        f"bwd, bwd_partials) + P=4 naive and zigzag causal rings emulated at "
+        f"kernel level + flash_attention on mixed q/k/v dtypes "
+        f"{MIXED_DTYPES} (impl=auto: K2, K3, K4 once each); worst per-row "
+        f"rel err " + json.dumps({f"{a} {b}": v for (a, b), v in
+                                  worst.items()})
         + f"; tolerances {json.dumps({f'{a} {b}': v for (a, b), v in FLASH_TOL.items()})}")
     return worst
 
@@ -582,7 +708,9 @@ S_ATT, H_ATT, D_ATT = 4096, 8, 128
 # peak rates for the bound (NVIDIA H100 SXM data sheet, dense): float32 on
 # the CUDA cores, bfloat16 on the tensor cores
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-SERVE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# serving against dense attention in f32, per row (_rel_err): in bf16 the
+# kernel rounds P and the output (half an ulp, 2^-8 of an element, each)
+SERVE_TOL = {"float32": 2e-5, "bfloat16": 2 ** -6}
 # a training gradient sums dq/dk/dv (each within 5e-5 of plain) over all
 # S x H rows of the projections
 TRAIN_GRAD_TOL = 1e-4
@@ -601,11 +729,11 @@ def _reset_counts(k1, flash):
 def phase_serving(torch, pat, models, k1, flash):
     """Ulysses (non-causal) and causal ring attention over NCCL on a (1,)
     topology at full width, f32 and bf16, each against dense_attention on
-    the card, with the K1/K2 launches of each scheme."""
+    the card; the launches of each call, counted from 0 just before it."""
     topo = pat.Topology((1,))
     pen = pat.Pencil(topo, (S_ATT, H_ATT), (0,))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    out = {"k1": 0, "k2": 0}
+    out = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         q, k, v = (pat.PencilArray(pen, torch.randn(
@@ -618,13 +746,12 @@ def phase_serving(torch, pat, models, k1, flash):
                                          v.data.float(), causal=causal)
             fn(q, k, v, causal=causal)          # warm-up
             torch.cuda.synchronize()
-            before = _counts(k1, flash)
+            _reset_counts(k1, flash)
             t0 = time.perf_counter()
             got = fn(q, k, v, causal=causal)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            n = {key: val - before[key]
-                 for key, val in _counts(k1, flash).items()}
+            n = _counts(k1, flash)
             err = _rel_err(torch, got.data, ref)
             if got.data.shape != q.data.shape or got.dtype != dtype:
                 raise AssertionError(f"{scheme} output {got.data.shape}")
@@ -639,8 +766,7 @@ def phase_serving(torch, pat, models, k1, flash):
                 f"H={H_ATT} D={D_ATT} {name} (1,) NCCL: {ms:.3f} ms per call, "
                 f"rel err vs dense {err:.3e} (<= {SERVE_TOL[name]}), "
                 f"launches K1 {n['k1']} K2 {n['k2']}")
-            out["k1"] += n["k1"]
-            out["k2"] += n["k2"]
+            out[f"serve_{scheme}_{name}"] = n
             del ref, got
     torch.cuda.empty_cache()
     return out
@@ -649,7 +775,9 @@ def phase_serving(torch, pat, models, k1, flash):
 def phase_training(torch, pat, models, k1, flash, steps=3):
     """The block of examples/long_context_training.py with the port's API
     at full width: replicated D x D projections wq, wk, wv, wo, causal
-    zigzag ring attention on a (1,) topology, MSE loss, SGD with step 0.1.
+    ring attention with zigzag=True as in the example (on a (1,) topology
+    ring_attention runs the naive schedule: the zigzag one is checked in
+    phase 6), MSE loss, SGD with step 0.1.
     One step's gradients on the kernel path against the plain path, then
     ``steps`` steps with every count reset just before."""
     S, H, D = S_ATT, H_ATT, D_ATT
@@ -698,7 +826,8 @@ def phase_training(torch, pat, models, k1, flash, steps=3):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     n = _counts(k1, flash)
-    log(f"[train] S={S} H={H} D={D} f32 causal zigzag ring on (1,): losses "
+    log(f"[train] S={S} H={H} D={D} f32 causal ring (naive schedule on one "
+        f"rank) on (1,): losses "
         f"{losses}, step ms {[round(t, 3) for t in step_ms]}, launches {n}")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"training loss did not fall: {losses}")
@@ -828,21 +957,28 @@ def main() -> int:
             phase_cycle(torch, pat, k1, tr)
             phase_fft(torch, pat)
             ns = phase_navier_stokes(torch, dist, pat, k1, models)
-            checks = phase_flash_check(torch, flash,
-                                       models.attention._merge_partials)
-            _reset_counts(k1, flash)
+            checks = phase_flash_check(torch, flash, models.attention)
             serve = phase_serving(torch, pat, models, k1, flash)
             train = phase_training(torch, pat, models, k1, flash)
             timing = phase_flash_timing(torch, flash, bw)
         finally:
             pat.distributed.finalize()
     main_case = timed[MAIN_CASE]
+    # launches per path, each counted from 0 just before its run; the
+    # kernels line gives their sum and each
+    paths = {"k1": {"navier_stokes": ns["k1_launches"]},
+             "k2": {}, "k3": {}, "k4": {}}
+    for run, n in {**serve, "train": train["launches"]}.items():
+        for key in paths:
+            if n[key]:
+                paths[key][run] = n[key]
     kernels = [{
         "name": "permute",
         "route": "cuda",
         "source": "pencilarrays_tpu_torch/ops/csrc/permute.cu",
         "replaces": "pencilarrays_tpu/ops/pallas_kernels.py:98",
-        "launches": ns["k1_launches"],
+        "launches": sum(paths["k1"].values()),
+        "launches_by_path": paths["k1"],
         "max_abs_err": max(r["max_abs_err"] for r in timed.values()),
         "ms": main_case["kernel_ms"],
         "plain_ms": main_case["plain_ms"],
@@ -852,10 +988,7 @@ def main() -> int:
         "checked": True,
         "shape": MAIN_CASE,
     }]
-    # K2-K4: launches on the attention path (serving, then training, the
-    # counts set to 0 before each); times at S=4096 H=8 D=128 f32 full
-    launches = {"k2": serve["k2"] + train["launches"]["k2"],
-                "k3": train["launches"]["k3"], "k4": train["launches"]["k4"]}
+    # K2-K4: times at S=4096 H=8 D=128 f32 full
     for key, name, src, replaces in (
             ("k2", "flash_fwd", "flash_fwd.cu",
              "pencilarrays_tpu/ops/flash_pallas.py:287"),
@@ -869,7 +1002,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"pencilarrays_tpu_torch/ops/csrc/{src}",
-            "replaces": replaces, "launches": launches[key],
+            "replaces": replaces, "launches": sum(paths[key].values()),
+            "launches_by_path": paths[key],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -29,8 +29,9 @@ visible key return an unspecified finite value.
   k/v chunks with torch ops and differentiates them with autograd; the
   ring schedules run the kernels' plain per-block functions.
 * ``"auto"`` (default) — ``"kernel"`` for every case ``supported()``
-  takes (f32/bf16, ``D % 8 == 0``, ``D <= 1024``), ``"plain"`` for the
-  rest (f16, f64, other head dims), on any device.
+  takes (q, k and v each f32 or bf16, ``D % 8 == 0``, ``D <= 1024``),
+  ``"plain"`` for the rest (an f16 or f64 operand, other head dims), on
+  any device.  No other rule routes a case away from the kernels.
 
 Rank and ring round are known on the host, so the ring offsets are Python
 ints and the zigzag schedule's past/future choice is a plain ``if``.
@@ -46,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import flash
+from ..ops.flash import _fold, _score_dtype
 from ..parallel.arrays import PencilArray
 from ..parallel.topology import Topology
 from ..parallel.transpositions import ring_shift, transpose
@@ -68,11 +70,6 @@ def _neg_value(dtype) -> float:
     negative value, so ``exp(neg - m)`` is exactly 0 for any real running
     max and never -inf/NaN (float16's range included)."""
     return float(torch.finfo(dtype).min) / 2
-
-
-def _score_dtype(dtype) -> torch.dtype:
-    """Scores and softmax statistics accumulate in at least float32."""
-    return torch.promote_types(dtype, torch.float32)
 
 
 def _check_impl(impl: str):
@@ -105,11 +102,6 @@ def _fold_batch(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], x.shape[1], -1, x.shape[-1])
 
 
-def _fold_heads(x: torch.Tensor) -> torch.Tensor:
-    """(S, H, *batch, D) -> (S, N, D) with N = H * prod(batch)."""
-    return x.reshape(x.shape[0], -1, x.shape[-1])
-
-
 def _merge_partials(a, b):
     """Exact combine of flash statistics over disjoint key sets (``m``,
     ``l``: (H, B, Sq); ``acc``: (Sq, H, B, D))."""
@@ -131,7 +123,7 @@ def dense_attention(q, k, v, *, causal: bool = False, q_offset: int = 0,
     ``i`` sees key ``j`` iff ``q_offset + i >= kv_offset + j``."""
     out_shape, out_dtype = q.shape, q.dtype
     sdt = _score_dtype(torch.promote_types(q.dtype, k.dtype))
-    qf, kf, vf = _fold_heads(q), _fold_heads(k), _fold_heads(v)
+    qf, kf, vf = _fold(q), _fold(k), _fold(v)
     s = torch.einsum("snd,tnd->nst", qf.to(sdt), kf.to(sdt))
     s = s / math.sqrt(q.shape[-1])
     if causal:
@@ -164,19 +156,15 @@ class _FlashKernel(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def _kernel_ok(q, k, v, s_q: int, s_kv: int, q_offset=0, kv_offset=0) -> bool:
-    return (isinstance(q_offset, (int, np.integer))
-            and isinstance(kv_offset, (int, np.integer))
-            and q.dtype == k.dtype == v.dtype
-            and flash.supported(s_q, s_kv, q.shape[-1], q.dtype))
-
-
-def _use_kernel(ok: bool, impl: str) -> bool:
+def _use_kernel(q, k, v, impl: str) -> bool:
+    """Whether the kernels run: wherever ``flash.supported()`` takes the
+    head dim and the three dtypes, unless ``impl="plain"``."""
+    ok = flash.supported(q.shape[-1], q.dtype, k.dtype, v.dtype)
     if impl == "kernel" and not ok:
         raise ValueError(
-            "impl='kernel' but flash.supported() rejects this case (offsets "
-            "that are not ints, mixed or unsupported dtypes, or a head dim "
-            "that is not a multiple of 8 up to 1024)")
+            "impl='kernel' but flash.supported() rejects this case (a dtype "
+            "other than float32 and bfloat16, or a head dim that is not a "
+            "multiple of 8 up to 1024)")
     return impl != "plain" and ok
 
 
@@ -188,12 +176,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
     module docstring; ``chunk`` (k/v rows per step) applies to
     ``"plain"``."""
     _check_impl(impl)
-    ok = _kernel_ok(q, k, v, q.shape[0], k.shape[0], q_offset, kv_offset)
-    if _use_kernel(ok, impl):
-        return _FlashKernel.apply(q, k, v, causal, int(q_offset),
-                                  int(kv_offset))
+    if _use_kernel(q, k, v, impl):
+        return _FlashKernel.apply(q, k, v, causal, q_offset, kv_offset)
     _, l, acc = flash.stream_stats(
-        _fold_heads(q), _fold_heads(k), _fold_heads(v), causal=causal,
+        _fold(q), _fold(k), _fold(v), causal=causal,
         q_offset=q_offset, kv_offset=kv_offset, chunk=chunk,
         score_dtype=_score_dtype(q.dtype))
     return flash.normalize(l, acc, q.dtype).reshape(q.shape)
@@ -375,19 +361,32 @@ class _RingFlash(torch.autograd.Function):
                 None, None)
 
 
-def _zigzag_offsets(me: int, r: int, P: int, b: int):
-    """Global row offsets of own (lo, hi) and of round r's sender
-    ``j = (me - r) mod P``'s (lo, hi)."""
+def _zigzag_pairs(me: int, r: int, P: int, b: int):
+    """The blocks rank ``me`` of a zigzag ring computes in round ``r``, as
+    ``(q half, k half, q_offset, kv_offset)`` with halves 0 = lo, 1 = hi
+    of the own q block and of the k/v block held this round, which came
+    from sender ``j = (me - r) mod P``.  Round 0 does the three needed
+    pairs of the own blocks; every later round two: ``hi x klo`` always,
+    then ``lo x klo`` when the sender's lo block is in the past
+    (``me >= r``), else ``hi x khi``."""
     j = (me - r) % P
-    return me * b, (2 * P - 1 - me) * b, j * b, (2 * P - 1 - j) * b
+    lo, hi = me * b, (2 * P - 1 - me) * b
+    jlo, jhi = j * b, (2 * P - 1 - j) * b
+    if r == 0:
+        return [(0, 0, lo, jlo), (1, 0, hi, jlo), (1, 1, hi, jhi)]
+    if me >= r:   # sender j = me - r
+        return [(1, 0, hi, jlo), (0, 0, lo, jlo)]
+    return [(1, 0, hi, jlo), (1, 1, hi, jhi)]   # sender j = me - r + P
+
+
+def _half(x: torch.Tensor, h: int, b: int) -> torch.Tensor:
+    return x[h * b:(h + 1) * b]
 
 
 class _ZigzagFlash(torch.autograd.Function):
     """Zigzag-placement causal ring (the JAX package's
     ``_zigzag_flash_pallas``).  Rank ``i`` holds q blocks ``lo = i`` and
-    ``hi = 2P-1-i``; round 0 does the three needed pairs of its own
-    blocks, every later round two: ``hi x klo`` always, then ``lo x klo``
-    when the sender is in the past (``me >= r``), else ``hi x khi``."""
+    ``hi = 2P-1-i`` and runs the pairs of :func:`_zigzag_pairs`."""
 
     @staticmethod
     def forward(ctx, qb, kb, vb, topo: Topology, use_kernel: bool):
@@ -395,30 +394,21 @@ class _ZigzagFlash(torch.autograd.Function):
         P = topo.dims[0]
         me = topo.coords_local[0]
         b = qb.shape[0] // 2
-        q_lo, q_hi = qb[:b], qb[b:]
-
-        def part(qq, kk, vv, qo, ko):
-            return fwd(qq, kk, vv, causal=True, q_offset=qo, kv_offset=ko,
-                       partials=True)
-
-        lo_off, hi_off, _, _ = _zigzag_offsets(me, 0, P, b)
-        lo = part(q_lo, kb[:b], vb[:b], lo_off, lo_off)
-        hi = _merge_partials(part(q_hi, kb[:b], vb[:b], hi_off, lo_off),
-                             part(q_hi, kb[b:], vb[b:], hi_off, hi_off))
+        stats = [None, None]   # (m, l, acc) of the lo and hi q halves
         rk, rv = kb, vb
-        for r in range(1, P):
-            rk, rv = ring_shift([rk, rv], topo)
-            _, _, jlo, jhi = _zigzag_offsets(me, r, P, b)
-            hi = _merge_partials(hi, part(q_hi, rk[:b], rv[:b], hi_off, jlo))
-            if me >= r:   # sender j = me - r: its lo block is in my past
-                lo = _merge_partials(lo, part(q_lo, rk[:b], rv[:b], lo_off,
-                                              jlo))
-            else:         # sender j = me - r + P: its hi block is
-                hi = _merge_partials(hi, part(q_hi, rk[b:], rv[b:], hi_off,
-                                              jhi))
-        out32 = torch.cat([flash.normalize(lo[1], lo[2], lo[0].dtype),
-                           flash.normalize(hi[1], hi[2], hi[0].dtype)])
-        ctx.save_for_backward(qb, kb, vb, out32, lo[0], lo[1], hi[0], hi[1])
+        for r in range(P):
+            if r:
+                rk, rv = ring_shift([rk, rv], topo)
+            for qh, kh, qo, ko in _zigzag_pairs(me, r, P, b):
+                part = fwd(_half(qb, qh, b), _half(rk, kh, b),
+                           _half(rv, kh, b), causal=True, q_offset=qo,
+                           kv_offset=ko, partials=True)
+                stats[qh] = (part if stats[qh] is None
+                             else _merge_partials(stats[qh], part))
+        (m_lo, l_lo, acc_lo), (m_hi, l_hi, acc_hi) = stats
+        out32 = torch.cat([flash.normalize(l_lo, acc_lo, m_lo.dtype),
+                           flash.normalize(l_hi, acc_hi, m_hi.dtype)])
+        ctx.save_for_backward(qb, kb, vb, out32, m_lo, l_lo, m_hi, l_hi)
         ctx.args = (topo, use_kernel)
         return out32.to(qb.dtype)
 
@@ -431,49 +421,27 @@ class _ZigzagFlash(torch.autograd.Function):
         me = topo.coords_local[0]
         b = qb.shape[0] // 2
         g32 = g.to(out32.dtype)
-        q_lo, q_hi = qb[:b], qb[b:]
-        g_lo, g_hi = g32[:b], g32[b:]
-        L_lo, D_lo = _resid(m_lo, l_lo, g_lo, out32[:b])
-        L_hi, D_hi = _resid(m_hi, l_hi, g_hi, out32[b:])
-
-        def lo_part(kk, vv, ko):
-            return bwd(q_lo, kk, vv, g_lo, L_lo, D_lo, causal=True,
-                       q_offset=lo_off, kv_offset=ko)
-
-        def hi_part(kk, vv, ko):
-            return bwd(q_hi, kk, vv, g_hi, L_hi, D_hi, causal=True,
-                       q_offset=hi_off, kv_offset=ko)
-
-        lo_off, hi_off, _, _ = _zigzag_offsets(me, 0, P, b)
-        dq1, dk1, dv1 = lo_part(kb[:b], vb[:b], lo_off)
-        dq2, dk2, dv2 = hi_part(kb[:b], vb[:b], lo_off)
-        dq3, dk3, dv3 = hi_part(kb[b:], vb[b:], hi_off)
-        dq_lo, dq_hi = dq1, dq2 + dq3
-        dk = torch.cat([dk1 + dk2, dk3])
-        dv = torch.cat([dv1 + dv2, dv3])
+        resid = [_resid(m_lo, l_lo, g32[:b], out32[:b]),
+                 _resid(m_hi, l_hi, g32[b:], out32[b:])]
+        dq = [None, None]
+        dk = torch.zeros(kb.shape, dtype=out32.dtype, device=kb.device)
+        dv = torch.zeros_like(dk)
         rk, rv = kb, vb
-        for r in range(1, P):
-            rk, rv, dk, dv = ring_shift([rk, rv, dk, dv], topo)
-            _, _, jlo, jhi = _zigzag_offsets(me, r, P, b)
-            dqA, dkA, dvA = hi_part(rk[:b], rv[:b], jlo)
-            dq_hi = dq_hi + dqA
-            dk[:b] += dkA
-            dv[:b] += dvA
-            if me >= r:
-                dqB, dkB, dvB = lo_part(rk[:b], rv[:b], jlo)
-                dq_lo = dq_lo + dqB
-                dk[:b] += dkB
-                dv[:b] += dvB
-            else:
-                dqB, dkB, dvB = hi_part(rk[b:], rv[b:], jhi)
-                dq_hi = dq_hi + dqB
-                dk[b:] += dkB
-                dv[b:] += dvB
+        for r in range(P):
+            if r:
+                rk, rv, dk, dv = ring_shift([rk, rv, dk, dv], topo)
+            for qh, kh, qo, ko in _zigzag_pairs(me, r, P, b):
+                dq_p, dk_p, dv_p = bwd(
+                    _half(qb, qh, b), _half(rk, kh, b), _half(rv, kh, b),
+                    _half(g32, qh, b), *resid[qh], causal=True, q_offset=qo,
+                    kv_offset=ko)
+                dq[qh] = dq_p if dq[qh] is None else dq[qh] + dq_p
+                _half(dk, kh, b).add_(dk_p)
+                _half(dv, kh, b).add_(dv_p)
         # the last of P shifts brings every block's gradient home
         dk, dv = ring_shift([dk, dv], topo)
-        dq = torch.cat([dq_lo, dq_hi])
-        return (dq.to(qb.dtype), dk.to(kb.dtype), dv.to(vb.dtype), None,
-                None)
+        return (torch.cat(dq).to(qb.dtype), dk.to(kb.dtype), dv.to(vb.dtype),
+                None, None)
 
 
 def ring_attention(q: PencilArray, k: PencilArray, v: PencilArray, *,
@@ -497,9 +465,7 @@ def ring_attention(q: PencilArray, k: PencilArray, v: PencilArray, *,
     if zigzag and S % (2 * P):
         raise ValueError("zigzag needs S divisible by 2P")
     use_zigzag = causal and zigzag and P > 1
-    blk_rows = S // P // (2 if use_zigzag else 1)
-    use_kernel = _use_kernel(
-        _kernel_ok(q.data, k.data, v.data, blk_rows, blk_rows), impl)
+    use_kernel = _use_kernel(q.data, k.data, v.data, impl)
     qb, kb, vb = (_fold_batch(x.data) for x in (q, k, v))
     if use_zigzag:
         out = _ZigzagFlash.apply(qb, kb, vb, topo, use_kernel)

@@ -70,13 +70,14 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535   # the kernels put the head·batch index on gridDim.y
 
 
-def supported(sq: int, skv: int, d: int, dtype, *, q_offset=0,
-              kv_offset=0) -> bool:
-    """Whether K2–K4 take this case: f32 or bf16, ``d % 8 == 0`` and
-    ``d <= 1024`` (the JAX package's dtype and head-dim rules; the port
-    has no platform or minimum-length rule)."""
-    del sq, skv, q_offset, kv_offset
-    return dtype in _KERNEL_DTYPES and d % 8 == 0 and d <= 1024
+def supported(d: int, *dtypes) -> bool:
+    """Whether K2–K4 take operands of head dim ``d`` and these dtypes:
+    each f32 or bf16 (they may differ: every operand is read in its own
+    dtype), ``d % 8 == 0`` and ``d <= 1024``.  These are the JAX package's
+    dtype and head-dim rules; the port has no platform, length or offset
+    rule."""
+    return (all(dt in _KERNEL_DTYPES for dt in dtypes) and d % 8 == 0
+            and d <= 1024)
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:
@@ -304,7 +305,7 @@ def _check_kernel(q, k, v, *extra):
         if t.dtype not in _KERNEL_DTYPES:
             raise TypeError(f"flash kernel: {name} is {t.dtype}; the kernels "
                             f"take float32 and bfloat16")
-    if not supported(q.shape[0], k.shape[0], d, q.dtype):
+    if not supported(d):
         raise ValueError(f"flash kernel: head dim {d} is not a multiple of "
                          f"8 up to 1024")
     if k.shape[-1] != d or v.shape[-1] != d or k.shape[0] != v.shape[0]:
@@ -451,13 +452,14 @@ def flash_attention_bwd(q, k, v, out, do, m, l, *, causal: bool = False,
                                          causal=causal, q_offset=q_offset,
                                          kv_offset=kv_offset)
     _check_kernel(q, k, v, ("do", do))
-    if k.dtype != v.dtype:
-        raise TypeError("flash backward: k and v must share a dtype")
     L, D = residuals(out, do, m, l)
+    # K4 writes dk and dv in one dtype: f32 where k and v differ
+    dkv_dtype = k.dtype if k.dtype == v.dtype else torch.float32
     dq, dk, dv = _bwd_kernels(
         *(_fold(x).contiguous() for x in (q, k, v, do)), L, D, q.dtype,
-        k.dtype, causal=causal, q_offset=q_offset, kv_offset=kv_offset)
-    return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
+        dkv_dtype, causal=causal, q_offset=q_offset, kv_offset=kv_offset)
+    return (dq.reshape(q.shape), dk.to(k.dtype).reshape(k.shape),
+            dv.to(v.dtype).reshape(v.shape))
 
 
 def flash_attention_bwd_partials(q, k, v, do, L, D, *, causal: bool = False,

@@ -2,7 +2,8 @@
 
 Needs an NVIDIA GPU and ``nvcc``; skips elsewhere (a CUDA kernel has no
 CPU mode).  The file imports neither JAX nor the JAX package, so it runs
-on a machine without them::
+on a machine without them.  The flash tests share their comparisons and
+tolerances with ``chip_smoke.py``; run from the repository root::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -33,9 +34,7 @@ def _same_bits(a, b):
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc (a CUDA kernel has no "
-                    "CPU mode)")
+    _skip_without_card()
     before = k1.launches
     for dtype in DTYPES:
         x = _values((33, 17, 45, 3), dtype).cuda()
@@ -51,60 +50,44 @@ def test_kernel_matches_plain_on_the_card():
     assert k1.launches - before == len(DTYPES) * 3 * 5
 
 
-def _rel(a, b, rows=None):
-    a, b = a.double(), b.double()
-    if rows is not None:
-        a, b = a[rows], b[rows]
-    return float((a - b).abs().max() / b.abs().max())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol_fwd,tol_bwd", [
-    (torch.float32, 1e-5, 5e-5), (torch.bfloat16, 2e-2, 2e-2)])
-@pytest.mark.parametrize("causal,q_off,kv_off", [
-    (False, 0, 0), (True, 0, 0), (True, 17, 9)])
-def test_flash_kernels_match_plain_on_the_card(dtype, tol_fwd, tol_bwd,
-                                              causal, q_off, kv_off):
-    """K2 in its three output modes, K3 + K4 (full and partials backward)
-    against the plain versions, relative to max|plain|, and one launch of
-    each kernel per call."""
+def _skip_without_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (a CUDA kernel has no "
                     "CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,q_off,kv_off", [
+    (False, 0, 0), (True, 0, 0), (True, 17, 9)])
+def test_flash_kernels_match_plain_on_the_card(dtype, causal, q_off, kv_off):
+    """K2 in its three output modes, K3 + K4 (full and partials backward)
+    against the plain versions, each row relative to its own scale, within
+    chip_smoke.py's tolerances, and one launch of each kernel per call."""
+    _skip_without_card()
+    from chip_smoke import FLASH_TOL, flash_compare
+
     sq, skv, h, b, d = 133, 201, 2, 3, 72
-    q, k, v, do = (_values(s, torch.float32, seed).div(100).to(dtype).cuda()
-                   for seed, s in enumerate([(sq, h, b, d), (skv, h, b, d),
-                                             (skv, h, b, d), (sq, h, b, d)]))
-    rows = (q_off + torch.arange(sq, device="cuda")) >= kv_off
-    do = (do * rows[:, None, None, None]).to(dtype)
-    kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+    q, k, v = (_values(s, torch.float32, seed).div(100).to(dtype).cuda()
+               for seed, s in enumerate([(sq, h, b, d), (skv, h, b, d),
+                                         (skv, h, b, d)]))
     n0 = (flash.launches_fwd, flash.launches_dq, flash.launches_dkv)
-    out, (m, l) = flash.flash_attention_fwd(q, k, v, return_stats=True, **kw)
-    out_p, (m_p, l_p) = flash.flash_attention_fwd_plain(
-        q, k, v, return_stats=True, **kw)
-    assert torch.isfinite(out.float()).all()
-    assert _rel(out, out_p, rows) <= tol_fwd
-    assert _rel(m.t(), m_p.t(), rows) <= tol_fwd
-    assert _rel(l.t(), l_p.t(), rows) <= tol_fwd
-    assert _rel(flash.flash_attention_fwd(q, k, v, **kw), out_p,
-                rows) <= tol_fwd
-    got = flash.flash_attention_fwd(q, k, v, partials=True, **kw)
-    want = flash.flash_attention_fwd_plain(q, k, v, partials=True, **kw)
-    for a, w in zip(got[:2], want[:2]):
-        assert _rel(a.movedim(-1, 0), w.movedim(-1, 0), rows) <= tol_fwd
-    assert _rel(got[2], want[2], rows) <= tol_fwd
-    got = flash.flash_attention_bwd(q, k, v, out_p, do, m_p, l_p, **kw)
-    want = flash.flash_attention_bwd_plain(q, k, v, out_p, do, m_p, l_p,
-                                           **kw)
-    for a, w in zip(got, want):
-        assert a.dtype == dtype and _rel(a, w) <= tol_bwd
-    L, D = flash.residuals(out_p, do, m_p, l_p)
-    L, D = L.reshape(h, b, sq), D.reshape(h, b, sq)
-    got = flash.flash_attention_bwd_partials(q, k, v, do.float(), L, D, **kw)
-    want = flash.flash_attention_bwd_partials_plain(q, k, v, do.float(), L,
-                                                    D, **kw)
-    for a, w in zip(got, want):
-        assert a.dtype == torch.float32 and _rel(a, w) <= tol_bwd
+    errs = flash_compare(torch, flash, q, k, v, causal, q_off, kv_off)
+    name = str(dtype).split(".")[-1]
+    for key, err in errs.items():
+        assert err <= FLASH_TOL[(key, name)], (key, err)
     torch.cuda.synchronize()
     assert (flash.launches_fwd - n0[0], flash.launches_dq - n0[1],
             flash.launches_dkv - n0[2]) == (3, 2, 2)
+
+
+@pytest.mark.cuda
+def test_mixed_dtypes_launch_the_kernels():
+    """flash_attention with q/k/v of mixed f32/bf16 dtypes takes K2–K4
+    under impl="auto", and agrees with impl="plain"."""
+    _skip_without_card()
+    from chip_smoke import _mixed_check
+    from pencilarrays_tpu_torch.models import attention
+
+    errs = _mixed_check(torch, flash, attention)
+    assert errs["fwd"] <= 2 ** -6 and errs["bwd"] <= 2 ** -6, errs

@@ -48,7 +48,12 @@ def _jax(a, bf16=False):
 def test_supported_matches_jax(d, dtype):
     """The JAX package's dtype and head-dim rules (its CPU platform)."""
     want = jfp.supported(256, 256, d, jnp.dtype(dtype), platform="cpu")
-    assert flash.supported(256, 256, d, getattr(torch, dtype)) == want
+    assert flash.supported(d, getattr(torch, dtype)) == want
+    # operands are read each in its own dtype: a mix is taken when every
+    # one of them is
+    mixed = flash.supported(d, torch.bfloat16, getattr(torch, dtype),
+                            torch.float32)
+    assert mixed == want
 
 
 # (sq, skv, h, b, d, causal, q_offset, kv_offset, block_q, bf16)
@@ -261,9 +266,8 @@ def test_impl_routing_and_cpu_wrappers():
                             impl="kernel")
     with pytest.raises(ValueError):
         att.flash_attention(q, k, v.double(), impl="kernel")
-    with pytest.raises(ValueError):
-        att.flash_attention(q, k, v, impl="kernel",
-                            q_offset=torch.tensor(0))
+    with pytest.raises(TypeError):
+        att.flash_attention(q, k, v, impl="kernel", q_offset=0.5)
     d64 = att.flash_attention(q.double(), k.double(), v.double())  # plain
     assert d64.dtype == torch.float64
     torch.testing.assert_close(d64.float(), ref, atol=1e-5, rtol=1e-5)
@@ -273,3 +277,28 @@ def test_impl_routing_and_cpu_wrappers():
         flash.flash_attention_fwd(q[:, :, None], k[:, :, None],
                                   v[:, :, None], partials=True,
                                   return_stats=True)
+
+
+def test_mixed_dtypes_take_the_kernel_path():
+    """q in bfloat16 with float32 k/v, and k/v of two dtypes: ``"auto"``
+    takes the kernels (their plain versions here), which read each operand
+    in its own dtype; values and grads against the JAX package, whose
+    routing sends such mixes to its XLA scan."""
+    sq, h, d = 48, 2, 16
+    q, k, v, ct = _arrays(9, (sq, h, 1, d), (sq, h, 1, d), (sq, h, 1, d),
+                          (sq, h, 1, d))
+    for mix in ((True, False, False), (False, True, False)):
+        out, grads = _loss_grads_jax(*(_jax(x, bf) for x, bf in
+                                       zip((q, k, v), mix)), ct, causal=True)
+        before = flash.launches_fwd
+        got, ggrads = _loss_grads_port(*(_torch(x, bf) for x, bf in
+                                         zip((q, k, v), mix)), ct,
+                                       causal=True, impl="kernel")
+        assert flash.launches_fwd == before   # CPU tensors: plain versions
+        assert got.dtype == (torch.bfloat16 if mix[0] else torch.float32)
+        np.testing.assert_allclose(_np(got), np.asarray(
+            jnp.asarray(out, jnp.float32)), atol=3e-2, rtol=3e-2)
+        for g, w, bf in zip(ggrads, grads, mix):
+            assert g.dtype == (torch.bfloat16 if bf else torch.float32)
+            np.testing.assert_allclose(_np(g), np.asarray(
+                jnp.asarray(w, jnp.float32)), atol=6e-2, rtol=6e-2)
