@@ -10,7 +10,10 @@ result) when CUDA is unavailable, when run outside the repository, and
 when any phase fails.  Phases, each printed on its own lines:
 
 1. environment — card name and power limit (``nvidia-smi``), torch and
-   CUDA versions, the kernel build time, a 1-rank NCCL process group;
+   CUDA versions, the kernel build time, each K2 instance's registers and
+   spill bytes (``-Xptxas -v``), a ``cuobjdump -sass`` check that the
+   wgmma instance of K2 holds HGMMA and UTMALDG instructions, a 1-rank
+   NCCL process group;
 2. kernel K1 (``pencilarrays_tpu_torch/ops/csrc/permute.cu``) against its
    plain PyTorch version on the card, bit for bit, over the main path's
    shapes, ragged shapes in six dtypes, and pack/unpack with P = 1, 2, 4;
@@ -28,15 +31,20 @@ when any phase fails.  Phases, each printed on its own lines:
    with no visible key, f32 and bf16, head dims 40 to 1024, P = 4 naive
    and zigzag causal rings emulated at kernel level, and flash attention
    on q/k/v of mixed dtypes, each row held relative to its own scale;
+   then the wgmma instance of K2 at its edges (bf16, head dims 40 to 256,
+   Sq < 64, Skv = 1, ragged Skv, k/v views with a storage offset, aligned
+   and not), which must launch that instance only;
 7. serving at full width (S = 4096, H = 8, D = 128): Ulysses and causal
    ring attention over NCCL on a (1,) topology, f32 and bf16, each held
-   to dense attention, with the K1/K2 launches of each call;
+   to dense attention, with the K1/K2 launches of each call and K2's by
+   instance (bf16 calls launch only the wgmma one, f32 only the simt one);
 8. training: the block of ``examples/long_context_training.py`` at full
    width (causal ring attention, which runs the naive schedule on one
    rank; MSE; SGD) for 3 steps: the loss falls, one step's gradients
    match the plain path, K2–K4 launched;
 9. K2–K4 times at the headline shape, f32 and bf16, causal and not:
-   kernel, plain, SDPA (a yardstick the port never calls) and bound;
+   kernel, plain, SDPA (a yardstick the port never calls) and bound, with
+   the K2 instance that ran and its launches;
 10. a ``{"kernels": [...]}`` line: per kernel its launches on each path
     (each counted from 0 just before its run) and their sum, its error
     against the plain version and its times;
@@ -46,6 +54,7 @@ when any phase fails.  Phases, each printed on its own lines:
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -108,7 +117,7 @@ def random_tensor(torch, shape, dtype, gen):
 
 # device kernels by the layer that launches them (substrings of the name)
 KERNEL_GROUPS = [
-    ("k2_flash_fwd", ("flash_fwd_kernel",)),
+    ("k2_flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_simt_kernel")),
     ("k3_flash_dq", ("flash_dq_kernel",)),
     ("k4_flash_dkv", ("flash_dkv_kernel",)),
     ("k1_permute", ("permute_tiled_kernel", "permute_copy_kernel")),
@@ -174,11 +183,72 @@ def phase_environment(torch, pat, build, dist_dir):
         for line in build.build_info[name]["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[env] ptxas {name}: {line.strip()}")
+    k2 = k2_instances(build)
     pat.distributed.initialize(
         "nccl", init_method=f"file://{os.path.join(dist_dir, 'rdv')}",
         world_size=1, rank=0)
     log("[env] nccl process group: world 1, rank 0")
-    return smi
+    return smi, k2
+
+
+def _ptxas_report(log_text: str) -> dict:
+    """Per entry function of a ``-Xptxas -v`` log: registers and spill
+    bytes."""
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def _kernel_label(mangled: str) -> str:
+    """``flash_fwd_wgmma_kernel<128,128>`` from a mangled K2 name."""
+    base = re.search(r"flash_fwd_\w+?_kernel", mangled).group(0)
+    nums = ",".join(re.findall(r"Li(\d+)E", mangled))
+    return f"{base}<{nums}>"
+
+
+def k2_instances(build) -> dict:
+    """Each K2 kernel's registers and spill bytes, and a ``cuobjdump
+    -sass`` check: every wgmma kernel must hold HGMMA (wgmma) and UTMALDG
+    (TMA tile load) instructions."""
+    info = build.build_info["flash_fwd"]
+    regs = _ptxas_report(info["log"])
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", info["path"]],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    ops, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            ops[name] = set()
+        elif name:
+            ops[name].update(w for w in ("HGMMA", "UTMALDG") if w in line)
+    out = {}
+    for mangled in sorted(set(regs) | set(ops)):
+        if "flash_fwd_" not in mangled:
+            continue
+        r = dict(regs.get(mangled, {}), sass=sorted(ops.get(mangled, ())))
+        out[_kernel_label(mangled)] = r
+        log(f"[env] K2 {_kernel_label(mangled)}: {json.dumps(r)}")
+    wgmma = [k for k in out if "wgmma" in k]
+    if not wgmma or any(out[k]["sass"] != ["HGMMA", "UTMALDG"]
+                        for k in wgmma):
+        raise AssertionError(f"K2 wgmma instance lacks HGMMA/UTMALDG: {out}")
+    log(f"[env] SASS: {len(wgmma)} wgmma kernels of K2 hold HGMMA and "
+        f"UTMALDG")
+    return out
 
 
 # K1 launches of the 512^3 NS step on a (1, 1) topology: each FFT stage
@@ -645,6 +715,63 @@ def _mixed_check(torch, flash, attention):
     return errs
 
 
+def _wgmma_edges(torch, flash, keep):
+    """The wgmma instance of K2 at its edges, in bf16: head dims of each
+    class and off its 64-column boxes, Sq below one warpgroup, Skv = 1,
+    Skv off the key tile, k/v views with a storage offset (a row slice, as
+    ring rounds pass, and a flat offset of one element, which the wrapper
+    copies to a 16-byte boundary); every mode and offset case of
+    flash_compare.  Only the wgmma instance may launch."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    bf16 = torch.bfloat16
+    H, B = 3, 2
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    def views(skv, d):
+        rows = rnd(skv + 5, H, B, d)[5:]             # aligned storage offset
+        flat = rnd(skv * H * B * d + 1)[1:].view(skv, H, B, d)   # off by 2 B
+        return rows, flat
+
+    n0 = dict(flash.launches_fwd_by_instance)
+    copies0 = flash.realigned_copies
+    cases = 0
+    for d in (40, 64, 96, 128, 200, 256):
+        for sq, skv in ((237, 301), (50, 1), (50, 200)):
+            q, k, v = rnd(sq, H, B, d), rnd(skv, H, B, d), rnd(skv, H, B, d)
+            for causal, qo, ko in FLASH_OFFSETS:
+                for key, err in flash_compare(torch, flash, q, k, v, causal,
+                                              qo, ko).items():
+                    # one key: P = 1, so dS = P (dO·v - D) and with it dq
+                    # and dk are 0 up to rounding, which no row scale holds
+                    if key == "fwd" or skv > 1:
+                        keep(f"wgmma d={d} sq={sq} skv={skv} causal={causal} "
+                             f"offsets=({qo},{ko})", key, "bfloat16", err)
+                cases += 1
+        q = rnd(77, H, B, d)
+        (kr, kf), (vr, vf) = views(130, d), views(130, d)
+        for kk, vv, what in ((kr, vr, "row slice"), (kf, vf, "flat offset")):
+            for causal, qo, ko in FLASH_OFFSETS[:3]:
+                for key, err in flash_compare(torch, flash, q, kk, vv, causal,
+                                              qo, ko).items():
+                    keep(f"wgmma d={d} k/v {what} causal={causal}", key,
+                         "bfloat16", err)
+                cases += 1
+    torch.cuda.synchronize()
+    n = {i: flash.launches_fwd_by_instance[i] - n0[i] for i in n0}
+    copies = flash.realigned_copies - copies0
+    if n["simt"] != 0 or n["wgmma"] <= 0:
+        raise AssertionError(f"bf16 edge cases launched K2 instances {n}")
+    if copies <= 0:
+        raise AssertionError("the flat-offset k/v were not realigned")
+    log(f"[flash] K2 wgmma instance at its edges: {cases} cases (d 40 64 96 "
+        f"128 200 256; (Sq, Skv) (237, 301) (50, 1) (50, 200); k/v row slice "
+        f"and flat offset), K2 launches by instance {n}, realigned copies "
+        f"{copies}")
+    return cases
+
+
 def phase_flash_check(torch, flash, attention):
     """K2–K4 against their plain versions on the card: three forward
     modes, full and partials backward, causal and not, ragged lengths,
@@ -688,6 +815,7 @@ def phase_flash_check(torch, flash, attention):
                 keep(f"zigzag ring emulation b={b}", key, name, err)
     for key, err in _mixed_check(torch, flash, attention).items():
         keep("mixed dtypes", key, "bfloat16", err)
+    cases += _wgmma_edges(torch, flash, keep)
     torch.cuda.synchronize()
     log(f"[flash] K2-K4 within tolerance of the plain versions on the card: "
         f"{cases} cases (Sq={sq}, Skv={skv}, H={H}, B={B}; d 40 64 128 256 "
@@ -695,7 +823,8 @@ def phase_flash_check(torch, flash, attention):
         f"{[o[1:] for o in FLASH_OFFSETS[1:]]}; out, return_stats, partials, "
         f"bwd, bwd_partials) + P=4 naive and zigzag causal rings emulated at "
         f"kernel level + flash_attention on mixed q/k/v dtypes "
-        f"{MIXED_DTYPES} (impl=auto: K2, K3, K4 once each); worst per-row "
+        f"{MIXED_DTYPES} (impl=auto: K2, K3, K4 once each) + the K2 wgmma "
+        f"edge cases; worst per-row "
         f"rel err " + json.dumps({f"{a} {b}": v for (a, b), v in
                                   worst.items()})
         + f"; tolerances {json.dumps({f'{a} {b}': v for (a, b), v in FLASH_TOL.items()})}")
@@ -718,12 +847,24 @@ TRAIN_GRAD_TOL = 1e-4
 
 def _counts(k1, flash):
     return dict(k1=k1.launches, k2=flash.launches_fwd,
-                k3=flash.launches_dq, k4=flash.launches_dkv)
+                k3=flash.launches_dq, k4=flash.launches_dkv,
+                k2_wgmma=flash.launches_fwd_by_instance["wgmma"],
+                k2_simt=flash.launches_fwd_by_instance["simt"])
 
 
 def _reset_counts(k1, flash):
     k1.launches = 0
     flash.launches_fwd = flash.launches_dq = flash.launches_dkv = 0
+    for inst in flash.launches_fwd_by_instance:
+        flash.launches_fwd_by_instance[inst] = 0
+
+
+def _check_instance(n, name, what):
+    """bf16 calls launch only K2's wgmma instance, f32 only its simt one."""
+    want, other = (("k2_wgmma", "k2_simt") if name == "bfloat16"
+                   else ("k2_simt", "k2_wgmma"))
+    if n[want] <= 0 or n[other] != 0:
+        raise AssertionError(f"{what} {name}: K2 launches by instance {n}")
 
 
 def phase_serving(torch, pat, models, k1, flash):
@@ -762,10 +903,12 @@ def phase_serving(torch, pat, models, k1, flash):
                                      f"against dense > {SERVE_TOL[name]}")
             if n["k2"] <= 0 or (scheme == "ulysses" and n["k1"] <= 0):
                 raise AssertionError(f"{scheme} {name} launched {n}")
+            _check_instance(n, name, scheme)
             log(f"[serve] {scheme} {'causal' if causal else 'full'} S={S_ATT} "
                 f"H={H_ATT} D={D_ATT} {name} (1,) NCCL: {ms:.3f} ms per call, "
                 f"rel err vs dense {err:.3e} (<= {SERVE_TOL[name]}), "
-                f"launches K1 {n['k1']} K2 {n['k2']}")
+                f"launches K1 {n['k1']} K2 {n['k2']} (wgmma "
+                f"{n['k2_wgmma']}, simt {n['k2_simt']})")
             out[f"serve_{scheme}_{name}"] = n
             del ref, got
     torch.cuda.empty_cache()
@@ -833,6 +976,7 @@ def phase_training(torch, pat, models, k1, flash, steps=3):
         raise AssertionError(f"training loss did not fall: {losses}")
     if min(n["k2"], n["k3"], n["k4"]) <= 0:
         raise AssertionError(f"training launched {n}")
+    _check_instance(n, "float32", "training")
     # after the counts were read: where one step's time goes
     profile(torch, step, f"training step S={S} H={H} D={D} f32")
     return dict(losses=losses, step_ms=step_ms, launches=n,
@@ -873,6 +1017,8 @@ def phase_flash_timing(torch, flash, bw):
                        S, H, D)), max_abs_err(torch, dv, grads_p[2].reshape(
                            S, H, D)))}
             it = 5
+            inst = flash.fwd_instance(D, dtype, dtype, dtype)
+            by0 = dict(flash.launches_fwd_by_instance)
             ms = {
                 "k2": cuda_ms(torch, lambda: flash.flash_attention_fwd(
                     q, k, v, **kw), it),
@@ -880,6 +1026,10 @@ def phase_flash_timing(torch, flash, bw):
                     qf, kf, vf, dof, L, Dr, dq, **kw), it),
                 "k4": cuda_ms(torch, lambda: flash.launch_dkv(
                     qf, kf, vf, dof, L, Dr, dk, dv, **kw), it)}
+            k2_by = {i: flash.launches_fwd_by_instance[i] - by0[i]
+                     for i in by0}
+            if k2_by[inst] != it + 1 or sum(k2_by.values()) != it + 1:
+                raise AssertionError(f"K2 {name} timing launched {k2_by}")
             plain_fwd = cuda_ms(torch, lambda: flash.flash_attention_fwd_plain(
                 q, k, v, **kw), it)
             plain_bwd = cuda_ms(torch, lambda: flash.flash_attention_bwd_plain(
@@ -917,6 +1067,8 @@ def phase_flash_timing(torch, flash, bw):
                          else "bytes",
                          tflops=flops[key] / ms[key] / 1e9,
                          max_abs_err=err[key])
+                if key == "k2":
+                    r.update(instance=inst, timed_launches_by_instance=k2_by)
                 rows.append(r)
                 log(f"[time] {key} S={S} H={H} D={D} {name} "
                     f"{'causal' if causal else 'full'}: " + json.dumps(r))
@@ -950,7 +1102,7 @@ def main() -> int:
     t_start = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as dist_dir:
         try:
-            smi = phase_environment(torch, pat, build, dist_dir)
+            smi, k2_build = phase_environment(torch, pat, build, dist_dir)
             bw = bandwidth(smi)
             log(f"[env] bound uses {bw / 1e12:.2f} TB/s for '{smi}'")
             timed = phase_kernel(torch, k1, bw)
@@ -967,7 +1119,7 @@ def main() -> int:
     # launches per path, each counted from 0 just before its run; the
     # kernels line gives their sum and each
     paths = {"k1": {"navier_stokes": ns["k1_launches"]},
-             "k2": {}, "k3": {}, "k4": {}}
+             "k2": {}, "k3": {}, "k4": {}, "k2_wgmma": {}, "k2_simt": {}}
     for run, n in {**serve, "train": train["launches"]}.items():
         for key in paths:
             if n[key]:
@@ -988,7 +1140,8 @@ def main() -> int:
         "checked": True,
         "shape": MAIN_CASE,
     }]
-    # K2-K4: times at S=4096 H=8 D=128 f32 full
+    # K2-K4: times at S=4096 H=8 D=128 f32 full; K2 also per dtype, each
+    # with the instance that ran it
     for key, name, src, replaces in (
             ("k2", "flash_fwd", "flash_fwd.cu",
              "pencilarrays_tpu/ops/flash_pallas.py:287"),
@@ -1013,8 +1166,22 @@ def main() -> int:
                               if (a == "fwd") == (key == "k2")},
             "timings": [{k: r[k] for k in ("dtype", "causal", "ms",
                                            "plain_ms", "library_ms",
-                                           "bound_ms", "max_abs_err")}
-                        for r in mine]})
+                                           "bound_ms", "max_abs_err")
+                         if k in r} for r in mine]})
+        if key == "k2":
+            kernels[-1].update(
+                launches_by_instance={
+                    i: sum(paths[f"k2_{i}"].values())
+                    for i in ("wgmma", "simt")},
+                by_dtype={r["dtype"]: {k: r[k] for k in (
+                    "instance", "ms", "bound_ms", "bound_by", "plain_ms",
+                    "library_ms", "tflops", "max_abs_err",
+                    "timed_launches_by_instance")}
+                    for r in mine if not r["causal"]},
+                instances=k2_build)
+            for r in kernels[-1]["timings"]:
+                r["instance"] = next(
+                    t["instance"] for t in mine if t["dtype"] == r["dtype"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

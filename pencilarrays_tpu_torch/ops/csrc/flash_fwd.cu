@@ -1,20 +1,34 @@
-// K2 — forward flash attention for Hopper (sm_90a), CUDA C++.
+// K2 — forward flash attention for Hopper (sm_90a), CUDA C++: two
+// instances, picked per call by ops/flash.py::fwd_instance.
 //
 // Replaces the TPU kernel pencilarrays_tpu/ops/flash_pallas.py::_flash_kernel
-// (launched by pallas_flash_attention, pallas_call at :287).  One CTA per
-// (head·batch slice, q tile).  The TPU kernel carried the online-softmax
-// state (running max m, denominator l, f32 accumulator) in VMEM across the
-// sequential key-block grid dimension; here a loop over key tiles inside
-// the CTA takes that dimension's place, m and l live in registers of the
-// TC threads that own a row, and the accumulator in registers.
+// (launched by pallas_flash_attention, pallas_call at :287).  The TPU kernel
+// carried the online-softmax state (running max m, denominator l, f32
+// accumulator) in VMEM across the sequential key-block grid dimension;
+// here one CTA owns a (head·batch slice, q tile) and a loop over key tiles
+// inside it takes that dimension's place, with m, l and the accumulator in
+// registers.
 //
 // Bound: operations.  4·Sq·Skv·D FLOPs per slice (halved when causal) over
-// q/k/v reads of (Sq + 2·Skv)·D elements; at S = 4096, D = 128 that is
-// ~1000 FLOPs per byte, far above the card's balance point.  float32
-// inputs run on the CUDA cores with float32 FMA (no TF32); bfloat16 inputs
-// are widened to float32 in shared memory and use the same FMA path.  This
-// first version keeps tiles in padded shared memory and does not use
-// wgmma or TMA.
+// q/k/v reads of (Sq + 2·Skv)·D elements: at S = 4096, D = 128 about 1000
+// FLOPs a byte, far above the card's balance point.  The least time is the
+// FLOPs over 989 TFLOP/s (bf16, tensor cores) or 67 TFLOP/s (f32, CUDA
+// cores, no TF32).
+//
+// * wgmma instance (q, k, v all bf16, D <= 256): tensor cores.  One
+//   producer warp loads Q once and keeps a ring of two K/V stages in flight
+//   with TMA (128-byte swizzled boxes, zero-filled past the tensor) on
+//   mbarriers; two consumer warpgroups of 64 q rows each run S = Q·Kᵀ as a
+//   shared-shared wgmma and O += P·V as a register-shared wgmma, P going
+//   from the S accumulator to the A fragment in registers (the bf16
+//   rounding of P is that conversion).  The softmax runs on the
+//   accumulator fragment: a row lives in the 4 lanes of a quad.
+// * simt instance (everything else: any f32 operand, D > 256): CUDA-core
+//   f32 FMA, register-blocked.  Each thread computes an RI x CJ block of S
+//   and an RI x DJ block of O from 16-byte shared loads; K and V tiles
+//   arrive by cp.async, V(t) while S(t) is computed and K(t+1) while
+//   P(t)·V(t) is, so every copy overlaps FMAs.  bf16 operands of a mix are
+//   copied raw and widened to f32 in shared memory after they land.
 //
 // Conventions kept from the TPU kernel: masked scores are NEG =
 // finfo(f32).min / 2; the key tail is masked by position; the causal mask
@@ -22,12 +36,15 @@
 // tiles wholly above the diagonal are skipped (the loop ends there, since
 // the predicate only gets harder as keys advance); l == 0 -> 1 in the
 // final division; for bf16 v the probabilities are rounded to bf16 before
-// P·V (the denominator sums them unrounded).
+// P·V (the denominator sums them unrounded); the last q tiles, which see
+// the most keys under a causal mask, start first (cta_tile).
 //
 // Outputs, each optional (null pointer = not written): `out` = acc / l in
 // out_dt, folded (Sq, N, D); `acc` = raw f32 accumulator (Sq, N, D);
-// `m`, `l` = f32 row statistics (N, Sq).
+// `m`, `l` = f32 row statistics (N, Sq).  Rows >= Sq and columns >= D are
+// never written.
 #include "flash_common.cuh"
+#include "sm90.cuh"
 
 namespace pa_flash {
 
@@ -63,24 +80,389 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
+// The (q tile, head·batch slice) of this CTA.  CTAs start in the order of
+// their linear index: the last q tiles of every slice, which see the most
+// keys under a causal mask, go first, so the short ones fill in last.
+__device__ __forceinline__ void cta_tile(int n, int bq, long long& r0,
+                                         int& hb) {
+  const long long lin = blockIdx.x + (long long)blockIdx.y * gridDim.x;
+  hb = (int)(lin % n);
+  r0 = (gridDim.x - 1 - lin / n) * bq;   // gridDim = (q tiles, n)
+}
+
+// Key tiles of BK a CTA at q rows [r0, r0 + bq) visits: all of them, or
+// under the causal mask those up to the last one tile_visible admits.
+__device__ __forceinline__ int visible_tiles(const FwdArgs& a, long long r0,
+                                             int bq, int bk) {
+  const int all = (a.skv + bk - 1) / bk;
+  if (!a.causal) return all;
+  const long long lim = a.q_off + r0 + bq - 1 - a.kv_off;
+  if (lim < 0) return 0;
+  return (int)min((long long)all, lim / bk + 1);
+}
+
+// ---------------------------------------------------------------------------
+// wgmma instance
+// ---------------------------------------------------------------------------
+
+struct WgArgs {
+  CUtensorMap tq, tk, tv;  // bf16 (s, n, d) maps, boxes {64, 1, rows}
+  FwdArgs a;
+};
+
+// Tiles by head-dim class DP (D rounded up to 64, 128 or 256): BQ = 128
+// (two consumer warpgroups), BK keys a stage, two stages; a third
+// warpgroup is the producer, of which one thread starts the loads and which
+// hands its registers to the consumers (24 left; 240 a consumer thread).
+// Shared memory = NB·(BQ + 4·BK)·128 bytes + 1 KB of alignment slack;
+// registers a consumer thread: DP/2 (O) + BK/2 (S) + BK/4 (P) floats and
+// words.
+//   DP  64: BK 128 ( 81 KB)    DP 128: BK 128 (161 KB)
+//   DP 256: BK  64 (193 KB)
+template <int DP_, int BK_>
+struct WgTiles {
+  static constexpr int DP = DP_, BK = BK_, BQ = 128, NB = DP / 64;
+  static constexpr int STAGES = 2, NT = 384;  // 2 consumer + 1 producer
+  static constexpr int Q_BYTES = NB * BQ * 128, KV_BYTES = NB * BK * 128;
+  static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES + 1024;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
 template <class T>
-__global__ void __launch_bounds__(T::NT) flash_fwd_kernel(FwdArgs a) {
-  constexpr int BQ = T::BQ, BK = T::BK, DMAX = T::DMAX, TR = T::TR,
-                TC = T::TC, NT = T::NT, LD = T::LD, LS = T::LS;
-  constexpr int RI = BQ / TR;    // q rows per thread
-  constexpr int CJ = BK / TC;    // keys per thread
-  constexpr int DJ = DMAX / TC;  // head-dim columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
+__global__ void __launch_bounds__(T::NT, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ WgArgs w) {
+  using namespace pa_sm90;
+  constexpr int BQ = T::BQ, BK = T::BK, DP = T::DP, NB = T::NB,
+                ST = T::STAGES;
+  constexpr float kLog2e = 1.4426950408889634f;
+  const FwdArgs& a = w.a;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_k[ST], bar_v[ST], bar_free[ST];
+  uint8_t* Qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Ks = Qs + T::Q_BYTES;           // stage st at st * KV_BYTES
+  uint8_t* Vs = Ks + ST * T::KV_BYTES;
+
+  int hb;
+  long long r0;
+  cta_tile(a.n, BQ, r0, hb);
+  const int nk = visible_tiles(a, r0, BQ, BK);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&bar_k[s], 1);
+      mbar_init(&bar_v[s], 1);
+      mbar_init(&bar_free[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // producer: Q once, then K/V tiles through the two-stage ring
+    setmaxnreg_dec<24>();
+    if (warp == 8 && lane == 0 && nk > 0) {
+      mbar_arrive_expect_tx(&bar_q, T::Q_BYTES);
+      for (int b = 0; b < NB; ++b)
+        tma_load_3d(Qs + b * BQ * 128, &w.tq, &bar_q, b * 64, hb, (int)r0);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % ST, u = kt / ST;
+        if (u > 0) mbar_wait(&bar_free[st], (u - 1) & 1);
+        uint8_t* kd = Ks + st * T::KV_BYTES;
+        uint8_t* vd = Vs + st * T::KV_BYTES;
+        mbar_arrive_expect_tx(&bar_k[st], T::KV_BYTES);
+        for (int b = 0; b < NB; ++b)
+          tma_load_3d(kd + b * BK * 128, &w.tk, &bar_k[st], b * 64, hb,
+                      kt * BK);
+        mbar_arrive_expect_tx(&bar_v[st], T::KV_BYTES);
+        for (int b = 0; b < NB; ++b)
+          tma_load_3d(vd + b * BK * 128, &w.tv, &bar_v[st], b * 64, hb,
+                      kt * BK);
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    // consumers: warpgroup wg owns q rows [64 wg, 64 wg + 64) of the tile;
+    // in the m64 accumulator fragment, lane (g, t) = (lane / 4, lane % 4) of
+    // warp wq holds rows 16 wq + g (+ 8) and columns 8 j + 2 t (+ 1):
+    // register 4 j + e is row half e >> 1, column 8 j + 2 t + (e & 1).
+    const int wg = warp / 4, wq = warp % 4, g = lane / 4, t = lane % 4;
+    const long long row0 = r0 + wg * 64 + wq * 16 + g;  // tile row of half 0
+    const long long qpos[2] = {a.q_off + row0, a.q_off + row0 + 8};
+    float o[DP / 2], s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    float mrow[2] = {kNeg, kNeg}, lrow[2] = {0.f, 0.f};
+    if (nk > 0) mbar_wait(&bar_q, 0);
+    const uint8_t* Qw = Qs + wg * 64 * 128;
+
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % ST, u = kt / ST;
+      const long long c0 = (long long)kt * BK;
+      const uint8_t* Kt = Ks + st * T::KV_BYTES;
+      const uint8_t* Vt = Vs + st * T::KV_BYTES;
+
+      // S = Q·Kᵀ over DP in steps of 16 (32 bytes inside a 128-byte box row)
+      mbar_wait(&bar_k[st], u & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < DP / 16; ++kc) {
+        const int off = (kc % 4) * 32;
+        const uint64_t da =
+            wgmma_desc(Qw + (kc / 4) * BQ * 128 + off, 16, 1024);
+        const uint64_t db =
+            wgmma_desc(Kt + (kc / 4) * BK * 128 + off, 16, 1024);
+        if constexpr (BK == 128)
+          wgmma_ss_n128(s, da, db, kc > 0);
+        else
+          wgmma_ss_n64(s, da, db, kc > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // online softmax on the fragment; masks only where the tile crosses
+      // the key tail or the diagonal
+      const bool edge =
+          c0 + BK > a.skv ||
+          (a.causal && a.q_off + r0 + wg * 64 < a.kv_off + c0 + BK - 1);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        float x = s[i] * a.scale;
+        if (edge) {
+          const long long col = c0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const bool valid =
+              col < a.skv && (!a.causal || qpos[h] >= a.kv_off + col);
+          x = valid ? x : kNeg;
+        }
+        s[i] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+      float corr[2], mscaled[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mn = fmaxf(mrow[h], row_max<4>(mx[h]));
+        corr[h] = exp2f((mrow[h] - mn) * kLog2e);
+        mrow[h] = mn;
+        mscaled[h] = mn * kLog2e;
+      }
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        s[i] = exp2f(fmaf(s[i], kLog2e, -mscaled[h]));
+        rs[h] += s[i];
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // A fragment of k-step kk: columns 16 kk + 2 t (+1) and + 8
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        lrow[h] = lrow[h] * corr[h] + row_sum<4>(rs[h]);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+      // O += P·V: V is the MN-major B operand; 16 key rows (2048 bytes) a
+      // step, its 64-column boxes BK·128 bytes apart
+      mbar_wait(&bar_v[st], u & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db = wgmma_desc(Vt + kk * 16 * 128, BK * 128, 1024);
+        if constexpr (DP == 256)
+          wgmma_rs_n256(o, pa[kk], db);
+        else if constexpr (DP == 128)
+          wgmma_rs_n128(o, pa[kk], db);
+        else
+          wgmma_rs_n64(o, pa[kk], db);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&bar_free[st]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = row0 + 8 * h;
+      if (row >= a.sq) continue;
+      const size_t base = ((size_t)row * a.n + hb) * a.d;
+      const float den = lrow[h] == 0.f ? 1.f : lrow[h];
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * t;  // d % 8 == 0: col < d => col + 1 < d
+        if (col >= a.d) continue;
+        const float x0 = o[4 * j + 2 * h], x1 = o[4 * j + 2 * h + 1];
+        if (a.out) {
+          if (a.out_dt == kBF16)
+            *reinterpret_cast<__nv_bfloat162*>(
+                static_cast<__nv_bfloat16*>(a.out) + base + col) =
+                __floats2bfloat162_rn(x0 / den, x1 / den);
+          else
+            *reinterpret_cast<float2*>(static_cast<float*>(a.out) + base +
+                                       col) = make_float2(x0 / den, x1 / den);
+        }
+        if (a.acc)
+          *reinterpret_cast<float2*>(a.acc + base + col) = make_float2(x0, x1);
+      }
+      if (a.m && t == 0) {
+        a.m[(size_t)hb * a.sq + row] = mrow[h];
+        a.l[(size_t)hb * a.sq + row] = lrow[h];
+      }
+    }
+  }  // consumers
+}
+
+template <class T>
+int run_wgmma(WgArgs& w, void* stream) {
+  using pa_sm90::encode_rows_bf16;
+  const FwdArgs& a = w.a;
+  // with no keys nothing is loaded; k/v maps then describe q
+  const bool keys = a.skv > 0;
+  if (!encode_rows_bf16(&w.tq, a.q, a.sq, a.n, a.d, T::BQ) ||
+      !encode_rows_bf16(&w.tk, keys ? a.k : a.q, keys ? a.skv : a.sq, a.n,
+                        a.d, T::BK) ||
+      !encode_rows_bf16(&w.tv, keys ? a.v : a.q, keys ? a.skv : a.sq, a.n,
+                        a.d, T::BK))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((a.sq + T::BQ - 1) / T::BQ, a.n);
+  return launch(flash_fwd_wgmma_kernel<T>, grid, T::NT, T::SMEM, stream, w);
+}
+
+// ---------------------------------------------------------------------------
+// simt instance
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  // 16 bytes, or 16 zero bytes when !valid (src-size 0 reads nothing)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   pa_sm90::smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Tiles of the simt instance: NT = TY x 16 threads, thread (ty, tx) =
+// (t / 16, t % 16) owns q rows ty + TY·i (i < RI), keys tx + 16·j (j < CJ)
+// of S, and columns 4·(tx + 16·c) + e (c < DJ / 4, e < 4) of O.  A row's
+// 16 threads sit in one half-warp.  f32 tiles in shared memory with a row
+// pitch of DMAX + 4 words (16-byte rows, and the rows of a quarter-warp's
+// 16-byte loads on distinct banks); a bf16 tile is first copied raw into
+// the upper half of each row.
+template <int TY_, int RI_, int CJ_, int DMAX_, int MINB_>
+struct SimtTiles {
+  static constexpr int TX = 16, TY = TY_, RI = RI_, CJ = CJ_, DMAX = DMAX_;
+  static constexpr int NT = TX * TY, BQ = TY * RI, BK = TX * CJ;
+  static constexpr int DJ = DMAX / TX, LD = DMAX + 4, LP = BK + 4;
+  static constexpr int MINB = MINB_;
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)(BQ + 2 * BK) * LD + (size_t)BQ * LP);
+  static_assert(DJ % 4 == 0, "O columns go in float4 groups");
+};
+
+// Start the copy of rows [r0, r0 + ROWS) of slice hb of an (s, n, d) tensor
+// into dst (pitch DMAX + 4); rows past s and columns past d arrive as
+// zeros.  f32 goes in place; bf16 raw into the upper half of each row.
+template <int ROWS, int DMAX, int NT>
+__device__ __forceinline__ void start_tile(float* dst, const void* src,
+                                           int dt, int n, int hb, int s,
+                                           int d, long long r0) {
+  constexpr int LD = DMAX + 4;
+  const int es = dt == kBF16 ? 2 : 4;   // bytes an element
+  const int per = 16 / es;              // elements a 16-byte chunk
+  const int ch = DMAX / per;            // chunks a row
+  for (int idx = threadIdx.x; idx < ROWS * ch; idx += NT) {
+    const int r = idx / ch, c = (idx % ch) * per;
+    const long long row = r0 + r;
+    const bool valid = row < s && c < d;
+    const char* g = static_cast<const char*>(src);
+    if (valid) g += (((size_t)row * n + hb) * d + c) * es;
+    char* sm = reinterpret_cast<char*>(dst + r * LD);
+    cp_async16(sm + (es == 2 ? 2 * DMAX + 16 : 0) + c * es, g, valid);
+  }
+}
+
+// Widen a landed bf16 tile to f32 in place, a few whole rows a pass: every
+// chunk of a pass's rows is read into registers before any is written.
+template <int ROWS, int DMAX, int NT>
+__device__ __forceinline__ void widen_tile(float* dst) {
+  constexpr int LD = DMAX + 4, CH = DMAX / 8;
+  constexpr int RP = (4 * NT / CH) < 1 ? 1
+                     : (4 * NT / CH) > ROWS ? ROWS : (4 * NT / CH);
+  constexpr int PER = (RP * CH + NT - 1) / NT;
+  for (int r0 = 0; r0 < ROWS; r0 += RP) {
+    uint4 raw[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = threadIdx.x + i * NT, r = r0 + idx / CH;
+      if (idx < RP * CH && r < ROWS)
+        raw[i] = *reinterpret_cast<const uint4*>(
+            reinterpret_cast<const char*>(dst + r * LD) + 2 * DMAX + 16 +
+            (idx % CH) * 16);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = threadIdx.x + i * NT, r = r0 + idx / CH;
+      if (idx < RP * CH && r < ROWS) {
+        const __nv_bfloat162* h =
+            reinterpret_cast<const __nv_bfloat162*>(&raw[i]);
+        float* f = dst + r * LD + (idx % CH) * 8;
+        const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+        const float2 c = __bfloat1622float2(h[2]), e = __bfloat1622float2(h[3]);
+        *reinterpret_cast<float4*>(f) = make_float4(a.x, a.y, b.x, b.y);
+        *reinterpret_cast<float4*>(f + 4) = make_float4(c.x, c.y, e.x, e.y);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(T::NT, T::MINB)
+    flash_fwd_simt_kernel(FwdArgs a) {
+  constexpr int BQ = T::BQ, BK = T::BK, DMAX = T::DMAX, TY = T::TY,
+                TX = T::TX, RI = T::RI, CJ = T::CJ, DJ = T::DJ, NT = T::NT,
+                LD = T::LD, LP = T::LP;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + BQ * LD;
   float* Vs = Ks + BK * LD;
   float* Ps = Vs + BK * LD;
 
-  const int tid = threadIdx.x, ty = tid / TC, tx = tid % TC;
-  const int hb = blockIdx.y;
-  // the last q tiles see the most keys under a causal mask: start them first
-  const long long r0 = (long long)(gridDim.x - 1 - blockIdx.x) * BQ;
-  load_tile<BQ, DMAX, NT>(Qs, a.q, a.q_dt, a.n, hb, a.sq, a.d, r0);
+  const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
+  int hb;
+  long long r0;
+  cta_tile(a.n, BQ, r0, hb);
+  const int nk = visible_tiles(a, r0, BQ, BK);
+  start_tile<BQ, DMAX, NT>(Qs, a.q, a.q_dt, a.n, hb, a.sq, a.d, r0);
+  cp_async_commit();
+  if (nk > 0) start_tile<BK, DMAX, NT>(Ks, a.k, a.k_dt, a.n, hb, a.skv, a.d, 0);
+  cp_async_commit();
 
   float m[RI], l[RI], acc[RI][DJ];
 #pragma unroll
@@ -91,59 +473,135 @@ __global__ void __launch_bounds__(T::NT) flash_fwd_kernel(FwdArgs a) {
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
   const bool round_p = a.v_dt == kBF16;
-  const int nk = (a.skv + BK - 1) / BK;
   for (int kt = 0; kt < nk; ++kt) {
     const long long c0 = (long long)kt * BK;
-    if (!tile_visible(a.causal, a.q_off, r0, BQ, a.kv_off, c0)) break;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<BK, DMAX, NT>(Ks, a.k, a.k_dt, a.n, hb, a.skv, a.d, c0);
-    load_tile<BK, DMAX, NT>(Vs, a.v, a.v_dt, a.n, hb, a.skv, a.d, c0);
+    // V(kt) flies while S(kt) is computed
+    start_tile<BK, DMAX, NT>(Vs, a.v, a.v_dt, a.n, hb, a.skv, a.d, c0);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and K(kt) landed
     __syncthreads();
+    if (kt == 0 && a.q_dt == kBF16) widen_tile<BQ, DMAX, NT>(Qs);
+    if (a.k_dt == kBF16) widen_tile<BK, DMAX, NT>(Ks);
 
     float s[RI][CJ];
-    dot_rows<RI, CJ, TR, TC, DMAX>(s, Qs, Ks, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int x = 0; x < DMAX; x += 4) {
+      float4 qa[RI], kb[CJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+        qa[i] = *reinterpret_cast<const float4*>(Qs + (ty + TY * i) * LD + x);
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+        kb[j] = *reinterpret_cast<const float4*>(Ks + (tx + TX * j) * LD + x);
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) {
+          s[i][j] = fmaf(qa[i].x, kb[j].x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, kb[j].y, s[i][j]);
+          s[i][j] = fmaf(qa[i].z, kb[j].z, s[i][j]);
+          s[i][j] = fmaf(qa[i].w, kb[j].w, s[i][j]);
+        }
+    }
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
-      const int r = ty + TR * i;
+      const int r = ty + TY * i;
       float bm = -INFINITY;
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
-        const long long col = c0 + tx + TC * j;
+        const long long col = c0 + tx + TX * j;
         const bool valid =
             col < a.skv && (!a.causal || a.q_off + r0 + r >= a.kv_off + col);
         s[i][j] = valid ? s[i][j] * a.scale : kNeg;
         bm = fmaxf(bm, s[i][j]);
       }
-      const float mn = fmaxf(m[i], row_max<TC>(bm));
+      const float mn = fmaxf(m[i], row_max<TX>(bm));
       const float corr = expf(m[i] - mn);
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
         const float p = expf(s[i][j] - mn);
         rs += p;
-        Ps[r * LS + tx + TC * j] = round_p ? round_bf16(p) : p;
+        Ps[r * LP + tx + TX * j] = round_p ? round_bf16(p) : p;
       }
-      l[i] = l[i] * corr + row_sum<TC>(rs);
+      l[i] = l[i] * corr + row_sum<TX>(rs);
       m[i] = mn;
 #pragma unroll
       for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
     }
+    __syncthreads();  // K(kt) read, P written
+    // K(kt + 1) flies while P(kt)·V(kt) is computed
+    if (kt + 1 < nk)
+      start_tile<BK, DMAX, NT>(Ks, a.k, a.k_dt, a.n, hb, a.skv, a.d, c0 + BK);
+    cp_async_commit();
+    cp_async_wait<1>();  // V(kt) landed
     __syncthreads();
-    acc_rows<RI, DJ, TR, TC, BK, LS, LD, false>(acc, Ps, Vs, ty, tx, 0);
+    if (a.v_dt == kBF16) widen_tile<BK, DMAX, NT>(Vs);
+
+#pragma unroll 2
+    for (int k = 0; k < BK; k += 4) {
+      float4 pr[RI];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+        pr[i] = *reinterpret_cast<const float4*>(Ps + (ty + TY * i) * LP + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float4 vb[DJ / 4];
+#pragma unroll
+        for (int c = 0; c < DJ / 4; ++c)
+          vb[c] = *reinterpret_cast<const float4*>(Vs + (k + kk) * LD +
+                                                   4 * (tx + TX * c));
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          const float p = kk == 0   ? pr[i].x
+                          : kk == 1 ? pr[i].y
+                          : kk == 2 ? pr[i].z
+                                    : pr[i].w;
+#pragma unroll
+          for (int c = 0; c < DJ / 4; ++c) {
+            acc[i][4 * c] = fmaf(p, vb[c].x, acc[i][4 * c]);
+            acc[i][4 * c + 1] = fmaf(p, vb[c].y, acc[i][4 * c + 1]);
+            acc[i][4 * c + 2] = fmaf(p, vb[c].z, acc[i][4 * c + 2]);
+            acc[i][4 * c + 3] = fmaf(p, vb[c].w, acc[i][4 * c + 3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // V(kt) and P read before the next V lands
   }
+  cp_async_wait<0>();  // nothing in flight at exit (nk == 0)
 
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
-    const long long row = r0 + ty + TR * i;
+    const long long row = r0 + ty + TY * i;
     if (row >= a.sq) continue;
     const size_t base = ((size_t)row * a.n + hb) * a.d;
     const float den = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int col = tx + TC * j;
+    for (int c = 0; c < DJ / 4; ++c) {
+      const int col = 4 * (tx + TX * c);  // d % 8 == 0: col < d => col+3 < d
       if (col >= a.d) continue;
-      if (a.out) store_elem(a.out, base + col, acc[i][j] / den, a.out_dt);
-      if (a.acc) a.acc[base + col] = acc[i][j];
+      const float x[4] = {acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2],
+                          acc[i][4 * c + 3]};
+      if (a.out) {
+        if (a.out_dt == kBF16) {
+          __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(a.out) + base + col);
+          o[0] = __floats2bfloat162_rn(x[0] / den, x[1] / den);
+          o[1] = __floats2bfloat162_rn(x[2] / den, x[3] / den);
+        } else {
+          *reinterpret_cast<float4*>(static_cast<float*>(a.out) + base +
+                                     col) =
+              make_float4(x[0] / den, x[1] / den, x[2] / den, x[3] / den);
+        }
+      }
+      if (a.acc)
+        *reinterpret_cast<float4*>(a.acc + base + col) =
+            make_float4(x[0], x[1], x[2], x[3]);
     }
     if (a.m && tx == 0) {
       a.m[(size_t)hb * a.sq + row] = m[i];
@@ -152,34 +610,53 @@ __global__ void __launch_bounds__(T::NT) flash_fwd_kernel(FwdArgs a) {
   }
 }
 
-// Tiles by head dim (BQ, BK), all within the 227 KB a CTA may use:
-// shared = (BQ + 2·BK)·(DMAX + 1)·4 + BQ·(BK + 1)·4 bytes.
-//   DMAX   64: 64 x 64  ( 66.6 KB)      DMAX 512:  16 x 16 ( 99.6 KB)
-//   DMAX  128: 64 x 32  ( 74.5 KB)      DMAX 1024:  8 x 16 (164.5 KB)
-//   DMAX  256: 32 x 32  (103.0 KB)
+// Tiles by head-dim class (TY, RI, CJ -> BQ x BK, threads), shared memory
+// (BQ + 2·BK)·(DMAX + 4)·4 + BQ·(BK + 4)·4 bytes, at most 113 KB where two
+// CTAs share an SM:
+//   DMAX   64: 64 x 64, 256 threads ( 68.0 KB)
+//   DMAX  128: 64 x 48, 256 threads ( 95.5 KB)
+//   DMAX  256: 32 x 32, 256 threads (102.0 KB)
+//   DMAX  512: 16 x 16, 128 threads ( 98.0 KB)
+//   DMAX 1024:  8 x 16, 128 threads (161.3 KB)
 template <class T>
-int run(const FwdArgs& a, void* stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(T::BQ + 2 * T::BK) * T::LD + T::BQ * T::LS);
+int run_simt(const FwdArgs& a, void* stream) {
   dim3 grid((a.sq + T::BQ - 1) / T::BQ, a.n);
-  return launch(flash_fwd_kernel<T>, grid, T::NT, smem, stream, a);
+  return launch(flash_fwd_simt_kernel<T>, grid, T::NT, T::SMEM, stream, a);
 }
 
 }  // namespace pa_flash
 
-extern "C" int pa_flash_fwd(const void* q, const void* k, const void* v,
-                            int q_dt, int k_dt, int v_dt, void* out,
-                            int out_dt, float* acc, float* m, float* l, int n,
-                            int sq, int skv, int d, float scale, int causal,
-                            long long q_off, long long kv_off, void* stream) {
+extern "C" int pa_flash_fwd_simt(const void* q, const void* k, const void* v,
+                                 int q_dt, int k_dt, int v_dt, void* out,
+                                 int out_dt, float* acc, float* m, float* l,
+                                 int n, int sq, int skv, int d, float scale,
+                                 int causal, long long q_off,
+                                 long long kv_off, void* stream) {
   using namespace pa_flash;
   const FwdArgs a{q,  k,  v,   q_dt, k_dt,  v_dt,   out,   out_dt, acc,
                   m,  l,  n,   sq,   skv,   d,      scale, causal, q_off,
                   kv_off};
-  if (d <= 64) return run<Tiles<64, 64, 64>>(a, stream);
-  if (d <= 128) return run<Tiles<64, 32, 128>>(a, stream);
-  if (d <= 256) return run<Tiles<32, 32, 256>>(a, stream);
-  if (d <= 512) return run<Tiles<16, 16, 512>>(a, stream);
-  if (d <= 1024) return run<Tiles<8, 16, 1024>>(a, stream);
+  if (d <= 64) return run_simt<SimtTiles<16, 4, 4, 64, 2>>(a, stream);
+  if (d <= 128) return run_simt<SimtTiles<16, 4, 3, 128, 2>>(a, stream);
+  if (d <= 256) return run_simt<SimtTiles<16, 2, 2, 256, 2>>(a, stream);
+  if (d <= 512) return run_simt<SimtTiles<8, 2, 1, 512, 1>>(a, stream);
+  if (d <= 1024) return run_simt<SimtTiles<8, 1, 1, 1024, 1>>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q, k, v bf16 with d <= 256; out in out_dt.
+extern "C" int pa_flash_fwd_wgmma(const void* q, const void* k, const void* v,
+                                  void* out, int out_dt, float* acc, float* m,
+                                  float* l, int n, int sq, int skv, int d,
+                                  float scale, int causal, long long q_off,
+                                  long long kv_off, void* stream) {
+  using namespace pa_flash;
+  WgArgs w{};
+  w.a = FwdArgs{q,     k,      v,     kBF16, kBF16, kBF16, out,
+                out_dt, acc,   m,     l,     n,     sq,    skv,
+                d,     scale,  causal, q_off, kv_off};
+  if (d <= 64) return run_wgmma<WgTiles<64, 128>>(w, stream);
+  if (d <= 128) return run_wgmma<WgTiles<128, 128>>(w, stream);
+  if (d <= 256) return run_wgmma<WgTiles<256, 64>>(w, stream);
   return (int)cudaErrorInvalidValue;
 }

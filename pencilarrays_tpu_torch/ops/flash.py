@@ -10,7 +10,12 @@ in place: nothing is transposed or padded around a launch.
   attention with an online softmax; three output modes, as in the JAX
   package: the normalized output, ``return_stats`` (output plus the folded
   ``(m, l)`` row statistics) and ``partials`` (raw ``(m, l, acc)`` in f32,
-  which merge exactly across disjoint key sets — one call per ring round);
+  which merge exactly across disjoint key sets — one call per ring round).
+  Two instances, chosen by :func:`fwd_instance`: ``"wgmma"`` (q, k and v
+  all bf16, ``d <= 256``: tensor cores fed by TMA) and ``"simt"`` (every
+  other case: register-blocked f32 FMA fed by ``cp.async``).  Both load
+  tiles in 16-byte units, so an operand whose data does not start on a
+  16-byte boundary is first copied (counted in :data:`realigned_copies`);
 * K3 and K4 (``csrc/flash_bwd.cu``) — the backward as two kernels, dq with
   key tiles inner and dk/dv with q tiles inner, rebuilding each score block
   from the saved logsumexp ``L = m + log l``: :func:`flash_attention_bwd`
@@ -28,7 +33,8 @@ unspecified finite value, as in the JAX package.
 For CPU tensors every function runs its plain PyTorch version
 (``*_plain``, a chunked streaming loop, memory ``O(Sq x chunk)``); for CUDA
 tensors it launches the kernel or raises — there is no fallback.  Each
-launch adds one to :data:`launches_fwd`, :data:`launches_dq` or
+launch adds one to :data:`launches_fwd` (and to its instance's entry of
+:data:`launches_fwd_by_instance`), :data:`launches_dq` or
 :data:`launches_dkv`.
 """
 
@@ -44,6 +50,7 @@ import torch
 __all__ = [
     "NEG",
     "supported",
+    "fwd_instance",
     "stream_stats",
     "normalize",
     "launch_dq",
@@ -59,6 +66,12 @@ __all__ = [
 
 launches_fwd = 0
 """K2 launches since the last reset (``flash.launches_fwd = 0``)."""
+launches_fwd_by_instance = {"wgmma": 0, "simt": 0}
+"""K2 launches by instance (see :func:`fwd_instance`) since the last reset
+(set each entry to 0); they sum to :data:`launches_fwd`."""
+realigned_copies = 0
+"""K2 operands copied to a fresh allocation because their data did not
+start on a 16-byte boundary."""
 launches_dq = 0
 """K3 launches since the last reset."""
 launches_dkv = 0
@@ -78,6 +91,16 @@ def supported(d: int, *dtypes) -> bool:
     rule."""
     return (all(dt in _KERNEL_DTYPES for dt in dtypes) and d % 8 == 0
             and d <= 1024)
+
+
+def fwd_instance(d: int, q_dtype: torch.dtype, k_dtype: torch.dtype,
+                 v_dtype: torch.dtype) -> str:
+    """Which instance of K2 takes a call: ``"wgmma"`` when q, k and v are
+    all bfloat16 and ``d <= 256`` (the tensor-core kernel), else
+    ``"simt"`` (any float32 operand, mixes included, and every ``d >
+    256``).  Neither is a fallback for the other."""
+    bf16 = all(dt == torch.bfloat16 for dt in (q_dtype, k_dtype, v_dtype))
+    return "wgmma" if bf16 and d <= 256 else "simt"
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:
@@ -263,7 +286,8 @@ def flash_attention_bwd_partials_plain(q, k, v, do, L, D, *,
 _DT = {torch.float32: 0, torch.bfloat16: 1}   # DType in flash_common.cuh
 _libs = {}
 _ARGTYPES = {   # the C signatures of csrc/flash_fwd.cu and csrc/flash_bwd.cu
-    "pa_flash_fwd": "pppiiipipppiiiifillp",
+    "pa_flash_fwd_simt": "pppiiipipppiiiifillp",
+    "pa_flash_fwd_wgmma": "ppppipppiiiifillp",
     "pa_flash_bwd_dq": "ppppiiiipppiiiiifillp",
     "pa_flash_bwd_dkv": "ppppiiiippppiiiiifillp",
 }
@@ -333,20 +357,39 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it in a fresh allocation when its data does not
+    start on the 16-byte boundary K2's tile loads need."""
+    global realigned_copies
+    if t.data_ptr() % 16 == 0:
+        return t
+    realigned_copies += 1
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _launch_fwd(qf, kf, vf, out, acc, m, l, *, causal, q_offset,
                 kv_offset):
-    """One K2 launch on folded contiguous ``(S, N, D)`` operands."""
+    """One K2 launch on folded contiguous 16-byte-aligned ``(S, N, D)``
+    operands, by the instance :func:`fwd_instance` picks."""
     global launches_fwd
     sq, n, d = qf.shape
+    inst = fwd_instance(d, qf.dtype, kf.dtype, vf.dtype)
+    out_dt = _DT[out.dtype] if out is not None else 0
+    tail = (n, sq, kf.shape[0], d, 1.0 / math.sqrt(d), int(causal),
+            q_offset, kv_offset, _stream(qf))
     with torch.cuda.device(qf.device):
-        err = _fn("flash_fwd", "pa_flash_fwd")(
-            _ptr(qf), _ptr(kf), _ptr(vf), _DT[qf.dtype], _DT[kf.dtype],
-            _DT[vf.dtype], _ptr(out), _DT[out.dtype] if out is not None
-            else 0, _ptr(acc), _ptr(m), _ptr(l), n, sq, kf.shape[0], d,
-            1.0 / math.sqrt(d), int(causal), q_offset, kv_offset,
-            _stream(qf))
-    _raise_on(err, "flash forward")
+        if inst == "wgmma":
+            err = _fn("flash_fwd", "pa_flash_fwd_wgmma")(
+                _ptr(qf), _ptr(kf), _ptr(vf), _ptr(out), out_dt, _ptr(acc),
+                _ptr(m), _ptr(l), *tail)
+        else:
+            err = _fn("flash_fwd", "pa_flash_fwd_simt")(
+                _ptr(qf), _ptr(kf), _ptr(vf), _DT[qf.dtype], _DT[kf.dtype],
+                _DT[vf.dtype], _ptr(out), out_dt, _ptr(acc), _ptr(m),
+                _ptr(l), *tail)
+    _raise_on(err, f"flash forward ({inst})")
     launches_fwd += 1
+    launches_fwd_by_instance[inst] += 1
 
 
 def launch_dq(qf, kf, vf, dof, L, D, dq, *, causal, q_offset, kv_offset):
@@ -401,7 +444,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, q_offset=0,
             q, k, v, causal=causal, q_offset=q_offset, kv_offset=kv_offset,
             partials=partials, return_stats=return_stats)
     n, d = _check_kernel(q, k, v)
-    qf, kf, vf = (_fold(x).contiguous() for x in (q, k, v))
+    qf, kf, vf = (_aligned(_fold(x).contiguous()) for x in (q, k, v))
     sq = qf.shape[0]
     dev = q.device
     f32 = torch.float32

@@ -56,22 +56,14 @@ def _skip_without_card():
                     "CPU mode)")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,q_off,kv_off", [
-    (False, 0, 0), (True, 0, 0), (True, 17, 9)])
-def test_flash_kernels_match_plain_on_the_card(dtype, causal, q_off, kv_off):
-    """K2 in its three output modes, K3 + K4 (full and partials backward)
-    against the plain versions, each row relative to its own scale, within
-    chip_smoke.py's tolerances, and one launch of each kernel per call."""
-    _skip_without_card()
+def _flash_case(dtype, causal, q_off, kv_off, q, k, v):
+    """flash_compare within chip_smoke.py's tolerances, with the launches
+    it makes: K2 three times (its three modes) by the instance its dtypes
+    pick, K3 and K4 twice each (full and partials backward)."""
     from chip_smoke import FLASH_TOL, flash_compare
 
-    sq, skv, h, b, d = 133, 201, 2, 3, 72
-    q, k, v = (_values(s, torch.float32, seed).div(100).to(dtype).cuda()
-               for seed, s in enumerate([(sq, h, b, d), (skv, h, b, d),
-                                         (skv, h, b, d)]))
     n0 = (flash.launches_fwd, flash.launches_dq, flash.launches_dkv)
+    by0 = dict(flash.launches_fwd_by_instance)
     errs = flash_compare(torch, flash, q, k, v, causal, q_off, kv_off)
     name = str(dtype).split(".")[-1]
     for key, err in errs.items():
@@ -79,6 +71,46 @@ def test_flash_kernels_match_plain_on_the_card(dtype, causal, q_off, kv_off):
     torch.cuda.synchronize()
     assert (flash.launches_fwd - n0[0], flash.launches_dq - n0[1],
             flash.launches_dkv - n0[2]) == (3, 2, 2)
+    inst = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert {i: flash.launches_fwd_by_instance[i] - by0[i] for i in by0} == {
+        "wgmma": 3 if inst == "wgmma" else 0,
+        "simt": 3 if inst == "simt" else 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [72, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,q_off,kv_off", [
+    (False, 0, 0), (True, 0, 0), (True, 17, 9)])
+def test_flash_kernels_match_plain_on_the_card(dtype, causal, q_off, kv_off,
+                                               d):
+    """K2 in its three output modes, K3 + K4 (full and partials backward)
+    against the plain versions, each row relative to its own scale, within
+    chip_smoke.py's tolerances; one launch of each kernel per call, K2 by
+    its wgmma instance in bf16 and its simt instance in f32."""
+    _skip_without_card()
+    sq, skv, h, b = 133, 201, 2, 3
+    q, k, v = (_values(s, torch.float32, seed).div(100).to(dtype).cuda()
+               for seed, s in enumerate([(sq, h, b, d), (skv, h, b, d),
+                                         (skv, h, b, d)]))
+    _flash_case(dtype, causal, q_off, kv_off, q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_storage_offset_on_the_card(dtype):
+    """k and v as views whose data starts 2 or 4 bytes past a 16-byte
+    boundary: K2 copies them to an aligned allocation (counted), and every
+    kernel agrees with its plain version."""
+    _skip_without_card()
+    sq, skv, h, b, d = 70, 150, 2, 3, 128
+    q = _values((sq, h, b, d), torch.float32, 3).div(100).to(dtype).cuda()
+    k, v = (_values((skv * h * b * d + 1,), torch.float32, seed).div(100)
+            .to(dtype).cuda()[1:].view(skv, h, b, d) for seed in (4, 5))
+    assert k.data_ptr() % 16 != 0
+    copies = flash.realigned_copies
+    _flash_case(dtype, True, 17, 9, q, k, v)
+    assert flash.realigned_copies - copies == 6   # k and v, three calls
 
 
 @pytest.mark.cuda

@@ -247,6 +247,31 @@ def test_fully_masked_rows_finite_on_kernel_path():
     assert torch.isfinite(acc).all() and torch.isfinite(m).all()
 
 
+MIXES = [(a, b, c) for a in ("float32", "bfloat16")
+         for b in ("float32", "bfloat16") for c in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("mix", MIXES, ids=lambda m: "-".join(m))
+@pytest.mark.parametrize("d", [8, 64, 72, 128, 256, 264, 1024])
+def test_fwd_instance(d, mix):
+    """K2's instance rule: the tensor-core (wgmma) instance takes q, k and
+    v all bf16 with d <= 256, the simt instance every other case the
+    kernels take.  CPU tensors run the plain version and launch neither."""
+    dtypes = [getattr(torch, name) for name in mix]
+    want = ("wgmma" if d <= 256 and all(dt == torch.bfloat16 for dt in dtypes)
+            else "simt")
+    assert flash.fwd_instance(d, *dtypes) == want
+    q, k, v = (_torch(a).to(dt) for a, dt in zip(
+        _arrays(10, (5, 2, 1, d), (7, 2, 1, d), (7, 2, 1, d)), dtypes))
+    before = (flash.launches_fwd, dict(flash.launches_fwd_by_instance),
+              flash.realigned_copies)
+    got = flash.flash_attention_fwd(q, k, v, causal=True, q_offset=2)
+    assert (flash.launches_fwd, flash.launches_fwd_by_instance,
+            flash.realigned_copies) == before
+    torch.testing.assert_close(got, flash.flash_attention_fwd_plain(
+        q, k, v, causal=True, q_offset=2), atol=0, rtol=0)
+
+
 def test_impl_routing_and_cpu_wrappers():
     """``impl`` values and errors; CPU tensors take the plain versions
     and launch nothing."""
