@@ -7,13 +7,14 @@ Run from the repository root with no arguments::
 
 It needs one CUDA card and ``nvcc``; it exits non-zero (printing no
 result) when CUDA is unavailable, when run outside the repository, and
-when any phase fails.  Phases, each printed on its own lines:
+when any phase fails, and then prints the reason (or the traceback) on
+standard output too.  Phases, each printed on its own lines:
 
 1. environment — card name and power limit (``nvidia-smi``), torch and
-   CUDA versions, the kernel build time, each K2 instance's registers and
-   spill bytes (``-Xptxas -v``), a ``cuobjdump -sass`` check that the
-   wgmma instance of K2 holds HGMMA and UTMALDG instructions, a 1-rank
-   NCCL process group;
+   CUDA versions, the kernel build time, each K2–K4 kernel's registers
+   and spill bytes (``-Xptxas -v``), a ``cuobjdump -sass`` check that
+   every wgmma kernel of K2, K3 and K4 holds HGMMA and UTMALDG
+   instructions and spills nothing, a 1-rank NCCL process group;
 2. kernel K1 (``pencilarrays_tpu_torch/ops/csrc/permute.cu``) against its
    plain PyTorch version on the card, bit for bit, over the main path's
    shapes, ragged shapes in six dtypes, and pack/unpack with P = 1, 2, 4;
@@ -31,20 +32,24 @@ when any phase fails.  Phases, each printed on its own lines:
    with no visible key, f32 and bf16, head dims 40 to 1024, P = 4 naive
    and zigzag causal rings emulated at kernel level, and flash attention
    on q/k/v of mixed dtypes, each row held relative to its own scale;
-   then the wgmma instance of K2 at its edges (bf16, head dims 40 to 256,
-   Sq < 64, Skv = 1, ragged Skv, k/v views with a storage offset, aligned
-   and not), which must launch that instance only;
+   every K3/K4 call launches the instance ``bwd_instance`` picks (bf16
+   with a bf16 cotangent: wgmma; any f32 operand: simt); then the wgmma
+   instances of K2–K4 at their edges (bf16, head dims 40 to 256, Sq < 64,
+   Skv = 1, ragged Skv, k/v views with a storage offset, aligned and
+   not);
 7. serving at full width (S = 4096, H = 8, D = 128): Ulysses and causal
    ring attention over NCCL on a (1,) topology, f32 and bf16, each held
    to dense attention, with the K1/K2 launches of each call and K2's by
    instance (bf16 calls launch only the wgmma one, f32 only the simt one);
 8. training: the block of ``examples/long_context_training.py`` at full
    width (causal ring attention, which runs the naive schedule on one
-   rank; MSE; SGD) for 3 steps: the loss falls, one step's gradients
-   match the plain path, K2–K4 launched;
+   rank; MSE; SGD) for 3 steps, in f32 and in bf16 (f32 master weights,
+   bf16 projections and attention): the loss falls, one step's gradients
+   match the plain path, K2–K4 launched by the wgmma instances in bf16
+   and the simt ones in f32;
 9. K2–K4 times at the headline shape, f32 and bf16, causal and not:
    kernel, plain, SDPA (a yardstick the port never calls) and bound, with
-   the K2 instance that ran and its launches;
+   the instance that ran each kernel and its launches;
 10. a ``{"kernels": [...]}`` line: per kernel its launches on each path
     (each counted from 0 just before its run) and their sum, its error
     against the plain version and its times;
@@ -59,6 +64,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 SEED = 0
 KERNEL_SOURCES = ["permute", "flash_fwd", "flash_bwd"]
@@ -118,8 +124,8 @@ def random_tensor(torch, shape, dtype, gen):
 # device kernels by the layer that launches them (substrings of the name)
 KERNEL_GROUPS = [
     ("k2_flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_simt_kernel")),
-    ("k3_flash_dq", ("flash_dq_kernel",)),
-    ("k4_flash_dkv", ("flash_dkv_kernel",)),
+    ("k3_flash_dq", ("flash_dq_wgmma_kernel", "flash_dq_kernel")),
+    ("k4_flash_dkv", ("flash_dkv_wgmma_kernel", "flash_dkv_kernel")),
     ("k1_permute", ("permute_tiled_kernel", "permute_copy_kernel")),
     ("gemm", ("gemm", "xmma", "cutlass", "Kernel2")),
     ("cufft", ("fft", "FFT")),
@@ -183,12 +189,12 @@ def phase_environment(torch, pat, build, dist_dir):
         for line in build.build_info[name]["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[env] ptxas {name}: {line.strip()}")
-    k2 = k2_instances(build)
+    instances = flash_instances(build)
     pat.distributed.initialize(
         "nccl", init_method=f"file://{os.path.join(dist_dir, 'rdv')}",
         world_size=1, rank=0)
     log("[env] nccl process group: world 1, rank 0")
-    return smi, k2
+    return smi, instances
 
 
 def _ptxas_report(log_text: str) -> dict:
@@ -212,42 +218,55 @@ def _ptxas_report(log_text: str) -> dict:
 
 
 def _kernel_label(mangled: str) -> str:
-    """``flash_fwd_wgmma_kernel<128,128>`` from a mangled K2 name."""
-    base = re.search(r"flash_fwd_\w+?_kernel", mangled).group(0)
+    """``flash_fwd_wgmma_kernel<128,128>`` from a mangled K2–K4 name."""
+    base = re.search(r"flash_\w+?_kernel", mangled).group(0)
     nums = ",".join(re.findall(r"Li(\d+)E", mangled))
     return f"{base}<{nums}>"
 
 
-def k2_instances(build) -> dict:
-    """Each K2 kernel's registers and spill bytes, and a ``cuobjdump
+# the flash kernels of each library, by the kernel they implement
+FLASH_LIBS = {"flash_fwd": {"k2": "flash_fwd_"},
+              "flash_bwd": {"k3": "flash_dq_", "k4": "flash_dkv_"}}
+
+
+def flash_instances(build) -> dict:
+    """Each K2–K4 kernel's registers and spill bytes, and a ``cuobjdump
     -sass`` check: every wgmma kernel must hold HGMMA (wgmma) and UTMALDG
-    (TMA tile load) instructions."""
-    info = build.build_info["flash_fwd"]
-    regs = _ptxas_report(info["log"])
+    (TMA tile load) instructions and spill nothing.  Returns
+    ``{"k2": {label: report}, "k3": ..., "k4": ...}``."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", info["path"]],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    ops, name = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            ops[name] = set()
-        elif name:
-            ops[name].update(w for w in ("HGMMA", "UTMALDG") if w in line)
     out = {}
-    for mangled in sorted(set(regs) | set(ops)):
-        if "flash_fwd_" not in mangled:
-            continue
-        r = dict(regs.get(mangled, {}), sass=sorted(ops.get(mangled, ())))
-        out[_kernel_label(mangled)] = r
-        log(f"[env] K2 {_kernel_label(mangled)}: {json.dumps(r)}")
-    wgmma = [k for k in out if "wgmma" in k]
-    if not wgmma or any(out[k]["sass"] != ["HGMMA", "UTMALDG"]
-                        for k in wgmma):
-        raise AssertionError(f"K2 wgmma instance lacks HGMMA/UTMALDG: {out}")
-    log(f"[env] SASS: {len(wgmma)} wgmma kernels of K2 hold HGMMA and "
-        f"UTMALDG")
+    for lib, kernels in FLASH_LIBS.items():
+        info = build.build_info[lib]
+        regs = _ptxas_report(info["log"])
+        sass = subprocess.run([cuobjdump, "-sass", info["path"]],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        ops, name = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                ops[name] = set()
+            elif name:
+                ops[name].update(w for w in ("HGMMA", "UTMALDG") if w in line)
+        for mangled in sorted(set(regs) | set(ops)):
+            key = next((k for k, prefix in kernels.items()
+                        if prefix in mangled), None)
+            if key is None:
+                continue
+            r = dict(regs.get(mangled, {}), sass=sorted(ops.get(mangled, ())))
+            out.setdefault(key, {})[_kernel_label(mangled)] = r
+            log(f"[env] {key.upper()} {_kernel_label(mangled)}: "
+                f"{json.dumps(r)}")
+    for key in ("k2", "k3", "k4"):
+        wgmma = {k: r for k, r in out.get(key, {}).items() if "wgmma" in k}
+        if not wgmma or any(
+                r["sass"] != ["HGMMA", "UTMALDG"] or r.get("spill_stores")
+                or r.get("spill_loads") for r in wgmma.values()):
+            raise AssertionError(f"{key.upper()} wgmma instance lacks "
+                                 f"HGMMA/UTMALDG or spills: {wgmma}")
+        log(f"[env] SASS: {len(wgmma)} wgmma kernels of {key.upper()} hold "
+            f"HGMMA and UTMALDG, 0 spill bytes")
     return out
 
 
@@ -500,7 +519,12 @@ def phase_navier_stokes(torch, dist, pat, k1, models):
 # rounds the output once, which is at most one bf16 ulp (2^-7 of the
 # element) apart, and the forward rounds P to bf16 against running maxima
 # that differ between a kernel tile and a plain chunk: 2^-6 allows one ulp
-# for each.
+# for each.  The wgmma backward also rounds P and dS to bf16 where they
+# become A fragments (the plain version keeps them in f32): each term of
+# a row's sum then carries an independent relative error of at most 2^-9,
+# ~2^-9/sqrt(3) on average, so over many terms the row moves by
+# ≲ 2^-9/sqrt(3) of its scale; the output's own rounding (one ulp, 2^-7)
+# dominates, and the bar stays 2^-6.
 FLASH_TOL = {("fwd", "float32"): 1e-5, ("bwd", "float32"): 5e-5,
              ("fwd", "bfloat16"): 2 ** -6, ("bwd", "bfloat16"): 2 ** -6}
 FLASH_OFFSETS = [(False, 0, 0), (True, 0, 0), (True, 5, 0), (True, 0, 3),
@@ -520,10 +544,30 @@ def _rel_err(torch, got, want, rows=None) -> float:
     return float(((got - want).abs() / scale).max())
 
 
+def _bwd_launched(flash, fn, dtypes, what):
+    """``fn()``, which must launch K3 and K4 once each, by the instance
+    ``bwd_instance`` picks for the head dim and the q, k, v, dO dtypes."""
+    by0 = [dict(flash.launches_dq_by_instance),
+           dict(flash.launches_dkv_by_instance)]
+    out = fn()
+    want = flash.bwd_instance(*dtypes)
+    for kernel, before, now in zip(
+            ("K3", "K4"), by0, (flash.launches_dq_by_instance,
+                                flash.launches_dkv_by_instance)):
+        got = {i: now[i] - before[i] for i in before}
+        if got != {i: int(i == want) for i in got}:
+            raise AssertionError(f"{what}: {kernel} launches by instance "
+                                 f"{got}, expected one {want}")
+    return out
+
+
 def flash_compare(torch, flash, q, k, v, causal, q_off, kv_off):
     """K2 (three modes), K3 + K4 (full and partials) against the plain
     versions on one case; returns {"fwd": err, "bwd": err}, each the worst
-    per-row relative error (_rel_err) of the tensors of that direction."""
+    per-row relative error (_rel_err) of the tensors of that direction.
+    The partials backward runs with dO in q's dtype (as the ring
+    backwards pass it) and, for a bf16 q, also widened to f32; each
+    K3/K4 call must launch the instance ``bwd_instance`` picks."""
     sq = q.shape[0]
     rows = (q_off + torch.arange(sq, device=q.device)) >= kv_off
     kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
@@ -549,16 +593,26 @@ def flash_compare(torch, flash, q, k, v, causal, q_off, kv_off):
     gen = torch.Generator(device=q.device).manual_seed(SEED + 7)
     do = torch.randn(q.shape, generator=gen, device=q.device)
     do = (do * rows.view(-1, *([1] * (q.dim() - 1)))).to(q.dtype)
-    got = flash.flash_attention_bwd(q, k, v, out_p, do, m_p, l_p, **kw)
+    d = q.shape[-1]
+    what = (f"bwd d={d} {q.dtype}/{k.dtype}/{v.dtype} causal={causal} "
+            f"offsets=({q_off},{kv_off})")
+    got = _bwd_launched(flash, lambda: flash.flash_attention_bwd(
+        q, k, v, out_p, do, m_p, l_p, **kw),
+        (d, q.dtype, k.dtype, v.dtype, do.dtype), what)
     want = flash.flash_attention_bwd_plain(q, k, v, out_p, do, m_p, l_p, **kw)
     bwd += [_rel_err(torch, a, b) for a, b in zip(got, want)]
     L, D = flash.residuals(out_p, do, m_p, l_p)
     h, b = q.shape[1], q.shape[2]
     L, D = L.reshape(h, b, sq), D.reshape(h, b, sq)
-    g32 = do.float()
-    got = flash.flash_attention_bwd_partials(q, k, v, g32, L, D, **kw)
-    want = flash.flash_attention_bwd_partials_plain(q, k, v, g32, L, D, **kw)
-    bwd += [_rel_err(torch, a, b) for a, b in zip(got, want)]
+    for g in [do] + ([do.float()] if do.dtype != torch.float32 else []):
+        got = _bwd_launched(
+            flash, lambda: flash.flash_attention_bwd_partials(
+                q, k, v, g, L, D, **kw),
+            (d, q.dtype, k.dtype, v.dtype, g.dtype), f"{what} partials dO "
+            f"{g.dtype}")
+        want = flash.flash_attention_bwd_partials_plain(q, k, v, g, L, D,
+                                                        **kw)
+        bwd += [_rel_err(torch, a, b) for a, b in zip(got, want)]
     return {"fwd": max(fwd), "bwd": max(bwd)}
 
 
@@ -590,7 +644,7 @@ def _ring_emulation(torch, flash, merge, dtype, blk, H, D, P=4):
         out = flash.normalize(carry[1], carry[2], torch.float32)
         out_full = flash.normalize(full[1], full[2], torch.float32)
         fwd.append(_rel_err(torch, out, out_full))
-        do = rnd(blk, H, 1, D).float()
+        do = rnd(blk, H, 1, D)   # the cotangent in q's dtype, as the ring
         L, Drow = flash.residuals(out_full, do, full[0].reshape(H, blk),
                                   full[1].reshape(H, blk))
         L, Drow = L.reshape(H, 1, blk), Drow.reshape(H, 1, blk)
@@ -656,7 +710,7 @@ def _zigzag_emulation(torch, flash, merge, pairs, dtype, b, H, D, P=4):
             out_full = flash.normalize(full[1], full[2], f32)
             fwd.append(_rel_err(torch, flash.normalize(
                 stats[qh][1], stats[qh][2], f32), out_full))
-            do = rnd(b, H, 1, D).float()
+            do = rnd(b, H, 1, D)
             L, Drow = flash.residuals(out_full, do, full[0].reshape(H, b),
                                       full[1].reshape(H, b))
             L, Drow = L.reshape(H, 1, b), Drow.reshape(H, 1, b)
@@ -716,12 +770,14 @@ def _mixed_check(torch, flash, attention):
 
 
 def _wgmma_edges(torch, flash, keep):
-    """The wgmma instance of K2 at its edges, in bf16: head dims of each
-    class and off its 64-column boxes, Sq below one warpgroup, Skv = 1,
-    Skv off the key tile, k/v views with a storage offset (a row slice, as
-    ring rounds pass, and a flat offset of one element, which the wrapper
-    copies to a 16-byte boundary); every mode and offset case of
-    flash_compare.  Only the wgmma instance may launch."""
+    """The wgmma instances of K2, K3 and K4 at their edges, in bf16: head
+    dims of each class and off its 64-column boxes, Sq below one
+    warpgroup, Skv = 1, Skv off the key tile, k/v views with a storage
+    offset (a row slice, as ring rounds pass, and a flat offset of one
+    element, which the wrappers copy to a 16-byte boundary); every mode
+    and offset case of flash_compare.  K2 launches only its wgmma
+    instance; K3/K4 theirs, except the partials calls with an f32 dO
+    (simt), as flash_compare checks call by call."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
     bf16 = torch.bfloat16
     H, B = 3, 2
@@ -734,7 +790,8 @@ def _wgmma_edges(torch, flash, keep):
         flat = rnd(skv * H * B * d + 1)[1:].view(skv, H, B, d)   # off by 2 B
         return rows, flat
 
-    n0 = dict(flash.launches_fwd_by_instance)
+    by = _by_instance(flash)
+    n0 = {key: dict(c) for key, c in by.items()}
     copies0 = flash.realigned_copies
     cases = 0
     for d in (40, 64, 96, 128, 200, 256):
@@ -759,16 +816,16 @@ def _wgmma_edges(torch, flash, keep):
                          "bfloat16", err)
                 cases += 1
     torch.cuda.synchronize()
-    n = {i: flash.launches_fwd_by_instance[i] - n0[i] for i in n0}
+    n = {key: {i: by[key][i] - n0[key][i] for i in n0[key]} for key in by}
     copies = flash.realigned_copies - copies0
-    if n["simt"] != 0 or n["wgmma"] <= 0:
-        raise AssertionError(f"bf16 edge cases launched K2 instances {n}")
+    if n["k2"]["simt"] != 0 or min(c["wgmma"] for c in n.values()) <= 0:
+        raise AssertionError(f"bf16 edge cases launched instances {n}")
     if copies <= 0:
         raise AssertionError("the flat-offset k/v were not realigned")
-    log(f"[flash] K2 wgmma instance at its edges: {cases} cases (d 40 64 96 "
-        f"128 200 256; (Sq, Skv) (237, 301) (50, 1) (50, 200); k/v row slice "
-        f"and flat offset), K2 launches by instance {n}, realigned copies "
-        f"{copies}")
+    log(f"[flash] K2-K4 wgmma instances at their edges: {cases} cases (d 40 "
+        f"64 96 128 200 256; (Sq, Skv) (237, 301) (50, 1) (50, 200); k/v "
+        f"row slice and flat offset), launches by instance {n} (K3/K4 simt: "
+        f"the partials calls with an f32 dO), realigned copies {copies}")
     return cases
 
 
@@ -823,8 +880,9 @@ def phase_flash_check(torch, flash, attention):
         f"{[o[1:] for o in FLASH_OFFSETS[1:]]}; out, return_stats, partials, "
         f"bwd, bwd_partials) + P=4 naive and zigzag causal rings emulated at "
         f"kernel level + flash_attention on mixed q/k/v dtypes "
-        f"{MIXED_DTYPES} (impl=auto: K2, K3, K4 once each) + the K2 wgmma "
-        f"edge cases; worst per-row "
+        f"{MIXED_DTYPES} (impl=auto: K2, K3, K4 once each) + the K2-K4 "
+        f"wgmma edge cases; every K3/K4 call by its bwd_instance; worst "
+        f"per-row "
         f"rel err " + json.dumps({f"{a} {b}": v for (a, b), v in
                                   worst.items()})
         + f"; tolerances {json.dumps({f'{a} {b}': v for (a, b), v in FLASH_TOL.items()})}")
@@ -840,31 +898,48 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # serving against dense attention in f32, per row (_rel_err): in bf16 the
 # kernel rounds P and the output (half an ulp, 2^-8 of an element, each)
 SERVE_TOL = {"float32": 2e-5, "bfloat16": 2 ** -6}
-# a training gradient sums dq/dk/dv (each within 5e-5 of plain) over all
-# S x H rows of the projections
-TRAIN_GRAD_TOL = 1e-4
+# a training gradient sums dq/dk/dv (each within 5e-5 of plain in f32)
+# over all S x H rows of the projections; in bf16 each grad is held to the
+# per-row bar of the bf16 kernels (phases 6-7), 2^-6
+TRAIN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
+# SGD step: the example's 0.1 in f32.  bf16 projections round the f32
+# master weights to bf16 (2^-11 at |w| ~ D^-1/2) and an update of
+# 0.1 x grad (~3e-6 here) would leave nearly all of them unchanged, so the
+# bf16 run steps 100x further (~3e-4, about one bf16 ulp of a weight)
+TRAIN_LR = {"float32": 0.1, "bfloat16": 10.0}
+
+
+def _by_instance(flash):
+    return {"k2": flash.launches_fwd_by_instance,
+            "k3": flash.launches_dq_by_instance,
+            "k4": flash.launches_dkv_by_instance}
 
 
 def _counts(k1, flash):
-    return dict(k1=k1.launches, k2=flash.launches_fwd,
-                k3=flash.launches_dq, k4=flash.launches_dkv,
-                k2_wgmma=flash.launches_fwd_by_instance["wgmma"],
-                k2_simt=flash.launches_fwd_by_instance["simt"])
+    n = dict(k1=k1.launches, k2=flash.launches_fwd, k3=flash.launches_dq,
+             k4=flash.launches_dkv)
+    for key, by in _by_instance(flash).items():
+        n.update({f"{key}_{inst}": c for inst, c in by.items()})
+    return n
 
 
 def _reset_counts(k1, flash):
     k1.launches = 0
     flash.launches_fwd = flash.launches_dq = flash.launches_dkv = 0
-    for inst in flash.launches_fwd_by_instance:
-        flash.launches_fwd_by_instance[inst] = 0
+    for by in _by_instance(flash).values():
+        for inst in by:
+            by[inst] = 0
 
 
-def _check_instance(n, name, what):
-    """bf16 calls launch only K2's wgmma instance, f32 only its simt one."""
-    want, other = (("k2_wgmma", "k2_simt") if name == "bfloat16"
-                   else ("k2_simt", "k2_wgmma"))
-    if n[want] <= 0 or n[other] != 0:
-        raise AssertionError(f"{what} {name}: K2 launches by instance {n}")
+def _check_instance(n, name, what, kernels=("k2",)):
+    """bf16 calls launch only the wgmma instance of each kernel, f32 only
+    its simt one."""
+    want, other = (("wgmma", "simt") if name == "bfloat16"
+                   else ("simt", "wgmma"))
+    for key in kernels:
+        if n[f"{key}_{want}"] <= 0 or n[f"{key}_{other}"] != 0:
+            raise AssertionError(f"{what} {name}: {key.upper()} launches by "
+                                 f"instance {n}")
 
 
 def phase_serving(torch, pat, models, k1, flash):
@@ -915,15 +990,18 @@ def phase_serving(torch, pat, models, k1, flash):
     return out
 
 
-def phase_training(torch, pat, models, k1, flash, steps=3):
+def phase_training(torch, pat, models, k1, flash, dtype, steps=3):
     """The block of examples/long_context_training.py with the port's API
     at full width: replicated D x D projections wq, wk, wv, wo, causal
     ring attention with zigzag=True as in the example (on a (1,) topology
     ring_attention runs the naive schedule: the zigzag one is checked in
-    phase 6), MSE loss, SGD with step 0.1.
-    One step's gradients on the kernel path against the plain path, then
-    ``steps`` steps with every count reset just before."""
+    phase 6), MSE loss, SGD (TRAIN_LR).  The weights are f32 masters; in
+    bf16, x and the weights are cast to bf16 for the projections, so
+    q/k/v, the attention and its output are bf16, and the loss is taken in
+    f32.  One step's gradients on the kernel path against the plain path,
+    then ``steps`` steps with every count reset just before."""
     S, H, D = S_ATT, H_ATT, D_ATT
+    name = str(dtype).split(".")[-1]
     topo = pat.Topology((1,))
     pen = pat.Pencil(topo, (S, H), (0,))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -935,29 +1013,32 @@ def phase_training(torch, pat, models, k1, flash, steps=3):
     target = models.to_zigzag(pat.PencilArray(pen, rnd(S, H, D))).data
     params = {w: rnd(D, D, scale=D ** -0.5).requires_grad_()
               for w in ("wq", "wk", "wv", "wo")}
+    xc = x.to(dtype)
 
     def loss_and_grads(impl):
         def proj(w):
-            return pat.PencilArray(pen, x @ params[w], (D,))
+            return pat.PencilArray(pen, xc @ params[w].to(dtype), (D,))
         out = models.ring_attention(proj("wq"), proj("wk"), proj("wv"),
                                     causal=True, zigzag=True, impl=impl)
-        loss = ((out.data @ params["wo"] - target) ** 2).mean()
+        y = (out.data @ params["wo"].to(dtype)).float()
+        loss = ((y - target) ** 2).mean()
         grads = torch.autograd.grad(loss, list(params.values()))
         return float(loss.detach()), dict(zip(params, grads))
 
     _, g_kernel = loss_and_grads("kernel")
     _, g_plain = loss_and_grads("plain")
     grad_err = max(_rel_err(torch, g_kernel[w], g_plain[w]) for w in params)
-    if not grad_err <= TRAIN_GRAD_TOL:
-        raise AssertionError(f"training grads kernel vs plain: {grad_err}")
-    log(f"[train] one step's grads, kernel path vs plain path on the card: "
-        f"rel err {grad_err:.3e} (<= {TRAIN_GRAD_TOL})")
+    if not grad_err <= TRAIN_GRAD_TOL[name]:
+        raise AssertionError(f"training {name} grads kernel vs plain: "
+                             f"{grad_err}")
+    log(f"[train] {name}: one step's grads, kernel path vs plain path on the "
+        f"card: rel err {grad_err:.3e} (<= {TRAIN_GRAD_TOL[name]})")
 
     def step():
         loss, grads = loss_and_grads("auto")
         with torch.no_grad():
             for w in params:
-                params[w] -= 0.1 * grads[w]
+                params[w] -= TRAIN_LR[name] * grads[w]
         return loss
 
     torch.cuda.synchronize()
@@ -969,18 +1050,18 @@ def phase_training(torch, pat, models, k1, flash, steps=3):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     n = _counts(k1, flash)
-    log(f"[train] S={S} H={H} D={D} f32 causal ring (naive schedule on one "
-        f"rank) on (1,): losses "
-        f"{losses}, step ms {[round(t, 3) for t in step_ms]}, launches {n}")
+    log(f"[train] S={S} H={H} D={D} {name} causal ring (naive schedule on "
+        f"one rank) on (1,): losses {losses}, step ms "
+        f"{[round(t, 3) for t in step_ms]}, launches {n}")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training loss did not fall: {losses}")
-    if min(n["k2"], n["k3"], n["k4"]) <= 0:
-        raise AssertionError(f"training launched {n}")
-    _check_instance(n, "float32", "training")
+        raise AssertionError(f"training {name} loss did not fall: {losses}")
     # after the counts were read: where one step's time goes
-    profile(torch, step, f"training step S={S} H={H} D={D} f32")
+    prof = profile(torch, step, f"training step S={S} H={H} D={D} {name}")
+    if min(n["k2"], n["k3"], n["k4"]) <= 0:
+        raise AssertionError(f"training {name} launched {n}")
+    _check_instance(n, name, "training", ("k2", "k3", "k4"))
     return dict(losses=losses, step_ms=step_ms, launches=n,
-                grad_err=grad_err)
+                grad_err=grad_err, profile=prof)
 
 
 def phase_flash_timing(torch, flash, bw):
@@ -1011,14 +1092,25 @@ def phase_flash_timing(torch, flash, bw):
                                                       **kw)
             flash.launch_dq(qf, kf, vf, dof, L, Dr, dq, **kw)
             flash.launch_dkv(qf, kf, vf, dof, L, Dr, dk, dv, **kw)
-            err = {"k2": max_abs_err(torch, out, out_p),
-                   "k3": max_abs_err(torch, dq, grads_p[0].reshape(S, H, D)),
-                   "k4": max(max_abs_err(torch, dk, grads_p[1].reshape(
-                       S, H, D)), max_abs_err(torch, dv, grads_p[2].reshape(
-                           S, H, D)))}
+            pairs = {"k2": [(out, out_p)],
+                     "k3": [(dq, grads_p[0].reshape(S, H, D))],
+                     "k4": [(dk, grads_p[1].reshape(S, H, D)),
+                            (dv, grads_p[2].reshape(S, H, D))]}
+            err = {key: max(max_abs_err(torch, a, b) for a, b in ab)
+                   for key, ab in pairs.items()}
+            rel = {key: max(_rel_err(torch, a, b) for a, b in ab)
+                   for key, ab in pairs.items()}
+            for key, e in rel.items():
+                tol = FLASH_TOL[("fwd" if key == "k2" else "bwd", name)]
+                if not e <= tol:
+                    raise AssertionError(f"{key} {name} causal={causal} at "
+                                         f"the headline shape: rel err {e} "
+                                         f"> {tol}")
             it = 5
-            inst = flash.fwd_instance(D, dtype, dtype, dtype)
-            by0 = dict(flash.launches_fwd_by_instance)
+            inst = {"k2": flash.fwd_instance(D, dtype, dtype, dtype),
+                    "k3": flash.bwd_instance(D, dtype, dtype, dtype, dtype)}
+            inst["k4"] = inst["k3"]
+            by0 = {key: dict(c) for key, c in _by_instance(flash).items()}
             ms = {
                 "k2": cuda_ms(torch, lambda: flash.flash_attention_fwd(
                     q, k, v, **kw), it),
@@ -1026,10 +1118,11 @@ def phase_flash_timing(torch, flash, bw):
                     qf, kf, vf, dof, L, Dr, dq, **kw), it),
                 "k4": cuda_ms(torch, lambda: flash.launch_dkv(
                     qf, kf, vf, dof, L, Dr, dk, dv, **kw), it)}
-            k2_by = {i: flash.launches_fwd_by_instance[i] - by0[i]
-                     for i in by0}
-            if k2_by[inst] != it + 1 or sum(k2_by.values()) != it + 1:
-                raise AssertionError(f"K2 {name} timing launched {k2_by}")
+            timed_by = {key: {i: c[i] - by0[key][i] for i in c}
+                        for key, c in _by_instance(flash).items()}
+            for key, by in timed_by.items():
+                if by[inst[key]] != it + 1 or sum(by.values()) != it + 1:
+                    raise AssertionError(f"{key} {name} timing launched {by}")
             plain_fwd = cuda_ms(torch, lambda: flash.flash_attention_fwd_plain(
                 q, k, v, **kw), it)
             plain_bwd = cuda_ms(torch, lambda: flash.flash_attention_bwd_plain(
@@ -1066,9 +1159,9 @@ def phase_flash_timing(torch, flash, bw):
                          if flops[key] / peak >= nbytes[key] / bw
                          else "bytes",
                          tflops=flops[key] / ms[key] / 1e9,
-                         max_abs_err=err[key])
-                if key == "k2":
-                    r.update(instance=inst, timed_launches_by_instance=k2_by)
+                         max_abs_err=err[key], rel_err=rel[key],
+                         instance=inst[key],
+                         timed_launches_by_instance=timed_by[key])
                 rows.append(r)
                 log(f"[time] {key} S={S} H={H} D={D} {name} "
                     f"{'causal' if causal else 'full'}: " + json.dumps(r))
@@ -1086,7 +1179,8 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        log("chip_smoke: no CUDA device available "
+            "(torch.cuda.is_available() is false)")
         return 1
     import torch.distributed as dist
 
@@ -1102,7 +1196,7 @@ def main() -> int:
     t_start = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as dist_dir:
         try:
-            smi, k2_build = phase_environment(torch, pat, build, dist_dir)
+            smi, instances = phase_environment(torch, pat, build, dist_dir)
             bw = bandwidth(smi)
             log(f"[env] bound uses {bw / 1e12:.2f} TB/s for '{smi}'")
             timed = phase_kernel(torch, k1, bw)
@@ -1111,19 +1205,22 @@ def main() -> int:
             ns = phase_navier_stokes(torch, dist, pat, k1, models)
             checks = phase_flash_check(torch, flash, models.attention)
             serve = phase_serving(torch, pat, models, k1, flash)
-            train = phase_training(torch, pat, models, k1, flash)
+            train = {f"train_{str(dt).split('.')[-1]}": phase_training(
+                torch, pat, models, k1, flash, dt)
+                for dt in (torch.float32, torch.bfloat16)}
             timing = phase_flash_timing(torch, flash, bw)
         finally:
             pat.distributed.finalize()
     main_case = timed[MAIN_CASE]
     # launches per path, each counted from 0 just before its run; the
     # kernels line gives their sum and each
-    paths = {"k1": {"navier_stokes": ns["k1_launches"]},
-             "k2": {}, "k3": {}, "k4": {}, "k2_wgmma": {}, "k2_simt": {}}
-    for run, n in {**serve, "train": train["launches"]}.items():
-        for key in paths:
-            if n[key]:
-                paths[key][run] = n[key]
+    runs = {**serve, **{run: t["launches"] for run, t in train.items()}}
+    paths = {"k1": {"navier_stokes": ns["k1_launches"]}}
+    for run, n in runs.items():
+        for key, count in n.items():
+            paths.setdefault(key, {})
+            if count:
+                paths[key][run] = count
     kernels = [{
         "name": "permute",
         "route": "cuda",
@@ -1140,8 +1237,8 @@ def main() -> int:
         "checked": True,
         "shape": MAIN_CASE,
     }]
-    # K2-K4: times at S=4096 H=8 D=128 f32 full; K2 also per dtype, each
-    # with the instance that ran it
+    # K2-K4: times at S=4096 H=8 D=128 f32 full; also per dtype, each with
+    # the instance that ran it
     for key, name, src, replaces in (
             ("k2", "flash_fwd", "flash_fwd.cu",
              "pencilarrays_tpu/ops/flash_pallas.py:287"),
@@ -1164,24 +1261,20 @@ def main() -> int:
             "shape": f"S={S_ATT} H={H_ATT} D={D_ATT} float32 non-causal",
             "check_rel_err": {f"{a} {b}": v for (a, b), v in checks.items()
                               if (a == "fwd") == (key == "k2")},
-            "timings": [{k: r[k] for k in ("dtype", "causal", "ms",
-                                           "plain_ms", "library_ms",
-                                           "bound_ms", "max_abs_err")
-                         if k in r} for r in mine]})
-        if key == "k2":
-            kernels[-1].update(
-                launches_by_instance={
-                    i: sum(paths[f"k2_{i}"].values())
-                    for i in ("wgmma", "simt")},
-                by_dtype={r["dtype"]: {k: r[k] for k in (
-                    "instance", "ms", "bound_ms", "bound_by", "plain_ms",
-                    "library_ms", "tflops", "max_abs_err",
-                    "timed_launches_by_instance")}
-                    for r in mine if not r["causal"]},
-                instances=k2_build)
-            for r in kernels[-1]["timings"]:
-                r["instance"] = next(
-                    t["instance"] for t in mine if t["dtype"] == r["dtype"])
+            "timings": [{k: r[k] for k in ("dtype", "causal", "instance",
+                                           "ms", "plain_ms", "library_ms",
+                                           "bound_ms", "tflops",
+                                           "max_abs_err", "rel_err")}
+                        for r in mine],
+            "launches_by_instance": {
+                i: sum(paths[f"{key}_{i}"].values())
+                for i in ("wgmma", "simt")},
+            "by_dtype": {r["dtype"]: {k: r[k] for k in (
+                "instance", "ms", "bound_ms", "bound_by", "plain_ms",
+                "library_ms", "tflops", "max_abs_err", "rel_err",
+                "timed_launches_by_instance")}
+                for r in mine if not r["causal"]},
+            "instances": instances[key]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1191,4 +1284,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except BaseException:
+        # the reason on stdout too, for readers of stdout alone; the
+        # exception then propagates and the exit code is non-zero
+        traceback.print_exc(file=sys.stdout)
+        sys.stdout.flush()
+        raise
+    sys.exit(rc)

@@ -344,7 +344,10 @@ class _RingFlash(torch.autograd.Function):
         dv = torch.zeros_like(dk)
         cur_k, cur_v = kb, vb
         for r in range(P):
-            dq_r, dk_r, dv_r = bwd(qb, cur_k, cur_v, g32, L, D,
+            # the cotangent in its own dtype (the output's): the per-block
+            # backward widens it exactly, and a bf16 ring keeps K3/K4 on
+            # their bf16 (wgmma) instance
+            dq_r, dk_r, dv_r = bwd(qb, cur_k, cur_v, g, L, D,
                                    causal=causal, q_offset=me * s_blk,
                                    kv_offset=((me - r) % P) * s_blk)
             dq += dq_r
@@ -433,8 +436,8 @@ class _ZigzagFlash(torch.autograd.Function):
             for qh, kh, qo, ko in _zigzag_pairs(me, r, P, b):
                 dq_p, dk_p, dv_p = bwd(
                     _half(qb, qh, b), _half(rk, kh, b), _half(rv, kh, b),
-                    _half(g32, qh, b), *resid[qh], causal=True, q_offset=qo,
-                    kv_offset=ko)
+                    _half(g, qh, b), *resid[qh], causal=True, q_offset=qo,
+                    kv_offset=ko)   # g in its own dtype, as in _RingFlash
                 dq[qh] = dq_p if dq[qh] is None else dq[qh] + dq_p
                 _half(dk, kh, b).add_(dk_p)
                 _half(dv, kh, b).add_(dv_p)

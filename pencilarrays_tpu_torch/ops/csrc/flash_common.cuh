@@ -136,6 +136,31 @@ __device__ __forceinline__ bool tile_visible(int causal, long long q_off,
   return !causal || q_off + r0 + bq - 1 >= kv_off + c0;
 }
 
+// Key tiles of BK a CTA at q rows [r0, r0 + bq) visits: all of them, or
+// under the causal mask those up to the last one tile_visible admits (the
+// loop ends there: the predicate only gets harder as keys advance).
+__device__ __forceinline__ int visible_tiles(int skv, int causal,
+                                             long long q_off,
+                                             long long kv_off, long long r0,
+                                             int bq, int bk) {
+  const int all = (skv + bk - 1) / bk;
+  if (!causal) return all;
+  const long long lim = q_off + r0 + bq - 1 - kv_off;
+  if (lim < 0) return 0;
+  return (int)min((long long)all, lim / bk + 1);
+}
+
+// The (q tile, head·batch slice) of a CTA of a grid (q tiles, n).  CTAs
+// start in the order of their linear index: the last q tiles of every
+// slice, which see the most keys under a causal mask, go first, so the
+// short ones fill in last.
+__device__ __forceinline__ void cta_tile(int n, int bq, long long& r0,
+                                         int& hb) {
+  const long long lin = blockIdx.x + (long long)blockIdx.y * gridDim.x;
+  hb = (int)(lin % n);
+  r0 = (gridDim.x - 1 - lin / n) * bq;
+}
+
 // Tile sizes of one kernel instance (see the per-kernel tables).
 template <int BQ_, int BK_, int DMAX_, int DCOL_ = DMAX_>
 struct Tiles {

@@ -80,27 +80,6 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// The (q tile, head·batch slice) of this CTA.  CTAs start in the order of
-// their linear index: the last q tiles of every slice, which see the most
-// keys under a causal mask, go first, so the short ones fill in last.
-__device__ __forceinline__ void cta_tile(int n, int bq, long long& r0,
-                                         int& hb) {
-  const long long lin = blockIdx.x + (long long)blockIdx.y * gridDim.x;
-  hb = (int)(lin % n);
-  r0 = (gridDim.x - 1 - lin / n) * bq;   // gridDim = (q tiles, n)
-}
-
-// Key tiles of BK a CTA at q rows [r0, r0 + bq) visits: all of them, or
-// under the causal mask those up to the last one tile_visible admits.
-__device__ __forceinline__ int visible_tiles(const FwdArgs& a, long long r0,
-                                             int bq, int bk) {
-  const int all = (a.skv + bk - 1) / bk;
-  if (!a.causal) return all;
-  const long long lim = a.q_off + r0 + bq - 1 - a.kv_off;
-  if (lim < 0) return 0;
-  return (int)min((long long)all, lim / bk + 1);
-}
-
 // ---------------------------------------------------------------------------
 // wgmma instance
 // ---------------------------------------------------------------------------
@@ -127,11 +106,6 @@ struct WgTiles {
   static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES + 1024;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
 template <class T>
 __global__ void __launch_bounds__(T::NT, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ WgArgs w) {
@@ -150,7 +124,8 @@ __global__ void __launch_bounds__(T::NT, 1)
   int hb;
   long long r0;
   cta_tile(a.n, BQ, r0, hb);
-  const int nk = visible_tiles(a, r0, BQ, BK);
+  const int nk =
+      visible_tiles(a.skv, a.causal, a.q_off, a.kv_off, r0, BQ, BK);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     mbar_init(&bar_q, 1);
@@ -263,13 +238,7 @@ __global__ void __launch_bounds__(T::NT, 1)
         s[i] = exp2f(fmaf(s[i], kLog2e, -mscaled[h]));
         rs[h] += s[i];
       }
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        // A fragment of k-step kk: columns 16 kk + 2 t (+1) and + 8
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-      }
+      pack_a<BK>(pa, s);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         lrow[h] = lrow[h] * corr[h] + row_sum<4>(rs[h]);
@@ -458,7 +427,8 @@ __global__ void __launch_bounds__(T::NT, T::MINB)
   int hb;
   long long r0;
   cta_tile(a.n, BQ, r0, hb);
-  const int nk = visible_tiles(a, r0, BQ, BK);
+  const int nk =
+      visible_tiles(a.skv, a.causal, a.q_off, a.kv_off, r0, BQ, BK);
   start_tile<BQ, DMAX, NT>(Qs, a.q, a.q_dt, a.n, hb, a.sq, a.d, r0);
   cp_async_commit();
   if (nk > 0) start_tile<BK, DMAX, NT>(Ks, a.k, a.k_dt, a.n, hb, a.skv, a.d, 0);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels: TMA
 // tensor maps and tile loads, mbarriers, and warpgroup matrix multiplies
-// (wgmma) with their shared-memory descriptors.  Used by the bf16 instance
-// of K2 (flash_fwd.cu).
+// (wgmma) with their shared-memory descriptors, and the packing of an
+// accumulator into the A fragment of the next product.  Used by the bf16
+// (wgmma) instances of K2 (flash_fwd.cu) and of K3/K4 (flash_bwd.cu).
 //
 // Shared-memory tiles are TMA boxes of 64 bf16 columns (128 bytes a row)
 // written with the 128-byte swizzle; a box of R rows takes R * 128 bytes
@@ -17,6 +18,7 @@
 
 #include <cstdint>
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace pa_sm90 {
@@ -176,6 +178,22 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// D(64 x 32) (+)= A(64 x 16) * B(32 x 16)^T, A and B in shared memory,
+// both K-major; D is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D(64 x 64) (+)= A(64 x 16) * B(64 x 16)^T, A and B in shared memory,
 // both K-major; D is overwritten when `accumulate` is 0.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
@@ -317,6 +335,32 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// device: accumulator -> A fragment
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// In the m64 accumulator fragment of a 64 x N product, lane (g, t) =
+// (lane / 4, lane % 4) of warp w of the warpgroup holds rows 16 w + g
+// (+ 8) and columns 8 j + 2 t (+ 1): register 4 j + e is row half e >> 1,
+// column 8 j + 2 t + (e & 1).  The A fragment of a register-shared product
+// has the same quad layout, so a 64 x N accumulator, rounded to bf16,
+// becomes the A operand of a product of depth N with no shared memory in
+// between: k-step kk takes columns 16 kk .. 16 kk + 15.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[N / 16][4],
+                                       const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
 }
 
 }  // namespace pa_sm90

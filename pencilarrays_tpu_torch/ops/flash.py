@@ -20,7 +20,10 @@ in place: nothing is transposed or padded around a launch.
   key tiles inner and dk/dv with q tiles inner, rebuilding each score block
   from the saved logsumexp ``L = m + log l``: :func:`flash_attention_bwd`
   (grads in the input dtypes) and :func:`flash_attention_bwd_partials` (one
-  ring round against a global ``L``; f32 grads).
+  ring round against a global ``L``; f32 grads).  Two instances of each,
+  chosen by :func:`bwd_instance`: ``"wgmma"`` (q, k, v and dO all bf16,
+  ``d <= 256``: tensor cores fed by TMA, so operands not on 16 bytes are
+  copied as for K2) and ``"simt"`` (every other case: f32 FMA).
 
 Conventions of the TPU kernels, kept bit for bit where they are defined:
 masked scores take ``NEG = finfo(float32).min / 2``; the causal mask is
@@ -33,9 +36,10 @@ unspecified finite value, as in the JAX package.
 For CPU tensors every function runs its plain PyTorch version
 (``*_plain``, a chunked streaming loop, memory ``O(Sq x chunk)``); for CUDA
 tensors it launches the kernel or raises — there is no fallback.  Each
-launch adds one to :data:`launches_fwd` (and to its instance's entry of
-:data:`launches_fwd_by_instance`), :data:`launches_dq` or
-:data:`launches_dkv`.
+launch adds one to :data:`launches_fwd`, :data:`launches_dq` or
+:data:`launches_dkv`, and to its instance's entry of
+:data:`launches_fwd_by_instance`, :data:`launches_dq_by_instance` or
+:data:`launches_dkv_by_instance`.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ __all__ = [
     "NEG",
     "supported",
     "fwd_instance",
+    "bwd_instance",
     "stream_stats",
     "normalize",
     "launch_dq",
@@ -70,12 +75,18 @@ launches_fwd_by_instance = {"wgmma": 0, "simt": 0}
 """K2 launches by instance (see :func:`fwd_instance`) since the last reset
 (set each entry to 0); they sum to :data:`launches_fwd`."""
 realigned_copies = 0
-"""K2 operands copied to a fresh allocation because their data did not
-start on a 16-byte boundary."""
+"""Operands of K2 and of K3/K4's wgmma instance copied to a fresh
+allocation because their data did not start on a 16-byte boundary."""
 launches_dq = 0
 """K3 launches since the last reset."""
+launches_dq_by_instance = {"wgmma": 0, "simt": 0}
+"""K3 launches by instance (see :func:`bwd_instance`); they sum to
+:data:`launches_dq`."""
 launches_dkv = 0
 """K4 launches since the last reset."""
+launches_dkv_by_instance = {"wgmma": 0, "simt": 0}
+"""K4 launches by instance (see :func:`bwd_instance`); they sum to
+:data:`launches_dkv`."""
 
 NEG = float(torch.finfo(torch.float32).min) / 2   # flash_pallas._NEG
 _DEF_CHUNK = 1024   # key rows per step of the plain streaming loop
@@ -99,7 +110,20 @@ def fwd_instance(d: int, q_dtype: torch.dtype, k_dtype: torch.dtype,
     all bfloat16 and ``d <= 256`` (the tensor-core kernel), else
     ``"simt"`` (any float32 operand, mixes included, and every ``d >
     256``).  Neither is a fallback for the other."""
-    bf16 = all(dt == torch.bfloat16 for dt in (q_dtype, k_dtype, v_dtype))
+    return _instance(d, q_dtype, k_dtype, v_dtype)
+
+
+def bwd_instance(d: int, q_dtype: torch.dtype, k_dtype: torch.dtype,
+                 v_dtype: torch.dtype, do_dtype: torch.dtype) -> str:
+    """Which instance of K3 and K4 takes a call: ``"wgmma"`` when q, k, v
+    and the cotangent dO are all bfloat16 and ``d <= 256`` (the
+    tensor-core kernels), else ``"simt"`` — :func:`fwd_instance`'s rule
+    with dO added.  Neither is a fallback for the other."""
+    return _instance(d, q_dtype, k_dtype, v_dtype, do_dtype)
+
+
+def _instance(d: int, *dtypes) -> str:
+    bf16 = all(dt == torch.bfloat16 for dt in dtypes)
     return "wgmma" if bf16 and d <= 256 else "simt"
 
 
@@ -290,6 +314,8 @@ _ARGTYPES = {   # the C signatures of csrc/flash_fwd.cu and csrc/flash_bwd.cu
     "pa_flash_fwd_wgmma": "ppppipppiiiifillp",
     "pa_flash_bwd_dq": "ppppiiiipppiiiiifillp",
     "pa_flash_bwd_dkv": "ppppiiiippppiiiiifillp",
+    "pa_flash_bwd_dq_wgmma": "pppppppiiiiifillp",
+    "pa_flash_bwd_dkv_wgmma": "ppppppppiiiiifillp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
            "l": ctypes.c_longlong}
@@ -359,7 +385,8 @@ def _raise_on(err: int, what: str):
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it in a fresh allocation when its data does not
-    start on the 16-byte boundary K2's tile loads need."""
+    start on the 16-byte boundary that K2's tile loads and the TMA loads
+    of K3/K4's wgmma instance need."""
     global realigned_copies
     if t.data_ptr() % 16 == 0:
         return t
@@ -392,39 +419,60 @@ def _launch_fwd(qf, kf, vf, out, acc, m, l, *, causal, q_offset,
     launches_fwd_by_instance[inst] += 1
 
 
+def _bwd_inst(qf, kf, vf, dof) -> str:
+    return bwd_instance(qf.shape[-1], qf.dtype, kf.dtype, vf.dtype,
+                        dof.dtype)
+
+
 def launch_dq(qf, kf, vf, dof, L, D, dq, *, causal, q_offset, kv_offset):
-    """One K3 launch: ``dq`` (folded ``(Sq, N, D)``, f32 or bf16) from
-    folded contiguous operands and ``(N, Sq)`` f32 residuals."""
+    """One K3 launch, by the instance :func:`bwd_instance` picks: ``dq``
+    (folded ``(Sq, N, D)``, f32 or bf16) from folded contiguous operands
+    (for the wgmma instance starting on 16 bytes) and ``(N, Sq)`` f32
+    residuals."""
     global launches_dq
     sq, n, d = qf.shape
-    with torch.cuda.device(qf.device):
-        err = _fn("flash_bwd", "pa_flash_bwd_dq")(
-            _ptr(qf), _ptr(kf), _ptr(vf), _ptr(dof), _DT[qf.dtype],
-            _DT[kf.dtype], _DT[vf.dtype], _DT[dof.dtype], _ptr(L), _ptr(D),
-            _ptr(dq), _DT[dq.dtype], n, sq, kf.shape[0], d,
+    inst = _bwd_inst(qf, kf, vf, dof)
+    tail = (_ptr(L), _ptr(D), _ptr(dq), _DT[dq.dtype], n, sq, kf.shape[0], d,
             1.0 / math.sqrt(d), int(causal), q_offset, kv_offset,
             _stream(qf))
-    _raise_on(err, "flash backward dq")
+    with torch.cuda.device(qf.device):
+        if inst == "wgmma":
+            err = _fn("flash_bwd", "pa_flash_bwd_dq_wgmma")(
+                _ptr(qf), _ptr(kf), _ptr(vf), _ptr(dof), *tail)
+        else:
+            err = _fn("flash_bwd", "pa_flash_bwd_dq")(
+                _ptr(qf), _ptr(kf), _ptr(vf), _ptr(dof), _DT[qf.dtype],
+                _DT[kf.dtype], _DT[vf.dtype], _DT[dof.dtype], *tail)
+    _raise_on(err, f"flash backward dq ({inst})")
     launches_dq += 1
+    launches_dq_by_instance[inst] += 1
 
 
 def launch_dkv(qf, kf, vf, dof, L, D, dk, dv, *, causal, q_offset,
                kv_offset):
-    """One K4 launch: ``dk`` and ``dv`` (folded ``(Skv, N, D)``, one dtype)
-    from folded contiguous operands and ``(N, Sq)`` f32 residuals."""
+    """One K4 launch, by the instance :func:`bwd_instance` picks: ``dk``
+    and ``dv`` (folded ``(Skv, N, D)``, one dtype) from folded contiguous
+    operands (for the wgmma instance starting on 16 bytes) and ``(N, Sq)``
+    f32 residuals."""
     global launches_dkv
     sq, n, d = qf.shape
     if dk.dtype != dv.dtype:
         raise TypeError("flash backward: dk and dv must share a dtype")
+    inst = _bwd_inst(qf, kf, vf, dof)
+    tail = (_ptr(L), _ptr(D), _ptr(dk), _ptr(dv), _DT[dk.dtype], n, sq,
+            kf.shape[0], d, 1.0 / math.sqrt(d), int(causal), q_offset,
+            kv_offset, _stream(qf))
     with torch.cuda.device(qf.device):
-        err = _fn("flash_bwd", "pa_flash_bwd_dkv")(
-            _ptr(qf), _ptr(kf), _ptr(vf), _ptr(dof), _DT[qf.dtype],
-            _DT[kf.dtype], _DT[vf.dtype], _DT[dof.dtype], _ptr(L), _ptr(D),
-            _ptr(dk), _ptr(dv), _DT[dk.dtype], n, sq, kf.shape[0], d,
-            1.0 / math.sqrt(d), int(causal), q_offset, kv_offset,
-            _stream(qf))
-    _raise_on(err, "flash backward dk/dv")
+        if inst == "wgmma":
+            err = _fn("flash_bwd", "pa_flash_bwd_dkv_wgmma")(
+                _ptr(qf), _ptr(kf), _ptr(vf), _ptr(dof), *tail)
+        else:
+            err = _fn("flash_bwd", "pa_flash_bwd_dkv")(
+                _ptr(qf), _ptr(kf), _ptr(vf), _ptr(dof), _DT[qf.dtype],
+                _DT[kf.dtype], _DT[vf.dtype], _DT[dof.dtype], *tail)
+    _raise_on(err, f"flash backward dk/dv ({inst})")
     launches_dkv += 1
+    launches_dkv_by_instance[inst] += 1
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = False, q_offset=0,
@@ -470,6 +518,8 @@ def _bwd_kernels(qf, kf, vf, dof, L, D, dq_dtype, dkv_dtype, *, causal,
     sq, n, d = qf.shape
     skv = kf.shape[0]
     dev = qf.device
+    if _bwd_inst(qf, kf, vf, dof) == "wgmma":
+        qf, kf, vf, dof = (_aligned(x) for x in (qf, kf, vf, dof))
     dq = torch.empty((sq, n, d), dtype=dq_dtype, device=dev)
     dk = torch.empty((skv, n, d), dtype=dkv_dtype, device=dev)
     dv = torch.empty((skv, n, d), dtype=dkv_dtype, device=dev)

@@ -155,6 +155,27 @@ def test_impls_agree_on_ranks(devices, pools, impl):
         np.testing.assert_allclose(g, w, atol=2e-5, rtol=2e-5)
 
 
+# (P, zigzag, per-rank flash_attention_bwd_partials calls of one backward):
+# the naive ring makes P calls, the zigzag one 3 + 2 (P - 1)
+RING_COTANGENT = [(1, False, 1), (2, True, 5)]
+
+
+@pytest.mark.parametrize("case", RING_COTANGENT,
+                         ids=["P1-naive", "P2-zigzag"])
+def test_ring_backward_cotangent_dtype(pools, case):
+    """A bf16 ring backward hands K3/K4 the cotangent in bf16 (so on the
+    card it takes their wgmma instance), and the grads are bit-identical
+    to those computed when the same calls get it widened to f32: call by
+    call and for the whole backward."""
+    P, zigzag, n_calls = case
+    q, k, v, ct = _inputs(32, 2, (16,), seed=21)
+    got = pools.run(P, tasks.ring_cotangent_case, P, zigzag, q, k, v, ct)
+    assert [c[0] for c in got["calls"]] == ["torch.bfloat16"] * 2 * n_calls
+    assert all(c[1] for c in got["calls"])
+    assert got["grad_dtypes"] == ["torch.bfloat16"] * 3
+    assert got["same"]
+
+
 X, Y = ((1, 2), None), ((0, 2), None)
 HOPS = [
     ((2, 2), (9, 10, 11), (), [X, Y]),

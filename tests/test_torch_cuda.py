@@ -56,25 +56,35 @@ def _skip_without_card():
                     "CPU mode)")
 
 
+def _by_instance():
+    return [dict(c) for c in (flash.launches_fwd_by_instance,
+                              flash.launches_dq_by_instance,
+                              flash.launches_dkv_by_instance)]
+
+
 def _flash_case(dtype, causal, q_off, kv_off, q, k, v):
     """flash_compare within chip_smoke.py's tolerances, with the launches
     it makes: K2 three times (its three modes) by the instance its dtypes
-    pick, K3 and K4 twice each (full and partials backward)."""
+    pick; K3 and K4 twice each in f32 (full and partials backward, simt),
+    three times each in bf16 (full and partials with a bf16 dO by the
+    wgmma instance, partials with an f32 dO by the simt one)."""
     from chip_smoke import FLASH_TOL, flash_compare
 
     n0 = (flash.launches_fwd, flash.launches_dq, flash.launches_dkv)
-    by0 = dict(flash.launches_fwd_by_instance)
+    by0 = _by_instance()
     errs = flash_compare(torch, flash, q, k, v, causal, q_off, kv_off)
     name = str(dtype).split(".")[-1]
     for key, err in errs.items():
         assert err <= FLASH_TOL[(key, name)], (key, err)
     torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
     assert (flash.launches_fwd - n0[0], flash.launches_dq - n0[1],
-            flash.launches_dkv - n0[2]) == (3, 2, 2)
-    inst = "wgmma" if dtype == torch.bfloat16 else "simt"
-    assert {i: flash.launches_fwd_by_instance[i] - by0[i] for i in by0} == {
-        "wgmma": 3 if inst == "wgmma" else 0,
-        "simt": 3 if inst == "simt" else 0}
+            flash.launches_dkv - n0[2]) == ((3, 3, 3) if bf16 else (3, 2, 2))
+    by = [{i: c[i] - c0[i] for i in c0}
+          for c, c0 in zip(_by_instance(), by0)]
+    want_bwd = {"wgmma": 2, "simt": 1} if bf16 else {"wgmma": 0, "simt": 2}
+    assert by == [{"wgmma": 3 * bf16, "simt": 3 * (not bf16)}, want_bwd,
+                  want_bwd]
 
 
 @pytest.mark.cuda
@@ -86,8 +96,9 @@ def test_flash_kernels_match_plain_on_the_card(dtype, causal, q_off, kv_off,
                                                d):
     """K2 in its three output modes, K3 + K4 (full and partials backward)
     against the plain versions, each row relative to its own scale, within
-    chip_smoke.py's tolerances; one launch of each kernel per call, K2 by
-    its wgmma instance in bf16 and its simt instance in f32."""
+    chip_smoke.py's tolerances; one launch of each kernel per call, by the
+    wgmma instances in bf16 (K3/K4's simt one only for the partials call
+    with an f32 dO) and the simt instances in f32."""
     _skip_without_card()
     sq, skv, h, b = 133, 201, 2, 3
     q, k, v = (_values(s, torch.float32, seed).div(100).to(dtype).cuda()
@@ -100,8 +111,8 @@ def test_flash_kernels_match_plain_on_the_card(dtype, causal, q_off, kv_off,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_storage_offset_on_the_card(dtype):
     """k and v as views whose data starts 2 or 4 bytes past a 16-byte
-    boundary: K2 copies them to an aligned allocation (counted), and every
-    kernel agrees with its plain version."""
+    boundary: K2 and K3/K4's wgmma instance copy them to an aligned
+    allocation (counted), and every kernel agrees with its plain version."""
     _skip_without_card()
     sq, skv, h, b, d = 70, 150, 2, 3, 128
     q = _values((sq, h, b, d), torch.float32, 3).div(100).to(dtype).cuda()
@@ -110,7 +121,10 @@ def test_flash_storage_offset_on_the_card(dtype):
     assert k.data_ptr() % 16 != 0
     copies = flash.realigned_copies
     _flash_case(dtype, True, 17, 9, q, k, v)
-    assert flash.realigned_copies - copies == 6   # k and v, three calls
+    # k and v: three K2 calls; in bf16 also the two backward calls that
+    # take the wgmma instance of K3/K4
+    want = 10 if dtype == torch.bfloat16 else 6
+    assert flash.realigned_copies - copies == want
 
 
 @pytest.mark.cuda

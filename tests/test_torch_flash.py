@@ -272,6 +272,40 @@ def test_fwd_instance(d, mix):
         q, k, v, causal=True, q_offset=2), atol=0, rtol=0)
 
 
+MIXES_BWD = [m + (e,) for m in MIXES for e in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("mix", MIXES_BWD, ids=lambda m: "-".join(m))
+@pytest.mark.parametrize("d", [8, 64, 72, 128, 256, 264, 1024])
+def test_bwd_instance(d, mix):
+    """K3/K4's instance rule: the tensor-core (wgmma) instance takes q, k,
+    v and dO all bf16 with d <= 256, the simt instance every other case
+    the kernels take.  CPU tensors run the plain versions and launch
+    neither."""
+    dtypes = [getattr(torch, name) for name in mix]
+    want = ("wgmma" if d <= 256 and all(dt == torch.bfloat16 for dt in dtypes)
+            else "simt")
+    assert flash.bwd_instance(d, *dtypes) == want
+    q, k, v, do = (_torch(a).to(dt) for a, dt in zip(
+        _arrays(11, (5, 2, 1, d), (7, 2, 1, d), (7, 2, 1, d), (5, 2, 1, d)),
+        dtypes))
+    L, D = (_torch(a) for a in _arrays(12, (2, 1, 5), (2, 1, 5)))
+    L = L.abs() + 2.0     # a logsumexp above every row's scores
+    before = (flash.launches_dq, flash.launches_dkv,
+              dict(flash.launches_dq_by_instance),
+              dict(flash.launches_dkv_by_instance), flash.realigned_copies)
+    kw = dict(causal=True, q_offset=2)
+    got = flash.flash_attention_bwd_partials(q, k, v, do, L, D, **kw)
+    assert (flash.launches_dq, flash.launches_dkv,
+            flash.launches_dq_by_instance, flash.launches_dkv_by_instance,
+            flash.realigned_copies) == before
+    want_grads = flash.flash_attention_bwd_partials_plain(q, k, v, do, L, D,
+                                                          **kw)
+    for g, w in zip(got, want_grads):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
 def test_impl_routing_and_cpu_wrappers():
     """``impl`` values and errors; CPU tensors take the plain versions
     and launch nothing."""

@@ -144,6 +144,54 @@ def attention_case(P, scheme, causal, impl, q, k, v, ct, bf16=False):
     return _rank0(res)
 
 
+def ring_cotangent_case(P, zigzag, q, k, v, ct):
+    """bf16 causal ring attention (naive, or zigzag for P > 1) on the
+    kernel path, its backward run twice with ``flash_attention_bwd_partials``
+    wrapped by a spy: once passing each call's result through, once
+    returning the same call made with the cotangent widened to f32.
+    Returns the dtype the cotangent reached each call in, whether each
+    call's grads equal those of the widened call bit for bit, and whether
+    the two backwards' q/k/v grads are bit-identical."""
+    from pencilarrays_tpu_torch.models import attention as A
+    from pencilarrays_tpu_torch.ops import flash
+
+    topo = topology((P,))
+    pen = pat.Pencil(topo, q.shape[:2], (0,))
+    extra = q.shape[2:]
+    bf16 = torch.bfloat16
+    arrs = [pat.PencilArray.from_global(pen, x).astype(bf16)
+            for x in (q, k, v)]
+    ctl = pat.PencilArray.from_global(pen, ct).data.to(bf16).float()
+    if zigzag:
+        arrs = [A.to_zigzag(x) for x in arrs]
+    orig = flash.flash_attention_bwd_partials
+    calls = []
+
+    def grads(widen):
+        def spy(qb, kb, vb, do, L, D, **kw):
+            got = orig(qb, kb, vb, do, L, D, **kw)
+            wide = orig(qb, kb, vb, do.float(), L, D, **kw)
+            calls.append((str(do.dtype), all(
+                torch.equal(a, b) for a, b in zip(got, wide))))
+            return wide if widen else got
+
+        leaves = [pat.PencilArray(pen, x.data.clone().requires_grad_(), extra)
+                  for x in arrs]
+        flash.flash_attention_bwd_partials = spy
+        try:
+            out = A.ring_attention(*leaves, causal=True, zigzag=zigzag,
+                                   impl="kernel")
+            (out.data.float() * ctl).sum().backward()
+        finally:
+            flash.flash_attention_bwd_partials = orig
+        return [x.data.grad for x in leaves]
+
+    got, wide = grads(False), grads(True)
+    return _rank0(dict(
+        calls=calls, grad_dtypes=[str(g.dtype) for g in got],
+        same=all(torch.equal(a, b) for a, b in zip(got, wide))))
+
+
 def hop_grad_case(dims, shape, extra, specs, padded, ct_padded):
     """Gradient of ``sum(transpose(x, specs[1]).data * ct)`` with respect
     to x's padded memory-order data, as the global padded array (the
