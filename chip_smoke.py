@@ -14,7 +14,9 @@ standard output too.  Phases, each printed on its own lines:
    CUDA versions, the kernel build time, each K2–K4 kernel's registers
    and spill bytes (``-Xptxas -v``), a ``cuobjdump -sass`` check that
    every wgmma kernel of K2, K3 and K4 holds HGMMA and UTMALDG
-   instructions and spills nothing, a 1-rank NCCL process group;
+   instructions and spills nothing, and every tf32x3 kernel of K3 and K4
+   TF32 HMMA ones, spilling no more than it did when tuned; a 1-rank
+   NCCL process group;
 2. kernel K1 (``pencilarrays_tpu_torch/ops/csrc/permute.cu``) against its
    plain PyTorch version on the card, bit for bit, over the main path's
    shapes, ragged shapes in six dtypes, and pack/unpack with P = 1, 2, 4;
@@ -26,17 +28,19 @@ standard output too.  Phases, each printed on its own lines:
 5. Navier–Stokes (Taylor–Green): 64^3 on the card against the same port
    on the CPU, then 512^3 float32 for 3 RK2 steps (the main path), with
    the energy held to exp(-6 nu t), step time and peak memory;
-6. kernels K2–K4 (``ops/csrc/flash_fwd.cu``, ``ops/csrc/flash_bwd.cu``)
-   against their plain versions on the card: three forward modes, full
-   and partials backward, causal and not, ragged lengths, offsets, rows
-   with no visible key, f32 and bf16, head dims 40 to 1024, P = 4 naive
-   and zigzag causal rings emulated at kernel level, and flash attention
-   on q/k/v of mixed dtypes, each row held relative to its own scale;
-   every K3/K4 call launches the instance ``bwd_instance`` picks (bf16
-   with a bf16 cotangent: wgmma; any f32 operand: simt); then the wgmma
-   instances of K2–K4 at their edges (bf16, head dims 40 to 256, Sq < 64,
-   Skv = 1, ragged Skv, k/v views with a storage offset, aligned and
-   not);
+6. kernels K2–K4 (``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
+   ``flash_bwd_tf32.cu``) against their plain versions on the card: three
+   forward modes, full and partials backward, causal and not, ragged
+   lengths, offsets, rows with no visible key, f32 and bf16, head dims 40
+   to 1024, P = 4 naive and zigzag causal rings emulated at kernel level,
+   and flash attention on q/k/v of mixed dtypes, each row held relative
+   to its own scale (rows of m, dq and dk to their largest term where it
+   is larger: a sum that cancels is held to its rounding); every K3/K4 call launches the instance
+   ``bwd_instance`` picks (D <= 256: wgmma for all-bf16 operands, tf32x3
+   for any f32 one; simt above); then the tensor-core instances at their
+   edges, in bf16 (K2–K4's wgmma) and in f32 (K3/K4's tf32x3): head dims
+   40 to 256, Sq < 64, Skv = 1, ragged Skv, k/v views with a storage
+   offset, aligned and not;
 7. serving at full width (S = 4096, H = 8, D = 128): Ulysses and causal
    ring attention over NCCL on a (1,) topology, f32 and bf16, each held
    to dense attention, with the K1/K2 launches of each call and K2's by
@@ -45,11 +49,12 @@ standard output too.  Phases, each printed on its own lines:
    width (causal ring attention, which runs the naive schedule on one
    rank; MSE; SGD) for 3 steps, in f32 and in bf16 (f32 master weights,
    bf16 projections and attention): the loss falls, one step's gradients
-   match the plain path, K2–K4 launched by the wgmma instances in bf16
-   and the simt ones in f32;
+   match the plain path, K2–K4 launched by the wgmma instances in bf16,
+   K2's simt and K3/K4's tf32x3 ones in f32;
 9. K2–K4 times at the headline shape, f32 and bf16, causal and not:
-   kernel, plain, SDPA (a yardstick the port never calls) and bound, with
-   the instance that ran each kernel and its launches;
+   kernel, plain, SDPA (a yardstick the port never calls; the CUDA
+   kernels it launches, from the profiler) and bound, each kernel by the
+   instance its dtype picks, held to the plain version;
 10. a ``{"kernels": [...]}`` line: per kernel its launches on each path
     (each counted from 0 just before its run) and their sum, its error
     against the plain version and its times;
@@ -67,7 +72,7 @@ import time
 import traceback
 
 SEED = 0
-KERNEL_SOURCES = ["permute", "flash_fwd", "flash_bwd"]
+KERNEL_SOURCES = ["permute", "flash_fwd", "flash_bwd", "flash_bwd_tf32"]
 H100_BW = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
 H100_SXM_BW = 3.35e12  # bytes/s; also the default for an unlisted card
 
@@ -124,8 +129,10 @@ def random_tensor(torch, shape, dtype, gen):
 # device kernels by the layer that launches them (substrings of the name)
 KERNEL_GROUPS = [
     ("k2_flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_simt_kernel")),
-    ("k3_flash_dq", ("flash_dq_wgmma_kernel", "flash_dq_kernel")),
-    ("k4_flash_dkv", ("flash_dkv_wgmma_kernel", "flash_dkv_kernel")),
+    ("k3_flash_dq", ("flash_dq_wgmma_kernel", "flash_dq_tf32x3_kernel",
+                     "flash_dq_kernel")),
+    ("k4_flash_dkv", ("flash_dkv_wgmma_kernel", "flash_dkv_tf32x3_kernel",
+                      "flash_dkv_kernel")),
     ("k1_permute", ("permute_tiled_kernel", "permute_copy_kernel")),
     ("gemm", ("gemm", "xmma", "cutlass", "Kernel2")),
     ("cufft", ("fft", "FFT")),
@@ -135,9 +142,9 @@ KERNEL_GROUPS = [
 ]
 
 
-def profile(torch, fn, label: str, top: int = 8) -> dict:
-    """Device time by kernel and by layer over one call of ``fn``
-    (``torch.profiler``), with the device's busy share of the wall time."""
+def _kernel_rows(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: its wall ms and the
+    CUDA kernels it ran, ``(device ms, count, name)`` by time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -158,6 +165,13 @@ def profile(torch, fn, label: str, top: int = 8) -> dict:
         if us > 0:
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
+    return wall_ms, rows
+
+
+def profile(torch, fn, label: str, top: int = 8) -> dict:
+    """Device time by kernel and by layer over one call of ``fn``
+    (``torch.profiler``), with the device's busy share of the wall time."""
+    wall_ms, rows = _kernel_rows(torch, fn)
     busy = sum(r[0] for r in rows)
     groups = {}
     for ms, _, key in rows:
@@ -226,13 +240,31 @@ def _kernel_label(mangled: str) -> str:
 
 # the flash kernels of each library, by the kernel they implement
 FLASH_LIBS = {"flash_fwd": {"k2": "flash_fwd_"},
-              "flash_bwd": {"k3": "flash_dq_", "k4": "flash_dkv_"}}
+              "flash_bwd": {"k3": "flash_dq_", "k4": "flash_dkv_"},
+              "flash_bwd_tf32": {"k3": "flash_dq_", "k4": "flash_dkv_"}}
+# SASS each tensor-core instance must hold: wgmma (HGMMA) on TMA tile loads
+# (UTMALDG); mma.sync on TF32 operands (HMMA ... TF32)
+SASS_WANT = {"wgmma": ["HGMMA", "UTMALDG"], "tf32x3": ["HMMA.TF32"]}
+# spill bytes (stores + loads) each instance's kernels of K2–K4 may total:
+# none for wgmma; for tf32x3 what ptxas 12.8 gave when the kernels were
+# tuned (K3 4 + 4 at D = 256, K4 16 + 20 at D = 128), so that growth fails
+SPILL_LIMIT = {"wgmma": {"k2": 0, "k3": 0, "k4": 0},
+               "tf32x3": {"k3": 8, "k4": 36}}
+
+
+def _sass_ops(line: str) -> set:
+    ops = {w for w in ("HGMMA", "UTMALDG") if w in line}
+    if "HMMA" in line and "TF32" in line:
+        ops.add("HMMA.TF32")
+    return ops
 
 
 def flash_instances(build) -> dict:
     """Each K2–K4 kernel's registers and spill bytes, and a ``cuobjdump
     -sass`` check: every wgmma kernel must hold HGMMA (wgmma) and UTMALDG
-    (TMA tile load) instructions and spill nothing.  Returns
+    (TMA tile load) instructions, every tf32x3 kernel TF32 HMMA (mma.sync)
+    ones, and each instance's kernels of a kernel K spill no more than
+    SPILL_LIMIT allows.  Returns
     ``{"k2": {label: report}, "k3": ..., "k4": ...}``."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     out = {}
@@ -248,7 +280,7 @@ def flash_instances(build) -> dict:
                 name = line.split("Function :")[1].strip()
                 ops[name] = set()
             elif name:
-                ops[name].update(w for w in ("HGMMA", "UTMALDG") if w in line)
+                ops[name].update(_sass_ops(line))
         for mangled in sorted(set(regs) | set(ops)):
             key = next((k for k, prefix in kernels.items()
                         if prefix in mangled), None)
@@ -258,15 +290,19 @@ def flash_instances(build) -> dict:
             out.setdefault(key, {})[_kernel_label(mangled)] = r
             log(f"[env] {key.upper()} {_kernel_label(mangled)}: "
                 f"{json.dumps(r)}")
-    for key in ("k2", "k3", "k4"):
-        wgmma = {k: r for k, r in out.get(key, {}).items() if "wgmma" in k}
-        if not wgmma or any(
-                r["sass"] != ["HGMMA", "UTMALDG"] or r.get("spill_stores")
-                or r.get("spill_loads") for r in wgmma.values()):
-            raise AssertionError(f"{key.upper()} wgmma instance lacks "
-                                 f"HGMMA/UTMALDG or spills: {wgmma}")
-        log(f"[env] SASS: {len(wgmma)} wgmma kernels of {key.upper()} hold "
-            f"HGMMA and UTMALDG, 0 spill bytes")
+    for inst, want in SASS_WANT.items():
+        for key, limit in SPILL_LIMIT[inst].items():
+            mine = {k: r for k, r in out.get(key, {}).items() if inst in k}
+            spills = sum(r.get("spill_stores", 0) + r.get("spill_loads", 0)
+                         for r in mine.values())
+            if not mine or any(r["sass"] != want for r in mine.values()) or (
+                    spills > limit):
+                raise AssertionError(f"{key.upper()} {inst} instance lacks "
+                                     f"{want} or spills more than {limit} "
+                                     f"bytes: {mine}")
+            log(f"[env] SASS: {len(mine)} {inst} kernels of {key.upper()} "
+                f"hold {' and '.join(want)}, {spills} spill bytes (stores + "
+                f"loads; at most {limit})")
     return out
 
 
@@ -531,17 +567,61 @@ FLASH_OFFSETS = [(False, 0, 0), (True, 0, 0), (True, 5, 0), (True, 0, 3),
                  (True, 17, 9)]
 
 
-def _rel_err(torch, got, want, rows=None) -> float:
+def _rel_err(torch, got, want, rows=None, terms=None) -> float:
     """Worst error of ``got`` against ``want``, each row relative to its
     own max|want|: a row is the last dim, and its scale is floored at
     1e-3 max|want| so that a row of zeros compares nearly absolutely.
-    ``rows`` (a boolean mask along dim 0) selects the rows compared."""
+    ``rows`` (a boolean mask along dim 0) selects the rows compared.
+    ``terms`` (one value per element or per row of ``got``) is the largest
+    term of the sum behind each element: a row is held relative to the
+    larger of that and its own max|want|, so that a row whose sum cancels
+    (its exact value 0 or nearly) is held to the rounding of its terms,
+    which no two summation orders share (see _bwd_terms)."""
     got, want = got.double(), want.double()
+    if terms is not None:
+        terms = terms.double().reshape(got.shape[:-1] + (-1,))
     if rows is not None:
         got, want = got[rows], want[rows]
+        terms = None if terms is None else terms[rows]
     floor = 1e-3 * float(want.abs().max()) or 1.0
-    scale = want.abs().amax(dim=-1, keepdim=True).clamp_min(floor)
-    return float(((got - want).abs() / scale).max())
+    scale = want.abs().amax(dim=-1, keepdim=True)
+    if terms is not None:
+        scale = torch.maximum(scale, terms.amax(dim=-1, keepdim=True))
+    return float(((got - want).abs() / scale.clamp_min(floor)).max())
+
+
+def _bwd_terms(torch, flash, q, k, v, do, L, D, *, causal, q_offset,
+               kv_offset):
+    """The largest term of each row of dq and of dk, with dS_ij = P_ij ·
+    (Σ_e dO_ie v_je - D_i) expanded: dq_i = scale · Σ_j dS_ij K_j has terms
+    of at most scale · max_j P_ij · max(|dO_i|·|v_j|, |D_i|) · |K_j|
+    (|x| the largest |element|), and dk_j = scale · Σ_i dS_ij Q_i those
+    with |Q_i|.  A row that sees one key cancels wholly (P = 1, D = dP:
+    dq is 0 in exact arithmetic) and one that a key dominates nearly; such
+    a row is the rounding of these terms, which no two summation orders
+    share.  q/k/v/do ``(S, H, *b, D)``, folded ``L, D`` ``(N, Sq)`` (the
+    residuals both sides are given); returns ``(Sq, N)`` and ``(Skv, N)``
+    f32, one folded slice at a time (at S = 4096 a slice's score block is
+    64 MiB)."""
+    qf, kf, vf, dof = (flash._fold(x).float() for x in (q, k, v, do))
+    sq, n, d = qf.shape
+    skv = kf.shape[0]
+    scale = 1.0 / math.sqrt(d)
+    pos = q_offset + torch.arange(sq, device=qf.device)
+    cols = kv_offset + torch.arange(skv, device=qf.device)
+    valid = (pos[:, None] >= cols[None, :]) if causal else None
+    qm, km, vm, dom = (x.abs().amax(-1) for x in (qf, kf, vf, dof))  # (S, N)
+    tq = torch.zeros((sq, n), device=qf.device)
+    tk = torch.zeros((skv, n), device=qf.device)
+    for h in range(n):
+        p = torch.exp(qf[:, h] @ kf[:, h].t() * scale - L[h, :, None])
+        if valid is not None:
+            p = torch.where(valid, p, 0.0)
+        t = p * torch.maximum(dom[:, h, None] * vm[None, :, h],
+                              D[h, :, None].abs())
+        tq[:, h] = (t * km[None, :, h]).amax(-1) * scale
+        tk[:, h] = (t * qm[:, h, None]).amax(0) * scale
+    return tq, tk
 
 
 def _bwd_launched(flash, fn, dtypes, what):
@@ -561,47 +641,61 @@ def _bwd_launched(flash, fn, dtypes, what):
     return out
 
 
-def flash_compare(torch, flash, q, k, v, causal, q_off, kv_off):
+def flash_compare(torch, flash, q, k, v, causal, q_off, kv_off, own=None):
     """K2 (three modes), K3 + K4 (full and partials) against the plain
     versions on one case; returns {"fwd": err, "bwd": err}, each the worst
     per-row relative error (_rel_err) of the tensors of that direction.
-    The partials backward runs with dO in q's dtype (as the ring
-    backwards pass it) and, for a bf16 q, also widened to f32; each
-    K3/K4 call must launch the instance ``bwd_instance`` picks."""
+    The rows of m (a score: its terms scale·q_d·k_d are at most
+    scale·max|q_i|·max|k|), dq and dk (_bwd_terms) are held relative to
+    the larger of their own max|plain| and their largest term; ``own``, a
+    dict, keeps the worst rows of each direction relative to their own
+    max|plain| alone.  The partials backward runs with dO in q's dtype (as
+    the ring backwards pass it) and, for a bf16 q, also widened to f32;
+    each K3/K4 call must launch the instance ``bwd_instance`` picks."""
     sq = q.shape[0]
     rows = (q_off + torch.arange(sq, device=q.device)) >= kv_off
     kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
-    fwd, bwd = [], []
+    errs = {"fwd": [], "bwd": []}
+
+    def held(key, got, want, rows=None, terms=None):
+        errs[key].append(_rel_err(torch, got, want, rows, terms))
+        if own is not None and terms is not None:
+            own[key] = max(own.get(key, 0.0),
+                           _rel_err(torch, got, want, rows))
+
+    d = q.shape[-1]
+    m_terms = (q.float().abs().amax(-1) * float(k.float().abs().max())
+               / math.sqrt(d))                                # (Sq, H, B)
     out, (m, l) = flash.flash_attention_fwd(q, k, v, return_stats=True, **kw)
     out_p, (m_p, l_p) = flash.flash_attention_fwd_plain(
         q, k, v, return_stats=True, **kw)
     if not bool(torch.isfinite(out.float()).all()):
         raise AssertionError("K2 output is not finite")
-    fwd += [_rel_err(torch, out, out_p, rows),
-            _rel_err(torch, m.t(), m_p.t(), rows),
-            _rel_err(torch, l.t(), l_p.t(), rows),
-            _rel_err(torch, flash.flash_attention_fwd(q, k, v, **kw), out_p,
-                     rows)]
+    held("fwd", out, out_p, rows)
+    held("fwd", m.t(), m_p.t(), rows, m_terms)
+    held("fwd", l.t(), l_p.t(), rows)
+    held("fwd", flash.flash_attention_fwd(q, k, v, **kw), out_p, rows)
     parts = flash.flash_attention_fwd(q, k, v, partials=True, **kw)
     parts_p = flash.flash_attention_fwd_plain(q, k, v, partials=True, **kw)
-    for a, b in zip(parts[:2], parts_p[:2]):   # m, l: (H, B, Sq)
-        fwd.append(_rel_err(torch, a.movedim(-1, 0), b.movedim(-1, 0), rows))
-    fwd.append(_rel_err(torch, parts[2], parts_p[2], rows))
+    for a, b, t in zip(parts[:2], parts_p[:2], (m_terms, None)):
+        held("fwd", a.movedim(-1, 0), b.movedim(-1, 0), rows, t)  # m, l
+    held("fwd", parts[2], parts_p[2], rows)
     # the backward from the SAME residuals on both sides; a zero
     # cotangent on rows with no visible key, as a loss over defined
     # outputs has
     gen = torch.Generator(device=q.device).manual_seed(SEED + 7)
     do = torch.randn(q.shape, generator=gen, device=q.device)
     do = (do * rows.view(-1, *([1] * (q.dim() - 1)))).to(q.dtype)
-    d = q.shape[-1]
     what = (f"bwd d={d} {q.dtype}/{k.dtype}/{v.dtype} causal={causal} "
             f"offsets=({q_off},{kv_off})")
+    L, D = flash.residuals(out_p, do, m_p, l_p)
+    terms = _bwd_terms(torch, flash, q, k, v, do, L, D, **kw) + (None,)
     got = _bwd_launched(flash, lambda: flash.flash_attention_bwd(
         q, k, v, out_p, do, m_p, l_p, **kw),
         (d, q.dtype, k.dtype, v.dtype, do.dtype), what)
     want = flash.flash_attention_bwd_plain(q, k, v, out_p, do, m_p, l_p, **kw)
-    bwd += [_rel_err(torch, a, b) for a, b in zip(got, want)]
-    L, D = flash.residuals(out_p, do, m_p, l_p)
+    for a, b, t in zip(got, want, terms):
+        held("bwd", a, b, terms=t)
     h, b = q.shape[1], q.shape[2]
     L, D = L.reshape(h, b, sq), D.reshape(h, b, sq)
     for g in [do] + ([do.float()] if do.dtype != torch.float32 else []):
@@ -612,8 +706,9 @@ def flash_compare(torch, flash, q, k, v, causal, q_off, kv_off):
             f"{g.dtype}")
         want = flash.flash_attention_bwd_partials_plain(q, k, v, g, L, D,
                                                         **kw)
-        bwd += [_rel_err(torch, a, b) for a, b in zip(got, want)]
-    return {"fwd": max(fwd), "bwd": max(bwd)}
+        for a, b, t in zip(got, want, terms):
+            held("bwd", a, b, terms=t)
+    return {key: max(e) for key, e in errs.items()}
 
 
 def _ring_emulation(torch, flash, merge, dtype, blk, H, D, P=4):
@@ -739,9 +834,9 @@ MIXED_DTYPES = [("bfloat16", "float32", "float32"),
                 ("float32", "float32", "bfloat16")]
 
 
-def _mixed_check(torch, flash, attention):
+def _mixed_check(torch, flash, attention, own=None):
     """q/k/v of mixed dtypes: K2–K4 against their plain versions
-    (flash_compare), and flash_attention under impl="auto" forward and
+    (flash_compare, which keeps its own-scale rows in ``own``), and flash_attention under impl="auto" forward and
     backward, which must launch K2, K3 and K4 once each, give grads in the
     leaves' dtypes and the plain K2's output."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
@@ -750,7 +845,7 @@ def _mixed_check(torch, flash, attention):
         q, k, v = (torch.randn((173, 2, 2, 64), generator=gen, device="cuda")
                    .to(getattr(torch, n)) for n in names)
         for key, err in flash_compare(torch, flash, q, k, v, True, 17,
-                                      9).items():
+                                      9, own).items():
             errs[key] = max(errs[key], err)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         n0 = (flash.launches_fwd, flash.launches_dq, flash.launches_dkv)
@@ -769,21 +864,25 @@ def _mixed_check(torch, flash, attention):
     return errs
 
 
-def _wgmma_edges(torch, flash, keep):
-    """The wgmma instances of K2, K3 and K4 at their edges, in bf16: head
-    dims of each class and off its 64-column boxes, Sq below one
-    warpgroup, Skv = 1, Skv off the key tile, k/v views with a storage
-    offset (a row slice, as ring rounds pass, and a flat offset of one
-    element, which the wrappers copy to a 16-byte boundary); every mode
-    and offset case of flash_compare.  K2 launches only its wgmma
-    instance; K3/K4 theirs, except the partials calls with an f32 dO
-    (simt), as flash_compare checks call by call."""
+def _tensor_core_edges(torch, flash, keep, dtype, own):
+    """The tensor-core instances at their edges: in bf16 the wgmma ones of
+    K2, K3 and K4, in f32 the tf32x3 ones of K3 and K4 (K2 runs simt).
+    Head dims of each class and off its 64-column boxes or 16-row warp
+    tiles, Sq below one warpgroup, Skv = 1, Skv off the key tile, k/v
+    views with a storage offset (a row slice, as ring rounds pass, and a
+    flat offset of one element, which the wrappers copy to a 16-byte
+    boundary); every mode and offset case of flash_compare (its own-scale
+    rows kept in ``own``, but at Skv = 1).  In bf16 K2
+    launches only its wgmma instance and K3/K4 theirs, except the partials
+    calls with an f32 dO (tf32x3); in f32 K3/K4 launch only tf32x3; as
+    flash_compare checks call by call."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
-    bf16 = torch.bfloat16
+    name = str(dtype).split(".")[-1]
+    inst = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     H, B = 3, 2
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     def views(skv, d):
         rows = rnd(skv + 5, H, B, d)[5:]             # aligned storage offset
@@ -798,34 +897,41 @@ def _wgmma_edges(torch, flash, keep):
         for sq, skv in ((237, 301), (50, 1), (50, 200)):
             q, k, v = rnd(sq, H, B, d), rnd(skv, H, B, d), rnd(skv, H, B, d)
             for causal, qo, ko in FLASH_OFFSETS:
-                for key, err in flash_compare(torch, flash, q, k, v, causal,
-                                              qo, ko).items():
-                    # one key: P = 1, so dS = P (dO·v - D) and with it dq
-                    # and dk are 0 up to rounding, which no row scale holds
-                    if key == "fwd" or skv > 1:
-                        keep(f"wgmma d={d} sq={sq} skv={skv} causal={causal} "
-                             f"offsets=({qo},{ko})", key, "bfloat16", err)
+                # at Skv = 1 dq and dk are 0 in exact arithmetic: no row
+                # of theirs has a scale of its own to keep in ``own``
+                for key, err in flash_compare(
+                        torch, flash, q, k, v, causal, qo, ko,
+                        own if skv > 1 else None).items():
+                    keep(f"{inst} d={d} sq={sq} skv={skv} causal={causal} "
+                         f"offsets=({qo},{ko})", key, name, err)
                 cases += 1
         q = rnd(77, H, B, d)
         (kr, kf), (vr, vf) = views(130, d), views(130, d)
         for kk, vv, what in ((kr, vr, "row slice"), (kf, vf, "flat offset")):
             for causal, qo, ko in FLASH_OFFSETS[:3]:
                 for key, err in flash_compare(torch, flash, q, kk, vv, causal,
-                                              qo, ko).items():
-                    keep(f"wgmma d={d} k/v {what} causal={causal}", key,
-                         "bfloat16", err)
+                                              qo, ko, own).items():
+                    keep(f"{inst} d={d} k/v {what} causal={causal}", key,
+                         name, err)
                 cases += 1
     torch.cuda.synchronize()
     n = {key: {i: by[key][i] - n0[key][i] for i in n0[key]} for key in by}
     copies = flash.realigned_copies - copies0
-    if n["k2"]["simt"] != 0 or min(c["wgmma"] for c in n.values()) <= 0:
-        raise AssertionError(f"bf16 edge cases launched instances {n}")
+    want = {"k2": "wgmma" if inst == "wgmma" else "simt", "k3": inst,
+            "k4": inst}
+    # in bf16 the partials calls with an f32 dO take tf32x3
+    allowed = {"k2": {want["k2"]}, "k3": {inst, "tf32x3"},
+               "k4": {inst, "tf32x3"}}
+    if any(n[k][want[k]] <= 0 or any(c for i, c in n[k].items()
+                                     if i not in allowed[k]) for k in n):
+        raise AssertionError(f"{name} edge cases launched instances {n}")
     if copies <= 0:
         raise AssertionError("the flat-offset k/v were not realigned")
-    log(f"[flash] K2-K4 wgmma instances at their edges: {cases} cases (d 40 "
-        f"64 96 128 200 256; (Sq, Skv) (237, 301) (50, 1) (50, 200); k/v "
-        f"row slice and flat offset), launches by instance {n} (K3/K4 simt: "
-        f"the partials calls with an f32 dO), realigned copies {copies}")
+    log(f"[flash] {inst} instances at their edges ({name}): {cases} cases "
+        f"(d 40 64 96 128 200 256; (Sq, Skv) (237, 301) (50, 1) (50, 200); "
+        f"k/v row slice and flat offset), launches by instance {n}"
+        + (" (K3/K4 tf32x3: the partials calls with an f32 dO)"
+           if inst == "wgmma" else "") + f", realigned copies {copies}")
     return cases
 
 
@@ -837,6 +943,7 @@ def phase_flash_check(torch, flash, attention):
     emulated at kernel level; flash_attention on q/k/v of mixed dtypes."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     worst = {}
+    own = {}   # by (direction, dtype): the worst row by its own scale alone
     cases = 0
     sq, skv, H, B = 237, 301, 3, 2    # ragged: no tile size divides them
 
@@ -855,7 +962,8 @@ def phase_flash_check(torch, flash, attention):
                                    device="cuda").to(dtype)
             q, k, v = rnd(sq, H, B, d), rnd(skv, H, B, d), rnd(skv, H, B, d)
             for causal, qo, ko in FLASH_OFFSETS:
-                errs = flash_compare(torch, flash, q, k, v, causal, qo, ko)
+                errs = flash_compare(torch, flash, q, k, v, causal, qo, ko,
+                                     own.setdefault(name, {}))
                 for key, err in errs.items():
                     keep(f"flash d={d} causal={causal} offsets=({qo},{ko})",
                          key, name, err)
@@ -870,9 +978,12 @@ def phase_flash_check(torch, flash, attention):
                                      attention._zigzag_pairs, dtype, b, 4, 64)
             for key, err in zip(("fwd", "bwd"), errs):
                 keep(f"zigzag ring emulation b={b}", key, name, err)
-    for key, err in _mixed_check(torch, flash, attention).items():
+    for key, err in _mixed_check(torch, flash, attention,
+                                 own.setdefault("mixed", {})).items():
         keep("mixed dtypes", key, "bfloat16", err)
-    cases += _wgmma_edges(torch, flash, keep)
+    for dtype in (torch.bfloat16, torch.float32):
+        cases += _tensor_core_edges(torch, flash, keep, dtype, own.setdefault(
+            str(dtype).split(".")[-1], {}))
     torch.cuda.synchronize()
     log(f"[flash] K2-K4 within tolerance of the plain versions on the card: "
         f"{cases} cases (Sq={sq}, Skv={skv}, H={H}, B={B}; d 40 64 128 256 "
@@ -880,11 +991,14 @@ def phase_flash_check(torch, flash, attention):
         f"{[o[1:] for o in FLASH_OFFSETS[1:]]}; out, return_stats, partials, "
         f"bwd, bwd_partials) + P=4 naive and zigzag causal rings emulated at "
         f"kernel level + flash_attention on mixed q/k/v dtypes "
-        f"{MIXED_DTYPES} (impl=auto: K2, K3, K4 once each) + the K2-K4 "
-        f"wgmma edge cases; every K3/K4 call by its bwd_instance; worst "
-        f"per-row "
+        f"{MIXED_DTYPES} (impl=auto: K2, K3, K4 once each) + the wgmma "
+        f"(bf16) and tf32x3 (f32) edge cases; every K3/K4 call by its "
+        f"bwd_instance; worst per-row "
         f"rel err " + json.dumps({f"{a} {b}": v for (a, b), v in
                                   worst.items()})
+        + "; the same rows each relative to its own max|plain| alone "
+        f"(m, dq and dk rows not held to their largest term): "
+        f"{json.dumps(own)}"
         + f"; tolerances {json.dumps({f'{a} {b}': v for (a, b), v in FLASH_TOL.items()})}")
     return worst
 
@@ -893,8 +1007,18 @@ def phase_flash_check(torch, flash, attention):
 # flash_attention_4096, benchmarks/flash_sweep.py): S tokens, H heads of D.
 S_ATT, H_ATT, D_ATT = 4096, 8, 128
 # peak rates for the bound (NVIDIA H100 SXM data sheet, dense): float32 on
-# the CUDA cores, bfloat16 on the tensor cores
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the CUDA cores, TF32 and bfloat16 on the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
+
+
+def peak_flops(name: str) -> float:
+    """The rate behind the bound of a kernel of dtype ``name``: bf16 on the
+    tensor cores; f32 the faster of the CUDA cores and three TF32
+    tensor-core products per f32 product (3xTF32: 495 / 3 = 165 TFLOP/s),
+    so an f32 bound is the lesser of FLOPs / 67 and 3·FLOPs / 495 TFLOP/s."""
+    if name == "bfloat16":
+        return PEAK_FLOPS["bfloat16"]
+    return max(PEAK_FLOPS["float32"], PEAK_FLOPS["tf32"] / 3)
 # serving against dense attention in f32, per row (_rel_err): in bf16 the
 # kernel rounds P and the output (half an ulp, 2^-8 of an element, each)
 SERVE_TOL = {"float32": 2e-5, "bfloat16": 2 ** -6}
@@ -931,13 +1055,22 @@ def _reset_counts(k1, flash):
             by[inst] = 0
 
 
+# the instance of each kernel that takes all-bf16 or all-f32 operands at
+# D = D_ATT (<= 256)
+HEADLINE_INSTANCE = {"bfloat16": {"k2": "wgmma", "k3": "wgmma",
+                                  "k4": "wgmma"},
+                     "float32": {"k2": "simt", "k3": "tf32x3",
+                                 "k4": "tf32x3"}}
+
+
 def _check_instance(n, name, what, kernels=("k2",)):
-    """bf16 calls launch only the wgmma instance of each kernel, f32 only
-    its simt one."""
-    want, other = (("wgmma", "simt") if name == "bfloat16"
-                   else ("simt", "wgmma"))
+    """A call at the headline width launches each kernel by the instance
+    HEADLINE_INSTANCE names for its dtype, and by no other."""
     for key in kernels:
-        if n[f"{key}_{want}"] <= 0 or n[f"{key}_{other}"] != 0:
+        want = HEADLINE_INSTANCE[name][key]
+        others = [k for k in n if k.startswith(f"{key}_")
+                  and k != f"{key}_{want}"]
+        if n[f"{key}_{want}"] <= 0 or any(n[k] for k in others):
             raise AssertionError(f"{what} {name}: {key.upper()} launches by "
                                  f"instance {n}")
 
@@ -1066,8 +1199,11 @@ def phase_training(torch, pat, models, k1, flash, dtype, steps=3):
 
 def phase_flash_timing(torch, flash, bw):
     """K2, K3 and K4 at the headline shape, f32 and bf16, causal and not:
-    kernel ms, plain ms, SDPA ms (a yardstick the port never calls),
-    bound ms and the error against the plain version."""
+    kernel ms (each by the instance its dtype picks), plain ms, SDPA ms (a
+    yardstick the port never calls) with the CUDA kernels SDPA launches,
+    bound ms and the error against the plain version (rows of dq and dk
+    held to their largest term where it is above their own max|plain|,
+    as flash_compare holds them)."""
     import torch.nn.functional as F
 
     S, H, D = S_ATT, H_ATT, D_ATT
@@ -1075,7 +1211,7 @@ def phase_flash_timing(torch, flash, bw):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        peak = PEAK_FLOPS[name]
+        peak = peak_flops(name)
         for causal in (False, True):
             q, k, v, do = (torch.randn((S, H, 1, D), generator=gen,
                                        device="cuda").to(dtype)
@@ -1088,57 +1224,68 @@ def phase_flash_timing(torch, flash, bw):
             qf, kf, vf, dof = (x.reshape(S, H, D) for x in (q, k, v, do))
             dq = torch.empty_like(qf)
             dk, dv = torch.empty_like(kf), torch.empty_like(vf)
-            grads_p = flash.flash_attention_bwd_plain(q, k, v, out, do, m, l,
-                                                      **kw)
-            flash.launch_dq(qf, kf, vf, dof, L, Dr, dq, **kw)
-            flash.launch_dkv(qf, kf, vf, dof, L, Dr, dk, dv, **kw)
-            pairs = {"k2": [(out, out_p)],
-                     "k3": [(dq, grads_p[0].reshape(S, H, D))],
-                     "k4": [(dk, grads_p[1].reshape(S, H, D)),
-                            (dv, grads_p[2].reshape(S, H, D))]}
-            err = {key: max(max_abs_err(torch, a, b) for a, b in ab)
-                   for key, ab in pairs.items()}
-            rel = {key: max(_rel_err(torch, a, b) for a, b in ab)
-                   for key, ab in pairs.items()}
-            for key, e in rel.items():
-                tol = FLASH_TOL[("fwd" if key == "k2" else "bwd", name)]
-                if not e <= tol:
-                    raise AssertionError(f"{key} {name} causal={causal} at "
-                                         f"the headline shape: rel err {e} "
-                                         f"> {tol}")
+            grads_p = [g.reshape(S, H, D) for g in
+                       flash.flash_attention_bwd_plain(q, k, v, out, do, m, l,
+                                                       **kw)]
+            tq, tk = _bwd_terms(torch, flash, q, k, v, do, L, Dr, **kw)
             it = 5
-            inst = {"k2": flash.fwd_instance(D, dtype, dtype, dtype),
-                    "k3": flash.bwd_instance(D, dtype, dtype, dtype, dtype)}
-            inst["k4"] = inst["k3"]
-            by0 = {key: dict(c) for key, c in _by_instance(flash).items()}
-            ms = {
-                "k2": cuda_ms(torch, lambda: flash.flash_attention_fwd(
-                    q, k, v, **kw), it),
-                "k3": cuda_ms(torch, lambda: flash.launch_dq(
-                    qf, kf, vf, dof, L, Dr, dq, **kw), it),
-                "k4": cuda_ms(torch, lambda: flash.launch_dkv(
-                    qf, kf, vf, dof, L, Dr, dk, dv, **kw), it)}
-            timed_by = {key: {i: c[i] - by0[key][i] for i in c}
-                        for key, c in _by_instance(flash).items()}
-            for key, by in timed_by.items():
-                if by[inst[key]] != it + 1 or sum(by.values()) != it + 1:
-                    raise AssertionError(f"{key} {name} timing launched {by}")
+            timed = [(key, HEADLINE_INSTANCE[name][key])
+                     for key in ("k2", "k3", "k4")]
+            launch = {
+                "k2": lambda: flash.flash_attention_fwd(q, k, v, **kw),
+                "k3": lambda: flash.launch_dq(qf, kf, vf, dof, L, Dr, dq,
+                                              **kw),
+                "k4": lambda: flash.launch_dkv(qf, kf, vf, dof, L, Dr, dk,
+                                               dv, **kw)}
+            pairs = {"k2": [(out, out_p, None)],
+                     "k3": [(dq, grads_p[0], tq)],
+                     "k4": [(dk, grads_p[1], tk), (dv, grads_p[2], None)]}
+            got = {}
+            for key, inst in timed:
+                launch[key]()
+                err = max(max_abs_err(torch, a, b) for a, b, _ in pairs[key])
+                rel = max(_rel_err(torch, a, b, terms=t)
+                          for a, b, t in pairs[key])
+                tol = FLASH_TOL[("fwd" if key == "k2" else "bwd", name)]
+                if not rel <= tol:
+                    raise AssertionError(f"{key} {inst} {name} causal="
+                                         f"{causal} at the headline shape: "
+                                         f"rel err {rel} > {tol}")
+                by0 = dict(_by_instance(flash)[key])
+                ms = cuda_ms(torch, launch[key], it)
+                by = {i: c - by0[i] for i, c in _by_instance(flash)[key].items()}
+                if by != {i: (it + 1) * (i == inst) for i in by}:
+                    raise AssertionError(f"{key} {name} timing of {inst} "
+                                         f"launched {by}")
+                got[key] = dict(ms=ms, max_abs_err=err, rel_err=rel,
+                                timed_launches_by_instance=by)
             plain_fwd = cuda_ms(torch, lambda: flash.flash_attention_fwd_plain(
                 q, k, v, **kw), it)
             plain_bwd = cuda_ms(torch, lambda: flash.flash_attention_bwd_plain(
                 q, k, v, out, do, m, l, **kw), it)
-            qt, kt, vt, got = (x.reshape(S, H, D).transpose(0, 1)[None]
-                               .contiguous() for x in (q, k, v, do))
-            lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal), it)
+            qt, kt, vt, gt = (x.reshape(S, H, D).transpose(0, 1)[None]
+                              .contiguous() for x in (q, k, v, do))
+
+            def sdpa_fwd():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
             qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
 
             def sdpa_fwd_bwd():
                 o = F.scaled_dot_product_attention(qg, kg, vg,
                                                    is_causal=causal)
-                torch.autograd.grad(o, (qg, kg, vg), got)
+                torch.autograd.grad(o, (qg, kg, vg), gt)
 
+            lib_fwd = cuda_ms(torch, sdpa_fwd, it)
             lib_fb = cuda_ms(torch, sdpa_fwd_bwd, it)
+            # the CUDA kernels SDPA launches (names cut to 120 characters),
+            # from two calls in one profile: a profile of one f32 forward
+            # call has recorded no kernel
+            fwd_kernels = [n[:120] for _, _, n in _kernel_rows(
+                torch, lambda: (sdpa_fwd(), sdpa_fwd()))[1]]
+            bwd_kernels = [n[:120] for _, _, n in _kernel_rows(
+                torch, lambda: (sdpa_fwd_bwd(), sdpa_fwd_bwd()))[1]
+                if n[:120] not in fwd_kernels]
             # FLOPs: 4 S^2 H D forward (QK^T, PV); K3 recomputes QK^T and
             # dO V^T and forms dS K (6); K4 adds P^T dO and dS^T Q to the
             # recompute (8); causal halves each
@@ -1149,28 +1296,33 @@ def phase_flash_timing(torch, flash, bw):
             nbytes = {"k2": 4 * S * H * D * isz,
                       "k3": (5 * S * H * D) * isz + 2 * S * H * 4,
                       "k4": (6 * S * H * D) * isz + 2 * S * H * 4}
-            for key in ("k2", "k3", "k4"):
+            for key, inst in timed:
+                t = got[key]
                 bound = max(flops[key] / peak, nbytes[key] / bw) * 1e3
-                r = dict(kernel=key, dtype=name, causal=causal, ms=ms[key],
+                r = dict(kernel=key, dtype=name, causal=causal,
+                         instance=inst, ms=t["ms"],
                          plain_ms=plain_fwd if key == "k2" else plain_bwd,
                          library_ms=lib_fwd if key == "k2"
                          else lib_fb - lib_fwd,
+                         library_kernels=fwd_kernels if key == "k2"
+                         else bwd_kernels,
                          bound_ms=bound, bound_by="operations"
                          if flops[key] / peak >= nbytes[key] / bw
                          else "bytes",
-                         tflops=flops[key] / ms[key] / 1e9,
-                         max_abs_err=err[key], rel_err=rel[key],
-                         instance=inst[key],
-                         timed_launches_by_instance=timed_by[key])
+                         tflops=flops[key] / t["ms"] / 1e9,
+                         max_abs_err=t["max_abs_err"], rel_err=t["rel_err"],
+                         timed_launches_by_instance=t[
+                             "timed_launches_by_instance"])
                 rows.append(r)
-                log(f"[time] {key} S={S} H={H} D={D} {name} "
+                log(f"[time] {key} {inst} S={S} H={H} D={D} {name} "
                     f"{'causal' if causal else 'full'}: " + json.dumps(r))
+            ms = {key: got[key]["ms"] for key in ("k2", "k3", "k4")}
             log(f"[time] SDPA S={S} H={H} D={D} {name} "
                 f"{'causal' if causal else 'full'}: fwd {lib_fwd:.4f} ms, "
-                f"fwd+bwd {lib_fb:.4f} ms; port fwd+bwd "
-                f"{ms['k2'] + ms['k3'] + ms['k4']:.4f} ms (K2+K3+K4); plain "
-                f"fwd+bwd {plain_fwd + plain_bwd:.4f} ms")
-            del q, k, v, do, qt, kt, vt, got, qg, kg, vg
+                f"fwd+bwd {lib_fb:.4f} ms, kernels fwd {fwd_kernels} bwd "
+                f"{bwd_kernels}; port fwd+bwd "
+                f"{ms['k2'] + ms['k3'] + ms['k4']:.4f} ms (K2+K3+K4); plain fwd+bwd {plain_fwd + plain_bwd:.4f} ms")
+            del q, k, v, do, qt, kt, vt, gt, qg, kg, vg
             torch.cuda.empty_cache()
     return rows
 
@@ -1237,21 +1389,28 @@ def main() -> int:
         "checked": True,
         "shape": MAIN_CASE,
     }]
-    # K2-K4: times at S=4096 H=8 D=128 f32 full; also per dtype, each with
-    # the instance that ran it
-    for key, name, src, replaces in (
+    # K2-K4: times at S=4096 H=8 D=128 f32 full by the instance f32 picks;
+    # also per dtype (each by its instance)
+    for key, name, src, replaces, insts in (
             ("k2", "flash_fwd", "flash_fwd.cu",
-             "pencilarrays_tpu/ops/flash_pallas.py:287"),
-            ("k3", "flash_bwd_dq", "flash_bwd.cu",
-             "pencilarrays_tpu/ops/flash_pallas.py:589"),
-            ("k4", "flash_bwd_dkv", "flash_bwd.cu",
-             "pencilarrays_tpu/ops/flash_pallas.py:609")):
+             "pencilarrays_tpu/ops/flash_pallas.py:287", ("wgmma", "simt")),
+            ("k3", "flash_bwd_dq", "flash_bwd_tf32.cu",
+             "pencilarrays_tpu/ops/flash_pallas.py:589",
+             ("wgmma", "tf32x3", "simt")),
+            ("k4", "flash_bwd_dkv", "flash_bwd_tf32.cu",
+             "pencilarrays_tpu/ops/flash_pallas.py:609",
+             ("wgmma", "tf32x3", "simt"))):
         mine = [r for r in timing if r["kernel"] == key]
         head = next(r for r in mine
                     if r["dtype"] == "float32" and not r["causal"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"pencilarrays_tpu_torch/ops/csrc/{src}",
+            "instance": head["instance"],
+            "sources": {i: "pencilarrays_tpu_torch/ops/csrc/" + (
+                "flash_bwd_tf32.cu" if i == "tf32x3" else
+                "flash_fwd.cu" if key == "k2" else "flash_bwd.cu")
+                for i in insts},
             "replaces": replaces, "launches": sum(paths[key].values()),
             "launches_by_path": paths[key],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
@@ -1262,13 +1421,15 @@ def main() -> int:
             "check_rel_err": {f"{a} {b}": v for (a, b), v in checks.items()
                               if (a == "fwd") == (key == "k2")},
             "timings": [{k: r[k] for k in ("dtype", "causal", "instance",
-                                           "ms", "plain_ms", "library_ms",
-                                           "bound_ms", "tflops",
-                                           "max_abs_err", "rel_err")}
+                                           "ms", "plain_ms",
+                                           "library_ms", "bound_ms",
+                                           "tflops", "max_abs_err",
+                                           "rel_err")}
                         for r in mine],
+            "library_kernels": {r["dtype"]: r["library_kernels"]
+                                for r in mine if not r["causal"]},
             "launches_by_instance": {
-                i: sum(paths[f"{key}_{i}"].values())
-                for i in ("wgmma", "simt")},
+                i: sum(paths[f"{key}_{i}"].values()) for i in insts},
             "by_dtype": {r["dtype"]: {k: r[k] for k in (
                 "instance", "ms", "bound_ms", "bound_by", "plain_ms",
                 "library_ms", "tflops", "max_abs_err", "rel_err",

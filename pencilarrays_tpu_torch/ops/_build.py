@@ -32,7 +32,8 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 build_info: Dict[str, dict] = {}
 """Per kernel library: ``seconds`` the build took in this process (0 when
 a cached library was reused), ``path`` and the compiler's ``log``
-(``-Xptxas -v`` register and shared-memory report)."""
+(``-Xptxas -v`` register and shared-memory report, kept beside the library
+so that a reused one reports it too)."""
 
 
 def _nvcc() -> str:
@@ -64,7 +65,10 @@ def build_all(names: Sequence[str]) -> Dict[str, Path]:
     jobs = {}
     for name, path in out.items():
         if path.exists():
-            build_info[name] = {"seconds": 0.0, "path": str(path), "log": ""}
+            log = path.with_suffix(".log")
+            build_info[name] = {"seconds": 0.0, "path": str(path),
+                                "log": log.read_text() if log.exists()
+                                else ""}
             continue
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
@@ -81,6 +85,7 @@ def build_all(names: Sequence[str]) -> Dict[str, Path]:
             tmp.unlink(missing_ok=True)
             failed.append(f"nvcc failed on {name}.cu:\n{log}")
             continue
+        out[name].with_suffix(".log").write_text(log)
         os.replace(tmp, out[name])  # atomic: concurrent builds agree
         build_info[name] = {"seconds": seconds, "path": str(out[name]),
                             "log": log}

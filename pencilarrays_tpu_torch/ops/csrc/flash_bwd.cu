@@ -1,5 +1,6 @@
 // K3 and K4 — the flash-attention backward for Hopper (sm_90a), CUDA C++:
-// two instances of each, picked per call by ops/flash.py::bwd_instance.
+// two of the three instances of each that ops/flash.py::bwd_instance picks
+// from per call (the third, tf32x3, is flash_bwd_tf32.cu).
 //
 // Replace the TPU kernels pencilarrays_tpu/ops/flash_pallas.py::
 // _flash_bwd_dq_kernel (K3, pallas_call at :589) and _flash_bwd_dkv_kernel
@@ -22,8 +23,9 @@
 // dP = dO·Vᵀ, dS·K) and 8·Sq·Skv·D for K4 (S, dP, Pᵀ·dO, dSᵀ·Q), halved
 // when causal, over reads of 5 (K3) or 6 (K4) (S, D) operands: ~1000
 // FLOPs a byte at S = 4096, D = 128, far above the card's balance point.
-// The least time is the FLOPs over 989 TFLOP/s (bf16, tensor cores) or
-// 67 TFLOP/s (f32, CUDA cores, no TF32).  Rebuilding S and dP in both
+// The least time is the FLOPs over 989 TFLOP/s (bf16, tensor cores) or,
+// for f32, 165 TFLOP/s (three TF32 tensor-core products per f32 product,
+// which beats the CUDA cores' 67).  Rebuilding S and dP in both
 // kernels does 14·S²·D of work where a fused backward with atomic dQ does
 // 10: the price of owning every output row.
 //
@@ -43,9 +45,10 @@
 //   products read K-major.  The bf16 rounding of P and dS is that packing
 //   (FlashAttention-2/3 practice; the TPU kernels and the plain version
 //   keep them in f32).
-// * simt instance (everything else: any f32 operand, D > 256): f32 FMA on
-//   the CUDA cores from padded shared-memory tiles, every operand widened
-//   to f32 as the TPU kernels do (:399-402).
+// * simt instance (D > 256, any dtypes; at D <= 256 the tf32x3 instance
+//   takes every f32 operand): f32 FMA on the CUDA cores from padded
+//   shared-memory tiles, every operand widened to f32 as the TPU kernels
+//   do (:399-402).
 //
 // Conventions of the TPU kernels' _bwd_common (:348-383), kept by both:
 // the score is masked BEFORE the exp and the masked entries of P are 0, so
@@ -60,23 +63,6 @@
 #include "sm90.cuh"
 
 namespace pa_flash {
-
-struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  int q_dt, k_dt, v_dt, do_dt;
-  const float* L;  // (n, sq) logsumexp rows, +inf where l == 0
-  const float* D;  // (n, sq) rowsum(dO * O)
-  void* g0;        // K3: dq (sq, n, d); K4: dk (skv, n, d)
-  void* g1;        // K4: dv (skv, n, d)
-  int g_dt;
-  int n, sq, skv, d;
-  float scale;
-  int causal;
-  long long q_off, kv_off;
-};
 
 // ---------------------------------------------------------------------------
 // simt instance
@@ -356,40 +342,6 @@ __device__ __forceinline__ void rs_block(float (&acc)[N / 2],
       wgmma_rs_n64(acc, pa[kk], db);
   }
 }
-
-// mul·acc, the m64 accumulator fragment of a 64 x N block (rows from row0
-// and row0 + 8, columns col0 + 8 j + 2 t (+1)), into the (s, n, d) tensor
-// g of dtype dt: rows < s and columns < d only (d % 8 == 0, so col < d
-// implies col + 1 < d).
-template <int N>
-__device__ __forceinline__ void store_frag(void* g, int dt,
-                                           const float (&acc)[N / 2],
-                                           long long row0, int s, int n,
-                                           int hb, int d, int col0, int t,
-                                           float mul) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const long long row = row0 + 8 * h;
-    if (row >= s) continue;
-    const size_t base = ((size_t)row * n + hb) * d;
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const int col = col0 + 8 * j + 2 * t;
-      if (col >= d) continue;
-      const float x0 = acc[4 * j + 2 * h] * mul;
-      const float x1 = acc[4 * j + 2 * h + 1] * mul;
-      if (dt == kBF16)
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(g) +
-                                           base + col) =
-            __floats2bfloat162_rn(x0, x1);
-      else
-        *reinterpret_cast<float2*>(static_cast<float*>(g) + base + col) =
-            make_float2(x0, x1);
-    }
-  }
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
 
 // K3: one CTA per (q tile, slice, DCOL columns of dq), key tiles inner.
 template <class T>

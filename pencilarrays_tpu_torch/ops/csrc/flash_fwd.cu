@@ -317,24 +317,6 @@ int run_wgmma(WgArgs& w, void* stream) {
 // simt instance
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  // 16 bytes, or 16 zero bytes when !valid (src-size 0 reads nothing)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   pa_sm90::smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Tiles of the simt instance: NT = TY x 16 threads, thread (ty, tx) =
 // (t / 16, t % 16) owns q rows ty + TY·i (i < RI), keys tx + 16·j (j < CJ)
 // of S, and columns 4·(tx + 16·c) + e (c < DJ / 4, e < 4) of O.  A row's
@@ -352,64 +334,6 @@ struct SimtTiles {
       sizeof(float) * ((size_t)(BQ + 2 * BK) * LD + (size_t)BQ * LP);
   static_assert(DJ % 4 == 0, "O columns go in float4 groups");
 };
-
-// Start the copy of rows [r0, r0 + ROWS) of slice hb of an (s, n, d) tensor
-// into dst (pitch DMAX + 4); rows past s and columns past d arrive as
-// zeros.  f32 goes in place; bf16 raw into the upper half of each row.
-template <int ROWS, int DMAX, int NT>
-__device__ __forceinline__ void start_tile(float* dst, const void* src,
-                                           int dt, int n, int hb, int s,
-                                           int d, long long r0) {
-  constexpr int LD = DMAX + 4;
-  const int es = dt == kBF16 ? 2 : 4;   // bytes an element
-  const int per = 16 / es;              // elements a 16-byte chunk
-  const int ch = DMAX / per;            // chunks a row
-  for (int idx = threadIdx.x; idx < ROWS * ch; idx += NT) {
-    const int r = idx / ch, c = (idx % ch) * per;
-    const long long row = r0 + r;
-    const bool valid = row < s && c < d;
-    const char* g = static_cast<const char*>(src);
-    if (valid) g += (((size_t)row * n + hb) * d + c) * es;
-    char* sm = reinterpret_cast<char*>(dst + r * LD);
-    cp_async16(sm + (es == 2 ? 2 * DMAX + 16 : 0) + c * es, g, valid);
-  }
-}
-
-// Widen a landed bf16 tile to f32 in place, a few whole rows a pass: every
-// chunk of a pass's rows is read into registers before any is written.
-template <int ROWS, int DMAX, int NT>
-__device__ __forceinline__ void widen_tile(float* dst) {
-  constexpr int LD = DMAX + 4, CH = DMAX / 8;
-  constexpr int RP = (4 * NT / CH) < 1 ? 1
-                     : (4 * NT / CH) > ROWS ? ROWS : (4 * NT / CH);
-  constexpr int PER = (RP * CH + NT - 1) / NT;
-  for (int r0 = 0; r0 < ROWS; r0 += RP) {
-    uint4 raw[PER];
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int idx = threadIdx.x + i * NT, r = r0 + idx / CH;
-      if (idx < RP * CH && r < ROWS)
-        raw[i] = *reinterpret_cast<const uint4*>(
-            reinterpret_cast<const char*>(dst + r * LD) + 2 * DMAX + 16 +
-            (idx % CH) * 16);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int idx = threadIdx.x + i * NT, r = r0 + idx / CH;
-      if (idx < RP * CH && r < ROWS) {
-        const __nv_bfloat162* h =
-            reinterpret_cast<const __nv_bfloat162*>(&raw[i]);
-        float* f = dst + r * LD + (idx % CH) * 8;
-        const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-        const float2 c = __bfloat1622float2(h[2]), e = __bfloat1622float2(h[3]);
-        *reinterpret_cast<float4*>(f) = make_float4(a.x, a.y, b.x, b.y);
-        *reinterpret_cast<float4*>(f + 4) = make_float4(c.x, c.y, e.x, e.y);
-      }
-    }
-    __syncthreads();
-  }
-}
 
 template <class T>
 __global__ void __launch_bounds__(T::NT, T::MINB)

@@ -16,14 +16,17 @@ in place: nothing is transposed or padded around a launch.
   other case: register-blocked f32 FMA fed by ``cp.async``).  Both load
   tiles in 16-byte units, so an operand whose data does not start on a
   16-byte boundary is first copied (counted in :data:`realigned_copies`);
-* K3 and K4 (``csrc/flash_bwd.cu``) — the backward as two kernels, dq with
-  key tiles inner and dk/dv with q tiles inner, rebuilding each score block
-  from the saved logsumexp ``L = m + log l``: :func:`flash_attention_bwd`
-  (grads in the input dtypes) and :func:`flash_attention_bwd_partials` (one
-  ring round against a global ``L``; f32 grads).  Two instances of each,
-  chosen by :func:`bwd_instance`: ``"wgmma"`` (q, k, v and dO all bf16,
-  ``d <= 256``: tensor cores fed by TMA, so operands not on 16 bytes are
-  copied as for K2) and ``"simt"`` (every other case: f32 FMA).
+* K3 and K4 (``csrc/flash_bwd.cu``, ``csrc/flash_bwd_tf32.cu``) — the
+  backward as two kernels, dq with key tiles inner and dk/dv with q tiles
+  inner, rebuilding each score block from the saved logsumexp
+  ``L = m + log l``: :func:`flash_attention_bwd` (grads in the input
+  dtypes) and :func:`flash_attention_bwd_partials` (one ring round against
+  a global ``L``; f32 grads).  Three instances of each, chosen by
+  :func:`bwd_instance`: ``"wgmma"`` (q, k, v and dO all bf16, ``d <= 256``:
+  tensor cores fed by TMA), ``"tf32x3"`` (any other mix with ``d <= 256``:
+  tensor cores at f32 accuracy, each f32 product as three TF32 ones, fed
+  by ``cp.async``) and ``"simt"`` (``d > 256``: f32 FMA).  The first two
+  load 16-byte units, so operands not on 16 bytes are copied as for K2.
 
 Conventions of the TPU kernels, kept bit for bit where they are defined:
 masked scores take ``NEG = finfo(float32).min / 2``; the causal mask is
@@ -75,16 +78,17 @@ launches_fwd_by_instance = {"wgmma": 0, "simt": 0}
 """K2 launches by instance (see :func:`fwd_instance`) since the last reset
 (set each entry to 0); they sum to :data:`launches_fwd`."""
 realigned_copies = 0
-"""Operands of K2 and of K3/K4's wgmma instance copied to a fresh
-allocation because their data did not start on a 16-byte boundary."""
+"""Operands of K2 and of K3/K4's wgmma and tf32x3 instances copied to a
+fresh allocation because their data did not start on a 16-byte
+boundary."""
 launches_dq = 0
 """K3 launches since the last reset."""
-launches_dq_by_instance = {"wgmma": 0, "simt": 0}
+launches_dq_by_instance = {"wgmma": 0, "tf32x3": 0, "simt": 0}
 """K3 launches by instance (see :func:`bwd_instance`); they sum to
 :data:`launches_dq`."""
 launches_dkv = 0
 """K4 launches since the last reset."""
-launches_dkv_by_instance = {"wgmma": 0, "simt": 0}
+launches_dkv_by_instance = {"wgmma": 0, "tf32x3": 0, "simt": 0}
 """K4 launches by instance (see :func:`bwd_instance`); they sum to
 :data:`launches_dkv`."""
 
@@ -110,21 +114,25 @@ def fwd_instance(d: int, q_dtype: torch.dtype, k_dtype: torch.dtype,
     all bfloat16 and ``d <= 256`` (the tensor-core kernel), else
     ``"simt"`` (any float32 operand, mixes included, and every ``d >
     256``).  Neither is a fallback for the other."""
-    return _instance(d, q_dtype, k_dtype, v_dtype)
+    return ("wgmma" if _all_bf16(q_dtype, k_dtype, v_dtype) and d <= 256
+            else "simt")
 
 
 def bwd_instance(d: int, q_dtype: torch.dtype, k_dtype: torch.dtype,
                  v_dtype: torch.dtype, do_dtype: torch.dtype) -> str:
     """Which instance of K3 and K4 takes a call: ``"wgmma"`` when q, k, v
-    and the cotangent dO are all bfloat16 and ``d <= 256`` (the
-    tensor-core kernels), else ``"simt"`` — :func:`fwd_instance`'s rule
-    with dO added.  Neither is a fallback for the other."""
-    return _instance(d, q_dtype, k_dtype, v_dtype, do_dtype)
+    and the cotangent dO are all bfloat16 and ``d <= 256`` (bf16 tensor
+    cores), else ``"tf32x3"`` when ``d <= 256`` (any float32 operand:
+    tensor cores at f32 accuracy), else ``"simt"`` (f32 FMA).  None is a
+    fallback for another."""
+    if d > 256:
+        return "simt"
+    return ("wgmma" if _all_bf16(q_dtype, k_dtype, v_dtype, do_dtype)
+            else "tf32x3")
 
 
-def _instance(d: int, *dtypes) -> str:
-    bf16 = all(dt == torch.bfloat16 for dt in dtypes)
-    return "wgmma" if bf16 and d <= 256 else "simt"
+def _all_bf16(*dtypes) -> bool:
+    return all(dt == torch.bfloat16 for dt in dtypes)
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:
@@ -309,13 +317,16 @@ def flash_attention_bwd_partials_plain(q, k, v, do, L, D, *,
 
 _DT = {torch.float32: 0, torch.bfloat16: 1}   # DType in flash_common.cuh
 _libs = {}
-_ARGTYPES = {   # the C signatures of csrc/flash_fwd.cu and csrc/flash_bwd.cu
+_ARGTYPES = {   # the C signatures of csrc/flash_fwd.cu, flash_bwd.cu and
+    #               flash_bwd_tf32.cu
     "pa_flash_fwd_simt": "pppiiipipppiiiifillp",
     "pa_flash_fwd_wgmma": "ppppipppiiiifillp",
     "pa_flash_bwd_dq": "ppppiiiipppiiiiifillp",
     "pa_flash_bwd_dkv": "ppppiiiippppiiiiifillp",
     "pa_flash_bwd_dq_wgmma": "pppppppiiiiifillp",
     "pa_flash_bwd_dkv_wgmma": "ppppppppiiiiifillp",
+    "pa_flash_bwd_dq_tf32x3": "ppppiiiipppiiiiifillp",
+    "pa_flash_bwd_dkv_tf32x3": "ppppiiiippppiiiiifillp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
            "l": ctypes.c_longlong}
@@ -385,8 +396,9 @@ def _raise_on(err: int, what: str):
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it in a fresh allocation when its data does not
-    start on the 16-byte boundary that K2's tile loads and the TMA loads
-    of K3/K4's wgmma instance need."""
+    start on the 16-byte boundary that K2's tile loads, the TMA loads of
+    K3/K4's wgmma instance and the tile loads of their tf32x3 instance
+    need."""
     global realigned_copies
     if t.data_ptr() % 16 == 0:
         return t
@@ -424,25 +436,40 @@ def _bwd_inst(qf, kf, vf, dof) -> str:
                         dof.dtype)
 
 
+# C entry points of K3 and K4 by instance: (library, dq, dkv); the wgmma
+# ones take no dtype flags (every operand is bf16)
+_BWD_ENTRIES = {
+    "wgmma": ("flash_bwd", "pa_flash_bwd_dq_wgmma", "pa_flash_bwd_dkv_wgmma"),
+    "tf32x3": ("flash_bwd_tf32", "pa_flash_bwd_dq_tf32x3",
+               "pa_flash_bwd_dkv_tf32x3"),
+    "simt": ("flash_bwd", "pa_flash_bwd_dq", "pa_flash_bwd_dkv"),
+}
+
+
+def _bwd_call(qf, kf, vf, dof) -> Tuple[str, tuple]:
+    """The instance :func:`bwd_instance` picks for a K3/K4 launch and the
+    launch's leading arguments."""
+    inst = _bwd_inst(qf, kf, vf, dof)
+    head = (_ptr(qf), _ptr(kf), _ptr(vf), _ptr(dof))
+    if inst != "wgmma":
+        head += (_DT[qf.dtype], _DT[kf.dtype], _DT[vf.dtype], _DT[dof.dtype])
+    return inst, head
+
+
 def launch_dq(qf, kf, vf, dof, L, D, dq, *, causal, q_offset, kv_offset):
     """One K3 launch, by the instance :func:`bwd_instance` picks: ``dq``
     (folded ``(Sq, N, D)``, f32 or bf16) from folded contiguous operands
-    (for the wgmma instance starting on 16 bytes) and ``(N, Sq)`` f32
-    residuals."""
+    (for the wgmma and tf32x3 instances starting on 16 bytes) and
+    ``(N, Sq)`` f32 residuals."""
     global launches_dq
     sq, n, d = qf.shape
-    inst = _bwd_inst(qf, kf, vf, dof)
-    tail = (_ptr(L), _ptr(D), _ptr(dq), _DT[dq.dtype], n, sq, kf.shape[0], d,
-            1.0 / math.sqrt(d), int(causal), q_offset, kv_offset,
-            _stream(qf))
+    inst, head = _bwd_call(qf, kf, vf, dof)
+    lib, entry, _ = _BWD_ENTRIES[inst]
     with torch.cuda.device(qf.device):
-        if inst == "wgmma":
-            err = _fn("flash_bwd", "pa_flash_bwd_dq_wgmma")(
-                _ptr(qf), _ptr(kf), _ptr(vf), _ptr(dof), *tail)
-        else:
-            err = _fn("flash_bwd", "pa_flash_bwd_dq")(
-                _ptr(qf), _ptr(kf), _ptr(vf), _ptr(dof), _DT[qf.dtype],
-                _DT[kf.dtype], _DT[vf.dtype], _DT[dof.dtype], *tail)
+        err = _fn(lib, entry)(
+            *head, _ptr(L), _ptr(D), _ptr(dq), _DT[dq.dtype], n, sq,
+            kf.shape[0], d, 1.0 / math.sqrt(d), int(causal), q_offset,
+            kv_offset, _stream(qf))
     _raise_on(err, f"flash backward dq ({inst})")
     launches_dq += 1
     launches_dq_by_instance[inst] += 1
@@ -452,24 +479,19 @@ def launch_dkv(qf, kf, vf, dof, L, D, dk, dv, *, causal, q_offset,
                kv_offset):
     """One K4 launch, by the instance :func:`bwd_instance` picks: ``dk``
     and ``dv`` (folded ``(Skv, N, D)``, one dtype) from folded contiguous
-    operands (for the wgmma instance starting on 16 bytes) and ``(N, Sq)``
-    f32 residuals."""
+    operands (for the wgmma and tf32x3 instances starting on 16 bytes) and
+    ``(N, Sq)`` f32 residuals."""
     global launches_dkv
     sq, n, d = qf.shape
     if dk.dtype != dv.dtype:
         raise TypeError("flash backward: dk and dv must share a dtype")
-    inst = _bwd_inst(qf, kf, vf, dof)
-    tail = (_ptr(L), _ptr(D), _ptr(dk), _ptr(dv), _DT[dk.dtype], n, sq,
-            kf.shape[0], d, 1.0 / math.sqrt(d), int(causal), q_offset,
-            kv_offset, _stream(qf))
+    inst, head = _bwd_call(qf, kf, vf, dof)
+    lib, _, entry = _BWD_ENTRIES[inst]
     with torch.cuda.device(qf.device):
-        if inst == "wgmma":
-            err = _fn("flash_bwd", "pa_flash_bwd_dkv_wgmma")(
-                _ptr(qf), _ptr(kf), _ptr(vf), _ptr(dof), *tail)
-        else:
-            err = _fn("flash_bwd", "pa_flash_bwd_dkv")(
-                _ptr(qf), _ptr(kf), _ptr(vf), _ptr(dof), _DT[qf.dtype],
-                _DT[kf.dtype], _DT[vf.dtype], _DT[dof.dtype], *tail)
+        err = _fn(lib, entry)(
+            *head, _ptr(L), _ptr(D), _ptr(dk), _ptr(dv), _DT[dk.dtype], n,
+            sq, kf.shape[0], d, 1.0 / math.sqrt(d), int(causal), q_offset,
+            kv_offset, _stream(qf))
     _raise_on(err, f"flash backward dk/dv ({inst})")
     launches_dkv += 1
     launches_dkv_by_instance[inst] += 1
@@ -518,7 +540,7 @@ def _bwd_kernels(qf, kf, vf, dof, L, D, dq_dtype, dkv_dtype, *, causal,
     sq, n, d = qf.shape
     skv = kf.shape[0]
     dev = qf.device
-    if _bwd_inst(qf, kf, vf, dof) == "wgmma":
+    if _bwd_inst(qf, kf, vf, dof) != "simt":
         qf, kf, vf, dof = (_aligned(x) for x in (qf, kf, vf, dof))
     dq = torch.empty((sq, n, d), dtype=dq_dtype, device=dev)
     dk = torch.empty((skv, n, d), dtype=dkv_dtype, device=dev)

@@ -64,10 +64,12 @@ def _by_instance():
 
 def _flash_case(dtype, causal, q_off, kv_off, q, k, v):
     """flash_compare within chip_smoke.py's tolerances, with the launches
-    it makes: K2 three times (its three modes) by the instance its dtypes
-    pick; K3 and K4 twice each in f32 (full and partials backward, simt),
-    three times each in bf16 (full and partials with a bf16 dO by the
-    wgmma instance, partials with an f32 dO by the simt one)."""
+    it makes: K2 three times (its three modes), by the wgmma instance in
+    bf16 with d <= 256 and the simt one otherwise; K3 and K4 twice each in
+    f32 (full and partials backward), by the tf32x3 instance with d <= 256
+    and the simt one above, three times each in bf16 (full and partials
+    with a bf16 dO by the wgmma instance, partials with an f32 dO by the
+    tf32x3 one; all three by simt above d = 256)."""
     from chip_smoke import FLASH_TOL, flash_compare
 
     n0 = (flash.launches_fwd, flash.launches_dq, flash.launches_dkv)
@@ -82,13 +84,17 @@ def _flash_case(dtype, causal, q_off, kv_off, q, k, v):
             flash.launches_dkv - n0[2]) == ((3, 3, 3) if bf16 else (3, 2, 2))
     by = [{i: c[i] - c0[i] for i in c0}
           for c, c0 in zip(_by_instance(), by0)]
-    want_bwd = {"wgmma": 2, "simt": 1} if bf16 else {"wgmma": 0, "simt": 2}
-    assert by == [{"wgmma": 3 * bf16, "simt": 3 * (not bf16)}, want_bwd,
-                  want_bwd]
+    wide = q.shape[-1] > 256
+    want_fwd = {"wgmma": 3 * (bf16 and not wide),
+                "simt": 3 * (wide or not bf16)}
+    want_bwd = ({"wgmma": 0, "tf32x3": 0, "simt": 2 + bf16} if wide else
+                {"wgmma": 2, "tf32x3": 1, "simt": 0} if bf16 else
+                {"wgmma": 0, "tf32x3": 2, "simt": 0})
+    assert by == [want_fwd, want_bwd, want_bwd]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [72, 128, 256])
+@pytest.mark.parametrize("d", [72, 128, 256, 264])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,q_off,kv_off", [
     (False, 0, 0), (True, 0, 0), (True, 17, 9)])
@@ -97,8 +103,8 @@ def test_flash_kernels_match_plain_on_the_card(dtype, causal, q_off, kv_off,
     """K2 in its three output modes, K3 + K4 (full and partials backward)
     against the plain versions, each row relative to its own scale, within
     chip_smoke.py's tolerances; one launch of each kernel per call, by the
-    wgmma instances in bf16 (K3/K4's simt one only for the partials call
-    with an f32 dO) and the simt instances in f32."""
+    instance the head dim and dtypes pick (see _flash_case): every
+    instance of each kernel is held to the plain version."""
     _skip_without_card()
     sq, skv, h, b = 133, 201, 2, 3
     q, k, v = (_values(s, torch.float32, seed).div(100).to(dtype).cuda()
@@ -111,8 +117,9 @@ def test_flash_kernels_match_plain_on_the_card(dtype, causal, q_off, kv_off,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_storage_offset_on_the_card(dtype):
     """k and v as views whose data starts 2 or 4 bytes past a 16-byte
-    boundary: K2 and K3/K4's wgmma instance copy them to an aligned
-    allocation (counted), and every kernel agrees with its plain version."""
+    boundary: K2 and K3/K4's wgmma and tf32x3 instances copy them to an
+    aligned allocation (counted), and every kernel agrees with its plain
+    version."""
     _skip_without_card()
     sq, skv, h, b, d = 70, 150, 2, 3, 128
     q = _values((sq, h, b, d), torch.float32, 3).div(100).to(dtype).cuda()
@@ -121,9 +128,9 @@ def test_flash_storage_offset_on_the_card(dtype):
     assert k.data_ptr() % 16 != 0
     copies = flash.realigned_copies
     _flash_case(dtype, True, 17, 9, q, k, v)
-    # k and v: three K2 calls; in bf16 also the two backward calls that
-    # take the wgmma instance of K3/K4
-    want = 10 if dtype == torch.bfloat16 else 6
+    # k and v: three K2 calls and every backward call (two in f32, three
+    # in bf16), none of which takes the simt instance at d = 128
+    want = 12 if dtype == torch.bfloat16 else 10
     assert flash.realigned_copies - copies == want
 
 

@@ -276,15 +276,20 @@ MIXES_BWD = [m + (e,) for m in MIXES for e in ("float32", "bfloat16")]
 
 
 @pytest.mark.parametrize("mix", MIXES_BWD, ids=lambda m: "-".join(m))
-@pytest.mark.parametrize("d", [8, 64, 72, 128, 256, 264, 1024])
+@pytest.mark.parametrize("d", [8, 40, 64, 72, 128, 200, 256, 264, 1024])
 def test_bwd_instance(d, mix):
-    """K3/K4's instance rule: the tensor-core (wgmma) instance takes q, k,
-    v and dO all bf16 with d <= 256, the simt instance every other case
-    the kernels take.  CPU tensors run the plain versions and launch
-    neither."""
+    """K3/K4's instance rule: with d <= 256 the bf16 tensor-core (wgmma)
+    instance takes q, k, v and dO all bf16 and the tf32x3 one every mix
+    with an f32 operand (a bf16 ring's partials with an f32 dO among
+    them); the simt instance takes every d > 256.  CPU tensors run the
+    plain versions and launch none."""
     dtypes = [getattr(torch, name) for name in mix]
-    want = ("wgmma" if d <= 256 and all(dt == torch.bfloat16 for dt in dtypes)
-            else "simt")
+    if d > 256:
+        want = "simt"
+    elif all(dt == torch.bfloat16 for dt in dtypes):
+        want = "wgmma"
+    else:
+        want = "tf32x3"
     assert flash.bwd_instance(d, *dtypes) == want
     q, k, v, do = (_torch(a).to(dt) for a, dt in zip(
         _arrays(11, (5, 2, 1, d), (7, 2, 1, d), (7, 2, 1, d), (5, 2, 1, d)),
@@ -361,3 +366,116 @@ def test_mixed_dtypes_take_the_kernel_path():
             assert g.dtype == (torch.bfloat16 if bf else torch.float32)
             np.testing.assert_allclose(_np(g), np.asarray(
                 jnp.asarray(w, jnp.float32)), atol=6e-2, rtol=6e-2)
+
+
+def _tf32(x):
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: 10
+    mantissa bits, to nearest with ties away from zero (the magnitude's
+    low 13 bits rounded up at half, then cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _rz(x):
+    """float64 ``x`` rounded to float32 toward zero."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(),
+                       torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mm(a, b, passes, block):
+    """float32 ``a @ b`` as the tf32x3 kernels sum it on the tensor cores.
+    Each operand is split into ``big = tf32(x)`` and ``small = tf32(x -
+    big)``; per k8 step the products small·big, big·small and big·big
+    (``passes=3``; ``passes=1``: big·big alone, single-pass TF32) go in
+    turn into an f32 accumulator, each step's exact sum added to it and
+    rounded toward zero, as ``mma.sync`` accumulates; a fresh accumulator
+    takes every ``block`` terms of k, and one float32 add (to nearest)
+    moves its sum into the result."""
+    ab, bb = _tf32(a), _tf32(b)
+    prods = [(ab, bb)]
+    if passes == 3:
+        prods = [(_tf32(a - ab), bb), (ab, _tf32(b - bb)), (ab, bb)]
+    n = a.shape[-1]
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, n, block):
+        part = torch.zeros_like(out)
+        for k in range(k0, min(k0 + block, n), 8):
+            for x, y in prods:
+                part = _rz(part.double() + x[..., k:k + 8].double()
+                           @ y[..., k:k + 8, :].double())
+        out = out + part
+    return out
+
+
+def _tf32x3_bwd(q, k, v, do, L, D, *, causal, q_offset, kv_offset,
+                passes=3, chunk=32, block=32):
+    """The arithmetic of K3 and K4's tf32x3 instance on folded (S, N, D)
+    float32 tensors: S and dP as split products summed ``chunk`` columns a
+    fresh accumulator, P = exp2(S·scale·log2 e - L·log2 e) (one rounding,
+    as fmaf) masked before the exp, dS = P∘(dP - D), then dQ = scale·dS·K,
+    dV = Pᵀ·dO, dK = scale·dSᵀ·Q as split products of the f32 P and dS
+    summed ``block`` keys (q rows) a fresh accumulator: the streamed tile,
+    32 rows for d <= 128."""
+    sq, n, d = q.shape
+    scale = np.float32(1.0 / np.sqrt(d))
+    log2e = np.float32(1.4426950408889634)
+    qh, kh, vh, doh = (x.permute(1, 0, 2) for x in (q, k, v, do))
+    s = _mm(qh, kh.transpose(1, 2), passes, chunk)
+    dp = _mm(doh, vh.transpose(1, 2), passes, chunk)
+    rows = q_offset + torch.arange(sq)[:, None]
+    cols = kv_offset + torch.arange(k.shape[0])[None, :]
+    valid = (rows >= cols) if causal else torch.ones_like(rows >= cols)
+    arg = (s.double() * float(scale * log2e)
+           - (L * log2e).double()[..., None]).float()
+    p = torch.where(valid, torch.exp2(arg), 0.0)
+    ds = p * (dp - D[..., None])
+    dq = _mm(ds, kh, passes, block) * scale
+    dk = _mm(ds.transpose(1, 2), qh, passes, block) * scale
+    dv = _mm(p.transpose(1, 2), doh, passes, block)
+    return tuple(x.permute(1, 0, 2) for x in (dq, dk, dv))
+
+
+def _tf32x3_errs(sq, skv, n, d, seed, kw, **how):
+    """Per-row errors (chip_smoke's _rel_err, each row of dq and dk held
+    to the larger of its own max|exact| and its largest term) of the
+    emulated tf32x3 backward against the plain backward in float64."""
+    from chip_smoke import _bwd_terms, _rel_err
+
+    q, k, v, do = (torch.from_numpy(a) for a in _arrays(
+        seed, (sq, n, d), (skv, n, d), (skv, n, d), (sq, n, d)))
+    rows = (kw["q_offset"] + np.arange(sq)) >= kw["kv_offset"]
+    do[~torch.from_numpy(rows)] = 0.0   # defined outputs only
+    out, (m, l) = flash.flash_attention_fwd_plain(
+        q.double(), k.double(), v.double(), return_stats=True, **kw)
+    want = flash.flash_attention_bwd_plain(
+        q.double(), k.double(), v.double(), out, do.double(), m, l, **kw)
+    L, D = (x.float() for x in flash.residuals(out, do.double(), m, l))
+    terms = _bwd_terms(torch, flash, q, k, v, do, L, D, **kw) + (None,)
+    got = _tf32x3_bwd(q, k, v, do, L, D, **kw, **how)
+    return [_rel_err(torch, g, w, terms=t)
+            for g, w, t in zip(got, want, terms)]
+
+
+@pytest.mark.parametrize("shape,offsets,without", [
+    ((45, 67, 3, 64), (False, 0, 0), dict(passes=1)),
+    ((45, 67, 3, 64), (True, 0, 0), dict(passes=1)),
+    ((45, 67, 3, 64), (True, 5, 0), dict(passes=1)),
+    ((45, 67, 3, 64), (True, 17, 9), dict(passes=1)),
+    ((16, 8192, 2, 128), (False, 0, 0), dict(block=8192)),
+])
+def test_tf32x3_split_meets_the_f32_tolerance(shape, offsets, without):
+    """The numerical case for the tf32x3 instance, checked without a card:
+    its arithmetic, emulated in torch with TF32 rounding as cvt.rna does
+    and the accumulation as mma.sync does it, stays about 2e-6 of each
+    row's scale from the plain backward in float64, within a fifth of the
+    f32 backward bar of chip_smoke.py (5e-5); without each part of the
+    design it misses that bar: single-pass TF32 at a small ragged shape,
+    and (mma.sync rounding its accumulation toward zero) one accumulator
+    for the products of 8192 keys in place of a fresh one per streamed
+    tile, whose dq drifts to about 1e-4."""
+    kw = dict(zip(("causal", "q_offset", "kv_offset"), offsets))
+    errs = _tf32x3_errs(*shape, 21, kw)
+    errs_without = _tf32x3_errs(*shape, 21, kw, **without)
+    assert max(errs) <= 1e-5, errs
+    assert max(errs_without) > 5e-5, errs_without
