@@ -18,13 +18,20 @@ standard output too.  Phases, each printed on its own lines:
    TF32 HMMA ones, spilling no more than it did when tuned; a 1-rank
    NCCL process group;
 2. kernel K1 (``pencilarrays_tpu_torch/ops/csrc/permute.cu``) against its
-   plain PyTorch version on the card, bit for bit, over the main path's
-   shapes, ragged shapes in six dtypes, and pack/unpack with P = 1, 2, 4;
-   with kernel, plain, bound, copy and library times at each main-path
-   shape and at two 512^3 hop classes;
+   plain PyTorch versions on the card, bit for bit, over the main path's
+   shapes, ragged shapes in six dtypes, pack/unpack with P = 1, 2, 4,
+   each instance (copy, narrow, tiled) at its edges and one launch over
+   more than 2^31 words; its timings run last (after phase 9): kernel,
+   plain, bound, copy and library times and the instance of every
+   (shape, axes, dtype) class phases 3, 5 and 7 launched (recorded by
+   ``permute.recorded``) and of two 512^3 hop classes, and K1's time per
+   run (per NS RK2 step, per cycle, per Ulysses call);
 3. an x->y->z->y->x transpose cycle of a 1024^3 float32 field on a (1, 1)
-   topology: bit-identical round trip, GB/s;
+   topology: bit-identical round trip, GB/s, K1 launches by instance;
 4. a 512^3 r2c PencilFFT plan: forward + backward round trip and times;
+   a strided-batch ``rfftn``/``irfftn`` over a (512, 512, 512, 3) f32
+   block with the components innermost against K1 + the contiguous
+   transform + K1;
 5. Navier–Stokes (Taylor–Green): 64^3 on the card against the same port
    on the CPU, then 512^3 float32 for 3 RK2 steps (the main path), with
    the energy held to exp(-6 nu t), step time and peak memory;
@@ -56,8 +63,9 @@ standard output too.  Phases, each printed on its own lines:
    kernels it launches, from the profiler) and bound, each kernel by the
    instance its dtype picks, held to the plain version;
 10. a ``{"kernels": [...]}`` line: per kernel its launches on each path
-    (each counted from 0 just before its run) and their sum, its error
-    against the plain version and its times;
+    (each counted from 0 just before its run) and their sum, by instance,
+    its error against the plain version and its times (K1's per class in
+    ``timings``);
 11. the last line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -133,7 +141,7 @@ KERNEL_GROUPS = [
                      "flash_dq_kernel")),
     ("k4_flash_dkv", ("flash_dkv_wgmma_kernel", "flash_dkv_tf32x3_kernel",
                       "flash_dkv_kernel")),
-    ("k1_permute", ("permute_tiled_kernel", "permute_copy_kernel")),
+    ("k1_permute", ("permute_",)),
     ("gemm", ("gemm", "xmma", "cutlass", "Kernel2")),
     ("cufft", ("fft", "FFT")),
     ("stack_cat", ("CatArrayBatchedCopy",)),
@@ -330,9 +338,118 @@ HOPS = [
 MAIN_CASE = MAIN_PATH[0][0]
 
 
-def phase_kernel(torch, k1, bw):
+# K1 at the edges of its instances: every short-dim extent C, runs that
+# are not multiples of 4 or of a tile, pack and unpack with P = 1, 2, 4 on
+# ragged extents, each element size (bool included), and an input whose
+# storage offset breaks 16-byte alignment
+K1_EDGE_C = (1, 2, 3, 5, 6, 7, 16)
+K1_EDGE_DTYPES = ("float32", "complex64", "bfloat16", "uint8", "complex128",
+                  "float64", "bool")
+
+
+def _k1_same(torch, k1, what, x, axes, dim=None, P=None):
+    """``x`` through permute, and pack + unpack on (dim, P), against the
+    plain versions; returns the number of comparisons."""
+    def check(tag, got, want):
+        if not same_bits(torch, got, want):
+            raise AssertionError(f"K1 {tag} {what} {tuple(x.shape)} {axes} "
+                                 f"{x.dtype} dim={dim} P={P} differs")
+
+    check("permute", k1.permute(x, axes), k1.permute_plain(x, axes))
+    if dim is None:
+        return 1
+    got = k1.pack(x, axes, dim, P)
+    check("pack", got, k1.pack_plain(x, axes, dim, P))
+    n = got.shape[0] * got.shape[dim + 1] - (P - 1)
+    for out_axes in (tuple(range(x.dim())), axes):
+        check("unpack", k1.unpack(got, out_axes, dim, n),
+              k1.unpack_plain(got, out_axes, dim, n))
+    return 4
+
+
+def k1_edges(torch, k1, gen):
+    """Every K1 instance against the plain versions at its edges; returns
+    ``(comparisons, launches by instance)``.  Raises on any difference."""
+    def rnd(shape, name):
+        if name == "bool":
+            return torch.rand(shape, generator=gen, device="cuda") > 0.5
+        if name == "uint8":
+            return torch.randint(0, 256, shape, generator=gen,
+                                 device="cuda").to(torch.uint8)
+        return random_tensor(torch, shape, getattr(torch, name), gen)
+
+    by0 = dict(k1.launches_by_instance)
+    n = 0
+    for name in K1_EDGE_DTYPES:
+        for C in K1_EDGE_C:
+            # interleave (C innermost -> outermost) and back, over runs of
+            # 96 x 53 = 5088 positions (whole 16-byte groups: narrow warp
+            # tiles, the last one short) and 97 x 53 = 5141 (ragged: flat
+            # tiled tiles)
+            for shape, axes in (((96, 53, C), (2, 0, 1)),
+                                ((C, 96, 53), (1, 2, 0)),
+                                ((97, 53, C), (2, 0, 1)),
+                                ((C, 97, 53), (1, 2, 0))):
+                x = rnd(shape, name)
+                n += _k1_same(torch, k1, "narrow", x, axes)
+                for dim, P in ((0, 2), (1, 4), (2, 1)):
+                    n += _k1_same(torch, k1, "narrow", x, axes, dim, P)
+        # tiled: ragged 2-D and 3-D transposes of several tiles (the ring),
+        # and whole tiles (a warp a tile: 128-byte rows of 4- to 16-byte
+        # elements, 8 x 8 elements of 2 to 7 16-byte words)
+        for shape, axes in (((300, 201), (1, 0)), ((129, 65, 31), (2, 0, 1)),
+                            ((129, 65, 31), (0, 2, 1)),
+                            ((33, 17, 45, 6), (1, 2, 0, 3)),
+                            ((96, 64), (1, 0)), ((3, 64, 32), (0, 2, 1)),
+                            ((16, 8, 6), (1, 0, 2))):
+            x = rnd(shape, name)
+            n += _k1_same(torch, k1, "tiled", x, axes)
+            for dim, P in ((0, 4), (1, 2), (len(shape) - 1, 1)):
+                n += _k1_same(torch, k1, "tiled", x, axes, dim, P)
+    # inputs 4 bytes past a 16-byte boundary: word-sized chunks
+    for shape, axes in (((97, 53, 3), (2, 0, 1)), ((3, 97, 53), (1, 2, 0)),
+                        ((129, 65, 31), (2, 0, 1)), ((64, 64, 64), (0, 1, 2))):
+        numel = math.prod(shape)
+        x = rnd((numel + 1,), "float32")[1:].view(shape)
+        if x.data_ptr() % 16 == 0:
+            raise AssertionError("misaligned view is aligned")
+        n += _k1_same(torch, k1, "misaligned", x, axes)
+        n += _k1_same(torch, k1, "misaligned", x, axes, 0, 2)
+    torch.cuda.synchronize()
+    by = {i: k1.launches_by_instance[i] - by0[i] for i in by0}
+    return n, by
+
+
+def k1_beyond_2_31(torch, k1, gen):
+    """One narrow launch over more than 2^31 words: 3 x 1024^3 f32
+    (1, 2, 3, 0), 12.9 GB in; returns its word count."""
+    shape, axes = (3, 1024, 1024, 1024), (1, 2, 3, 0)
+    x = torch.empty(shape, dtype=torch.int32, device="cuda")
+    for c in range(3):  # bit patterns, NaN payloads among them
+        x[c].random_(generator=gen)
+    x = x.view(torch.float32)
+    by0 = dict(k1.launches_by_instance)
+    got = k1.permute(x, axes)
+    torch.cuda.synchronize()
+    if {i: k1.launches_by_instance[i] - by0[i] for i in by0} != {
+            "copy": 0, "narrow": 1, "tiled": 0}:
+        raise AssertionError("the 2^31-word launch did not take narrow")
+    want = k1.permute_plain(x, axes)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("K1 over 2^31 words differs from plain")
+    del got, want, x
+    torch.cuda.empty_cache()
+    return math.prod(shape)
+
+
+def phase_kernel(torch, k1):
+    """K1 against its plain versions, bit for bit: the NS step's shapes
+    and two hop classes, ragged shapes in six dtypes with pack/unpack at
+    P = 1, 2, 4, every instance at its edges (k1_edges) and one launch
+    over more than 2^31 words.  Its timings run after phase 9
+    (k1_timing), over the classes phases 3, 5 and 7 record."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    # bit-for-bit checks: main-path shapes, ragged shapes, pack/unpack
+    by0 = dict(k1.launches_by_instance)
     checks = 0
     for _, shape, axes, dtype in MAIN_PATH + HOPS:
         x = random_tensor(torch, shape, getattr(torch, dtype), gen)
@@ -350,60 +467,158 @@ def phase_kernel(torch, k1, bw):
             for axes in [tuple(reversed(range(nd))),
                          tuple(range(1, nd)) + (0,),
                          (nd - 1,) + tuple(range(nd - 1))]:
-                if not same_bits(torch, k1.permute(x, axes),
-                                 k1.permute_plain(x, axes)):
-                    raise AssertionError(f"permute {shape} {axes} {dtype}")
+                checks += _k1_same(torch, k1, "ragged", x, axes)
                 for dim in range(nd):
                     for P in (1, 2, 4):
-                        got = k1.pack(x, axes, dim, P)
-                        if not same_bits(torch, got,
-                                         k1.pack_plain(x, axes, dim, P)):
-                            raise AssertionError(
-                                f"pack {shape} {axes} {dim} {P} {dtype}")
-                        n = got.shape[0] * got.shape[dim + 1] - (P - 1)
-                        for out_axes in (tuple(range(nd)), axes):
-                            if not same_bits(
-                                    torch, k1.unpack(got, out_axes, dim, n),
-                                    k1.unpack_plain(got, out_axes, dim, n)):
-                                raise AssertionError(
-                                    f"unpack {shape} {out_axes} {dim} {P} "
-                                    f"{dtype}")
-                            checks += 1
-    torch.cuda.synchronize()
-    log(f"[k1] bit-identical to permute_plain on the card: {checks} cases "
-        f"(the NS step's {len(MAIN_PATH)} shapes, {len(HOPS)} hop classes; "
-        f"f32 f64 c64 c128 bf16 i32 ragged; pack/unpack P=1,2,4)")
+                        checks += _k1_same(torch, k1, "ragged", x, axes, dim,
+                                           P)
+    torch.cuda.empty_cache()
+    edges, edge_by = k1_edges(torch, k1, gen)
+    words = k1_beyond_2_31(torch, k1, gen)
+    by = {i: k1.launches_by_instance[i] - by0[i] for i in by0}
+    if min(by.values()) <= 0:
+        raise AssertionError(f"K1 checks launched by instance {by}")
+    log(f"[k1] bit-identical to the plain versions on the card: {checks} "
+        f"cases (the NS step's {len(MAIN_PATH)} shapes, {len(HOPS)} hop "
+        f"classes; f32 f64 c64 c128 bf16 i32 ragged; pack/unpack P=1,2,4), "
+        f"{edges} edge cases (short dims C={list(K1_EDGE_C)}, "
+        f"{'/'.join(K1_EDGE_DTYPES)}, inputs off 16 bytes; launches by "
+        f"instance {edge_by}), one narrow launch over {words} words "
+        f"(> 2^31); launches by instance {by}")
+    return dict(checks=checks + edges + 1, launches_by_instance=by)
 
-    timed = {}
-    for label, shape, axes, dtype in MAIN_PATH + HOPS:
-        x = random_tensor(torch, shape, getattr(torch, dtype), gen)
-        nbytes = x.numel() * x.element_size()
+
+def _k1_class_call(torch, k1, cls, gen):
+    """The input of a recorded K1 class and its kernel, plain and library
+    calls (library: one PyTorch call computing the same function, where
+    there is one: a permute, or a pack/unpack with nothing to pad)."""
+    kind, shape, axes = cls[:3]
+    dtype = getattr(torch, cls[-1])
+    x = random_tensor(torch, shape, dtype, gen)
+    if kind == "permute":
+        return x, (lambda: k1.permute(x, axes),
+                   lambda: k1.permute_plain(x, axes),
+                   lambda: x.permute(axes).contiguous())
+    dim, arg = cls[3], cls[4]
+    if kind == "pack":
+        lib = None
+        if arg == 1:
+            def lib():
+                return x.permute(axes).contiguous()
+        return x, (lambda: k1.pack(x, axes, dim, arg),
+                   lambda: k1.pack_plain(x, axes, dim, arg), lib)
+    lib = None
+    if shape[0] == 1 and arg == shape[dim + 1]:
+        def lib():
+            return x[0].permute(axes).contiguous()
+    return x, (lambda: k1.unpack(x, axes, dim, arg),
+               lambda: k1.unpack_plain(x, axes, dim, arg), lib)
+
+
+def _k1_desc(k1, cls):
+    kind, shape, axes = cls[:3]
+    if kind == "permute":
+        return k1._describe_permute(shape, axes)
+    if kind == "pack":
+        return k1._describe_pack(shape, axes, cls[3], cls[4])
+    return k1._describe_unpack(shape, axes, cls[3], cls[4])
+
+
+def k1_timing(torch, k1, bw, recorded, extra):
+    """Kernel (``run_plan`` into one output buffer), call (the wrapper,
+    which allocates its output each call), plain, copy (``dst.copy_`` of
+    the input's bytes) and library times (CUDA-event means of 10 launches
+    after a warm-up), bound (input
+    and output bytes over the card's memory rate), instance and error of
+    every K1 class the runs in ``recorded`` launched ({run: {class:
+    count}}), and of the ``extra`` (label, shape, axes, dtype) permutes;
+    for a narrow class also ``ring_ms``, the same copy walked by the tiled
+    instance; returns {class: row}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    classes = {}
+    for run, rec in recorded.items():
+        for cls, n in rec.items():
+            classes.setdefault(cls, {})[run] = n
+    for _, shape, axes, dtype in extra:
+        classes.setdefault(("permute", tuple(shape), tuple(axes), dtype), {})
+    rows = {}
+    for cls, runs in classes.items():
+        x, (kernel, plain, lib) = _k1_class_call(torch, k1, cls, gen)
+        got, want = kernel(), plain()
+        if not same_bits(torch, got, want):
+            raise AssertionError(f"K1 class {cls} differs from plain")
+        nbytes = (x.numel() * x.element_size()
+                  + got.numel() * got.element_size())
         dst = torch.empty_like(x)
-        iters = 10
-        r = dict(
-            kernel_ms=cuda_ms(torch, lambda: k1.permute(x, axes), iters),
-            plain_ms=cuda_ms(torch, lambda: k1.permute_plain(x, axes), iters),
-            copy_ms=cuda_ms(torch, lambda: dst.copy_(x), iters),
-            library_ms=cuda_ms(torch, lambda: x.permute(axes).contiguous(),
-                               iters),
-            bound_ms=2 * nbytes / bw * 1e3,
-            max_abs_err=max_abs_err(torch, k1.permute(x, axes),
-                                    k1.permute_plain(x, axes)),
-            bytes=nbytes)
-        r["kernel_GBps"] = 2 * nbytes / r["kernel_ms"] / 1e6
-        timed[label] = r
-        log(f"[k1] {label}: " + json.dumps(
+        plan = k1.plan_copy(_k1_desc(k1, cls), x.element_size(),
+                            k1._address_align(x, got))
+        by0 = dict(k1.launches_by_instance)
+        it = 10
+        into = torch.empty_like(got)
+        r = dict(kind=cls[0], shape=list(cls[1]), axes=list(cls[2]),
+                 dtype=cls[-1], instance=plan.instance, launches=runs,
+                 ms=cuda_ms(torch, lambda: k1.run_plan(plan, x, into), it),
+                 call_ms=cuda_ms(torch, kernel, it),
+                 plain_ms=cuda_ms(torch, plain, it),
+                 copy_ms=cuda_ms(torch, lambda: dst.copy_(x), it),
+                 library_ms=cuda_ms(torch, lib, it) if lib else None,
+                 bound_ms=nbytes / bw * 1e3, bound_by="bytes",
+                 max_abs_err=max_abs_err(torch, got, want)
+                 if got.is_floating_point() or got.is_complex() else 0.0,
+                 bytes=nbytes)
+        if len(cls) > 4 and cls[0] != "permute":
+            r.update(dim=cls[3], P_or_n=cls[4])
+        by = {i: k1.launches_by_instance[i] - by0[i] for i in by0}
+        if by != {i: 2 * (it + 1) * (i == plan.instance) for i in by}:
+            raise AssertionError(f"K1 class {cls} launched {by}")
+        r["GBps"] = nbytes / r["ms"] / 1e6
+        r["of_bound"] = r["bound_ms"] / r["ms"]
+        if plan.instance == "narrow":
+            # the walk narrow replaced: the tiled instance's ring of flat
+            # tiles, on the same inputs (not counted in any path)
+            ring = _ring_plan(k1, plan)
+            again = torch.empty_like(got)
+            k1.run_plan(ring, x, again)
+            if not same_bits(torch, again, want):
+                raise AssertionError(f"K1 class {cls}: ring walk differs")
+            r["ring_ms"] = cuda_ms(torch, lambda: k1.run_plan(ring, x, again),
+                                   it)
+            del again
+        rows[cls] = r
+        log(f"[k1] {cls[0]} {cls[1]} {cls[2]} {cls[-1]}: " + json.dumps(
             {k: (round(v, 4) if isinstance(v, float) else v)
-             for k, v in r.items()}))
-        del x, dst
+             for k, v in r.items() if k not in ("kind", "shape", "axes",
+                                                "dtype")}))
+        del x, got, want, dst, into
         torch.cuda.empty_cache()
-    # one RK2 step evaluates the nonlinear term twice; each evaluation
-    # runs the first four main-path launches once
-    step = {key: 2 * sum(timed[c[0]][key] for c in MAIN_PATH[:4])
-            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
-    log("[k1] per NS RK2 step (8 launches): " + json.dumps(
-        {k: round(v, 4) for k, v in step.items()}))
-    return timed
+    return rows
+
+
+def _ring_plan(k1, plan):
+    """A narrow plan's copy as the tiled instance walks it: flat tiles of
+    about 16 KB through the shared-memory ring."""
+    import dataclasses
+
+    E = plan.elem_bytes
+    if plan.flat_in:
+        TI, TO = plan.TI, k1._run(plan.ext[plan.dO], plan.TI, E)
+    else:
+        TI, TO = k1._run(plan.ext[plan.dI], plan.TO, E), plan.TO
+    return dataclasses.replace(plan, instance="tiled", TI=TI, TO=TO,
+                               lane_rows=TI if plan.flat_in else 1,
+                               seg_shift=7)
+
+
+def _k1_per_run(timed, rec, runs=1):
+    """Kernel, call, plain, library and bound ms of the K1 launches ``rec``
+    ({class: count}) made, per run over ``runs``; ``timed`` maps each class
+    to its k1_timing row (library None where a class has none)."""
+    out = {}
+    for key in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms"):
+        vals = [n * timed[cls][key] if timed[cls][key] is not None else None
+                for cls, n in rec.items()]
+        out[key] = None if None in vals else sum(vals) / runs
+    return out
 
 
 def phase_cycle(torch, pat, k1, tr):
@@ -425,11 +640,15 @@ def phase_cycle(torch, pat, k1, tr):
     cycle()  # warm-up
     torch.cuda.synchronize()
     before = k1.launches
+    by0 = dict(k1.launches_by_instance)
+    k1.recorded = {}
     t0 = time.perf_counter()
     back = cycle()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = k1.launches - before
+    by = {i: k1.launches_by_instance[i] - by0[i] for i in by0}
+    recorded, k1.recorded = k1.recorded, None
     if not same_bits(torch, back.data, x.data):
         raise AssertionError("x->y->z->y->x round trip is not bit-identical")
     pens = [px] + chain
@@ -440,14 +659,15 @@ def phase_cycle(torch, pat, k1, tr):
     log(f"[cycle] 1024^3 f32 (1,1) x->y->z->y->x bit-identical; "
         f"{secs * 1e3:.2f} ms, {nbytes / secs / 1e9:.1f} GB/s over "
         f"{nbytes} operand bytes (transpose_cost wire bytes {wire} on a "
-        f"size-1 axis); K1 launches {launches}")
-    profile(torch, cycle, "1024^3 f32 cycle (4 hops)")
+        f"size-1 axis); K1 launches {launches}, by instance {by}")
+    prof = profile(torch, cycle, "1024^3 f32 cycle (4 hops)")
     del x, back
     torch.cuda.empty_cache()
-    return dict(ms=secs * 1e3, GBps=nbytes / secs / 1e9, launches=launches)
+    return dict(ms=secs * 1e3, GBps=nbytes / secs / 1e9, launches=launches,
+                launches_by_instance=by, recorded=recorded, profile=prof)
 
 
-def phase_fft(torch, pat):
+def phase_fft(torch, pat, k1):
     topo = pat.Topology((1, 1))
     plan = pat.PencilFFTPlan(topo, (512, 512, 512), real=True,
                              dtype=torch.float32)
@@ -475,6 +695,62 @@ def phase_fft(torch, pat):
              roundtrip_max_err=err, max_abs_u=scale)
     log("[fft] 512^3 r2c f32 (1,1): " + json.dumps(r))
     del u, uh, back
+    torch.cuda.empty_cache()
+    r["strided"] = fft_strided(torch, k1)
+    return r
+
+
+def fft_strided(torch, k1, n=512, comps=3):
+    """What ``ops/fft.py`` leaves open: one strided-batch ``torch.fft``
+    call over dims (0, 1, 2) of an (n, n, n, comps) f32 block with the
+    components innermost, against the port's way (K1 moves the components
+    outermost, a contiguous batched transform, K1 moves them back), r2c
+    forward and c2r inverse; CUDA-event means of 5 calls after a warm-up.
+    Both must agree within 1e-5 of the largest |value| (they sum in other
+    orders).  A measurement only: the port does not call the strided
+    form."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    x = torch.randn((n, n, n, comps), generator=gen, device="cuda")
+    dims, s = (0, 1, 2), (n, n, n)
+    front, back = (3, 0, 1, 2), (1, 2, 3, 0)
+
+    def fwd_strided():
+        return torch.fft.rfftn(x, dim=dims)
+
+    def fwd_k1():
+        return k1.permute(torch.fft.rfftn(k1.permute(x, front),
+                                          dim=(1, 2, 3)), back)
+
+    y_k1 = fwd_k1()
+    err_f = max_abs_err(torch, fwd_strided(), y_k1) / float(
+        y_k1.abs().max())
+    y = y_k1    # both inverses take the spectrum as the NS state holds it
+
+    def inv_strided():
+        return torch.fft.irfftn(y, s=s, dim=dims)
+
+    def inv_k1():
+        return k1.permute(torch.fft.irfftn(k1.permute(y, front), s=s,
+                                           dim=(1, 2, 3)), back)
+
+    err_i = max_abs_err(torch, inv_strided(), inv_k1()) / float(
+        x.abs().max())
+    if not (err_f <= 1e-5 and err_i <= 1e-5):
+        raise AssertionError(f"strided and K1 FFTs disagree: {err_f} "
+                             f"{err_i}")
+    r = dict(shape=[n, n, n, comps], forward_strided_ms=cuda_ms(
+        torch, fwd_strided, 5), forward_k1_ms=cuda_ms(torch, fwd_k1, 5),
+        inverse_strided_ms=cuda_ms(torch, inv_strided, 5),
+        inverse_k1_ms=cuda_ms(torch, inv_k1, 5), rel_err_forward=err_f,
+        rel_err_inverse=err_i)
+    xc = k1.permute(x, front)   # the contiguous transform alone
+    r["contiguous_forward_ms"] = cuda_ms(
+        torch, lambda: torch.fft.rfftn(xc, dim=(1, 2, 3)), 5)
+    log("[fft] strided-batch rfftn/irfftn on the components-innermost "
+        "block vs K1 + contiguous + K1: " + json.dumps(
+            {k: (round(v, 4) if k.endswith("_ms") else v)
+             for k, v in r.items()}))
+    del x, y, y_k1, xc
     torch.cuda.empty_cache()
     return r
 
@@ -505,19 +781,24 @@ def phase_navier_stokes(torch, dist, pat, k1, models):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k1.launches = 0
+    for inst in k1.launches_by_instance:
+        k1.launches_by_instance[inst] = 0
     uh = models.taylor_green(model)
     energies = [float(model.energy(uh))]
-    step_ms, step_launches = [], []
+    step_ms, step_launches, recorded = [], [], {}
     for _ in range(steps):
         torch.cuda.synchronize()
         n0 = k1.launches
+        k1.recorded = recorded     # the steps' K1 classes, not energy's
         t0 = time.perf_counter()
         uh = model.step(uh, dt)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        k1.recorded = None
         step_launches.append(k1.launches - n0)
         energies.append(float(model.energy(uh)))
     launches = k1.launches
+    by_instance = dict(k1.launches_by_instance)
     peak = torch.cuda.max_memory_allocated()
     e0 = energies[0]
     devs = [abs(e / e0 - math.exp(-6 * nu * dt * i))
@@ -535,14 +816,17 @@ def phase_navier_stokes(torch, dist, pat, k1, models):
         raise AssertionError(f"state shape {tuple(uh.data.shape)}")
     r = dict(step_ms=step_ms, peak_bytes=peak, energies=energies,
              max_energy_dev=max(devs), k1_launches=launches,
-             k1_launches_per_step=step_launches)
+             k1_launches_by_instance=by_instance,
+             k1_launches_per_step=step_launches, recorded=recorded,
+             steps=steps)
     log(f"[ns] step ms {[round(t, 2) for t in step_ms]}, peak memory "
         f"{peak / 2**30:.2f} GiB, K1 launches on the main path {launches} "
-        f"({step_launches} per step)")
+        f"({step_launches} per step), by instance {by_instance}")
     if launches <= 0:
         raise AssertionError("the main path launched K1 no time")
     # after the counts were read: where one step's time goes
-    profile(torch, lambda: model.step(uh, dt), "512^3 NS RK2 step")
+    r["profile"] = profile(torch, lambda: model.step(uh, dt),
+                           "512^3 NS RK2 step")
     return r
 
 
@@ -1042,6 +1326,7 @@ def _by_instance(flash):
 def _counts(k1, flash):
     n = dict(k1=k1.launches, k2=flash.launches_fwd, k3=flash.launches_dq,
              k4=flash.launches_dkv)
+    n.update({f"k1_{inst}": c for inst, c in k1.launches_by_instance.items()})
     for key, by in _by_instance(flash).items():
         n.update({f"{key}_{inst}": c for inst, c in by.items()})
     return n
@@ -1049,6 +1334,8 @@ def _counts(k1, flash):
 
 def _reset_counts(k1, flash):
     k1.launches = 0
+    for inst in k1.launches_by_instance:
+        k1.launches_by_instance[inst] = 0
     flash.launches_fwd = flash.launches_dq = flash.launches_dkv = 0
     for by in _by_instance(flash).values():
         for inst in by:
@@ -1082,7 +1369,7 @@ def phase_serving(torch, pat, models, k1, flash):
     topo = pat.Topology((1,))
     pen = pat.Pencil(topo, (S_ATT, H_ATT), (0,))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    out = {}
+    out, recorded = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         q, k, v = (pat.PencilArray(pen, torch.randn(
@@ -1096,11 +1383,13 @@ def phase_serving(torch, pat, models, k1, flash):
             fn(q, k, v, causal=causal)          # warm-up
             torch.cuda.synchronize()
             _reset_counts(k1, flash)
+            k1.recorded = {}
             t0 = time.perf_counter()
             got = fn(q, k, v, causal=causal)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
             n = _counts(k1, flash)
+            recorded[f"serve_{scheme}_{name}"], k1.recorded = k1.recorded, None
             err = _rel_err(torch, got.data, ref)
             if got.data.shape != q.data.shape or got.dtype != dtype:
                 raise AssertionError(f"{scheme} output {got.data.shape}")
@@ -1117,10 +1406,10 @@ def phase_serving(torch, pat, models, k1, flash):
                 f"rel err vs dense {err:.3e} (<= {SERVE_TOL[name]}), "
                 f"launches K1 {n['k1']} K2 {n['k2']} (wgmma "
                 f"{n['k2_wgmma']}, simt {n['k2_simt']})")
-            out[f"serve_{scheme}_{name}"] = n
+            out[f"serve_{scheme}_{name}"] = dict(n, ms=ms)
             del ref, got
     torch.cuda.empty_cache()
-    return out
+    return out, recorded
 
 
 def phase_training(torch, pat, models, k1, flash, dtype, steps=3):
@@ -1351,23 +1640,45 @@ def main() -> int:
             smi, instances = phase_environment(torch, pat, build, dist_dir)
             bw = bandwidth(smi)
             log(f"[env] bound uses {bw / 1e12:.2f} TB/s for '{smi}'")
-            timed = phase_kernel(torch, k1, bw)
-            phase_cycle(torch, pat, k1, tr)
-            phase_fft(torch, pat)
+            phase_kernel(torch, k1)
+            cycle = phase_cycle(torch, pat, k1, tr)
+            phase_fft(torch, pat, k1)
             ns = phase_navier_stokes(torch, dist, pat, k1, models)
             checks = phase_flash_check(torch, flash, models.attention)
-            serve = phase_serving(torch, pat, models, k1, flash)
+            serve, serve_rec = phase_serving(torch, pat, models, k1, flash)
             train = {f"train_{str(dt).split('.')[-1]}": phase_training(
                 torch, pat, models, k1, flash, dt)
                 for dt in (torch.float32, torch.bfloat16)}
             timing = phase_flash_timing(torch, flash, bw)
+            # phase 2's timings: every class phases 3, 5 and 7 launched
+            recorded = {"cycle": cycle["recorded"],
+                        "navier_stokes": ns["recorded"], **serve_rec}
+            k1_timed = k1_timing(torch, k1, bw, recorded, HOPS)
         finally:
             pat.distributed.finalize()
-    main_case = timed[MAIN_CASE]
+    per = {run: _k1_per_run(k1_timed, rec) for run, rec in recorded.items()
+           if rec}
+    per["navier_stokes_rk2_step"] = _k1_per_run(k1_timed, ns["recorded"],
+                                                ns["steps"])
+    per["cycle"]["cycle_ms"] = cycle["ms"]
+    for run, v in per.items():
+        if run.startswith("serve_"):
+            v["serve_call_ms"] = serve[run]["ms"]
+    log("[k1] per run (kernel, call, plain, library and bound ms of the K1 "
+        "launches each made): " + json.dumps(per))
+    main_case = k1_timed[("permute",) + MAIN_PATH[0][1:3] + (
+        MAIN_PATH[0][3],)]
     # launches per path, each counted from 0 just before its run; the
     # kernels line gives their sum and each
-    runs = {**serve, **{run: t["launches"] for run, t in train.items()}}
-    paths = {"k1": {"navier_stokes": ns["k1_launches"]}}
+    runs = {**{run: {k: c for k, c in n.items() if k != "ms"}
+               for run, n in serve.items()},
+            **{run: t["launches"] for run, t in train.items()}}
+    paths = {"k1": {"navier_stokes": ns["k1_launches"],
+                    "cycle": cycle["launches"]}}
+    for inst, c in ns["k1_launches_by_instance"].items():
+        paths.setdefault(f"k1_{inst}", {})["navier_stokes"] = c
+    for inst, c in cycle["launches_by_instance"].items():
+        paths.setdefault(f"k1_{inst}", {})["cycle"] = c
     for run, n in runs.items():
         for key, count in n.items():
             paths.setdefault(key, {})
@@ -1378,16 +1689,22 @@ def main() -> int:
         "route": "cuda",
         "source": "pencilarrays_tpu_torch/ops/csrc/permute.cu",
         "replaces": "pencilarrays_tpu/ops/pallas_kernels.py:98",
+        "instance": main_case["instance"],
         "launches": sum(paths["k1"].values()),
         "launches_by_path": paths["k1"],
-        "max_abs_err": max(r["max_abs_err"] for r in timed.values()),
-        "ms": main_case["kernel_ms"],
+        "launches_by_instance": {
+            i: sum(paths.get(f"k1_{i}", {}).values()) for i in k1.INSTANCES},
+        "max_abs_err": max(r["max_abs_err"] for r in k1_timed.values()),
+        "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": "bytes",
         "library_ms": main_case["library_ms"],
         "checked": True,
         "shape": MAIN_CASE,
+        "per_run": per,
+        "timings": [{k: v for k, v in r.items() if k != "bytes"}
+                    for r in k1_timed.values()],
     }]
     # K2-K4: times at S=4096 H=8 D=128 f32 full by the instance f32 picks;
     # also per dtype (each by its instance)

@@ -15,8 +15,8 @@ One layout step is the port's own.  A pencil block keeps its extra dims
 ``torch.fft`` as it is, each transform would be a strided batch entry.  A
 stage with extra dims instead moves them outermost with kernel K1 before
 the transform and back after it (two K1 launches per stage), so cuFFT sees
-one contiguous signal per batch entry.  Whether a strided cuFFT call would
-be faster on the card has not been measured.
+one contiguous signal per batch entry.  ``chip_smoke.py`` (``fft_strided``)
+times this against one strided-batch call on the card; see ``PERF.md``.
 
 Normalization is applied as the JAX package applies it: bare transforms
 ("backward" semantics) followed by a multiply with a Python float, never

@@ -50,6 +50,32 @@ def test_kernel_matches_plain_on_the_card():
     assert k1.launches - before == len(DTYPES) * 3 * 5
 
 
+@pytest.mark.cuda
+def test_k1_instances_at_their_edges():
+    """Each K1 instance against the plain versions at its edges
+    (chip_smoke.py's k1_edges: short dims C = 1, 2, 3, 5, 6, 7, 16 both
+    ways, ragged runs and tiles, pack/unpack with P = 1, 2, 4, seven
+    element types, inputs off a 16-byte boundary); every instance runs."""
+    _skip_without_card()
+    from chip_smoke import k1_edges
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, by = k1_edges(torch, k1, gen)
+    assert n > 0 and set(by) == set(k1.INSTANCES), by
+    assert all(c > 0 for c in by.values()), by
+
+
+@pytest.mark.cuda
+def test_k1_launch_beyond_2_31_words():
+    """A narrow launch over 3 x 1024^3 f32 words (12.9 GB) is bit-identical
+    to the plain version."""
+    _skip_without_card()
+    from chip_smoke import k1_beyond_2_31
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    assert k1_beyond_2_31(torch, k1, gen) > 2 ** 31
+
+
 def _skip_without_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc (a CUDA kernel has no "

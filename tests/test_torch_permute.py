@@ -128,24 +128,178 @@ def test_copy_plans_reproduce_plain(dtype, shape):
                         packed, k1.unpack_plain(packed, out_axes, dim, n))
 
 
+def _tensor(shape, dtype, seed=0):
+    if dtype == "bool":
+        return torch.from_numpy(_values(shape, "float32", seed) > 0)
+    if dtype == "uint8":
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+    return _to_torch(_values(shape, dtype, seed))
+
+
+def _check_all(x, axes, align, instance=None):
+    """permute, pack and unpack of ``x`` (P = 1, 2, 4 on every dim, ragged
+    n), each plan at ``align`` executed by ``emulate`` against the plain
+    version; returns the instances the plans took."""
+    seen = set()
+
+    def check(desc, src, want):
+        plan = k1.plan_copy(desc, src.element_size(), align)
+        got = k1.emulate(plan, src, src.dtype)
+        assert torch.equal(got.reshape(-1).view(torch.uint8),
+                           want.reshape(-1).view(torch.uint8)), plan
+        seen.add(plan.instance)
+
+    shape = tuple(x.shape)
+    check(k1._describe_permute(shape, axes), x, k1.permute_plain(x, axes))
+    for dim in range(len(shape)):
+        for P in (1, 2, 4):
+            packed = k1.pack_plain(x, axes, dim, P)
+            check(k1._describe_pack(shape, axes, dim, P), x, packed)
+            n = max(0, packed.shape[0] * packed.shape[dim + 1] - (P - 1))
+            for out_axes in (tuple(range(len(shape))), axes):
+                check(k1._describe_unpack(tuple(packed.shape), out_axes, dim,
+                                          n), packed,
+                      k1.unpack_plain(packed, out_axes, dim, n))
+    if instance is not None:
+        assert instance in seen, seen
+    return seen
+
+
+EDGE_DTYPES = DTYPES + ["uint8", "bool"]
+
+
+@pytest.mark.parametrize("dtype", EDGE_DTYPES)
+@pytest.mark.parametrize("C", [1, 2, 3, 5, 6, 7, 16])
+def test_narrow_plans_reproduce_plain(dtype, C):
+    """Component interleave and deinterleave with pack and unpack on every
+    dim: over a run of 48 x 37 = 1776 positions (whole 16-byte groups:
+    several warp tiles of 32 groups, the last one short), the narrow
+    instance for 4-, 8- and 16-byte elements at full alignment, the tiled one (flat tiles)
+    for the rest and at 4-byte alignment; over 41 x 37 = 1517 positions
+    (not a multiple of 4 or of a tile), the tiled one."""
+    size = _tensor((1,), dtype).element_size()
+    narrow = C > 1 and size >= 4
+    for n0 in (48, 41):
+        for shape, axes in (((n0, 37, C), (2, 0, 1)),
+                            ((C, n0, 37), (1, 2, 0))):
+            x = _tensor(shape, dtype, C)
+            for align in (16, 4) if n0 == 48 else (16,):
+                want = ("copy" if C == 1 else "narrow"
+                        if narrow and n0 == 48 and align == 16 else "tiled")
+                _check_all(x, axes, align, want)
+
+
+@pytest.mark.parametrize("dtype", EDGE_DTYPES)
+@pytest.mark.parametrize("shape,axes", [
+    ((150, 131), (1, 0)),
+    ((67, 5, 70), (2, 0, 1)),
+    ((67, 70, 5), (0, 2, 1)),
+    ((11, 13, 9, 6), (1, 2, 0, 3)),
+])
+def test_tiled_plans_reproduce_plain(dtype, shape, axes):
+    """Ragged 2-D and 3-D transposes of several tiles, with pack and unpack
+    on every dim, at full and 2-byte address alignment."""
+    x = _tensor(shape, dtype, 1)
+    for align in (16, 2):
+        _check_all(x, axes, align, "tiled")
+
+
+@pytest.mark.parametrize("dtype", EDGE_DTYPES)
+@pytest.mark.parametrize("shape,axes", [((96, 64), (1, 0)),
+                                        ((3, 64, 32), (0, 2, 1)),
+                                        ((16, 8, 6), (1, 0, 2))])
+def test_warp_tiles_reproduce_plain(dtype, shape, axes):
+    """Transposes of whole tiles: one warp a tile of 128-byte rows for 4-,
+    8- and 16-byte elements, of 8 x 8 elements for elements of 2 to 7
+    16-byte words (6 components riding a hop), at full alignment; the
+    ring for the rest, for pack and unpack with padding, and at 8-byte
+    alignment."""
+    x = _tensor(shape, dtype, 3)
+    size = x.element_size()
+    for align in (16, 8):
+        plan = k1.plan_copy(k1._describe_permute(shape, axes), size, align)
+        E = plan.elem_bytes
+        assert plan.instance == "tiled"
+        assert plan.warp_tiles == (align == 16 and (
+            E in (4, 8, 16) or (E % 16 == 0 and E < 128)))
+        if plan.warp_tiles:
+            assert plan.TI == plan.TO == (128 // E if E <= 16 else 8)
+        _check_all(x, axes, align, "tiled")
+
+
+@pytest.mark.parametrize("align", [16, 4, 2])
+def test_copy_plans_reproduce_plain_misaligned(align):
+    """Straight copies: the identity permute (one flat block), an unpack on
+    a size-1 axis, and copies of wide elements, at several alignments."""
+    x = _tensor((6, 10, 36), "float32", 2)
+    for axes in ((0, 1, 2), (1, 0, 2)):
+        assert _check_all(x, axes, align) >= {"copy"}
+    plan = k1.plan_copy(k1._describe_permute((6, 10, 36), (0, 1, 2)), 4,
+                        align)
+    assert plan.instance == "copy" and plan.flat_in
+    assert plan.word_bytes == min(align, 16)
+
+
+NS_STAGES = [((512, 512, 257, 6), (3, 0, 1, 2), 8),
+             ((6, 512, 512, 512), (1, 2, 3, 0), 4),
+             ((512, 512, 512, 3), (3, 0, 1, 2), 4),
+             ((3, 512, 512, 257), (1, 2, 3, 0), 8),
+             ((512, 512, 257, 3), (3, 0, 1, 2), 8),
+             ((3, 512, 512, 512), (1, 2, 3, 0), 4)]
+
+
+@pytest.mark.parametrize("shape,axes,itemsize", NS_STAGES)
+def test_ns_stage_classes_take_narrow(shape, axes, itemsize):
+    """The NS step's component moves: a warp's tile of C x 32 groups of
+    16 bytes, one block on the interleaved side, C rows on the other."""
+    p = k1.plan_copy(k1._describe_permute(shape, axes), itemsize)
+    C = shape[-1] if axes[0] == 3 else shape[0]
+    assert p.instance == "narrow"
+    assert (p.TI, p.TO) == ((C, 512 // itemsize) if p.flat_in
+                            else (512 // itemsize, C))
+    assert p.flat_in == (axes[0] == 3) and p.flat_out == (axes[0] == 1)
+    assert (p.vec_in, p.vec_out, p.word_bytes) == (16, 16, itemsize)
+
+
+@pytest.mark.parametrize("shape,axes,itemsize,tile,warp", [
+    ((512, 512, 512), (2, 0, 1), 4, (32, 32), True),
+    ((512, 512, 512), (0, 2, 1), 4, (32, 32), True),
+    ((1024, 1024, 1024), (1, 2, 0), 4, (32, 32), True),
+    ((512, 512, 512, 6), (1, 2, 0, 3), 8, (8, 8), True),
+    ((512, 512, 512, 3), (1, 2, 0, 3), 4, (32, 40), False),
+])
+def test_hop_classes_take_tiled(shape, axes, itemsize, tile, warp):
+    """The hop classes: warp tiles of 32 x 32 f32, and of 8 x 8 48-byte
+    elements (6 c64 components); 12-byte elements (3 f32) through the
+    ring."""
+    p = k1.plan_copy(k1._describe_permute(shape, axes), itemsize)
+    assert p.instance == "tiled" and (p.TI, p.TO) == tile
+    assert p.warp_tiles == warp
+    assert (p.vec_in, p.vec_out) == (16, 16)
+
+
 def test_main_path_plans():
-    """The launches of the main path: a both-sides-coalesced tile when
-    the contiguous dims differ, a straight copy when they agree, extra
-    dims folded into a wider element when they stay innermost."""
+    """The launches of the main path: a tiled 64 x 64 f32 transpose when
+    the contiguous dims differ, a narrow one when one of them holds the
+    components, a flat copy when they agree, extra dims folded into a
+    wider element when they stay innermost."""
     p = k1.plan_copy(k1._describe_permute((512, 512, 512), (2, 0, 1)), 4)
-    assert (p.dI, p.dO, p.TI, p.TO, p.word_bytes) == (0, 1, 32, 32, 4)
+    assert (p.instance, p.dI, p.dO, p.TI, p.TO, p.word_bytes) == (
+        "tiled", 0, 1, 32, 32, 4) and p.warp_tiles
     # FFT stage of the NS step: 6 c64 components moved outermost
     p = k1.plan_copy(k1._describe_permute((512, 512, 257, 6), (3, 0, 1, 2)),
                      8)
-    assert p.dI >= 0 and p.ext == (6, 512 * 512 * 257)
+    assert p.instance == "narrow" and p.ext == (6, 512 * 512 * 257)
+    assert (p.TI, p.TO) == (6, 64)
     # a hop of a 6-component c64 field: components ride as 48-byte rows
     p = k1.plan_copy(k1._describe_permute((512, 512, 512, 6), (1, 2, 0, 3)),
                      8)
-    assert (p.elem_bytes, p.word_bytes) == (48, 16) and p.dI >= 0
-    # unpack on a size-1 axis is one contiguous copy
+    assert (p.elem_bytes, p.word_bytes, p.instance) == (48, 16, "tiled")
+    # unpack on a size-1 axis is one flat copy
     p = k1.plan_copy(k1._describe_unpack((1, 64, 64, 64), (0, 1, 2), 0, 64),
                      4)
-    assert p.dI == -1 and p.ext == (1,)
+    assert p.instance == "copy" and p.flat_in and p.ext == (1,)
     # pack with padding keeps its zero mask
     p = k1.plan_copy(k1._describe_pack((9, 16, 5), (1, 2, 0), 2, 4), 8)
     assert p.zbound == 9
@@ -153,11 +307,12 @@ def test_main_path_plans():
 
 def test_cpu_tensors_use_the_plain_version():
     before = k1.launches
+    by = dict(k1.launches_by_instance)
     x = torch.arange(60.0).reshape(3, 4, 5)
     assert torch.equal(k1.permute(x, (2, 0, 1)), k1.permute_plain(x, (2, 0, 1)))
     assert torch.equal(k1.pack(x, (1, 0, 2), 1, 2),
                        k1.pack_plain(x, (1, 0, 2), 1, 2))
-    assert k1.launches == before
+    assert k1.launches == before and k1.launches_by_instance == by
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
