@@ -20,21 +20,33 @@ standard output too.  Phases, each printed on its own lines:
 2. kernel K1 (``pencilarrays_tpu_torch/ops/csrc/permute.cu``) against its
    plain PyTorch versions on the card, bit for bit, over the main path's
    shapes, ragged shapes in six dtypes, pack/unpack with P = 1, 2, 4,
-   each instance (copy, narrow, tiled) at its edges and one launch over
-   more than 2^31 words; its timings run last (after phase 9): kernel,
-   plain, bound, copy and library times and the instance of every
-   (shape, axes, dtype) class phases 3, 5 and 7 launched (recorded by
+   each instance (copy, narrow, tiled) at its edges, the chunk views of
+   a Pipelined hop (ragged tail chunks, a chunk along an extra dim,
+   strided sources and destinations at storage offsets that keep 16-byte
+   alignment and ones that do not) and one launch over more than 2^31
+   words; its timings run last (after phase 9): kernel, call, plain,
+   bound, copy and library times and the instance of every (shape, axes,
+   dtype, view layout) class phases 3, 4, 5 and 7 launched (recorded by
    ``permute.recorded``) and of two 512^3 hop classes, and K1's time per
-   run (per NS RK2 step, per cycle, per Ulysses call);
+   run (per NS RK2 step, per cycle and method, per Ulysses call);
 3. an x->y->z->y->x transpose cycle of a 1024^3 float32 field on a (1, 1)
-   topology: bit-identical round trip, GB/s, K1 launches by instance;
+   topology under AllToAll(), Ring(), Pipelined(4) and Pipelined(3,
+   Ring()): every hop bit-identical to the AllToAll hop, bit-identical
+   round trips, ms, GB/s, K1 launches by instance, K1 bytes (equal for
+   every method, or the run fails), exchange calls and one profile each;
 4. a 512^3 r2c PencilFFT plan: forward + backward round trip and times;
    a strided-batch ``rfftn``/``irfftn`` over a (512, 512, 512, 3) f32
    block with the components innermost against K1 + the contiguous
-   transform + K1;
+   transform + K1; the fused pipelined hop (K = 4) called directly on the
+   NS plan's first hop operand, forward and inverse, against the
+   serialized hop and stage (data movement bit for bit, the transform
+   within 1e-6 of max|u_hat|), with times; a ("dct", "fft", "fft") plan
+   over 3 fields at 512^3 (round trip within 1e-5 of max|u|, times) and
+   at 64^3 against the port on the CPU;
 5. Navier–Stokes (Taylor–Green): 64^3 on the card against the same port
-   on the CPU, then 512^3 float32 for 3 RK2 steps (the main path), with
-   the energy held to exp(-6 nu t), step time and peak memory;
+   on the CPU, ``simulate`` (3 steps, energies recorded) against three
+   ``step`` calls, then 512^3 float32 for 3 RK2 steps (the main path),
+   with the energy held to exp(-6 nu t), step time and peak memory;
 6. kernels K2–K4 (``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
    ``flash_bwd_tf32.cu``) against their plain versions on the card: three
    forward modes, full and partials backward, causal and not, ragged
@@ -63,9 +75,10 @@ standard output too.  Phases, each printed on its own lines:
    kernels it launches, from the profiler) and bound, each kernel by the
    instance its dtype picks, held to the plain version;
 10. a ``{"kernels": [...]}`` line: per kernel its launches on each path
-    (each counted from 0 just before its run) and their sum, by instance,
-    its error against the plain version and its times (K1's per class in
-    ``timings``);
+    (each counted from 0 just before its run; K1's on the NS steps, the
+    four cycles, the fused hop and the DCT plan) and their sum, by
+    instance, its error against the plain version and its times (K1's per
+    class in ``timings``);
 11. the last line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -420,6 +433,90 @@ def k1_edges(torch, k1, gen):
     return n, by
 
 
+# K1 on a Pipelined hop's chunks: (shape, axes, chunk dim) — chunks in K = 3
+# ceil pieces (a short tail chunk where 3 does not divide the extent),
+# along a spatial dim and along an extra dim (the components)
+K1_CHUNKS = [((129, 65, 31), (2, 0, 1), 1), ((96, 64, 40), (0, 2, 1), 0),
+             ((64, 48, 40, 6), (1, 2, 0, 3), 3),
+             ((64, 48, 40, 3), (2, 0, 1, 3), 1), ((80, 33, 64), (1, 0, 2), 2)]
+K1_CHUNK_DTYPES = ("float32", "complex64", "bfloat16", "float64",
+                   "complex128")
+
+
+def _offset_view(torch, base, dim, s0, s1, off):
+    """``base`` narrowed to ``[s0, s1)`` along ``dim``, placed ``off``
+    elements into a larger buffer (its storage offset)."""
+    buf = torch.empty(base.numel() + off, dtype=base.dtype,
+                      device=base.device)
+    whole = buf[off:].view(base.shape)
+    whole.copy_(base)
+    return whole.narrow(dim, s0, s1 - s0)
+
+
+def k1_chunks(torch, k1, gen):
+    """K1 on chunk views against the plain versions, bit for bit: pack and
+    permute read a chunk of a block (a strided view), unpack and permute
+    write into a chunk of a larger output (a strided view); each at a
+    storage offset of 0, of 16 bytes and of one element (so 16-byte
+    aligned and not), on both sides; the bytes of the output outside the
+    view must stay.  Returns ``(comparisons, launches by instance)``."""
+    by0 = dict(k1.launches_by_instance)
+    n = 0
+
+    def check(tag, got, want, what):
+        if not same_bits(torch, got, want):
+            raise AssertionError(f"K1 chunk {tag} {what} differs")
+
+    for name in K1_CHUNK_DTYPES:
+        dtype = getattr(torch, name)
+        for shape, axes, cdim in K1_CHUNKS:
+            base = random_tensor(torch, shape, dtype, gen)
+            E = base.element_size()
+            ext = shape[cdim]
+            step = -(-ext // 3)
+            for s0 in range(0, ext, step):
+                s1 = min(s0 + step, ext)
+                for off in (0, max(1, 16 // E), 1):
+                    v = _offset_view(torch, base, cdim, s0, s1, off)
+                    what = (f"{shape} {axes} {name} chunk {cdim}:[{s0},"
+                            f"{s1}) offset {off}")
+                    for dim, P in ((0, 2), (len(shape) - 1, 3)):
+                        tiles = k1.pack(v, axes, dim, P)
+                        want = k1.pack_plain(v, axes, dim, P)
+                        check("pack", tiles, want, what)
+                        n_a = want.shape[0] * want.shape[dim + 1] - (P - 1)
+                        res = k1.unpack_plain(want, tuple(range(len(shape))),
+                                              dim, n_a)
+                        big = list(res.shape)
+                        big[cdim] += 5
+                        dst = _offset_view(torch, random_tensor(
+                            torch, tuple(big), dtype, gen), cdim, 2,
+                            2 + res.shape[cdim], off)
+                        full = dst.as_strided((math.prod(big) + off,), (1,),
+                                              0)
+                        before = full.clone()
+                        k1.unpack(tiles, tuple(range(len(shape))), dim, n_a,
+                                  out=dst)
+                        check("unpack", dst, res, what)
+                        before.as_strided(dst.shape, dst.stride(),
+                                          dst.storage_offset()).copy_(res)
+                        check("unpack (bytes outside the view)", full,
+                              before, what)
+                        n += 2
+                    # permute from the chunk into a chunk of a larger output
+                    want = k1.permute_plain(v, axes)
+                    big = list(want.shape)
+                    big[0] += 3
+                    dst = _offset_view(torch, torch.zeros(
+                        big, dtype=dtype, device="cuda"), 0, 1,
+                        1 + want.shape[0], off)
+                    check("permute", k1.permute(v, axes, out=dst), want,
+                          what)
+                    n += 1
+    torch.cuda.synchronize()
+    return n, {i: k1.launches_by_instance[i] - by0[i] for i in by0}
+
+
 def k1_beyond_2_31(torch, k1, gen):
     """One narrow launch over more than 2^31 words: 3 x 1024^3 f32
     (1, 2, 3, 0), 12.9 GB in; returns its word count."""
@@ -474,6 +571,7 @@ def phase_kernel(torch, k1):
                                            P)
     torch.cuda.empty_cache()
     edges, edge_by = k1_edges(torch, k1, gen)
+    chunks, chunk_by = k1_chunks(torch, k1, gen)
     words = k1_beyond_2_31(torch, k1, gen)
     by = {i: k1.launches_by_instance[i] - by0[i] for i in by0}
     if min(by.values()) <= 0:
@@ -483,45 +581,88 @@ def phase_kernel(torch, k1):
         f"classes; f32 f64 c64 c128 bf16 i32 ragged; pack/unpack P=1,2,4), "
         f"{edges} edge cases (short dims C={list(K1_EDGE_C)}, "
         f"{'/'.join(K1_EDGE_DTYPES)}, inputs off 16 bytes; launches by "
-        f"instance {edge_by}), one narrow launch over {words} words "
-        f"(> 2^31); launches by instance {by}")
-    return dict(checks=checks + edges + 1, launches_by_instance=by)
+        f"instance {edge_by}), {chunks} chunk cases (Pipelined chunks of "
+        f"{len(K1_CHUNKS)} blocks in {'/'.join(K1_CHUNK_DTYPES)}, ragged "
+        f"tails, an extra-dim chunk, strided sources and destinations at "
+        f"offsets 0, 16 bytes and one element; launches by instance "
+        f"{chunk_by}), one narrow launch over {words} words (> 2^31); "
+        f"launches by instance {by}")
+    return dict(checks=checks + edges + chunks + 1, launches_by_instance=by)
+
+
+def _k1_cls(cls):
+    """``(kind, shape, axes, dim, arg, dtype, layout)`` of a recorded K1
+    class (``permute._launch``'s key: a layout only for views)."""
+    kind, shape, axes = cls[:3]
+    rest = list(cls[3:])
+    layout = rest.pop() if isinstance(rest[-1], tuple) else None
+    dtype = rest.pop()
+    dim, arg = rest if rest else (None, None)
+    return kind, shape, axes, dim, arg, dtype, layout
+
+
+def _k1_view(torch, shape, strides, off, dtype, gen=None):
+    """A view of ``shape`` and ``strides`` at storage offset ``off`` in a
+    fresh buffer (random when ``gen`` is given)."""
+    span = sum((n - 1) * st for n, st in zip(shape, strides)) + 1
+    buf = (random_tensor(torch, (off + span,), dtype, gen) if gen is not None
+           else torch.empty(off + span, dtype=dtype, device="cuda"))
+    return buf.as_strided(tuple(shape), tuple(strides), off)
+
+
+def _k1_out(torch, k1, cls):
+    """A fresh output for a recorded class: ``None`` (the wrapper
+    allocates) or a view with the recorded strides and offset."""
+    _, _, _, _, _, dtype, layout = _k1_cls(cls)
+    if layout is None or layout[2] is None:
+        return None
+    return _k1_view(torch, _k1_desc(k1, cls)[0], layout[2], layout[3],
+                    getattr(torch, dtype))
 
 
 def _k1_class_call(torch, k1, cls, gen):
-    """The input of a recorded K1 class and its kernel, plain and library
-    calls (library: one PyTorch call computing the same function, where
-    there is one: a permute, or a pack/unpack with nothing to pad)."""
-    kind, shape, axes = cls[:3]
-    dtype = getattr(torch, cls[-1])
-    x = random_tensor(torch, shape, dtype, gen)
+    """The input and output of a recorded K1 class and its kernel, plain and
+    library calls (library: one PyTorch call computing the same function,
+    where there is one: a permute, or a pack/unpack with nothing to pad)."""
+    kind, shape, axes, dim, arg, dname, layout = _k1_cls(cls)
+    dtype = getattr(torch, dname)
+    x = (random_tensor(torch, shape, dtype, gen) if layout is None else
+         _k1_view(torch, shape, layout[0], layout[1], dtype, gen))
+    out = _k1_out(torch, k1, cls)
+
+    def into(y):
+        return y.contiguous() if out is None else out.copy_(y)
+
     if kind == "permute":
-        return x, (lambda: k1.permute(x, axes),
-                   lambda: k1.permute_plain(x, axes),
-                   lambda: x.permute(axes).contiguous())
-    dim, arg = cls[3], cls[4]
+        return x, out, (lambda: k1.permute(x, axes, out=out),
+                        lambda: k1._plain_into(k1.permute_plain(x, axes),
+                                               out),
+                        lambda: into(x.permute(axes)))
     if kind == "pack":
         lib = None
         if arg == 1:
             def lib():
-                return x.permute(axes).contiguous()
-        return x, (lambda: k1.pack(x, axes, dim, arg),
-                   lambda: k1.pack_plain(x, axes, dim, arg), lib)
+                return into(x.permute(axes).unsqueeze(0))
+        return x, out, (lambda: k1.pack(x, axes, dim, arg, out=out),
+                        lambda: k1._plain_into(
+                            k1.pack_plain(x, axes, dim, arg), out), lib)
     lib = None
     if shape[0] == 1 and arg == shape[dim + 1]:
         def lib():
-            return x[0].permute(axes).contiguous()
-    return x, (lambda: k1.unpack(x, axes, dim, arg),
-               lambda: k1.unpack_plain(x, axes, dim, arg), lib)
+            return into(x[0].permute(axes))
+    return x, out, (lambda: k1.unpack(x, axes, dim, arg, out=out),
+                    lambda: k1._plain_into(
+                        k1.unpack_plain(x, axes, dim, arg), out), lib)
 
 
 def _k1_desc(k1, cls):
-    kind, shape, axes = cls[:3]
+    kind, shape, axes, dim, arg, _, layout = _k1_cls(cls)
+    ist, ost = (None, None) if layout is None else (layout[0], layout[2])
     if kind == "permute":
-        return k1._describe_permute(shape, axes)
+        return k1._describe_permute(shape, axes, ist, ost)
     if kind == "pack":
-        return k1._describe_pack(shape, axes, cls[3], cls[4])
-    return k1._describe_unpack(shape, axes, cls[3], cls[4])
+        return k1._describe_pack(shape, axes, dim, arg, ist, ost)
+    return k1._describe_unpack(shape, axes, dim, arg, ist, ost)
 
 
 def k1_timing(torch, k1, bw, recorded, extra):
@@ -533,7 +674,9 @@ def k1_timing(torch, k1, bw, recorded, extra):
     every K1 class the runs in ``recorded`` launched ({run: {class:
     count}}), and of the ``extra`` (label, shape, axes, dtype) permutes;
     for a narrow class also ``ring_ms``, the same copy walked by the tiled
-    instance; returns {class: row}."""
+    instance.  A class of views (a Pipelined hop's chunks, a fused hop's
+    slices) is timed on views with its strides and offsets; returns
+    {class: row}."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     classes = {}
     for run, rec in recorded.items():
@@ -543,8 +686,12 @@ def k1_timing(torch, k1, bw, recorded, extra):
         classes.setdefault(("permute", tuple(shape), tuple(axes), dtype), {})
     rows = {}
     for cls, runs in classes.items():
-        x, (kernel, plain, lib) = _k1_class_call(torch, k1, cls, gen)
-        got, want = kernel(), plain()
+        kind, shape, axes, dim, arg, dname, layout = _k1_cls(cls)
+        x, out, (kernel, plain, lib) = _k1_class_call(torch, k1, cls, gen)
+        want = plain().clone()
+        if out is not None:
+            out.zero_()       # the plain version wrote there first
+        got = kernel()
         if not same_bits(torch, got, want):
             raise AssertionError(f"K1 class {cls} differs from plain")
         nbytes = (x.numel() * x.element_size()
@@ -554,9 +701,10 @@ def k1_timing(torch, k1, bw, recorded, extra):
                             k1._address_align(x, got))
         by0 = dict(k1.launches_by_instance)
         it = 10
-        into = torch.empty_like(got)
-        r = dict(kind=cls[0], shape=list(cls[1]), axes=list(cls[2]),
-                 dtype=cls[-1], instance=plan.instance, launches=runs,
+        into = torch.empty_like(got) if out is None else _k1_out(
+            torch, k1, cls)
+        r = dict(kind=kind, shape=list(shape), axes=list(axes), dtype=dname,
+                 layout=layout, instance=plan.instance, launches=runs,
                  ms=cuda_ms(torch, lambda: k1.run_plan(plan, x, into), it),
                  call_ms=cuda_ms(torch, kernel, it),
                  plain_ms=cuda_ms(torch, plain, it),
@@ -566,8 +714,8 @@ def k1_timing(torch, k1, bw, recorded, extra):
                  max_abs_err=max_abs_err(torch, got, want)
                  if got.is_floating_point() or got.is_complex() else 0.0,
                  bytes=nbytes)
-        if len(cls) > 4 and cls[0] != "permute":
-            r.update(dim=cls[3], P_or_n=cls[4])
+        if kind != "permute":
+            r.update(dim=dim, P_or_n=arg)
         by = {i: k1.launches_by_instance[i] - by0[i] for i in by0}
         if by != {i: 2 * (it + 1) * (i == plan.instance) for i in by}:
             raise AssertionError(f"K1 class {cls} launched {by}")
@@ -577,7 +725,8 @@ def k1_timing(torch, k1, bw, recorded, extra):
             # the walk narrow replaced: the tiled instance's ring of flat
             # tiles, on the same inputs (not counted in any path)
             ring = _ring_plan(k1, plan)
-            again = torch.empty_like(got)
+            again = torch.empty_like(got) if out is None else _k1_out(
+                torch, k1, cls)
             k1.run_plan(ring, x, again)
             if not same_bits(torch, again, want):
                 raise AssertionError(f"K1 class {cls}: ring walk differs")
@@ -585,11 +734,11 @@ def k1_timing(torch, k1, bw, recorded, extra):
                                    it)
             del again
         rows[cls] = r
-        log(f"[k1] {cls[0]} {cls[1]} {cls[2]} {cls[-1]}: " + json.dumps(
+        log(f"[k1] {kind} {shape} {axes} {dname}: " + json.dumps(
             {k: (round(v, 4) if isinstance(v, float) else v)
              for k, v in r.items() if k not in ("kind", "shape", "axes",
                                                 "dtype")}))
-        del x, got, want, dst, into
+        del x, out, got, want, dst, into
         torch.cuda.empty_cache()
     return rows
 
@@ -621,53 +770,104 @@ def _k1_per_run(timed, rec, runs=1):
     return out
 
 
-def phase_cycle(torch, pat, k1, tr):
+def _reset_k1(k1, tr=None):
+    k1.launches = 0
+    k1.bytes_moved = 0
+    for inst in k1.launches_by_instance:
+        k1.launches_by_instance[inst] = 0
+    if tr is not None:
+        for op in tr.exchange_calls:
+            tr.exchange_calls[op] = 0
+
+
+# phase 3's transpose methods, by the path name each run counts under
+def cycle_methods(pat):
+    return {"cycle": pat.AllToAll(), "cycle_ring": pat.Ring(),
+            "cycle_pipelined": pat.Pipelined(4),
+            "cycle_pipelined_ring": pat.Pipelined(3, pat.Ring())}
+
+
+def phase_cycle(torch, pat, k1, tr, n=1024):
+    """The 1024^3 f32 x->y->z->y->x cycle on (1, 1) under each method:
+    every hop bit-identical to the AllToAll hop, the round trip
+    bit-identical, one timed cycle (ms, GB/s, K1 launches by instance,
+    K1 bytes, exchange calls) and one profile each.  The K1 bytes of every
+    method must equal AllToAll's: a Pipelined hop packs and unpacks its
+    chunks in place."""
     topo = pat.Topology((1, 1))
-    shape = (1024, 1024, 1024)
+    shape = (n, n, n)
     px = pat.Pencil(topo, shape, (1, 2), permutation=pat.Permutation(1, 2, 0))
     py = pat.Pencil(topo, shape, (0, 2), permutation=pat.Permutation(0, 2, 1))
     pz = pat.Pencil(topo, shape, (0, 1))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     x = pat.PencilArray(px, torch.randn(shape, generator=gen, device="cuda"))
     chain = [py, pz, py, px]
-
-    def cycle():
-        v = x
-        for pen in chain:
-            v = pat.transpose(v, pen)
-        return v
-
-    cycle()  # warm-up
-    torch.cuda.synchronize()
-    before = k1.launches
-    by0 = dict(k1.launches_by_instance)
-    k1.recorded = {}
-    t0 = time.perf_counter()
-    back = cycle()
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = k1.launches - before
-    by = {i: k1.launches_by_instance[i] - by0[i] for i in by0}
-    recorded, k1.recorded = k1.recorded, None
-    if not same_bits(torch, back.data, x.data):
-        raise AssertionError("x->y->z->y->x round trip is not bit-identical")
     pens = [px] + chain
     nbytes = sum(tr.hop_operand_bytes(a, b, (), torch.float32)
                  for a, b in zip(pens, pens[1:]))
-    wire = sum(sum(v["bytes"] for v in pat.transpose_cost(
-        a, b, (), torch.float32).values()) for a, b in zip(pens, pens[1:]))
-    log(f"[cycle] 1024^3 f32 (1,1) x->y->z->y->x bit-identical; "
-        f"{secs * 1e3:.2f} ms, {nbytes / secs / 1e9:.1f} GB/s over "
-        f"{nbytes} operand bytes (transpose_cost wire bytes {wire} on a "
-        f"size-1 axis); K1 launches {launches}, by instance {by}")
-    prof = profile(torch, cycle, "1024^3 f32 cycle (4 hops)")
-    del x, back
+    ref, v = [], x
+    for pen in chain:                       # AllToAll's hops (a warm-up)
+        v = pat.transpose(v, pen)
+        ref.append(v.data)
+    del v
+    out = {}
+    for run, method in cycle_methods(pat).items():
+        def cycle():
+            v = x
+            for pen in chain:
+                v = pat.transpose(v, pen, method=method)
+            return v
+
+        v = x                                # warm-up, hop by hop
+        for i, pen in enumerate(chain):
+            v = pat.transpose(v, pen, method=method)
+            if not same_bits(torch, v.data, ref[i]):
+                raise AssertionError(f"{run}: hop {i + 1} differs from the "
+                                     f"AllToAll hop")
+        del v
+        torch.cuda.synchronize()
+        _reset_k1(k1, tr)
+        k1.recorded = {}
+        t0 = time.perf_counter()
+        back = cycle()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        r = dict(method=repr(method), ms=secs * 1e3, GBps=nbytes / secs / 1e9,
+                 launches=k1.launches,
+                 launches_by_instance=dict(k1.launches_by_instance),
+                 k1_bytes=k1.bytes_moved,
+                 exchange_calls=dict(tr.exchange_calls),
+                 recorded=k1.recorded)
+        k1.recorded = None
+        if not same_bits(torch, back.data, x.data):
+            raise AssertionError(f"{run}: x->y->z->y->x round trip is not "
+                                 f"bit-identical")
+        del back
+        wire = sum(sum(c["bytes"] for c in pat.transpose_cost(
+            a, b, (), torch.float32, method).values())
+            for a, b in zip(pens, pens[1:]))
+        log(f"[cycle] {run} {method!r}: {n}^3 f32 (1,1) x->y->z->y->x, "
+            f"every hop bit-identical to AllToAll's, round trip "
+            f"bit-identical; {r['ms']:.2f} ms, {r['GBps']:.1f} GB/s over "
+            f"{nbytes} operand bytes (transpose_cost wire bytes {wire} on a "
+            f"size-1 axis); K1 launches {r['launches']}, by instance "
+            f"{r['launches_by_instance']}, K1 bytes {r['k1_bytes']}; "
+            f"exchange calls {r['exchange_calls']}")
+        if r["launches"] <= 0:
+            raise AssertionError(f"{run} launched K1 no time")
+        r["profile"] = profile(torch, cycle, f"{n}^3 f32 cycle (4 hops) "
+                               f"{run}")
+        out[run] = r
+    k1_bytes = {run: r["k1_bytes"] for run, r in out.items()}
+    log(f"[cycle] K1 bytes of the cycle by method: {k1_bytes}")
+    if len(set(k1_bytes.values())) != 1:
+        raise AssertionError(f"K1 bytes differ between methods: {k1_bytes}")
+    del x, ref
     torch.cuda.empty_cache()
-    return dict(ms=secs * 1e3, GBps=nbytes / secs / 1e9, launches=launches,
-                launches_by_instance=by, recorded=recorded, profile=prof)
+    return out
 
 
-def phase_fft(torch, pat, k1):
+def phase_fft(torch, dist, pat, k1, tr):
     topo = pat.Topology((1, 1))
     plan = pat.PencilFFTPlan(topo, (512, 512, 512), real=True,
                              dtype=torch.float32)
@@ -697,6 +897,161 @@ def phase_fft(torch, pat, k1):
     del u, uh, back
     torch.cuda.empty_cache()
     r["strided"] = fft_strided(torch, k1)
+    r["fused_hop"] = fused_hop_check(torch, pat, k1, tr)
+    r["dct"] = dct_check(torch, dist, pat, k1, tr)
+    return r
+
+
+def _run_counted(torch, k1, tr, fn):
+    """``fn()`` with K1's counts and the exchange calls from 0; returns
+    its result and ``(launches, by instance, K1 bytes, exchange calls,
+    recorded classes)``."""
+    torch.cuda.synchronize()
+    _reset_k1(k1, tr)
+    k1.recorded = {}
+    res = fn()
+    torch.cuda.synchronize()
+    counts = dict(launches=k1.launches,
+                  launches_by_instance=dict(k1.launches_by_instance),
+                  k1_bytes=k1.bytes_moved,
+                  exchange_calls=dict(tr.exchange_calls),
+                  recorded=k1.recorded)
+    k1.recorded = None
+    return res, counts
+
+
+def fused_hop_check(torch, pat, k1, tr, n=512, K=4):
+    """The fused pipelined hop (``ops/fft.py`` ``_fused_hop``) called
+    directly on the NS plan's first hop operand — the x-pencil spectrum
+    after the r2c stage, (n/2+1) x n x n c64 x 3 components, into the
+    y-pencil and its fft along y — on (1, 1), K chunks, forward and
+    inverse.  Held to the serialized hop followed by the stage: with no
+    transform the data movement bit for bit, with it within 1e-6 of
+    max|u_hat| (cuFFT may plan another batch count otherwise).  Times
+    both ways (CUDA events, one warm-up, one timed call)."""
+    from pencilarrays_tpu_torch.ops import fft as F
+
+    topo = pat.Topology((1, 1))
+    plan = pat.PencilFFTPlan(topo, (n, n, n), real=True, dtype=torch.float32,
+                             batch=3)
+    pens = plan.pencils
+    src = pens[0].replace(global_shape=pens[1].size_global())
+    tgt = pens[1]
+    ops = (("fft", tgt.permutation.apply((0, 1, 2)).index(1), n),)
+    spec = F._fuse_spec(("t", src, tgt, plan.dtype_spectral),
+                        ("f", tgt, tgt, ops, True), K, pat.AllToAll(),
+                        trivial_axis=True)
+    _, src, tgt, _, post, ops, pc, base, c, bounds = spec
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    x = random_tensor(torch, src.padded_size_local(pat.MemoryOrder) + (3,),
+                      torch.complex64, gen)
+    stage_f = F._stage_op(ops, False, pc, "backward", 3)
+    stage_i = F._stage_op(ops, True, pc, "backward", 3)
+
+    def fused(data, inverse, stage_ops=ops):
+        return F._fused_hop(data, src, tgt, post, 1, stage_ops, inverse, pc,
+                            "backward", base, c, bounds)
+
+    def serial_f():
+        return stage_f(tr._hop(x, src, tgt, 1, base))
+
+    # the data movement alone, both ways
+    moved = tr._hop(x, src, tgt, 1, base)
+    if not same_bits(torch, fused(x, False, ()), moved):
+        raise AssertionError("fused hop: data movement differs from the hop")
+    if not same_bits(torch, fused(moved, True, ()),
+                     tr._hop(moved, tgt, src, 1, base)):
+        raise AssertionError("fused inverse hop: data movement differs")
+    del moved
+    # the path: one forward and one inverse fused hop, counted
+    y_ser = serial_f()
+    fused(fused(x, False), True)            # warm-up (cuFFT plans)
+
+    def path():
+        h = fused(x, False)
+        return h, fused(h, True)
+
+    (y, back), counts = _run_counted(torch, k1, tr, path)
+    scale = float(y_ser.abs().max())
+    err_f = max_abs_err(torch, y, y_ser)
+    back_ser = tr._hop(stage_i(y_ser), tgt, src, 1, base)
+    err_i = max_abs_err(torch, back, back_ser)
+    scale_i = float(back_ser.abs().max())
+    if not (err_f <= 1e-6 * scale and err_i <= 1e-6 * scale_i):
+        raise AssertionError(f"fused hop off the serialized hop + stage: "
+                             f"{err_f} (max {scale}), inverse {err_i} "
+                             f"(max {scale_i})")
+    r = dict(operand=list(x.shape), chunk_dim=c, bounds=[list(b) for b in
+                                                         bounds],
+             forward_ms=cuda_ms(torch, lambda: fused(x, False), 1),
+             serial_forward_ms=cuda_ms(torch, serial_f, 1),
+             inverse_ms=cuda_ms(torch, lambda: fused(y, True), 1),
+             serial_inverse_ms=cuda_ms(
+                 torch, lambda: tr._hop(stage_i(y_ser), tgt, src, 1, base),
+                 1),
+             err_forward=err_f, max_abs_forward=scale, err_inverse=err_i,
+             max_abs_inverse=scale_i, **counts)
+    log("[fft] fused hop " + json.dumps(
+        {k: (round(v, 4) if k.endswith("_ms") else v) for k, v in r.items()
+         if k != "recorded"}))
+    if r["launches"] <= 0:
+        raise AssertionError("the fused hop launched K1 no time")
+    del x, y, y_ser, back, back_ser
+    torch.cuda.empty_cache()
+    return r
+
+
+def dct_check(torch, dist, pat, k1, tr, n=512, small=64, batch=3):
+    """A ("dct", "fft", "fft") plan over ``batch`` fields on (1, 1): at n^3
+    f32 the round trip within 1e-5 of max|u|, forward and backward times
+    (CUDA events, one warm-up, one timed call) and K1's launches (the
+    stage's component moves); at small^3 the card against the same port
+    on the CPU within 1e-5 of max|u_hat|."""
+    kw = dict(transforms=("dct", "fft", "fft"), dtype=torch.float32,
+              batch=batch)
+    plan = pat.PencilFFTPlan(pat.Topology((1, 1)), (n, n, n), **kw)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    shape = plan.input_pencil.padded_size_local(pat.MemoryOrder) + (batch,)
+    u = pat.PencilArray(plan.input_pencil,
+                        torch.randn(shape, generator=gen, device="cuda"))
+    plan.backward(plan.forward(u))        # warm-up (cuFFT plans)
+    (back, uh), counts = _run_counted(torch, k1, tr, lambda: (
+        lambda h: (plan.backward(h), h))(plan.forward(u)))
+    err = float((back.data - u.data).abs().max())
+    scale = float(u.data.abs().max())
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"dct plan round trip {err} > 1e-5 * {scale}")
+    r = dict(shape=[n, n, n], batch=batch,
+             forward_ms=cuda_ms(torch, lambda: plan.forward(u), 1),
+             backward_ms=cuda_ms(torch, lambda: plan.backward(uh), 1),
+             roundtrip_max_err=err, max_abs_u=scale, **counts)
+    r["profile_forward"] = profile(torch, lambda: plan.forward(u),
+                                   f"{n}^3 x {batch} dct x fft x fft forward")
+    r["profile_backward"] = profile(torch, lambda: plan.backward(uh),
+                                    f"{n}^3 x {batch} dct x fft x fft "
+                                    f"backward")
+    del u, uh, back
+    torch.cuda.empty_cache()
+    # small^3: the card against the port on the CPU
+    cpu_group = dist.new_group([0], backend="gloo")
+    u0 = torch.randn((small, small, small, batch),
+                     generator=torch.Generator().manual_seed(SEED + 16))
+    spectra = {}
+    for dev, group in (("cuda", None), ("cpu", cpu_group)):
+        p = pat.PencilFFTPlan(pat.Topology((1, 1), device=dev, group=group),
+                              (small,) * 3, **kw)
+        spectra[dev] = p.forward(pat.PencilArray.from_global(
+            p.input_pencil, u0, 1)).data.cpu()
+    rel = max_abs_err(torch, spectra["cuda"], spectra["cpu"]) / float(
+        spectra["cpu"].abs().max())
+    if not rel <= 1e-5:
+        raise AssertionError(f"{small}^3 dct plan card vs CPU: {rel}")
+    r["small_card_vs_cpu"] = rel
+    log("[fft] dct x fft x fft " + json.dumps(
+        {k: (round(v, 4) if k.endswith("_ms") else v) for k, v in r.items()
+         if k != "recorded" and not k.startswith("profile")}))
+    if r["launches"] <= 0:
+        raise AssertionError("the dct plan launched K1 no time")
     return r
 
 
@@ -755,6 +1110,29 @@ def fft_strided(torch, k1, n=512, comps=3):
     return r
 
 
+def simulate_check(torch, model, uh, dt=5e-3, steps=3):
+    """``simulate(uh, dt, steps, record_energy=True)`` on the card against
+    ``steps`` calls of ``step`` and their energies, each within 1e-6
+    relative; the energies a 1-D tensor on the state's device."""
+    final, energies = model.simulate(uh, dt, steps, record_energy=True)
+    s, want = uh, []
+    for _ in range(steps):
+        s = model.step(s, dt)
+        want.append(float(model.energy(s)))
+    rel = float((final.data - s.data).abs().max() / s.data.abs().max())
+    got = energies.cpu().tolist()
+    rel_e = max(abs(a / b - 1) for a, b in zip(got, want))
+    if not (rel <= 1e-6 and rel_e <= 1e-6 and energies.dim() == 1
+            and len(got) == steps and energies.device == s.data.device):
+        raise AssertionError(f"simulate vs {steps} steps: state {rel}, "
+                             f"energies {got} vs {want} on "
+                             f"{energies.device}")
+    log(f"[ns] 64^3 simulate({steps} steps, record_energy=True) on the card "
+        f"= {steps} step calls: state rel {rel:.3e}, energies {got} (rel "
+        f"{rel_e:.3e})")
+    return dict(rel_state=rel, rel_energy=rel_e, energies=got)
+
+
 def phase_navier_stokes(torch, dist, pat, k1, models):
     # 64^3: the card against the same port on the CPU
     cpu_group = dist.new_group([0], backend="gloo")
@@ -766,6 +1144,8 @@ def phase_navier_stokes(torch, dist, pat, k1, models):
         for _ in range(2):
             s = m.step(s, 5e-3)
         states[dev] = s.data.cpu()
+        if dev == "cuda":
+            sim = simulate_check(torch, m, s)
     ref = states["cpu"]
     rel = float((states["cuda"] - ref).abs().max() / ref.abs().max())
     if not rel <= 1e-4:
@@ -780,9 +1160,7 @@ def phase_navier_stokes(torch, dist, pat, k1, models):
                                         dtype=torch.float32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = 0
-    for inst in k1.launches_by_instance:
-        k1.launches_by_instance[inst] = 0
+    _reset_k1(k1)
     uh = models.taylor_green(model)
     energies = [float(model.energy(uh))]
     step_ms, step_launches, recorded = [], [], {}
@@ -815,6 +1193,7 @@ def phase_navier_stokes(torch, dist, pat, k1, models):
     if tuple(uh.data.shape) != tuple(shape) + (3,):
         raise AssertionError(f"state shape {tuple(uh.data.shape)}")
     r = dict(step_ms=step_ms, peak_bytes=peak, energies=energies,
+             simulate=sim,
              max_energy_dev=max(devs), k1_launches=launches,
              k1_launches_by_instance=by_instance,
              k1_launches_per_step=step_launches, recorded=recorded,
@@ -1333,9 +1712,7 @@ def _counts(k1, flash):
 
 
 def _reset_counts(k1, flash):
-    k1.launches = 0
-    for inst in k1.launches_by_instance:
-        k1.launches_by_instance[inst] = 0
+    _reset_k1(k1)
     flash.launches_fwd = flash.launches_dq = flash.launches_dkv = 0
     for by in _by_instance(flash).values():
         for inst in by:
@@ -1642,7 +2019,7 @@ def main() -> int:
             log(f"[env] bound uses {bw / 1e12:.2f} TB/s for '{smi}'")
             phase_kernel(torch, k1)
             cycle = phase_cycle(torch, pat, k1, tr)
-            phase_fft(torch, pat, k1)
+            fft = phase_fft(torch, dist, pat, k1, tr)
             ns = phase_navier_stokes(torch, dist, pat, k1, models)
             checks = phase_flash_check(torch, flash, models.attention)
             serve, serve_rec = phase_serving(torch, pat, models, k1, flash)
@@ -1650,8 +2027,10 @@ def main() -> int:
                 torch, pat, models, k1, flash, dt)
                 for dt in (torch.float32, torch.bfloat16)}
             timing = phase_flash_timing(torch, flash, bw)
-            # phase 2's timings: every class phases 3, 5 and 7 launched
-            recorded = {"cycle": cycle["recorded"],
+            # phase 2's timings: every class phases 3, 4, 5 and 7 launched
+            k1_runs = {**cycle, "fused_hop": fft["fused_hop"],
+                       "dct": fft["dct"]}
+            recorded = {**{run: r["recorded"] for run, r in k1_runs.items()},
                         "navier_stokes": ns["recorded"], **serve_rec}
             k1_timed = k1_timing(torch, k1, bw, recorded, HOPS)
         finally:
@@ -1660,7 +2039,9 @@ def main() -> int:
            if rec}
     per["navier_stokes_rk2_step"] = _k1_per_run(k1_timed, ns["recorded"],
                                                 ns["steps"])
-    per["cycle"]["cycle_ms"] = cycle["ms"]
+    for run, r in cycle.items():
+        per[run].update(cycle_ms=r["ms"], k1_bytes=r["k1_bytes"],
+                        exchange_calls=r["exchange_calls"])
     for run, v in per.items():
         if run.startswith("serve_"):
             v["serve_call_ms"] = serve[run]["ms"]
@@ -1674,11 +2055,12 @@ def main() -> int:
                for run, n in serve.items()},
             **{run: t["launches"] for run, t in train.items()}}
     paths = {"k1": {"navier_stokes": ns["k1_launches"],
-                    "cycle": cycle["launches"]}}
+                    **{run: r["launches"] for run, r in k1_runs.items()}}}
     for inst, c in ns["k1_launches_by_instance"].items():
         paths.setdefault(f"k1_{inst}", {})["navier_stokes"] = c
-    for inst, c in cycle["launches_by_instance"].items():
-        paths.setdefault(f"k1_{inst}", {})["cycle"] = c
+    for run, r in k1_runs.items():
+        for inst, c in r["launches_by_instance"].items():
+            paths.setdefault(f"k1_{inst}", {})[run] = c
     for run, n in runs.items():
         for key, count in n.items():
             paths.setdefault(key, {})

@@ -48,6 +48,7 @@ from .parallel.transpositions import (  # noqa: F401
     Ring,
     Transposition,
     reshard,
+    resolve_method,
     transpose,
     transpose_cost,
 )

@@ -149,6 +149,27 @@ class NavierStokesSpectral:
         return (uh * e * e
                 + (a * e * e + (b + c) * e * 2.0 + d) * (dt / 6.0))
 
+    def simulate(self, uh: PencilArray, dt: float, n_steps: int, *,
+                 record_energy: bool = False, stepper=None):
+        """Run ``n_steps`` steps of ``stepper`` (default :meth:`step`, RK2;
+        pass ``model.step_rk4`` for 4th order).  Returns ``(state,
+        energies)``: ``energies`` is a 1-D tensor of the energy after each
+        step, on the state's device, when ``record_energy``, else
+        ``None`` (the JAX package's ``simulate``, whose ``lax.scan`` is a
+        plain loop here)."""
+        stepper = self.step if stepper is None else stepper
+        energies = []
+        for _ in range(int(n_steps)):
+            uh = stepper(uh, dt)
+            if record_energy:
+                energies.append(self.energy(uh).reshape(()))
+        if not record_energy:
+            return uh, None
+        if not energies:
+            return uh, torch.zeros(0, dtype=self.plan.dtype_real,
+                                   device=uh.data.device)
+        return uh, torch.stack(energies)
+
     def energy(self, uh: PencilArray) -> torch.Tensor:
         """Mean kinetic energy ``<|u|^2>/2`` over the box (physical space,
         padding masked by the global reduction)."""

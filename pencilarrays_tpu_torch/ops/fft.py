@@ -6,9 +6,13 @@ same static schedule, built by the same code: the extent-aware stage chain
 stage's transform dim last in memory (``permute=True``), and at each stage
 ONE batched local transform over every pending dim that is local there.
 Between stages the transpose engine moves the data
-(``parallel/transpositions.py``).  Each rank transforms its own block with
-``torch.fft`` (cuFFT on the card): a library call for what the JAX package
-leaves to XLA.
+(``parallel/transpositions.py``) by the plan's ``method`` (``AllToAll``,
+``Ring``, ``Pipelined`` or ``Auto``).  Each rank transforms its own block
+with ``torch.fft`` (cuFFT on the card): a library call for what the JAX
+package leaves to XLA.  The ``dct``/``dst`` kinds (DCT-II and DST-II,
+ortho in every normalization mode) are built from ``torch.fft`` (Makhoul's
+even/odd reordering and a twiddle), as the JAX package leaves them to
+``jax.scipy.fft``.
 
 One layout step is the port's own.  A pencil block keeps its extra dims
 (vector components, a ``batch=B`` plan's samples) innermost, so handed to
@@ -18,18 +22,25 @@ the transform and back after it (two K1 launches per stage), so cuFFT sees
 one contiguous signal per batch entry.  ``chip_smoke.py`` (``fft_strided``)
 times this against one strided-batch call on the card; see ``PERF.md``.
 
+``pipeline=K`` fuses each eligible hop with the stage after it
+(:func:`_fused_hop`): the exchange in ``K`` chunks along a dim neither the
+exchange nor the stage's transforms touch, chunk ``k + 1``'s exchange in
+flight (NCCL's stream) while chunk ``k`` is unpacked and transformed (the
+compute stream).  The step list is the JAX package's, kind for kind.
+
 Normalization is applied as the JAX package applies it: bare transforms
 ("backward" semantics) followed by a multiply with a Python float, never
 through ``torch.fft``'s ``norm=``.
 
-Kinds ``fft``/``rfft``/``none`` and all four normalizations are ported.
-``dct``/``dst``, ``decomposition=``, ``pipeline=``, ``hbm_limit=``,
-``wire_dtype=`` and ``compile()`` raise ``NotImplementedError`` naming the
-ROADMAP item that queues them.
+``decomposition=``, ``hbm_limit=``, ``wire_dtype=`` and ``compile()``
+raise ``NotImplementedError`` naming the ROADMAP item that queues them.
 """
 
 from __future__ import annotations
 
+import json
+import math
+import os
 from itertools import permutations as _iperms
 from typing import List, Optional, Sequence, Tuple
 
@@ -42,6 +53,16 @@ from ..parallel.topology import Topology
 from ..parallel.transpositions import (
     AllToAll,
     AbstractTransposeMethod,
+    Auto,
+    Pipelined,
+    Ring,
+    _chunk_bounds,
+    _Exchange,
+    _exchange_operand_extents,
+    _pipeline_chunk_axis,
+    _run_pipeline,
+    assert_compatible,
+    resolve_method,
     transpose,
     transpose_cost,
 )
@@ -55,13 +76,90 @@ _LATER = ("not ported yet: ROADMAP.md Queue 1, item 'Transpose methods and "
           "plan options beyond the first slice'")
 
 
+def _makhoul_order(n: int, device) -> torch.Tensor:
+    """Even elements in order, then odd ones reversed (Makhoul 1980)."""
+    order = list(range(0, n, 2)) + list(range(n - 1 - n % 2, 0, -2))
+    return torch.tensor(order, dtype=torch.int64, device=device)
+
+
+def _dct_twiddle(n: int, like: torch.Tensor) -> torch.Tensor:
+    """``exp(-i pi k / 2n)`` times the ortho scale of DCT-II coefficient
+    ``k`` doubled (``sqrt(1/n)`` for ``k = 0``, else ``sqrt(2/n)``)."""
+    k = torch.arange(n, dtype=torch.float64)
+    scale = torch.full((n,), math.sqrt(2.0 / n), dtype=torch.float64)
+    scale[0] = math.sqrt(1.0 / n)
+    w = torch.polar(scale, -0.5 * math.pi / n * k)
+    return w.to(device=like.device, dtype=like.dtype)
+
+
+def _dct(blk: torch.Tensor, dim: int) -> torch.Tensor:
+    """Orthonormal DCT-II along ``dim``: one real FFT of the
+    Makhoul-reordered signal, ``X_k = Re(t_k V_k)`` for ``k <= n/2`` and
+    ``X_{n-j} = -Im(t_j V_j)`` above (``t`` from :func:`_dct_twiddle`)."""
+    n = blk.shape[dim]
+    x = blk.movedim(dim, -1)
+    V = torch.fft.rfft(x.index_select(-1, _makhoul_order(n, x.device)))
+    h = V.shape[-1]
+    Z = V * _dct_twiddle(n, V)[:h]
+    return torch.cat([Z.real, -Z.imag[..., 1:n - h + 1].flip(-1)],
+                     dim=-1).movedim(-1, dim)
+
+
+def _idct(blk: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inverse of :func:`_dct` (DCT-III, ortho): with ``Y = X / |t|``,
+    ``V_k = (Y_k - i Y_{n-k}) conj(t_k / |t_k|)`` for ``k <= n/2``, one
+    inverse real FFT and the Makhoul order undone."""
+    n = blk.shape[dim]
+    y = blk.movedim(dim, -1)
+    h = n // 2 + 1
+    t = _dct_twiddle(n, torch.empty(0, dtype=torch.promote_types(
+        y.dtype, torch.complex64), device=y.device))
+    Y = y / t.abs().to(y.dtype)
+    Yrev = torch.cat([torch.zeros_like(Y[..., :1]),
+                      Y[..., n - h + 1:].flip(-1)], dim=-1)
+    V = torch.complex(Y[..., :h], -Yrev) * (t[:h] / t[:h].abs()).conj()
+    v = torch.fft.irfft(V, n=n)
+    inv = torch.argsort(_makhoul_order(n, v.device))
+    return v.index_select(-1, inv).movedim(-1, dim)
+
+
+def _alt_signs(blk: torch.Tensor, dim: int) -> torch.Tensor:
+    """``(-1)^j`` along ``dim``, broadcast-shaped."""
+    shape = [1] * blk.dim()
+    shape[dim] = blk.shape[dim]
+    j = torch.arange(blk.shape[dim], device=blk.device)
+    return (1 - 2 * (j % 2)).to(blk.dtype).reshape(shape)
+
+
+def _dst(blk: torch.Tensor, dim: int) -> torch.Tensor:
+    # DST-II(x) = reverse(DCT-II(x * (-1)^j)), ortho (the JAX package's)
+    return torch.flip(_dct(blk * _alt_signs(blk, dim), dim), (dim,))
+
+
+def _idst(blk: torch.Tensor, dim: int) -> torch.Tensor:
+    # IDST-II(y) = (-1)^j * IDCT-II(reverse(y))
+    out = _idct(torch.flip(blk, (dim,)), dim)
+    return out * _alt_signs(out, dim)
+
+
+def _plain_move(x: torch.Tensor, axes, out=None) -> torch.Tensor:
+    return x.permute(tuple(axes))
+
+
 def _stage_op(ops: tuple, inverse: bool, pre_complex: bool, norm: str,
-              nspace: int):
-    """Per-block batched local transform of one schedule step.
+              nspace: int, move=k1.permute):
+    """Per-block batched local transform of one schedule step:
+    ``op(blk, out=None)``, the result written into the view ``out`` when
+    one is given.
 
     ``ops`` is a tuple of ``(kind, mem_axis, n_logical)`` — every transform
     applied at this stage, along axes local in the stage pencil.  Blocks
-    carry ``nspace`` spatial dims followed by their extra dims."""
+    carry ``nspace`` spatial dims followed by their extra dims, which
+    ``move`` (K1, or a plain permute where autograd must see it) takes
+    outermost and back around the transform.  R2R kinds run before the
+    Fourier kinds forward and after them inverse, ortho in every
+    normalization mode."""
+    r2r = tuple(op for op in ops if op[0] in ("dct", "dst"))
     four = tuple(op for op in ops if op[0] in ("fft", "rfft"))
     rf = tuple(op for op in four if op[0] == "rfft")
     cax = tuple(ax for k, ax, n in four if k == "fft")
@@ -77,6 +175,8 @@ def _stage_op(ops: tuple, inverse: bool, pre_complex: bool, norm: str,
         # shift: index of the first spatial dim (extra dims moved in front)
         ca = tuple(ax + shift for ax in cax)
         if not inverse:
+            for k, ax, n in r2r:
+                blk = (_dct if k == "dct" else _dst)(blk, ax + shift)
             if rf:
                 blk = torch.fft.rfftn(blk, dim=ca + (rf[0][1] + shift,))
             elif cax:
@@ -95,20 +195,241 @@ def _stage_op(ops: tuple, inverse: bool, pre_complex: bool, norm: str,
         if not pre_complex and blk.is_complex():
             # forward promoted real->complex here; imag is numerically zero
             blk = blk.real
+        for k, ax, n in reversed(r2r):
+            blk = (_idct if k == "dct" else _idst)(blk, ax + shift)
         return blk
 
-    def op(blk):
+    def op(blk, out=None):
         E = blk.dim() - nspace
-        if not four:
-            return blk
-        if E == 0:
-            return transform(blk, 0)
-        front = tuple(range(nspace, nspace + E)) + tuple(range(nspace))
-        back = tuple(range(E, E + nspace)) + tuple(range(E))
-        out = transform(k1.permute(blk.contiguous(), front), E)
-        return k1.permute(out.contiguous(), back)
+        if not (four or r2r):
+            res = blk
+        elif E == 0:
+            res = transform(blk, 0)
+        else:
+            front = tuple(range(nspace, nspace + E)) + tuple(range(nspace))
+            back = tuple(range(E, E + nspace)) + tuple(range(E))
+            res = transform(move(blk, front), E)
+            # torch.fft lays a transform over some of the dims out batch
+            # dims first (a DCT x FFT x FFT stage); K1 moved that layout at
+            # a tenth of its bound (20.0 against 1.9 ms, 512^3 x 3 c64 on
+            # an H100, PERF.md), so copy it first and let K1 take its
+            # narrow instance
+            return move(res.contiguous(), back, out=out)
+        if out is None:
+            return res
+        return out.copy_(res)
 
     return op
+
+
+def _stage_dtype(ops: tuple, inverse: bool, pre_complex: bool,
+                 dtype: torch.dtype) -> torch.dtype:
+    """The dtype a stage's transform gives a block of ``dtype``."""
+    if not any(op[0] in ("fft", "rfft") for op in ops):
+        return dtype
+    if not inverse:
+        return _complex_of(dtype)
+    return dtype if pre_complex else torch.empty((), dtype=dtype).real.dtype
+
+
+def _stage_vjp(ops: tuple, inverse: bool, pre_complex: bool, norm: str,
+               nspace: int, shape, dtype):
+    """``g -> J^T g`` of a stage's transform on blocks of ``shape`` and
+    ``dtype`` — the transform is linear, so its vector-Jacobian product
+    needs no saved input (autograd of ``torch.fft`` on zeros)."""
+    op = _stage_op(ops, inverse, pre_complex, norm, nspace, _plain_move)
+
+    def vjp(g):
+        with torch.enable_grad():
+            z = torch.zeros(shape, dtype=dtype, device=g.device,
+                            requires_grad=True)
+            (gz,) = torch.autograd.grad(op(z), z, g)
+        return gz
+
+    return vjp
+
+
+class _FusedProgram:
+    """One fused pipelined hop: the exchange ``src -> tgt`` in chunks
+    along logical dim ``chunk_dim`` with the stage's transform per chunk
+    (the JAX package's ``_fused_hop_fn``).  Forward, per chunk: pack ->
+    exchange -> unpack -> transform, the transform's output written into
+    its slice of the post-stage block; inverse (the mirrored program):
+    inverse transform of the chunk's slice -> pack -> reverse exchange ->
+    unpack into the chunk's slice of the source block.  Either way chunk
+    ``k + 1``'s exchange is issued before chunk ``k`` is consumed
+    (``_run_pipeline``)."""
+
+    def __init__(self, src, tgt, post, extra_ndims, ops, inverse,
+                 pre_complex, norm, base, chunk_dim, bounds):
+        self.src, self.tgt, self.post = src, tgt, post
+        self.ops, self.inverse, self.pre_complex = ops, inverse, pre_complex
+        self.norm, self.bounds = norm, tuple(bounds)
+        self.nspace = src.ndims
+        self.fwd = _Exchange(src, tgt, extra_ndims, base)
+        self.rev = _Exchange(tgt, src, extra_ndims, base)
+        self.mc_src = self.fwd.fwd_in.index(chunk_dim)
+        self.mc_tgt = self.fwd.fwd_out.index(chunk_dim)   # post's too
+
+    def _block(self, pen, x):
+        return pen.padded_size_local(MemoryOrder) + tuple(
+            x.shape[self.nspace:])
+
+    def _chunk(self, shape, dim, k):
+        s0, s1 = self.bounds[k]
+        shape = list(shape)
+        shape[dim] = s1 - s0
+        return tuple(shape)
+
+    def _narrow(self, t, dim, k):
+        s0, s1 = self.bounds[k]
+        return t.narrow(dim, s0, s1 - s0)
+
+    def _exchange_then(self, x, post_fn, out_shape, dtype):
+        """src block -> chunks through the exchange -> ``post_fn(k, y,
+        dst)`` writes chunk ``k`` into its slice of the output."""
+        out = x.new_empty(out_shape, dtype=dtype)
+
+        def produce(k):
+            return self.fwd.pack(self._narrow(x, self.mc_src, k))
+
+        def consume(k, tiles, recv):
+            post_fn(k, self.fwd.unpack(recv, like=tiles),
+                    self._narrow(out, self.mc_tgt, k))
+
+        _run_pipeline(len(self.bounds), produce, self.fwd, consume)
+        return out
+
+    def _then_exchange(self, x, pre_fn, out_shape, dtype):
+        """post block -> ``pre_fn(k, chunk)`` -> chunks through the reverse
+        exchange into their slices of the source block."""
+        out = x.new_empty(out_shape, dtype=dtype)
+
+        def produce(k):
+            return self.rev.pack(pre_fn(k, self._narrow(x, self.mc_tgt, k)))
+
+        def consume(k, tiles, recv):
+            self.rev.unpack(recv, out=self._narrow(out, self.mc_src, k))
+
+        _run_pipeline(len(self.bounds), produce, self.rev, consume)
+        return out
+
+    def run(self, x: torch.Tensor) -> torch.Tensor:
+        op = _stage_op(self.ops, self.inverse, self.pre_complex, self.norm,
+                       self.nspace)
+        if not self.inverse:
+            return self._exchange_then(
+                x, lambda k, y, dst: op(y, out=dst),
+                self._block(self.post, x),
+                _stage_dtype(self.ops, False, self.pre_complex, x.dtype))
+        dtype = _stage_dtype(self.ops, True, self.pre_complex, x.dtype)
+        return self._then_exchange(x, lambda k, blk: op(blk),
+                                   self._block(self.src, x), dtype)
+
+    def adjoint(self, g: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """``J^T g``: the mirrored program with each chunk's transform
+        replaced by its vector-Jacobian product (``dtype``: the forward
+        input's)."""
+        args = (self.ops, self.inverse, self.pre_complex, self.norm,
+                self.nspace)
+        if not self.inverse:
+            tgt_block = self._block(self.tgt, g)
+            return self._then_exchange(
+                g, lambda k, blk: _stage_vjp(*args, self._chunk(
+                    tgt_block, self.mc_tgt, k), dtype)(blk),
+                self._block(self.src, g), dtype)
+        post_block = self._block(self.post, g)
+        return self._exchange_then(
+            g, lambda k, y, dst: dst.copy_(_stage_vjp(*args, self._chunk(
+                post_block, self.mc_tgt, k), dtype)(y)),
+            post_block, dtype)
+
+
+class _FusedHop(torch.autograd.Function):
+    """A fused hop whose backward is the mirrored program on the
+    cotangent (:meth:`_FusedProgram.adjoint`)."""
+
+    @staticmethod
+    def forward(ctx, data, program):
+        ctx.program, ctx.dtype = program, data.dtype
+        return program.run(data)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.program.adjoint(grad, ctx.dtype), None
+
+
+def _fused_hop(data: torch.Tensor, src: Pencil, tgt: Pencil, post: Pencil,
+               extra_ndims: int, ops: tuple, inverse: bool,
+               pre_complex: bool, norm: str,
+               base: AbstractTransposeMethod, chunk_dim: int,
+               bounds: tuple) -> torch.Tensor:
+    """One fused pipelined hop ``src -> tgt`` + the stage ``tgt -> post``
+    (or, ``inverse``, its mirror from ``post`` back to ``src``) on this
+    rank's block: :class:`_FusedProgram`, differentiable through
+    :class:`_FusedHop`.  Values equal the serialized hop followed by the
+    stage: the data movement bit for bit, the transform up to cuFFT's
+    choice of plan for another batch count."""
+    program = _FusedProgram(src, tgt, post, extra_ndims, ops, inverse,
+                            pre_complex, norm, base, chunk_dim, bounds)
+    if data.requires_grad and torch.is_grad_enabled():
+        return _FusedHop.apply(data, program)
+    return program.run(data)
+
+
+def _fuse_spec(t_step: tuple, f_step: tuple, K: int, method,
+               trivial_axis: bool = False):
+    """The fused ``("ft", src, tgt, hop_dtype, post, ops, pre_complex,
+    base, chunk_dim, bounds)`` step of a hop and the stage after it, or
+    ``None`` where the pair stays serialized (the JAX package's
+    ``_try_fuse_hop``): a local permute, a size-1 axis (unless
+    ``trivial_axis``, which lets ``chip_smoke.py`` run a fused hop on one
+    card), or no dim outside the exchange pair and the stage's transform
+    dims to chunk."""
+    _, src, tgt, hop_dtype = t_step
+    _, pre, post, ops, pre_complex = f_step
+    R = assert_compatible(src, tgt)
+    if R is None or (src.topology.dims[R] == 1 and not trivial_axis):
+        return None
+    base = resolve_method(src, tgt, (), hop_dtype, method)
+    if isinstance(base, Pipelined):
+        base = base.base             # the fused hop owns the chunking
+    a, b = src.decomposition[R], tgt.decomposition[R]
+    N = src.ndims
+    mem_ids = tgt.permutation.apply(tuple(range(N)))
+    transform_dims = tuple(mem_ids[ax] for _, ax, _ in ops)
+    ext = _exchange_operand_extents(src, tgt, R)
+    c = _pipeline_chunk_axis(ext, a, b, exclude=transform_dims)
+    if c is None:
+        return None
+    bounds = _chunk_bounds(ext[c], K)
+    if len(bounds) <= 1:
+        return None
+    return ("ft", src, tgt, hop_dtype, post, tuple(ops), pre_complex, base,
+            c, bounds)
+
+
+# literature default for pipeline="auto" with no sweep of the port's own
+# (arXiv:1804.09536 tables 2-4 land at 2-8 pipeline stages), the JAX
+# package's default
+_PIPELINE_AUTO_DEFAULT_K = 4
+
+
+def _pipeline_sweep_verdict(platform: str):
+    """The verdict of ``PIPELINE_SWEEP.json`` (repo root) when it was
+    captured on ``platform`` (the port's own: ``"torch-cuda"``,
+    ``"torch-cpu"``), else ``None``: no sweep of another platform — the
+    JAX package's CPU or TPU — routes the port."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "PIPELINE_SWEEP.json")
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return None
+    if not isinstance(doc, dict) or doc.get("platform") != platform:
+        return None
+    return doc.get("verdict")
 
 
 def _stage_permutation(ndims: int, d: int, permute: bool):
@@ -194,10 +515,16 @@ def _complex_of(dtype: torch.dtype) -> torch.dtype:
 class PencilFFTPlan:
     """Plan for a distributed N-D transform with per-dimension kinds
     (PencilFFTs' ``PencilFFTPlan``).  Arguments as in the JAX package:
-    ``transforms`` (or ``real=True`` for ``rfft x fft x ...``),
-    ``normalization`` in ``backward | ortho | forward | none``, and
+    ``transforms`` (or ``real=True`` for ``rfft x fft x ...``, or
+    ``transform="dct"``/``"dst"``), ``normalization`` in ``backward |
+    ortho | forward | none`` (R2R kinds are ortho in every mode),
     ``batch=B`` for B transforms sharing one schedule (extra dims
-    ``(B,)``)."""
+    ``(B,)``), ``method`` for every hop (``AllToAll()``, ``Ring()``,
+    ``Pipelined(...)`` or ``Auto()``) and ``pipeline=None | K | "auto"``:
+    ``K > 1`` fuses each eligible hop with the stage after it into one
+    chunked program (:func:`_fused_hop`); ``"auto"`` follows a sweep
+    captured on the port's own platform, else ``K = 4``.  Values and
+    gradients do not depend on ``method`` or ``pipeline``."""
 
     def __init__(self, topology: Topology, global_shape: Sequence[int], *,
                  real: bool = False, dtype=None, permute: bool = True,
@@ -206,16 +533,19 @@ class PencilFFTPlan:
                  normalization: str = "backward", pipeline=None,
                  batch: Optional[int] = None, decomposition=None,
                  wire_dtype=None, hbm_limit=None):
-        for name, val, ok in (("pipeline", pipeline, (None, 1)),
-                              ("decomposition", decomposition, (None,)),
-                              ("wire_dtype", wire_dtype, (None,)),
-                              ("hbm_limit", hbm_limit, (None,))):
-            if val not in ok:
+        for name, val in (("decomposition", decomposition),
+                          ("wire_dtype", wire_dtype),
+                          ("hbm_limit", hbm_limit)):
+            if val is not None:
                 raise NotImplementedError(f"PencilFFTPlan({name}=...) is "
                                           f"{_LATER}")
-        if not isinstance(method, AllToAll):
-            raise NotImplementedError(f"transpose method {method!r} is "
-                                      f"{_LATER}")
+        if not isinstance(method, (AllToAll, Ring, Pipelined, Auto)):
+            raise TypeError(f"unknown transpose method {method!r}")
+        if pipeline is not None and pipeline != "auto" and (
+                not isinstance(pipeline, int) or pipeline < 1):
+            raise ValueError(
+                f"pipeline must be None, a positive int, or 'auto', got "
+                f"{pipeline!r}")
         global_shape = tuple(int(n) for n in global_shape)
         N = len(global_shape)
         if batch is not None and (isinstance(batch, bool)
@@ -250,15 +580,16 @@ class PencilFFTPlan:
             if transform not in ("fft", "dct", "dst"):
                 raise ValueError(f"transform must be 'fft', 'dct' or 'dst', "
                                  f"got {transform!r}")
+            if transform in ("dct", "dst") and real:
+                raise ValueError(
+                    f"real=True is implicit for transform={transform!r}")
             kinds = (("rfft",) + ("fft",) * (N - 1)
                      if transform == "fft" and real else (transform,) * N)
-        if any(k in ("dct", "dst") for k in kinds):
-            raise NotImplementedError(f"dct/dst transforms are {_LATER}")
         if kinds.count("rfft") > 1:
             raise ValueError("at most one dim may be 'rfft'")
         complex_seen = False
         for d, k in enumerate(kinds):
-            if k == "rfft" and complex_seen:
+            if k in ("rfft", "dct", "dst") and complex_seen:
                 raise ValueError(
                     f"transform {k!r} on dim {d} would act on data an "
                     f"earlier 'fft' dim made complex; real-input kinds "
@@ -279,12 +610,16 @@ class PencilFFTPlan:
         self.normalization = normalization
 
         # -- dtypes -------------------------------------------------------
+        needs_real = any(k in ("rfft", "dct", "dst") for k in kinds)
         if dtype is None:
-            dtype = torch.float32 if self.real else torch.complex64
+            dtype = torch.float32 if needs_real else torch.complex64
         self.dtype_physical = as_torch_dtype(dtype)
         is_cplx_in = self.dtype_physical.is_complex
-        if self.real and is_cplx_in:
-            raise ValueError("real=True requires a real input dtype")
+        if needs_real and is_cplx_in:
+            kr = next(k for k in kinds if k in ("rfft", "dct", "dst"))
+            if self.real and transform != "mixed":
+                raise ValueError("real=True requires a real input dtype")
+            raise ValueError(f"transform {kr!r} requires a real dtype")
         self.dtype_spectral = (_complex_of(self.dtype_physical)
                                if any(k in ("fft", "rfft") for k in kinds)
                                else self.dtype_physical)
@@ -338,6 +673,24 @@ class PencilFFTPlan:
         self._steps = tuple(steps)
         self._output_pencil = cur
 
+        # -- pipelined hop fusion: each eligible ("t", "f") pair becomes
+        # one ("ft", ...) step (the JAX package's rewrite, kind for kind)
+        self.pipeline = pipeline
+        if pipeline == "auto":
+            verdict = _pipeline_sweep_verdict(
+                f"torch-{topology.device.type}")
+            try:
+                k_req = int(verdict["best_k"]) if verdict else None
+            except (TypeError, ValueError, KeyError):
+                k_req = None
+            if k_req is None or k_req < 1:
+                k_req = _PIPELINE_AUTO_DEFAULT_K
+        else:
+            k_req = int(pipeline) if pipeline is not None else 1
+        self.pipeline_chunks = k_req
+        if k_req > 1:
+            self._steps = self._fuse_pipeline_steps(self._steps, k_req)
+
         self._pencils: List[Pencil] = []
         sh = list(global_shape)
         for d in range(N):
@@ -360,19 +713,44 @@ class PencilFFTPlan:
         """Configuration of the spectral (fully transformed) array."""
         return self._output_pencil
 
+    def _fuse_pipeline_steps(self, steps: tuple, K: int) -> tuple:
+        """Rewrite every eligible hop + stage pair into one fused ``"ft"``
+        step (:func:`_fuse_spec`); the rest keep the serialized schedule."""
+        fused: List[tuple] = []
+        i = 0
+        while i < len(steps):
+            s = steps[i]
+            if (s[0] == "t" and i + 1 < len(steps)
+                    and steps[i + 1][0] == "f"
+                    and steps[i + 1][1] == s[2]):
+                step = _fuse_spec(s, steps[i + 1], K, self.method)
+                if step is not None:
+                    fused.append(step)
+                    i += 2
+                    continue
+            fused.append(s)
+            i += 1
+        return tuple(fused)
+
     def collective_costs(self, extra_dims: Optional[Tuple[int, ...]] = None
                          ) -> dict:
         """Predicted per-rank collective cost of ONE :meth:`forward`, in
-        the JAX package's ``{op: {"count", "bytes"}}`` schema."""
+        the JAX package's ``{op: {"count", "bytes"}}`` schema: each hop by
+        the plan's method, a fused hop by its base with its own chunks."""
         if extra_dims is None:
             extra_dims = self.batch_dims
         extra_dims = tuple(int(e) for e in extra_dims)
         total: dict = {}
         for step in self._steps:
-            if step[0] != "t":
+            if step[0] == "t":
+                cost = transpose_cost(step[1], step[2], extra_dims, step[3],
+                                      self.method)
+            elif step[0] == "ft":
+                cost = transpose_cost(step[1], step[2], extra_dims, step[3],
+                                      step[7], chunk=(step[8], step[9]))
+            else:
                 continue
-            for op, c in transpose_cost(step[1], step[2], extra_dims,
-                                        step[3], self.method).items():
+            for op, c in cost.items():
                 e = total.setdefault(op, {"count": 0, "bytes": 0})
                 e["count"] += c["count"]
                 e["bytes"] += c["bytes"]
@@ -410,6 +788,13 @@ class PencilFFTPlan:
         for step in self._steps:
             if step[0] == "t":
                 x = transpose(x, step[2], method=self.method)
+            elif step[0] == "ft":
+                (_, src, tgt, _, post, ops, pre_complex, base, c,
+                 bounds) = step
+                x = PencilArray(post, _fused_hop(
+                    x.data, src, tgt, post, x.ndims_extra, ops, False,
+                    pre_complex, self.normalization, base, c, bounds),
+                    x.extra_dims)
             else:
                 _, pre, post, ops, pre_complex = step
                 x = PencilArray(post, self._stage(x.data, ops, False,
@@ -427,6 +812,13 @@ class PencilFFTPlan:
         for step in reversed(self._steps):
             if step[0] == "t":
                 x = transpose(x, step[1], method=self.method)
+            elif step[0] == "ft":
+                (_, src, tgt, _, post, ops, pre_complex, base, c,
+                 bounds) = step
+                x = PencilArray(src, _fused_hop(
+                    x.data, src, tgt, post, x.ndims_extra, ops, True,
+                    pre_complex, self.normalization, base, c, bounds),
+                    x.extra_dims)
             else:
                 _, pre, post, ops, pre_complex = step
                 x = PencilArray(pre, self._stage(x.data, ops, True,

@@ -14,20 +14,29 @@ both are this kernel (``csrc/permute.cu``):
 * :func:`unpack` — concatenate the ``P`` received tiles along ``dim``,
   drop its tail padding down to ``n``, then permute.
 
+Each reads any view (a strided chunk of a block, at any storage offset)
+and writes a new contiguous tensor or, given ``out=``, a view of a larger
+one: a :class:`~pencilarrays_tpu_torch.parallel.transpositions.Pipelined`
+hop packs each chunk straight out of the block and unpacks it straight
+into its slice of the output, moving the bytes of the unchunked hop.
+
 For a tensor on the CPU each function runs its plain PyTorch version
-(``*_plain``: ``permute``/``cat``/``reshape``/``narrow``/``contiguous``);
-for a CUDA tensor it launches the kernel or raises — there is no fallback.
+(``*_plain``: ``permute``/``cat``/``reshape``/``narrow``/``contiguous``,
+then ``out.copy_``); for a CUDA tensor it launches the kernel or raises —
+there is no fallback, and a copy the kernel cannot plan raises.
 
 All three share one description of the copy (:class:`CopyPlan`): an index
 space whose element ``I`` reads ``in[sum I_k si_k]`` and writes
 ``out[sum I_k so_k]``, with a zero-fill mask (pack's padding) and a skip
-mask (unpack's dropped padding).  :func:`plan_copy` simplifies it — drops
-unit dims, merges dims that stay adjacent on both sides, folds a run that
-is contiguous on both sides into a wider element — and picks the
-instance (``copy``, ``narrow`` or ``tiled``, see :class:`CopyPlan`), the
-word size and the tile, from the merged shape, the strides, the element
-size and the address alignment alone.  Every launch adds one to
-:data:`launches` and to its instance's :data:`launches_by_instance`.
+mask (unpack's dropped padding); the strides are the views' own.
+:func:`plan_copy` simplifies it — drops unit dims, merges dims that stay
+adjacent on both sides, folds a run that is contiguous on both sides (or
+its largest part dividing every other stride) into a wider element — and
+picks the instance (``copy``, ``narrow`` or ``tiled``, see
+:class:`CopyPlan`), the word size and the tile, from the merged shape, the
+strides, the element size and the address alignment alone.  Every launch
+adds one to :data:`launches` and to its instance's
+:data:`launches_by_instance`, and its bytes to :data:`bytes_moved`.
 :func:`emulate` executes a plan on the CPU as its instance walks it, so
 the CPU tests check every plan the card would run against the plain
 versions.
@@ -56,6 +65,10 @@ launches = 0
 INSTANCES = ("copy", "narrow", "tiled")
 launches_by_instance = {i: 0 for i in INSTANCES}
 """Launches of each instance (reset each entry to 0)."""
+
+bytes_moved = 0
+"""Bytes the launches since the last reset read and wrote, each input and
+output element once (``permute.bytes_moved = 0``)."""
 
 recorded = None
 """When a dict, every launch adds one under its class ``(kind, shape,
@@ -113,17 +126,19 @@ def _contiguous_strides(shape: Sequence[int]) -> Tuple[int, ...]:
     return tuple(reversed(out))
 
 
-def _describe_permute(shape, axes):
-    ist = _contiguous_strides(shape)
+def _describe_permute(shape, axes, ist=None, ost=None):
+    """``ist``/``ost``: element strides of the input and of the output
+    (default contiguous); the output's follow its own (permuted) dims."""
+    ist = _contiguous_strides(shape) if ist is None else tuple(ist)
     out_shape = tuple(shape[a] for a in axes)
+    ost = _contiguous_strides(out_shape) if ost is None else tuple(ost)
     K = len(axes)
-    return (out_shape, out_shape, tuple(ist[a] for a in axes),
-            _contiguous_strides(out_shape), (0,) * K, _NO_MASK,
-            (0,) * K, _NO_MASK)
+    return (out_shape, out_shape, tuple(ist[a] for a in axes), ost,
+            (0,) * K, _NO_MASK, (0,) * K, _NO_MASK)
 
 
-def _describe_pack(shape, axes, dim, P):
-    ist = _contiguous_strides(shape)
+def _describe_pack(shape, axes, dim, P, ist=None, ost=None):
+    ist = _contiguous_strides(shape) if ist is None else tuple(ist)
     tile = [shape[a] for a in axes]
     n = tile[dim]
     blk = -(-n // P)
@@ -131,27 +146,27 @@ def _describe_pack(shape, axes, dim, P):
     out_shape = (P,) + tuple(tile)
     K = len(out_shape)
     si = (blk * ist[axes[dim]],) + tuple(ist[a] for a in axes)
+    ost = _contiguous_strides(out_shape) if ost is None else tuple(ost)
     # input element exists iff j * blk + i_dim < n
     zc = (blk,) + tuple(1 if k == dim else 0 for k in range(K - 1))
-    return (out_shape, out_shape, si, _contiguous_strides(out_shape), zc, n,
-            (0,) * K, _NO_MASK)
+    return (out_shape, out_shape, si, ost, zc, n, (0,) * K, _NO_MASK)
 
 
-def _describe_unpack(shape, axes, dim, n):
+def _describe_unpack(shape, axes, dim, n, ist=None, ost=None):
     P, tile = shape[0], list(shape[1:])
     blk = tile[dim]
     out_tile = list(tile)
     out_tile[dim] = n
     out_shape = tuple(out_tile[a] for a in axes)
-    ost = _contiguous_strides(out_shape)
+    ost = _contiguous_strides(out_shape) if ost is None else tuple(ost)
     pos = {a: i for i, a in enumerate(axes)}
     so_tile = tuple(ost[pos[k]] for k in range(len(tile)))
     K = len(shape)
     so = (blk * so_tile[dim],) + so_tile
+    ist = _contiguous_strides(shape) if ist is None else tuple(ist)
     # output element exists iff s * blk + i_dim < n
     sc = (blk,) + tuple(1 if k == dim else 0 for k in range(K - 1))
-    return (out_shape, tuple(shape), _contiguous_strides(shape), so,
-            (0,) * K, _NO_MASK, sc, n)
+    return (out_shape, tuple(shape), ist, so, (0,) * K, _NO_MASK, sc, n)
 
 
 @dataclass(frozen=True)
@@ -247,14 +262,22 @@ def _merge(desc):
                 continue
         merged.append(cur)
     run = 1
-    # fold a run contiguous on both sides (and unmasked) into the element
+    # fold a run contiguous on both sides (and unmasked) into the element:
+    # all of it, or (a chunk's rows, whose strides it does not divide) the
+    # largest part dividing every other stride, so the copy still moves
+    # wide words
     if merged and merged[-1][1] == 1 and merged[-1][2] == 1 \
             and merged[-1][3] == 0 and merged[-1][4] == 0:
-        r = merged[-1][0]
+        n = merged[-1][0]
         rest = merged[:-1]
-        if all(m[1] % r == 0 and m[2] % r == 0 for m in rest):
+        r = n
+        for m in rest:
+            r = math.gcd(r, m[1], m[2])
+        if r > 1:
             run = r
             merged = [[m[0], m[1] // r, m[2] // r, m[3], m[4]] for m in rest]
+            if r < n:
+                merged.append([n // r, 1, 1, 0, 0])
     if not merged:
         merged = [[1, 0, 0, 0, 0]]
     if len(merged) > _MAX_DIMS:
@@ -387,28 +410,46 @@ def _address_align(*tensors: torch.Tensor) -> int:
 # execution
 # ---------------------------------------------------------------------------
 
+def _span(t: torch.Tensor) -> torch.Tensor:
+    """The elements of ``t``'s storage from its first to its last
+    element, as a 1-D view (a strided view's holes included)."""
+    last = sum((n - 1) * st for n, st in zip(t.shape, t.stride())) \
+        if t.numel() else -1
+    return t.as_strided((last + 1,), (1,), t.storage_offset())
+
+
 def emulate(plan: CopyPlan, x: torch.Tensor, dtype: torch.dtype,
-            fill: int = 0xA5) -> torch.Tensor:
+            fill: int = 0xA5, out: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
     """Execute ``plan`` on the CPU as its instance walks it, bytes in,
     bytes out: the copy instance element by element (one block when
     flat), a 2-D instance tile by tile, taking each tile's fast path (whole
     rows or, flat, the whole tile as one block, in chunks that must start
     on ``vec_in``/``vec_out`` boundaries) where its masks are uniform over
-    the tile, else element by element.  Output bytes the plan does not
-    write keep ``fill``, and any read or write outside a buffer or off its
-    chunk boundary raises, so a test comparing the result with the plain
-    version checks that the plan covers every output element and stays
-    inside both buffers."""
+    the tile, else element by element.  The plan's strides count from
+    ``x``'s first element (a view's storage offset and holes included),
+    and from ``out``'s when one is given: the result is written into
+    ``out``, holes keeping their bytes.  Without ``out``, output bytes the
+    plan does not write keep ``fill``.  Any read or write outside the span
+    of a buffer or off its chunk boundary raises, so a test comparing the
+    result with the plain version checks that the plan covers every
+    output element and stays inside both buffers."""
     eb = plan.elem_bytes
-    src = x.contiguous().reshape(-1).view(torch.uint8).numpy()
-    n_out = int(np.prod(plan.out_shape)) * torch.empty(
-        (), dtype=dtype).element_size()
-    dst = np.full(n_out, fill, np.uint8)
+    src = _span(x).contiguous().view(torch.uint8).numpy()
+    if out is None:
+        n_out = int(np.prod(plan.out_shape)) * torch.empty(
+            (), dtype=dtype).element_size()
+        dst = np.full(n_out, fill, np.uint8)
+    else:
+        dst = _span(out).contiguous().view(torch.uint8).numpy().copy()
     if plan.instance == "copy":
         _emulate_copy(plan, src.reshape(-1, eb), dst.reshape(-1, eb))
     else:
         _emulate_tiles(plan, src, dst)
-    return torch.from_numpy(dst).view(dtype).reshape(plan.out_shape)
+    if out is None:
+        return torch.from_numpy(dst).view(dtype).reshape(plan.out_shape)
+    _span(out).copy_(torch.from_numpy(dst).view(dtype))
+    return out
 
 
 def _emulate_copy(plan: CopyPlan, src: np.ndarray, dst: np.ndarray) -> None:
@@ -434,7 +475,8 @@ def _emulate_copy(plan: CopyPlan, src: np.ndarray, dst: np.ndarray) -> None:
     dst[ooff[read]] = src[ioff[read]]
 
 
-def _span(buf: np.ndarray, start: int, length: int, chunk: int, what: str):
+def _chunk_span(buf: np.ndarray, start: int, length: int, chunk: int,
+                what: str):
     if start % chunk or start < 0 or start + length > buf.size:
         raise IndexError(f"{what} [{start}, {start + length}) is outside "
                          f"the buffer or off a {chunk}-byte boundary")
@@ -470,21 +512,23 @@ def _emulate_tiles(plan: CopyPlan, src: np.ndarray, dst: np.ndarray) -> None:
                 if z.max() < plan.zbound:                   # all present
                     ib = base[0] + i0 + o0 * si[dO]
                     if plan.flat_in:
-                        tile[:] = src[_span(src, ib * E, nO * nI * E,
-                                            plan.vec_in, "load")].reshape(
-                            nO, nI, E)
+                        tile[:] = src[_chunk_span(
+                            src, ib * E, nO * nI * E, plan.vec_in,
+                            "load")].reshape(nO, nI, E)
                     else:
                         if (TI * E) % plan.vec_in:
                             raise IndexError("tile rows off chunk boundary")
                         for o in range(nO):
-                            tile[o] = src[_span(
+                            tile[o] = src[_chunk_span(
                                 src, (ib + o * si[dO]) * E, nI * E,
                                 plan.vec_in, "load row")].reshape(nI, E)
                 elif z.min() < plan.zbound:                 # some present
                     have = z < plan.zbound
                     off = at(0, si)[have] * E
-                    _span(src, int(off.min(initial=0)), 0, 1, "load")
-                    _span(src, int(off.max(initial=0)) + E, 0, 1, "load")
+                    _chunk_span(src, int(off.min(initial=0)), 0, 1,
+                                "load")
+                    _chunk_span(src, int(off.max(initial=0)) + E, 0, 1,
+                                "load")
                     tile[have] = src[off[:, None] + eb]
                 s = at(3, plan.sc)
                 if s.min() >= plan.sbound:                  # none stored
@@ -492,19 +536,20 @@ def _emulate_tiles(plan: CopyPlan, src: np.ndarray, dst: np.ndarray) -> None:
                 ob = base[1] + o0 + i0 * so[dI]
                 if s.max() < plan.sbound:                   # all stored
                     if plan.flat_out:
-                        dst[_span(dst, ob * E, nO * nI * E, plan.vec_out,
-                                  "store")] = tile.transpose(1, 0, 2
-                                                             ).reshape(-1)
+                        dst[_chunk_span(
+                            dst, ob * E, nO * nI * E, plan.vec_out,
+                            "store")] = tile.transpose(1, 0, 2).reshape(-1)
                     else:
                         for i in range(nI):
-                            dst[_span(dst, (ob + i * so[dI]) * E, nO * E,
-                                      plan.vec_out, "store row")] = \
+                            dst[_chunk_span(
+                                dst, (ob + i * so[dI]) * E, nO * E,
+                                plan.vec_out, "store row")] = \
                                 tile[:, i].reshape(-1)
                 else:
                     keep = s < plan.sbound
                     off = at(1, so)[keep] * E
-                    _span(dst, int(off.min()), 0, 1, "store")
-                    _span(dst, int(off.max()) + E, 0, 1, "store")
+                    _chunk_span(dst, int(off.min()), 0, 1, "store")
+                    _chunk_span(dst, int(off.max()) + E, 0, 1, "store")
                     dst[off[:, None] + eb] = tile[keep]
 
 
@@ -544,14 +589,32 @@ def _plan_args(plan: CopyPlan) -> tuple:
             plan.lane_rows, plan.seg_shift, int(plan.warp_tiles))
 
 
-def _launch(desc, x: torch.Tensor, key: tuple) -> torch.Tensor:
-    out = torch.empty(desc[0], dtype=x.dtype, device=x.device)
+def _layout(x: torch.Tensor, out: Optional[torch.Tensor]):
+    """``None`` for a contiguous input at the start of its storage into a
+    fresh output; else the strides of both sides and where each starts
+    within 256 bytes (what decides its alignment): a recorded class's
+    views can then be made again (``chip_smoke.py``)."""
+    if out is None and x.is_contiguous() and x.storage_offset() == 0:
+        return None
+    m = max(1, 256 // x.element_size())
+    o = (None, None) if out is None else (tuple(out.stride()),
+                                         out.storage_offset() % m)
+    return (tuple(x.stride()), x.storage_offset() % m) + o
+
+
+def _launch(desc, x: torch.Tensor, key: tuple,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    layout = _layout(x, out) if recorded is not None else None
+    if out is None:
+        out = torch.empty(desc[0], dtype=x.dtype, device=x.device)
     plan = plan_copy(desc, x.element_size(), _address_align(x, out))
     if out.numel() == 0:
         return out
     run_plan(plan, x, out)
     if recorded is not None:
         key = key + (str(x.dtype).split(".")[-1],)
+        if layout is not None:
+            key = key + (layout,)
         recorded[key] = recorded.get(key, 0) + 1
     return out
 
@@ -559,7 +622,7 @@ def _launch(desc, x: torch.Tensor, key: tuple) -> torch.Tensor:
 def run_plan(plan: CopyPlan, x: torch.Tensor, out: torch.Tensor) -> None:
     """Launch ``plan`` from ``x`` into ``out`` (CUDA tensors the plan was
     made for) and count it."""
-    global launches
+    global launches, bytes_moved
     args = (ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
             *_plan_args(plan),
             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
@@ -573,21 +636,47 @@ def run_plan(plan: CopyPlan, x: torch.Tensor, out: torch.Tensor) -> None:
         raise RuntimeError(f"permute kernel launch failed: CUDA error {err}")
     launches += 1
     launches_by_instance[plan.instance] += 1
+    bytes_moved += (x.numel() + out.numel()) * x.element_size()
 
 
-def _check(x: torch.Tensor) -> Optional[str]:
-    """``"cpu"``, ``"cuda"``, or raise for anything the kernel refuses."""
+def _check(x: torch.Tensor, out: Optional[torch.Tensor] = None,
+           out_shape=None) -> str:
+    """``"cpu"``, ``"cuda"``, or raise for anything the kernel refuses.
+    ``x`` may be any view with non-negative strides; ``out``, a view to
+    write into, must match ``out_shape``, ``x``'s dtype and device, and
+    have positive strides."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
+    if out is not None:
+        if out.device != x.device or out.dtype != x.dtype:
+            raise ValueError(f"permute: out is {out.dtype} on {out.device}, "
+                             f"the input {x.dtype} on {x.device}")
+        if tuple(out.shape) != tuple(out_shape):
+            raise ValueError(f"permute: out has shape {tuple(out.shape)}, "
+                             f"the result {tuple(out_shape)}")
+        if any(st <= 0 for n, st in zip(out.shape, out.stride()) if n > 1):
+            raise ValueError("permute: out needs positive strides")
     if x.device.type == "cpu":
         return "cpu"
     if x.device.type != "cuda":
         raise ValueError(f"permute: unsupported device {x.device}")
     if x.element_size() not in (1, 2, 4, 8, 16):
         raise TypeError(f"permute: unsupported dtype {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("permute: the CUDA kernel takes contiguous input")
+    if any(st < 0 for st in x.stride()):
+        raise ValueError("permute: the CUDA kernel takes no negative "
+                         "strides")
     return "cuda"
+
+
+def _plain_into(y: torch.Tensor, out: Optional[torch.Tensor]):
+    if out is None:
+        return y
+    out.copy_(y)
+    return out
+
+
+def _strides(t: Optional[torch.Tensor]):
+    return None if t is None else tuple(t.stride())
 
 
 def _check_axes(x: torch.Tensor, axes: Sequence[int]) -> Tuple[int, ...]:
@@ -598,32 +687,38 @@ def _check_axes(x: torch.Tensor, axes: Sequence[int]) -> Tuple[int, ...]:
     return axes
 
 
-def permute(x: torch.Tensor, axes: Sequence[int]) -> torch.Tensor:
-    """``x.permute(axes)`` materialized contiguously."""
+def permute(x: torch.Tensor, axes: Sequence[int],
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x.permute(axes)`` materialized contiguously, or written into the
+    view ``out``."""
     axes = _check_axes(x, axes)
-    if _check(x) == "cpu":
-        return permute_plain(x, axes)
-    return _launch(_describe_permute(tuple(x.shape), axes), x,
-                   ("permute", tuple(x.shape), axes))
+    desc = _describe_permute(tuple(x.shape), axes, _strides(x),
+                             _strides(out))
+    if _check(x, out, desc[0]) == "cpu":
+        return _plain_into(permute_plain(x, axes), out)
+    return _launch(desc, x, ("permute", tuple(x.shape), axes), out)
 
 
-def pack(x: torch.Tensor, axes: Sequence[int], dim: int,
-         P: int) -> torch.Tensor:
+def pack(x: torch.Tensor, axes: Sequence[int], dim: int, P: int,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x.permute(axes)``, with dim ``dim`` zero-padded to ``P*ceil(n/P)``
-    and split into ``P`` tiles laid out as a new leading dimension."""
+    and split into ``P`` tiles laid out as a new leading dimension (a new
+    contiguous tensor, or the view ``out``)."""
     axes = _check_axes(x, axes)
     if P < 1:
         raise ValueError(f"P must be positive, got {P}")
-    if _check(x) == "cpu":
-        return pack_plain(x, axes, dim, P)
-    return _launch(_describe_pack(tuple(x.shape), axes, dim, P), x,
-                   ("pack", tuple(x.shape), axes, dim, P))
+    desc = _describe_pack(tuple(x.shape), axes, dim, P, _strides(x),
+                          _strides(out))
+    if _check(x, out, desc[0]) == "cpu":
+        return _plain_into(pack_plain(x, axes, dim, P), out)
+    return _launch(desc, x, ("pack", tuple(x.shape), axes, dim, P), out)
 
 
-def unpack(x: torch.Tensor, axes: Sequence[int], dim: int,
-           n: int) -> torch.Tensor:
+def unpack(x: torch.Tensor, axes: Sequence[int], dim: int, n: int,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverse layout of :func:`pack`: the ``P`` leading tiles concatenated
-    along tile dim ``dim``, cut to ``n``, then permuted by ``axes``."""
+    along tile dim ``dim``, cut to ``n``, then permuted by ``axes`` (a new
+    contiguous tensor, or the view ``out``)."""
     if x.dim() < 2:
         raise ValueError("unpack needs a leading tile dimension")
     axes = tuple(int(a) for a in axes)
@@ -631,7 +726,8 @@ def unpack(x: torch.Tensor, axes: Sequence[int], dim: int,
         raise ValueError(f"axes {axes} do not permute the tile dims")
     if not 0 <= n <= x.shape[0] * x.shape[dim + 1]:
         raise ValueError(f"n={n} exceeds the concatenated extent")
-    if _check(x) == "cpu":
-        return unpack_plain(x, axes, dim, n)
-    return _launch(_describe_unpack(tuple(x.shape), axes, dim, n), x,
-                   ("unpack", tuple(x.shape), axes, dim, n))
+    desc = _describe_unpack(tuple(x.shape), axes, dim, n, _strides(x),
+                            _strides(out))
+    if _check(x, out, desc[0]) == "cpu":
+        return _plain_into(unpack_plain(x, axes, dim, n), out)
+    return _launch(desc, x, ("unpack", tuple(x.shape), axes, dim, n), out)

@@ -142,6 +142,14 @@ class Topology:
             raise ValueError("group= given but torch.distributed is not "
                              "initialized")
         self._device = resolve_device(device, self._rank)
+        if self._subgroups is not None and \
+                dist.get_backend(self._subgroups[0]) == "nccl":
+            # NCCL builds a sub-group's communicator at its first
+            # collective, and a first batch_isend_irecv must involve every
+            # rank of the group; a Ring hop's rounds leave out the ranks
+            # that hold only padding, so each communicator is made here
+            for g in self._subgroups:
+                dist.all_reduce(torch.zeros(1, device=self._device), group=g)
 
     @classmethod
     def auto(cls, ndims: int, *, device=None, group=None) -> "Topology":

@@ -66,6 +66,21 @@ def test_k1_instances_at_their_edges():
 
 
 @pytest.mark.cuda
+def test_k1_chunk_views():
+    """K1 on a Pipelined hop's chunk views against the plain versions
+    (chip_smoke.py's k1_chunks: strided sources and destinations, ragged
+    tail chunks, a chunk along an extra dim, storage offsets that keep
+    16-byte alignment and ones that do not); the output's bytes outside
+    the view stay."""
+    _skip_without_card()
+    from chip_smoke import k1_chunks
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n, by = k1_chunks(torch, k1, gen)
+    assert n > 0 and by["tiled"] > 0 and by["copy"] > 0, by
+
+
+@pytest.mark.cuda
 def test_k1_launch_beyond_2_31_words():
     """A narrow launch over 3 x 1024^3 f32 words (12.9 GB) is bit-identical
     to the plain version."""

@@ -1,17 +1,24 @@
 """PyTorch port vs JAX package: PencilFFTPlan on 4 gloo ranks.
 
 The port builds the same static schedule as the JAX package (same stage
-chain, same pencils, same hops), moves the data with the same bit-exact
-transposes and transforms each block with ``torch.fft``.  Two FFT
-libraries sum in different orders, so spectra agree to a tolerance:
-2e-5 x max|ref| in float32 and 1e-10 x max|ref| in float64.  Round trips
-must return the input to the same tolerance, and the collective cost
-model must equal the JAX plan's exactly.
+chain, same pencils, same hops, the same fused ``"ft"`` steps with the
+same chunk dims and bounds under ``pipeline=``), moves the data with the
+same bit-exact transposes and transforms each block with ``torch.fft``.
+Two FFT libraries sum in different orders, so spectra agree to a
+tolerance: 2e-5 x max|ref| in float32 and 1e-10 x max|ref| in float64
+(DCT/DST: 1e-5 in float32, and scipy's ``dctn``/``dstn`` as a second
+reference).  Round trips must return the input to the same tolerance, a
+pipelined or ``Ring``/``Pipelined``/``Auto`` plan the serialized plan's
+spectrum to 1e-12 x max in float64, and the collective cost model must
+equal the JAX plan's exactly.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.fft as sf
+import torch
 
 import pencilarrays_tpu as jpa
 import torch_rank_tasks as tasks
@@ -91,14 +98,205 @@ def test_fft_plan_matches_jax(devices, pool, case):
     assert np.abs(back - u).max() <= tol * np.abs(u).max()
 
 
+def _jax_method(m):
+    """The JAX package's method of the same name and fields."""
+    if m is None:
+        return jpa.AllToAll()
+    name = type(m).__name__
+    if name == "Pipelined":
+        return jpa.Pipelined(m.chunks, _jax_method(m.base))
+    if name == "Auto":
+        return jpa.Auto(latency_bytes=m.latency_bytes)
+    return getattr(jpa, name)()
+
+
+def _options():
+    import pencilarrays_tpu_torch as pat
+
+    return [
+        # (id, shape, dtype, port kwargs, scipy reference or None)
+        ("dct-f64", (12, 10, 14), np.float64, dict(transform="dct"),
+         lambda u: sf.dctn(u, norm="ortho")),
+        ("dst-f64", (12, 10, 14), np.float64, dict(transform="dst"),
+         lambda u: sf.dstn(u, type=2, norm="ortho")),
+        ("dct-f32", (12, 10, 14), np.float32, dict(transform="dct"), None),
+        ("dct-fft-fft-f64", (12, 10, 14), np.float64,
+         dict(transforms=("dct", "fft", "fft")),
+         lambda u: np.fft.fftn(sf.dct(u, axis=0, norm="ortho"),
+                               axes=(1, 2))),
+        ("dct-fft-fft-f32", (12, 10, 14), np.float32,
+         dict(transforms=("dct", "fft", "fft")), None),
+        ("dst-rfft-none-f64", (12, 10, 14), np.float64,
+         dict(transforms=("dst", "rfft", "none")), None),
+        ("pipeline2-r2c", (16, 12, 10), np.float64,
+         dict(real=True, pipeline=2), None),
+        ("pipeline4-r2c", (16, 12, 10), np.float64,
+         dict(real=True, pipeline=4), None),
+        ("pipeline3-ragged-c2c", (11, 9, 13), np.complex128,
+         dict(pipeline=3), None),
+        ("pipeline4-r2c-batch3-f32", (9, 14, 11), np.float32,
+         dict(real=True, pipeline=4, batch=3), None),
+        ("pipeline2-dct", (12, 10, 14), np.float64,
+         dict(transform="dct", pipeline=2), None),
+        ("pipeline2-ring", (16, 12, 10), np.float64,
+         dict(real=True, pipeline=2, method=pat.Ring()), None),
+        ("ring-r2c", (16, 12, 10), np.float64,
+         dict(real=True, method=pat.Ring()), None),
+        ("pipelined4-c2c", (11, 9, 13), np.complex128,
+         dict(method=pat.Pipelined(4)), None),
+        ("pipelined3ring-r2c-batch2", (9, 14, 11), np.float64,
+         dict(real=True, batch=2, method=pat.Pipelined(3, pat.Ring())),
+         None),
+        ("auto0-r2c", (9, 14, 11), np.float64,
+         dict(real=True, method=pat.Auto(latency_bytes=0)), None),
+        ("auto-pipeline", (16, 12, 10), np.float64,
+         dict(real=True, pipeline="auto"), None),
+    ]
+
+
+OPTIONS = _options()
+
+
+@pytest.mark.parametrize("case", OPTIONS, ids=[c[0] for c in OPTIONS])
+def test_fft_plan_options_match_jax(devices, pool, case):
+    """DCT/DST kinds, ``pipeline=`` (fused hops) and every method: the
+    JAX package's schedule, chunks and costs; its spectrum (and scipy's)
+    within the tolerance; the serialized plan's spectrum to 1e-12 in
+    float64 (chunking commutes with the transforms)."""
+    name, shape, dtype, kwargs, scipy_ref = case
+    topo = jpa.Topology(DIMS, devices=devices[:4])
+    jkw = {k: v for k, v in kwargs.items() if k != "method"}
+    if jkw.get("pipeline") == "auto":
+        jkw["pipeline"] = 4       # the port's "auto" with no sweep of its own
+    jplan = JaxPlan(topo, shape, dtype=jnp.dtype(dtype),
+                    method=_jax_method(kwargs.get("method")), **jkw)
+    extra = (kwargs["batch"],) if kwargs.get("batch") else ()
+    real = not np.issubdtype(dtype, np.complexfloating)
+    u = _input(shape, real, dtype, extra)
+    uh = jplan.forward(jpa.PencilArray.from_global(jplan.input_pencil, u))
+    want = jpa.gather(uh)
+    got = pool.run(tasks.fft_case, DIMS, shape,
+                   dict(kwargs, dtype=np.dtype(dtype).name), u, True)[0]
+    sched = [(s[0], s[1].decomposition,
+              tuple(s[1].permutation.apply(tuple(range(len(shape))))),
+              s[2].decomposition) + ((s[8], tuple(s[9])) if s[0] == "ft"
+                                     else ()) for s in jplan._steps]
+    assert got["schedule"] == sched
+    if "pipeline" in kwargs:
+        assert any(s[0] == "ft" for s in sched)
+        assert got["pipeline_chunks"] == jkw["pipeline"]
+    assert got["costs"] == jplan.collective_costs()
+    assert got["out_padded"] == np.asarray(uh.data).shape
+    tol = TOL[np.dtype(np.empty(0, dtype).real.dtype).name]
+    scale = np.abs(want).max()
+    assert got["spectrum"].dtype == want.dtype
+    assert np.abs(got["spectrum"] - want).max() <= tol * scale
+    if scipy_ref is not None:
+        ref = scipy_ref(u)
+        assert np.abs(got["spectrum"] - ref).max() <= tol * np.abs(ref).max()
+    serial_tol = 1e-12 if tol < 1e-6 else tol
+    assert np.abs(got["spectrum"] - got["serial"]).max() <= serial_tol * scale
+    back = got["back"] / jplan.scale_factor()
+    assert back.dtype == u.dtype
+    assert np.abs(back - u).max() <= tol * np.abs(u).max()
+
+
+@pytest.mark.parametrize("pipeline", [2, 4])
+def test_fused_hop_gradient_matches_jax(devices, pool, pipeline):
+    """The gradient of ``sum(|forward(x).data|^2)`` through fused hops:
+    JAX's ``jax.grad`` of the same pipelined plan, and the port's
+    serialized plan (``tests/test_fft.py``'s
+    ``test_pipeline_under_jit_and_grad``)."""
+    shape = (16, 12, 10)
+    topo = jpa.Topology(DIMS, devices=devices[:4])
+    jplan = JaxPlan(topo, shape, real=True, dtype=jnp.float64,
+                    pipeline=pipeline)
+    x = jpa.PencilArray.from_global(
+        jplan.input_pencil, np.random.default_rng(43).standard_normal(shape))
+
+    def loss(d):
+        uh = jplan.forward(jpa.PencilArray(jplan.input_pencil, d))
+        return jnp.sum(jnp.abs(uh.data) ** 2)
+
+    want = np.asarray(jax.jit(jax.grad(loss))(x.data))
+    fused, serial = pool.run(tasks.fft_grad_case, DIMS, shape,
+                             dict(real=True, dtype="float64",
+                                  pipeline=pipeline),
+                             np.asarray(x.data))[0]
+    scale = np.abs(want).max()
+    assert np.abs(fused - want).max() <= 1e-10 * scale
+    assert np.abs(fused - serial).max() <= 1e-12 * scale
+
+
+def test_pipeline_auto_and_validation(monkeypatch):
+    """``pipeline="auto"``: K = 4 unless a sweep captured on the port's
+    own platform says otherwise (the repo's sweep is the JAX package's,
+    captured on its CPU: it routes nothing here); bad values raise, as do
+    the JAX package's DCT/DST argument checks."""
+    import pencilarrays_tpu_torch as pat
+    import pencilarrays_tpu_torch.ops.fft as fft_mod
+
+    topo = pat.Topology(DIMS, device="cpu")
+    for bad in (0, "fast", 1.5):
+        with pytest.raises(ValueError, match="pipeline"):
+            pat.PencilFFTPlan(topo, (8, 8, 8), pipeline=bad)
+    assert fft_mod._pipeline_sweep_verdict("torch-cpu") is None
+    plan = pat.PencilFFTPlan(topo, (16, 12, 10), real=True,
+                             dtype="float64", pipeline="auto")
+    assert plan.pipeline_chunks == fft_mod._PIPELINE_AUTO_DEFAULT_K == 4
+    assert any(s[0] == "ft" for s in plan._steps)
+    monkeypatch.setattr(fft_mod, "_pipeline_sweep_verdict",
+                        lambda p: {"best_k": 2} if p == "torch-cpu"
+                        else None)
+    plan = pat.PencilFFTPlan(topo, (16, 12, 10), real=True,
+                             dtype="float64", pipeline="auto")
+    assert plan.pipeline_chunks == 2
+    monkeypatch.setattr(fft_mod, "_pipeline_sweep_verdict",
+                        lambda p: {"best_k": 1})
+    plan = pat.PencilFFTPlan(topo, (16, 12, 10), real=True,
+                             dtype="float64", pipeline="auto")
+    assert all(s[0] in ("t", "f") for s in plan._steps)
+    p1 = pat.PencilFFTPlan(topo, (16, 12, 10), real=True, pipeline=1)
+    p0 = pat.PencilFFTPlan(topo, (16, 12, 10), real=True)
+    assert p1._steps == p0._steps
+    # a one-rank topology has no hop to fuse
+    one = pat.PencilFFTPlan(pat.Topology((1, 1), device="cpu"), (8, 8, 8),
+                            real=True, pipeline=4)
+    assert [s[0] for s in one._steps] == ["f"]
+    with pytest.raises(ValueError, match="transform"):
+        pat.PencilFFTPlan(topo, (8, 8, 8), transform="hartley")
+    for r2r in ("dct", "dst"):
+        with pytest.raises(ValueError, match="implicit"):
+            pat.PencilFFTPlan(topo, (8, 8, 8), transform=r2r, real=True)
+        with pytest.raises(ValueError, match="real dtype"):
+            pat.PencilFFTPlan(topo, (8, 8, 8), transform=r2r,
+                              dtype="complex64")
+        assert pat.PencilFFTPlan(topo, (8, 8, 8), transform=r2r,
+                                 dtype="float64").dtype_spectral == \
+            torch.float64
+    with pytest.raises(ValueError, match="real-input"):
+        pat.PencilFFTPlan(topo, (8, 8, 8), transforms=("fft", "dct", "fft"),
+                          dtype="float64")
+
+
 def test_fft_unported_options_raise():
+    """What is still to port raises, naming ROADMAP; what this port now
+    has constructs."""
     import pencilarrays_tpu_torch as pat
 
     topo = pat.Topology(DIMS, device="cpu")
-    for kw in (dict(pipeline=2), dict(decomposition="auto"),
-               dict(wire_dtype="bf16"), dict(hbm_limit=1 << 20),
-               dict(transform="dct")):
+    for kw in (dict(decomposition="auto"), dict(wire_dtype="bf16"),
+               dict(hbm_limit=1 << 20)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pat.PencilFFTPlan(topo, (8, 8, 8), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pat.Ring()
+    for make in (lambda: pat.PencilFFTPlan(topo, (8, 8, 8)).compile(),
+                 lambda: pat.Auto(mode="measure"), pat.Gspmd):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make()
+    for kw in (dict(pipeline=2), dict(pipeline="auto"),
+               dict(transform="dct"), dict(transform="dst"),
+               dict(method=pat.Ring()), dict(method=pat.Pipelined(3)),
+               dict(method=pat.Auto())):
+        plan = pat.PencilFFTPlan(topo, (8, 8, 8),
+                                 **dict(kw, dtype="float64"))
+        assert plan.collective_costs()

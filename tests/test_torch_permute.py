@@ -323,3 +323,124 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="exceeds"):
         k1.unpack(torch.empty((2, 3, 4)), (0, 1), 0, 7)
 
+
+
+def _view(base, dim, s0, s1, offset):
+    """``base`` narrowed to ``[s0, s1)`` along ``dim``, moved ``offset``
+    elements into a larger buffer (its storage offset)."""
+    buf = torch.zeros(base.numel() + offset, dtype=base.dtype)
+    whole = buf[offset:].view(base.shape)
+    whole.copy_(base)
+    return whole.narrow(dim, s0, s1 - s0)
+
+
+def _align(*ts):
+    """The alignment the card would see for views of 16-byte aligned
+    buffers: the largest power of two (<= 16) dividing each offset."""
+    a = 16
+    for t in ts:
+        while (t.storage_offset() * t.element_size()) % a:
+            a //= 2
+    return a
+
+
+# (shape, axes, chunk dim): a Pipelined hop's chunks of a pack's input
+# and an unpack's output, along a spatial dim and along an extra dim
+CHUNKS = [((12, 10, 9), (2, 0, 1), 1), ((12, 10, 9), (0, 2, 1), 0),
+          ((8, 6, 10, 3), (1, 2, 0, 3), 3), ((8, 6, 10, 6), (2, 0, 1, 3), 1),
+          ((16, 8, 12), (1, 0, 2), 2)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES + ["bool"])
+@pytest.mark.parametrize("shape,axes,cdim", CHUNKS)
+def test_chunk_plans_reproduce_plain(dtype, shape, axes, cdim):
+    """Chunks of a block in K = 3 ceil pieces (a short tail chunk), read
+    by pack and permute from a strided view and written by unpack and
+    permute into a view of a larger output, with source and destination
+    offsets that keep 16-byte alignment and ones that do not: every plan
+    ``plan_copy`` makes for them, run by ``emulate``, is the plain
+    version bit for bit, and leaves the output's other bytes alone."""
+    base = _tensor(shape, dtype, 4)
+    n = shape[cdim]
+    step = -(-n // 3)
+    bounds = [(s, min(s + step, n)) for s in range(0, n, step)]
+    assert bounds[-1][1] - bounds[-1][0] < step or n % 3 == 0
+    size = base.element_size()
+    for s0, s1 in bounds:
+        for off in (0, 16 // size if size < 16 else 1, 1):
+            v = _view(base, cdim, s0, s1, off)
+            assert not v.is_contiguous() or cdim == 0
+            for dim, P in ((0, 2), (len(shape) - 1, 3)):
+                want = k1.pack_plain(v, axes, dim, P)
+                plan = k1.plan_copy(k1._describe_pack(
+                    tuple(v.shape), axes, dim, P, v.stride()), size,
+                    _align(v))
+                got = k1.emulate(plan, v, v.dtype)
+                assert torch.equal(got, want), plan
+                # unpack of that chunk's tiles into its slice of a bigger
+                # output, offset by `off` elements
+                n_a = want.shape[0] * want.shape[dim + 1] - (P - 1)
+                res = k1.unpack_plain(want, tuple(range(len(shape))), dim,
+                                      n_a)
+                big_shape = list(res.shape)
+                big_shape[cdim] += 5
+                big = _tensor(tuple(big_shape), dtype, 5)
+                dst = _view(big, cdim, 2, 2 + res.shape[cdim], off)
+                full = dst.as_strided((big.numel() + off,), (1,), 0)
+                before = full.clone()
+                plan = k1.plan_copy(k1._describe_unpack(
+                    tuple(want.shape), tuple(range(len(shape))), dim, n_a,
+                    None, dst.stride()), size, _align(dst))
+                k1.emulate(plan, want, want.dtype, out=dst)
+                assert torch.equal(dst, res), plan
+                keep = torch.ones(full.shape, dtype=torch.bool)
+                keep.as_strided(dst.shape, dst.stride(),
+                                dst.storage_offset()).fill_(False)
+                assert torch.equal(full[keep], before[keep])
+            # permute from the strided chunk into a strided destination
+            want = k1.permute_plain(v, axes)
+            plan = k1.plan_copy(k1._describe_permute(
+                tuple(v.shape), axes, v.stride()), size, _align(v))
+            assert torch.equal(k1.emulate(plan, v, v.dtype), want), plan
+
+
+def test_pipelined_cycle_chunks_keep_their_instances():
+    """The 1024^3 f32 cycle's Pipelined(4) and Pipelined(3, Ring())
+    chunks (chip_smoke.py phase 3), planned from meta views of the real
+    blocks: every pack takes warp tiles, every unpack on the size-1 axis
+    is a copy of 16-byte words (a whole chunk one flat block where it is
+    contiguous in the output)."""
+    import pencilarrays_tpu_torch as pat
+    from pencilarrays_tpu_torch.parallel import transpositions as tr
+
+    topo = pat.Topology((1, 1), device="cpu")
+    shape = (1024, 1024, 1024)
+    px = pat.Pencil(topo, shape, (1, 2), permutation=pat.Permutation(1, 2, 0))
+    py = pat.Pencil(topo, shape, (0, 2), permutation=pat.Permutation(0, 2, 1))
+    pz = pat.Pencil(topo, shape, (0, 1))
+    chain = [px, py, pz, py, px]
+    flat = 0
+    for K in (4, 3):
+        for pin, pout in zip(chain, chain[1:]):
+            R = tr.assert_compatible(pin, pout)
+            ex = tr._Exchange(pin, pout, 0, pat.AllToAll())
+            ext = tr._exchange_operand_extents(pin, pout, R)
+            c = tr._pipeline_chunk_axis(ext, pin.decomposition[R],
+                                        pout.decomposition[R])
+            data = torch.empty(pin.padded_size_local(pat.MemoryOrder),
+                               device="meta")
+            out = torch.empty(pout.padded_size_local(pat.MemoryOrder),
+                              device="meta")
+            for s0, s1 in tr._chunk_bounds(ext[c], K):
+                v = data.narrow(ex.fwd_in.index(c), s0, s1 - s0)
+                d = k1._describe_pack(tuple(v.shape), ex.pack_axes,
+                                      ex.tile_b, 1, v.stride())
+                p = k1.plan_copy(d, 4, _align(v))
+                assert p.instance == "tiled" and p.warp_tiles, p
+                o = out.narrow(ex.fwd_out.index(c), s0, s1 - s0)
+                u = k1.plan_copy(k1._describe_unpack(
+                    d[0], ex.ident, ex.tile_a, ex.n_a, None, o.stride()), 4,
+                    _align(o))
+                assert u.instance == "copy" and u.word_bytes == 16, u
+                flat += u.ext == (1,)
+    assert flat == 2 * 4 + 2 * 3   # the y <-> z hops chunk the outer dim

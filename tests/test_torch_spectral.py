@@ -58,6 +58,32 @@ def test_navier_stokes_matches_jax(devices, pool, dtype):
     assert _rel(got["rk2"], jpa.gather(uh0)) > 10 * tol
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_simulate_matches_jax(devices, pool, dtype):
+    """``simulate`` against the JAX package's ``simulate`` (its jitted
+    ``lax.scan``) from the same Taylor–Green state: the final state and
+    the per-step energies, and the port's own ``step`` loop."""
+    n, dt, nu, steps = 16, 0.01, 0.05, 3
+    topo = jpa.Topology(DIMS, devices=devices[:4])
+    model = NavierStokesSpectral(topo, n, viscosity=nu,
+                                 dtype=jnp.dtype(dtype))
+    uh0 = jax_taylor_green(model)
+    final, energies = jax.jit(lambda s: model.simulate(
+        s, dt, steps, record_energy=True))(uh0)
+    got = pool.run(tasks.simulate_case, DIMS, n, dtype,
+                   np.asarray(uh0.data), dt, nu, steps)[0]
+    tol = TOL[dtype]
+    assert _rel(got["final"], jpa.gather(final)) <= tol
+    np.testing.assert_allclose(got["energies"], np.asarray(energies),
+                               rtol=tol)
+    assert got["energies"].shape == (steps,)
+    assert got["energy_device"] == "cpu" and got["none"] is None
+    assert (np.diff(got["energies"]) < 0).all()
+    # a plain loop of the port's own steps
+    assert _rel(got["final"], got["steps"]) <= (1e-6 if dtype == "float32"
+                                                else 1e-12)
+
+
 def test_diffusion_exact_propagator(devices, pool):
     n, t, kappa = (8, 10, 12), 0.3, 0.7
     x = [np.arange(m) * (2 * np.pi / m) for m in n]

@@ -49,41 +49,86 @@ def _rank0(value):
         else None
 
 
-def transpose_chain(dims, shape, extra, specs, padded, bf16=False):
+def transpose_chain(dims, shape, extra, specs, padded, bf16=False,
+                    method=None):
     """Load ``padded`` (the JAX package's ``.data`` on ``specs[0]``), hop
-    through ``specs[1:]`` and return, for every pencil after the first,
-    the padded global array, the gathered logical array and the masked
-    global sum.  Odd hops go through the ``Transposition`` object API."""
+    through ``specs[1:]`` by ``method`` (default ``AllToAll()``) and
+    return, for every pencil after the first, the padded global array,
+    the gathered logical array, the masked global sum and every rank's
+    exchange calls in that hop (``transpositions.exchange_calls``).  Odd
+    hops go through the ``Transposition`` object API."""
+    from pencilarrays_tpu_torch.parallel import transpositions as tr
+
+    method = pat.AllToAll() if method is None else method
     pens = [pencil(dims, shape, s) for s in specs]
     x = from_numpy_padded(pens[0], _as_input(padded, bf16), extra)
     out = []
     for i, pen in enumerate(pens[1:]):
+        for op in tr.exchange_calls:
+            tr.exchange_calls[op] = 0
         if i % 2:
-            t = pat.Transposition(pen, x)
+            t = pat.Transposition(pen, x, method=method)
             t.waitall()
             x = t.execute()
         else:
-            x = pat.transpose(x, pen)
+            x = pat.transpose(x, pen, method=method)
+        calls = dict(tr.exchange_calls)
+        everyone = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(everyone, calls)
         total = reductions.sum(x.astype(torch.float64)
                                if bf16 else x).item()
-        out.append((to_numpy_padded(x), pat.gather(x), total))
+        out.append((to_numpy_padded(x), pat.gather(x), total, everyone))
     return _rank0(out)
 
 
-def fft_case(dims, shape, kwargs, u):
+def _schedule(plan, N):
+    """Step kinds, decompositions, memory orders, and a fused step's chunk
+    dim and bounds."""
+    return [(s[0], s[1].decomposition, tuple(s[1].permutation.apply(
+        tuple(range(N)))), s[2].decomposition) + (
+        (s[8], tuple(s[9])) if s[0] == "ft" else ()) for s in plan._steps]
+
+
+def fft_case(dims, shape, kwargs, u, serial=False):
     """Forward and backward of a plan on the global input ``u``: the
-    gathered spectrum, the gathered round trip, the schedule's pencils
-    and the plan's collective costs."""
+    gathered spectrum, the gathered round trip, the schedule and the
+    plan's collective costs; with ``serial``, also the spectrum of the
+    same plan without ``pipeline`` and ``method`` (the serialized
+    ``AllToAll`` schedule)."""
     plan = pat.PencilFFTPlan(topology(dims), shape, **kwargs)
     x = pat.PencilArray.from_global(plan.input_pencil, u)
     uh = plan.forward(x)
     back = plan.backward(uh)
-    sched = [(s[0], s[1].decomposition, tuple(s[1].permutation.apply(
-        tuple(range(len(shape))))), s[2].decomposition) for s in plan._steps]
-    return _rank0(dict(spectrum=pat.gather(uh), back=pat.gather(back),
-                       schedule=sched, costs=plan.collective_costs(),
-                       out_padded=to_numpy_padded(uh).shape,
-                       scale_factor=plan.scale_factor()))
+    res = dict(spectrum=pat.gather(uh), back=pat.gather(back),
+               schedule=_schedule(plan, len(shape)),
+               costs=plan.collective_costs(),
+               out_padded=to_numpy_padded(uh).shape,
+               scale_factor=plan.scale_factor(),
+               pipeline_chunks=plan.pipeline_chunks)
+    if serial:
+        plain = {k: v for k, v in kwargs.items()
+                 if k not in ("pipeline", "method")}
+        p0 = pat.PencilFFTPlan(topology(dims), shape, **plain)
+        res["serial"] = pat.gather(p0.forward(
+            pat.PencilArray.from_global(p0.input_pencil, u)))
+    return _rank0(res)
+
+
+def fft_grad_case(dims, shape, kwargs, padded):
+    """Gradient of ``sum(|forward(x).data|^2)`` with respect to x's padded
+    memory-order data (the JAX package's ``.data``), as the global padded
+    array, for the plan of ``kwargs`` and for it without ``pipeline``."""
+    out = []
+    for kw in (kwargs, {k: v for k, v in kwargs.items()
+                        if k != "pipeline"}):
+        plan = pat.PencilFFTPlan(topology(dims), shape, **kw)
+        x = from_numpy_padded(plan.input_pencil, padded)
+        leaf = x.data.clone().requires_grad_()
+        uh = plan.forward(pat.PencilArray(plan.input_pencil, leaf))
+        (uh.data.abs() ** 2).sum().backward()
+        out.append(to_numpy_padded(pat.PencilArray(plan.input_pencil,
+                                                   leaf.grad)))
+    return _rank0(out)
 
 
 def spectral_case(dims, n, dtype, uh0_padded, dt, nu):
@@ -100,6 +145,26 @@ def spectral_case(dims, n, dtype, uh0_padded, dt, nu):
     return _rank0(dict(own=pat.gather(own), rk2=pat.gather(s),
                        rk4=pat.gather(r4),
                        energy=[float(model.energy(v)) for v in (uh0, s, r4)]))
+
+
+def simulate_case(dims, n, dtype, uh0_padded, dt, nu, n_steps, rk4=False):
+    """``simulate`` from the JAX package's Taylor–Green state: the final
+    state (gathered) and the per-step energies, and the same number of
+    ``step`` calls."""
+    dtype = getattr(torch, dtype)
+    model = NavierStokesSpectral(topology(dims), n, viscosity=nu,
+                                 dtype=dtype)
+    uh0 = from_numpy_padded(model.plan.output_pencil, uh0_padded, (3,))
+    stepper = model.step_rk4 if rk4 else None
+    final, energies = model.simulate(uh0, dt, n_steps, record_energy=True,
+                                     stepper=stepper)
+    none = model.simulate(uh0, dt, 1, stepper=stepper)[1]
+    s = uh0
+    for _ in range(n_steps):
+        s = (stepper or model.step)(s, dt)
+    return _rank0(dict(final=pat.gather(final), steps=pat.gather(s),
+                       energies=energies.cpu().numpy(),
+                       energy_device=str(energies.device), none=none))
 
 
 def diffusion_case(dims, n, u0, t, kappa):
@@ -192,14 +257,18 @@ def ring_cotangent_case(P, zigzag, q, k, v, ct):
         same=all(torch.equal(a, b) for a, b in zip(got, wide))))
 
 
-def hop_grad_case(dims, shape, extra, specs, padded, ct_padded):
+def hop_grad_case(dims, shape, extra, specs, padded, ct_padded,
+                  method=None):
     """Gradient of ``sum(transpose(x, specs[1]).data * ct)`` with respect
     to x's padded memory-order data, as the global padded array (the
-    JAX package's ``.data`` layout)."""
+    JAX package's ``.data`` layout); the hop by ``method`` (default
+    ``AllToAll()``)."""
+    method = pat.AllToAll() if method is None else method
     pin, pout = (pencil(dims, shape, s) for s in specs)
     x = from_numpy_padded(pin, padded, extra)
     leaf = x.data.clone().requires_grad_()
-    y = pat.transpose(pat.PencilArray(pin, leaf, x.extra_dims), pout)
+    y = pat.transpose(pat.PencilArray(pin, leaf, x.extra_dims), pout,
+                      method=method)
     ct = from_numpy_padded(pout, ct_padded, extra).data
     (y.data * ct).sum().backward()
     return _rank0(to_numpy_padded(pat.PencilArray(pin, leaf.grad,
