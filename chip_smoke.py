@@ -47,6 +47,17 @@ standard output too.  Phases, each printed on its own lines:
    on the CPU, ``simulate`` (3 steps, energies recorded) against three
    ``step`` calls, then 512^3 float32 for 3 RK2 steps (the main path),
    with the energy held to exp(-6 nu t), step time and peak memory;
+5b. the grid toolbox and the halo-exchange path: three HeatFD RK2 steps
+   at 1024^3 f32 against the scheme's exact discrete answer (64^3 card
+   against the CPU), step ms beside the fused bound, peak memory and a
+   profile; adaptive RK23 of the same model at 512^3 (accepted and
+   rejected steps, ms a trial; at 64^3 the card's decisions equal the
+   CPU's); sum, norm, maximum, dot and any(isnan) over the 1024^3 field
+   against float64, beside their bytes-bound; uniform and normal fills at
+   1024^3 (uniform bit-identical to the CPU's at 64^3); the spectral
+   operators on the 512^3 NS plan against analytic answers, with K1's
+   launches; a ManyPencilArray cycle at 1024^3 bit-identical to phase
+   3's hops, beside the transpose chain (ms, K1 launches, peak);
 6. kernels K2–K4 (``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
    ``flash_bwd_tf32.cu``) against their plain versions on the card: three
    forward modes, full and partials backward, causal and not, ragged
@@ -76,7 +87,8 @@ standard output too.  Phases, each printed on its own lines:
    instance its dtype picks, held to the plain version;
 10. a ``{"kernels": [...]}`` line: per kernel its launches on each path
     (each counted from 0 just before its run; K1's on the NS steps, the
-    four cycles, the fused hop and the DCT plan) and their sum, by
+    four cycles, the fused hop, the DCT plan, the spectral operators and
+    the ManyPencilArray cycle) and their sum, by
     instance, its error against the plain version and its times (K1's per
     class in ``timings``);
 11. the last line, ``{"ok": true, "device": {...}}``.
@@ -131,9 +143,15 @@ def same_bits(torch, a, b) -> bool:
 
 
 def max_abs_err(torch, a, b) -> float:
+    """max|a - b| in float64, a slab of dim 0 at a time (a 12 GiB pair
+    needs no 36 GiB of temporaries)."""
     if a.is_complex():
         a, b = torch.view_as_real(a), torch.view_as_real(b)
-    return float((a.double() - b.double()).abs().max())
+    if a.dim() == 0 or a.numel() <= 1 << 27:
+        return float((a.double() - b.double()).abs().max())
+    step = max(1, (a.shape[0] << 27) // a.numel())
+    return max(float((a[i:i + step].double() - b[i:i + step].double())
+                     .abs().max()) for i in range(0, a.shape[0], step))
 
 
 def random_tensor(torch, shape, dtype, gen):
@@ -189,14 +207,15 @@ def _kernel_rows(torch, fn):
     return wall_ms, rows
 
 
-def profile(torch, fn, label: str, top: int = 8) -> dict:
+def profile(torch, fn, label: str, top: int = 8, extra_groups=()) -> dict:
     """Device time by kernel and by layer over one call of ``fn``
-    (``torch.profiler``), with the device's busy share of the wall time."""
+    (``torch.profiler``), with the device's busy share of the wall time;
+    ``extra_groups`` are matched before ``KERNEL_GROUPS``."""
     wall_ms, rows = _kernel_rows(torch, fn)
     busy = sum(r[0] for r in rows)
     groups = {}
     for ms, _, key in rows:
-        group = next((g for g, words in KERNEL_GROUPS
+        group = next((g for g, words in (*extra_groups, *KERNEL_GROUPS)
                       if any(w in key for w in words)), "other")
         groups[group] = round(groups.get(group, 0.0) + ms, 3)
     out = dict(wall_ms=wall_ms, device_busy_ms=busy,
@@ -1209,6 +1228,387 @@ def phase_navier_stokes(torch, dist, pat, k1, models):
     return r
 
 
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _heat_ic(torch, pat, model):
+    """sin(x) cos(y) cos(z) on the model's grid, built on its device."""
+    g = pat.localgrid(model.pencil, [
+        torch.arange(n, dtype=torch.float64) * (2 * math.pi / n)
+        for n in model.shape])
+    return g.evaluate(lambda x, y, z: torch.sin(x) * torch.cos(y)
+                      * torch.cos(z)).astype(model.dtype)
+
+
+def heat_check(torch, dist, pat, models, bw, n=1024, small=64, steps=3):
+    """HeatFD on (1, 1): ``steps`` RK2 steps of the single Fourier mode at
+    n^3 f32, held to the scheme's exact discrete answer u0 (1 + z +
+    z^2/2)^steps, z = dt lambda_h, lambda_h = -kappa sum_d (4/h_d^2)
+    sin^2(h_d/2), within 1e-5 max|u0|; step ms (median) beside the fused
+    bound (a step must read u, write the midpoint, read both and write
+    the new u: five field passes over the card's memory rate), peak
+    memory and one step's profile; and small^3 on the card against the
+    port on the CPU (within 1e-5 max|u0|)."""
+    cpu_group = dist.new_group([0], backend="gloo")
+    small_states = {}
+    for dev, group in (("cuda", None), ("cpu", cpu_group)):
+        topo = pat.Topology((1, 1), device=dev, group=group)
+        m = models.HeatFD(topo, small)
+        u = _heat_ic(torch, pat, m)
+        for _ in range(steps):
+            u = m.step(u, m.stable_dt())
+        small_states[dev] = u.data.cpu()
+    rel = float((small_states["cuda"] - small_states["cpu"]).abs().max())
+    if not rel <= 1e-5:
+        raise AssertionError(f"HeatFD {small}^3 card vs CPU: {rel}")
+    topo = pat.Topology((1, 1))
+    model = models.HeatFD(topo, n)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    u0 = _heat_ic(torch, pat, model)
+    dt = model.stable_dt()
+    lam = -model.kappa * sum(4.0 / h ** 2 * math.sin(h / 2) ** 2
+                             for h in model.spacing)
+    z = dt * lam
+    u, step_ms = u0, []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = model.step(u, dt)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    amp = (1 + z + z * z / 2) ** steps
+    err = float((u.data.double() - u0.data.double() * amp).abs().max())
+    scale = float(u0.data.abs().max())
+    if not (math.isfinite(err) and err <= 1e-5 * scale):
+        raise AssertionError(f"HeatFD {n}^3 off the exact discrete answer: "
+                             f"{err} > 1e-5 * {scale}")
+    bound = 5 * u0.data.numel() * u0.data.element_size() / bw * 1e3
+    r = dict(n=n, steps=steps, dt=dt, amplification=amp, max_err=err,
+             max_abs_u0=scale, step_ms=step_ms,
+             step_ms_median=_median(step_ms), fused_bound_ms=bound,
+             peak_bytes=peak, small_card_vs_cpu=rel)
+    log(f"[grid] HeatFD {n}^3 f32 (1,1), {steps} RK2 steps at dt {dt:.6g}: "
+        f"max|u - u0 (1+z+z^2/2)^{steps}| {err:.3e} (<= 1e-5 * {scale:.4f}); "
+        f"step ms {[round(t, 3) for t in step_ms]} (median "
+        f"{r['step_ms_median']:.3f}; fused bound {bound:.3f}), peak memory "
+        f"{peak / 2**30:.2f} GiB; "
+        f"{small}^3 card vs CPU {rel:.3e}")
+    r["profile"] = profile(torch, lambda: model.step(u, dt),
+                           f"{n}^3 HeatFD RK2 step",
+                           extra_groups=(("stencil_copy",
+                                          ("direct_copy", "Memcpy DtoD")),))
+    return model, u, r
+
+
+def rk23_check(torch, dist, pat, models, n=512, small=64, spans=30):
+    """``integrate`` (adaptive RK23) of HeatFD's single mode over ``spans``
+    times the RK2 stable dt (about 20 accepted steps): accepted and
+    rejected steps, ms per trial step, peak memory; at small^3 the card and
+    the port on the CPU make the same accept/reject decisions."""
+    cpu_group = dist.new_group([0], backend="gloo")
+    decided = {}
+    for dev, group in (("cuda", None), ("cpu", cpu_group)):
+        topo = pat.Topology((1, 1), device=dev, group=group)
+        m = models.HeatFD(topo, small)
+        _, st = models.integrate(lambda t, v: m.rhs(v), _heat_ic(torch, pat, m),
+                                 (0.0, spans * m.stable_dt()), max_steps=100)
+        decided[dev] = (st["n_accepted"], st["n_rejected"],
+                        st["nan_detected"])
+    if decided["cuda"] != decided["cpu"]:
+        raise AssertionError(f"RK23 {small}^3 decisions card {decided['cuda']}"
+                             f" vs CPU {decided['cpu']}")
+    model = models.HeatFD(pat.Topology((1, 1)), n)
+    u0 = _heat_ic(torch, pat, model)
+    t1 = spans * model.stable_dt()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    u, st = models.integrate(lambda t, v: model.rhs(v), u0, (0.0, t1),
+                             max_steps=100)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    trials = st["n_accepted"] + st["n_rejected"]
+    lam = -model.kappa * sum(4.0 / h ** 2 * math.sin(h / 2) ** 2
+                             for h in model.spacing)
+    decay = math.exp(lam * float(st["t"]))
+    err = float((u.data.double() - u0.data.double() * decay).abs().max())
+    if not (float(st["t"]) >= t1 * (1 - 1e-6) and not st["nan_detected"]
+            and err <= 1e-4 and 10 <= st["n_accepted"] <= 30):
+        raise AssertionError(f"RK23 {n}^3: {st}, error against "
+                             f"exp(lambda_h t) {err}")
+    r = dict(n=n, t1=t1, n_accepted=st["n_accepted"],
+             n_rejected=st["n_rejected"], ms=secs * 1e3,
+             ms_per_trial=secs * 1e3 / trials, peak_bytes=peak,
+             max_err_vs_exp=err, small_decisions=list(decided["cuda"]))
+    log(f"[grid] RK23 HeatFD {n}^3 f32 over {t1:.6g} ({spans} RK2 dt): "
+        f"{st['n_accepted']} accepted, {st['n_rejected']} rejected, "
+        f"{r['ms']:.1f} ms, {r['ms_per_trial']:.2f} ms per trial step, peak "
+        f"{peak / 2**30:.2f} GiB; max|u - u0 exp(lambda_h t)| {err:.3e}; "
+        f"{small}^3 decisions card = CPU {decided['cuda']}")
+    return r
+
+
+def reductions_check(torch, pat, u, bw):
+    """sum, norm(2), norm(inf), maximum, dot, any(isnan) over the field
+    ``u``: each held to a float64 computation on the card, timed (CUDA
+    events, 5 calls), beside its bytes-bound (inputs read once over the
+    card's memory rate)."""
+    from pencilarrays_tpu_torch.ops import reductions as R
+
+    d = u.data.double()
+    nbytes = u.data.numel() * u.data.element_size()
+    cases = [
+        ("sum", lambda: R.sum(u), float(d.sum()), float(d.abs().sum()), 1),
+        ("norm2", lambda: R.norm(u), float(d.square().sum().sqrt()), None, 1),
+        ("norminf", lambda: R.norm(u, math.inf), float(d.abs().max()), 0, 1),
+        ("maximum", lambda: R.maximum(u), float(d.max()), 0, 1),
+        ("dot", lambda: R.dot(u, u), float(d.square().sum()), None, 2),
+        ("any_isnan", lambda: R.any(u, pred=torch.isnan),
+         bool(torch.isnan(u.data).any()), 0, 1),
+    ]
+    del d
+    out = {}
+    for name, fn, want, scale, n_in in cases:
+        got = fn()
+        got = bool(got) if isinstance(want, bool) else float(got)
+        if scale is None:
+            ok = abs(got - want) <= 1e-5 * abs(want)
+        elif scale == 0:
+            ok = got == want
+        else:      # a sum that cancels: held to the sum of magnitudes
+            ok = abs(got - want) <= 1e-6 * scale
+        if not ok:
+            raise AssertionError(f"reduction {name}: {got} vs float64 {want}")
+        ms = cuda_ms(torch, fn, 5)
+        bound = n_in * nbytes / bw * 1e3
+        out[name] = dict(value=got, float64=want, ms=ms, bound_ms=bound,
+                         of_bound=bound / ms, bytes=n_in * nbytes)
+    log("[grid] reductions over the field " + json.dumps(
+        {k: {kk: (round(vv, 4) if isinstance(vv, float) and kk != "value"
+                  and kk != "float64" else vv) for kk, vv in v.items()}
+         for k, v in out.items()}))
+    return out
+
+
+def random_check(torch, dist, pat, n=1024, small=64, seed=11):
+    """``uniform`` and ``normal`` fills at n^3 f32: fill ms (CUDA events),
+    moments within 5 sigma; ``uniform`` on the card bit-identical to the
+    port on the CPU at small^3."""
+    from pencilarrays_tpu_torch.ops import random as Rnd
+
+    cpu_group = dist.new_group([0], backend="gloo")
+    fills = {}
+    for dev, group in (("cuda", None), ("cpu", cpu_group)):
+        pen = pat.Pencil(pat.Topology((1, 1), device=dev, group=group),
+                         (small,) * 3, permutation=pat.Permutation(2, 0, 1))
+        fills[dev] = Rnd.uniform(pen, seed).data.cpu()
+    if not same_bits(torch, fills["cuda"], fills["cpu"]):
+        raise AssertionError(f"uniform {small}^3 card differs from the CPU")
+    pen = pat.Pencil(pat.Topology((1, 1)), (n,) * 3)
+    N = n ** 3
+    out = {}
+    for name, fn, mean, var in (
+            ("uniform", lambda: Rnd.uniform(pen, seed), 0.5, 1 / 12),
+            ("normal", lambda: Rnd.normal(pen, seed), 0.0, 1.0)):
+        x = fn().data
+        m = float(x.double().mean())
+        v = float(x.double().var())
+        tol_m = 5 * math.sqrt(var / N)
+        tol_v = 5 * math.sqrt((1 / 180 if name == "uniform" else 2.0) / N)
+        if not (abs(m - mean) <= tol_m and abs(v - var) <= tol_v):
+            raise AssertionError(f"{name} moments {m}, {v}")
+        del x
+        ms = cuda_ms(torch, fn, 2)
+        out[name] = dict(mean=m, var=v, fill_ms=ms,
+                         bytes_written=N * 4)
+    log(f"[grid] random fills {n}^3 f32: " + json.dumps(out)
+        + f"; uniform {small}^3 card = CPU bit for bit")
+    return out
+
+
+def spectral_ops_check(torch, pat, k1, tr, n=512):
+    """The spectral operators on the NS plan (512^3 f32, (1, 1)):
+    gradient of sin(3x) cos(2y) sin(z) against its analytic derivative
+    within 1e-4 max|grad f| (a spectral derivative multiplies the f32
+    transform's rounding of each mode by its wavenumber, up to n/2 = 256,
+    so 2^-24 * 256 * max|f| = 1.5e-5 is the scale of its error;
+    ``examples/gradient_spectral.py`` holds f32 to 1e-3);
+    laplacian(solve_poisson(f^)) = f^ with the mean mode removed within
+    1e-5 max|f^|; divergence(curl(u^)) within 1e-6 max|u^| of 0.  Vector
+    fields go through the plan as one array with a component dim, whose
+    FFT stages move it with K1.  K1's launches over the run, counted from
+    0; then each call's time (CUDA events, 3 calls after a warm-up)."""
+    from pencilarrays_tpu_torch import ops
+
+    topo = pat.Topology((1, 1))
+    plan = pat.PencilFFTPlan(topo, (n,) * 3, real=True, dtype=torch.float32,
+                             batch=3)
+    g = pat.localgrid(plan.input_pencil, [
+        torch.arange(m, dtype=torch.float64) * (2 * math.pi / m)
+        for m in (n,) * 3])
+
+    def field(f):
+        return g.evaluate(f).astype(torch.float32)
+
+    f = field(lambda x, y, z: torch.sin(3 * x) * torch.cos(2 * y)
+              * torch.sin(z))
+    vec = pat.PencilArray.stack([
+        field(lambda x, y, z: torch.sin(y) * torch.cos(z)),
+        field(lambda x, y, z: torch.sin(z) * torch.cos(x)),
+        field(lambda x, y, z: torch.sin(x) * torch.cos(y))])
+
+    def run():
+        fh = plan.forward(f)
+        gh = ops.gradient(plan, fh)
+        grads = plan.backward(gh)
+        ph = ops.solve_poisson(plan, fh)
+        lap = ops.laplacian(plan, ph)
+        uh = plan.forward(vec)
+        w = ops.curl(plan, uh)
+        return fh, gh, grads, ph, lap, uh, w, ops.divergence(plan, w)
+
+    (fh, gh, grads, ph, lap, uh, w, div), counts = _run_counted(
+        torch, k1, tr, run)
+    ms = {name: cuda_ms(torch, fn, 3) for name, fn in (
+        ("forward", lambda: plan.forward(f)),
+        ("gradient", lambda: ops.gradient(plan, fh)),
+        ("backward_vector", lambda: plan.backward(gh)),
+        ("solve_poisson", lambda: ops.solve_poisson(plan, fh)),
+        ("laplacian", lambda: ops.laplacian(plan, ph)),
+        ("forward_vector", lambda: plan.forward(vec)),
+        ("curl", lambda: ops.curl(plan, uh)),
+        ("divergence", lambda: ops.divergence(plan, w)))}
+    X, Y, Z = (c.double() for c in g.components())
+    want = [3 * torch.cos(3 * X) * torch.cos(2 * Y) * torch.sin(Z),
+            -2 * torch.sin(3 * X) * torch.sin(2 * Y) * torch.sin(Z),
+            torch.sin(3 * X) * torch.cos(2 * Y) * torch.cos(Z)]
+    err_g = max(float((grads.data[..., d].double() - want[d]).abs().max())
+                for d in range(3))
+    mean_free = fh.data.clone()
+    mean_free[(0,) * 3] = 0
+    err_p = max_abs_err(torch, lap.data, mean_free)
+    scale_p = float(fh.data.abs().max())
+    err_d = float(div.data.abs().max())
+    bar_d = 1e-6 * float(uh.data.abs().max())
+    if not (err_g <= 1e-4 * 3 and err_p <= 1e-5 * scale_p
+            and err_d <= bar_d):
+        raise AssertionError(f"spectral ops: gradient {err_g}, poisson "
+                             f"{err_p} (max {scale_p}), div curl {err_d} "
+                             f"(bar {bar_d})")
+    if counts["launches"] <= 0:
+        raise AssertionError("the spectral operators' run launched K1 no "
+                             "time")
+    r = dict(ms=ms, err_gradient=err_g, err_poisson=err_p,
+             max_abs_fhat=scale_p, div_curl=err_d, div_curl_bar=bar_d,
+             **counts)
+    log(f"[grid] spectral ops {n}^3 f32 (NS plan, (1,1)) " + json.dumps(
+        {k: v for k, v in r.items() if k != "recorded"}))
+    return r
+
+
+def many_check(torch, pat, k1, tr, n=1024):
+    """``ManyPencilArray`` over phase 3's x/y/z pencils at n^3 f32 (the
+    same random field): each hop of a ``cycle`` and the walk back
+    bit-identical to phase 3's ``AllToAll()`` hops; then one timed
+    cycle and back (K1 launches by instance, peak memory) beside the same
+    four hops by ``pat.transpose`` holding only the current array."""
+    topo = pat.Topology((1, 1))
+    shape = (n, n, n)
+    px = pat.Pencil(topo, shape, (1, 2), permutation=pat.Permutation(1, 2, 0))
+    py = pat.Pencil(topo, shape, (0, 2), permutation=pat.Permutation(0, 2, 1))
+    pz = pat.Pencil(topo, shape, (0, 1))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x = torch.randn(shape, generator=gen, device="cuda")   # phase 3's field
+    ref, v = [], pat.PencilArray(px, x)
+    for pen in (py, pz, py, px):
+        v = pat.transpose(v, pen)
+        ref.append(v.data)
+    A = pat.ManyPencilArray(px, py, pz, first=pat.PencilArray(px, x.clone()))
+    got = [a.data for a in A.cycle()][1:]   # each read before its hop
+    got.append(A.transpose_to(1).data)
+    got.append(A.transpose_to(0).data)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if not same_bits(torch, a, b):
+            raise AssertionError(f"ManyPencilArray hop {i + 1} differs from "
+                                 f"the AllToAll hop")
+    del ref, got, v, A
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # each run takes its input from a box, so that nothing else holds it
+    def chain(box):
+        v = pat.PencilArray(px, box.pop())
+        for pen in (py, pz, py, px):
+            v = pat.transpose(v, pen)
+        return v
+
+    def many(box):
+        A = pat.ManyPencilArray(px, py, pz,
+                                first=pat.PencilArray(px, box.pop()))
+        for _ in A.cycle():
+            pass
+        return A.transpose_to(0)
+
+    out = {}
+    for name, fn in (("transpose_chain", chain), ("many", many)):
+        fn([x.clone()])                           # warm-up
+        box = [x.clone()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res, counts = _run_counted(torch, k1, tr, lambda: fn(box))
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if not same_bits(torch, res.data, x):
+            raise AssertionError(f"{name}: the round trip is not "
+                                 f"bit-identical")
+        del res
+        out[name] = dict(ms=secs * 1e3, peak_bytes=peak,
+                         peak_above_input=peak - base, **counts)
+        torch.cuda.empty_cache()
+    if out["many"]["launches"] <= 0:
+        raise AssertionError("ManyPencilArray launched K1 no time")
+    log(f"[grid] ManyPencilArray {n}^3 f32 x->y->z->y->x every hop "
+        f"bit-identical to phase 3's AllToAll hops; " + json.dumps(
+            {k: {kk: vv for kk, vv in v.items() if kk != "recorded"}
+             for k, v in out.items()}))
+    del x
+    torch.cuda.empty_cache()
+    return out["many"] | {"transpose_chain": {
+        k: v for k, v in out["transpose_chain"].items() if k != "recorded"}}
+
+
+def phase_grid_toolbox(torch, dist, pat, models, k1, tr, bw):
+    """Phase 5b: the grid toolbox and the halo-exchange path.  It leaves
+    the card as it found it: cuFFT's plan cache (its workspaces are
+    allocations) is cleared at the end."""
+    t0 = time.perf_counter()
+    before = (torch.cuda.memory_allocated(), torch.cuda.mem_get_info()[0])
+    _, u, heat = heat_check(torch, dist, pat, models, bw)
+    red = reductions_check(torch, pat, u, bw)
+    del u
+    torch.cuda.empty_cache()
+    r = dict(heat=heat, reductions=red,
+             rk23=rk23_check(torch, dist, pat, models),
+             random=random_check(torch, dist, pat),
+             spectral_ops=spectral_ops_check(torch, pat, k1, tr),
+             many=many_check(torch, pat, k1, tr))
+    torch.backends.cuda.cufft_plan_cache.clear()
+    torch.cuda.empty_cache()
+    r["seconds"] = time.perf_counter() - t0
+    after = (torch.cuda.memory_allocated(), torch.cuda.mem_get_info()[0])
+    log(f"[grid] phase 5b took {r['seconds']:.1f} s; allocated / free on "
+        f"the card before {before[0] / 2**30:.2f} / {before[1] / 2**30:.2f} "
+        f"GiB, after {after[0] / 2**30:.2f} / {after[1] / 2**30:.2f} GiB")
+    return r
+
+
 # Tolerances of K2–K4 against their plain versions.  Each row of a tensor
 # (its last dim: one query or key position of one head·batch slice) is
 # held relative to its own largest |plain| (see _rel_err).  The kernels
@@ -2021,6 +2421,7 @@ def main() -> int:
             cycle = phase_cycle(torch, pat, k1, tr)
             fft = phase_fft(torch, dist, pat, k1, tr)
             ns = phase_navier_stokes(torch, dist, pat, k1, models)
+            grid = phase_grid_toolbox(torch, dist, pat, models, k1, tr, bw)
             checks = phase_flash_check(torch, flash, models.attention)
             serve, serve_rec = phase_serving(torch, pat, models, k1, flash)
             train = {f"train_{str(dt).split('.')[-1]}": phase_training(
@@ -2029,7 +2430,9 @@ def main() -> int:
             timing = phase_flash_timing(torch, flash, bw)
             # phase 2's timings: every class phases 3, 4, 5 and 7 launched
             k1_runs = {**cycle, "fused_hop": fft["fused_hop"],
-                       "dct": fft["dct"]}
+                       "dct": fft["dct"],
+                       "spectral_ops": grid["spectral_ops"],
+                       "many_pencil_array": grid["many"]}
             recorded = {**{run: r["recorded"] for run, r in k1_runs.items()},
                         "navier_stokes": ns["recorded"], **serve_rec}
             k1_timed = k1_timing(torch, k1, bw, recorded, HOPS)

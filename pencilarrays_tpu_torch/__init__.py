@@ -26,6 +26,10 @@ from .utils.permutations import (  # noqa: F401
     NoPermutation,
     Permutation,
 )
+from .utils.permuted_indices import (  # noqa: F401
+    PermutedCartesianIndices,
+    PermutedLinearIndices,
+)
 from .parallel import distributed  # noqa: F401
 from .parallel.topology import Topology, dims_create  # noqa: F401
 from .parallel.pencil import (  # noqa: F401
@@ -36,7 +40,7 @@ from .parallel.pencil import (  # noqa: F401
     local_data_range,
     make_pencil,
 )
-from .parallel.arrays import PencilArray  # noqa: F401
+from .parallel.arrays import PencilArray, global_view  # noqa: F401
 from .parallel.gather import gather  # noqa: F401
 from .parallel.transpositions import (  # noqa: F401
     AllToAll,
@@ -52,8 +56,37 @@ from .parallel.transpositions import (  # noqa: F401
     transpose,
     transpose_cost,
 )
+from .parallel.multiarrays import ManyPencilArray  # noqa: F401
 from .ops.localgrid import LocalRectilinearGrid, localgrid  # noqa: F401
 from .ops.fft import PencilFFTPlan  # noqa: F401
+from .utils.timers import (  # noqa: F401
+    TimerOutput,
+    disable_debug_timings,
+    enable_debug_timings,
+    timeit,
+)
+from .compat import (  # noqa: F401
+    GlobalPencilArray,
+    MPITopology,
+    PencilArrayCollection,
+    decomposition,
+    extra_dims,
+    get_comm,
+    length_global,
+    length_local,
+    ndims_extra,
+    ndims_space,
+    pencil,
+    permutation,
+    range_local,
+    range_remote,
+    size_global,
+    size_local,
+    sizeof_global,
+    timer,
+    to_local,
+    topology,
+)
 from . import ops  # noqa: F401
 
 __version__ = "0.1.0"

@@ -79,7 +79,7 @@ class Pencil:
 
     def __init__(self, topology: Topology, global_shape: Sequence[int],
                  decomp_dims: Optional[Sequence[int]] = None, *,
-                 permutation: PermutationLike = None):
+                 permutation: PermutationLike = None, timer=None):
         global_shape = tuple(int(n) for n in global_shape)
         if any(n < 0 for n in global_shape):
             raise ValueError(f"invalid global shape {global_shape}")
@@ -93,6 +93,7 @@ class Pencil:
         self._global_shape = global_shape
         self._decomp_dims = decomp_dims
         self._perm = as_permutation(permutation, N)
+        self.timer = timer  # shared, excluded from eq/hash (Pencils.jl:191)
         self._warn_empty_ranks()
 
     # -- validation -------------------------------------------------------
@@ -246,7 +247,7 @@ class Pencil:
 
     # -- derivation -------------------------------------------------------
     def replace(self, *, decomp_dims=None, permutation="keep",
-                global_shape=None) -> "Pencil":
+                global_shape=None, timer="keep") -> "Pencil":
         """Derive a new pencil sharing this topology (reference
         ``Pencil(p; decomp_dims, permute)``, ``Pencils.jl:257-271``)."""
         return Pencil(
@@ -254,6 +255,7 @@ class Pencil:
             self._global_shape if global_shape is None else global_shape,
             self._decomp_dims if decomp_dims is None else decomp_dims,
             permutation=self._perm if permutation == "keep" else permutation,
+            timer=self.timer if timer == "keep" else timer,
         )
 
     # -- comparison / hashing --------------------------------------------
@@ -278,7 +280,8 @@ class Pencil:
 
 def make_pencil(global_shape: Sequence[int],
                 ndims_decomp: Optional[int] = None, *, device=None,
-                group=None, permutation: PermutationLike = None) -> Pencil:
+                group=None, permutation: PermutationLike = None,
+                timer=None) -> Pencil:
     """Balanced topology over all ranks decomposing the last
     ``ndims_decomp`` dims (default ``N - 1``) — the analog of
     ``Pencil(dims_global, comm)`` (``Pencils.jl:274-280``)."""
@@ -286,4 +289,4 @@ def make_pencil(global_shape: Sequence[int],
     if ndims_decomp is None:
         ndims_decomp = max(N - 1, 1)
     topo = Topology.auto(ndims_decomp, device=device, group=group)
-    return Pencil(topo, global_shape, permutation=permutation)
+    return Pencil(topo, global_shape, permutation=permutation, timer=timer)

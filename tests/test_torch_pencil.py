@@ -134,6 +134,11 @@ def test_port_imports_without_jax():
         "import pencilarrays_tpu_torch.interop\n"
         "import pencilarrays_tpu_torch.ops.permute\n"
         "import pencilarrays_tpu_torch.ops._build\n"
+        "import pencilarrays_tpu_torch.numpy, pencilarrays_tpu_torch.compat\n"
+        "import pencilarrays_tpu_torch.models.heat_fd\n"
+        "import pencilarrays_tpu_torch.models.ode\n"
+        "import pencilarrays_tpu_torch.parallel.multiarrays\n"
+        "import pencilarrays_tpu_torch.utils.timers\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -273,3 +273,409 @@ def hop_grad_case(dims, shape, extra, specs, padded, ct_padded,
     (y.data * ct).sum().backward()
     return _rank0(to_numpy_padded(pat.PencilArray(pin, leaf.grad,
                                                   x.extra_dims)))
+
+
+# -- the grid toolbox and the halo-exchange path ---------------------------
+# One pool of 8 ranks serves topologies of 1, 2, 4 and 8 ranks: each is
+# built over the first ranks of the pool, and the others mirror its
+# sub-group creation (``new_group`` is collective over the whole pool).
+
+_SUB = {}
+_SHARED = {}
+
+
+def shared_pool(n=8):
+    """One pool of ``n`` gloo ranks per test process, kept until the
+    process exits."""
+    import atexit
+
+    from pencilarrays_tpu_torch.parallel.distributed import RankPool
+
+    if n not in _SHARED:
+        _SHARED[n] = RankPool(n)
+        atexit.register(_SHARED[n].close)
+    return _SHARED[n]
+
+
+def sub_topology(dims):
+    """A CPU topology over the first ``prod(dims)`` ranks of the pool;
+    ``None`` on the other ranks.  Every rank of the pool calls it."""
+    import math
+
+    from pencilarrays_tpu_torch.parallel.topology import _axis_lines
+
+    dims = tuple(dims)
+    if dims not in _SUB:
+        dist = torch.distributed
+        n = math.prod(dims)
+        if n == dist.get_world_size():
+            _SUB[dims] = pat.Topology(dims, device="cpu")
+        else:
+            group = dist.new_group(list(range(n)))
+            if dist.get_rank() < n:
+                _SUB[dims] = pat.Topology(dims, device="cpu", group=group)
+            else:
+                for axis in range(len(dims)):
+                    for line in _axis_lines(dims, axis):
+                        dist.new_group(list(line))
+                _SUB[dims] = None
+    return _SUB[dims]
+
+
+def _sub_pencil(topo, shape, decomp, perm):
+    return pat.Pencil(topo, shape, decomp, permutation=None if perm is None
+                      else pat.Permutation(*perm))
+
+
+def _np(t):
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _calls(fn, *args):
+    """``fn(*args)`` with ``halo_exchange`` counted from 0; returns the
+    result and every rank's counts (rank order)."""
+    from pencilarrays_tpu_torch.ops import stencil
+
+    for k in stencil.halo_exchange:
+        stencil.halo_exchange[k] = 0
+    out = fn(*args)
+    counts = dict(stencil.halo_exchange)
+    everyone = [None] * torch.distributed.get_world_size(
+        pat_group(args[0]))
+    torch.distributed.all_gather_object(everyone, counts,
+                                        group=pat_group(args[0]))
+    return out, everyone
+
+
+def pat_group(x):
+    return x.pencil.topology.group
+
+
+def arrays_case(dims, shape, decomp, perm, u, keys, extra=0):
+    """Global views of ``u`` (logical, NumPy) on the sub-topology: every
+    rank's answer to each global index of ``keys``, ``logical()``,
+    ``np.asarray``, every block by ``local_block`` (logical and memory
+    order) and the padded memory-order data (the JAX package's
+    ``.data`` layout)."""
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pen = _sub_pencil(topo, shape, decomp, perm)
+    x = pat.PencilArray.from_global(pen, u, extra)
+    items = [_np(x[k]) for k in keys]
+    everyone = [None] * len(topo)
+    torch.distributed.all_gather_object(everyone, items, group=topo.group)
+    blocks = {}
+    for r in range(len(topo)):
+        c = topo.coords(r)
+        blocks[c] = (_np(x.local_block(c)),
+                     _np(x.local_block(c, pat.MemoryOrder)))
+    own = _np(x.local_block())
+    return _rank0(dict(items=everyone, logical=_np(x.logical()),
+                       array=np.asarray(x), blocks=blocks, own=own,
+                       padded=to_numpy_padded(x)))
+
+
+def protocols_case(dims, shape, decomp, perm, u, v, raw):
+    """The NumPy protocols, ``pnp``, the elementwise methods and the
+    comparisons on the sub-topology: each array result gathered and as
+    the padded global array, and each value."""
+    import pencilarrays_tpu_torch.numpy as pnp
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pen = _sub_pencil(topo, shape, decomp, perm)
+    x = pat.PencilArray.from_global(pen, u)
+    y = pat.PencilArray.from_global(pen, v)
+    poisoned = (x + 100.0) - 100.0
+    res = dict(
+        cos=np.cos(x), add=np.add(x, y), arctan2=np.arctan2(x, y),
+        raw_left=np.add(raw, x), infix=x * raw + x * raw[0, 0],
+        scalar=(x + 1.0) / 2.0, map=x.map(torch.sin),
+        pnp_cos=pnp.cos(x), pnp_mul=pnp.multiply(x, raw[0, 0]),
+        pnp_where=pnp.where(pnp.greater(x, 0), x, 0.0),
+        fill=x.fill(3.0),
+        full=pat.PencilArray.full(pen, 2.5, dtype=torch.float64),
+        conj=(x * 1j).conj(), real=(x * 1j).real, imag=(x * 1j).imag,
+        copy=x.copy())
+    out = {k: (pat.gather(a), to_numpy_padded(a)) for k, a in res.items()}
+    out.update(
+        np_sum=float(np.sum(poisoned)), np_max=float(np.max(poisoned)),
+        np_mean=float(np.mean(poisoned)), np_min=float(np.min(poisoned)),
+        eq_self=x == x, eq_other=x == y, eq_padded=(x + 1.0) == (
+            pat.PencilArray.from_global(pen, u + 1.0)),
+        allclose=poisoned.allclose(x), equals=bool(x.equals(x.copy())),
+        sizeof=x.sizeof_global(), length=len(x))
+    return _rank0(out)
+
+
+def reductions_case(dims, shape, decomp, perm, arrays, nan_padding=True):
+    """Every reduction over the global arrays ``arrays`` (name -> NumPy,
+    logical order) on the sub-topology, with NaN written into the tail
+    padding first so that only masking keeps it out."""
+    from pencilarrays_tpu_torch.ops import reductions as R
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pen = _sub_pencil(topo, shape, decomp, perm)
+    xs = {}
+    for name, a in arrays.items():
+        x = pat.PencilArray.from_global(pen, a)
+        if nan_padding and (x.dtype.is_floating_point or x.dtype.is_complex):
+            mask = R._valid_mask(x)
+            if mask is not None:
+                x = pat.PencilArray(pen, torch.where(
+                    mask, x.data, torch.full((), float("nan"),
+                                             dtype=x.dtype)))
+        xs[name] = x
+    out = {}
+    for name, x in xs.items():
+        r = {}
+        if not x.dtype.is_complex:
+            r.update(min=R.minimum(x), max=R.maximum(x))
+        if x.dtype != torch.bool:
+            r.update(sum=R.sum(x), prod=R.prod(x), mean=R.mean(x),
+                     norm2=R.norm(x), norm1=R.norm(x, 1),
+                     norminf=R.norm(x, float("inf")), norm3=R.norm(x, 3),
+                     dot=R.dot(x, x), count=R.count_nonzero(x))
+        r.update(any=R.any(x), all=R.all(x),
+                 any_pos=R.any(x, pred=lambda d: d.real > 0.5),
+                 all_fin=R.all(x, pred=torch.isfinite))
+        out[name] = {k: _np(v) for k, v in r.items()}
+    if "u" in xs and "v" in xs:
+        out["dot_uv"] = _np(R.dot(xs["u"], xs["v"]))
+        out["zipped"] = _np(R.mapreduce(lambda a, b: a * b, torch.sum,
+                                        xs["u"], xs["v"], identity=0))
+    return _rank0(out)
+
+
+def localgrid_case(dims, shape, decomp, perm, coords, u):
+    """``localgrid`` on the sub-topology: every rank's components
+    (padded, memory order, exactly), ``evaluate``, ``zip_with`` and
+    ``meshgrid`` as padded global arrays, and the grid walk."""
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pen = _sub_pencil(topo, shape, decomp, perm)
+    g = pat.localgrid(pen, coords)
+    x = pat.PencilArray.from_global(pen, u)
+    comps = [_np(c) for c in g.components()]
+    everyone = [None] * len(topo)
+    torch.distributed.all_gather_object(everyone, comps, group=topo.group)
+    names = [_np(getattr(g, "xyz"[d])) for d in range(pen.ndims)]
+    ev = g.evaluate(lambda a, b, c: a + 2 * b * torch.cos(c))
+    ev3 = g.evaluate(lambda a, b, c: a + b + c, extra_dims=(3,))
+    zw = g.zip_with(lambda v, a, b, c: v + a + 2.0 * b * torch.cos(c), x)
+    mesh = [to_numpy_padded(pat.PencilArray(pen, m)) for m in g.meshgrid()]
+    return _rank0(dict(components=everyone, names=names,
+                       evaluate=to_numpy_padded(ev),
+                       evaluate3=to_numpy_padded(ev3),
+                       zip_with=to_numpy_padded(zw), meshgrid=mesh,
+                       walk=list(g), length=len(g)))
+
+
+def stencil_case(dims, shape, decomp, perm, u, ops_list):
+    """Each ``(name, args, kwargs)`` of ``ops_list`` (``shift``, ``diff``,
+    ``fd_laplacian``, ``fd_gradient``, ``fd_divergence_of_gradient``)
+    applied to the global logical field on the sub-topology: each result
+    as ``(padded global array, gathered)``, and every rank's halo counts."""
+    from pencilarrays_tpu_torch.ops import stencil as S
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pen = _sub_pencil(topo, shape, decomp, perm)
+    x = pat.PencilArray.from_global(pen, u)
+    out = []
+    for name, args, kw in ops_list:
+        if name == "fd_divergence_of_gradient":
+            fn = lambda a: S.fd_divergence(S.fd_gradient(a, **kw), **kw)
+        elif name == "fd_gradient":
+            fn = lambda a: S.fd_gradient(a, **kw)
+        else:
+            fn = lambda a: getattr(S, name)(a, *args, **kw)
+        res, counts = _calls(fn, x)
+        res = [(to_numpy_padded(r), pat.gather(r)) for r in res] \
+            if isinstance(res, tuple) else (to_numpy_padded(res),
+                                             pat.gather(res))
+        out.append((res, counts))
+    return _rank0(out)
+
+
+def stencil_grad_case(dims, shape, decomp, perm, u, spacing):
+    """Gradient of ``sum(fd_laplacian(x)^2)`` with respect to x's padded
+    data, as ``(padded global array, gathered)``."""
+    from pencilarrays_tpu_torch.ops import stencil as S
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pen = _sub_pencil(topo, shape, decomp, perm)
+    x = pat.PencilArray.from_global(pen, u)
+    leaf = x.data.clone().requires_grad_()
+    w = S.fd_laplacian(pat.PencilArray(pen, leaf), spacing=spacing)
+    (w.data ** 2).sum().backward()
+    grad = pat.PencilArray(pen, leaf.grad)
+    return _rank0((to_numpy_padded(grad), pat.gather(grad)))
+
+
+def heat_case(dims, shape, decomp, g, kappa, steps, boundary="periodic",
+              dtype="float64"):
+    """``HeatFD`` from the global field ``g``: the gathered state after
+    each of ``steps`` steps at ``stable_dt``, norms before and after, and
+    every rank's exchange counts (halo and all-to-all) over the steps."""
+    from pencilarrays_tpu_torch.models import HeatFD
+    from pencilarrays_tpu_torch.ops import reductions as R
+    from pencilarrays_tpu_torch.parallel import transpositions as tr
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    m = HeatFD(topo, shape, kappa=kappa, decomp_dims=decomp,
+               boundary=boundary, dtype=getattr(torch, dtype))
+    u = m.from_global(g)
+    e0 = float(R.norm(u))
+    for op in tr.exchange_calls:
+        tr.exchange_calls[op] = 0
+    states = []
+
+    def run(v):
+        for _ in range(steps):
+            v = m.step(v, m.stable_dt())
+            states.append(pat.gather(v))
+        return v
+
+    u, counts = _calls(run, u)
+    a2a = [None] * len(topo)
+    torch.distributed.all_gather_object(a2a, dict(tr.exchange_calls),
+                                        group=topo.group)
+    return _rank0(dict(states=states, e0=e0, e1=float(R.norm(u)),
+                       finite=bool(R.all(u, pred=torch.isfinite)),
+                       halo=counts, exchange=a2a, dt=m.stable_dt(),
+                       spacing=m.spacing))
+
+
+def ode_case(dims, shape, decomp, u0, problem, kwargs, dtype):
+    """``integrate`` of one of the JAX package's ``test_ode_*`` problems
+    from the global field ``u0``: the gathered solution and every rank's
+    stats."""
+    from pencilarrays_tpu_torch.models import integrate
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pen = pat.Pencil(topo, shape, decomp)
+    x = pat.PencilArray.from_global(pen, u0).astype(getattr(torch, dtype))
+    f = {"decay": lambda t, u: u.map(lambda d: -1.7 * d),
+         "blowup": lambda t, u: u.map(lambda d: d * d * d * 10.0),
+         "stiff": lambda t, u: u.map(lambda d: -1e8 * d),
+         "unit": lambda t, u: u.map(lambda d: -d),
+         "nan": lambda t, u: u.map(lambda d: -d)}[problem]
+    u, stats = integrate(f, x, **kwargs)
+    mine = dict(t=float(stats["t"]), dt=float(stats["dt"]),
+                t_dtype=str(np.asarray(stats["t"]).dtype),
+                n_accepted=stats["n_accepted"],
+                n_rejected=stats["n_rejected"],
+                nan_detected=stats["nan_detected"])
+    everyone = [None] * len(topo)
+    torch.distributed.all_gather_object(everyone, mine, group=topo.group)
+    return _rank0(dict(u=pat.gather(u), stats=everyone))
+
+
+def wrms_case(dims, shape, decomp, u, aux):
+    """``global_wrms_norm`` of ``u`` (padding poisoned by scalar
+    arithmetic) alone and beside plain auxiliaries."""
+    from pencilarrays_tpu_torch.interop import global_wrms_norm
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    x = pat.PencilArray.from_global(pat.Pencil(topo, shape, decomp), u)
+    x = (x + 7.0) - 7.0
+    return _rank0(dict(alone=float(global_wrms_norm(x)),
+                       mixed=float(global_wrms_norm(
+                           {"field": x, "aux": torch.tensor(aux)})),
+                       seq=float(global_wrms_norm([x, [x]]))))
+
+
+def random_case(dims, shape, decomp, perm, seed, extra=()):
+    """``uniform`` and ``normal`` (float32, float64, complex64) fills on the
+    sub-topology, gathered, and the padded data of one (padding zero)."""
+    from pencilarrays_tpu_torch.ops import random as Rnd
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pen = _sub_pencil(topo, shape, decomp, perm)
+    u32 = Rnd.uniform(pen, seed, extra)
+    out = dict(u32=pat.gather(u32), padded=to_numpy_padded(u32),
+               u64=pat.gather(Rnd.uniform(pen, seed, extra, torch.float64)),
+               n32=pat.gather(Rnd.normal(pen, seed, extra)),
+               n64=pat.gather(Rnd.normal(pen, seed, extra, torch.float64)),
+               c64=pat.gather(Rnd.normal(pen, seed, extra, torch.complex64)))
+    return _rank0(out)
+
+
+def spectral_ops_case(dims, shape, fields, vec, lengths):
+    """The spectral operators on a float64 r2c plan of the sub-topology,
+    from the physical global fields: every result transformed back and
+    gathered (components in the trailing dim)."""
+    from pencilarrays_tpu_torch import ops
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    plan = pat.PencilFFTPlan(topo, shape, real=True, dtype=torch.float64)
+
+    def fwd(f):
+        return plan.forward(pat.PencilArray.from_global(plan.input_pencil, f))
+
+    def back(v):
+        if not v.extra_dims:
+            return pat.gather(plan.backward(v))
+        comps = v.unstack()
+        return np.stack([back(c) for c in comps], axis=-1)
+
+    fh = fwd(fields[0])
+    uh = pat.PencilArray.stack([fwd(c) for c in vec])
+    batch = pat.PencilArray.stack([fwd(f) for f in fields])
+    out = dict(
+        grad=back(ops.gradient(plan, fh)),
+        grad_L=back(ops.gradient(plan, fh, lengths=lengths)),
+        div_grad=back(ops.divergence(plan, ops.gradient(plan, fh))),
+        lap=back(ops.laplacian(plan, fh)),
+        curl=back(ops.curl(plan, uh)),
+        curl_grad=back(ops.curl(plan, ops.gradient(plan, fh))),
+        poisson=back(ops.solve_poisson(plan, fh)),
+        lap_vec=back(ops.laplacian(plan, uh)),
+        poisson_vec=back(ops.solve_poisson(plan, ops.laplacian(plan, uh))),
+        grad_batch=back(ops.gradient(plan, batch)),
+        grad_padded=to_numpy_padded(ops.gradient(plan, fh)))
+    return _rank0(out)
+
+
+def multiarrays_case(dims, shape, specs, u):
+    """A ``ManyPencilArray`` over ``specs`` from the global field ``u``:
+    the padded data after each hop of two cycles and a walk back, and
+    whether donation deleted the sources."""
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pens = [_sub_pencil(topo, shape, d, p) for d, p in specs]
+    A = pat.ManyPencilArray(*pens, dtype=torch.float64)
+    x0 = pat.PencilArray.from_global(pens[0], u)
+    A.set(x0)
+    seen = []
+    for _ in range(2):
+        for arr in A.cycle():
+            seen.append((arr.pencil.decomposition, to_numpy_padded(arr)))
+    kept = A.current
+    A.transpose_to(0, donate=False)
+    back = to_numpy_padded(A.current)
+    A.transpose_to(1)
+    return _rank0(dict(seen=seen, back=back, x0_deleted=x0.is_deleted(),
+                       kept_deleted=kept.is_deleted(),
+                       first_ok=A.index == 1))
