@@ -22,13 +22,15 @@ class DiffusionSpectral:
     """Exact spectral integrator for the periodic heat equation."""
 
     def __init__(self, topology: Topology, n, *, kappa: float = 1.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, wire_dtype=None):
         if isinstance(n, int):
             n = (n, n, n)
         self.shape = tuple(n)
         self.kappa = float(kappa)
+        # wire_dtype: reduced-precision exchange payloads; the spectral
+        # arithmetic is unchanged
         self.plan = PencilFFTPlan(topology, self.shape, real=True,
-                                  dtype=dtype)
+                                  dtype=dtype, wire_dtype=wire_dtype)
 
     def _k2(self) -> torch.Tensor:
         total = None

@@ -49,17 +49,27 @@ class NavierStokesSpectral:
     def __init__(self, topology: Topology, n, *, viscosity: float = 1e-2,
                  dtype=torch.float32, dealias: bool = True,
                  decomposition: Optional[str] = None, wire_dtype=None):
-        if decomposition is not None or wire_dtype is not None:
-            raise NotImplementedError(
-                f"NavierStokesSpectral(decomposition=, wire_dtype=) is "
-                f"{_LATER}")
         if isinstance(n, int):
             n = (n, n, n)
         self.shape = tuple(n)
         self.nu = float(viscosity)
+        # decomposition= lets the plan pick the slab or pencil grid over
+        # the topology's ranks, priced at the model's 3-component batch;
+        # wire_dtype= puts every exchange on a reduced-precision wire
         self.plan = PencilFFTPlan(topology, self.shape, real=True,
-                                  dtype=dtype, batch=3)
+                                  dtype=dtype, decomposition=decomposition,
+                                  batch=3, wire_dtype=wire_dtype)
         self.dealias = dealias
+
+    def step_async(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"NavierStokesSpectral.step_async() is {_LATER}; it waits for "
+            f"engine/ (item 7)")
+
+    def run_async(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"NavierStokesSpectral.run_async() is {_LATER}; it waits for "
+            f"engine/ (item 7)")
 
     @cached_property
     def _ks(self):

@@ -32,8 +32,14 @@ Normalization is applied as the JAX package applies it: bare transforms
 ("backward" semantics) followed by a multiply with a Python float, never
 through ``torch.fft``'s ``norm=``.
 
-``decomposition=``, ``hbm_limit=``, ``wire_dtype=`` and ``compile()``
-raise ``NotImplementedError`` naming the ROADMAP item that queues them.
+Plan options as in the JAX package: ``wire_dtype=`` puts every hop's
+payload on a reduced-precision wire (``parallel/wire.py``; the transforms
+stay in full precision), ``decomposition="slab" | "pencil" | "auto"``
+re-factorizes the topology's ranks into the 1-D or 2-D grid the cost model
+scores cheapest, and ``hbm_limit=`` time-slices every hop whose modeled
+peak exceeds the limit (or raises ``HbmBoundError`` naming it).
+``compile()`` and the async entry points raise ``NotImplementedError``
+naming the ROADMAP item and the modules they wait for.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel import wire as _wire
 from ..parallel.arrays import PencilArray, as_torch_dtype
 from ..parallel.pencil import LogicalOrder, MemoryOrder, Pencil
 from ..parallel.topology import Topology
@@ -57,14 +64,20 @@ from ..parallel.transpositions import (
     Pipelined,
     Ring,
     _chunk_bounds,
+    _dtype_name,
     _Exchange,
     _exchange_operand_extents,
+    _method_label,
+    _method_wire,
+    _no_wired_grad,
     _pipeline_chunk_axis,
     _run_pipeline,
     assert_compatible,
     resolve_method,
+    strip_wire,
     transpose,
     transpose_cost,
+    with_wire,
 )
 from ..utils.permutations import Permutation
 from . import permute as k1
@@ -293,8 +306,8 @@ class _FusedProgram:
         def produce(k):
             return self.fwd.pack(self._narrow(x, self.mc_src, k))
 
-        def consume(k, tiles, recv):
-            post_fn(k, self.fwd.unpack(recv, like=tiles),
+        def consume(k, h, recv):
+            post_fn(k, self.fwd.unpack(recv, h),
                     self._narrow(out, self.mc_tgt, k))
 
         _run_pipeline(len(self.bounds), produce, self.fwd, consume)
@@ -308,8 +321,8 @@ class _FusedProgram:
         def produce(k):
             return self.rev.pack(pre_fn(k, self._narrow(x, self.mc_tgt, k)))
 
-        def consume(k, tiles, recv):
-            self.rev.unpack(recv, out=self._narrow(out, self.mc_src, k))
+        def consume(k, h, recv):
+            self.rev.unpack(recv, h, out=self._narrow(out, self.mc_src, k))
 
         _run_pipeline(len(self.bounds), produce, self.rev, consume)
         return out
@@ -373,6 +386,7 @@ def _fused_hop(data: torch.Tensor, src: Pencil, tgt: Pencil, post: Pencil,
     program = _FusedProgram(src, tgt, post, extra_ndims, ops, inverse,
                             pre_complex, norm, base, chunk_dim, bounds)
     if data.requires_grad and torch.is_grad_enabled():
+        _no_wired_grad(base)
         return _FusedHop.apply(data, program)
     return program.run(data)
 
@@ -512,6 +526,133 @@ def _complex_of(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.complex64)
 
 
+def _decomposition_candidates(nprocs: int, N: int, mode: str
+                              ) -> List[Tuple[int, ...]]:
+    """Topology shapes ``decomposition=`` may pick on ``nprocs`` ranks for
+    a rank-``N`` array: the slab ``(P,)`` (``N > 1``) and every ordered
+    pencil ``(P1, P2)`` with both factors > 1 (``N > 2``)."""
+    cands: List[Tuple[int, ...]] = []
+    if mode in ("auto", "slab") and N > 1:
+        cands.append((nprocs,))
+    if mode in ("auto", "pencil") and N > 2:
+        for p1 in range(2, nprocs):
+            if nprocs % p1 == 0 and nprocs // p1 >= 2:
+                cands.append((p1, nprocs // p1))
+    return cands
+
+
+def _iter_priced_hops(steps: tuple):
+    """``(src, dst, hop_dtype, base, k_mult, chunk)`` of every exchange
+    step: ``base`` is ``None`` for a plain ``"t"`` hop by the plan's
+    method, the hop's own method for a ``"t"`` hop an ``hbm_limit``
+    time-sliced, and the AllToAll/Ring base of a fused ``"ft"`` hop, whose
+    ``chunk = (chunk_dim, bounds)`` multiplies its count by ``k_mult``."""
+    for step in steps:
+        if step[0] == "t":
+            yield step[1], step[2], step[3], (
+                step[4] if len(step) > 4 else None), 1, None
+        elif step[0] == "ft":
+            (_, src, dst, hop_dtype, _post, _ops, _pc, base,
+             c, bounds) = step
+            yield src, dst, hop_dtype, base, len(bounds), (c, bounds)
+
+
+def _schedule_score(plan: "PencilFFTPlan", extra_dims: Tuple[int, ...],
+                    latency_bytes: int) -> dict:
+    """Bytes-equivalent score of one forward schedule, the route
+    planner's currency: ``latency_bytes`` per collective call, the bytes,
+    and a wired hop's cast toll."""
+    score = hops = total_bytes = total_count = 0
+    for src, dst, hop_dtype, base, k_mult, chunk in _iter_priced_hops(
+            plan._steps):
+        m = (resolve_method(src, dst, extra_dims, hop_dtype, plan.method)
+             if base is None else base)
+        cost = transpose_cost(src, dst, extra_dims, hop_dtype, m,
+                              chunk=chunk)
+        if not cost:
+            continue
+        count = sum(v["count"] for v in cost.values())
+        nbytes = sum(v["bytes"] for v in cost.values())
+        score += int(count * latency_bytes + nbytes
+                     + _wire.cast_score_bytes(nbytes, hop_dtype,
+                                              _method_wire(m)))
+        hops += 1
+        total_bytes += nbytes
+        total_count += count
+    return {"score_bytes": score, "hops": hops,
+            "predicted_bytes": total_bytes, "collectives": total_count}
+
+
+_REFACTORED: dict = {}
+
+
+def _refactored_topology(topology: Topology, dims: Tuple[int, ...]
+                         ) -> Topology:
+    """``topology``'s ranks as a topology of ``dims`` (itself where the
+    dims agree).  Building one is collective over the ranks, which every
+    rank does alike (the verdict is a pure function of the
+    configuration); one is built per (topology, dims) and kept."""
+    if tuple(dims) == topology.dims:
+        return topology
+    key = (topology, tuple(dims))
+    if key not in _REFACTORED:
+        _REFACTORED[key] = Topology(dims, device=topology.device,
+                                    group=topology.group)
+    return _REFACTORED[key]
+
+
+def _resolve_decomposition(topology: Topology,
+                           global_shape: Tuple[int, ...], mode: str,
+                           plan_kwargs: dict,
+                           extra_dims: Tuple[int, ...]):
+    """The cheapest slab or pencil grid over ``topology``'s ranks for
+    ``decomposition=``: each candidate's full schedule (a probe plan on a
+    topology without process groups, so pricing is not collective) scored
+    by :func:`_schedule_score`; ties go to fewer hops, then the slab, then
+    dims order.  Returns ``(topology, verdict)``, the JAX package's
+    verdict dict."""
+    import warnings
+
+    from ..parallel.routing import trusted_drift_hops
+
+    N = len(global_shape)
+    cands = _decomposition_candidates(len(topology), N, mode)
+    if not cands:
+        raise ValueError(
+            f"decomposition={mode!r}: no admissible topology for "
+            f"{len(topology)} device(s) over a rank-{N} array")
+    method = plan_kwargs.get("method")
+    latency = (method.latency_bytes if isinstance(method, Auto)
+               else Auto().latency_bytes)
+    scored = []
+    for dims in cands:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            probe = PencilFFTPlan(Topology.unconnected(dims, topology.device),
+                                  global_shape, **plan_kwargs)
+        entry = _schedule_score(probe, extra_dims, latency)
+        entry["dims"] = tuple(dims)
+        entry["family"] = "slab" if len(dims) == 1 else "pencil"
+        scored.append(entry)
+    scored.sort(key=lambda c: (c["score_bytes"], c["hops"],
+                               len(c["dims"]), c["dims"]))
+    win = scored[0]
+    verdict = {
+        "mode": mode,
+        "winner": list(win["dims"]),
+        "family": win["family"],
+        "extra_dims": list(extra_dims),
+        "drift_corrected": bool(trusted_drift_hops()),
+        "candidates": [
+            {"dims": list(c["dims"]), "family": c["family"],
+             "score_bytes": c["score_bytes"], "hops": c["hops"],
+             "predicted_bytes": c["predicted_bytes"],
+             "collectives": c["collectives"]}
+            for c in scored],
+    }
+    return _refactored_topology(topology, win["dims"]), verdict
+
+
 class PencilFFTPlan:
     """Plan for a distributed N-D transform with per-dimension kinds
     (PencilFFTs' ``PencilFFTPlan``).  Arguments as in the JAX package:
@@ -531,14 +672,9 @@ class PencilFFTPlan:
                  transform="fft", transforms: Sequence[str] = None,
                  method: AbstractTransposeMethod = AllToAll(),
                  normalization: str = "backward", pipeline=None,
-                 batch: Optional[int] = None, decomposition=None,
-                 wire_dtype=None, hbm_limit=None):
-        for name, val in (("decomposition", decomposition),
-                          ("wire_dtype", wire_dtype),
-                          ("hbm_limit", hbm_limit)):
-            if val is not None:
-                raise NotImplementedError(f"PencilFFTPlan({name}=...) is "
-                                          f"{_LATER}")
+                 batch: Optional[int] = None,
+                 decomposition: Optional[str] = None, wire_dtype=None,
+                 hbm_limit: Optional[int] = None):
         if not isinstance(method, (AllToAll, Ring, Pipelined, Auto)):
             raise TypeError(f"unknown transpose method {method!r}")
         if pipeline is not None and pipeline != "auto" and (
@@ -548,12 +684,34 @@ class PencilFFTPlan:
                 f"{pipeline!r}")
         global_shape = tuple(int(n) for n in global_shape)
         N = len(global_shape)
+        # -- the wire: the plan's method carries it (with_wire), so pricing
+        # and execution see one wire
+        self.wire_dtype = _wire.canonical_wire_dtype(wire_dtype)
+        method = with_wire(method, self.wire_dtype)
+        if self.wire_dtype is None:
+            self.wire_dtype = _method_wire(method)
         if batch is not None and (isinstance(batch, bool)
                                   or not isinstance(batch, int) or batch < 1):
             raise ValueError(
                 f"batch must be None or a positive int, got {batch!r}")
         self.batch = batch
         self.batch_dims: Tuple[int, ...] = (int(batch),) if batch else ()
+        # -- slab or pencil grid over the same ranks ---------------------
+        if decomposition is not None and decomposition not in (
+                "auto", "slab", "pencil"):
+            raise ValueError(
+                f"decomposition must be None, 'auto', 'slab' or 'pencil', "
+                f"got {decomposition!r}")
+        self.decomposition = decomposition
+        self.decomposition_verdict: Optional[dict] = None
+        if decomposition is not None:
+            topology, self.decomposition_verdict = _resolve_decomposition(
+                topology, global_shape, decomposition,
+                dict(real=real, dtype=dtype, permute=permute,
+                     transform=transform, transforms=transforms,
+                     method=method, normalization=normalization,
+                     pipeline=pipeline),
+                self.batch_dims)
         M = topology.ndims
         if M >= N:
             raise ValueError(
@@ -691,6 +849,22 @@ class PencilFFTPlan:
         if k_req > 1:
             self._steps = self._fuse_pipeline_steps(self._steps, k_req)
 
+        # -- memory-bounded schedule: over-budget hops time-sliced, or a
+        # typed HbmBoundError naming the hop
+        self.hbm_limit = None
+        if hbm_limit is not None:
+            try:
+                lim = (None if isinstance(hbm_limit, bool)
+                       else int(hbm_limit))
+            except (TypeError, ValueError):
+                lim = None
+            if lim is None or lim < 1:
+                raise ValueError(
+                    f"hbm_limit must be None or a positive int (bytes "
+                    f"per rank), got {hbm_limit!r}")
+            self.hbm_limit = lim
+            self._steps = self._bound_steps_hbm(self._steps, lim)
+
         self._pencils: List[Pencil] = []
         sh = list(global_shape)
         for d in range(N):
@@ -732,25 +906,190 @@ class PencilFFTPlan:
             i += 1
         return tuple(fused)
 
+    def _bound_steps_hbm(self, steps: tuple, limit: int) -> tuple:
+        """Every exchange step whose modeled peak
+        (:func:`~pencilarrays_tpu_torch.analysis.step_hop_peak`) exceeds
+        ``limit`` at :attr:`batch_dims` rewritten into its smallest
+        fitting time-sliced variant (bit-identical, count times K), or a
+        :class:`~pencilarrays_tpu_torch.analysis.HbmBoundError` naming
+        the hop."""
+        from ..analysis import HbmBoundError, step_hop_peak
+
+        extra = self.batch_dims
+        out = []
+        for idx, s in enumerate(steps):
+            if s[0] not in ("t", "ft"):
+                out.append(s)
+                continue
+            peak = step_hop_peak(s, extra, method=self.method,
+                                 wire_dtype=self.wire_dtype)
+            if peak <= limit:
+                out.append(s)
+                continue
+            fixed = self._chunk_step_to_fit(s, extra, limit)
+            if fixed is None:
+                raise HbmBoundError(
+                    "plan", f"hop[{idx}] {s[1].decomposition}->"
+                            f"{s[2].decomposition}", peak, limit)
+            out.append(fixed)
+        return tuple(out)
+
+    def _chunk_step_to_fit(self, s: tuple, extra: tuple, limit: int):
+        """The smallest time-slicing of one over-budget step that fits
+        (K doubling from its chunking, then the chunk dim's extent): a
+        fused step re-chunks its bounds, a ``"t"`` step gains a
+        ``Pipelined`` method of its own; ``None`` when nothing fits."""
+        from ..analysis import step_hop_peak
+
+        src, dst = s[1], s[2]
+        R = assert_compatible(src, dst)
+        if R is None or src.topology.dims[R] == 1:
+            return None
+        ext = _exchange_operand_extents(src, dst, R)
+
+        def k_sweep(k0: int, n: int):
+            k = k0
+            while k < n:
+                yield k
+                k *= 2
+            yield n
+
+        if s[0] == "ft":
+            bounds, c = s[9], s[8]
+            n = int(ext[c])
+            for K in k_sweep(len(bounds) * 2, n):
+                nb = _chunk_bounds(n, K)
+                if len(nb) <= len(bounds):
+                    continue
+                cand = s[:9] + (nb,)
+                if step_hop_peak(cand, extra) <= limit:
+                    return cand
+            return None
+        hop_dtype = s[3]
+        method = s[4] if len(s) > 4 else self.method
+        if isinstance(method, Auto):
+            method = resolve_method(src, dst, extra, hop_dtype, method)
+        k0 = 2
+        if isinstance(method, Pipelined):
+            k0, method = method.chunks * 2, method.base
+        shape = tuple(ext) + tuple(extra)
+        c = _pipeline_chunk_axis(shape, src.decomposition[R],
+                                 dst.decomposition[R])
+        if c is None:
+            return None
+        n = int(shape[c])
+        for K in k_sweep(k0, n):
+            if len(_chunk_bounds(n, K)) <= 1:
+                continue
+            cand = ("t", src, dst, hop_dtype,
+                    Pipelined(chunks=K, base=method))
+            if step_hop_peak(cand, extra) <= limit:
+                return cand
+        return None
+
+    def plan_key(self) -> str:
+        """Stable fingerprint of the plan's static configuration (12 hex
+        characters of the sha256 of its schedule summary): shape, kinds,
+        dtype, topology, method, normalization, pipeline, batch,
+        decomposition verdict, the hop-by-hop schedule and its predicted
+        costs, and the wire where there is one.  The summary is the JAX
+        package's, so is the key."""
+        from ..parallel.routing import plan_fingerprint
+
+        return plan_fingerprint(self._summary())
+
+    def _summary(self) -> dict:
+        steps = []
+        for s in self._steps:
+            if s[0] == "t":
+                entry = {"kind": "t",
+                         "hop": f"{s[1].decomposition}->{s[2].decomposition}",
+                         "dtype": _dtype_name(s[3])}
+                if len(s) > 4:
+                    entry["method"] = _method_label(s[4])
+                steps.append(entry)
+            elif s[0] == "ft":
+                (_, src, tgt, hop_dtype, _post, ops, _pc, base, c,
+                 bounds) = s
+                steps.append({"kind": "ft",
+                              "hop": f"{src.decomposition}->"
+                                     f"{tgt.decomposition}",
+                              "dtype": _dtype_name(hop_dtype),
+                              "base": _method_label(base),
+                              "chunk_dim": c, "chunks": len(bounds),
+                              "transforms": [op[0] for op in ops]})
+            else:
+                steps.append({"kind": "f",
+                              "transforms": [op[0] for op in s[3]]})
+        if self.decomposition_verdict is not None:
+            decomp = {k: v for k, v in self.decomposition_verdict.items()
+                      if k != "candidates"}
+            decomp["n_candidates"] = len(
+                self.decomposition_verdict["candidates"])
+        else:
+            decomp = {"mode": "fixed", "winner": list(self.topology.dims)}
+        summary = {
+            "shape": list(self.shape_physical),
+            "transforms": list(self.transforms),
+            "dtype": _dtype_name(self.dtype_physical),
+            "topo": list(self.topology.dims),
+            "method": _method_label(self.method)
+            if not isinstance(self.method, Auto)
+            else f"Auto({self.method.mode})"
+            + (f"[wire={self.method.wire_dtype}]"
+               if self.method.wire_dtype else ""),
+            "pipeline": self.pipeline_chunks,
+            "normalization": self.normalization,
+            "extra_dims": list(self.batch_dims),
+            "decomposition": decomp,
+            "steps": steps,
+            "predicted_costs": self.collective_costs(),
+        }
+        if self.wire_dtype is not None:
+            summary["wire_dtype"] = self.wire_dtype
+        return summary
+
+    def with_wire_dtype(self, wire_dtype) -> "PencilFFTPlan":
+        """This schedule at another wire precision (``None`` strips the
+        wire): the plan rebuilt from its own resolved attributes with the
+        method's wire replaced, so :meth:`plan_key` differs by the wire
+        alone.  Variants are cached per wire on the plan."""
+        wire = _wire.canonical_wire_dtype(wire_dtype)
+        if wire == self.wire_dtype:
+            return self
+        cache = self.__dict__.setdefault("_wire_variant_cache", {})
+        if wire in cache:
+            return cache[wire]
+        variant = PencilFFTPlan(
+            self.topology, self.shape_physical,
+            transforms=self.transforms, dtype=self.dtype_physical,
+            permute=self.permute,
+            method=with_wire(strip_wire(self.method), wire),
+            normalization=self.normalization,
+            pipeline=(self.pipeline_chunks
+                      if self.pipeline_chunks > 1 else None),
+            batch=self.batch, hbm_limit=self.hbm_limit)
+        variant.decomposition = self.decomposition
+        variant.decomposition_verdict = self.decomposition_verdict
+        cache[wire] = variant
+        return variant
+
     def collective_costs(self, extra_dims: Optional[Tuple[int, ...]] = None
                          ) -> dict:
         """Predicted per-rank collective cost of ONE :meth:`forward`, in
         the JAX package's ``{op: {"count", "bytes"}}`` schema: each hop by
-        the plan's method, a fused hop by its base with its own chunks."""
+        the plan's method (or its own, once ``hbm_limit`` time-sliced it),
+        a fused hop by its base with its own chunks, at the wire's
+        bytes."""
         if extra_dims is None:
             extra_dims = self.batch_dims
         extra_dims = tuple(int(e) for e in extra_dims)
         total: dict = {}
-        for step in self._steps:
-            if step[0] == "t":
-                cost = transpose_cost(step[1], step[2], extra_dims, step[3],
-                                      self.method)
-            elif step[0] == "ft":
-                cost = transpose_cost(step[1], step[2], extra_dims, step[3],
-                                      step[7], chunk=(step[8], step[9]))
-            else:
-                continue
-            for op, c in cost.items():
+        for src, dst, hop_dtype, base, k_mult, chunk in _iter_priced_hops(
+                self._steps):
+            m = self.method if base is None else base
+            for op, c in transpose_cost(src, dst, extra_dims, hop_dtype, m,
+                                        chunk=chunk).items():
                 e = total.setdefault(op, {"count": 0, "bytes": 0})
                 e["count"] += c["count"]
                 e["bytes"] += c["bytes"]
@@ -771,7 +1110,19 @@ class PencilFFTPlan:
                                  self.dtype_spectral)
 
     def compile(self, *args, **kwargs):
-        raise NotImplementedError(f"PencilFFTPlan.compile() is {_LATER}")
+        raise NotImplementedError(
+            f"PencilFFTPlan.compile() is {_LATER}; it waits for a choice of "
+            f"CUDA graphs (item 1(b)) and engine/ (item 7)")
+
+    def forward_async(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"PencilFFTPlan.forward_async() is {_LATER}; it waits for "
+            f"engine/ (item 7)")
+
+    def backward_async(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"PencilFFTPlan.backward_async() is {_LATER}; it waits for "
+            f"engine/ (item 7)")
 
     def _stage(self, data: torch.Tensor, ops, inverse: bool,
                pre_complex: bool) -> torch.Tensor:
@@ -787,7 +1138,8 @@ class PencilFFTPlan:
         x = u
         for step in self._steps:
             if step[0] == "t":
-                x = transpose(x, step[2], method=self.method)
+                x = transpose(x, step[2], method=(
+                    step[4] if len(step) > 4 else self.method))
             elif step[0] == "ft":
                 (_, src, tgt, _, post, ops, pre_complex, base, c,
                  bounds) = step
@@ -811,7 +1163,8 @@ class PencilFFTPlan:
         x = uh
         for step in reversed(self._steps):
             if step[0] == "t":
-                x = transpose(x, step[1], method=self.method)
+                x = transpose(x, step[1], method=(
+                    step[4] if len(step) > 4 else self.method))
             elif step[0] == "ft":
                 (_, src, tgt, _, post, ops, pre_complex, base, c,
                  bounds) = step

@@ -20,7 +20,8 @@ import torch
 
 from .arrays import PencilArray
 from .pencil import Pencil
-from .transpositions import _LATER, AbstractTransposeMethod, AllToAll, transpose
+from .transpositions import (AbstractTransposeMethod, AllToAll, Auto,
+                             reshard, transpose)
 
 __all__ = ["ManyPencilArray"]
 
@@ -116,10 +117,22 @@ class ManyPencilArray:
             self._index = nxt
         return self._array
 
-    def reshard_to(self, i: int, **kwargs) -> PencilArray:
-        """The JAX package's one-program jump through the route planner
-        (``parallel/routing.py``, not ported)."""
-        raise NotImplementedError(f"ManyPencilArray.reshard_to is {_LATER}")
+    def reshard_to(self, i: int, *, donate: bool = True,
+                   method: Optional[AbstractTransposeMethod] = None
+                   ) -> PencilArray:
+        """Jump the live data straight to configuration ``i`` by one
+        :func:`~.transpositions.reshard` (the route planner may find a
+        cheaper chain than the stored one); the same data as
+        :meth:`transpose_to`.  Every rank calls it."""
+        if not 0 <= i < len(self._pencils):
+            raise IndexError(f"configuration {i} out of range")
+        if i == self._index:
+            return self._array
+        self._array = reshard(self._array, self._pencils[i],
+                              method=method if method is not None else Auto(),
+                              donate=donate)
+        self._index = i
+        return self._array
 
     def cycle(self, *, method: AbstractTransposeMethod = AllToAll()):
         """Generator over the full chain 0 -> 1 -> ... -> M-1, yielding

@@ -28,6 +28,7 @@ from functools import cached_property
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..utils.permutations import (
     AbstractPermutation,
@@ -246,6 +247,20 @@ class Pencil:
         return tuple(int(i) - r.start for i, r in zip(global_inds, ranges))
 
     # -- derivation -------------------------------------------------------
+    def bytes_per_device(self, extra_dims: Sequence[int] = (),
+                         dtype=None, *, isize: Optional[int] = None) -> int:
+        """Bytes per rank of the padded block (extra dims included): the
+        unit of the route planner's peak-memory bound."""
+        if isize is None:
+            isize = (torch.empty((), dtype=dtype).element_size()
+                     if isinstance(dtype, torch.dtype) else
+                     np.dtype(dtype if dtype is not None
+                              else np.float32).itemsize)
+        n = math.prod(self.padded_size_local(LogicalOrder))
+        for e in extra_dims:
+            n *= int(e)
+        return n * int(isize)
+
     def replace(self, *, decomp_dims=None, permutation="keep",
                 global_shape=None, timer="keep") -> "Pencil":
         """Derive a new pencil sharing this topology (reference

@@ -162,6 +162,20 @@ class Topology:
             nprocs = 1
         return cls(dims_create(nprocs, ndims), device=device, group=group)
 
+    @classmethod
+    def unconnected(cls, dims: Sequence[int], device=None) -> "Topology":
+        """A topology of ``dims`` without process groups, for metadata and
+        pricing only (building it is not collective, whatever the
+        process group): the probe grids of ``decomposition="auto"``."""
+        t = cls.__new__(cls)
+        t._dims = tuple(int(d) for d in dims)
+        t._axis_names = default_axis_names(len(t._dims))
+        t._group = t._rank = t._subgroups = None
+        t._global_ranks = tuple(range(len(t)))
+        t._device = torch.device(device) if device is not None \
+            else torch.device("cpu")
+        return t
+
     def _connect(self, group) -> None:
         group = dist.group.WORLD if group is None else group
         ranks = tuple(dist.get_process_group_ranks(group))

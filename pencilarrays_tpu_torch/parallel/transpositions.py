@@ -30,7 +30,22 @@ The exchange is the method's:
   Chunk ``k + 1``'s exchange is issued (``async_op``) before chunk ``k``
   is unpacked, and every rank issues them in chunk order;
 * :class:`Auto` — :func:`resolve_method` picks ``AllToAll`` or ``Ring``
-  from :func:`transpose_cost` (``mode="estimate"``).
+  from :func:`transpose_cost` (``mode="estimate"``);
+* :class:`Gspmd` — any pair of pencils on one topology, any number of
+  differing slots: each rank sends the intersection of its block with
+  every destination block (the reference's ``Alltoallv``,
+  ``Transpositions.jl:383-388``) in one ``all_to_all_single`` with
+  per-peer split sizes, each piece packed and unpacked by K1; on one
+  rank it is one K1 permute.  :func:`reshard` uses it where the route
+  planner (``parallel/routing.py``) finds no cheaper chain of hops.
+
+``wire_dtype`` on ``AllToAll``, ``Ring`` and ``Auto`` (``Pipelined``
+inherits its base's) casts each exchange's payload to a reduced-precision
+wire format just before the exchange call and back just after
+(``parallel/wire.py``): per chunk, per ring round, in fused FFT hops, and
+on a size-1 axis too, where nothing crosses a link (the JAX package's
+program wraps the exchange whatever ``P`` is).  The fp8 windows lie along
+JAX's tile axis of each exchanged operand, so the values are JAX's.
 
 The pack lays each tile out in the OUTPUT pencil's memory order, so unpack
 only moves the tile axis next to dim ``a`` — a straight copy whenever ``a``
@@ -41,21 +56,22 @@ JAX package's program does) and none under ``Ring``.
 A hop is differentiable: for a tensor that requires grad, :func:`transpose`
 runs inside a ``torch.autograd.Function`` whose backward is the inverse hop
 back to the source pencil, by the same method.  Unpack drops padding where
-pack zero-fills it, so the inverse hop is the exact adjoint.
-:func:`ring_shift` is the ``lax.ppermute`` ring step of the
-sequence-parallel attention schedules.  :data:`exchange_calls` counts the
-exchange calls this process makes, under the op names of
-:func:`transpose_cost`.
+pack zero-fills it, so the inverse hop is the exact adjoint.  A wired hop
+raises instead: the JAX package's gradient through the wire's integer
+bitcast is zero.  :func:`ring_shift` is the ``lax.ppermute`` ring step of
+the sequence-parallel attention schedules.  :data:`exchange_calls` and
+:data:`exchange_bytes` count the exchange calls this process makes and
+the bytes it hands them, under the op names of :func:`transpose_cost`.
 
-``Auto(mode="measure")``, Gspmd, ``reshard`` and reduced-precision wire
-formats are not ported yet: they raise ``NotImplementedError`` naming the
-ROADMAP item that queues them.
+``Auto(mode="measure")`` is not ported yet: it raises
+``NotImplementedError`` naming the ROADMAP item and the modules it waits
+for.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,7 +79,8 @@ import torch
 import torch.distributed as dist
 
 from ..ops import permute as k1
-from .arrays import PencilArray, _fwd_axes, _inv_axes
+from . import wire as _wire
+from .arrays import PencilArray, _fwd_axes, _inv_axes, as_torch_dtype
 from .pencil import MemoryOrder, Pencil
 from .topology import Topology
 
@@ -77,13 +94,17 @@ __all__ = [
     "Ring",
     "Transposition",
     "assert_compatible",
+    "exchange_bytes",
     "exchange_calls",
+    "gspmd_reshard_cost",
     "hop_operand_bytes",
     "resolve_method",
     "reshard",
     "ring_shift",
+    "strip_wire",
     "transpose",
     "transpose_cost",
+    "with_wire",
 ]
 
 _LATER = ("not ported yet: ROADMAP.md Queue 1, item 'Transpose methods and "
@@ -94,26 +115,40 @@ exchange_calls = {"all-to-all": 0, "collective-permute": 0}
 to 0): ``all_to_all_single`` calls and ``batch_isend_irecv`` rounds, under
 the op names :func:`transpose_cost` counts them by."""
 
+exchange_bytes = {"all-to-all": 0, "collective-permute": 0}
+"""Bytes this process handed to its exchange calls since the last reset
+(the packed wire bytes of a wired hop): the measured counterpart of
+:func:`transpose_cost`'s bytes."""
+
 
 class AbstractTransposeMethod:
     pass
 
 
-def _no_wire(method) -> None:
-    if method.wire_dtype is not None:
-        raise NotImplementedError(
-            f"{type(method).__name__}(wire_dtype=...) is {_LATER}")
+def _canon_wire_field(method) -> None:
+    """Normalize a frozen method's ``wire_dtype`` at construction, so
+    spellings never split method equality."""
+    object.__setattr__(method, "wire_dtype",
+                       _wire.canonical_wire_dtype(method.wire_dtype))
 
 
 @dataclass(frozen=True)
 class AllToAll(AbstractTransposeMethod):
     """Pack -> ``all_to_all_single`` on one topology axis -> unpack.
-    ``wire_dtype`` (reduced-precision payloads) is not ported yet."""
+    ``wire_dtype="bf16" | "f16" | "fp8_e4m3" | "fp8_e5m2"`` moves the
+    payload in a reduced-precision wire format (``parallel/wire.py``)."""
 
     wire_dtype: Optional[str] = None
 
     def __post_init__(self):
-        _no_wire(self)
+        _canon_wire_field(self)
+
+
+@dataclass(frozen=True)
+class Gspmd(AbstractTransposeMethod):
+    """The unrestricted exchange: any two pencils on one topology, by
+    per-peer block intersections in one ``all_to_all_single`` (the JAX
+    package's partitioner-scheduled reshard)."""
 
 
 @dataclass(frozen=True)
@@ -122,13 +157,13 @@ class Ring(AbstractTransposeMethod):
     one ``batch_isend_irecv`` among the ``G = max(S_a, S_b)`` ranks whose
     ceil-rule blocks hold data, each round moving one tile per rank (the
     reference's ``PointToPoint()``, ``Transpositions.jl:61-65``).
-    Bit-identical to :class:`AllToAll`.  ``wire_dtype`` is not ported
-    yet."""
+    Bit-identical to :class:`AllToAll`.  ``wire_dtype`` as on
+    :class:`AllToAll`: every round's tile moves packed."""
 
     wire_dtype: Optional[str] = None
 
     def __post_init__(self):
-        _no_wire(self)
+        _canon_wire_field(self)
 
 
 # reference method-name aliases (Transpositions.jl:17-24)
@@ -140,12 +175,12 @@ Alltoallv = AllToAll
 class Pipelined(AbstractTransposeMethod):
     """Chunked exchange: the hop in ``chunks`` ceil-sized pieces along the
     largest dimension the exchange does not touch (extra dims included),
-    one ``base`` exchange (``AllToAll()`` or ``Ring()``) per piece.  Each
-    piece's pack reads its slice of the block and its unpack writes its
-    slice of the output, so K1 moves the bytes of the unchunked hop;
-    chunk ``k + 1``'s exchange is in flight while chunk ``k`` is unpacked.
-    ``chunks=1``, or a block with nothing to chunk, is ``base``.
-    Bit-identical to ``base`` for every ``chunks``."""
+    one ``base`` exchange (``AllToAll()`` or ``Ring()``, with its wire)
+    per piece.  Each piece's pack reads its slice of the block and its
+    unpack writes its slice of the output, so K1 moves the bytes of the
+    unchunked hop; chunk ``k + 1``'s exchange is in flight while chunk
+    ``k`` is unpacked.  ``chunks=1``, or a block with nothing to chunk,
+    is ``base``.  Bit-identical to ``base`` for every ``chunks``."""
 
     chunks: int = 4
     base: AbstractTransposeMethod = AllToAll()
@@ -167,8 +202,8 @@ class Auto(AbstractTransposeMethod):
     ``mode="estimate"``: :class:`Ring` exactly when its rounds, each
     charged a latency toll of ``latency_bytes``, cost less than one
     ``all_to_all``: ``(G-1) * (latency_bytes + tile) < latency_bytes +
-    (P-1) * tile``.  ``mode="measure"`` and ``wire_dtype`` are not ported
-    yet."""
+    (P-1) * tile``.  ``wire_dtype`` rides the winner.
+    ``mode="measure"`` is not ported yet."""
 
     mode: str = "estimate"
     latency_bytes: int = 128 * 1024
@@ -180,25 +215,79 @@ class Auto(AbstractTransposeMethod):
                 f"Auto mode must be 'estimate' or 'measure', got "
                 f"{self.mode!r}")
         if self.mode == "measure":
-            raise NotImplementedError(f"Auto(mode='measure') is {_LATER}")
-        _no_wire(self)
+            raise NotImplementedError(
+                f"Auto(mode='measure') is {_LATER}; it waits for "
+                f"utils/benchtime.py and obs/ (item 7)")
+        _canon_wire_field(self)
 
 
-def _not_ported(name):
-    def factory(*args, **kwargs):
-        raise NotImplementedError(f"{name} is {_LATER}")
-
-    factory.__name__ = name
-    factory.__doc__ = f"The JAX package's ``{name}`` method ({_LATER})."
-    return factory
-
-
-Gspmd = _not_ported("Gspmd")
+def _method_wire(method) -> Optional[str]:
+    """The wire dtype a method puts on its exchanges (``None``: full
+    precision); ``Pipelined`` carries its base's, ``Gspmd`` none."""
+    if isinstance(method, (AllToAll, Ring, Auto)):
+        return method.wire_dtype
+    if isinstance(method, Pipelined):
+        return _method_wire(method.base)
+    return None
 
 
-def reshard(*args, **kwargs):
-    """Unrestricted redistribution (the JAX package's route planner)."""
-    raise NotImplementedError(f"reshard is {_LATER}")
+def with_wire(method: AbstractTransposeMethod,
+              wire_dtype) -> AbstractTransposeMethod:
+    """``method`` carrying ``wire_dtype`` on its exchanges; ``None``
+    passes it through, a different wire already on it is a conflict."""
+    wire = _wire.canonical_wire_dtype(wire_dtype)
+    if wire is None:
+        return method
+    cur = _method_wire(method)
+    if cur is not None and cur != wire:
+        raise ValueError(
+            f"method {method!r} already carries wire_dtype={cur!r}; "
+            f"conflicting wire_dtype={wire!r} requested")
+    if isinstance(method, (AllToAll, Ring, Auto)):
+        return replace(method, wire_dtype=wire)
+    if isinstance(method, Pipelined):
+        return replace(method, base=with_wire(method.base, wire))
+    raise ValueError(
+        f"wire_dtype is only supported on explicit exchange methods "
+        f"(AllToAll/Ring/Pipelined) and Auto; got {method!r} (a Gspmd "
+        f"exchange has no single-axis payload to pack)")
+
+
+def strip_wire(method: AbstractTransposeMethod) -> AbstractTransposeMethod:
+    """``method`` with its ``wire_dtype`` removed throughout (the inverse
+    of :func:`with_wire`)."""
+    if isinstance(method, (AllToAll, Ring, Auto)):
+        return (replace(method, wire_dtype=None)
+                if method.wire_dtype is not None else method)
+    if isinstance(method, Pipelined):
+        return replace(method, base=strip_wire(method.base))
+    return method
+
+
+def _method_label(m: AbstractTransposeMethod) -> str:
+    """Stable label of a method, its wire included
+    (``AllToAll[wire=bf16]``); the JAX package's spelling."""
+    if isinstance(m, Pipelined):
+        return f"Pipelined(chunks={m.chunks}, base={_method_label(m.base)})"
+    wire = _method_wire(m) if isinstance(m, (AllToAll, Ring, Auto)) else None
+    if wire is not None:
+        return f"{type(m).__name__}[wire={wire}]"
+    return type(m).__name__
+
+
+def _dtype_name(dtype) -> str:
+    if dtype is None:
+        return "float32"
+    return str(as_torch_dtype(dtype)).split(".")[-1]
+
+
+def _hop_label(pin: Pencil, pout: Pencil, method: AbstractTransposeMethod,
+               dtype=None) -> str:
+    """Stable key of one hop configuration: global shape, topology,
+    decomposition change, method and dtype (the JAX package's)."""
+    return (f"{pin.size_global()}@{pin.topology.dims} "
+            f"{pin.decomposition}->{pout.decomposition} "
+            f"{_method_label(method)} {_dtype_name(dtype)}")
 
 
 def assert_compatible(pin: Pencil, pout: Pencil) -> Optional[int]:
@@ -218,7 +307,7 @@ def assert_compatible(pin: Pencil, pout: Pencil) -> Optional[int]:
         raise ValueError(
             f"transpose: decompositions {pin.decomposition} -> "
             f"{pout.decomposition} differ in more than one slot; chain "
-            f"transposes (x->y->z)")
+            f"transposes (x->y->z) or use reshard()")
     return diff[0] if diff else None
 
 
@@ -256,8 +345,8 @@ def _exchange_operand_extents(pin: Pencil, pout: Pencil, R: int
                               ) -> Tuple[int, ...]:
     """Logical extents of the exchanged operand: the local block with
     the to-be-split dim ``b`` padded to its post-exchange padded extent
-    (the JAX package's definition, shared with its cost model and the
-    chunk-axis choice)."""
+    (the JAX package's definition, shared with its cost model, the chunk
+    axis and the fp8 tile axis)."""
     b = pout.decomposition[R]
     ext = []
     for i in range(pin.ndims):
@@ -304,8 +393,11 @@ def transpose_cost(pin: Pencil, pout: Pencil, extra_dims: Tuple[int, ...] = (),
     ``all-to-all`` of the whole operand; ``Ring`` ``G - 1``
     ``collective-permute`` rounds of one ``b``-block tile each;
     ``Pipelined`` (and ``chunk=(dim, bounds)``, a caller's own chunking)
-    multiplies the count by the number of chunks and leaves the bytes; a
-    size-1 axis, or a ring of one participant, is priced ``{}``."""
+    multiplies the count by the number of chunks and leaves the bytes,
+    except on an fp8 wire, where each chunk carries its own scales and the
+    per-chunk bytes are summed; ``Gspmd`` is :func:`gspmd_reshard_cost`.
+    A wired method is priced at :func:`~.wire.wire_bytes`.  A size-1 axis,
+    or a ring of one participant, is priced ``{}``."""
     R = assert_compatible(pin, pout)
     if isinstance(method, Auto):
         method = resolve_method(pin, pout, extra_dims, dtype, method)
@@ -314,66 +406,82 @@ def transpose_cost(pin: Pencil, pout: Pencil, extra_dims: Tuple[int, ...] = (),
     P = pin.topology.dims[R]
     if P == 1:
         return {}
+    if isinstance(method, Gspmd):
+        return gspmd_reshard_cost(pin, pout, extra_dims, dtype)
     a, b = pin.decomposition[R], pout.decomposition[R]
     shape = _exchange_operand_extents(pin, pout, R) + tuple(extra_dims)
-    itemsize = _itemsize(dtype)
+    wire = _method_wire(method)
 
-    def base_cost(m) -> dict:
+    def operand_bytes(s):
+        return _wire.wire_bytes(dtype, wire, s, axes=(a, b))
+
+    def base_cost(m, s) -> dict:
         if isinstance(m, AllToAll):
-            return {"all-to-all": {"count": 1,
-                                   "bytes": math.prod(shape) * itemsize}}
+            return {"all-to-all": {"count": 1, "bytes": operand_bytes(s)}}
         if isinstance(m, Ring):
             G, _ = _ring_participants(pin, pout, R)
             if G <= 1:
                 return {}
             b_blk = pout.padded_global_shape[b] // P
-            tile = math.prod(shape[:b] + (b_blk,) + shape[b + 1:]) * itemsize
+            tile = operand_bytes(s[:b] + (b_blk,) + s[b + 1:])
             return {"collective-permute": {"count": G - 1,
                                            "bytes": (G - 1) * tile}}
         raise ValueError(f"no analytic cost model for method {m!r}")
 
-    def chunked_cost(m, k_eff) -> dict:
-        # ceil chunks partition the operand: the count multiplies, the
-        # bytes stay
-        return {op: {"count": v["count"] * k_eff, "bytes": v["bytes"]}
-                for op, v in base_cost(m).items()}
+    def chunked_cost(m, c, bounds) -> dict:
+        if wire not in _wire.FP8_WIRE_DTYPES or len(bounds) == 1:
+            # ceil chunks partition the operand: the count multiplies,
+            # the bytes stay
+            return {op: {"count": v["count"] * len(bounds),
+                         "bytes": v["bytes"]}
+                    for op, v in base_cost(m, shape).items()}
+        out: dict = {}
+        for s0, s1 in bounds:
+            cs = shape[:c] + (s1 - s0,) + shape[c + 1:]
+            for op, v in base_cost(m, cs).items():
+                e = out.setdefault(op, {"count": 0, "bytes": 0})
+                e["count"] += v["count"]
+                e["bytes"] += v["bytes"]
+        return out
 
     if isinstance(method, Pipelined):
         c = _pipeline_chunk_axis(shape, a, b)
         if c is None:
-            return base_cost(method.base)
-        return chunked_cost(method.base,
-                            len(_chunk_bounds(shape[c], method.chunks)))
+            return base_cost(method.base, shape)
+        return chunked_cost(method.base, c,
+                            _chunk_bounds(shape[c], method.chunks))
     if chunk is not None and len(chunk[1]) > 1:
-        return chunked_cost(method, len(chunk[1]))
-    return base_cost(method)
+        return chunked_cost(method, chunk[0], tuple(chunk[1]))
+    return base_cost(method, shape)
 
 
 def resolve_method(pin: Pencil, pout: Pencil,
                    extra_dims: Tuple[int, ...] = (), dtype=None,
                    method: AbstractTransposeMethod = Auto()
                    ) -> AbstractTransposeMethod:
-    """Resolve :class:`Auto` to ``AllToAll()`` or ``Ring()`` for one hop
-    (concrete methods pass through): the ring wins exactly when
-    ``(G-1) * (latency_bytes + tile) < latency_bytes + (P-1) * tile``,
-    with its tile and rounds from :func:`transpose_cost`.  A local
-    permute, a size-1 axis or a ring of one participant resolve to
-    ``AllToAll()``."""
+    """Resolve :class:`Auto` to ``AllToAll()`` or ``Ring()`` for one hop,
+    carrying Auto's wire (concrete methods pass through): the ring wins
+    exactly when ``(G-1) * (latency_bytes + tile) < latency_bytes +
+    (P-1) * tile``, with its tile and rounds from :func:`transpose_cost`.
+    A local permute, a size-1 axis or a ring of one participant resolve
+    to ``AllToAll()``."""
     if not isinstance(method, Auto):
         return method
     R = assert_compatible(pin, pout)
+    wire = method.wire_dtype
     if R is None or pin.topology.dims[R] == 1:
-        return AllToAll()
+        return AllToAll(wire_dtype=wire)
     P = pin.topology.dims[R]
-    ring = transpose_cost(pin, pout, tuple(extra_dims), dtype, Ring())
+    ring = transpose_cost(pin, pout, tuple(extra_dims), dtype,
+                          Ring(wire_dtype=wire))
     if not ring:
-        return AllToAll()
+        return AllToAll(wire_dtype=wire)
     rc = ring["collective-permute"]
     tile = rc["bytes"] // rc["count"]
     L = method.latency_bytes
     if rc["count"] * (L + tile) < L + (P - 1) * tile:
-        return Ring()
-    return AllToAll()
+        return Ring(wire_dtype=wire)
+    return AllToAll(wire_dtype=wire)
 
 
 def _transpose_local(data: torch.Tensor, pin: Pencil, pout: Pencil,
@@ -388,11 +496,19 @@ def _transpose_local(data: torch.Tensor, pin: Pencil, pout: Pencil,
     return k1.permute(data, axes)
 
 
+def _take(x):
+    """The tensor of ``x``, taking it out of a one-element list: a caller
+    that passes ``[tensor]`` and keeps no other reference lets the hop
+    free its input once the input is packed."""
+    return x.pop() if isinstance(x, list) else x
+
+
 class _Exchange:
     """One exchange hop ``pin -> pout`` on topology axis ``R`` by an
-    explicit method (``AllToAll`` or ``Ring``), in the pieces a chunked
-    or fused hop is built from: :meth:`pack` (K1), :meth:`start` (the
-    exchange, issued asynchronously), :meth:`finish` (its wait) and
+    explicit method (``AllToAll`` or ``Ring``, with its wire), in the
+    pieces a chunked or fused hop is built from: :meth:`pack` (K1),
+    :meth:`start` (the wire pack and the exchange, issued
+    asynchronously), :meth:`finish` (its wait and the wire unpack) and
     :meth:`unpack` (K1).  Every piece takes any chunk of the block along
     a dim other than ``a`` and ``b``."""
 
@@ -404,15 +520,16 @@ class _Exchange:
         topo = pin.topology
         self.pin, self.pout, self.R, self.method = pin, pout, R, method
         self.topo, self.P = topo, topo.dims[R]
-        a, b = pin.decomposition[R], pout.decomposition[R]
-        self.n_a = pin.size_global()[a]
+        self.a, self.b = pin.decomposition[R], pout.decomposition[R]
+        self.n_a = pin.size_global()[self.a]
         self.fwd_in = _fwd_axes(pin, extra_ndims)
         self.fwd_out = _fwd_axes(pout, extra_ndims)  # tile dim k = logical
         in_to_logical = _inv_axes(pin, extra_ndims)
         self.pack_axes = tuple(in_to_logical[d] for d in self.fwd_out)
-        self.tile_b = self.fwd_out.index(b)
-        self.tile_a = self.fwd_out.index(a)
+        self.tile_b = self.fwd_out.index(self.b)
+        self.tile_a = self.fwd_out.index(self.a)
         self.ident = tuple(range(len(self.fwd_out)))
+        self.wire = method.wire_dtype
         if self.P != 1 and not topo.connected:
             raise RuntimeError("transpose across ranks needs "
                                "torch.distributed")
@@ -422,66 +539,100 @@ class _Exchange:
     def pack(self, x: torch.Tensor) -> torch.Tensor:
         return k1.pack(x, self.pack_axes, self.tile_b, self.P)
 
-    def start(self, tiles: torch.Tensor):
-        """Issue the exchange of ``tiles`` (``(P, tile...)``, contiguous);
-        returns a handle that holds both buffers until :meth:`finish`."""
+    def _tile_axis(self, tiles: torch.Tensor) -> Tuple[int, int]:
+        """``(position in tiles, extent)`` of JAX's fp8 tile axis: the
+        largest free axis of the logical operand this chunk of tiles
+        holds (dim ``b`` at its padded extent ``P * tile``)."""
+        logical = [tiles.shape[1 + self.fwd_out.index(d)]
+                   for d in range(len(self.fwd_out))]
+        logical[self.b] *= self.P
+        t = _wire.fp8_tile_axis(logical, self.a, self.b)
+        return 1 + self.fwd_out.index(t), logical[t]
+
+    def start(self, tiles) -> dict:
+        """Wire-pack and issue the exchange of ``tiles`` (``(P, tile...)``,
+        contiguous; passed as ``[tiles]``, the full-precision tiles are
+        freed once wire-packed); the handle holds every buffer until
+        :meth:`finish`."""
+        tiles = _take(tiles)
+        h = {"shape": tuple(tiles.shape), "dtype": tiles.dtype,
+             "axis": None}
+        send = tiles
+        if self.wire is not None:
+            if self.wire in _wire.FP8_WIRE_DTYPES:
+                h["axis"] = self._tile_axis(tiles)
+            send = _wire.pack_axis(tiles, self.wire,
+                                   h["axis"] and h["axis"][0])
+            del tiles
+        h["send"], h["works"] = send, []
         if not self.topo.connected:
-            return tiles, [], tiles
+            h["recv"] = send
+            return h
         group = self.topo.subcomm(self.R)
         if self.ring is None:
-            src = tiles.reshape(-1).view(torch.uint8)
+            src = send.reshape(-1).view(torch.uint8)
             dst = torch.empty_like(src)
-            work = dist.all_to_all_single(dst, src, group=group,
-                                          async_op=True)
+            h["works"] = [dist.all_to_all_single(dst, src, group=group,
+                                                 async_op=True)]
             exchange_calls["all-to-all"] += 1
-            return dst.view(tiles.dtype).reshape(tiles.shape), [work], tiles
+            exchange_bytes["all-to-all"] += src.numel()
+            h["recv"] = dst.view(send.dtype).reshape(send.shape)
+            return h
         G, S_b = self.ring
         me = self.topo.coords_local[self.R]
         if me >= G:
-            return None, [], tiles   # holds only padding: no round
+            h["recv"] = None   # holds only padding: no round
+            return h
         if G <= 1:
-            return tiles, [], tiles
-        recv = torch.empty_like(tiles)
-        recv[me].copy_(tiles[me])
+            h["recv"] = send
+            return h
+        recv = torch.empty_like(send)
+        recv[me].copy_(send[me])
         coords = list(self.topo.coords_local)
 
         def peer(i):
             coords[self.R] = i
             return self.topo.global_rank(self.topo.rank(coords))
 
-        works = []
         for r in range(1, G):
             to, frm = (me + r) % G, (me - r) % G
-            ops = [dist.P2POp(dist.isend, tiles[to].reshape(-1).view(
-                       torch.uint8), peer(to), group),
+            out_t = send[to].reshape(-1).view(torch.uint8)
+            ops = [dist.P2POp(dist.isend, out_t, peer(to), group),
                    dist.P2POp(dist.irecv, recv[frm].reshape(-1).view(
                        torch.uint8), peer(frm), group)]
-            works += dist.batch_isend_irecv(ops)
+            h["works"] += dist.batch_isend_irecv(ops)
             exchange_calls["collective-permute"] += 1
-        return recv, works, tiles
+            exchange_bytes["collective-permute"] += out_t.numel()
+        h["recv"] = recv
+        return h
 
-    def finish(self, handle) -> Optional[torch.Tensor]:
-        """Wait for an exchange; the received tiles, or ``None`` where
-        this rank's output block holds only padding (a ring destination
-        past ``S_b``)."""
-        recv, works, _ = handle
-        for w in works:
+    def finish(self, h: dict) -> Optional[torch.Tensor]:
+        """Wait for an exchange and release its send buffer; the received
+        tiles at full precision, or ``None`` where this rank's output
+        block holds only padding (a ring destination past ``S_b``)."""
+        for w in h.pop("works"):
             w.wait()
+        del h["send"]
+        recv = h.pop("recv")
         if self.ring is not None and \
                 self.topo.coords_local[self.R] >= self.ring[1]:
             return None
-        return recv
+        if self.wire is None:
+            return recv
+        axis = h["axis"]
+        return _wire.unpack_axis(recv, h["dtype"], self.wire,
+                                 axis and axis[0], axis and axis[1])
 
-    def unpack(self, recv: Optional[torch.Tensor],
-               out: Optional[torch.Tensor] = None,
-               like: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def unpack(self, recv: Optional[torch.Tensor], h: dict,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Received tiles -> the output block (or ``out``, a view of it);
         zeros where ``recv`` is ``None``."""
         if recv is None:
             if out is None:
-                shape = list(like.shape[1:])
+                shape = list(h["shape"][1:])
                 shape[self.tile_a] = self.n_a
-                return like.new_zeros(shape)
+                return torch.zeros(shape, dtype=h["dtype"],
+                                   device=self.topo.device)
             return out.zero_()
         return k1.unpack(recv, self.ident, self.tile_a, self.n_a, out=out)
 
@@ -489,25 +640,25 @@ class _Exchange:
 def _run_pipeline(n: int, produce, exchange: _Exchange, consume) -> None:
     """Software pipeline over ``n`` chunks: ``produce(k)`` gives chunk
     ``k``'s packed tiles, whose exchange is issued at once; chunk ``k``'s
-    ``consume(k, tiles, received)`` runs after chunk ``k + 1``'s exchange
-    was issued, so on the card NCCL moves ``k + 1`` while the compute
-    stream works on ``k``.  Every rank issues the exchanges in chunk
-    order; each handle keeps its buffers alive until its wait."""
+    ``consume(k, handle, received)`` runs after chunk ``k + 1``'s
+    exchange was issued, so on the card NCCL moves ``k + 1`` while the
+    compute stream works on ``k``.  Every rank issues the exchanges in
+    chunk order; each handle keeps its buffers alive until its wait."""
     pending = None
     for k in range(n):
-        tiles = produce(k)
-        handle = exchange.start(tiles)
+        handle = exchange.start([produce(k)])
         if pending is not None:
-            consume(pending[0], pending[1], exchange.finish(pending[2]))
-        pending = (k, tiles, handle)
+            consume(pending[0], pending[1], exchange.finish(pending[1]))
+        pending = (k, handle)
     if pending is not None:
-        consume(pending[0], pending[1], exchange.finish(pending[2]))
+        consume(pending[0], pending[1], exchange.finish(pending[1]))
 
 
-def _exchange_transpose(data: torch.Tensor, pin: Pencil, pout: Pencil,
-                        R: int, extra_ndims: int,
+def _exchange_transpose(data, pin: Pencil, pout: Pencil, R: int,
+                        extra_ndims: int,
                         method: AbstractTransposeMethod) -> torch.Tensor:
     base = method.base if isinstance(method, Pipelined) else method
+    data = _take(data)
     ex = _Exchange(pin, pout, extra_ndims, base)
     bounds, c = None, None
     if isinstance(method, Pipelined):
@@ -518,8 +669,12 @@ def _exchange_transpose(data: torch.Tensor, pin: Pencil, pout: Pencil,
         if c is not None:
             bounds = _chunk_bounds(shape[c], method.chunks)
     if bounds is None or len(bounds) == 1:
-        tiles = ex.pack(data)
-        return ex.unpack(ex.finish(ex.start(tiles)), like=tiles)
+        # the input goes before the exchange allocates its receive
+        # buffer, so the input, the tiles and that buffer never coexist
+        tiles = [ex.pack(data)]
+        del data
+        h = ex.start(tiles)
+        return ex.unpack(ex.finish(h), h)
     mi, mo = ex.fwd_in.index(c), ex.fwd_out.index(c)
     out = data.new_empty(pout.padded_size_local(MemoryOrder)
                          + tuple(data.shape[pin.ndims:]))
@@ -528,19 +683,150 @@ def _exchange_transpose(data: torch.Tensor, pin: Pencil, pout: Pencil,
         s0, s1 = bounds[k]
         return ex.pack(data.narrow(mi, s0, s1 - s0))
 
-    def consume(k, tiles, recv):
+    def consume(k, h, recv):
         s0, s1 = bounds[k]
-        ex.unpack(recv, out=out.narrow(mo, s0, s1 - s0))
+        ex.unpack(recv, h, out=out.narrow(mo, s0, s1 - s0))
 
     _run_pipeline(len(bounds), produce, ex, consume)
     return out
 
 
-def _hop(data: torch.Tensor, pin: Pencil, pout: Pencil, extra_ndims: int,
+# -- the unrestricted exchange (Gspmd) --------------------------------------
+
+
+def _blocks(pen: Pencil):
+    """Every rank's true (unpadded) logical block ranges, rank order."""
+    topo = pen.topology
+    return [pen.range_local(topo.coords(r)) for r in range(len(topo))]
+
+
+def _intersect(r1, r2) -> Optional[Tuple[range, ...]]:
+    out = []
+    for x, y in zip(r1, r2):
+        lo, hi = max(x.start, y.start), min(x.stop, y.stop)
+        if hi <= lo:
+            return None
+        out.append(range(lo, hi))
+    return tuple(out)
+
+
+def _gspmd_plan(pin: Pencil, pout: Pencil):
+    """``cross[r][s]``: the logical ranges rank ``r`` sends rank ``s``
+    (``None`` where the blocks do not meet)."""
+    src, dst = _blocks(pin), _blocks(pout)
+    return [[_intersect(a, b) for b in dst] for a in src]
+
+
+def _numel(ranges) -> int:
+    return 0 if ranges is None else math.prod(len(r) for r in ranges)
+
+
+def gspmd_reshard_cost(pin: Pencil, pout: Pencil,
+                       extra_dims: Tuple[int, ...] = (), dtype=None) -> dict:
+    """Per-rank collective cost of the :class:`Gspmd` exchange
+    ``pin -> pout`` (any number of differing slots), in the
+    :func:`transpose_cost` schema: one ``all-to-all`` carrying the
+    largest send buffer of any rank, so that every rank prices it alike
+    (the JAX package measures its partitioner's HLO instead).  ``{}``
+    where no element changes ranks."""
+    if pin.topology != pout.topology:
+        raise ValueError("gspmd_reshard_cost: pencil topologies differ")
+    if pin.size_global() != pout.size_global():
+        raise ValueError("gspmd_reshard_cost: global shapes differ")
+    cross = _gspmd_plan(pin, pout)
+    if all(_numel(row[s]) == 0 for r, row in enumerate(cross)
+           for s in range(len(row)) if s != r):
+        return {}
+    per_elem = math.prod(int(e) for e in extra_dims) * _itemsize(dtype)
+    nbytes = max(sum(_numel(x) for x in row) for row in cross) * per_elem
+    return {"all-to-all": {"count": 1, "bytes": nbytes}}
+
+
+def _gspmd_exchange(data, pin: Pencil, pout: Pencil,
+                    extra_ndims: int) -> torch.Tensor:
+    """The :class:`Gspmd` exchange on this rank: K1 packs each destination's
+    piece of the block, in the destination's memory order, into one send
+    buffer; one ``all_to_all_single`` with per-peer split sizes moves the
+    bytes; K1 writes each received piece into its place in the output,
+    whose padding is zero."""
+    data = _take(data)
+    topo = pin.topology
+    fwd_out = _fwd_axes(pout, extra_ndims)
+    in_to_logical = _inv_axes(pin, extra_ndims)
+    axes = tuple(in_to_logical[i] for i in fwd_out)
+    extra = tuple(data.shape[pin.ndims:])
+    if len(topo) == 1:
+        return k1.permute(data, axes)
+    cross = _gspmd_plan(pin, pout)
+    me = topo.rank_local
+    my_in = pin.range_local()
+    my_out = pout.range_local()
+
+    def mem_view(t, pen, ranges, origin):
+        # the logical ranges of a block, as a view of its memory order
+        perm = _fwd_axes(pen, extra_ndims)
+        for m, d in enumerate(perm[:pen.ndims]):
+            t = t.narrow(m, ranges[d].start - origin[d].start,
+                         len(ranges[d]))
+        return t
+
+    def out_shape(ranges):
+        logical = tuple(len(r) for r in ranges) + extra
+        return tuple(logical[d] for d in fwd_out)
+
+    out = data.new_zeros(pout.padded_size_local(MemoryOrder) + extra)
+    local_only = all(_numel(row[s]) == 0 for r, row in enumerate(cross)
+                     for s in range(len(row)) if s != r)
+    if local_only or not topo.connected:
+        piece = cross[me][me]
+        if piece is not None:
+            k1.permute(mem_view(data, pin, piece, my_in), axes,
+                       out=mem_view(out, pout, piece, my_out))
+        return out
+    sizes_out = [_numel(cross[me][s]) for s in range(len(topo))]
+    sizes_in = [_numel(cross[r][me]) for r in range(len(topo))]
+    esize = math.prod(extra) * data.element_size()
+    send = torch.empty(sum(sizes_out) * math.prod(extra), dtype=data.dtype,
+                       device=data.device)
+    off = 0
+    for s, piece in enumerate(cross[me]):
+        if piece is None:
+            continue
+        n = _numel(piece) * math.prod(extra)
+        k1.permute(mem_view(data, pin, piece, my_in), axes,
+                   out=send[off:off + n].view(out_shape(piece)))
+        off += n
+    del data
+    recv = torch.empty(sum(sizes_in) * math.prod(extra), dtype=send.dtype,
+                       device=send.device)
+    src8, dst8 = send.view(torch.uint8), recv.view(torch.uint8)
+    dist.all_to_all_single(dst8, src8,
+                           output_split_sizes=[n * esize for n in sizes_in],
+                           input_split_sizes=[n * esize for n in sizes_out],
+                           group=topo.group)
+    exchange_calls["all-to-all"] += 1
+    exchange_bytes["all-to-all"] += src8.numel()
+    del send, src8
+    ident = tuple(range(out.dim()))
+    off = 0
+    for r in range(len(topo)):
+        piece = cross[r][me]
+        if piece is None:
+            continue
+        n = _numel(piece) * math.prod(extra)
+        k1.permute(recv[off:off + n].view(out_shape(piece)), ident,
+                   out=mem_view(out, pout, piece, my_out))
+        off += n
+    return out
+
+
+def _hop(data, pin: Pencil, pout: Pencil, extra_ndims: int,
          method: AbstractTransposeMethod) -> torch.Tensor:
+    if isinstance(method, Gspmd):
+        return _gspmd_exchange(data, pin, pout, extra_ndims)
     R = assert_compatible(pin, pout)
     if R is None:
-        return _transpose_local(data, pin, pout, extra_ndims)
+        return _transpose_local(_take(data), pin, pout, extra_ndims)
     return _exchange_transpose(data, pin, pout, R, extra_ndims, method)
 
 
@@ -559,24 +845,106 @@ class _Hop(torch.autograd.Function):
         return _hop(grad.contiguous(), *ctx.hop), None, None, None, None
 
 
+def _no_wired_grad(method) -> None:
+    if _method_wire(method) is not None:
+        raise RuntimeError(
+            f"a hop by {_method_label(method)} has no gradient: the wire "
+            f"moves integer bit patterns, and the JAX package's gradient "
+            f"through them is zero; differentiate a full-precision hop")
+
+
+def _dispatch(data: torch.Tensor, pin: Pencil, pout: Pencil, nx: int,
+              method: AbstractTransposeMethod) -> torch.Tensor:
+    if data.requires_grad and torch.is_grad_enabled():
+        _no_wired_grad(method)
+        return _Hop.apply(data, pin, pout, nx, method)
+    return _hop(data, pin, pout, nx, method)
+
+
 def transpose(src: PencilArray, dest: Pencil, *,
               method: AbstractTransposeMethod = AllToAll()) -> PencilArray:
     """Redistribute ``src`` into the ``dest`` pencil configuration
     (reference ``transpose!``, ``Transpositions.jl:161-180``).  Every rank
     of the topology calls it; returns a new array.  ``method`` is
-    ``AllToAll()``, ``Ring()``, ``Pipelined(...)`` or ``Auto()``; all move
-    the same bits.  Differentiable: the gradient runs the inverse hop
-    (every rank must then call backward)."""
+    ``AllToAll()``, ``Ring()``, ``Pipelined(...)``, ``Auto()`` or
+    ``Gspmd()``; all move the same bits, and a wired method moves them
+    through its wire format.  Differentiable without a wire: the gradient
+    runs the inverse hop (every rank must then call backward)."""
     pin = src.pencil
-    nx = src.ndims_extra
+    if isinstance(method, Gspmd):
+        if pin.topology != dest.topology:
+            raise ValueError("transpose: pencil topologies differ")
+        if pin.size_global() != dest.size_global():
+            raise ValueError("transpose: global shapes differ")
+    else:
+        assert_compatible(pin, dest)
     if isinstance(method, Auto):
         method = resolve_method(pin, dest, src.extra_dims, src.dtype, method)
-    if not isinstance(method, (AllToAll, Ring, Pipelined)):
+    if not isinstance(method, (AllToAll, Ring, Pipelined, Gspmd)):
         raise TypeError(f"unknown transpose method {method!r}")
-    if src.data.requires_grad and torch.is_grad_enabled():
-        out = _Hop.apply(src.data, pin, dest, nx, method)
+    out = _dispatch(src.data, pin, dest, src.ndims_extra, method)
+    return PencilArray(dest, out, src.extra_dims)
+
+
+def reshard(src: PencilArray, dest: Pencil, *,
+            method: AbstractTransposeMethod = Auto(),
+            donate: bool = False,
+            hbm_limit: Optional[int] = None) -> PencilArray:
+    """Redistribute between *any* two pencils sharing a topology and
+    global shape (the JAX package's unrestricted ``reshard``).
+
+    By default the route planner (``parallel/routing.py``) searches for a
+    chain of single-slot hops its cost model prices below the one
+    :class:`Gspmd` exchange and runs it hop by hop, freeing each
+    intermediate as the next hop packs it; else the Gspmd exchange runs.
+    ``method=Gspmd()`` forces that exchange; an explicit exchange method
+    (``AllToAll()``, ``Ring()``, ``Pipelined(...)``, wired or not)
+    forces the routed path with that method on every hop.  Every path
+    moves the same bits (through the wire format where one is asked for).
+
+    ``donate=True`` gives up ``src``'s storage (``src.is_deleted()``
+    afterwards), which the planner counts when it bounds the peak.
+    ``hbm_limit`` bounds every hop's per-rank peak: over-budget hops are
+    time-sliced into ``Pipelined`` chunks, and where no admissible route
+    exists :class:`~pencilarrays_tpu_torch.analysis.errors.HbmBoundError`
+    is raised instead of running the unbounded Gspmd exchange."""
+    from .routing import execute_route, plan_reshard_route
+
+    pin = src.pencil
+    if pin.topology != dest.topology:
+        raise ValueError("reshard: pencil topologies differ")
+    if pin.size_global() != dest.size_global():
+        raise ValueError("reshard: global shapes differ")
+    if hbm_limit is not None and isinstance(method, Gspmd):
+        raise ValueError(
+            "reshard(hbm_limit=) cannot bound method=Gspmd(): its peak is "
+            "not modeled; use Auto() or an explicit exchange method")
+    if pin == dest:
+        return src
+    if not isinstance(method, Gspmd):
+        route = plan_reshard_route(pin, dest, src.extra_dims, src.dtype,
+                                   method=method, hbm_limit=hbm_limit,
+                                   donate=donate)
+        if route.use_route:
+            return execute_route(src, route, donate=donate)
+        if hbm_limit is not None:
+            from ..analysis.errors import HbmBoundError
+
+            unbounded = plan_reshard_route(pin, dest, src.extra_dims,
+                                           src.dtype, method=method,
+                                           donate=donate)
+            raise HbmBoundError(
+                "reshard", f"{pin.decomposition}->{dest.decomposition}",
+                unbounded.peak_hbm_bytes or 0, int(hbm_limit))
+    nx = src.ndims_extra
+    if donate and not (src.data.requires_grad and torch.is_grad_enabled()):
+        held = [src.data]
+        src._donate()
+        out = _hop(held, pin, dest, nx, Gspmd())
     else:
-        out = _hop(src.data, pin, dest, nx, method)
+        out = _dispatch(src.data, pin, dest, nx, Gspmd())
+        if donate:
+            src._donate()
     return PencilArray(dest, out, src.extra_dims)
 
 

@@ -281,22 +281,170 @@ def test_pipeline_auto_and_validation(monkeypatch):
 
 def test_fft_unported_options_raise():
     """What is still to port raises, naming ROADMAP; what this port now
-    has constructs."""
+    has constructs (``decomposition=``, ``wire_dtype=``, ``hbm_limit=``
+    joined the constructing options)."""
     import pencilarrays_tpu_torch as pat
 
     topo = pat.Topology(DIMS, device="cpu")
-    for kw in (dict(decomposition="auto"), dict(wire_dtype="bf16"),
-               dict(hbm_limit=1 << 20)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pat.PencilFFTPlan(topo, (8, 8, 8), **kw)
-    for make in (lambda: pat.PencilFFTPlan(topo, (8, 8, 8)).compile(),
-                 lambda: pat.Auto(mode="measure"), pat.Gspmd):
+    plan = pat.PencilFFTPlan(topo, (8, 8, 8))
+    for make in (plan.compile, plan.forward_async, plan.backward_async,
+                 lambda: pat.Auto(mode="measure")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make()
     for kw in (dict(pipeline=2), dict(pipeline="auto"),
                dict(transform="dct"), dict(transform="dst"),
                dict(method=pat.Ring()), dict(method=pat.Pipelined(3)),
-               dict(method=pat.Auto())):
+               dict(method=pat.Auto()), dict(decomposition="auto"),
+               dict(wire_dtype="bf16"), dict(hbm_limit=1 << 20)):
         plan = pat.PencilFFTPlan(topo, (8, 8, 8),
                                  **dict(kw, dtype="float64"))
         assert plan.collective_costs()
+
+
+# -- wire, decomposition and hbm_limit (tests/test_wire.py,
+# tests/test_fft.py, tests/test_reshard_hbm.py) ---------------------------
+
+# (id, plan kwargs for both packages, the port's method, JAX's method)
+PLAN_OPTION_CASES = [
+    ("bf16", dict(real=True, wire_dtype="bf16"), None, None),
+    ("fp8-e4m3", dict(real=True, wire_dtype="fp8_e4m3"), None, None),
+    ("fp8-e5m2-pipe2", dict(real=True, wire_dtype="fp8_e5m2",
+                            pipeline=2), None, None),
+    ("f16-ring", dict(real=True), "ring-f16", "ring-f16"),
+    ("auto-batch3", dict(real=True, decomposition="auto", batch=3),
+     None, None),
+    ("slab-bf16", dict(real=True, decomposition="slab", wire_dtype="bf16"),
+     None, None),
+    ("hbm", dict(real=True, hbm_limit="tight"), None, None),
+    ("hbm-pipe2", dict(real=True, pipeline=2, hbm_limit="tight"),
+     None, None),
+]
+
+
+def _option_kwargs(mod, kw, method, shape, topo):
+    kw = dict(kw)
+    if method == "ring-f16":
+        kw["method"] = mod.Ring(wire_dtype="f16")
+    if kw.get("hbm_limit") == "tight":
+        # one byte under the largest modeled hop of the unbounded plan
+        from pencilarrays_tpu.analysis import spmd
+
+        base = {k: v for k, v in kw.items() if k != "hbm_limit"}
+        kw["hbm_limit"] = spmd.predicted_peak_hbm(
+            JaxPlan(topo, shape, **base))[0] - 1
+    return kw
+
+
+def _jax_forward(plan, u):
+    return jpa.gather(plan.forward(jpa.PencilArray.from_global(
+        plan.input_pencil, u)))
+
+
+def _wire_close(got, want, wire, unwired):
+    """A wired spectrum against the JAX package's: the two differ only
+    where the FFT libraries' last-bit roundings put a value on the other
+    side of a wire rounding step, so their distance is held to an eighth
+    of the wire's unit roundoff ``u`` (relative, in norm).  The wire's own
+    error is about ``u * sqrt(hops / 3)``: the same plan without the wire
+    (``unwired``) must fail the bound, as zeros do."""
+    from pencilarrays_tpu_torch.parallel import wire as pwire
+
+    bound = torch.finfo(pwire._torch_wire(wire)).eps / 2 / 8
+    norm = np.linalg.norm(want)
+    assert np.linalg.norm(got - want) <= bound * norm
+    assert np.linalg.norm(unwired - want) > bound * norm
+
+
+@pytest.mark.parametrize("case", PLAN_OPTION_CASES,
+                         ids=[c[0] for c in PLAN_OPTION_CASES])
+def test_plan_options_match_jax(devices, pool, case):
+    """The port's plan is the JAX plan: the same ``plan_key`` (schedule,
+    hop methods, chunking, decomposition verdict with every candidate's
+    score, predicted costs, wire), the same spectrum within the FFT
+    tolerance on a full-precision wire and within :func:`_wire_close`
+    otherwise; ``hbm_limit`` plans give the unbounded plan's bits, and
+    ``with_wire_dtype`` variants differ from it by the key alone."""
+    import pencilarrays_tpu_torch as pat
+
+    cid, kw, pmeth, jmeth = case
+    shape = (16, 12, 10)
+    topo = jpa.Topology(DIMS, devices=devices[:4])
+    jkw = _option_kwargs(jpa, kw, jmeth, shape, topo)
+    pkw = _option_kwargs(pat, kw, pmeth, shape, topo)
+    jplan = JaxPlan(topo, shape, **jkw)
+    extra = jplan.batch_dims
+    u = _input(shape, True, np.float32, extra)
+    want = jpa.gather(jplan.forward(jpa.PencilArray.from_global(
+        jplan.input_pencil, u)))
+    variants = ("bf16",) if cid in ("auto-batch3", "hbm") else ()
+    got = pool.run(tasks.fft_wire_case, DIMS, shape, pkw, u, variants)[0]
+    assert got["key"] == jplan.plan_key()
+    assert got["costs"] == jplan.collective_costs()
+    assert got["topo"] == jplan.topology.dims
+    if jplan.decomposition_verdict is not None:
+        assert got["verdict"] == jplan.decomposition_verdict
+    scale = np.max(np.abs(want))
+    wire = jplan.wire_dtype
+    if wire is None:
+        err = np.max(np.abs(got["spectrum"] - want))
+        assert err <= TOL["float32"] * scale
+    else:
+        _wire_close(got["spectrum"], want, wire,
+                    unwired=_jax_forward(jplan.with_wire_dtype(None), u))
+    back_err = np.max(np.abs(got["back"] - u))
+    if wire is None:
+        assert back_err <= TOL["float32"] * np.max(np.abs(u))
+    elif wire in ("bf16", "f16"):
+        # test_wire.py:242: 4 packed exchanges, a few wire eps
+        eps = {"bf16": 2.0 ** -8, "f16": 2.0 ** -11}[wire]
+        assert 0 < back_err <= 8 * eps * np.max(np.abs(u))
+    else:
+        rel = np.linalg.norm(got["back"] - u) / np.linalg.norm(u)
+        assert 0 < rel <= 0.08
+    if "hbm_limit" in jkw:
+        assert got["methods"] or any(s[0] == "ft" for s in got["schedule"])
+        unbounded = pool.run(tasks.fft_wire_case, DIMS, shape,
+                             {k: v for k, v in pkw.items()
+                              if k != "hbm_limit"}, u)[0]
+        np.testing.assert_array_equal(got["spectrum"], unbounded["spectrum"])
+        assert got["key"] != unbounded["key"]
+    for w, (spec, key) in got["variants"].items():
+        jv = jplan.with_wire_dtype(w)
+        assert key == jv.plan_key() != got["key"]
+        _wire_close(spec, _jax_forward(jv, u), w, unwired=want)
+
+
+def test_decomposition_and_hbm_errors_match_jax(devices):
+    """Invalid ``decomposition=`` and ``hbm_limit=`` raise as in the JAX
+    package; an impossible limit is a typed ``HbmBoundError`` naming the
+    hop; a Gspmd method cannot carry a wire."""
+    import pencilarrays_tpu_torch as pat
+    from pencilarrays_tpu.analysis.errors import HbmBoundError as JErr
+    from pencilarrays_tpu_torch.analysis import HbmBoundError
+
+    topo = jpa.Topology(DIMS, devices=devices[:4])
+    ptopo = pat.Topology(DIMS, device="cpu")
+    for bad, exc in ((dict(decomposition="cube"), ValueError),
+                     (dict(hbm_limit=0), ValueError),
+                     (dict(hbm_limit=64), (JErr, HbmBoundError))):
+        with pytest.raises(exc) as jerr:
+            JaxPlan(topo, (16, 12, 8), real=True, **bad)
+        with pytest.raises(exc) as err:
+            pat.PencilFFTPlan(ptopo, (16, 12, 8), real=True, **bad)
+        if bad.get("hbm_limit") == 64:
+            assert isinstance(err.value, HbmBoundError)
+            assert str(err.value) == str(jerr.value)
+    with pytest.raises(ValueError, match="decomposition"):
+        pat.PencilFFTPlan(pat.Topology((1,), device="cpu"), (8,),
+                          decomposition="pencil")
+    # the plan's wire and its method's agree, whichever spells it
+    a = pat.PencilFFTPlan(ptopo, (16, 12, 10), real=True, wire_dtype="bf16")
+    b = pat.PencilFFTPlan(ptopo, (16, 12, 10), real=True,
+                          method=pat.AllToAll(wire_dtype="bfloat16"))
+    assert a.plan_key() == b.plan_key() and b.wire_dtype == "bf16"
+    assert a.with_wire_dtype(None).plan_key() == pat.PencilFFTPlan(
+        ptopo, (16, 12, 10), real=True).plan_key()
+    assert a.with_wire_dtype("bf16") is a
+    with pytest.raises(ValueError, match="already carries"):
+        pat.PencilFFTPlan(ptopo, (16, 12, 10), real=True, wire_dtype="f16",
+                          method=pat.Ring(wire_dtype="bf16"))

@@ -8,6 +8,7 @@ BIT for bit on the same mesh, and the gathered array the input, on 1,
 configurations raise.  Cases follow ``tests/test_multiarrays.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -90,8 +91,11 @@ def test_access_donation_and_validation():
     keep = A.current
     A.transpose_to(2, donate=False)
     assert not keep.is_deleted() and A.last.pencil == pens[2]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        A.reshard_to(0)
+    before = A.current
+    assert A.reshard_to(0).pencil == pens[0] and A.index == 0
+    assert before.is_deleted()
+    with pytest.raises(IndexError):
+        A.reshard_to(3)
     with pytest.raises(IndexError):
         A.transpose_to(3)
     with pytest.raises(ValueError):
@@ -102,3 +106,25 @@ def test_access_donation_and_validation():
         B = pat.ManyPencilArray(pens[0], pens[1])
         B.set(pat.PencilArray.zeros(pat.Pencil(topo, SHAPE, (2, 1))))
     assert "ManyPencilArray" in repr(A)
+
+
+@pytest.mark.parametrize("dims", DIMS, ids=["x".join(map(str, d))
+                                            for d in DIMS])
+def test_reshard_to_matches_jax(pool, dims):
+    """``reshard_to`` jumps from the first to the last configuration in
+    one ``reshard`` and lands on the data ``transpose_to`` reaches hop by
+    hop, the JAX package's bits (``tests/test_routing.py``
+    ``test_many_pencil_reshard_to``)."""
+    u = np.random.default_rng(4).standard_normal(SHAPE)
+    got = pool.run(tasks.reshard_to_case, dims, SHAPE, SPECS, u)[0]
+    devs = jax.devices()[:int(np.prod(dims))]
+    topo = jpa.Topology(dims, devices=devs)
+    pens = [jpa.Pencil(topo, SHAPE, d, permutation=None if p is None
+                       else jpa.Permutation(*p)) for d, p in SPECS]
+    A = jpa.ManyPencilArray(*pens, first=jpa.PencilArray.from_global(
+        pens[0], u))
+    A.reshard_to(2, donate=False)
+    want = np.asarray(A.current.data)
+    (i_jump, jump), (i_hop, hop) = got
+    assert i_jump == i_hop == 2
+    assert _bits_equal(jump, want) and _bits_equal(hop, want)

@@ -138,6 +138,9 @@ def test_port_imports_without_jax():
         "import pencilarrays_tpu_torch.models.heat_fd\n"
         "import pencilarrays_tpu_torch.models.ode\n"
         "import pencilarrays_tpu_torch.parallel.multiarrays\n"
+        "import pencilarrays_tpu_torch.parallel.wire\n"
+        "import pencilarrays_tpu_torch.parallel.routing\n"
+        "import pencilarrays_tpu_torch.analysis\n"
         "import pencilarrays_tpu_torch.utils.timers\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n")

@@ -93,3 +93,35 @@ def test_diffusion_exact_propagator(devices, pool):
              + 0.5 * np.exp(-kappa * 9 * t) * np.cos(3 * Z))
     got = pool.run(tasks.diffusion_case, DIMS, n, u0, t, kappa)[0]
     np.testing.assert_allclose(got, exact, atol=1e-12)
+
+
+# (plan options, dtype): the wire on every exchange, and the grid picked
+# by the plan's slab/pencil scorer at the model's 3-component batch
+NS_OPTION_CASES = [(dict(wire_dtype="bf16"), "float32"),
+                   (dict(wire_dtype="fp8_e4m3"), "float64"),
+                   (dict(decomposition="auto"), "float32"),
+                   (dict(decomposition="slab", wire_dtype="f16"),
+                    "float64")]
+
+
+@pytest.mark.parametrize("case", NS_OPTION_CASES,
+                         ids=["-".join(f"{k}={v}" for k, v in c[0].items())
+                              + "-" + c[1] for c in NS_OPTION_CASES])
+def test_navier_stokes_options_match_jax(devices, pool, case):
+    """``NavierStokesSpectral(wire_dtype=, decomposition=)``: the port's
+    grid is JAX's, and two RK2 steps agree within the bars above."""
+    kwargs, dtype = case
+    n, dt, nu = 16, 0.05, 1e-2
+    topo = jpa.Topology(DIMS, devices=devices[:4])
+    model = NavierStokesSpectral(topo, n, viscosity=nu,
+                                 dtype=jnp.dtype(dtype), **kwargs)
+    uh0 = jax_taylor_green(model)
+    step = jax.jit(model.step)
+    rk2 = step(step(uh0, dt), dt)
+    got = pool.run(tasks.spectral_wire_case, DIMS, n, dtype,
+                   jpa.gather(uh0), dt, nu, kwargs)[0]
+    assert got["topo"] == model.plan.topology.dims
+    tol = TOL[dtype]
+    assert _rel(got["rk2"], jpa.gather(rk2)) <= tol
+    np.testing.assert_allclose(got["energy"], float(model.energy(rk2)),
+                               rtol=tol)

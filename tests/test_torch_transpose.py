@@ -19,6 +19,7 @@ import pytest
 
 import pencilarrays_tpu as jpa
 import pencilarrays_tpu_torch as pat
+from pencilarrays_tpu_torch.parallel import transpositions as tr
 import torch_rank_tasks as tasks
 from pencilarrays_tpu_torch.parallel.distributed import RankPool
 
@@ -294,12 +295,14 @@ def test_method_validation():
     with pytest.raises(ValueError, match="mode"):
         pat.Auto(mode="guess")
     assert pat.PointToPoint is pat.Ring
-    for make in (lambda: pat.Auto(mode="measure"), pat.Gspmd,
-                 lambda: pat.Ring(wire_dtype="bf16"),
-                 lambda: pat.Auto(wire_dtype="bf16"),
-                 lambda: pat.reshard(None, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pat.Auto(mode="measure")
+    # wires, Gspmd and reshard are ported: the wire field is canonical
+    assert pat.Ring(wire_dtype="bfloat16").wire_dtype == "bf16"
+    assert pat.Auto(wire_dtype="float16").wire_dtype == "f16"
+    assert pat.Gspmd() == pat.Gspmd()
+    with pytest.raises(ValueError, match="wire_dtype"):
+        pat.AllToAll(wire_dtype="int4")
 
 
 GRAD_HOPS = [
@@ -336,4 +339,97 @@ def test_hop_gradient_by_method_matches_jax(devices, pools, case, method):
     want = np.asarray(jax.jit(jax.grad(loss))(x.data))
     got = pools.get(4).run(tasks.hop_grad_case, dims, shape, extra, specs,
                            np.asarray(x.data), ct, pmethod)[0]
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+WIRES = ("bf16", "f16", "fp8_e4m3", "fp8_e5m2")
+_WIRED_COST_CASES = [c for c in CASES
+                     if c[3] not in (np.int32, BF16) and len(c[1]) > 2]
+
+
+@pytest.mark.parametrize("case", _WIRED_COST_CASES,
+                         ids=[_case_id(c) for c in _WIRED_COST_CASES])
+def test_wired_transpose_cost_matches_jax(devices, case):
+    """``transpose_cost`` at every wire, by every method (fp8 chunks of a
+    ``Pipelined`` hop carry their own scales), and ``Auto``'s verdict
+    with a wire, equal the JAX package's (``tests/test_wire.py``)."""
+    dims, shape, extra, dtype, chain = case
+    topo = jpa.Topology(dims, devices=devices[:int(np.prod(dims))])
+    pens = [_jax_pencil(topo, shape, s) for s in chain]
+    ppens = _port_pencils(dims, shape, chain)
+    for w in WIRES:
+        for jm, pm in ((jpa.AllToAll(wire_dtype=w), pat.AllToAll(wire_dtype=w)),
+                       (jpa.Ring(wire_dtype=w), pat.Ring(wire_dtype=w)),
+                       (jpa.Pipelined(3, jpa.AllToAll(wire_dtype=w)),
+                        pat.Pipelined(3, pat.AllToAll(wire_dtype=w))),
+                       (jpa.Auto(latency_bytes=0, wire_dtype=w),
+                        pat.Auto(latency_bytes=0, wire_dtype=w))):
+            for (a, b), (pa_, pb) in zip(zip(pens, pens[1:]),
+                                         zip(ppens, ppens[1:])):
+                assert pat.transpose_cost(pa_, pb, extra, dtype, pm) == \
+                    jpa.transpose_cost(a, b, extra, dtype, jm)
+                got = pat.resolve_method(pa_, pb, extra, dtype, pm)
+                want = jpa.resolve_method(a, b, extra, dtype, jm)
+                assert (type(got).__name__, tr._method_wire(got)) == (
+                    type(want).__name__,
+                    jpa.parallel.transpositions._method_wire(want))
+    from pencilarrays_tpu.parallel.transpositions import _hop_label
+    assert tr._hop_label(ppens[0], ppens[1], pat.Ring(wire_dtype="f16"),
+                         dtype) == _hop_label(pens[0], pens[1],
+                                              jpa.Ring(wire_dtype="f16"),
+                                              dtype)
+
+
+_GSPMD_CASES = [CASES[i] for i in (1, 4, 6, 11, 13, 19, 20)]
+
+
+@pytest.mark.parametrize("case", _GSPMD_CASES,
+                         ids=[_case_id(c) for c in _GSPMD_CASES])
+def test_gspmd_transpose_bit_identical_to_jax(devices, pools, case):
+    """``transpose(method=Gspmd())``: per-peer block intersections in one
+    call, the JAX package's bits, one exchange call per rank."""
+    dims, shape, extra, dtype, chain = case
+    topo = jpa.Topology(dims, devices=devices[:int(np.prod(dims))])
+    u = _global(shape, extra, dtype)
+    pens = [_jax_pencil(topo, shape, s) for s in chain]
+    x = jpa.PencilArray.from_global(pens[0], u)
+    ref = []
+    for pen in pens[1:]:
+        x = jpa.transpose(x, pen, method=jpa.Gspmd())
+        ref.append(np.asarray(x.data))
+    padded_in = np.asarray(jpa.PencilArray.from_global(pens[0], u).data)
+    out = pools.get(len(topo)).run(tasks.transpose_chain, dims, shape, extra,
+                                   chain, padded_in, False, pat.Gspmd())[0]
+    ppens = _port_pencils(dims, shape, chain)
+    for i, ((got_pad, got_glob, _, calls), want) in enumerate(zip(out,
+                                                                 ref)):
+        np.testing.assert_array_equal(_bits(got_pad), _bits(want))
+        np.testing.assert_array_equal(_bits(got_glob), _bits(u))
+        moves = bool(tr.gspmd_reshard_cost(ppens[i], ppens[i + 1]))
+        assert calls == [{"all-to-all": int(moves),
+                          "collective-permute": 0}] * len(topo)
+
+
+def test_gspmd_hop_gradient_matches_jax(devices, pools):
+    """The backward of a Gspmd hop is the inverse Gspmd hop: jax.grad's
+    gradient bit for bit."""
+    import jax.numpy as jnp
+
+    dims, shape, extra, specs = GRAD_HOPS[1]
+    topo = jpa.Topology(dims, devices=devices[:4])
+    pin, pout = (_jax_pencil(topo, shape, s) for s in specs)
+    rng = np.random.default_rng(9)
+    x = jpa.PencilArray.from_global(
+        pin, rng.standard_normal(shape + extra).astype(np.float32))
+    ct = np.asarray(jpa.PencilArray.from_global(
+        pout, rng.standard_normal(shape + extra).astype(np.float32)).data)
+
+    def loss(data):
+        y = jpa.transpose(jpa.PencilArray(pin, data, extra), pout,
+                          method=jpa.Gspmd())
+        return jnp.sum(y.data * ct)
+
+    want = np.asarray(jax.jit(jax.grad(loss))(x.data))
+    got = pools.get(4).run(tasks.hop_grad_case, dims, shape, extra, specs,
+                           np.asarray(x.data), ct, pat.Gspmd())[0]
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -679,3 +679,155 @@ def multiarrays_case(dims, shape, specs, u):
     return _rank0(dict(seen=seen, back=back, x0_deleted=x0.is_deleted(),
                        kept_deleted=kept.is_deleted(),
                        first_ok=A.index == 1))
+
+
+# -- wire formats, Gspmd and the reshard route planner ---------------------
+
+
+def _exchange_counts():
+    from pencilarrays_tpu_torch.parallel import transpositions as tr
+
+    return dict(tr.exchange_calls), dict(tr.exchange_bytes)
+
+
+def _reset_exchange_counts():
+    from pencilarrays_tpu_torch.parallel import transpositions as tr
+
+    for table in (tr.exchange_calls, tr.exchange_bytes):
+        for op in table:
+            table[op] = 0
+
+
+def wired_chain_case(dims, shape, specs, u, method):
+    """Hop the global field ``u`` through ``specs`` by ``method`` (wired):
+    for every pencil after the first, the padded global array, the
+    gathered array, and every rank's exchange calls and bytes."""
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pens = [_sub_pencil(topo, shape, d, p) for d, p in specs]
+    x = pat.PencilArray.from_global(pens[0], u)
+    out = []
+    for pen in pens[1:]:
+        _reset_exchange_counts()
+        x = pat.transpose(x, pen, method=method)
+        everyone = [None] * len(topo)
+        torch.distributed.all_gather_object(everyone, _exchange_counts(),
+                                            group=topo.group)
+        out.append((to_numpy_padded(x), pat.gather(x), everyone))
+    return _rank0(out)
+
+
+def wired_grad_case(dims, shape, specs, u, method):
+    """The error a gradient through a wired hop raises."""
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pin, pout = (_sub_pencil(topo, shape, d, p) for d, p in specs)
+    x = pat.PencilArray.from_global(pin, u)
+    leaf = pat.PencilArray(pin, x.data.clone().requires_grad_())
+    try:
+        pat.transpose(leaf, pout, method=method)
+    except RuntimeError as e:
+        return _rank0(str(e))
+    return _rank0("no error")
+
+
+def reshard_case(dims, shape, src_spec, dest_spec, u, runs):
+    """``reshard`` of the global field ``u`` from ``src_spec`` to
+    ``dest_spec`` once per ``(kwargs, donate)`` of ``runs``: the padded
+    global result, the route's verdict and hops, every rank's exchange
+    calls, whether the source was deleted, or the error's type and
+    message."""
+    from pencilarrays_tpu_torch.parallel import routing
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pin = _sub_pencil(topo, shape, *src_spec)
+    dest = _sub_pencil(topo, shape, *dest_spec)
+    res = []
+    for kwargs in runs:
+        x = pat.PencilArray.from_global(pin, u)
+        _reset_exchange_counts()
+        try:
+            y = pat.reshard(x, dest, **kwargs)
+        except Exception as e:  # noqa: BLE001 - the test checks the type
+            res.append(dict(error=(type(e).__name__, str(e))))
+            continue
+        calls = [None] * len(topo)
+        torch.distributed.all_gather_object(calls, _exchange_counts(),
+                                            group=topo.group)
+        plan_kw = {k: v for k, v in kwargs.items()
+                   if k in ("method", "hbm_limit", "donate")}
+        route = (None if isinstance(kwargs.get("method"), pat.Gspmd) else
+                 routing.plan_reshard_route(pin, dest, (), x.dtype
+                                            if not x.is_deleted() else
+                                            torch.float64, **plan_kw))
+        res.append(dict(
+            padded=to_numpy_padded(y), glob=pat.gather(y), calls=calls,
+            deleted=x.is_deleted(),
+            verdict=None if route is None else route.verdict,
+            hops=None if route is None else [
+                (h.dest.decomposition, type(h.method).__name__)
+                for h in route.hops]))
+    return _rank0(res)
+
+
+def fft_wire_case(dims, shape, kwargs, u, variants=()):
+    """A plan of ``kwargs`` on the global input ``u``: gathered spectrum
+    and round trip, schedule, costs, plan key, decomposition verdict,
+    and for each wire of ``variants`` the spectrum of
+    ``with_wire_dtype(wire)`` and its key."""
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    plan = pat.PencilFFTPlan(topo, shape, **kwargs)
+    x = pat.PencilArray.from_global(plan.input_pencil, u)
+    uh = plan.forward(x)
+    res = dict(spectrum=pat.gather(uh), back=pat.gather(plan.backward(uh)),
+               schedule=_schedule(plan, len(shape)),
+               methods=[type(s[4]).__name__ + str(s[4].chunks)
+                        for s in plan._steps if s[0] == "t" and len(s) > 4],
+               costs=plan.collective_costs(), key=plan.plan_key(),
+               topo=plan.topology.dims,
+               verdict=plan.decomposition_verdict, variants={})
+    for w in variants:
+        v = plan.with_wire_dtype(w)
+        res["variants"][w] = (pat.gather(v.forward(
+            pat.PencilArray.from_global(v.input_pencil, u))), v.plan_key())
+    return _rank0(res)
+
+
+def spectral_wire_case(dims, n, dtype, uh0_padded_logical, dt, nu, kwargs):
+    """Two RK2 steps of the NS model built with ``kwargs`` (``wire_dtype``,
+    ``decomposition``) from the global spectral state (logical order)."""
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    model = NavierStokesSpectral(topo, n, viscosity=nu,
+                                 dtype=getattr(torch, dtype), **kwargs)
+    uh0 = pat.PencilArray.from_global(model.plan.output_pencil,
+                                      uh0_padded_logical)
+    s = model.step(model.step(uh0, dt), dt)
+    return _rank0(dict(rk2=pat.gather(s), topo=model.plan.topology.dims,
+                       energy=float(model.energy(s))))
+
+
+def reshard_to_case(dims, shape, specs, u):
+    """``ManyPencilArray.reshard_to`` from the first to the last pencil of
+    ``specs`` and the hop-by-hop ``transpose_to``: both padded results."""
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pens = [_sub_pencil(topo, shape, d, p) for d, p in specs]
+    out = []
+    for jump in (True, False):
+        A = pat.ManyPencilArray(*pens, first=pat.PencilArray.from_global(
+            pens[0], u))
+        if jump:
+            A.reshard_to(len(pens) - 1, donate=False)
+        else:
+            A.transpose_to(len(pens) - 1, donate=False)
+        out.append((A.index, to_numpy_padded(A.current)))
+    return _rank0(out)
