@@ -39,15 +39,17 @@ standard output too.  Phases, each printed on its own lines:
    f32, f64, c64 and c128, ragged tails, NaN/inf/-0/subnormal edges); the
    1024^3 cycle under AllToAll at each of the four wires, Ring(bf16) and
    Pipelined(4, AllToAll(fp8_e4m3)): each hop bit-identical to the
-   unwired hop on ``unpack(pack(x))``, K1 launches and bytes equal to the
-   unwired cycle's, exchange bytes equal to the cost model's operands,
+   unwired hop on ``unpack(pack(x))``, K1 launches equal to the unwired
+   cycle's and K1 bytes too (half of them on a 16-bit wire, which casts
+   before K1's pack), exchange bytes equal to the cost model's operands,
    the content sum within ``wire_rtol``, ms, peak and a profile (K1,
    exchange, cast); at 64^3 the card's wired cycles equal the CPU's; a
    1024^3 ``reshard`` between pencils differing in both slots and memory
    order (default, Gspmd, forced AllToAll, bf16, Pipelined(4),
    ``hbm_limit``, ``ManyPencilArray.reshard_to``), each bit-identical to
    Gspmd (bf16 within two bf16 steps), with ms, K1 launches and peak
-   beside the route's modeled ``peak_hbm_bytes``;
+   beside the route's modeled ``peak_hbm_bytes`` (the ``hbm_limit`` run
+   and the bf16 route must keep it, less the resident input);
 4. a 512^3 r2c PencilFFT plan: forward + backward round trip and times;
    a strided-batch ``rfftn``/``irfftn`` over a (512, 512, 512, 3) f32
    block with the components innermost against K1 + the contiguous
@@ -72,6 +74,21 @@ standard output too.  Phases, each printed on its own lines:
    operators on the 512^3 NS plan against analytic answers, with K1's
    launches; a ManyPencilArray cycle at 1024^3 bit-identical to phase
    3's hops, beside the transpose chain (ms, K1 launches, peak);
+5c. parallel I/O and crash-safe checkpoints, in ``chip_smoke_io/`` of the
+   checkout (which must hold three times the bytes the phase writes;
+   deleted at the end): a 1024^3 f32 field written by ``BinaryDriver``
+   from a z-pencil, discontiguous and in the chunks layout, each read
+   back into phase 3's x-pencil bit for bit, with write and read ms and
+   GB/s by stage (K1, device-host copy, native pwrite/pread, fsync) and
+   the native library as the path (or the phase fails); NS Taylor-Green
+   at 512^3 saved after each of 3 RK2 steps by ``CheckpointManager
+   (keep=2)``: steps [2, 3], a restore of step 2 stepped once against
+   the uninterrupted step 3, step 3 read into another pencil against
+   ``transpose``, save ms by stage, its peak above the state (at most
+   one component's staged block), restore ms with and without
+   verification; four drills in subprocesses (a kill before the commit,
+   two retried sidecar-flush faults, a flipped byte refused by name, an
+   armed ``hop.exchange``); HDF5 when h5py imports (printed either way);
 6. kernels K2–K4 (``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
    ``flash_bwd_tf32.cu``) against their plain versions on the card: three
    forward modes, full and partials backward, causal and not, ragged
@@ -101,8 +118,9 @@ standard output too.  Phases, each printed on its own lines:
    instance its dtype picks, held to the plain version;
 10. a ``{"kernels": [...]}`` line: per kernel its launches on each path
     (each counted from 0 just before its run; K1's on the NS steps, the
-    four cycles, the six wired cycles, the reshard runs, the fused hop, the DCT plan, the spectral operators and
-    the ManyPencilArray cycle) and their sum, by
+    four cycles, the six wired cycles, the reshard runs, the fused hop, the DCT plan, the spectral operators,
+    the ManyPencilArray cycle and phase 5c's writes and reads, ``io``) and
+    their sum, by
     instance, its error against the plain version and its times (K1's per
     class in ``timings``);
 11. the last line, ``{"ok": true, "device": {...}}``.
@@ -1072,8 +1090,10 @@ def _moved_bytes(pat, tr, wire, pens, method):
 def wired_cycle_check(torch, pat, k1, tr, wire, plain, n=1024, small=64):
     """The n^3 f32 x->y->z->y->x cycle on (1, 1) under each wired method:
     each hop bit-identical to the unwired hop on ``unpack(pack(x))`` of
-    its operand, the K1 launches and bytes of the unwired cycle (phase
-    3's run of the same method without a wire, in ``plain``), the
+    its operand, the K1 launches of the unwired cycle (phase 3's run of
+    the same method without a wire, in ``plain``) and its K1 bytes (half
+    of them on a 16-bit wire, whose casts come before K1's pack and after
+    its unpack), the
     exchange bytes the cost model's
     operand accounting gives, the round trip's error norm within the
     wire's unit roundoff per hop; cycle ms, peak memory and a profile
@@ -1125,12 +1145,15 @@ def wired_cycle_check(torch, pat, k1, tr, wire, plain, n=1024, small=64):
                                  f"model's operands {want}")
         same = plain[{"AllToAll": "cycle", "Ring": "cycle_ring",
                       "Pipelined": "cycle_pipelined"}[type(method).__name__]]
+        # a 16-bit wire casts before K1's pack and widens after its
+        # unpack, so K1 moves the 2-byte words: half the unwired bytes
+        k1_bytes = same["k1_bytes"] // (2 if w in ("bf16", "f16") else 1)
         if (counts["launches"], counts["k1_bytes"]) != (
-                same["launches"], same["k1_bytes"]):
+                same["launches"], k1_bytes):
             raise AssertionError(
                 f"{run}: K1 launches/bytes {counts['launches']}/"
-                f"{counts['k1_bytes']}, unwired {same['launches']}/"
-                f"{same['k1_bytes']}")
+                f"{counts['k1_bytes']}, want the unwired cycle's "
+                f"{same['launches']}/{k1_bytes}")
         # each hop rounds every element once: by at most the format's
         # unit roundoff of it, or below the normal range by half the
         # smallest subnormal step (of the window's scale, max-abs over
@@ -1287,6 +1310,20 @@ def reshard_check(torch, pat, k1, tr, routing, n=1024):
             f"reshard_hbm: peak {out['reshard_hbm']['peak_above_input']} "
             f"above the input, over hbm_limit {peak_model} less the "
             f"input's {held}")
+    # a bf16 hop casts its block into the wire buffer and frees its input
+    # before the exchange allocates, and widens after K1's unpack: the
+    # route keeps its modeled peak
+    bf16 = out["reshard_wire_bf16"]
+    if bf16["peak_above_input"] > bf16["peak_hbm_bytes"] - held:
+        raise AssertionError(
+            f"reshard_wire_bf16: peak {bf16['peak_above_input']} above the "
+            f"input, over its modeled peak {bf16['peak_hbm_bytes']} less "
+            f"the input's {held}")
+    log(f"[reshard] peak above the input against the modeled peak less "
+        f"the input: " + json.dumps({run: [r["peak_above_input"], None if
+                                          r["peak_hbm_bytes"] is None else
+                                          r["peak_hbm_bytes"] - held]
+                                    for run, r in out.items()}))
     if out["reshard_default"]["verdict"] != "gspmd":
         raise AssertionError("on one card the planner should keep the "
                              "Gspmd exchange (nothing crosses a link)")
@@ -2035,6 +2072,376 @@ def phase_grid_toolbox(torch, dist, pat, models, k1, tr, bw):
     log(f"[grid] phase 5b took {r['seconds']:.1f} s; allocated / free on "
         f"the card before {before[0] / 2**30:.2f} / {before[1] / 2**30:.2f} "
         f"GiB, after {after[0] / 2**30:.2f} / {after[1] / 2**30:.2f} GiB")
+    return r
+
+
+# -- phase 5c: parallel I/O and crash-safe checkpoints ----------------------
+
+# the phase's files: a directory of the checkout (listed in .gitignore),
+# deleted at the phase's end
+IO_DIR = "chip_smoke_io"
+
+
+def _io_counted(torch, k1, acc, fn):
+    """``fn()`` with K1's counts from 0, its launches, classes and seconds
+    added to ``acc``; returns ``(result, seconds)``."""
+    torch.cuda.synchronize()
+    _reset_k1(k1)
+    k1.recorded = {}
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    acc["launches"] += k1.launches
+    for inst, c in k1.launches_by_instance.items():
+        acc["launches_by_instance"][inst] += c
+    for cls, c in k1.recorded.items():
+        acc["recorded"][cls] = acc["recorded"].get(cls, 0) + c
+    k1.recorded = None
+    return res, secs
+
+
+def _stage_ms(stats):
+    return {k[:-2] + "_ms": v * 1e3 for k, v in stats.items()
+            if k.endswith("_s")}
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def io_field_check(torch, pat, k1, io, d, acc, n):
+    """An n^3 f32 field on a z-pencil (memory order (2, 0, 1)) written by
+    ``BinaryDriver`` in the discontiguous and the chunks layouts, each read
+    back into phase 3's x-pencil (memory order (1, 2, 0)) and held bit for
+    bit to the source moved there on the card (``reshard``, Gspmd: one K1
+    permute); write and read ms and GB/s by stage, and the path the
+    bytes took (the native library, or the phase fails)."""
+    from pencilarrays_tpu_torch.io import native
+
+    topo = pat.Topology((1, 1))
+    shape = (n, n, n)
+    pz = pat.Pencil(topo, shape, (0, 1), permutation=pat.Permutation(2, 0, 1))
+    px = pat.Pencil(topo, shape, (1, 2), permutation=pat.Permutation(1, 2, 0))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    src = pat.PencilArray(pz, torch.randn(pz.padded_size_local(
+        pat.MemoryOrder), generator=gen, device="cuda"))
+    ref = pat.reshard(src, px, method=pat.Gspmd()).data
+    nbytes = src.sizeof_global()
+    out = {}
+    for layout in ("discontiguous", "chunks"):
+        path = os.path.join(d, f"field_{layout}.bin")
+
+        def write():
+            with io.open_file(io.BinaryDriver(), path, write=True,
+                              create=True) as f:
+                f.write("u", src, chunks=layout == "chunks")
+                return dict(f.stats)
+
+        def read():
+            with io.open_file(io.BinaryDriver(), path, read=True) as f:
+                return f.read("u", px), dict(f.stats)
+
+        wstats, wsecs = _io_counted(torch, k1, acc, write)
+        (y, rstats), rsecs = _io_counted(torch, k1, acc, read)
+        if not same_bits(torch, y.data, ref):
+            raise AssertionError(f"[io] {layout}: the field read into the "
+                                 f"x-pencil differs from the source")
+        del y
+        r = dict(write_ms=wsecs * 1e3, write_GBps=nbytes / wsecs / 1e9,
+                 write_stages=_stage_ms(wstats), write_path=wstats["path"],
+                 read_ms=rsecs * 1e3, read_GBps=nbytes / rsecs / 1e9,
+                 read_stages=_stage_ms(rstats), read_path=rstats["path"],
+                 file_bytes=os.path.getsize(path))
+        log(f"[io] field {n}^3 f32 {layout}: z-pencil (2,0,1) -> file -> "
+            f"x-pencil (1,2,0) bit-identical to the source; " + json.dumps(r))
+        out[layout] = r
+        os.unlink(path)
+        os.unlink(path + ".json")
+    path = out["discontiguous"]["write_path"]
+    if not path.startswith("native_mt("):
+        raise AssertionError(f"[io] the discontiguous write took {path}, "
+                             f"not the native library (g++ build: "
+                             f"{native.build_info})")
+    log(f"[io] native library {native.build_info}; the discontiguous write "
+        f"and read took {path} (pwrite/pread threads)")
+    del src, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def io_ns_check(torch, pat, models, k1, io, resilience, d, acc, n):
+    """NS Taylor-Green n^3 f32 checkpoint-restart: three RK2 steps, each
+    saved by ``CheckpointManager(keep=2)`` over ``BinaryDriver``; the
+    retained steps, a restore of step 2 stepped once against the
+    uninterrupted step 3, step 3 read into another pencil against
+    ``transpose`` of the state; save ms by stage and peak device memory
+    above the state (at most one component's staged block), restore ms
+    with and without verification, the checkpoint's bytes."""
+    model = models.NavierStokesSpectral(pat.Topology((1, 1)), n,
+                                        viscosity=1e-2, dtype=torch.float32)
+    pen = model.plan.output_pencil
+    uh = models.taylor_green(model)
+    comp = math.prod(pen.size_global()) * uh.data.element_size()
+    mgr = resilience.CheckpointManager(os.path.join(d, "ns"), keep=2)
+    dt, states, saves = 5e-3, {}, []
+    for step in (1, 2, 3):
+        uh = model.step(uh, dt)
+        states[step] = uh
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, secs = _io_counted(torch, k1, acc,
+                              lambda: mgr.save(step, {"uh": uh}))
+        peak = torch.cuda.max_memory_allocated() - base
+        s = dict(step=step, ms=secs * 1e3, peak_above_state=peak,
+                 stages=_stage_ms(mgr.stats), path=mgr.stats["path"])
+        log(f"[io] NS {n}^3 save step {step}: " + json.dumps(s))
+        if peak > comp:
+            raise AssertionError(f"[io] a save peaked {peak} bytes above "
+                                 f"the state, over one component's staged "
+                                 f"block ({comp})")
+        saves.append(s)
+    del states[1]
+    if mgr.steps() != [2, 3] or mgr.latest_valid() != 3:
+        raise AssertionError(f"[io] steps {mgr.steps()}, latest valid "
+                             f"{mgr.latest_valid()}: want [2, 3] and 3")
+    back, verify_s = _io_counted(
+        torch, k1, acc, lambda: mgr.restore(2).read("uh", pen, verify=True))
+    again, plain_s = _io_counted(
+        torch, k1, acc, lambda: mgr.restore(2).read("uh", pen, verify=False))
+    for got in (back, again):
+        if not same_bits(torch, got.data, states[2].data):
+            raise AssertionError("[io] restored step 2 differs from the "
+                                 "saved state")
+    del again
+    stepped = model.step(back, dt).data
+    want = states[3].data
+    restart_bits = same_bits(torch, stepped, want)
+    diff = max_abs_err(torch, stepped, want)
+    scale = float(want.abs().max())
+    if not restart_bits and not diff <= 1e-6 * scale:
+        raise AssertionError(f"[io] restart step differs by {diff}, over "
+                             f"1e-6 of max|u_hat| {scale}")
+    del stepped, back
+    other = pat.Pencil(pen.topology, pen.size_global(), (0, 2),
+                       permutation=pat.Permutation(0, 2, 1))
+    moved, moved_s = _io_counted(
+        torch, k1, acc, lambda: mgr.restore(3).read("uh", other))
+    if not same_bits(torch, moved.data, pat.transpose(states[3],
+                                                      other).data):
+        raise AssertionError("[io] step 3 read into another pencil differs "
+                             "from transpose of the state")
+    del moved, states
+    r = dict(saves=saves, restore_verify_ms=verify_s * 1e3,
+             restore_ms=plain_s * 1e3, restore_other_pencil_ms=moved_s * 1e3,
+             checkpoint_bytes=_dir_bytes(mgr._step_dir(3)),
+             component_bytes=comp, restart_bit_identical=restart_bits,
+             restart_max_abs_diff=diff, max_abs_u_hat=scale)
+    log(f"[io] NS {n}^3 f32 checkpoint-restart (keep=2): steps [2, 3], "
+        f"latest valid 3; restart from step 2 "
+        f"{'bit-identical to' if restart_bits else 'within 1e-6 of'} the "
+        f"uninterrupted step 3; step 3 read into (0,2) perm (0,2,1) = "
+        f"transpose of the state; " + json.dumps(
+            {k: v for k, v in r.items() if k != "saves"}))
+    torch.backends.cuda.cufft_plan_cache.clear()
+    torch.cuda.empty_cache()
+    return r
+
+
+_DRILL = """
+import sys
+sys.path.insert(0, {root!r})
+import torch
+import pencilarrays_tpu_torch as pat
+from pencilarrays_tpu_torch.resilience import (
+    CheckpointManager, CorruptCheckpointError, InjectedFault)
+topo = pat.Topology((1, 1))
+pen = pat.Pencil(topo, ({n}, {n}, {n}), (1, 2),
+                 permutation=pat.Permutation(1, 2, 0))
+gen = torch.Generator(device="cuda").manual_seed({seed})
+x = pat.PencilArray(pen, torch.randn(
+    pen.padded_size_local(pat.MemoryOrder), generator=gen, device="cuda"))
+{body}
+"""
+
+_DRILL_BODIES = {
+    "save": """
+CheckpointManager({dir!r}, keep=4).save({step}, {{"u": x}})
+print("saved step {step}", flush=True)
+""",
+    "restore": """
+try:
+    CheckpointManager({dir!r}).restore({step}, verify=True).read("u", pen)
+except CorruptCheckpointError as e:
+    assert e.dataset == "u" and e.block is not None, e
+    print("refused:", e, flush=True)
+else:
+    raise SystemExit("a flipped byte was not detected")
+""",
+    "hop": """
+py = pat.Pencil(topo, pen.size_global(), (0, 2),
+                permutation=pat.Permutation(0, 2, 1))
+try:
+    pat.transpose(x, py)
+except InjectedFault as e:
+    print("raised:", repr(e), flush=True)
+else:
+    raise SystemExit("an armed hop.exchange did not raise")
+""",
+}
+
+
+def _drill(root, kind, spec, **kw):
+    """A drill in a subprocess on the card (a kill really kills): the
+    port's code of ``_DRILL_BODIES[kind]`` with ``spec`` armed."""
+    from pencilarrays_tpu_torch.resilience import faults
+
+    env = dict(os.environ)
+    env.pop(faults.ENV_VAR, None)
+    if spec:
+        env[faults.ENV_VAR] = spec
+    kw.setdefault("n", 64)
+    kw.setdefault("seed", SEED + 51)
+    code = _DRILL.format(root=root, body=_DRILL_BODIES[kind].format(**kw),
+                         **kw)
+    p = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=180)
+    return p.returncode, p.stdout.strip(), p.stderr.strip()
+
+
+def io_drills(torch, pat, resilience, d):
+    """The crash drills on the card, each in a subprocess: a kill before
+    the commit leaves the previous step and the next save sweeps it; two
+    transient sidecar-flush faults are retried; a flipped byte is refused
+    by name; an armed ``hop.exchange`` raises from ``transpose``."""
+    import json as _json
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ck = os.path.join(d, "drills")
+    mgr = resilience.CheckpointManager(ck, keep=4)
+    topo = pat.Topology((1, 1))
+    pen = pat.Pencil(topo, (64, 64, 64), (1, 2),
+                     permutation=pat.Permutation(1, 2, 0))
+    mgr.save(1, {"u": pat.PencilArray.zeros(pen)})
+    out = {}
+    rc, so, se = _drill(root, "save", "ckpt.commit:kill", dir=ck, step=2)
+    torn = sorted(e for e in os.listdir(ck) if e.startswith(".tmp-"))
+    if rc != -9 or mgr.latest_valid() != 1 or not torn:
+        raise AssertionError(f"[io] drill ckpt.commit:kill: rc {rc}, latest "
+                             f"valid {mgr.latest_valid()}, temp dirs {torn}"
+                             f"\n{so}\n{se[-2000:]}")
+    out["commit_kill"] = dict(rc=rc, latest_valid=1, torn=torn)
+    rc, so, se = _drill(root, "save", "io.flush_meta:error*2", dir=ck,
+                        step=3)
+    retries = se.count("failed (attempt")
+    left = sorted(os.listdir(ck))
+    if rc != 0 or retries != 2 or mgr.latest_valid() != 3 or \
+            left != ["step-00000001", "step-00000003"]:
+        raise AssertionError(f"[io] drill io.flush_meta:error*2: rc {rc}, "
+                             f"{retries} retries, latest valid "
+                             f"{mgr.latest_valid()}, entries {left}"
+                             f"\n{so}\n{se[-2000:]}")
+    out["flush_retried"] = dict(rc=rc, retries=retries, entries=left)
+    step3 = os.path.join(ck, "step-00000003")
+    with open(os.path.join(step3, "data.bin.json")) as f:
+        offset = _json.load(f)["datasets"][0]["offset_bytes"]
+    with open(os.path.join(step3, "data.bin"), "r+b") as f:
+        f.seek(offset + 4096)
+        b = f.read(1)
+        f.seek(offset + 4096)
+        f.write(bytes([b[0] ^ 0x01]))
+    rc, so, se = _drill(root, "restore", None, dir=ck, step=3)
+    if rc != 0 or "'u' block" not in so:
+        raise AssertionError(f"[io] drill flipped byte: rc {rc}\n{so}\n"
+                             f"{se[-2000:]}")
+    out["flipped_byte"] = dict(rc=rc, refused=so)
+    rc, so, se = _drill(root, "hop", "hop.exchange:error")
+    if rc != 0 or "InjectedFault" not in so:
+        raise AssertionError(f"[io] drill hop.exchange:error: rc {rc}\n{so}"
+                             f"\n{se[-2000:]}")
+    out["hop_exchange"] = dict(rc=rc, raised=so)
+    log("[io] drills on the card, each a subprocess: " + json.dumps(out))
+    return out
+
+
+def io_hdf5_check(torch, pat, k1, io, d, acc, n):
+    """The HDF5 driver when h5py imports: an n^3 f32 field written from a
+    z-pencil and read into the x-pencil, bit for bit."""
+    if not io.has_hdf5():
+        log("[io] hdf5: not run, h5py does not import on this machine")
+        return None
+    topo = pat.Topology((1, 1))
+    shape = (n, n, n)
+    pz = pat.Pencil(topo, shape, (0, 1), permutation=pat.Permutation(2, 0, 1))
+    px = pat.Pencil(topo, shape, (1, 2), permutation=pat.Permutation(1, 2, 0))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    src = pat.PencilArray(pz, torch.randn(pz.padded_size_local(
+        pat.MemoryOrder), generator=gen, device="cuda"))
+    path = os.path.join(d, "field.h5")
+
+    def write():
+        with io.open_file(io.HDF5Driver(), path, write=True,
+                          create=True) as f:
+            f.write("u", src)
+
+    def read():
+        with io.open_file(io.HDF5Driver(), path, read=True) as f:
+            return f.read("u", px)
+
+    _, wsecs = _io_counted(torch, k1, acc, write)
+    y, rsecs = _io_counted(torch, k1, acc, read)
+    if not same_bits(torch, y.data, pat.reshard(src, px,
+                                                method=pat.Gspmd()).data):
+        raise AssertionError("[io] hdf5: the field read back differs")
+    r = dict(write_ms=wsecs * 1e3, read_ms=rsecs * 1e3,
+             file_bytes=os.path.getsize(path))
+    log(f"[io] hdf5: ran; {n}^3 f32 z-pencil -> file -> x-pencil "
+        f"bit-identical; " + json.dumps(r))
+    return r
+
+
+def phase_io(torch, pat, models, k1, n_field=1024, n_ns=512, n_h5=512):
+    """Phase 5c: parallel I/O and crash-safe checkpoints on the card, in
+    ``IO_DIR`` (checked for three times the bytes the phase writes first,
+    deleted at the end).  K1's launches and classes over the phase's
+    writes and reads count under the path ``io``."""
+    import shutil
+
+    from pencilarrays_tpu_torch import io, resilience
+
+    t0 = time.perf_counter()
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), IO_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    try:
+        usage = shutil.disk_usage(d)
+        spectral = 3 * n_ns * n_ns * (n_ns // 2 + 1) * 8
+        writes = (2 * 4 * n_field ** 3 + 3 * spectral
+                  + (4 * n_h5 ** 3 if io.has_hdf5() else 0)
+                  + 3 * 4 * 64 ** 3)
+        log(f"[io] {d}: disk_usage total {usage.total}, used {usage.used}, "
+            f"free {usage.free} bytes; the phase writes {writes} bytes")
+        if usage.free < 3 * writes:
+            raise AssertionError(
+                f"[io] {d} has {usage.free} bytes free, under three times "
+                f"the {writes} bytes phase 5c writes")
+        acc = dict(launches=0, recorded={}, launches_by_instance={
+            i: 0 for i in k1.INSTANCES})
+        r = dict(field=io_field_check(torch, pat, k1, io, d, acc, n_field),
+                 ns=io_ns_check(torch, pat, models, k1, io, resilience, d,
+                                acc, n_ns),
+                 drills=io_drills(torch, pat, resilience, d),
+                 hdf5=io_hdf5_check(torch, pat, k1, io, d, acc, n_h5))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    r.update(acc)
+    r["seconds"] = time.perf_counter() - t0
+    log(f"[io] phase 5c took {r['seconds']:.1f} s; K1 launches on the io "
+        f"path {acc['launches']}, by instance {acc['launches_by_instance']}")
+    if acc["launches"] <= 0:
+        raise AssertionError("the io path launched K1 no time")
     return r
 
 
@@ -2852,18 +3259,19 @@ def main() -> int:
             fft = phase_fft(torch, dist, pat, k1, tr)
             ns = phase_navier_stokes(torch, dist, pat, k1, models)
             grid = phase_grid_toolbox(torch, dist, pat, models, k1, tr, bw)
+            io_res = phase_io(torch, pat, models, k1)
             checks = phase_flash_check(torch, flash, models.attention)
             serve, serve_rec = phase_serving(torch, pat, models, k1, flash)
             train = {f"train_{str(dt).split('.')[-1]}": phase_training(
                 torch, pat, models, k1, flash, dt)
                 for dt in (torch.float32, torch.bfloat16)}
             timing = phase_flash_timing(torch, flash, bw)
-            # phase 2's timings: every class phases 3, 4, 5 and 7 launched
+            # phase 2's timings: every class phases 3-5c and 7 launched
             k1_runs = {**cycle, **wired["cycles"], **wired["reshard"],
                        "fused_hop": fft["fused_hop"],
                        "dct": fft["dct"],
                        "spectral_ops": grid["spectral_ops"],
-                       "many_pencil_array": grid["many"]}
+                       "many_pencil_array": grid["many"], "io": io_res}
             recorded = {**{run: r["recorded"] for run, r in k1_runs.items()},
                         "navier_stokes": ns["recorded"], **serve_rec}
             k1_timed = k1_timing(torch, k1, bw, recorded, HOPS)

@@ -13,6 +13,19 @@ device over ``torch.distributed``:
 
 Functions sent to a pool are pickled by import path, so they must be
 module-level functions of an importable module.
+
+Resilience, as in the JAX package's ``parallel/distributed.py``: the
+rendezvous is the first cross-process meeting of a job, and the peer that
+hosts it may not be up yet when a restarted worker arrives, so
+:func:`initialize` retries transient failures under a
+:class:`~pencilarrays_tpu_torch.resilience.RetryPolicy` (bounded
+exponential backoff, not a hang and not a crash) and consults the
+``dist.initialize`` fault point; :func:`sync_global_devices`, the named
+barrier of the I/O drivers and the checkpoint manager, consults the
+``barrier`` point.  :func:`process_index`, :func:`process_count` and
+:func:`is_multiprocess` answer for a process group (the default one unless
+given), where a process is a rank; without ``torch.distributed`` they give
+the trivial answers.
 """
 
 from __future__ import annotations
@@ -20,6 +33,7 @@ from __future__ import annotations
 import multiprocessing as mp
 import os
 import queue
+import re
 import shutil
 import tempfile
 import traceback
@@ -29,18 +43,36 @@ from typing import Any, Callable, List, Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["initialize", "finalize", "RankPool", "spawn"]
+from ..resilience import faults
+from ..resilience.retry import RetryPolicy
+
+__all__ = ["initialize", "finalize", "RankPool", "spawn", "process_index",
+           "process_count", "is_multiprocess", "sync_global_devices"]
+
+# rendezvous failures worth retrying (a peer or the store not up yet, a
+# dropped connection); configuration errors fail on the first attempt
+_TRANSIENT_RENDEZVOUS = re.compile(
+    r"unavailable|refused|unreachable|reset|connect|timed.?out|deadline",
+    re.IGNORECASE)
 
 
 def initialize(backend: Optional[str] = None, *,
                init_method: Optional[str] = None, world_size: int = 1,
-               rank: int = 0, timeout_s: float = 300.0) -> None:
+               rank: int = 0, timeout_s: float = 300.0,
+               retry: Optional[RetryPolicy] = None) -> None:
     """Join the default process group (``MPI.Init``).
 
     ``backend`` defaults to ``"nccl"`` when CUDA is available, else
     ``"gloo"``.  ``init_method`` defaults to a fresh ``file://`` rendezvous,
     which is valid only for ``world_size == 1``; a multi-rank job passes
-    the one file every rank shares."""
+    the one file (or ``tcp://`` address) every rank shares.
+
+    The rendezvous is retried on transient failures under ``retry``
+    (default :meth:`~pencilarrays_tpu_torch.resilience.RetryPolicy.from_env`):
+    a ``RuntimeError`` whose message reads like an unreachable peer or a
+    timeout is raised as ``ConnectionError`` and backed off against, any
+    other error fails at once; after a failed attempt any partly built
+    default group is destroyed, so the next attempt can bind again."""
     if dist.is_initialized():
         raise RuntimeError("torch.distributed is already initialized")
     if backend is None:
@@ -56,9 +88,62 @@ def initialize(backend: Optional[str] = None, *,
         # NCCL communicators bind to the current card of each rank
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank))
                               % torch.cuda.device_count())
-    dist.init_process_group(backend, init_method=init_method,
-                            world_size=world_size, rank=rank,
-                            timeout=timedelta(seconds=timeout_s))
+
+    def _connect():
+        faults.fire("dist.initialize", init_method=init_method, rank=rank)
+        try:
+            dist.init_process_group(backend, init_method=init_method,
+                                    world_size=world_size, rank=rank,
+                                    timeout=timedelta(seconds=timeout_s))
+        except RuntimeError as e:
+            _reset_partial_state()
+            if _TRANSIENT_RENDEZVOUS.search(str(e)):
+                raise ConnectionError(str(e)) from e
+            raise
+        except Exception:
+            _reset_partial_state()
+            raise
+
+    (retry or RetryPolicy.from_env()).call(_connect, label="dist.initialize")
+
+
+def _reset_partial_state() -> None:
+    """Destroy a default group a failed rendezvous left behind, so a
+    retry can join again (best effort)."""
+    if dist.is_initialized():
+        try:
+            dist.destroy_process_group()
+        except (RuntimeError, ValueError):
+            pass
+
+
+def process_index(group=None) -> int:
+    """This process's rank in ``group`` (the default group; 0 without
+    ``torch.distributed``) — the JAX package's ``process_index``."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(group)
+    return 0
+
+
+def process_count(group=None) -> int:
+    """The ranks in ``group`` (1 without ``torch.distributed``)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(group)
+    return 1
+
+
+def is_multiprocess(group=None) -> bool:
+    return process_count(group) > 1
+
+
+def sync_global_devices(name: str = "pa_barrier", group=None) -> None:
+    """Named barrier of ``group``'s ranks (``MPI.Barrier``).  Consults
+    the ``barrier`` fault point first (so drills reach it on one rank
+    too), then waits in ``dist.barrier`` when the group has more than one
+    rank."""
+    faults.fire("barrier", name=name)
+    if is_multiprocess(group):
+        dist.barrier(group=group)
 
 
 def finalize() -> None:

@@ -52,6 +52,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..resilience import faults
 from . import wire as _wire
 from .arrays import PencilArray, as_torch_dtype
 from .pencil import Pencil
@@ -72,6 +73,7 @@ from .transpositions import (
     _pipeline_chunk_axis,
     assert_compatible,
     gspmd_reshard_cost,
+    hop_fault,
     resolve_method,
     transpose_cost,
 )
@@ -384,6 +386,8 @@ def execute_route(src: PencilArray, route: ReshardRoute, *,
             f"array lives on {src.pencil!r}, route starts at {route.src!r}")
     if not route.hops:
         raise ValueError("route has no hops (planner fell back to Gspmd)")
+    if faults.armed("hop.exchange"):
+        hop_fault(kind="route", hops=len(route.hops))
     nx = src.ndims_extra
     if src.data.requires_grad and torch.is_grad_enabled():
         data = src.data

@@ -79,6 +79,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import permute as k1
+from ..resilience import faults
 from . import wire as _wire
 from .arrays import PencilArray, _fwd_axes, _inv_axes, as_torch_dtype
 from .pencil import MemoryOrder, Pencil
@@ -507,10 +508,19 @@ class _Exchange:
     """One exchange hop ``pin -> pout`` on topology axis ``R`` by an
     explicit method (``AllToAll`` or ``Ring``, with its wire), in the
     pieces a chunked or fused hop is built from: :meth:`pack` (K1),
-    :meth:`start` (the wire pack and the exchange, issued
-    asynchronously), :meth:`finish` (its wait and the wire unpack) and
-    :meth:`unpack` (K1).  Every piece takes any chunk of the block along
-    a dim other than ``a`` and ``b``."""
+    :meth:`start` (the exchange, issued asynchronously), :meth:`finish`
+    (its wait) and :meth:`unpack` (K1).  Every piece takes any chunk of the
+    block along a dim other than ``a`` and ``b``; :meth:`pack` and
+    :meth:`unpack` take their tensor as ``[tensor]`` too, and then free it
+    as soon as they are done with it.
+
+    A 16-bit wire's casts are elementwise, so they commute with K1's
+    moves: :meth:`pack` casts the block into its wire buffer before K1
+    packs it, and :meth:`unpack` widens after K1 unpacks, K1 moving the
+    2-byte words (4 for a complex element) and the exchange sending what
+    it would send anyway.  An fp8 wire's scales run along a tile axis of
+    the exchange layout, so :meth:`start` packs K1's tiles and
+    :meth:`finish` unpacks them."""
 
     def __init__(self, pin: Pencil, pout: Pencil, extra_ndims: int,
                  method: AbstractTransposeMethod):
@@ -530,13 +540,25 @@ class _Exchange:
         self.tile_a = self.fwd_out.index(self.a)
         self.ident = tuple(range(len(self.fwd_out)))
         self.wire = method.wire_dtype
+        self.wire16 = (self.wire is not None
+                       and self.wire not in _wire.FP8_WIRE_DTYPES)
+        self.dtype = None       # the payload's, set by pack
         if self.P != 1 and not topo.connected:
             raise RuntimeError("transpose across ranks needs "
                                "torch.distributed")
         self.ring = (_ring_participants(pin, pout, R)
                      if isinstance(method, Ring) else None)
 
-    def pack(self, x: torch.Tensor) -> torch.Tensor:
+    def pack(self, x) -> torch.Tensor:
+        x = _take(x)
+        self.dtype = x.dtype
+        if self.wire16:
+            bits = _wire.pack_axis(x, self.wire).contiguous()
+            del x
+            # a complex element's two words move as one 4-byte word
+            x = (bits.view(torch.int32).squeeze(-1) if self.dtype.is_complex
+                 else bits.view(torch.int16))
+            del bits
         return k1.pack(x, self.pack_axes, self.tile_b, self.P)
 
     def _tile_axis(self, tiles: torch.Tensor) -> Tuple[int, int]:
@@ -550,19 +572,17 @@ class _Exchange:
         return 1 + self.fwd_out.index(t), logical[t]
 
     def start(self, tiles) -> dict:
-        """Wire-pack and issue the exchange of ``tiles`` (``(P, tile...)``,
-        contiguous; passed as ``[tiles]``, the full-precision tiles are
+        """Issue the exchange of ``tiles`` (``(P, tile...)``, contiguous;
+        passed as ``[tiles]``, an fp8 wire's full-precision tiles are
         freed once wire-packed); the handle holds every buffer until
         :meth:`finish`."""
         tiles = _take(tiles)
-        h = {"shape": tuple(tiles.shape), "dtype": tiles.dtype,
+        h = {"shape": tuple(tiles.shape), "dtype": self.dtype,
              "axis": None}
         send = tiles
-        if self.wire is not None:
-            if self.wire in _wire.FP8_WIRE_DTYPES:
-                h["axis"] = self._tile_axis(tiles)
-            send = _wire.pack_axis(tiles, self.wire,
-                                   h["axis"] and h["axis"][0])
+        if self.wire is not None and not self.wire16:
+            h["axis"] = self._tile_axis(tiles)
+            send = _wire.pack_axis(tiles, self.wire, h["axis"][0])
             del tiles
         h["send"], h["works"] = send, []
         if not self.topo.connected:
@@ -608,8 +628,9 @@ class _Exchange:
 
     def finish(self, h: dict) -> Optional[torch.Tensor]:
         """Wait for an exchange and release its send buffer; the received
-        tiles at full precision, or ``None`` where this rank's output
-        block holds only padding (a ring destination past ``S_b``)."""
+        tiles (an fp8 wire's back at full precision, a 16-bit wire's
+        still its bits), or ``None`` where this rank's output block holds
+        only padding (a ring destination past ``S_b``)."""
         for w in h.pop("works"):
             w.wait()
         del h["send"]
@@ -617,16 +638,17 @@ class _Exchange:
         if self.ring is not None and \
                 self.topo.coords_local[self.R] >= self.ring[1]:
             return None
-        if self.wire is None:
+        if self.wire is None or self.wire16:
             return recv
         axis = h["axis"]
-        return _wire.unpack_axis(recv, h["dtype"], self.wire,
-                                 axis and axis[0], axis and axis[1])
+        return _wire.unpack_axis(recv, h["dtype"], self.wire, axis[0],
+                                 axis[1])
 
-    def unpack(self, recv: Optional[torch.Tensor], h: dict,
+    def unpack(self, recv, h: dict,
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Received tiles -> the output block (or ``out``, a view of it);
         zeros where ``recv`` is ``None``."""
+        recv = _take(recv)
         if recv is None:
             if out is None:
                 shape = list(h["shape"][1:])
@@ -634,7 +656,19 @@ class _Exchange:
                 return torch.zeros(shape, dtype=h["dtype"],
                                    device=self.topo.device)
             return out.zero_()
-        return k1.unpack(recv, self.ident, self.tile_a, self.n_a, out=out)
+        if not self.wire16:
+            return k1.unpack(recv, self.ident, self.tile_a, self.n_a,
+                             out=out)
+        bits = k1.unpack(recv, self.ident, self.tile_a, self.n_a)
+        del recv
+        if h["dtype"].is_complex:
+            bits = bits.unsqueeze(-1)
+        full = _wire.unpack_axis(bits.view(torch.int16), h["dtype"],
+                                 self.wire)
+        del bits
+        if out is None:
+            return full
+        return out.copy_(full)
 
 
 def _run_pipeline(n: int, produce, exchange: _Exchange, consume) -> None:
@@ -657,38 +691,47 @@ def _run_pipeline(n: int, produce, exchange: _Exchange, consume) -> None:
 def _exchange_transpose(data, pin: Pencil, pout: Pencil, R: int,
                         extra_ndims: int,
                         method: AbstractTransposeMethod) -> torch.Tensor:
+    """One exchange hop of ``data`` (a tensor, or ``[tensor]`` to let the
+    hop free it): whole, or in a ``Pipelined`` method's chunks."""
     base = method.base if isinstance(method, Pipelined) else method
-    data = _take(data)
     ex = _Exchange(pin, pout, extra_ndims, base)
+    extra = tuple((data[0] if isinstance(data, list) else data)
+                  .shape[pin.ndims:])
     bounds, c = None, None
     if isinstance(method, Pipelined):
         a, b = pin.decomposition[R], pout.decomposition[R]
-        shape = _exchange_operand_extents(pin, pout, R) + tuple(
-            data.shape[pin.ndims:])
+        shape = _exchange_operand_extents(pin, pout, R) + extra
         c = _pipeline_chunk_axis(shape, a, b)
         if c is not None:
             bounds = _chunk_bounds(shape[c], method.chunks)
     if bounds is None or len(bounds) == 1:
-        # the input goes before the exchange allocates its receive
-        # buffer, so the input, the tiles and that buffer never coexist
-        tiles = [ex.pack(data)]
-        del data
-        h = ex.start(tiles)
-        return ex.unpack(ex.finish(h), h)
+        # the input goes once packed (on a 16-bit wire, once cast), and
+        # the received tiles once unpacked, so the input, the tiles and
+        # the receive buffer never coexist
+        h = ex.start([ex.pack(data)])
+        return ex.unpack([ex.finish(h)], h)
+    src = [_take(data)]
+    del data
     mi, mo = ex.fwd_in.index(c), ex.fwd_out.index(c)
-    out = data.new_empty(pout.padded_size_local(MemoryOrder)
-                         + tuple(data.shape[pin.ndims:]))
+    out = []
 
     def produce(k):
         s0, s1 = bounds[k]
-        return ex.pack(data.narrow(mi, s0, s1 - s0))
+        tiles = ex.pack(src[0].narrow(mi, s0, s1 - s0))
+        if not out:     # allocated after the first chunk's pack
+            out.append(torch.empty(
+                pout.padded_size_local(MemoryOrder) + extra,
+                dtype=ex.dtype, device=tiles.device))
+        if k == len(bounds) - 1:
+            src.clear()  # the input goes after the last chunk's pack
+        return tiles
 
     def consume(k, h, recv):
         s0, s1 = bounds[k]
-        ex.unpack(recv, h, out=out.narrow(mo, s0, s1 - s0))
+        ex.unpack(recv, h, out=out[0].narrow(mo, s0, s1 - s0))
 
     _run_pipeline(len(bounds), produce, ex, consume)
-    return out
+    return out[0]
 
 
 # -- the unrestricted exchange (Gspmd) --------------------------------------
@@ -853,6 +896,19 @@ def _no_wired_grad(method) -> None:
             f"through them is zero; differentiate a full-precision hop")
 
 
+def hop_fault(**ctx) -> None:
+    """The ``hop.exchange`` fault point of the JAX package: consulted once
+    per ``transpose`` and once per routed ``reshard``, only where
+    ``faults.armed("hop.exchange")`` (so an unarmed hop pays one cached
+    check).  ``error`` raises, ``delay`` stalls, ``kill`` (and ``torn``,
+    which a hop cannot tear) kills; ``corrupt`` waits for ``guard/``."""
+    act = faults.fire("hop.exchange", **ctx)
+    if act == "torn":
+        faults.kill_now()
+    if act == "corrupt":
+        raise faults.corrupt_not_ported("hop.exchange")
+
+
 def _dispatch(data: torch.Tensor, pin: Pencil, pout: Pencil, nx: int,
               method: AbstractTransposeMethod) -> torch.Tensor:
     if data.requires_grad and torch.is_grad_enabled():
@@ -882,6 +938,8 @@ def transpose(src: PencilArray, dest: Pencil, *,
         method = resolve_method(pin, dest, src.extra_dims, src.dtype, method)
     if not isinstance(method, (AllToAll, Ring, Pipelined, Gspmd)):
         raise TypeError(f"unknown transpose method {method!r}")
+    if faults.armed("hop.exchange"):
+        hop_fault(method=_method_label(method))
     out = _dispatch(src.data, pin, dest, src.ndims_extra, method)
     return PencilArray(dest, out, src.extra_dims)
 

@@ -252,6 +252,70 @@ def _to_wire(vals: torch.Tensor, wire: str, nan_neg: torch.Tensor,
     return torch.where(torch.isnan(vals), _nan_pattern(wire, nan_neg), q)
 
 
+_SLAB = 1 << 24
+"""Elements a 16-bit cast scans at a time for NaN lanes (its temporaries
+are a few bytes an element of one slab)."""
+
+
+def _nan_lanes(vals: torch.Tensor, negative) -> list:
+    """``(flat indices, negative?)`` of the NaN lanes of the 1-D float
+    tensor ``vals``: none when its maximum, which a NaN makes NaN, is not;
+    else found a slab at a time (``negative(indices)``)."""
+    if not vals.numel() or not torch.isnan(torch.amax(vals)):
+        return []
+    lanes = []
+    for s in range(0, vals.numel(), _SLAB):
+        idx = torch.isnan(vals[s:s + _SLAB]).nonzero().squeeze(1) + s
+        if idx.numel():
+            lanes.append((idx, negative(idx)))
+    return lanes
+
+
+def _pack16(parts: torch.Tensor, wire: str, ftz: bool) -> torch.Tensor:
+    """``_to_wire`` of a 16-bit wire with no full-size temporary for f32
+    ``parts``: the NaN lanes are found before the wire buffer exists, the
+    buffer takes torch's cast in one pass (a copy between dtypes), and
+    the NaN lanes then take JAX's pattern; other inputs take
+    ``_to_wire``."""
+    if parts.dtype != torch.float32 or not parts.is_contiguous():
+        return _to_wire(parts, wire, torch.signbit(parts), ftz)
+    flat = parts.view(-1)
+    lanes = _nan_lanes(flat, lambda i: torch.signbit(flat[i]))
+    out = torch.empty(parts.shape, dtype=_torch_wire(wire),
+                      device=parts.device)
+    out.copy_(parts)
+    bits = out.view(torch.int16)
+    for idx, neg in lanes:
+        bits.view(-1)[idx] = _nan_pattern(wire, neg)
+    return bits
+
+
+def _unpack16(y: torch.Tensor, real_dt: torch.dtype, wire: str,
+              ftz: bool) -> torch.Tensor:
+    """The 16-bit words ``y`` (int16) widened to ``real_dt``, NaN lanes as
+    XLA widens them with the sign read from the bits (a device's widening
+    cast may drop it); into one f32 buffer with no full-size temporary
+    when ``real_dt`` is f32."""
+    w = y.view(_torch_wire(wire))
+    if real_dt != torch.float32 or not y.is_contiguous():
+        if wire == "bf16" and real_dt == torch.float64 and ftz:
+            # XLA:CPU widens bf16 -> f32 -> f64 and flushes on the way
+            parts = _flush(w.to(torch.float32)).to(torch.float64)
+        else:
+            parts = w.to(real_dt)
+        return _canonical_nan(parts, y < 0)
+    flat = y.view(-1)
+    lanes = _nan_lanes(w.view(-1), lambda i: flat[i] < 0)
+    out = torch.empty(y.shape, dtype=torch.float32, device=y.device)
+    out.copy_(w)
+    bits = out.view(torch.int32).view(-1)
+    for idx, neg in lanes:
+        bits[idx] = torch.where(
+            neg, torch.tensor(_signed(0xFFC00000, 32), device=y.device),
+            torch.tensor(0x7FC00000, device=y.device)).to(torch.int32)
+    return out
+
+
 def _canonical_nan(x: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
     """NaN lanes of ``x`` (f32 or f64) as the quiet NaN of sign ``neg``
     that XLA:CPU produces."""
@@ -386,8 +450,7 @@ def pack_axis(x: torch.Tensor, wire_dtype, tile_axis: Optional[int] = None,
         if tile_axis is None:
             raise ValueError(f"wire_dtype={wire!r} needs a tile axis")
         return _fp8_pack_parts(parts, wire, int(tile_axis), ftz)
-    bits = _to_wire(parts, wire, torch.signbit(parts), ftz)
-    return bits.view(torch.uint16)
+    return _pack16(parts, wire, ftz).view(torch.uint16)
 
 
 def unpack_axis(y: torch.Tensor, orig_dtype, wire_dtype,
@@ -409,15 +472,7 @@ def unpack_axis(y: torch.Tensor, orig_dtype, wire_dtype,
         parts = _fp8_unpack_parts(y, real_dt, wire, int(tile_axis), int(n_t),
                                   ftz)
     else:
-        w = y.view(torch.int16).view(_torch_wire(wire))
-        if wire == "bf16" and real_dt == torch.float64 and ftz:
-            # XLA:CPU widens bf16 -> f32 -> f64 and flushes on the way
-            parts = _flush(w.to(torch.float32)).to(torch.float64)
-        else:
-            parts = w.to(real_dt)
-        # NaN lanes as XLA widens them, the sign read from the bits (a
-        # device's widening cast may drop it)
-        parts = _canonical_nan(parts, y.view(torch.int16) < 0)
+        parts = _unpack16(y.view(torch.int16), real_dt, wire, ftz)
     if orig.is_complex:
         return torch.view_as_complex(parts.contiguous())
     return parts.to(orig)

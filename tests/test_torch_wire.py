@@ -393,3 +393,43 @@ def test_wired_hop_gradient_raises_where_jax_gives_zero(devices, pool):
     msg = pool.run(tasks.wired_grad_case, (2, 2), shape, [X, Y], u,
                    pat.AllToAll(wire_dtype="bf16"))[0]
     assert "no gradient" in msg
+
+
+@pytest.mark.parametrize("dtype", PAYLOADS,
+                         ids=[np.dtype(d).name for d in PAYLOADS])
+@pytest.mark.parametrize("method", [
+    pat.Pipelined(4), pat.AllToAll(wire_dtype="bf16"),
+    pat.AllToAll(wire_dtype="f16"), pat.Ring(wire_dtype="bf16"),
+    pat.Pipelined(4, pat.AllToAll(wire_dtype="bf16")),
+    pat.AllToAll(wire_dtype="fp8_e4m3")],
+    ids=["pipelined4", "a2a-bf16", "a2a-f16", "ring-bf16",
+         "pipelined4-bf16", "a2a-fp8"])
+def test_hop_order_changes_no_bits(method, dtype):
+    """The hops that hold less memory move the same bits: a chunked hop
+    allocates its output after the first chunk's pack and frees its input
+    after the last, and a 16-bit wire casts the block before K1's pack and
+    widens after K1's unpack.  Each equals the unchunked, unwired hop (of
+    ``unpack(pack(x))`` for a wire), ragged chunks and edge values
+    included, on one rank and as a donated input."""
+    rng = np.random.default_rng(9)
+    topo = pat.Topology((1, 1), device="cpu")
+    shape = (11, 13, 10)
+    px = pat.Pencil(topo, shape, (1, 2), permutation=pat.Permutation(1, 2, 0))
+    py = pat.Pencil(topo, shape, (0, 2), permutation=pat.Permutation(0, 2, 1))
+    u = torch.from_numpy(_edge_array(shape + (3,), dtype, rng))
+    x = pat.PencilArray.from_global(px, u, 1)
+    wire = tr._method_wire(method)
+    src = x.data
+    if wire is not None:
+        a, b = px.decomposition[0], py.decomposition[0]
+        logical = x.data.permute(tr._inv_axes(px, 1))
+        src = pwire.unpack(pwire.pack(logical, wire, axes=(a, b)), x.dtype,
+                           wire, axes=(a, b), orig_shape=logical.shape
+                           ).permute(tr._fwd_axes(px, 1)).contiguous()
+    want = pat.transpose(pat.PencilArray(px, src, (3,)), py).data
+    got = pat.transpose(x, py, method=method).data
+    donated = tr._hop([x.data.clone()], px, py, 1, method)
+    for t in (got, donated):
+        assert t.dtype == want.dtype and torch.equal(
+            t.contiguous().view(torch.uint8), want.contiguous().view(
+                torch.uint8))

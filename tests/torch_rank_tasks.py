@@ -831,3 +831,1066 @@ def reshard_to_case(dims, shape, specs, u):
             A.transpose_to(len(pens) - 1, donate=False)
         out.append((A.index, to_numpy_padded(A.current)))
     return _rank0(out)
+
+
+# -- parallel I/O and checkpoints (tests/test_torch_io.py,
+# tests/test_torch_resilience.py) ------------------------------------------
+
+IO_SHAPE = (11, 13, 10)
+IO_WRITER = ((1, 2), (2, 0, 1))    # the JAX tests' fixture pencil
+IO_READER = ((0, 1), (1, 2, 0))
+
+
+def _io_data(shape, extra=(), seed=0, dtype="float64"):
+    u = np.random.default_rng(seed).standard_normal(tuple(shape) + extra)
+    return u.astype(dtype)
+
+
+def _io_array(topo, spec, u, shape=IO_SHAPE):
+    pen = _sub_pencil(topo, shape, *spec)
+    return pen, pat.PencilArray.from_global(pen, u, u.ndim - len(shape))
+
+
+def _barrier(topo, name):
+    from pencilarrays_tpu_torch.parallel.distributed import \
+        sync_global_devices
+
+    sync_global_devices(name, topo.group)
+
+
+def _same(a, b):
+    """Bit identity of two NumPy arrays (dtype included)."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    assert a.shape == b.shape and a.dtype == b.dtype, (a.dtype, b.dtype)
+    assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def _check_gathered(x, u):
+    g = pat.gather(x)
+    if g is not None:
+        _same(g, u)
+
+
+def _io_open(path, topo, driver=None, **mode):
+    from pencilarrays_tpu_torch.io import BinaryDriver, open_file
+
+    return open_file(driver or BinaryDriver(), path, comm=topo.group, **mode)
+
+
+def io_case(dims, case, tmp, *args):
+    """Run the I/O case ``case`` of ``_IO_CASES`` on a CPU topology of
+    ``dims`` (and the 1-D topology of as many ranks) over the pool's first
+    ranks, files under ``tmp``; the case asserts on every rank and returns
+    rank 0's result."""
+    import math
+
+    topo = sub_topology(dims)
+    flat = sub_topology((math.prod(dims),))
+    if topo is None:
+        return None
+    return _rank0(_IO_CASES[case](topo, flat, str(tmp), *args))
+
+
+def _case_roundtrip(topo, flat, tmp):
+    u = _io_data(IO_SHAPE)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    path = f"{tmp}/data.bin"
+    with _io_open(path, topo, write=True, create=True) as f:
+        f.write("u", x)
+        stats = dict(f.stats)
+    with _io_open(path, topo, read=True) as f:
+        _check_gathered(f.read("u", pen), u)
+    return stats
+
+
+def _case_layout(topo, flat, tmp):
+    """Raw bytes at the sidecar's offset are the array in global logical
+    order (``test/io.jl:62-103``)."""
+    import json
+
+    u = _io_data(IO_SHAPE)
+    _, x = _io_array(topo, IO_WRITER, u)
+    path = f"{tmp}/data.bin"
+    with _io_open(path, topo, write=True, create=True) as f:
+        f.write("u", x)
+    with open(path + ".json") as jf:
+        d = json.load(jf)["datasets"][0]
+    raw = np.fromfile(path, dtype=np.float64,
+                      offset=d["offset_bytes"]).reshape(d["dims_logical"])
+    _same(raw, u)
+
+
+def _case_append(topo, flat, tmp):
+    u, v = _io_data(IO_SHAPE, seed=1), _io_data(IO_SHAPE, seed=2)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    _, y = _io_array(topo, IO_WRITER, v)
+    path = f"{tmp}/data.bin"
+    with _io_open(path, topo, write=True, create=True) as f:
+        f.write("u", x)
+    with _io_open(path, topo, append=True, write=True) as f:
+        f.write("v", y)
+    with _io_open(path, topo, read=True) as f:
+        assert {d["name"] for d in f.datasets} == {"u", "v"}
+        _check_gathered(f.read("u", pen), u)
+        _check_gathered(f.read("v", pen), v)
+
+
+def _case_restart(topo, flat, tmp):
+    """Write under one decomposition, read under others
+    (``mpi_io.jl:159-167``): another decomposition and memory order on
+    the same ranks, and a 1-D topology of them."""
+    u = _io_data(IO_SHAPE)
+    _, x = _io_array(topo, IO_WRITER, u)
+    path = f"{tmp}/data.bin"
+    with _io_open(path, topo, write=True, create=True) as f:
+        f.write("u", x)
+    pens = [_sub_pencil(topo, IO_SHAPE, *IO_READER),
+            _sub_pencil(flat, IO_SHAPE, (1,), None)]
+    with _io_open(path, topo, read=True) as f:
+        for p in pens:
+            y = f.read("u", p)
+            assert y.pencil == p
+            _check_gathered(y, u)
+
+
+def _case_chunks(topo, flat, tmp):
+    import json
+
+    from pencilarrays_tpu_torch.parallel.pencil import MemoryOrder
+
+    u = _io_data(IO_SHAPE)
+    _, x = _io_array(topo, IO_WRITER, u)
+    path = f"{tmp}/chunked.bin"
+    with _io_open(path, topo, write=True, create=True) as f:
+        f.write("u", x, chunks=True)
+    with open(path + ".json") as jf:
+        d = json.load(jf)["datasets"][0]
+    assert d["layout"] == "chunks" and len(d["chunk_map"]) == len(topo)
+    # this rank's chunk bytes are its block in memory order
+    # (mpi_io.jl:382-424)
+    ch = d["chunk_map"][topo.rank_local]
+    raw = np.fromfile(path, dtype=np.float64,
+                      count=int(np.prod(ch["dims_memory"])),
+                      offset=ch["offset_bytes"]).reshape(ch["dims_memory"])
+    true = x.pencil.size_local(None, MemoryOrder)
+    _same(raw, x.data[tuple(slice(0, n) for n in true)].numpy())
+    pen2 = _sub_pencil(topo, IO_SHAPE, (0, 2), None)
+    with _io_open(path, topo, read=True) as f:
+        _check_gathered(f.read("u", pen2), u)
+        _check_gathered(f.read("u", _sub_pencil(topo, IO_SHAPE,
+                                                *IO_READER)), u)
+
+
+def _case_extra_dims(topo, flat, tmp):
+    u = _io_data((6, 8, 9), extra=(3,))
+    pen, x = _io_array(topo, ((1, 2), None), u, shape=(6, 8, 9))
+    path = f"{tmp}/vec.bin"
+    with _io_open(path, topo, write=True, create=True) as f:
+        f.write("v", x)
+    with _io_open(path, topo, read=True) as f:
+        y = f.read("v", pen)
+    assert y.extra_dims == (3,)
+    _check_gathered(y, u)
+
+
+def _case_append_creates(topo, flat, tmp):
+    """append on a missing file creates it (Julia open-flags semantics)."""
+    u = _io_data(IO_SHAPE)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    path = f"{tmp}/fresh.bin"
+    with _io_open(path, topo, append=True) as f:
+        f.write("u", x)
+    with _io_open(path, topo, read=True) as f:
+        _check_gathered(f.read("u", pen), u)
+
+
+def _case_raw_read(topo, flat, tmp):
+    import os
+
+    u = _io_data(IO_SHAPE)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    path = f"{tmp}/data.bin"
+    with _io_open(path, topo, write=True, create=True) as f:
+        f.write("u", x)
+    _barrier(topo, "raw_written")
+    if topo.rank_local == 0:
+        os.remove(path + ".json")
+    _barrier(topo, "raw_removed")
+    with _io_open(path, topo, read=True) as f:
+        _check_gathered(f.read_raw(pen, np.float64, offset=0), u)
+
+
+def _case_validation(topo, flat, tmp):
+    import pytest
+
+    u = _io_data(IO_SHAPE)
+    _, x = _io_array(topo, IO_WRITER, u)
+    path = f"{tmp}/data.bin"
+    with _io_open(path, topo, write=True, create=True) as f:
+        f.write("u", x)
+    with _io_open(path, topo, read=True) as f:
+        with pytest.raises(KeyError):
+            f.read("nope", x.pencil)
+        with pytest.raises(ValueError, match="dims"):
+            f.read("u", _sub_pencil(topo, (11, 13, 11), (1, 2), None))
+    with pytest.raises(PermissionError):
+        with _io_open(path, topo, read=True) as f:
+            f.write("w", x)
+
+
+def _case_uniquify(topo, flat, tmp):
+    from pencilarrays_tpu_torch.io import BinaryDriver
+
+    u, v = _io_data(IO_SHAPE, seed=1), _io_data(IO_SHAPE, seed=2)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    _, y = _io_array(topo, IO_WRITER, v)
+    path = f"{tmp}/uq.bin"
+    with _io_open(path, topo, BinaryDriver(uniquify_names=True), write=True,
+                  create=True) as f:
+        f.write("u", x)
+        f.write("u", y)
+    with _io_open(path, topo, read=True) as f:
+        assert {d["name"] for d in f.datasets} == {"u", "u(2)"}
+        _check_gathered(f.read("u", pen), u)
+        _check_gathered(f.read("u(2)", pen), v)
+
+
+def _case_rewrite_reuses_offset(topo, flat, tmp):
+    """A same-size rewrite ping-pongs between two regions: bounded file
+    growth, and the sidecar's current region is never overwritten."""
+    import os
+
+    us = [_io_data(IO_SHAPE, seed=s) for s in (1, 2, 3)]
+    pen, x = _io_array(topo, IO_WRITER, us[0])
+    _, y = _io_array(topo, IO_WRITER, us[1])
+    _, z = _io_array(topo, IO_WRITER, us[2])
+    path = f"{tmp}/rw.bin"
+    with _io_open(path, topo, write=True, create=True) as f:
+        f.write("u", x)
+        f.write("v", y)
+    with _io_open(path, topo, append=True, write=True) as f:
+        f.write("u", y)  # first rewrite allocates the spare region
+    size1 = os.path.getsize(path)
+    for arr in (z, x, y, z):
+        with _io_open(path, topo, append=True, write=True) as f:
+            f.write("u", arr)
+    assert os.path.getsize(path) == size1
+    with _io_open(path, topo, read=True) as f:
+        _check_gathered(f.read("u", pen), us[2])
+        _check_gathered(f.read("v", pen), us[1])
+
+
+def _case_rewrite_crash(topo, flat, tmp):
+    """Bytes the pre-rewrite sidecar references survive the rewrite, so a
+    crash before the sidecar flush (the old sidecar put back) still reads
+    the previous data."""
+    import shutil
+
+    u, w = _io_data(IO_SHAPE, seed=6), _io_data(IO_SHAPE, seed=7)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    _, z = _io_array(topo, IO_WRITER, w)
+    path = f"{tmp}/crash.bin"
+    with _io_open(path, topo, write=True, create=True) as f:
+        f.write("u", x)
+    if topo.rank_local == 0:
+        shutil.copy(path + ".json", path + ".json.bak")
+    _barrier(topo, "crash_saved")
+    with _io_open(path, topo, append=True, write=True) as f:
+        f.write("u", z)
+    if topo.rank_local == 0:
+        shutil.copy(path + ".json.bak", path + ".json")
+    _barrier(topo, "crash_rolled_back")
+    with _io_open(path, topo, read=True) as f:
+        _check_gathered(f.read("u", pen), u)
+
+
+def _case_reuse_regions_off(topo, flat, tmp):
+    import os
+
+    from pencilarrays_tpu_torch.io import BinaryDriver
+
+    u, w = _io_data(IO_SHAPE, seed=4), _io_data(IO_SHAPE, seed=5)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    _, z = _io_array(topo, IO_WRITER, w)
+    path = f"{tmp}/ao.bin"
+    drv = BinaryDriver(reuse_regions=False)
+    with _io_open(path, topo, drv, write=True, create=True) as f:
+        f.write("u", x)
+    size0 = os.path.getsize(path)
+    with _io_open(path, topo, drv, append=True, write=True) as f:
+        f.write("u", z)
+    assert os.path.getsize(path) == 2 * size0  # appended, not reused
+    with _io_open(path, topo, read=True) as f:
+        _check_gathered(f.read("u", pen), w)
+
+
+def _case_collection(topo, flat, tmp):
+    """A (u, v, w, p) state writes as ONE dataset and restarts under a
+    different decomposition in one call."""
+    us = [_io_data(IO_SHAPE, seed=20 + i) for i in range(4)]
+    xs = [_io_array(topo, IO_WRITER, u)[1] for u in us]
+    path = f"{tmp}/coll.bin"
+    with _io_open(path, topo, write=True, create=True) as f:
+        f.write("state", tuple(xs))
+    pen2 = _sub_pencil(topo, IO_SHAPE, (0, 1), None)
+    with _io_open(path, topo, read=True) as f:
+        back = f.read("state", pen2)
+    assert isinstance(back, tuple) and len(back) == 4
+    for u, b in zip(us, back):
+        assert b.extra_dims == ()
+        _check_gathered(b, u)
+
+
+def _case_collection_chunks_extra(topo, flat, tmp):
+    us = [_io_data(IO_SHAPE, extra=(2,), seed=30 + i) for i in range(3)]
+    xs = [_io_array(topo, IO_WRITER, u)[1] for u in us]
+    path = f"{tmp}/collc.bin"
+    with _io_open(path, topo, write=True, create=True) as f:
+        f.write("state", list(xs), chunks=True)
+    with _io_open(path, topo, read=True) as f:
+        back = f.read("state", xs[0].pencil)
+    assert isinstance(back, tuple) and len(back) == 3
+    for u, b in zip(us, back):
+        assert b.extra_dims == (2,)
+        _check_gathered(b, u)
+
+
+def _case_collection_streams_host(topo, flat, tmp):
+    """A collection write stages each component into the host block: the
+    blocks are host NumPy arrays with the component dim trailing."""
+    from pencilarrays_tpu_torch.io.binary import iter_local_blocks
+    from pencilarrays_tpu_torch.io.core import CollectionView, \
+        pack_collection
+
+    xs = [_io_array(topo, IO_WRITER, _io_data(IO_SHAPE, seed=60 + i))[1]
+          for i in range(3)]
+    view, n = pack_collection(tuple(xs))
+    assert isinstance(view, CollectionView) and n == 3
+    assert view.extra_dims == (3,)
+    whole = [x.logical().numpy() for x in xs]   # collectives: every rank
+    blocks = list(iter_local_blocks(view))
+    for start, b in blocks:
+        assert isinstance(b, np.ndarray) and b.shape[-1] == 3
+        assert start[-1] == 0
+        at = tuple(slice(s, s + m) for s, m in zip(start, b.shape[:-1]))
+        for i, w in enumerate(whole):
+            _same(b[..., i], w[at])
+    return len(blocks)
+
+
+def _case_without_native(topo, flat, tmp):
+    """The NumPy memmap path writes and reads the same bytes."""
+    from pencilarrays_tpu_torch.io import native
+
+    u = _io_data(IO_SHAPE)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    path = f"{tmp}/fallback.bin"
+    saved = native.available
+    native.available = lambda: False
+    try:
+        with _io_open(path, topo, write=True, create=True) as f:
+            f.write("u", x)
+            assert f.stats["path"] == "memmap"
+        with _io_open(path, topo, read=True) as f:
+            y = f.read("u", _sub_pencil(topo, IO_SHAPE, *IO_READER))
+    finally:
+        native.available = saved
+    _check_gathered(y, u)
+    with _io_open(path, topo, read=True) as f:
+        _check_gathered(f.read("u", pen), u)
+
+
+def _h5_open(path, topo, **mode):
+    from pencilarrays_tpu_torch.io import HDF5Driver, open_file
+
+    chunks = mode.pop("chunks", False)
+    return open_file(HDF5Driver(chunks=chunks), path, comm=topo.group,
+                     **mode)
+
+
+def _case_h5_roundtrip_attrs(topo, flat, tmp):
+    """HDF5 round trip, attribute metadata, plain-h5py readability,
+    decomposition-independent restore (``test/io.jl:135-189``) and
+    in-place rewrites."""
+    import os
+
+    import h5py
+    import pytest
+
+    u = _io_data(IO_SHAPE, extra=(2,))
+    pen, x = _io_array(topo, IO_WRITER, u)
+    path = f"{tmp}/data.h5"
+    with _h5_open(path, topo, write=True, create=True) as f:
+        f.write("u", x)
+    with h5py.File(path, "r") as h:
+        _same(h["u"][...], u)
+    with _h5_open(path, topo, read=True) as f:
+        assert f.datasets() == ["u"]
+        attrs = f.attributes("u")
+        assert attrs["decomposed_dims"] == [1, 2]
+        assert attrs["permutation"] == [2, 0, 1]
+        assert attrs["process_dims"] == list(topo.dims)
+        _check_gathered(f.read("u", pen), u)
+        _check_gathered(f.read("u", _sub_pencil(flat, IO_SHAPE, (1,),
+                                                None)), u)
+        with pytest.raises(ValueError, match="dims"):
+            f.read("u", _sub_pencil(topo, (11, 13, 11), (1, 2), None))
+    size_before = os.path.getsize(path)
+    v = _io_data(IO_SHAPE, extra=(2,), seed=9)
+    _, xv = _io_array(topo, IO_WRITER, v)
+    with _h5_open(path, topo, append=True) as f:
+        f.write("u", xv)
+    with _h5_open(path, topo, read=True) as f:
+        _check_gathered(f.read("u", pen), v)
+    if len(topo) == 1:   # one writer reuses the dataset in place
+        assert os.path.getsize(path) < size_before + u.nbytes // 2
+
+
+def _case_h5_chunked(topo, flat, tmp):
+    import h5py
+
+    u = _io_data(IO_SHAPE)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    path = f"{tmp}/ck.h5"
+    with _h5_open(path, topo, chunks=True, write=True, create=True) as f:
+        f.write("u", x)
+    if len(topo) == 1:
+        with h5py.File(path, "r") as h:
+            assert h["u"].chunks is not None
+    with h5py.File(path, "r") as h:
+        _same(h["u"][...], u)
+    with _h5_open(path, topo, read=True) as f:
+        _check_gathered(f.read("u", pen), u)
+
+
+def _case_h5_bf16(topo, flat, tmp):
+    """bfloat16 stores as its bit pattern with a marker attribute."""
+    u = _io_data((8, 8, 8), dtype="float32")
+    pen = _sub_pencil(topo, (8, 8, 8), (1, 2), None)
+    x = pat.PencilArray.from_global(pen, torch.from_numpy(u).bfloat16())
+    path = f"{tmp}/bf16.h5"
+    with _h5_open(path, topo, write=True, create=True) as f:
+        f.write("u", x)
+    with _h5_open(path, topo, read=True) as f:
+        y = f.read("u", pen)
+    assert y.dtype == torch.bfloat16
+    _check_gathered(y, torch.from_numpy(u).bfloat16().float().numpy())
+
+
+def _case_h5_collection(topo, flat, tmp):
+    us = [_io_data(IO_SHAPE, seed=40 + i) for i in range(4)]
+    xs = [_io_array(topo, IO_WRITER, u)[1] for u in us]
+    path = f"{tmp}/coll.h5"
+    with _h5_open(path, topo, write=True, create=True) as f:
+        f.write("state", tuple(xs))
+    pen2 = _sub_pencil(topo, IO_SHAPE, (0, 2), None)
+    with _h5_open(path, topo, read=True) as f:
+        back = f.read("state", pen2)
+    assert isinstance(back, tuple) and len(back) == 4
+    for u, b in zip(us, back):
+        _check_gathered(b, u)
+    # a single-array rewrite under the same name clears the marker
+    with _h5_open(path, topo, append=True, write=True) as f:
+        f.write("state", xs[0])
+    with _h5_open(path, topo, read=True) as f:
+        one = f.read("state", xs[0].pencil)
+    assert not isinstance(one, tuple)
+
+
+_IO_CASES = {
+    "roundtrip": _case_roundtrip,
+    "layout": _case_layout,
+    "append": _case_append,
+    "restart": _case_restart,
+    "chunks": _case_chunks,
+    "extra_dims": _case_extra_dims,
+    "append_creates": _case_append_creates,
+    "raw_read": _case_raw_read,
+    "validation": _case_validation,
+    "uniquify": _case_uniquify,
+    "rewrite_reuses_offset": _case_rewrite_reuses_offset,
+    "rewrite_crash": _case_rewrite_crash,
+    "reuse_regions_off": _case_reuse_regions_off,
+    "collection": _case_collection,
+    "collection_chunks_extra": _case_collection_chunks_extra,
+    "collection_streams_host": _case_collection_streams_host,
+    "without_native": _case_without_native,
+    "h5_roundtrip_attrs": _case_h5_roundtrip_attrs,
+    "h5_chunked": _case_h5_chunked,
+    "h5_bf16": _case_h5_bf16,
+    "h5_collection": _case_h5_collection,
+}
+
+
+def _bits_to_torch(a, bf16):
+    t = torch.from_numpy(np.array(a, copy=True))
+    return t.view(torch.bfloat16) if bf16 else t
+
+
+def io_cross_read(dims, tmp, spec, verify_local=True):
+    """Read the JAX package's files under ``tmp`` (``jax.bin``,
+    ``jax.h5`` when present, checkpoint ``ckpt``) into a pencil of
+    ``spec`` on ``dims``: every dataset gathered (bfloat16 as its bits),
+    with the checkpoint verified in full and, if asked, locally."""
+    import os
+
+    from pencilarrays_tpu_torch.io import BinaryDriver, HDF5Driver
+    from pencilarrays_tpu_torch.resilience import CheckpointManager
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pen = _sub_pencil(topo, IO_SHAPE, *spec)
+    out = {}
+
+    def put(key, y):
+        if isinstance(y, tuple):
+            for i, c in enumerate(y):
+                put(f"{key}[{i}]", c)
+            return
+        if y.dtype == torch.bfloat16:
+            y = pat.PencilArray(y.pencil, y.data.view(torch.int16),
+                                y.extra_dims)
+        out[key] = pat.gather(y)
+
+    with _io_open(f"{tmp}/jax.bin", topo, read=True) as f:
+        for d in f.datasets:
+            put(f"bin:{d['name']}", f.read(d["name"], pen))
+    if os.path.exists(f"{tmp}/jax.h5"):
+        with _io_open(f"{tmp}/jax.h5", topo, HDF5Driver(), read=True) as f:
+            for name in f.datasets():
+                put(f"h5:{name}", f.read(name, pen))
+    mgr = CheckpointManager(f"{tmp}/ckpt", comm=topo.group)
+    assert mgr.latest_valid() == mgr.steps()[-1]
+    for step in mgr.steps():
+        mgr.verify(step)
+        ck = mgr.restore(step)
+        for name in ck.datasets:
+            put(f"ckpt{step}:{name}", ck.read(name, pen, verify=True))
+            if verify_local:
+                put(f"ckpt{step}local:{name}",
+                    ck.read(name, pen, verify="local"))
+    return _rank0(out)
+
+
+def io_cross_write(dims, tmp, spec, data, bf16=(), h5=True):
+    """Write ``data`` ({name: global array, or tuple of arrays for a
+    collection}; names in ``bf16`` hold bfloat16 bits) from a pencil of
+    ``spec`` on ``dims`` into ``tmp``: ``port.bin`` (``c*`` names in the
+    chunks layout), ``port.h5`` and a checkpoint ``ckpt`` of step 1."""
+    from pencilarrays_tpu_torch.io import HDF5Driver
+    from pencilarrays_tpu_torch.resilience import CheckpointManager
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pen = _sub_pencil(topo, IO_SHAPE, *spec)
+
+    def arr(u, name):
+        t = _bits_to_torch(u, name in bf16)
+        return pat.PencilArray.from_global(pen, t, t.dim() - 3)
+
+    xs = {n: tuple(arr(c, n) for c in u) if isinstance(u, tuple)
+          else arr(u, n) for n, u in data.items()}
+    with _io_open(f"{tmp}/port.bin", topo, write=True, create=True) as f:
+        for n, x in xs.items():
+            f.write(n, x, chunks=n.startswith("c"))
+    if h5:
+        with _io_open(f"{tmp}/port.h5", topo, HDF5Driver(), write=True,
+                      create=True) as f:
+            for n, x in xs.items():
+                if not n.startswith("c"):
+                    f.write(n, x)
+    mgr = CheckpointManager(f"{tmp}/ckpt", comm=topo.group)
+    mgr.save(1, {n: x for n, x in xs.items() if not n.startswith("c")})
+    return _rank0(True)
+
+
+def ckpt_case(dims, case, tmp, *args):
+    """Run the checkpoint case ``case`` of ``_CKPT_CASES`` on a CPU
+    topology of ``dims`` over the pool's first ranks (as ``io_case``)."""
+    import math
+
+    topo = sub_topology(dims)
+    flat = sub_topology((math.prod(dims),))
+    if topo is None:
+        return None
+    return _rank0(_CKPT_CASES[case](topo, flat, str(tmp), *args))
+
+
+def _mgr(topo, directory, **kw):
+    from pencilarrays_tpu_torch.resilience import CheckpointManager
+
+    return CheckpointManager(directory, comm=topo.group, **kw)
+
+
+def _on_rank0(topo, name, fn):
+    """``fn()`` on rank 0 of ``topo``, then a barrier."""
+    if topo.rank_local == 0:
+        fn()
+    _barrier(topo, name)
+
+
+def _flip(path, offset, mask=0x01):
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ mask]))
+
+
+def _ck_roundtrip_layout(topo, flat, tmp):
+    import json
+    import os
+
+    u, v = _io_data(IO_SHAPE, seed=1), _io_data(IO_SHAPE, (2,), seed=2)
+    _, x = _io_array(topo, IO_WRITER, u)
+    _, y = _io_array(topo, IO_WRITER, v)
+    mgr = _mgr(topo, tmp, keep=4)
+    p = mgr.save(7, {"u": x, "v": y})
+    assert sorted(os.listdir(p)) == ["COMMIT", "MANIFEST.json", "data.bin",
+                                     "data.bin.json"]
+    with open(os.path.join(p, "MANIFEST.json")) as f:
+        mf = json.load(f)
+    assert mf["step"] == 7 and mf["driver"] == "BinaryDriver"
+    assert set(mf["datasets"]) == {"u", "v"}
+    blocks = mf["datasets"]["u"]["blocks"]
+    assert len(blocks) == len(topo)
+    assert all({"start", "shape", "crc"} <= set(b) for b in blocks)
+    assert sum(int(np.prod(b["shape"])) for b in blocks) == u.size
+    mgr.verify(7)
+    assert mgr.latest_valid() == 7
+    ck = mgr.restore()
+    assert ck.datasets == ["u", "v"]
+    _check_gathered(ck.read("u", _sub_pencil(topo, IO_SHAPE, (0, 1),
+                                             None)), u)
+    _check_gathered(ck.read("v", _sub_pencil(flat, IO_SHAPE, (1,), None)),
+                    v)
+    return mgr.stats
+
+
+def _ck_collections(topo, flat, tmp):
+    us = [_io_data(IO_SHAPE, seed=20 + i) for i in range(3)]
+    xs = [_io_array(topo, IO_WRITER, u)[1] for u in us]
+    mgr = _mgr(topo, tmp)
+    mgr.save(1, {"state": tuple(xs)})
+    back = mgr.restore().read("state", _sub_pencil(topo, IO_SHAPE, (0, 2),
+                                                    None))
+    assert isinstance(back, tuple) and len(back) == 3
+    for u, b in zip(us, back):
+        _check_gathered(b, u)
+
+
+def _ck_retention_gc(topo, flat, tmp):
+    import os
+
+    _, x = _io_array(topo, IO_WRITER, _io_data(IO_SHAPE))
+    mgr = _mgr(topo, tmp, keep=2)
+    for step in (1, 2, 3, 4):
+        mgr.save(step, {"u": x})
+    assert mgr.steps() == [3, 4]
+    assert sorted(os.listdir(tmp)) == ["step-00000003", "step-00000004"]
+
+
+def _ck_uncommitted_skipped(topo, flat, tmp):
+    import os
+
+    import pytest
+    from pencilarrays_tpu_torch.resilience import CheckpointNotFoundError
+
+    u, w = _io_data(IO_SHAPE, seed=3), _io_data(IO_SHAPE, seed=4)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    _, z = _io_array(topo, IO_WRITER, w)
+    mgr = _mgr(topo, tmp)
+    mgr.save(1, {"u": x})
+    p2 = mgr.save(2, {"u": z})
+    _on_rank0(topo, "uncommit", lambda: os.unlink(os.path.join(p2,
+                                                               "COMMIT")))
+    assert mgr.latest_valid() == 1
+    _check_gathered(mgr.restore().read("u", pen), u)
+    with pytest.raises(CheckpointNotFoundError):
+        mgr.restore(2)
+    mgr.save(3, {"u": x})     # the next save's GC sweeps the torn step
+    assert not os.path.exists(p2)
+
+
+def _ck_resave(topo, flat, tmp):
+    import os
+
+    u, v = _io_data(IO_SHAPE, seed=16), _io_data(IO_SHAPE, seed=17)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    _, y = _io_array(topo, IO_WRITER, v)
+    mgr = _mgr(topo, tmp)
+    mgr.save(1, {"u": x})
+    mgr.save(1, {"u": y})
+    assert mgr.steps() == [1]
+    assert sorted(os.listdir(tmp)) == ["step-00000001"]
+    _check_gathered(mgr.restore(1).read("u", pen), v)
+
+
+def _ck_unknown_algo(topo, flat, tmp):
+    """A checksum algorithm this host cannot compute degrades verification
+    to structural checks, never a false failure."""
+    import json
+    import os
+
+    u = _io_data(IO_SHAPE, seed=18)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    mgr = _mgr(topo, tmp)
+    p = mgr.save(1, {"u": x})
+    mpath = os.path.join(p, "MANIFEST.json")
+
+    def forge():
+        with open(mpath) as f:
+            mf = json.load(f)
+        mf["algo"] = "crc64-nvme"
+        with open(mpath, "w") as f:
+            json.dump(mf, f)
+    _on_rank0(topo, "forge", forge)
+    mgr.verify(1)
+    assert mgr.latest_valid() == 1
+    _check_gathered(mgr.restore().read("u", pen), u)
+
+
+def _ck_crash_before_commit(topo, flat, tmp):
+    import os
+
+    import pytest
+    from pencilarrays_tpu_torch.resilience import InjectedFault, faults
+
+    u, w = _io_data(IO_SHAPE, seed=5), _io_data(IO_SHAPE, seed=6)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    _, z = _io_array(topo, IO_WRITER, w)
+    mgr = _mgr(topo, tmp)
+    mgr.save(1, {"u": x})
+    with faults.active("ckpt.commit:error"):
+        with pytest.raises(InjectedFault):
+            mgr.save(2, {"u": z})
+    _barrier(topo, "after_crash")
+    assert mgr.latest_valid() == 1
+    assert not os.path.exists(mgr._step_dir(2))
+    _check_gathered(mgr.restore().read("u", pen), u)
+
+
+def _ck_transient_retried(topo, flat, tmp):
+    """Transient errors at the sidecar flush (rank 0's commit point) and
+    at the restore's open are absorbed by the retry policy."""
+    from pencilarrays_tpu_torch.resilience import RetryPolicy, faults
+
+    u = _io_data(IO_SHAPE, seed=7)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    fast = RetryPolicy(max_attempts=5, base_delay=0.001, deadline=5.0)
+    mgr = _mgr(topo, tmp, retry=fast)
+    with faults.active("io.flush_meta:error*2"):
+        mgr.save(1, {"u": x})
+    assert mgr.latest_valid() == 1
+    with faults.active("io.open:error*1"):
+        _check_gathered(mgr.restore().read("u", pen), u)
+
+
+def _ck_corruption_named(topo, flat, tmp):
+    import json
+    import os
+
+    import pytest
+    from pencilarrays_tpu_torch.resilience import (CheckpointNotFoundError,
+                                                   CorruptCheckpointError)
+
+    u, v = _io_data(IO_SHAPE, seed=8), _io_data(IO_SHAPE, seed=9)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    _, y = _io_array(topo, IO_WRITER, v)
+    mgr = _mgr(topo, tmp)
+    p = mgr.save(1, {"u": x, "v": y})
+    with open(os.path.join(p, "data.bin.json")) as f:
+        d = next(d for d in json.load(f)["datasets"] if d["name"] == "v")
+    _on_rank0(topo, "flip", lambda: _flip(os.path.join(p, "data.bin"),
+                                          d["offset_bytes"] + 128))
+    with pytest.raises(CorruptCheckpointError, match=r"'v' block \d+") as ei:
+        mgr.verify(1)
+    e = ei.value
+    assert e.dataset == "v" and e.block is not None and e.step == 1
+    with pytest.raises(CorruptCheckpointError):
+        mgr.restore(1).read("v", pen)
+    _check_gathered(mgr.restore(1).read("u", pen), u)
+    assert mgr.latest_valid() is None
+    with pytest.raises(CheckpointNotFoundError):
+        mgr.restore()
+
+
+def _ck_hdf5(topo, flat, tmp):
+    import os
+
+    import h5py
+    import pytest
+    from pencilarrays_tpu_torch.io import HDF5Driver
+    from pencilarrays_tpu_torch.resilience import ResilienceError
+
+    u = _io_data(IO_SHAPE, seed=10)
+    _, x = _io_array(topo, IO_WRITER, u)
+    mgr = _mgr(topo, tmp, driver=HDF5Driver())
+    p = mgr.save(1, {"u": x})
+    assert os.path.exists(os.path.join(p, "data.h5"))
+    mgr.verify(1)
+    _check_gathered(mgr.restore().read("u", _sub_pencil(topo, IO_SHAPE,
+                                                        (0, 1), None)), u)
+    # flip one byte inside the stored data: the dataset itself with one
+    # writer, rank 0's shard file behind the virtual dataset with several
+    path, dset = ((os.path.join(p, "data.h5"), "u") if len(topo) == 1
+                  else (os.path.join(p, "data.h5.r0"), "u/r0"))
+    with h5py.File(path, "r") as h:
+        off = h[dset].id.get_offset()
+    assert off is not None
+    _on_rank0(topo, "flip", lambda: _flip(path, off + 40, 0xFF))
+    with pytest.raises(ResilienceError):
+        mgr.verify(1)
+
+
+def _ck_checksums_off(topo, flat, tmp):
+    import json
+    import os
+
+    u = _io_data(IO_SHAPE, seed=11)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    mgr = _mgr(topo, tmp, checksums=False)
+    p = mgr.save(1, {"u": x})
+    with open(os.path.join(p, "MANIFEST.json")) as f:
+        mf = json.load(f)
+    assert mf["algo"] is None and mf["datasets"]["u"]["blocks"] is None
+    assert mgr.latest_valid() == 1
+    _check_gathered(mgr.restore().read("u", pen), u)
+
+    def wreck():
+        with open(os.path.join(p, "data.bin.json"), "w") as f:
+            f.write("{not json")
+    _on_rank0(topo, "wreck", wreck)
+    assert mgr.latest_valid() is None
+
+
+def _ck_checksums_off_chunks(topo, flat, tmp):
+    """Checksums-off verification is structural only, and accepts the
+    chunks layout the block reader cannot describe."""
+    u = _io_data(IO_SHAPE, seed=21)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    mgr = _mgr(topo, tmp, checksums=False)
+    mgr.save(0, {"u": x}, chunks=True)
+    assert mgr.latest_valid() == 0
+    _check_gathered(mgr.restore().read("u", pen), u)
+
+
+def _ck_interrupted_resave(topo, flat, tmp):
+    """A crash between moving the old committed step aside and committing
+    its replacement: latest_valid() recovers the moved-aside copy."""
+    import os
+
+    u, w = _io_data(IO_SHAPE, seed=22), _io_data(IO_SHAPE, seed=23)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    _, y = _io_array(topo, IO_WRITER, w)
+    mgr = _mgr(topo, tmp, keep=1)
+    p = mgr.save(5, {"u": x})
+
+    def crash():
+        os.rename(p, os.path.join(tmp, ".tmp-step-00000005-replaced"))
+        os.makedirs(p)
+        with open(os.path.join(p, "data.bin"), "wb") as f:
+            f.write(b"torn")
+    _on_rank0(topo, "crash", crash)
+    if topo.rank_local == 0:
+        assert mgr.latest_valid() == 5      # recovered, not lost
+    _barrier(topo, "recovered")
+    assert mgr.latest_valid() == 5
+    _check_gathered(mgr.restore(5).read("u", pen), u)
+    mgr.save(6, {"u": y})
+    assert mgr.steps() == [6]
+
+
+def _ck_bad_configs(topo, flat, tmp):
+    import pytest
+    from pencilarrays_tpu_torch.io import HDF5Driver, OrbaxDriver
+    from pencilarrays_tpu_torch.resilience import CheckpointNotFoundError
+
+    _, x = _io_array(topo, IO_WRITER, _io_data(IO_SHAPE))
+    with pytest.raises(NotImplementedError, match="Orbax driver"):
+        _mgr(topo, tmp, driver=OrbaxDriver())
+    mgr = _mgr(topo, tmp)
+    with pytest.raises(ValueError, match="chunks"):
+        mgr.save(1, {"u": x}, chunks=True)
+    mgr_h = _mgr(topo, tmp, driver=HDF5Driver(), checksums=False)
+    with pytest.raises(ValueError, match="BinaryDriver layout"):
+        mgr_h.save(1, {"u": x}, chunks=True)
+    with pytest.raises(ValueError, match="empty"):
+        mgr.save(1, {})
+    with pytest.raises(CheckpointNotFoundError):
+        mgr.restore()
+    with pytest.raises(NotImplementedError, match="engine/"):
+        mgr.save_async(1, {"u": x})
+
+
+def _ck_truncation_fuzz(topo, flat, tmp):
+    """Truncate or corrupt checkpoint files at seeded offsets: every
+    outcome is a bit-identical restore of INTACT data or a typed
+    ResilienceError, never silently wrong data."""
+    import os
+    import shutil
+
+    from pencilarrays_tpu_torch.resilience import ResilienceError
+
+    u = _io_data(IO_SHAPE, seed=12)
+    pen, x = _io_array(topo, IO_WRITER, u)
+    pristine = os.path.join(tmp, "pristine")
+    _mgr(topo, pristine, keep=1).save(1, {"u": x})
+    rng = np.random.default_rng(2026)
+    targets = ["data.bin", "data.bin.json", "MANIFEST.json", "COMMIT"]
+    outcomes = {"restored": 0, "typed_error": 0}
+    for trial in range(24):
+        work = os.path.join(tmp, f"fuzz{trial}")
+        victim = os.path.join(work, "step-00000001",
+                              targets[trial % len(targets)])
+        mode = ["truncate", "flip", "zero"][trial % 3]
+        draws = rng.integers(0, 1 << 62, size=2)
+
+        def damage():
+            shutil.copytree(os.path.join(pristine, "step-00000001"),
+                            os.path.join(work, "step-00000001"))
+            size = os.path.getsize(victim)
+            with open(victim, "r+b") as f:
+                if mode == "truncate" or size == 0:
+                    f.truncate(int(draws[0] % max(size, 1)))
+                else:
+                    off = int(draws[1] % size)
+                    f.seek(off)
+                    b = f.read(1) or b"\0"
+                    f.seek(off)
+                    f.write(bytes([b[0] ^ (0xFF if mode == "flip"
+                                           else b[0])]))
+        _on_rank0(topo, f"fuzz{trial}", damage)
+        mgr = _mgr(topo, work, keep=1)
+        step = mgr.latest_valid()
+        if step is None:
+            outcomes["typed_error"] += 1
+            continue
+        try:
+            back = mgr.restore(step).read("u", pen)
+        except ResilienceError:
+            outcomes["typed_error"] += 1
+            continue
+        _check_gathered(back, u)
+        outcomes["restored"] += 1
+    assert outcomes["typed_error"] > 0 and outcomes["restored"] > 0
+    return outcomes
+
+
+def _ck_older_fallback(topo, flat, tmp):
+    import os
+
+    u1, u2 = _io_data(IO_SHAPE, seed=13), _io_data(IO_SHAPE, seed=14)
+    pen, x1 = _io_array(topo, IO_WRITER, u1)
+    _, x2 = _io_array(topo, IO_WRITER, u2)
+    mgr = _mgr(topo, tmp, keep=5)
+    mgr.save(1, {"u": x1})
+    p2 = mgr.save(2, {"u": x2})
+
+    def cut():
+        path = os.path.join(p2, "data.bin")
+        with open(path, "r+b") as f:
+            f.truncate(os.path.getsize(path) // 2)
+    _on_rank0(topo, "cut", cut)
+    assert mgr.latest_valid() == 1 and mgr.valid_steps() == [1]
+    assert mgr.common_latest_valid() == 1
+    _check_gathered(mgr.restore().read("u", pen), u1)
+
+
+def _ck_observer_blocks(topo, flat, tmp):
+    """The manifest CRCs come from the write path's own host blocks: the
+    observer sees this rank's logical-order block, whose CRC matches an
+    independent computation on the global array."""
+    from pencilarrays_tpu_torch.io.binary import iter_local_blocks
+    from pencilarrays_tpu_torch.resilience.checksum import (BlockChecksums,
+                                                            crc_of_array)
+
+    u = _io_data(IO_SHAPE, seed=15)
+    _, x = _io_array(topo, IO_WRITER, u)
+    crcs = BlockChecksums()
+    observe = crcs.observer("u")
+    for start, block in iter_local_blocks(x):
+        observe(start, block)
+    for b in crcs.blocks("u"):
+        sl = tuple(slice(s, s + e) for s, e in zip(b["start"], b["shape"]))
+        assert crc_of_array(u[sl]) == b["crc"]
+    return len(crcs.blocks("u"))
+
+
+_CKPT_CASES = {
+    "roundtrip_layout": _ck_roundtrip_layout,
+    "collections": _ck_collections,
+    "retention_gc": _ck_retention_gc,
+    "uncommitted_skipped": _ck_uncommitted_skipped,
+    "resave": _ck_resave,
+    "unknown_algo": _ck_unknown_algo,
+    "crash_before_commit": _ck_crash_before_commit,
+    "transient_retried": _ck_transient_retried,
+    "corruption_named": _ck_corruption_named,
+    "hdf5": _ck_hdf5,
+    "checksums_off": _ck_checksums_off,
+    "checksums_off_chunks": _ck_checksums_off_chunks,
+    "interrupted_resave": _ck_interrupted_resave,
+    "bad_configs": _ck_bad_configs,
+    "truncation_fuzz": _ck_truncation_fuzz,
+    "older_fallback": _ck_older_fallback,
+    "observer_blocks": _ck_observer_blocks,
+}
+
+
+def ckpt_cross_decomposition(tmp, torn):
+    """A checkpoint written on (2, 2) restores onto (4, 1), (1, 2) and one
+    rank bit-identically, verified in full and locally; with ``torn`` the
+    newest step's data is corrupted, ``latest_valid()`` falls back to
+    step 1, and reading the torn step raises a typed failure."""
+    import os
+
+    import pytest
+    from pencilarrays_tpu_torch.resilience import CorruptCheckpointError
+
+    truth = _io_data(IO_SHAPE, seed=21 + torn)
+    writer = sub_topology((2, 2))
+    readers = [(sub_topology((4, 1)), ((1, 2), None)),
+               (sub_topology((1, 2)), ((0, 1), (2, 0, 1))),
+               (sub_topology((1,)), ((2,), None))]
+    wpen = pat.Pencil(pat.Topology.unconnected((2, 2)), IO_SHAPE, (1, 2))
+    torn_blocks = [rr for rr in (wpen.range_local(wpen.topology.coords(r))
+                                 for r in range(4))
+                   if all(r.start <= i < r.stop
+                          for r, i in zip(rr, (0, 0, 8)))]
+    if writer is not None:
+        mgr = _mgr(writer, tmp, keep=4)
+        x = _io_array(writer, ((1, 2), None), truth)[1]
+        mgr.save(1, {"u": x})
+        if torn:
+            mgr.save(2, {"u": x + 5.0})
+            _on_rank0(writer, "tear", lambda: _flip(
+                os.path.join(tmp, "step-00000002", "data.bin"), 64, 0xFF))
+    torch.distributed.barrier()
+    for topo, spec in readers:
+        if topo is None:
+            continue
+        mgr = _mgr(topo, tmp, keep=4)
+        pen = _sub_pencil(topo, IO_SHAPE, *spec)
+        if torn:
+            assert mgr.latest_valid() == 1
+            _check_gathered(mgr.restore(1).read("u", pen, verify=True),
+                            truth)
+            # the flipped byte is element (0, 0, 8): a rank refuses the
+            # step when its block meets the writer's block holding it (the
+            # one manifest block its local verification reads)
+            ck = mgr.restore(2, verify=False)
+            if any(all(a.start < b.stop and b.start < a.stop
+                       for a, b in zip(pen.range_local(), rr))
+                   for rr in torn_blocks):
+                with pytest.raises(CorruptCheckpointError):
+                    ck.read("u", pen, verify="local")
+            else:
+                ck.read("u", pen, verify="local")
+        else:
+            ck = mgr.restore(1)
+            _check_gathered(ck.read("u", pen, verify=True), truth)
+            _check_gathered(ck.read("u", pen, verify="local"), truth)
+    return _rank0(True)
