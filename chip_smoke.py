@@ -45,11 +45,12 @@ standard output too.  Phases, each printed on its own lines:
    the content sum within ``wire_rtol``, ms, peak and a profile (K1,
    exchange, cast); at 64^3 the card's wired cycles equal the CPU's; a
    1024^3 ``reshard`` between pencils differing in both slots and memory
-   order (default, Gspmd, forced AllToAll, bf16, Pipelined(4),
-   ``hbm_limit``, ``ManyPencilArray.reshard_to``), each bit-identical to
-   Gspmd (bf16 within two bf16 steps), with ms, K1 launches and peak
-   beside the route's modeled ``peak_hbm_bytes`` (the ``hbm_limit`` run
-   and the bf16 route must keep it, less the resident input);
+   order (default, Gspmd, forced AllToAll, bf16, fp8 e4m3,
+   Pipelined(4), ``hbm_limit``, ``ManyPencilArray.reshard_to``), each
+   bit-identical to Gspmd (a wired route within two steps of its wire),
+   with ms, K1 launches and peak beside the route's modeled
+   ``peak_hbm_bytes`` (the ``hbm_limit`` run, the bf16 route and the
+   Pipelined(4) route must keep it, less the resident input);
 4. a 512^3 r2c PencilFFT plan: forward + backward round trip and times;
    a strided-batch ``rfftn``/``irfftn`` over a (512, 512, 512, 3) f32
    block with the components innermost against K1 + the contiguous
@@ -89,6 +90,26 @@ standard output too.  Phases, each printed on its own lines:
    verification; four drills in subprocesses (a kill before the commit,
    two retried sidecar-flush faults, a flipped byte refused by name, an
    armed ``hop.exchange``); HDF5 when h5py imports (printed either way);
+5d. the engine (``engine/``), in ``chip_smoke_engine/`` of the checkout
+   (three times the bytes it writes must be free; deleted at the end):
+   NS Taylor-Green at 512^3 for 48 RK2 steps with a
+   ``CheckpointManager(keep=2)`` save every 16, once as a synchronous
+   loop and once by ``run_async`` (saves on the engine's host pool): the
+   final states and the kept steps restored from both directories bit
+   for bit, the saves counted as host tasks, the dispatch log verified
+   (``analysis.verify_dispatch_log``), wall ms of both loops and the share
+   of the save time hidden, the median step inside the async loop, its
+   peak above the sync loop's (at most one state and one staged
+   component); ``step_async``, ``forward_async`` and ``backward_async``
+   bit-identical to the synchronous calls; ``compile()`` of the NS plan
+   as one CUDA graph per direction, bit-identical to the eager chain,
+   one replay per call and no eager launch, the graph's pool bytes and
+   captured K1 launches, eager against compiled ms with the copies in
+   and out timed apart; an 8-step ``run_async`` with one save under
+   ``PENCILARRAYS_TPU_OBS`` whose journal lints clean and holds the
+   ``ckpt.save`` records and the engine's gauges, step ms with obs on
+   and off; ``utils/benchtime`` on phase 3's cycle with its spread, and
+   ``Auto(mode="measure")`` resolving every one-card hop unmeasured;
 6. kernels K2–K4 (``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
    ``flash_bwd_tf32.cu``) against their plain versions on the card: three
    forward modes, full and partials backward, causal and not, ragged
@@ -119,13 +140,15 @@ standard output too.  Phases, each printed on its own lines:
 10. a ``{"kernels": [...]}`` line: per kernel its launches on each path
     (each counted from 0 just before its run; K1's on the NS steps, the
     four cycles, the six wired cycles, the reshard runs, the fused hop, the DCT plan, the spectral operators,
-    the ManyPencilArray cycle and phase 5c's writes and reads, ``io``) and
+    the ManyPencilArray cycle, phase 5c's writes and reads, ``io``, and
+    phase 5d's ``engine_ns`` and ``compiled_plan``) and
     their sum, by
     instance, its error against the plain version and its times (K1's per
     class in ``timings``);
 11. the last line, ``{"ok": true, "device": {...}}``.
 """
 
+import faulthandler
 import json
 import math
 import os
@@ -137,6 +160,7 @@ import time
 import traceback
 
 SEED = 0
+WATCHDOG_S = 1080   # the run's own limit, under the 1200 s it must keep
 KERNEL_SOURCES = ["permute", "flash_fwd", "flash_bwd", "flash_bwd_tf32"]
 H100_BW = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
 H100_SXM_BW = 3.35e12  # bytes/s; also the default for an unlisted card
@@ -1218,7 +1242,8 @@ def reshard_check(torch, pat, k1, tr, routing, n=1024):
     slots and in memory order: the default (the planner's verdict on one
     card), a forced ``AllToAll()`` route, a wired route, a forced
     ``Pipelined(4)`` route (the chunked hops an ``hbm_limit`` synthesizes
-    on several ranks), an ``hbm_limit`` at the route's modeled peak
+    on several ranks; on one card its hops cross no rank and run as one
+    permute), an ``hbm_limit`` at the route's modeled peak
     (``routed:hbm``) and one byte under it (``HbmBoundError``), and
     ``ManyPencilArray.reshard_to``; every data-movement path bit-identical
     to ``Gspmd()``'s; ms (median of 3 warm runs), K1 launches and the peak
@@ -1242,6 +1267,8 @@ def reshard_check(torch, pat, k1, tr, routing, n=1024):
         "reshard_gspmd": dict(method=pat.Gspmd()),
         "reshard_alltoall": dict(method=pat.AllToAll()),
         "reshard_wire_bf16": dict(method=pat.AllToAll(wire_dtype="bf16")),
+        "reshard_wire_fp8": dict(method=pat.AllToAll(
+            wire_dtype="fp8_e4m3")),
         "reshard_pipelined4": dict(method=pat.Pipelined(4)),
         "reshard_hbm": dict(hbm_limit=peak_model),
         "reshard_to": None,
@@ -1284,10 +1311,17 @@ def reshard_check(torch, pat, k1, tr, routing, n=1024):
         if not wired and not same_bits(torch, res.data, ref):
             raise AssertionError(f"{run}: differs from the Gspmd reshard")
         if wired:
+            # two hops, each within half a step of its format: bf16 2^-8
+            # of the element, e4m3 2^-4 of its window's max plus the
+            # window's subnormal step (2^-9 of a scale that maps the max
+            # to 448)
+            fp8 = tr._method_wire(kwargs["method"]).startswith("fp8")
+            tol = (2 * (2.0 ** -4 + 2.0 ** -9 / 448) if fp8
+                   else 2 * 2.0 ** -8)
             err = float((res.data - ref).abs().max() / ref.abs().max())
-            if not err <= 2 * 2.0 ** -8:
-                raise AssertionError(f"{run}: error {err} over two bf16 "
-                                     f"steps")
+            if not err <= tol:
+                raise AssertionError(f"{run}: error {err} over two steps of "
+                                     f"its wire ({tol})")
         del res
         r = dict(ms=_median(times), ms_runs=times, peak_above_input=peak,
                  verdict=None if route is None else route.verdict,
@@ -1318,6 +1352,16 @@ def reshard_check(torch, pat, k1, tr, routing, n=1024):
         raise AssertionError(
             f"reshard_wire_bf16: peak {bf16['peak_above_input']} above the "
             f"input, over its modeled peak {bf16['peak_hbm_bytes']} less "
+            f"the input's {held}")
+    # the chunked route's hops cross no rank on one card (size-1 axes), so
+    # execute_route runs them as one K1 permute, as XLA compiles the JAX
+    # package's chain: the route keeps its modeled peak (one operand and
+    # one chunk)
+    pipe = out["reshard_pipelined4"]
+    if pipe["peak_above_input"] > pipe["peak_hbm_bytes"] - held:
+        raise AssertionError(
+            f"reshard_pipelined4: peak {pipe['peak_above_input']} above the "
+            f"input, over its modeled peak {pipe['peak_hbm_bytes']} less "
             f"the input's {held}")
     log(f"[reshard] peak above the input against the modeled peak less "
         f"the input: " + json.dumps({run: [r["peak_above_input"], None if
@@ -2445,6 +2489,402 @@ def phase_io(torch, pat, models, k1, n_field=1024, n_ns=512, n_h5=512):
     return r
 
 
+# -- phase 5d: the engine, async loops, compiled plans, obs, benchtime -------
+
+ENGINE_DIR = "chip_smoke_engine"
+
+
+def _step_ms(log_records):
+    """The median host time a dispatch of the loop took (``run_s``): the
+    consumer's issue of one step, paced by the launch queue."""
+    return _median([r.run_s * 1e3 for r in log_records
+                    if r.label.startswith("ns.step")])
+
+
+def engine_ns_check(torch, pat, models, k1, resilience, engine, analysis,
+                    d, acc, n, steps, every):
+    """Phase 5d (a): NS Taylor-Green n^3 f32 RK2, ``steps`` steps saved
+    every ``every`` by ``CheckpointManager(keep=2)``, once as a
+    synchronous loop (``step``, then ``save``) and once by ``run_async``:
+    the final states bit-identical, each kept step restored from the
+    async directory bit-identical to the sync loop's, the saves on the
+    host pool, the dispatch log verified; wall ms of both loops, the
+    share of the save time hidden, the median step inside the async loop
+    and the async loop's peak above the sync loop's (at most one state
+    plus one staged component)."""
+    model = models.NavierStokesSpectral(pat.Topology((1, 1)), n,
+                                        viscosity=1e-2, dtype=torch.float32)
+    pen = model.plan.output_pencil
+    dt = 5e-3
+    uh0 = models.taylor_green(model)
+    state = uh0.data.numel() * uh0.data.element_size()
+    comp = state // 3
+    mgr_s = resilience.CheckpointManager(os.path.join(d, "sync"), keep=2)
+    mgr_a = resilience.CheckpointManager(os.path.join(d, "async"), keep=2)
+    model.step(uh0, dt)                          # warm: cuFFT plans, K1
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    save_s = []
+    t0 = time.perf_counter()
+    uh = uh0
+    for k in range(1, steps + 1):
+        uh = model.step(uh, dt)
+        if k % every == 0:
+            t1 = time.perf_counter()
+            mgr_s.save(k, {"uh": uh})
+            save_s.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    sync_peak = torch.cuda.max_memory_allocated() - base
+    sync_final = uh
+    del uh
+
+    eng = engine.Engine("chip-ns")
+    async_save_s, save = [], mgr_a.save
+
+    def timed_save(*args, **kwargs):        # each save's own seconds
+        t1 = time.perf_counter()
+        out = save(*args, **kwargs)
+        async_save_s.append(time.perf_counter() - t1)
+        return out
+
+    mgr_a.save = timed_save
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+
+    def run():
+        pipe = model.run_async(uh0, dt, steps, engine=eng, checkpoint=mgr_a,
+                               checkpoint_every=every)
+        return pipe, pipe.result(900)
+
+    pipe, final = _io_counted(torch, k1, acc, run)[0]
+    async_ms = (time.perf_counter() - t0) * 1e3
+    async_peak = torch.cuda.max_memory_allocated() - base
+    stats = eng.stats()
+    log_records = eng.dispatch_log()
+    cert = analysis.verify_dispatch_log(log_records, source="chip-ns")
+    eng.close()
+    if not same_bits(torch, final.data, sync_final.data):
+        raise AssertionError("[engine] the async loop's final state differs "
+                             "from the sync loop's")
+    del final, sync_final
+    want = [k for k in range(every, steps + 1, every)][-2:]
+    if mgr_a.steps() != want or mgr_s.steps() != want:
+        raise AssertionError(f"[engine] kept steps {mgr_a.steps()} (async), "
+                             f"{mgr_s.steps()} (sync): want {want}")
+    for k in want:
+        a = mgr_a.restore(k).read("uh", pen, verify=True)
+        s = mgr_s.restore(k).read("uh", pen, verify=False)
+        if not same_bits(torch, a.data, s.data):
+            raise AssertionError(f"[engine] step {k} restored from the "
+                                 f"async directory differs from the sync "
+                                 f"loop's state")
+        del a, s
+    if stats["host_tasks"] != len(pipe.saves) or len(pipe.saves) != \
+            steps // every:
+        raise AssertionError(f"[engine] host tasks {stats['host_tasks']}, "
+                             f"saves {len(pipe.saves)}")
+    if cert["dispatches"] != steps or not cert["order_ok"]:
+        raise AssertionError(f"[engine] dispatch log {cert}")
+    extra = async_peak - sync_peak
+    step_ms = _step_ms(log_records)
+    r = dict(n=n, steps=steps, every=every, sync_ms=sync_ms,
+             async_ms=async_ms, hidden=1.0 - async_ms / sync_ms,
+             sync_save_s=save_s, save_total_s=sum(save_s),
+             async_save_s=async_save_s,
+             async_step_ms=step_ms,
+             step_run_ms=[r.run_s * 1e3 for r in log_records],
+             sync_peak=sync_peak, async_peak=async_peak,
+             peak_above_sync=extra, state_bytes=state,
+             component_bytes=comp, host_tasks=stats["host_tasks"],
+             dispatch_busy_s=stats["dispatch_busy_s"],
+             host_busy_s=stats["host_busy_s"], certificate=cert,
+             kept=want)
+    log(f"[engine] NS {n}^3 f32 RK2, {steps} steps, a save every {every} "
+        f"(keep=2): sync loop {sync_ms:.1f} ms (saves "
+        f"{[round(s, 3) for s in save_s]} s), run_async {async_ms:.1f} ms, "
+        f"save time hidden 1 - async/sync = {r['hidden']:.4f} (its saves "
+        f"{[round(t, 3) for t in async_save_s]} s, each from the host "
+        f"task's start: its step's device work included); final "
+        f"states bit-identical, steps {want} restored from the async "
+        f"directory = the sync loop's; host tasks {stats['host_tasks']}; "
+        f"median step in the async loop {r['async_step_ms']:.2f} ms; "
+        f"peak above the sync loop's {extra} bytes (state {state}, "
+        f"component {comp}); dispatch log {cert}")
+    if extra > state + comp:
+        raise AssertionError(f"[engine] the async loop peaked {extra} bytes "
+                             f"above the sync loop, over one state and one "
+                             f"staged component ({state + comp})")
+    del uh0
+    torch.cuda.empty_cache()
+    return model, r
+
+
+def engine_async_calls_check(torch, pat, model, k1, engine, analysis, acc):
+    """Phase 5d (b): ``step_async`` and ``forward_async``/
+    ``backward_async`` on the 512^3 plan bit-identical to the synchronous
+    calls, through one engine, with its log verified."""
+    from pencilarrays_tpu_torch.models import taylor_green
+
+    dt = 5e-3
+    uh = taylor_green(model)
+    plan = model.plan
+    u = model.to_physical(uh)
+    eng = engine.Engine("chip-async")
+
+    def run():
+        s = model.step_async(uh, dt, engine=eng).result(300)
+        f = plan.forward_async(u, engine=eng).result(300)
+        b = plan.backward_async(f, engine=eng).result(300)
+        return s, f, b
+
+    s, f, b = _io_counted(torch, k1, acc, run)[0]
+    cert = analysis.verify_dispatch_log(eng.dispatch_log(),
+                                        source="chip-async")
+    eng.close()
+    ok = dict(step=same_bits(torch, s.data, model.step(uh, dt).data),
+              forward=same_bits(torch, f.data, plan.forward(u).data))
+    ok["backward"] = same_bits(torch, b.data, plan.backward(f).data)
+    log(f"[engine] {model.shape[0]}^3: step_async, forward_async, "
+        f"backward_async against the synchronous calls, bit for bit: {ok}; "
+        f"dispatch log {cert}")
+    if not all(ok.values()):
+        raise AssertionError(f"[engine] async calls differ: {ok}")
+    if cert["verified_traces"] != 2 or cert["wire_checked"] != 2:
+        raise AssertionError(f"[engine] the FFT dispatches were not "
+                             f"certified: {cert}")
+    return dict(bit_identical=ok, certificate=cert)
+
+
+def compiled_plan_check(torch, pat, model, k1, acc, calls=20):
+    """Phase 5d (c): ``compile()`` of the NS plan (batch 3) as one CUDA
+    graph per direction: forward and backward bit-identical to the eager
+    chain; every call one replay and no K1 launch through the wrapper (no
+    eager chain ran); the graph's pool bytes and the K1 launches captured
+    in it; median ms over ``calls`` calls of eager against compiled, and
+    the input copy, the replay and the output copy timed apart."""
+    from pencilarrays_tpu_torch.models import taylor_green
+
+    plan = model.plan
+    u = model.to_physical(taylor_green(model))
+    c = plan.compile()
+    if c is not plan.compile() or not c.graphed:
+        raise AssertionError("[compiled] compile() is not cached, or not a "
+                             "CUDA graph on the card")
+    f = _io_counted(torch, k1, acc, lambda: c.forward(u))[0]
+    b = _io_counted(torch, k1, acc, lambda: c.backward(f))[0]
+    ef, eb = plan.forward(u), plan.backward(f)
+    ok = dict(forward=same_bits(torch, f.data, ef.data),
+              backward=same_bits(torch, b.data, eb.data))
+    info = {d: c.graph_info(d) for d in ("forward", "backward")}
+    if not all(ok.values()):
+        raise AssertionError(f"[compiled] differs from the eager chain: {ok}")
+
+    def timed(fn):
+        out = []
+        for _ in range(calls):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            out.append(s.elapsed_time(e))
+        return _median(out)
+
+    graph, static, res, _, _ = c._graphs["forward"]
+    replays0, n0 = c.replays, k1.launches
+    r = dict(bit_identical=ok, graphs=info,
+             eager_fwd_ms=timed(lambda: plan.forward(u)),
+             compiled_fwd_ms=timed(lambda: c.forward(u)),
+             eager_bwd_ms=timed(lambda: plan.backward(f)),
+             compiled_bwd_ms=timed(lambda: c.backward(f)),
+             copy_in_ms=timed(lambda: static.copy_(u.data)),
+             replay_ms=timed(graph.replay),
+             copy_out_ms=timed(res.clone))
+    eager_launches = k1.launches - n0
+    replays = c.replays - replays0
+    r.update(replays=replays, calls=2 * calls)
+    log(f"[compiled] {model.shape[0]}^3 NS plan (batch 3) as CUDA graphs: "
+        f"bit-identical to the eager chain {ok}; graphs {info}; " +
+        json.dumps({k: v for k, v in r.items() if k.endswith("_ms")}) +
+        f"; {replays} replays for {2 * calls} compiled calls")
+    # the eager calls timed beside launch K1 through the wrapper; the
+    # compiled calls replay and launch nothing through it
+    want_eager = calls * (info["forward"]["k1_launches"]
+                          + info["backward"]["k1_launches"])
+    if replays != 2 * calls or eager_launches != want_eager:
+        raise AssertionError(f"[compiled] {replays} replays for {2 * calls} "
+                             f"calls, {eager_launches} K1 launches through "
+                             f"the wrapper (the eager calls' own: "
+                             f"{want_eager})")
+    del u, f, b, ef, eb
+    torch.cuda.empty_cache()
+    return r
+
+
+def engine_obs_check(torch, models, k1, resilience, engine, obs, model, d,
+                     steps=8):
+    """Phase 5d (d): with observability off and then on
+    (``PENCILARRAYS_TPU_OBS`` naming a journal directory), ``steps`` steps
+    of ``run_async`` timed to the device's end (ms a step), then with obs
+    on ``steps`` steps with one save: the journal lints clean with the
+    port's ``lint_journal`` and holds the ``ckpt.save`` records, the
+    snapshot the engine's gauges."""
+    dt = 5e-3
+    uh0 = models.taylor_green(model)
+    jdir = os.path.join(d, "obs")
+
+    def loop(name, **kw):
+        eng = engine.Engine(name)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.run_async(uh0, dt, steps, engine=eng, **kw).result(600)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / steps
+        finally:
+            eng.close()
+
+    out = {"off": loop("chip-obs-off")}
+    os.environ["PENCILARRAYS_TPU_OBS"] = jdir
+    try:
+        out["on"] = loop("chip-obs-on")
+        mgr = resilience.CheckpointManager(os.path.join(d, "obs-ckpt"),
+                                           keep=1)
+        loop("chip-obs-save", checkpoint=mgr, checkpoint_every=steps)
+        gauges = obs.snapshot()["gauges"]
+        obs.write_snapshot()
+    finally:
+        os.environ.pop("PENCILARRAYS_TPU_OBS", None)
+    recs = obs.read_journal(jdir)
+    errors = obs.lint_journal(jdir)
+    saves = [e for e in recs if e["ev"] == "ckpt.save"]
+    engine_gauges = sorted(k for k in gauges if k.startswith("engine."))
+    r = dict(steps=steps, step_ms_obs_off=out["off"],
+             step_ms_obs_on=out["on"], records=len(recs),
+             lint_errors=len(errors), ckpt_save=[e["status"] for e in saves],
+             engine_gauges=engine_gauges,
+             events=sorted({e["ev"] for e in recs}))
+    log(f"[obs] {steps} steps of run_async: {out['off']:.2f} ms a step with "
+        f"obs off, {out['on']:.2f} with it on; then {steps} steps and one "
+        f"save: journal {len(recs)} records, lint errors {errors[:3]}, "
+        f"ckpt.save {r['ckpt_save']}, events {r['events']}, engine gauges "
+        f"{engine_gauges}")
+    if errors:
+        raise AssertionError(f"[obs] the journal does not lint: {errors[:3]}")
+    if r["ckpt_save"] != ["begin", "committed"] or not engine_gauges:
+        raise AssertionError(f"[obs] ckpt.save {r['ckpt_save']}, engine "
+                             f"gauges {engine_gauges}")
+    return r
+
+
+def benchtime_check(torch, pat, k1, tr, cycle, n=1024):
+    """Phase 5d (e): ``utils/benchtime.device_seconds_per_iter`` on phase
+    3's ``AllToAll()`` cycle (CUDA events, K = 1 and 4, the min over 3
+    repeats), beside phase 3's timed cycle, with ``last_spread()``; and
+    ``Auto(mode="measure")`` on one card, which resolves every hop (a
+    size-1 axis) to ``AllToAll`` without measuring."""
+    from pencilarrays_tpu_torch.utils import benchtime
+
+    topo = pat.Topology((1, 1))
+    shape = (n, n, n)
+    px = pat.Pencil(topo, shape, (1, 2), permutation=pat.Permutation(1, 2, 0))
+    py = pat.Pencil(topo, shape, (0, 2), permutation=pat.Permutation(0, 2, 1))
+    pz = pat.Pencil(topo, shape, (0, 1))
+    chain = [(px, py), (py, pz), (pz, py), (py, px)]
+
+    def cycle_once(data):
+        for a, b in chain:
+            data = tr._hop(data, a, b, 0, pat.AllToAll())
+        return data
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x0 = torch.randn(shape, generator=gen, device="cuda")
+    secs = benchtime.device_seconds_per_iter(cycle_once, x0, k0=1, k1=4,
+                                             repeats=3)
+    spread = benchtime.last_spread()
+    reports = len(tr.last_measure_reports())
+    auto = {f"{a.decomposition}->{b.decomposition}": repr(tr.resolve_method(
+        a, b, (), torch.float32, pat.Auto(mode="measure"))) for a, b in chain}
+    measured = len(tr.last_measure_reports()) - reports
+    r = dict(cycle_ms=secs * 1e3, spread=spread,
+             phase3_cycle_ms=cycle["cycle"]["ms"], auto_measure=auto,
+             measured=measured)
+    log(f"[benchtime] {n}^3 AllToAll cycle: device_seconds_per_iter "
+        f"{secs * 1e3:.3f} ms (spread {spread}) against phase 3's "
+        f"{cycle['cycle']['ms']:.3f} ms; Auto(mode='measure') on one card: "
+        f"{auto}, {measured} measurements (a size-1 axis is not measured)")
+    if measured or set(auto.values()) != {repr(pat.AllToAll())}:
+        raise AssertionError(f"[benchtime] Auto(measure) on a size-1 axis: "
+                             f"{auto}, {measured} measurements")
+    del x0
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_engine(torch, pat, models, k1, tr, cycle, ns, n=512, steps=48,
+                 every=16):
+    """Phase 5d: the engine on the card, in ``ENGINE_DIR`` of the checkout
+    (which must hold three times the bytes the phase writes; deleted at
+    the end): (a) ``engine_ns_check``, (b) ``engine_async_calls_check``,
+    (c) ``compiled_plan_check``, (d) ``engine_obs_check``, (e)
+    ``benchtime_check``.  K1's launches count under the paths
+    ``engine_ns`` (the async loop and the async calls) and
+    ``compiled_plan`` (the launches captured into the graphs)."""
+    import shutil
+
+    from pencilarrays_tpu_torch import analysis, engine, obs, resilience
+
+    t0 = time.perf_counter()
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), ENGINE_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    acc = {p: dict(launches=0, recorded={}, launches_by_instance={
+        i: 0 for i in k1.INSTANCES}) for p in ("engine_ns", "compiled_plan")}
+    try:
+        usage = shutil.disk_usage(d)
+        state = 3 * n * n * (n // 2 + 1) * 8
+        writes = (2 * steps // every + 2) * state
+        log(f"[engine] {d}: disk_usage free {usage.free} bytes; the phase "
+            f"writes {writes} bytes")
+        if usage.free < 3 * writes:
+            raise AssertionError(
+                f"[engine] {d} has {usage.free} bytes free, under three "
+                f"times the {writes} bytes phase 5d writes")
+        model, ns_r = engine_ns_check(torch, pat, models, k1, resilience,
+                                      engine, analysis, d, acc["engine_ns"],
+                                      n, steps, every)
+        r = dict(ns=ns_r, phase5_step_ms=ns["step_ms"])
+        r["async_calls"] = engine_async_calls_check(
+            torch, pat, model, k1, engine, analysis, acc["engine_ns"])
+        r["compiled"] = compiled_plan_check(torch, pat, model, k1,
+                                            acc["compiled_plan"])
+        r["obs"] = engine_obs_check(torch, models, k1, resilience, engine,
+                                    obs, model, d)
+        del model
+        torch.backends.cuda.cufft_plan_cache.clear()
+        torch.cuda.empty_cache()
+        r["benchtime"] = benchtime_check(torch, pat, k1, tr, cycle)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    r["paths"] = acc
+    r["seconds"] = time.perf_counter() - t0
+    log(f"[engine] phase 5d took {r['seconds']:.1f} s; median step in the "
+        f"async loop {ns_r['async_step_ms']:.2f} ms beside phase 5's "
+        f"{[round(t, 2) for t in ns['step_ms']]}; K1 launches: engine_ns "
+        f"{acc['engine_ns']['launches']} "
+        f"{acc['engine_ns']['launches_by_instance']}, compiled_plan "
+        f"{acc['compiled_plan']['launches']}")
+    for p, a in acc.items():
+        if a["launches"] <= 0:
+            raise AssertionError(f"the {p} path launched K1 no time")
+    return r
+
+
 # Tolerances of K2–K4 against their plain versions.  Each row of a tensor
 # (its last dim: one query or key position of one head·batch slice) is
 # held relative to its own largest |plain| (see _rel_err).  The kernels
@@ -3247,6 +3687,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a run that hangs (a thread stuck in a wait, a kernel that never
+    # ends) prints every thread's stack and exits within the time limit
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True, file=sys.stdout)
     t_start = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as dist_dir:
         try:
@@ -3260,6 +3703,7 @@ def main() -> int:
             ns = phase_navier_stokes(torch, dist, pat, k1, models)
             grid = phase_grid_toolbox(torch, dist, pat, models, k1, tr, bw)
             io_res = phase_io(torch, pat, models, k1)
+            eng = phase_engine(torch, pat, models, k1, tr, cycle, ns)
             checks = phase_flash_check(torch, flash, models.attention)
             serve, serve_rec = phase_serving(torch, pat, models, k1, flash)
             train = {f"train_{str(dt).split('.')[-1]}": phase_training(
@@ -3271,7 +3715,8 @@ def main() -> int:
                        "fused_hop": fft["fused_hop"],
                        "dct": fft["dct"],
                        "spectral_ops": grid["spectral_ops"],
-                       "many_pencil_array": grid["many"], "io": io_res}
+                       "many_pencil_array": grid["many"], "io": io_res,
+                       **eng["paths"]}
             recorded = {**{run: r["recorded"] for run, r in k1_runs.items()},
                         "navier_stokes": ns["recorded"], **serve_rec}
             k1_timed = k1_timing(torch, k1, bw, recorded, HOPS)
@@ -3381,6 +3826,7 @@ def main() -> int:
                 "timed_launches_by_instance")}
                 for r in mine if not r["causal"]},
             "instances": instances[key]})
+    faulthandler.cancel_dump_traceback_later()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,13 @@
-"""Static checks of schedules (the JAX package's ``analysis/``): so far the
-typed errors and the peak-memory accounting of one plan step."""
+"""Static checks of schedules (the JAX package's ``analysis/``): the typed
+errors, the peak-memory accounting of one plan step, and the proof that
+an engine's dispatch log respects its enqueue order."""
 
-from .errors import AnalysisError, HbmBoundError  # noqa: F401
-from .spmd import step_hop_peak  # noqa: F401
+from .errors import (  # noqa: F401
+    AnalysisError,
+    DispatchOrderError,
+    DonationError,
+    HbmBoundError,
+    ScheduleMismatchError,
+    TraceDivergenceError,
+)
+from .spmd import step_hop_peak, verify_dispatch_log  # noqa: F401

@@ -96,10 +96,12 @@ def _host_numpy(t: torch.Tensor) -> np.ndarray:
 def _tick(stats: Optional[dict], key: str, t0: float,
           device: Optional[torch.device] = None) -> float:
     """Add the seconds since ``t0`` to ``stats[key]`` and return the time;
-    a stage on a CUDA ``device`` is waited for first, so its seconds are
-    the device's."""
+    a stage on a CUDA ``device`` is waited for first (the calling thread's
+    current stream, where the stage was launched: not the device, whose
+    other streams may be busy with later work), so its seconds are the
+    device's."""
     if device is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
     t1 = time.perf_counter()
     if stats is not None:
         stats[key] = stats.get(key, 0.0) + (t1 - t0)
@@ -415,8 +417,13 @@ class BinaryFile:
             while name in existing:
                 n += 1
                 name = f"{base}({n})"
-        with timeit(x.pencil.timer, "write parallel"):
-            self._write_dataset(name, x, chunks, ncomp, block_observer)
+        from ..obs import io_op
+
+        with io_op("io.write", "BinaryDriver", self.filename, name,
+                   x.sizeof_global(),
+                   layout="chunks" if chunks else "discontiguous"):
+            with timeit(x.pencil.timer, "write parallel"):
+                self._write_dataset(name, x, chunks, ncomp, block_observer)
 
     def _write_dataset(self, name: str, x, chunks: bool,
                        ncomp: int = None, block_observer=None):
@@ -574,7 +581,10 @@ class BinaryFile:
         are verified against the sidecar (``mpi_io.jl:293-324``); each
         rank reads its own block.  Collection datasets come back as the
         original tuple."""
-        with timeit(pencil.timer, "read parallel"):
+        from ..obs import io_op
+
+        with io_op("io.read", "BinaryDriver", self.filename, name), \
+                timeit(pencil.timer, "read parallel"):
             return self._read_impl(name, pencil, extra_dims)
 
     def _read_impl(self, name: str, pencil: Pencil,

@@ -72,6 +72,14 @@ def open_file(driver: ParallelIODriver, filename: str, retry=None,
         return driver.open(filename, comm=comm, **mode)
 
     f = policy.call(_open, label=f"open {filename}")
+    from .. import obs
+
+    if obs.enabled():
+        obs.counter("io.opens", driver=type(driver).__name__,
+                    mode="write" if writable else "read").inc()
+        obs.record_event("io.open", path=str(filename),
+                         mode="write" if writable else "read",
+                         driver=type(driver).__name__)
     try:
         yield f
     finally:

@@ -165,7 +165,11 @@ class HDF5File:
         if not self.writable:
             raise PermissionError("file not opened for writing")
         x, ncomp = pack_collection(x)
-        with timeit(x.pencil.timer, "write parallel"):
+        from ..obs import io_op
+
+        with io_op("io.write", "HDF5Driver", self.filename, name,
+                   x.sizeof_global()), \
+                timeit(x.pencil.timer, "write parallel"):
             if self._multi:
                 self._write_multiproc(name, x, ncomp, block_observer)
             else:
@@ -321,7 +325,10 @@ class HDF5File:
         """Each rank reads its hyperslab and places it in its block —
         restartable under any decomposition.  Collection datasets come
         back as the original tuple."""
-        with timeit(pencil.timer, "read parallel"):
+        from ..obs import io_op
+
+        with io_op("io.read", "HDF5Driver", self.filename, name), \
+                timeit(pencil.timer, "read parallel"):
             if self._multi:
                 with self._master_ro() as mf:
                     return self._read_impl(mf[name], pencil, extra_dims)

@@ -54,3 +54,16 @@ class DiffusionSpectral:
     def solve(self, u0: PencilArray, t) -> PencilArray:
         """Physical initial condition -> physical solution at time ``t``."""
         return self.to_physical(self.step(self.from_physical(u0), t))
+
+    def run_async(self, uh: PencilArray, dt, n_steps: int, *,
+                  engine=None, checkpoint=None, checkpoint_every=None):
+        """Spectral-state step loop through the engine's dispatch queue,
+        with host-pool checkpoint saves (``"uh"``) overlapped
+        (:func:`~pencilarrays_tpu_torch.engine.run_steps_async`); returns
+        a :class:`~pencilarrays_tpu_torch.engine.StepPipeline`."""
+        from ..engine import run_steps_async
+
+        return run_steps_async(
+            lambda s: self.step(s, dt), uh, n_steps, engine=engine,
+            checkpoint=checkpoint, checkpoint_every=checkpoint_every,
+            state_name="uh", label="diffusion.step")

@@ -36,10 +36,6 @@ from ..parallel.topology import Topology
 
 __all__ = ["NavierStokesSpectral", "taylor_green"]
 
-_LATER = ("not ported yet: ROADMAP.md Queue 1, item 'Transpose methods and "
-          "plan options beyond the first slice'")
-
-
 class NavierStokesSpectral:
     """Incompressible 3-D Navier–Stokes in a periodic box, pseudo-spectral.
 
@@ -61,15 +57,35 @@ class NavierStokesSpectral:
                                   batch=3, wire_dtype=wire_dtype)
         self.dealias = dealias
 
-    def step_async(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"NavierStokesSpectral.step_async() is {_LATER}; it waits for "
-            f"engine/ (item 7)")
+    def step_async(self, uh: PencilArray, dt: float, *, engine=None,
+                   stepper=None):
+        """Submit ONE step as an ordered engine dispatch; returns its
+        :class:`~pencilarrays_tpu_torch.engine.StepFuture` (enqueue step
+        ``k + 1`` while ``k`` computes, and the consumer issues them in
+        order)."""
+        from ..engine import get_engine
 
-    def run_async(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"NavierStokesSpectral.run_async() is {_LATER}; it waits for "
-            f"engine/ (item 7)")
+        eng = engine if engine is not None else get_engine()
+        stepper = self.step if stepper is None else stepper
+        return eng.submit(lambda: stepper(uh, dt), label="ns.step")
+
+    def run_async(self, uh: PencilArray, dt: float, n_steps: int, *,
+                  engine=None, stepper=None, checkpoint=None,
+                  checkpoint_every=None):
+        """``n_steps`` steps through the engine's dispatch queue, saving
+        every ``checkpoint_every``-th state (as ``"uh"``) by
+        ``checkpoint`` on the host pool, overlapped with the next steps
+        (:func:`~pencilarrays_tpu_torch.engine.run_steps_async`).  Every
+        step allocates its result, so a save reads a state no later step
+        writes.  Returns a :class:`~pencilarrays_tpu_torch.engine.
+        StepPipeline`."""
+        from ..engine import run_steps_async
+
+        stepper = self.step if stepper is None else stepper
+        return run_steps_async(
+            lambda s: stepper(s, dt), uh, n_steps, engine=engine,
+            checkpoint=checkpoint, checkpoint_every=checkpoint_every,
+            state_name="uh", label="ns.step")
 
     @cached_property
     def _ks(self):

@@ -82,11 +82,9 @@ from ..parallel.transpositions import (
 from ..utils.permutations import Permutation
 from . import permute as k1
 
-__all__ = ["PencilFFTPlan"]
+__all__ = ["PencilFFTPlan", "CompiledPlan"]
 
 _KINDS = ("fft", "rfft", "dct", "dst", "none")
-_LATER = ("not ported yet: ROADMAP.md Queue 1, item 'Transpose methods and "
-          "plan options beyond the first slice'")
 
 
 def _makhoul_order(n: int, device) -> torch.Tensor:
@@ -1109,20 +1107,105 @@ class PencilFFTPlan:
         return PencilArray.zeros(self.output_pencil, extra_dims,
                                  self.dtype_spectral)
 
-    def compile(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"PencilFFTPlan.compile() is {_LATER}; it waits for a choice of "
-            f"CUDA graphs (item 1(b)) and engine/ (item 7)")
+    def predicted_wire_bytes(self, extra_dims: Optional[Tuple[int, ...]]
+                             = None) -> int:
+        """Predicted per-rank collective bytes of ONE forward (or
+        backward), at the wire's bytes: the scalar an engine dispatch
+        carries (``meta["wire_bytes"]``) and ``analysis.spmd.
+        verify_dispatch_log`` re-checks against the priced schedule."""
+        if extra_dims is None:
+            extra_dims = self.batch_dims
+        key = tuple(int(e) for e in extra_dims)
+        cache = self.__dict__.setdefault("_wire_bytes_cache", {})
+        if key not in cache:
+            cache[key] = sum(v["bytes"] for v in
+                             self.collective_costs(key).values())
+        return cache[key]
 
-    def forward_async(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"PencilFFTPlan.forward_async() is {_LATER}; it waits for "
-            f"engine/ (item 7)")
+    def compile(self, extra_dims: Optional[Tuple[int, ...]] = None, *,
+                donate: bool = False) -> "CompiledPlan":
+        """The whole forward and backward chains as one replay each
+        (:class:`CompiledPlan`): on the card, one CUDA graph per
+        direction, captured at its first call; on the CPU the eager
+        chain behind the same object.  Results are bit-identical to
+        :meth:`forward`/:meth:`backward`.  ``extra_dims`` defaults to
+        :attr:`batch_dims`; ``donate=True`` gives up each call's input
+        (it is invalid afterwards).  Cached per ``(extra_dims,
+        donate)`` on the plan."""
+        if extra_dims is None:
+            extra_dims = self.batch_dims
+        key = (tuple(int(e) for e in extra_dims), bool(donate))
+        cache = self.__dict__.setdefault("_compiled_plans", {})
+        hit = key in cache
+        if not hit:
+            cache[key] = CompiledPlan(self, key[0], donate=key[1])
+        from .. import obs
 
-    def backward_async(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"PencilFFTPlan.backward_async() is {_LATER}; it waits for "
-            f"engine/ (item 7)")
+        if obs.enabled():
+            obs.counter(f"compile.cache_{'hits' if hit else 'misses'}",
+                        cache="plan").inc()
+        return cache[key]
+
+    def forward_async(self, u: Optional[PencilArray] = None, *,
+                      pack=None, engine=None, donate: bool = False):
+        """Submit one forward transform as an ordered engine dispatch;
+        returns its :class:`~pencilarrays_tpu_torch.engine.StepFuture`.
+        Exactly one of ``u`` (a ready :class:`PencilArray`) or ``pack``
+        (a zero-argument callable run on the engine's host pool that
+        returns the sample in the plan's global logical shape, scattered
+        by ``from_global`` on the consumer thread).  ``donate=True`` gives
+        up ``u`` once the dispatch ran.  The dispatch records its exchange
+        calls in its ``meta`` for ``verify_dispatch_log``."""
+        return self._submit_async("forward", u, pack, engine, donate)
+
+    def backward_async(self, uh: Optional[PencilArray] = None, *,
+                       pack=None, engine=None, donate: bool = False):
+        """The mirrored :meth:`forward_async` (spectral -> physical; a
+        ``pack`` callable returns the spectral-shape host sample)."""
+        return self._submit_async("backward", uh, pack, engine, donate)
+
+    def _submit_async(self, direction: str, u, pack, engine,
+                      donate: bool):
+        from ..engine import get_engine
+        from ..parallel import transpositions as tr
+
+        eng = engine if engine is not None else get_engine()
+        if (u is None) == (pack is None):
+            raise ValueError(
+                f"{direction}_async needs exactly one of u= (a ready "
+                f"PencilArray) or pack= (a host-pool operand builder)")
+        fwd = direction == "forward"
+        run_plan = self.forward if fwd else self.backward
+        label = f"fft.{direction}:{self.plan_key()[:8]}"
+        meta = {"plan": self, "direction": direction,
+                "wire_dtype": self.wire_dtype}
+
+        def counted(arr: PencilArray, give_up: bool) -> PencilArray:
+            # the collectives of this dispatch that cross ranks: the
+            # consumer thread issues this chain's exchanges
+            meta["extra_dims"] = tuple(arr.extra_dims)
+            meta["wire_bytes"] = self.predicted_wire_bytes(arr.extra_dims)
+            with tr.collective_tally() as got:
+                out = run_plan(arr)
+            if give_up:
+                arr._donate()
+            meta["collectives"] = got
+            return out
+
+        if pack is None:
+            return eng.submit(lambda: counted(u, donate), label=label,
+                              meta=meta)
+        pen = self.input_pencil if fwd else self.output_pencil
+        dt = self.dtype_physical if fwd else self.dtype_spectral
+        base_ndim = len(self.shape_physical)
+
+        def run(host):
+            host = torch.as_tensor(np.asarray(host)).to(dt)
+            arr = PencilArray.from_global(
+                pen, host, extra_ndims=host.dim() - base_ndim)
+            return counted(arr, True)
+
+        return eng.submit(run, pack=pack, label=label, meta=meta)
 
     def _stage(self, data: torch.Tensor, ops, inverse: bool,
                pre_complex: bool) -> torch.Tensor:
@@ -1250,3 +1333,110 @@ class PencilFFTPlan:
         return (f"PencilFFTPlan({'x'.join(self.transforms)}, "
                 f"shape={self.shape_physical}, topo={self.topology.dims}, "
                 f"permute={self.permute})")
+
+
+class CompiledPlan:
+    """One replay for each of a plan's full transform chains (built by
+    :meth:`PencilFFTPlan.compile`), the JAX package's whole-plan
+    executable.
+
+    On the card each direction is one CUDA graph, captured at its first
+    call: a warm-up run first (cuFFT plans, the K1 library, K1's
+    shared-memory opt-in), then the chain captured into the graph's own
+    memory pool with a static input block.  :meth:`forward` copies its
+    input into the static block, replays the graph and returns a fresh
+    copy of the static output, so every result stays valid (as JAX's
+    do).  A capture that fails raises; nothing falls back to the eager
+    chain on the card.  A chain with exchanges across ranks holds NCCL
+    calls in its graph; that is not verified on several cards yet.  On
+    the CPU the object runs the eager chain.  ``donate=True`` gives up
+    the caller's input after each call."""
+
+    def __init__(self, plan: PencilFFTPlan, extra_dims: Tuple[int, ...],
+                 *, donate: bool = False):
+        self.plan = plan
+        self.extra_dims = tuple(extra_dims)
+        self.donate = bool(donate)
+        self.graphed = plan.topology.device.type == "cuda"
+        self._graphs: dict = {}
+        self.replays = 0
+        """Graph replays since construction (the card's calls)."""
+
+    def _check(self, u: PencilArray, pen, what: str) -> None:
+        if u.pencil != pen:
+            raise ValueError(
+                f"input must live on plan.{what} ({pen!r}), got {u.pencil!r}")
+        if u.extra_dims != self.extra_dims:
+            raise ValueError(
+                f"compiled for extra_dims={self.extra_dims}, got "
+                f"{u.extra_dims} (compile() again for this batch shape)")
+
+    def graph_info(self, direction: str) -> Optional[dict]:
+        """A captured direction's ``{"pool_bytes", "k1_launches"}``: the
+        device memory the capture took (its pool) and the K1 launches it
+        recorded (each replayed on every call); ``None`` before the
+        direction's first call or on the CPU."""
+        g = self._graphs.get(direction)
+        return None if g is None else dict(g[3])
+
+    def _capture(self, direction: str):
+        plan = self.plan
+        fwd = direction == "forward"
+        pen = plan.input_pencil if fwd else plan.output_pencil
+        out_pen = plan.output_pencil if fwd else plan.input_pencil
+        dtype = plan.dtype_physical if fwd else plan.dtype_spectral
+        run = plan.forward if fwd else plan.backward
+        dev = plan.topology.device
+        static = torch.zeros(pen.padded_size_local(MemoryOrder)
+                             + self.extra_dims, dtype=dtype, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            run(PencilArray(pen, static, self.extra_dims))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        # the capture empties the allocator's cache first; doing it here
+        # lets the reserved bytes it adds be read as the graph's pool
+        torch.cuda.empty_cache()
+        graph = torch.cuda.CUDAGraph()
+        before = k1.launches
+        reserved = torch.cuda.memory_reserved(dev)
+        with torch.cuda.graph(graph):
+            out = run(PencilArray(pen, static, self.extra_dims)).data
+        info = {"pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
+                "k1_launches": k1.launches - before}
+        self._graphs[direction] = (graph, static, out, info, out_pen)
+        return self._graphs[direction]
+
+    def _call(self, u: PencilArray, direction: str) -> PencilArray:
+        plan = self.plan
+        fwd = direction == "forward"
+        if not self.graphed:
+            out = (plan.forward if fwd else plan.backward)(u)
+        else:
+            g = self._graphs.get(direction) or self._capture(direction)
+            graph, static, res, _, out_pen = g
+            if u.data.dtype != static.dtype:
+                raise ValueError(f"compiled for {static.dtype}, got "
+                                 f"{u.data.dtype}")
+            static.copy_(u.data)
+            graph.replay()
+            self.replays += 1
+            out = PencilArray(out_pen, res.clone(), self.extra_dims)
+        if self.donate:
+            u._donate()
+        return out
+
+    def forward(self, u: PencilArray) -> PencilArray:
+        """Physical -> spectral, one replay."""
+        self._check(u, self.plan.input_pencil, "input_pencil")
+        return self._call(u, "forward")
+
+    def backward(self, uh: PencilArray) -> PencilArray:
+        """Spectral -> physical, one replay."""
+        self._check(uh, self.plan.output_pencil, "output_pencil")
+        return self._call(uh, "backward")
+
+    def __repr__(self) -> str:
+        return (f"CompiledPlan({self.plan!r}, extra_dims={self.extra_dims}, "
+                f"donate={self.donate})")

@@ -47,6 +47,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -619,6 +620,9 @@ def _launch(desc, x: torch.Tensor, key: tuple,
     return out
 
 
+_count_lock = threading.Lock()
+
+
 def run_plan(plan: CopyPlan, x: torch.Tensor, out: torch.Tensor) -> None:
     """Launch ``plan`` from ``x`` into ``out`` (CUDA tensors the plan was
     made for) and count it."""
@@ -634,9 +638,10 @@ def run_plan(plan: CopyPlan, x: torch.Tensor, out: torch.Tensor) -> None:
             err = lib.pa_permute(*args)
     if err != 0:
         raise RuntimeError(f"permute kernel launch failed: CUDA error {err}")
-    launches += 1
-    launches_by_instance[plan.instance] += 1
-    bytes_moved += (x.numel() + out.numel()) * x.element_size()
+    with _count_lock:   # the engine's consumer and host workers launch too
+        launches += 1
+        launches_by_instance[plan.instance] += 1
+        bytes_moved += (x.numel() + out.numel()) * x.element_size()
 
 
 def _check(x: torch.Tensor, out: Optional[torch.Tensor] = None,

@@ -136,6 +136,33 @@ def is_multiprocess(group=None) -> bool:
     return process_count(group) > 1
 
 
+_SIDE_GROUPS: list = []
+
+
+def side_group(ranks=None):
+    """A new process group over ``ranks`` of the default group (default:
+    every rank), for the collectives a thread other than the engine's
+    consumer issues, such as the barriers of a host-pool checkpoint
+    save: two threads issuing collectives on one group can interleave
+    them in a different order on two ranks and deadlock.  ``new_group``
+    is collective over the default group, so every rank calls this with
+    the same ``ranks``, on the same thread and in the same order as its
+    other group creations (up front, on the main thread).  ``None`` on
+    one rank, where no collective is issued."""
+    if not is_multiprocess():
+        return None
+    ranks = list(range(dist.get_world_size())) if ranks is None \
+        else sorted(int(r) for r in ranks)
+    g = dist.new_group(ranks)
+    _SIDE_GROUPS.append(g)
+    return g
+
+
+def is_side_group(group) -> bool:
+    """Whether ``group`` was made by :func:`side_group`."""
+    return any(group is g for g in _SIDE_GROUPS)
+
+
 def sync_global_devices(name: str = "pa_barrier", group=None) -> None:
     """Named barrier of ``group``'s ranks (``MPI.Barrier``).  Consults
     the ``barrier`` fault point first (so drills reach it on one rank

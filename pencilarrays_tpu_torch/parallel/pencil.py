@@ -44,6 +44,7 @@ __all__ = [
     "Pencil",
     "make_pencil",
     "local_data_range",
+    "complete_dims",
 ]
 
 
@@ -67,6 +68,17 @@ def local_data_range(p: int, P: int, n: int) -> range:
     lo = min(p * b, n)
     hi = min((p + 1) * b, n)
     return range(lo, hi)
+
+
+def complete_dims(ndims: int, decomp_dims: Sequence[int],
+                  vals: Sequence[int], fill: int = 1) -> Tuple[int, ...]:
+    """Scatter per-decomposed-dim values into a full ``ndims`` tuple,
+    padding undecomposed dims with ``fill`` (reference
+    ``data_ranges.jl:15-26``)."""
+    out = [fill] * ndims
+    for d, v in zip(decomp_dims, vals):
+        out[d] = v
+    return tuple(out)
 
 
 class Pencil:

@@ -36,7 +36,9 @@ that pure function: :func:`trusted_drift_hops` returns ``{}``.
 :func:`execute_route` runs the hops one after another (the JAX package
 traces them into one jitted program), each hop taking its input out of
 the chain so that an intermediate is freed once the next hop has packed
-it.
+it.  A run of unwired hops that cross no rank (over a size-1 topology
+axis, where the JAX package's program holds no collective, and XLA owns
+the intermediates) runs as one K1 permute.
 """
 
 from __future__ import annotations
@@ -71,6 +73,8 @@ from .transpositions import (
     _method_label,
     _method_wire,
     _pipeline_chunk_axis,
+    _take,
+    _transpose_local,
     assert_compatible,
     gspmd_reshard_cost,
     hop_fault,
@@ -399,6 +403,26 @@ def execute_route(src: PencilArray, route: ReshardRoute, *,
     held = [src.data]
     if donate:
         src._donate()
-    for h in route.hops:
-        held = [_hop(held, h.src, h.dest, nx, h.method)]
+    for pin, pout, method in _stages(route):
+        held = [_transpose_local(_take(held), pin, pout, nx)
+                if method is None else _hop(held, pin, pout, nx, method)]
     return PencilArray(route.dest, held.pop(), src.extra_dims)
+
+
+def _stages(route: ReshardRoute) -> list:
+    """``(pin, pout, method)`` per step :func:`execute_route` runs: each
+    run of unwired hops that cross no rank (a size-1 topology axis, or a
+    memory order alone) becomes one local permute (``method`` None) from
+    its first layout to its last, moving every element once; on such a
+    run every block holds the same logical extents.  Other hops run as
+    planned."""
+    stages = []
+    for h in route.hops:
+        R = assert_compatible(h.src, h.dest)
+        local = _method_wire(h.method) is None and (
+            R is None or h.src.topology.dims[R] == 1)
+        if local and stages and stages[-1][2] is None:
+            stages[-1] = (stages[-1][0], h.dest, None)
+        else:
+            stages.append((h.src, h.dest, None if local else h.method))
+    return stages

@@ -71,7 +71,10 @@ for.
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass, replace
+from functools import lru_cache
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -95,10 +98,12 @@ __all__ = [
     "Ring",
     "Transposition",
     "assert_compatible",
+    "collective_tally",
     "exchange_bytes",
     "exchange_calls",
     "gspmd_reshard_cost",
     "hop_operand_bytes",
+    "last_measure_reports",
     "resolve_method",
     "reshard",
     "ring_shift",
@@ -107,9 +112,6 @@ __all__ = [
     "transpose_cost",
     "with_wire",
 ]
-
-_LATER = ("not ported yet: ROADMAP.md Queue 1, item 'Transpose methods and "
-          "plan options beyond the first slice'")
 
 exchange_calls = {"all-to-all": 0, "collective-permute": 0}
 """Exchange calls this process made since the last reset (set each entry
@@ -120,6 +122,33 @@ exchange_bytes = {"all-to-all": 0, "collective-permute": 0}
 """Bytes this process handed to its exchange calls since the last reset
 (the packed wire bytes of a wired hop): the measured counterpart of
 :func:`transpose_cost`'s bytes."""
+
+_tally = threading.local()
+
+
+@contextmanager
+def collective_tally():
+    """Count, into the dict it yields (``{op: {"count", "bytes"}}``), the
+    exchange calls this thread issues inside the block that cross ranks:
+    what :func:`transpose_cost` prices.  A one-rank all-to-all is a device
+    copy, priced at nothing (the JAX package's compiled programs hold no
+    collective there), and is left out."""
+    got: dict = {}
+    outer, _tally.got = getattr(_tally, "got", None), got
+    try:
+        yield got
+    finally:
+        _tally.got = outer
+
+
+def _count(op: str, nbytes: int, crosses: bool) -> None:
+    exchange_calls[op] += 1
+    exchange_bytes[op] += nbytes
+    got = getattr(_tally, "got", None)
+    if crosses and got is not None:
+        c = got.setdefault(op, {"count": 0, "bytes": 0})
+        c["count"] += 1
+        c["bytes"] += nbytes
 
 
 class AbstractTransposeMethod:
@@ -179,9 +208,10 @@ class Pipelined(AbstractTransposeMethod):
     one ``base`` exchange (``AllToAll()`` or ``Ring()``, with its wire)
     per piece.  Each piece's pack reads its slice of the block and its
     unpack writes its slice of the output, so K1 moves the bytes of the
-    unchunked hop; chunk ``k + 1``'s exchange is in flight while chunk
-    ``k`` is unpacked.  ``chunks=1``, or a block with nothing to chunk,
-    is ``base``.  Bit-identical to ``base`` for every ``chunks``."""
+    unchunked hop; chunk ``k``'s exchange is in flight while chunk
+    ``k + 1`` is packed, and chunk ``k + 1``'s while chunk ``k`` is
+    unpacked.  ``chunks=1``, or a block with nothing to chunk, is
+    ``base``.  Bit-identical to ``base`` for every ``chunks``."""
 
     chunks: int = 4
     base: AbstractTransposeMethod = AllToAll()
@@ -204,7 +234,9 @@ class Auto(AbstractTransposeMethod):
     charged a latency toll of ``latency_bytes``, cost less than one
     ``all_to_all``: ``(G-1) * (latency_bytes + tile) < latency_bytes +
     (P-1) * tile``.  ``wire_dtype`` rides the winner.
-    ``mode="measure"`` is not ported yet."""
+    ``mode="measure"`` times every explicit candidate on the actual
+    configuration (:func:`last_measure_reports`) and keeps the winner;
+    on several ranks rank 0's verdict is broadcast over the topology."""
 
     mode: str = "estimate"
     latency_bytes: int = 128 * 1024
@@ -215,10 +247,6 @@ class Auto(AbstractTransposeMethod):
             raise ValueError(
                 f"Auto mode must be 'estimate' or 'measure', got "
                 f"{self.mode!r}")
-        if self.mode == "measure":
-            raise NotImplementedError(
-                f"Auto(mode='measure') is {_LATER}; it waits for "
-                f"utils/benchtime.py and obs/ (item 7)")
         _canon_wire_field(self)
 
 
@@ -456,22 +484,125 @@ def transpose_cost(pin: Pencil, pout: Pencil, extra_dims: Tuple[int, ...] = (),
     return base_cost(method, shape)
 
 
+_MEASURE_REPORTS: dict = {}
+_MEASURE_LOGGED: set = set()
+
+
+def last_measure_reports() -> list:
+    """The audit trail of every ``Auto(mode='measure')`` decision this
+    process took (the JAX package's schema): per candidate the seconds
+    of a forward + back pair and the k1-arm spread of its measurement,
+    the winner, and ``margin_over_noise``, the runner-up/winner time
+    ratio over the noise (< 1: the decision is a coin flip)."""
+    return list(_MEASURE_REPORTS.values())
+
+
+@lru_cache(maxsize=512)
+def _measured_choice(pin: Pencil, pout: Pencil, R: int, extra_dims: tuple,
+                     dtype: torch.dtype, wire: Optional[str] = None
+                     ) -> AbstractTransposeMethod:
+    """Time every explicit candidate on the configuration and cache the
+    winner (FFTW_MEASURE's analog): ``AllToAll``, ``Ring`` and, where the
+    hop has a chunkable dim, ``Pipelined(K)`` for K in {2, 4, 8}, each
+    carrying ``wire``.  The timed body is a forward + back pair
+    (``utils/benchtime.py``).  Every rank of the topology times; rank
+    0's winner is broadcast over the topology's group, so all ranks run
+    the same exchange."""
+    from ..utils.benchtime import device_seconds_per_iter, last_spread
+
+    nx = len(extra_dims)
+    x0 = PencilArray.zeros(pin, extra_dims, dtype).data
+    a, b = pin.decomposition[R], pout.decomposition[R]
+    blk = tuple(pin.padded_size_local()) + tuple(extra_dims)
+    c = _pipeline_chunk_axis(blk, a, b)
+    candidates = [AllToAll(wire_dtype=wire), Ring(wire_dtype=wire)]
+    if c is not None:
+        candidates += [
+            Pipelined(chunks=k, base=AllToAll(wire_dtype=wire))
+            for k in (2, 4, 8) if len(_chunk_bounds(blk[c], k)) > 1]
+    best, best_t = 0, float("inf")
+    times, spreads = [], []
+    for i, cand in enumerate(candidates):
+        def pair(d, cand=cand):
+            return _hop(_hop(d, pin, pout, nx, cand), pout, pin, nx, cand)
+
+        t = device_seconds_per_iter(pair, x0, k0=1, k1=8, repeats=5)
+        times.append(t)
+        spreads.append(last_spread()["k1_worst_over_best"])
+        if t < best_t:
+            best, best_t = i, t
+    loser_t = min(t for i, t in enumerate(times) if i != best) \
+        if len(times) > 1 else best_t
+    noise = max(s for s in spreads if s is not None) if any(
+        s is not None for s in spreads) else None
+    dname = _dtype_name(dtype)
+    try:
+        dstr = np.dtype(dname).str      # the JAX package's spelling
+    except TypeError:
+        dstr = dname
+    topo = pin.topology
+    if topo.connected and math.prod(topo.dims) > 1:
+        # ranks time independently and may disagree; a split verdict
+        # would issue all-to-alls on one rank and ring rounds on another
+        verdict = torch.tensor([best], dtype=torch.int64,
+                               device=topo.device)
+        dist.broadcast(verdict, src=topo.global_rank(0), group=topo.group)
+        best = int(verdict.item())
+    _MEASURE_REPORTS[(pin, pout, R, extra_dims, dname, wire)] = {
+        "config": f"{pin.size_global()}@{pin.topology.dims} R={R} "
+                  f"{dstr}" + (f" wire={wire}" if wire else ""),
+        "candidates": [_method_label(m) for m in candidates],
+        "seconds": times,
+        "k1_spreads": spreads,
+        "winner": _method_label(candidates[best]),
+        "margin_over_noise": (round((loser_t / best_t) / noise, 3)
+                              if noise and best_t > 0 else None),
+    }
+    return candidates[best]
+
+
+def _journal_measure_verdict(key: tuple) -> None:
+    """Journal a measured verdict once per (obs run, configuration),
+    from the cached report, so late-armed observability journals
+    configurations measured earlier in the process."""
+    from .. import obs
+
+    report = _MEASURE_REPORTS.get(key)
+    if report is None:
+        return
+    dedup = (obs.run_id(), report["config"])
+    if dedup not in _MEASURE_LOGGED:
+        _MEASURE_LOGGED.add(dedup)
+        obs.record_event("auto.verdict", mode="measure", **report)
+
+
 def resolve_method(pin: Pencil, pout: Pencil,
                    extra_dims: Tuple[int, ...] = (), dtype=None,
                    method: AbstractTransposeMethod = Auto()
                    ) -> AbstractTransposeMethod:
-    """Resolve :class:`Auto` to ``AllToAll()`` or ``Ring()`` for one hop,
-    carrying Auto's wire (concrete methods pass through): the ring wins
-    exactly when ``(G-1) * (latency_bytes + tile) < latency_bytes +
-    (P-1) * tile``, with its tile and rounds from :func:`transpose_cost`.
-    A local permute, a size-1 axis or a ring of one participant resolve
-    to ``AllToAll()``."""
+    """Resolve :class:`Auto` to a concrete method for one hop, carrying
+    Auto's wire (concrete methods pass through).  ``mode="estimate"``: the
+    ring wins exactly when ``(G-1) * (latency_bytes + tile) <
+    latency_bytes + (P-1) * tile``, with its tile and rounds from
+    :func:`transpose_cost`; ``mode="measure"``: the fastest measured
+    candidate (a collective: every rank of the topology resolves it).  A
+    local permute, a size-1 axis or a ring of one participant resolve
+    to ``AllToAll()`` without measuring."""
     if not isinstance(method, Auto):
         return method
     R = assert_compatible(pin, pout)
     wire = method.wire_dtype
     if R is None or pin.topology.dims[R] == 1:
         return AllToAll(wire_dtype=wire)
+    if method.mode == "measure":
+        from .. import obs
+
+        dt = as_torch_dtype(dtype if dtype is not None else torch.float32)
+        key = (pin, pout, R, tuple(extra_dims), dt, wire)
+        choice = _measured_choice(*key)
+        if obs.enabled():
+            _journal_measure_verdict(key[:4] + (_dtype_name(dt), wire))
+        return choice
     P = pin.topology.dims[R]
     ring = transpose_cost(pin, pout, tuple(extra_dims), dtype,
                           Ring(wire_dtype=wire))
@@ -594,8 +725,7 @@ class _Exchange:
             dst = torch.empty_like(src)
             h["works"] = [dist.all_to_all_single(dst, src, group=group,
                                                  async_op=True)]
-            exchange_calls["all-to-all"] += 1
-            exchange_bytes["all-to-all"] += src.numel()
+            _count("all-to-all", src.numel(), self.P > 1)
             h["recv"] = dst.view(send.dtype).reshape(send.shape)
             return h
         G, S_b = self.ring
@@ -621,8 +751,7 @@ class _Exchange:
                    dist.P2POp(dist.irecv, recv[frm].reshape(-1).view(
                        torch.uint8), peer(frm), group)]
             h["works"] += dist.batch_isend_irecv(ops)
-            exchange_calls["collective-permute"] += 1
-            exchange_bytes["collective-permute"] += out_t.numel()
+            _count("collective-permute", out_t.numel(), True)
         h["recv"] = recv
         return h
 
@@ -673,16 +802,23 @@ class _Exchange:
 
 def _run_pipeline(n: int, produce, exchange: _Exchange, consume) -> None:
     """Software pipeline over ``n`` chunks: ``produce(k)`` gives chunk
-    ``k``'s packed tiles, whose exchange is issued at once; chunk ``k``'s
-    ``consume(k, handle, received)`` runs after chunk ``k + 1``'s
-    exchange was issued, so on the card NCCL moves ``k + 1`` while the
-    compute stream works on ``k``.  Every rank issues the exchanges in
-    chunk order; each handle keeps its buffers alive until its wait."""
+    ``k``'s packed tiles; chunk ``k``'s exchange is waited for after
+    chunk ``k + 1``'s pack and ``consume(k, handle, received)`` runs after
+    chunk ``k + 1``'s exchange was issued, so on the card NCCL moves chunk
+    ``k`` while the compute stream packs ``k + 1``, and ``k + 1`` while it
+    unpacks ``k``.  Waiting before the next issue drops chunk ``k``'s send
+    buffer first (NCCL runs one group's calls in order anyway).  Every
+    rank issues the exchanges in chunk order."""
     pending = None
     for k in range(n):
-        handle = exchange.start([produce(k)])
+        tiles = produce(k)
+        received = (None if pending is None
+                    else exchange.finish(pending[1]))
+        handle = exchange.start([tiles])
+        del tiles
         if pending is not None:
-            consume(pending[0], pending[1], exchange.finish(pending[1]))
+            consume(pending[0], pending[1], received)
+            del received
         pending = (k, handle)
     if pending is not None:
         consume(pending[0], pending[1], exchange.finish(pending[1]))
@@ -718,15 +854,15 @@ def _exchange_transpose(data, pin: Pencil, pout: Pencil, R: int,
     def produce(k):
         s0, s1 = bounds[k]
         tiles = ex.pack(src[0].narrow(mi, s0, s1 - s0))
-        if not out:     # allocated after the first chunk's pack
-            out.append(torch.empty(
-                pout.padded_size_local(MemoryOrder) + extra,
-                dtype=ex.dtype, device=tiles.device))
         if k == len(bounds) - 1:
             src.clear()  # the input goes after the last chunk's pack
         return tiles
 
     def consume(k, h, recv):
+        if not out:     # allocated at the first unpack
+            out.append(torch.empty(
+                pout.padded_size_local(MemoryOrder) + extra,
+                dtype=ex.dtype, device=ex.topo.device))
         s0, s1 = bounds[k]
         ex.unpack(recv, h, out=out[0].narrow(mo, s0, s1 - s0))
 
@@ -847,8 +983,7 @@ def _gspmd_exchange(data, pin: Pencil, pout: Pencil,
                            output_split_sizes=[n * esize for n in sizes_in],
                            input_split_sizes=[n * esize for n in sizes_out],
                            group=topo.group)
-    exchange_calls["all-to-all"] += 1
-    exchange_bytes["all-to-all"] += src8.numel()
+    _count("all-to-all", src8.numel(), True)
     del send, src8
     ident = tuple(range(out.dim()))
     off = 0

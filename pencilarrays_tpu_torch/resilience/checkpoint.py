@@ -37,13 +37,15 @@ The manager is collective over ``comm`` (a ``torch.distributed`` process
 group, the default one unless given): data writes go through the drivers'
 collective protocols, each rank's block checksum is merged by rank 0
 (``blocks.r<rank>.json`` scratch files), and every commit step is ordered
-by the same named barriers the drivers use.  Three pieces wait for
-layers the port has not ported (ROADMAP.md Queue 1, item 7):
-:meth:`CheckpointManager.save_async` (``engine/``), the mesh-wide
-election of :meth:`CheckpointManager.common_latest_valid` (``cluster/``:
-without a coordinator it is :meth:`~CheckpointManager.latest_valid`), and
-the ``corrupt`` mode of the ``ckpt.restore`` fault point (``guard/``);
-the manifest's recovery ``epoch`` is 0 until ``cluster/`` exists.
+by the same named barriers the drivers use; with observability on, the
+save, commit, GC, verification and restore journal the JAX package's
+``ckpt.*`` records.  :meth:`CheckpointManager.save_async` runs a save on
+the engine's host pool.  Two pieces wait for layers the port has not
+ported (ROADMAP.md Queue 1, item 7): the mesh-wide election of
+:meth:`CheckpointManager.common_latest_valid` (``cluster/``: without a
+coordinator it is :meth:`~CheckpointManager.latest_valid`), and the
+``corrupt`` mode of the ``ckpt.restore`` fault point (``guard/``); the
+manifest's recovery ``epoch`` is 0 until ``cluster/`` exists.
 """
 
 from __future__ import annotations
@@ -218,6 +220,15 @@ class CheckpointManager:
                 f"{type(self.driver).__name__} does not accept it")
         tmp, final = self._tmp_dir(step), self._step_dir(step)
         t_save0 = time.perf_counter()
+        from .. import obs
+
+        if obs.enabled():
+            obs.counter("ckpt.saves").inc()
+            obs.record_event("ckpt.save", step=step, status="begin",
+                             dir=self.directory,
+                             driver=type(self.driver).__name__,
+                             datasets=sorted(state),
+                             checksums=self.checksums)
         stats: Dict = {"crc_s": 0.0}
         self.stats = stats
         if self._is_proc0():
@@ -308,21 +319,62 @@ class CheckpointManager:
                 # the one atomic commit point: COMMIT appears via replace
                 atomic_write_text(os.path.join(final, COMMIT_NAME),
                                   f"step {step}\n")
+                obs.record_event("ckpt.commit", step=step, dir=final)
             self._barrier("pa_ckpt_commit")
             if self._is_proc0():
                 self._gc(current=step)
             self._barrier("pa_ckpt_done")
         t_end = time.perf_counter()
         stats.update(commit_s=t_end - t_commit, total_s=t_end - t_save0)
+        if obs.enabled():
+            obs.histogram("ckpt.save_seconds").observe(t_end - t_save0)
+            obs.record_event("ckpt.save", step=step, status="committed",
+                             seconds=t_end - t_save0)
         return final
 
     def save_async(self, step: int, state: Mapping, *,
                    chunks: bool = False, engine=None):
-        """The JAX package's save on the engine's host pool: not ported
-        yet, it waits for ``engine/``.  Call :meth:`save` between steps."""
-        raise NotImplementedError(
-            f"CheckpointManager.save_async() is {_LATER}; it waits for "
-            f"engine/")
+        """:meth:`save` on the engine's host pool
+        (:meth:`~pencilarrays_tpu_torch.engine.Engine.host_task`),
+        overlapped with whatever the dispatch queue runs next.  Returns a
+        :class:`~pencilarrays_tpu_torch.engine.StepFuture` resolving to
+        the committed directory; failures surface typed on the future.
+
+        ``state`` is copied shallowly at submit; the tensors themselves
+        are read when the save stages them, so no caller may write into
+        them until the future resolves (``run_steps_async`` hands each
+        save a state no later step writes).  Concurrent saves on one
+        manager are the caller's to order (chain on the future, or use
+        ``run_steps_async``).  On several ranks the save's barriers run
+        off the consumer thread, so ``comm`` must be a
+        :func:`~pencilarrays_tpu_torch.parallel.distributed.side_group`
+        that no dispatch uses."""
+        from ..engine import device_event, get_engine, wait_device
+
+        self._check_async()
+        eng = engine if engine is not None else get_engine()
+        state = dict(state)
+        # on the card the worker stages on its own stream: after the
+        # device work queued so far on this thread's stream
+        ready = device_event()
+
+        def save():
+            wait_device(ready)
+            return self.save(step, state, chunks=chunks)
+
+        return eng.host_task(save, label=f"ckpt.save:{step}")
+
+    def _check_async(self) -> None:
+        """Refuse a host-pool save whose barriers could interleave with
+        the dispatches' collectives (:meth:`save_async`)."""
+        from ..parallel.distributed import is_multiprocess, is_side_group
+
+        if is_multiprocess(self.comm) and not is_side_group(self.comm):
+            raise ValueError(
+                "a save on the engine's host pool issues its barriers "
+                "beside the dispatch queue's collectives: on several ranks "
+                "build the manager with comm=distributed.side_group(...), "
+                "made up front on every rank")
 
     def _recover_replaced(self) -> None:
         """A re-save of step N moves the old committed directory to
@@ -379,7 +431,13 @@ class CheckpointManager:
                 removed.append(os.path.basename(path))
                 shutil.rmtree(path, ignore_errors=True)
         if removed:
+            from .. import obs
+
             logger.info("checkpoint GC removed %s", sorted(removed))
+            if obs.enabled():
+                obs.counter("ckpt.gc_removed").inc(len(removed))
+                obs.record_event("ckpt.gc", removed=sorted(removed),
+                                 dir=self.directory)
 
     # -- verify / discover -------------------------------------------------
     def _load_manifest(self, step: int) -> dict:
@@ -401,14 +459,25 @@ class CheckpointManager:
         manifest, dataset presence, and (when recorded) every block's
         checksum.  Raises :class:`CorruptCheckpointError` naming the
         first failing dataset/block."""
-        if not self.is_committed(step):
-            raise CorruptCheckpointError(
-                f"checkpoint step {step} has no COMMIT marker "
-                f"(missing or torn write)", step=step,
-                path=self._step_dir(step))
-        manifest = self._load_manifest(step)
-        for name, ds in manifest["datasets"].items():
-            self._verify_dataset(step, manifest, name, ds)
+        from .. import obs
+
+        try:
+            if not self.is_committed(step):
+                raise CorruptCheckpointError(
+                    f"checkpoint step {step} has no COMMIT marker "
+                    f"(missing or torn write)", step=step,
+                    path=self._step_dir(step))
+            manifest = self._load_manifest(step)
+            for name, ds in manifest["datasets"].items():
+                self._verify_dataset(step, manifest, name, ds)
+        except ResilienceError as e:
+            if obs.enabled():
+                obs.counter("ckpt.verify_failures").inc()
+                obs.record_event("ckpt.verify", step=step, ok=False,
+                                 error=str(e))
+            raise
+        if obs.enabled():
+            obs.record_event("ckpt.verify", step=step, ok=True)
 
     def _checksum_blocks(self, step: int, manifest: dict, name: str,
                          ds: dict) -> Optional[List[dict]]:
@@ -761,6 +830,9 @@ class Checkpoint:
                 f"dataset {name!r} not in checkpoint step {self.step} "
                 f"(has {self.datasets})")
         do_verify = self.verify if verify is None else verify
+        from .. import obs
+
+        t0 = time.perf_counter()
         with timeit(self.manager.timer, "checkpoint restore"):
             if do_verify == "local":
                 self.manager._verify_dataset_local(
@@ -783,6 +855,12 @@ class Checkpoint:
                     faults.kill_now()
                 if act == "corrupt":
                     raise faults.corrupt_not_ported("ckpt.restore")
+        if obs.enabled():
+            dt = time.perf_counter() - t0
+            obs.counter("ckpt.restores").inc()
+            obs.histogram("ckpt.restore_seconds").observe(dt)
+            obs.record_event("ckpt.restore", step=self.step, dataset=name,
+                             seconds=dt, verified=do_verify)
         return out
 
     def read_state(self, pencil, names: Optional[List[str]] = None) -> Dict:

@@ -3,11 +3,11 @@
 PyTorch counterpart of the JAX package's ``resilience/faults.py``: the
 same points, rule grammar, modes and deterministic hit counters, read
 from the same environment variable, so one spec arms both packages.
-Three things differ: ``%rank<k>`` matches the ``torch.distributed``
-rank (0 without a process group), ``%mesh<k>`` never matches until the
-fleet layer is ported (a process that is no mesh worker answers -1, as
-in the JAX package), and firings are not journaled (the ``obs`` flight
-recorder is not ported yet).  The port consults ``io.*``, ``ckpt.*``,
+Two things differ: ``%rank<k>`` matches the ``torch.distributed``
+rank (0 without a process group), and ``%mesh<k>`` never matches until
+the fleet layer is ported (a process that is no mesh worker answers -1,
+as in the JAX package).  Firings are journaled as ``fault`` records when
+observability is on.  The port consults ``io.*``, ``ckpt.*``,
 ``dist.initialize``, ``barrier`` and ``hop.exchange``; the other points
 parse and wait for their layers.
 
@@ -311,14 +311,14 @@ def armed(point: str) -> bool:
 
 
 def _self_rank() -> int:
-    """This process's rank for ``%rank<k>`` matching: the
-    ``torch.distributed`` rank when a process group exists, else 0.
-    Resolved lazily: only rules that carry a rank selector pay for it."""
-    import torch.distributed as dist
+    """This process's rank for ``%rank<k>`` matching: ``cluster.rank``
+    (the ``PENCILARRAYS_TPU_CLUSTER_RANK`` override, else the
+    ``torch.distributed`` rank, else 0), the rule journal attribution
+    uses too.  Resolved lazily: only rules that carry a rank selector pay
+    for it."""
+    from ..cluster import rank
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return 0
+    return rank()
 
 
 def _self_mesh() -> int:
@@ -363,6 +363,20 @@ def corrupt_not_ported(point: str) -> NotImplementedError:
         f"Queue 1, item 7 (control planes); it waits for guard/")
 
 
+def _obs_firing(point: str, mode: str, hit: int, ctx: dict) -> None:
+    """Journal a triggered rule BEFORE the fault takes effect (for
+    ``kill``/``torn`` the fsync'd ``fault`` record is the only trace the
+    dead process leaves), as the JAX package does."""
+    from ..obs import enabled, record_event
+    from ..obs.metrics import counter
+
+    if not enabled():
+        return
+    counter("faults.fired", point=point, mode=mode).inc()
+    record_event("fault", point=point, mode=mode, hit=hit, **{
+        k: v for k, v in ctx.items() if k not in ("point", "mode", "hit")})
+
+
 def fire(point: str, **ctx) -> Optional[str]:
     """Consult the injection point.  Returns ``None`` (the overwhelmingly
     common no-fault case), raises :class:`InjectedFault` (``error``),
@@ -387,6 +401,7 @@ def fire(point: str, **ctx) -> Optional[str]:
             continue   # addressed to another rank; counters still tick
         if r.mesh is not None and r.mesh != _self_mesh():
             continue   # addressed to another mesh; counters still tick
+        _obs_firing(point, r.mode, hit, ctx)
         if r.mode == "delay":
             # the deterministic straggler: stall, then proceed — the
             # point's semantics (and any LATER rule on it) are untouched

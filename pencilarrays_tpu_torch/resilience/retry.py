@@ -135,6 +135,16 @@ class RetryPolicy:
                         f"{label}: attempt {attempt} failed and the "
                         f"{self.deadline:.1f}s retry deadline is exhausted "
                         f"({elapsed:.2f}s elapsed): {e}") from e
+                from ..obs import enabled as _obs_enabled
+
+                if _obs_enabled():
+                    from ..obs import counter, record_event
+
+                    counter("retry.attempts", label=label).inc()
+                    record_event(
+                        "retry", label=label, attempt=attempt,
+                        max_attempts=self.max_attempts, delay_s=delay,
+                        error=f"{type(e).__name__}: {e}")
                 logger.warning(
                     "%s failed (attempt %d/%d): %s — retrying in %.3fs",
                     label, attempt, self.max_attempts, e, delay)

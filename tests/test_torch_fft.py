@@ -280,17 +280,19 @@ def test_pipeline_auto_and_validation(monkeypatch):
 
 
 def test_fft_unported_options_raise():
-    """What is still to port raises, naming ROADMAP; what this port now
-    has constructs (``decomposition=``, ``wire_dtype=``, ``hbm_limit=``
-    joined the constructing options)."""
+    """Every plan option of the JAX package is ported now and constructs
+    (``compile``, the async calls and ``Auto(mode="measure")`` joined
+    ``decomposition=``, ``wire_dtype=`` and ``hbm_limit=``); the async
+    calls still take exactly one operand, as the JAX package's do."""
     import pencilarrays_tpu_torch as pat
 
     topo = pat.Topology(DIMS, device="cpu")
     plan = pat.PencilFFTPlan(topo, (8, 8, 8))
-    for make in (plan.compile, plan.forward_async, plan.backward_async,
-                 lambda: pat.Auto(mode="measure")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make()
+    assert plan.compile() is plan.compile()
+    for call in (plan.forward_async, plan.backward_async):
+        with pytest.raises(ValueError, match="exactly one"):
+            call()
+    assert pat.Auto(mode="measure").mode == "measure"
     for kw in (dict(pipeline=2), dict(pipeline="auto"),
                dict(transform="dct"), dict(transform="dst"),
                dict(method=pat.Ring()), dict(method=pat.Pipelined(3)),

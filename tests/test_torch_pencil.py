@@ -98,6 +98,18 @@ def test_local_data_range_matches_jax():
             assert pat.local_data_range(p, P, n) == jpa.local_data_range(p, P, n)
 
 
+@pytest.mark.parametrize("ndims,decomp,vals,fill", [
+    (3, (1, 2), (4, 5), 1), (4, (0,), (7,), 2), (3, (), (), 0),
+    (5, (4, 0, 2), (3, 1, 9), 1)])
+def test_complete_dims_matches_jax(ndims, decomp, vals, fill):
+    """``tests/test_pencils.py::test_complete_dims``'s cases and more."""
+    from pencilarrays_tpu.parallel.pencil import complete_dims as jax_cd
+    from pencilarrays_tpu_torch.parallel.pencil import complete_dims
+
+    assert complete_dims(ndims, decomp, vals, fill) == jax_cd(
+        ndims, decomp, vals, fill)
+
+
 @pytest.mark.parametrize("shape,ndims_decomp", [
     ((42, 31, 29), None), ((8, 9, 10, 11), 2), ((12, 7), None)])
 def test_make_pencil_matches_jax(devices, shape, ndims_decomp):

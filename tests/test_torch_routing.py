@@ -224,6 +224,38 @@ def pool():
     return tasks.shared_pool()
 
 
+@pytest.mark.parametrize("dims", [(1, 1), (2, 1), (1, 2)])
+def test_hops_across_no_rank_run_as_one_permute(devices, pool, dims):
+    """``execute_route`` runs each run of unwired hops over size-1 axes as
+    one local permute (the JAX package's fused chain holds no collective
+    there, and ``transpose_cost`` prices none): every rank issues the
+    route's priced exchange calls and no other, and moves JAX's bits."""
+    shape = (12, 10, 8)
+    src, dest = ((1, 2), None), ((2, 0), None)
+    jin, jout, pin, pout = _pencils(devices, dims, shape, src, dest)
+    u = _global(shape)
+    want = np.asarray(jpa.reshard(jpa.PencilArray.from_global(jin, u), jout,
+                                  method=jpa.Pipelined(4)).data)
+    got = pool.run(tasks.reshard_case, dims, shape, src, dest, u,
+                   [dict(method=pat.Pipelined(4))])[0][0]
+    np.testing.assert_array_equal(got["padded"].view(np.uint8),
+                                  want.view(np.uint8))
+    route = prouting.plan_reshard_route(pin, pout, (), torch.float64,
+                                        method=pat.Pipelined(4))
+    crossing = [h.method for h in route.hops
+                if dims[tr.assert_compatible(h.src, h.dest)] > 1]
+    priced = sum(h.cost.get("all-to-all", {}).get("count", 0)
+                 for h in route.hops)
+    assert {c[0]["all-to-all"] for c in got["calls"]} == {priced}
+    assert (priced > 0) == bool(crossing)
+    stages = prouting._stages(route)
+    assert [m for _, _, m in stages if m is not None] == crossing
+    assert all(a[2] is not None or b[2] is not None
+               for a, b in zip(stages, stages[1:]))
+    if not crossing:
+        assert len(stages) == 1 < len(route.hops)
+
+
 def _global(shape):
     n = int(np.prod(shape))
     return ((np.arange(n, dtype=np.float64).reshape(shape) + 1.0) / 3.0)

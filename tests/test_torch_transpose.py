@@ -282,8 +282,7 @@ def test_auto_resolves_as_jax(devices, case):
 
 
 def test_method_validation():
-    """The JAX package's checks (``tests/test_transpose.py``), and what is
-    not ported yet."""
+    """The JAX package's checks (``tests/test_transpose.py``)."""
     with pytest.raises(ValueError, match="positive int"):
         pat.Pipelined(chunks=0)
     with pytest.raises(ValueError, match="positive int"):
@@ -295,8 +294,7 @@ def test_method_validation():
     with pytest.raises(ValueError, match="mode"):
         pat.Auto(mode="guess")
     assert pat.PointToPoint is pat.Ring
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pat.Auto(mode="measure")
+    assert pat.Auto(mode="measure") == pat.Auto(mode="measure")
     # wires, Gspmd and reshard are ported: the wire field is canonical
     assert pat.Ring(wire_dtype="bfloat16").wire_dtype == "bf16"
     assert pat.Auto(wire_dtype="float16").wire_dtype == "f16"

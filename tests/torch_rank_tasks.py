@@ -1721,8 +1721,10 @@ def _ck_bad_configs(topo, flat, tmp):
         mgr.save(1, {})
     with pytest.raises(CheckpointNotFoundError):
         mgr.restore()
-    with pytest.raises(NotImplementedError, match="engine/"):
-        mgr.save_async(1, {"u": x})
+    # a host-pool save on several ranks needs a side group for its barriers
+    if len(topo) > 1:
+        with pytest.raises(ValueError, match="side_group"):
+            mgr.save_async(1, {"u": x})
 
 
 def _ck_truncation_fuzz(topo, flat, tmp):
@@ -1894,3 +1896,184 @@ def ckpt_cross_decomposition(tmp, torn):
             _check_gathered(ck.read("u", pen, verify=True), truth)
             _check_gathered(ck.read("u", pen, verify="local"), truth)
     return _rank0(True)
+
+
+# -- engine/: the async, compiled and measured paths --------------------------
+
+
+def _on_every_rank(topo, value):
+    """``value`` of every rank of ``topo`` (rank order)."""
+    out = [None] * len(topo)
+    torch.distributed.all_gather_object(out, value, group=topo.group)
+    return out
+
+
+def ns_async_case(dims, n, uh0_padded, dt, nu):
+    """One ``step_async`` of the JAX package's Taylor–Green state through a
+    private engine, and the port's own ``step`` of it: both gathered, and
+    whether every rank's blocks are equal bit for bit."""
+    from pencilarrays_tpu_torch.engine import Engine
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    model = NavierStokesSpectral(topo, n, viscosity=nu, dtype=torch.float32)
+    uh0 = from_numpy_padded(model.plan.output_pencil, uh0_padded, (3,))
+    e = Engine("ns-async")
+    try:
+        out = model.step_async(uh0, dt, engine=e).result(120)
+    finally:
+        e.close()
+    ref = model.step(uh0, dt)
+    same = _on_every_rank(topo, torch.equal(out.data, ref.data))
+    return _rank0(dict(out=pat.gather(out), same=same))
+
+
+def diffusion_async_case(dims, shape, u0, dt, tmp):
+    """``DiffusionSpectral.run_async`` over 5 steps, a checkpoint every 2
+    (the manager on a side group made up front by every rank of the
+    pool): the committed steps, the final and 2-step sync states, the
+    restore of step 2, the host tasks the engine ran, the dispatch log's
+    certificate, and the refusal of a save_async whose barriers would
+    share the topology's group."""
+    import math
+
+    from pencilarrays_tpu_torch.analysis import verify_dispatch_log
+    from pencilarrays_tpu_torch.engine import Engine
+    from pencilarrays_tpu_torch.parallel import distributed
+    from pencilarrays_tpu_torch.resilience import CheckpointManager
+
+    side = distributed.side_group(range(math.prod(dims)))
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    model = DiffusionSpectral(topo, shape, kappa=1.0, dtype=torch.float32)
+    uh = model.from_physical(
+        pat.PencilArray.from_global(model.plan.input_pencil, u0))
+    e = Engine("pipe-test")
+    try:
+        ck = CheckpointManager(f"{tmp}/ck", comm=side)
+        pipe = model.run_async(uh, dt, 5, engine=e, checkpoint=ck,
+                               checkpoint_every=2)
+        final = pipe.result(120)
+        host = e.stats()["host_tasks"]
+        cert = verify_dispatch_log(e.dispatch_log())
+        refused = None
+        if distributed.is_multiprocess(topo.group):
+            try:
+                CheckpointManager(f"{tmp}/other", comm=topo.group
+                                  ).save_async(1, {"uh": uh}, engine=e)
+            except ValueError as err:
+                refused = str(err)
+    finally:
+        e.close()
+    states = [uh]
+    for _ in range(5):
+        states.append(model.step(states[-1], dt))
+    restored = ck.restore(2).read("uh", model.plan.output_pencil)
+    same = _on_every_rank(topo, (torch.equal(final.data, states[5].data),
+                                 torch.equal(restored.data,
+                                             states[2].data)))
+    return _rank0(dict(steps=ck.steps(), saves=len(pipe.saves),
+                       host_tasks=host, dispatches=cert["dispatches"],
+                       same=same, final=pat.gather(final),
+                       two=pat.gather(states[2]), refused=refused))
+
+
+def fft_async_case(dims, shape, u):
+    """``forward_async`` (ready and pack forms, and donating) and
+    ``backward_async`` against the synchronous calls, bit for bit on every
+    rank, and the dispatch log's certificate (the exchange calls each
+    dispatch counted held to the plan's ``collective_costs``)."""
+    from pencilarrays_tpu_torch.analysis import verify_dispatch_log
+    from pencilarrays_tpu_torch.engine import Engine
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    plan = pat.PencilFFTPlan(topo, shape, real=True)
+    x = pat.PencilArray.from_global(plan.input_pencil, u)
+    given = pat.PencilArray.from_global(plan.input_pencil, u)
+    e = Engine("fft-async")
+    try:
+        f = plan.forward_async(x, engine=e).result(60)
+        fp = plan.forward_async(pack=lambda: u, engine=e).result(60)
+        fd = plan.forward_async(given, engine=e, donate=True).result(60)
+        b = plan.backward_async(f, engine=e).result(60)
+        cert = verify_dispatch_log(e.dispatch_log())
+    finally:
+        e.close()
+    ref = plan.forward(x)
+    back = plan.backward(ref)
+    same = _on_every_rank(topo, [torch.equal(f.data, ref.data),
+                                 torch.equal(fp.data, ref.data),
+                                 torch.equal(fd.data, ref.data),
+                                 torch.equal(b.data, back.data)])
+    return _rank0(dict(same=same, cert=cert, donated=given.is_deleted(),
+                       costs=plan.collective_costs(),
+                       spectral=pat.gather(f)))
+
+
+def measure_case(dims, shape, u):
+    """``Auto(mode="measure")`` for the hop ``(1, 2) -> (0, 2)``: the
+    report, every rank's winner, the cache hit of a second resolve, and
+    the transpose by the measured method (gathered)."""
+    from pencilarrays_tpu_torch.parallel import transpositions as tr
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pin = _sub_pencil(topo, shape, (1, 2), None)
+    pout = pin.replace(decomp_dims=(0, 2))
+    auto = pat.Auto(mode="measure")
+    m = tr.resolve_method(pin, pout, (), torch.float32, auto)
+    hits = tr._measured_choice.cache_info().hits
+    again = tr.resolve_method(pin, pout, (), torch.float32, auto)
+    hit = tr._measured_choice.cache_info().hits == hits + 1
+    report = tr.last_measure_reports()[-1]
+    y = pat.transpose(pat.PencilArray.from_global(pin, u), pout,
+                      method=auto)
+    winners = _on_every_rank(topo, tr._method_label(m))
+    return _rank0(dict(report=report, winners=winners, hit=hit,
+                       again=again == m, glob=pat.gather(y)))
+
+
+def two_thread_case(dims, shape, u, hops, tmp):
+    """The engine's consumer runs ``hops`` round trips of an exchange
+    (collectives on the topology's groups) while its host pool saves the
+    field every other hop (barriers on a side group): both finish, the
+    round trips are bit-identical and every save committed."""
+    import torch.distributed as dist
+
+    from pencilarrays_tpu_torch.engine import Engine
+    from pencilarrays_tpu_torch.parallel import distributed
+    from pencilarrays_tpu_torch.resilience import CheckpointManager
+
+    side = distributed.side_group()
+    topo = pat.Topology(dims, device="cpu")
+    pin = pat.Pencil(topo, shape, (1, 2))
+    pout = pin.replace(decomp_dims=(0, 2))
+    x = pat.PencilArray.from_global(pin, u)
+    ck = CheckpointManager(f"{tmp}/ck", comm=side, keep=None)
+    e = Engine("two-threads", workers=2)
+    rounds, saves = [], []
+    try:
+        for k in range(hops):
+            rounds.append(e.submit(lambda: pat.transpose(
+                pat.transpose(x, pout), pin), label=f"hop:{k}"))
+            if k % 2 == 0:
+                prev = saves[-1] if saves else None
+
+                def save(k=k, prev=prev):
+                    if prev is not None:
+                        prev.result()
+                    return ck.save(k, {"u": x})
+
+                saves.append(e.host_task(save, label=f"save:{k}"))
+        ok = all(torch.equal(f.result(60).data, x.data) for f in rounds)
+        for s in saves:
+            s.result(60)
+    finally:
+        e.close()
+    dist.barrier()
+    return _rank0(dict(ok=_on_every_rank(topo, ok), steps=ck.steps()))
