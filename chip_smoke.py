@@ -110,6 +110,35 @@ standard output too.  Phases, each printed on its own lines:
    ``ckpt.save`` records and the engine's gauges, step ms with obs on
    and off; ``utils/benchtime`` on phase 3's cycle with its spread, and
    ``Auto(mode="measure")`` resolving every one-card hop unmeasured;
+5e. the runtime guard and the rest of obs/ (``guard/``, ``obs/``), in
+   ``chip_smoke_guard/`` of the checkout (deleted at the end): phase 3's
+   1024^3 cycle under AllToAll() and Ring() with the guard on, every hop
+   bit-identical to the unguarded hop, K1 launches by instance and K1
+   bytes equal to phase 3's, one ``guard.checks{outcome="ok"}`` per hop,
+   the guarded cycle's peak at most 0.5 GiB above the unguarded one's,
+   ms (median of 3) each way; the bf16 wired cycle guarded, and its hop
+   under a wire-rtol override far below bf16's quantization raising
+   ``WirePrecisionError`` (a ``guard.sdc`` record of kind ``wire``, a
+   bundle); NS Taylor-Green 512^3 f32, 8 RK2 steps with the guard on
+   (the finiteness tap on every plan call) and 8 with it off, the same
+   bits and K1 launches, ms a step each way; the drills, each raising
+   its typed error: ``hop.exchange:corrupt`` on a 1024^3 hop
+   (``IntegrityError``, ``guard.sdc``, a bundle holding the plan
+   fingerprints; guard off, the poke lands on the JAX package's element),
+   ``ckpt.restore:corrupt`` on the 512^3 NS state (caught by the
+   finiteness boundary check), ``guarded_step`` over NS steps with a
+   ``CheckpointManager`` surviving a corrupt hop by retry and another by
+   restoring (final state = the uninterrupted run's bits), and
+   ``hop.exchange:delay`` past a short watchdog deadline
+   (``HangTimeoutError`` with a bundle); ``measure_transpose`` on 1024^3
+   hops with the drift report, a 1024^3 reshard route planned with
+   trusted drift (a ``route.plan`` record), ``merge_journals`` and
+   ``write_trace`` on the phase's journal, ``python -m
+   pencilarrays_tpu_torch.obs`` lint, merge and trace (exit 0),
+   ``reconstruct_request`` of one ``run_async`` dispatch,
+   ``MeshAggregator`` over ``FileKV`` at world 1 (``rank`` labels) and the
+   straggler rule on one rank (skipped); prints ``[guard]`` and ``[obs]``
+   lines;
 6. kernels K2–K4 (``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
    ``flash_bwd_tf32.cu``) against their plain versions on the card: three
    forward modes, full and partials backward, causal and not, ragged
@@ -140,8 +169,9 @@ standard output too.  Phases, each printed on its own lines:
 10. a ``{"kernels": [...]}`` line: per kernel its launches on each path
     (each counted from 0 just before its run; K1's on the NS steps, the
     four cycles, the six wired cycles, the reshard runs, the fused hop, the DCT plan, the spectral operators,
-    the ManyPencilArray cycle, phase 5c's writes and reads, ``io``, and
-    phase 5d's ``engine_ns`` and ``compiled_plan``) and
+    the ManyPencilArray cycle, phase 5c's writes and reads, ``io``,
+    phase 5d's ``engine_ns`` and ``compiled_plan``, and phase 5e's
+    ``guard_cycle``, ``guard_ns``, ``guard_drills`` and ``obs_rest``) and
     their sum, by
     instance, its error against the plain version and its times (K1's per
     class in ``timings``);
@@ -149,6 +179,7 @@ standard output too.  Phases, each printed on its own lines:
 """
 
 import faulthandler
+import gc
 import json
 import math
 import os
@@ -752,6 +783,8 @@ def k1_timing(torch, k1, bw, recorded, extra):
     instance.  A class of views (a Pipelined hop's chunks, a fused hop's
     slices) is timed on views with its strides and offsets; returns
     {class: row}."""
+    gc.collect()                 # tensors held in the phases' cycles
+    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     classes = {}
     for run, rec in recorded.items():
@@ -2885,6 +2918,649 @@ def phase_engine(torch, pat, models, k1, tr, cycle, ns, n=512, steps=48,
     return r
 
 
+# -- phase 5e: the runtime guard and the rest of obs/ ------------------------
+
+GUARD_DIR = "chip_smoke_guard"
+
+
+def _gib(b):
+    return b / 2 ** 30
+
+
+def _arm(guard, mode, d):
+    if mode == "on":
+        guard.enable(os.path.join(d, "bundles"))
+    else:
+        guard.disable()
+
+
+def _guard_acc(k1):
+    return dict(launches=0, recorded={},
+                launches_by_instance={i: 0 for i in k1.INSTANCES})
+
+
+def _cycle_pencils(pat, n):
+    """Phase 3's cycle: its pencils and its seeded 1024^3 f32 field."""
+    topo = pat.Topology((1, 1))
+    shape = (n, n, n)
+    px = pat.Pencil(topo, shape, (1, 2), permutation=pat.Permutation(1, 2, 0))
+    py = pat.Pencil(topo, shape, (0, 2), permutation=pat.Permutation(0, 2, 1))
+    pz = pat.Pencil(topo, shape, (0, 1))
+    return px, [py, pz, py, px]
+
+
+def guard_cycle_check(torch, pat, k1, guard, obs, cycle, d, acc,
+                      n=1024, reps=3):
+    """Phase 5e (a): the 1024^3 f32 x->y->z->y->x cycle under
+    ``AllToAll()`` and ``Ring()`` with the guard on: every hop's bits
+    equal the unguarded hop's (phase 3's cycle, recomputed here from the
+    same seed), K1's launches by instance and bytes equal phase 3's, one
+    ``guard.checks{outcome="ok"}`` per hop, the guarded cycle's peak at
+    most 0.5 GiB above the unguarded one's, and ms (median of ``reps``,
+    turns alternating) each way.  K1's launches of the counted guarded
+    cycles count under the path ``guard_cycle``."""
+    px, chain = _cycle_pencils(pat, n)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x = pat.PencilArray(px, torch.randn(px.size_global(), generator=gen,
+                                        device="cuda"))
+    out = {}
+    for run, method in (("cycle", pat.AllToAll()), ("cycle_ring",
+                                                     pat.Ring())):
+        def go():
+            v = x
+            for pen in chain:
+                v = pat.transpose(v, pen, method=method)
+            return v
+
+        guard.disable()
+        ref, v = [], x
+        for pen in chain:
+            v = pat.transpose(v, pen, method=method)
+            ref.append(v.data)
+        guard.enable(os.path.join(d, "bundles"))
+        v = x
+        for i, pen in enumerate(chain):
+            v = pat.transpose(v, pen, method=method)
+            if not same_bits(torch, v.data, ref[i]):
+                raise AssertionError(f"[guard] {run}: guarded hop {i + 1} "
+                                     f"differs from the unguarded hop")
+        del v, ref
+        obs.enable(os.path.join(d, "obs-cycle"))
+        obs.registry.reset()
+        (back, _) = _io_counted(torch, k1, acc, go)
+        bytes_guarded = k1.bytes_moved
+        by_inst = dict(k1.launches_by_instance)
+        checks = obs.snapshot()["counters"]
+        obs.disable()
+        ok = checks.get("guard.checks{outcome=ok}", 0)
+        if not same_bits(torch, back.data, x.data):
+            raise AssertionError(f"[guard] {run}: round trip not "
+                                 f"bit-identical")
+        del back
+        want = cycle[run]
+        if (by_inst != want["launches_by_instance"]
+                or bytes_guarded != want["k1_bytes"] or ok != len(chain)):
+            raise AssertionError(
+                f"[guard] {run}: K1 by instance {by_inst} (phase 3 "
+                f"{want['launches_by_instance']}), bytes {bytes_guarded} "
+                f"(phase 3 {want['k1_bytes']}), guard.checks ok {ok} "
+                f"(hops {len(chain)})")
+        peaks = {}
+        for mode in ("off", "on"):
+            _arm(guard, mode, d)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            go()
+            torch.cuda.synchronize()
+            peaks[mode] = torch.cuda.max_memory_allocated() - base
+        ms = {"off": [], "on": []}
+        for i in range(2 * reps):
+            mode = ("off", "on", "on", "off")[i % 4]
+            _arm(guard, mode, d)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            go()
+            torch.cuda.synchronize()
+            ms[mode].append((time.perf_counter() - t0) * 1e3)
+        # the host sync: the guarded hop returns once its probes are
+        # fetched, the unguarded one once its kernels are enqueued
+        host = {}
+        for mode in ("off", "on"):
+            _arm(guard, mode, d)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            go()
+            host[mode] = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+        guard.disable()
+        r = dict(ms_off=_median(ms["off"]), ms_on=_median(ms["on"]),
+                 ms_all=ms, peak_off=peaks["off"], peak_on=peaks["on"],
+                 host_return_ms=host, k1_bytes=bytes_guarded,
+                 launches_by_instance=by_inst, checks_ok=ok)
+        log(f"[guard] {run} {method!r} {n}^3 f32 guarded: every hop = the "
+            f"unguarded hop's bits; K1 by instance {by_inst} and bytes "
+            f"{bytes_guarded} = phase 3's; guard.checks ok {ok}; ms median "
+            f"of {reps}: guarded {r['ms_on']:.2f}, unguarded "
+            f"{r['ms_off']:.2f} (all {ms}); peak above the input guarded "
+            f"{_gib(peaks['on']):.3f} GiB, unguarded "
+            f"{_gib(peaks['off']):.3f}; the call returns to the host after "
+            f"{host['on']:.2f} ms guarded (each hop waits for its probes), "
+            f"{host['off']:.2f} ms unguarded (enqueue)")
+        if peaks["on"] - peaks["off"] > 2 ** 29:
+            raise AssertionError(
+                f"[guard] {run}: guarded peak {peaks['on']} more than 0.5 "
+                f"GiB above the unguarded {peaks['off']}")
+        out[run] = r
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def guard_wire_check(torch, pat, guard, obs, d, n=1024):
+    """Phase 5e (b): the ``AllToAll(wire_dtype="bf16")`` cycle guarded
+    passes its probes (the wire's tolerance); its first hop, on a
+    constant field 1 + 2^-9 (whose bf16 rounding all goes one way, so the
+    content sum drifts by 2e-3 of itself), under a wire-rtol override far
+    below that raises ``WirePrecisionError`` with a ``guard.sdc`` record
+    (``kind="wire"``) and a bundle.  On random data the rounding is
+    unbiased: at 1024^3 its sum drift (~1e-7 relative) stays inside the
+    float32 accumulator's own tolerance, ``eps * (8 + 4 log2 n)``."""
+    px, chain = _cycle_pencils(pat, n)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x = pat.PencilArray(px, torch.randn(px.size_global(), generator=gen,
+                                        device="cuda"))
+    m = pat.AllToAll(wire_dtype="bf16")
+    guard.enable(os.path.join(d, "bundles"))
+    jdir = os.path.join(d, "obs-wire")
+    obs.enable(jdir)
+    try:
+        v = x
+        for pen in chain:
+            v = pat.transpose(v, pen, method=m)
+        err = float((v.data - x.data).abs().max())
+        del v
+        x.data.fill_(1 + 2 ** -9)
+        pat.transpose(x, chain[0], method=m)    # within the wire's model
+        os.environ["PENCILARRAYS_TPU_GUARD_WIRE_RTOL"] = "1e-9"
+        try:
+            pat.transpose(x, chain[0], method=m)
+            raise AssertionError("[guard] the wired hop under a 1e-9 "
+                                 "wire-rtol override did not raise")
+        except guard.WirePrecisionError as e:
+            caught = e
+        finally:
+            os.environ.pop("PENCILARRAYS_TPU_GUARD_WIRE_RTOL", None)
+    finally:
+        obs.disable()
+        guard.disable()
+    sdc = [e for e in obs.read_journal(jdir) if e["ev"] == "guard.sdc"]
+    if ([e["kind"] for e in sdc] != ["wire"] or caught.kind != "wire"
+            or not caught.bundle or caught.wire_dtype != "bf16"):
+        raise AssertionError(f"[guard] wire drill: records {sdc}, error "
+                             f"{caught!r}")
+    log(f"[guard] bf16 wired cycle {n}^3 guarded: probes pass, round trip "
+        f"max|err| {err:.3e}; a hop of the constant field 1 + 2^-9 passes "
+        f"too; under a 1e-9 wire-rtol override it "
+        f"raised WirePrecisionError (kind {caught.kind}), guard.sdc "
+        f"kind wire journaled, bundle {caught.bundle}")
+    del x
+    torch.cuda.empty_cache()
+    return dict(round_trip_err=err, bundle=caught.bundle)
+
+
+def _ns_hop_step(pat, model, dt):
+    """One NS RK2 step followed by a hop of the state to another pencil
+    and back: on one card the step itself makes no hop, and the drills
+    need one (pure movement: the bits are the step's)."""
+    pen = model.plan.output_pencil
+    a, b = pen.decomposition
+    alt = pen.replace(decomp_dims=(3 - a - b, b))
+
+    def step(uh):
+        uh = model.step(uh, dt)
+        return pat.transpose(pat.transpose(uh, alt), pen)
+
+    return step
+
+
+def guard_ns_check(torch, models, k1, guard, model, d, acc,
+                   steps=8, dt=5e-3):
+    """Phase 5e (c): NS Taylor-Green 512^3 f32 RK2, ``steps`` steps from
+    the same state with the guard off, on (the default: on one card the
+    step makes no hop, so the guard only notes the plan), and on with the
+    finiteness tap on every plan call (``PENCILARRAYS_TPU_GUARD_FINITE=1``):
+    the final states bit-identical and K1's launches equal across the
+    three; ms a step each (the second of two runs each).  The guarded
+    steps with the tap count under the path ``guard_ns``."""
+    uh0 = models.taylor_green(model)
+    res = {}
+    for mode in ("off", "on", "tap") * 2:
+        if mode != "off":
+            guard.enable(os.path.join(d, "bundles"))
+        if mode == "tap":
+            os.environ["PENCILARRAYS_TPU_GUARD_FINITE"] = "1"
+        try:
+            def loop():
+                u = uh0
+                for _ in range(steps):
+                    u = model.step(u, dt)
+                return u
+
+            if mode == "tap" and mode in res:
+                uh, secs = _io_counted(torch, k1, acc, loop)
+                launches = acc["launches"]
+            else:
+                _reset_k1(k1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                uh = loop()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches = k1.launches
+        finally:
+            guard.disable()
+            os.environ.pop("PENCILARRAYS_TPU_GUARD_FINITE", None)
+        res.setdefault(mode, []).append((uh, secs * 1e3 / steps, launches))
+    # the second run of each mode: warm (first runs warm cuFFT and K1)
+    ref, ms_off, l_off = res["off"][1]
+    out = dict(step_ms_off=ms_off, k1_launches=l_off, steps=steps)
+    for mode in ("on", "tap"):
+        u, ms, n_k1 = res[mode][1]
+        if not same_bits(torch, u.data, ref.data) or n_k1 != l_off:
+            raise AssertionError(
+                f"[guard] NS steps guarded ({mode}) against unguarded: "
+                f"bits equal {same_bits(torch, u.data, ref.data)}, K1 "
+                f"launches {n_k1} and {l_off}")
+        out[f"step_ms_{mode}"] = ms
+    log(f"[guard] NS {model.plan.shape_physical} f32 {steps} RK2 steps: "
+        f"guarded = unguarded bits, K1 launches {l_off} each way; ms a "
+        f"step unguarded {ms_off:.2f}, guarded {out['step_ms_on']:.2f}, "
+        f"guarded with the finiteness tap on every plan call "
+        f"{out['step_ms_tap']:.2f} (first runs "
+        f"{[round(res[m][0][1], 2) for m in ('off', 'on', 'tap')]})")
+    return out
+
+
+def guard_drills(torch, pat, models, k1, guard, gi, obs, resilience,
+                 model, d, acc, n=1024, dt=5e-3):
+    """Phase 5e (d), each drill raising its typed error: (1)
+    ``hop.exchange:corrupt`` on a 1024^3 hop, guard on: ``IntegrityError``,
+    ``guard.sdc`` journaled, a bundle whose plans hold the NS plan's
+    fingerprint; guard off, the poke lands on the JAX package's element
+    (flat index ``hit - 1`` of the output) and flows through; (2)
+    ``ckpt.restore:corrupt`` on the 512^3 NS state: one element poked,
+    caught by the guard's finiteness boundary check; (3)
+    ``guarded_step`` over NS steps with a hop each, a
+    ``CheckpointManager`` save at step 2: a corrupt hop at step 3
+    survived by retry, one at step 5 by escalating to the restore of step
+    2, the final state = the uninterrupted run's bits; (4)
+    ``hop.exchange:delay`` past a short watchdog deadline:
+    ``HangTimeoutError`` with a bundle.  K1's launches count under the
+    path ``guard_drills``."""
+    faults = resilience.faults
+    px, chain = _cycle_pencils(pat, n)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    x = pat.PencilArray(px, torch.randn(px.size_global(), generator=gen,
+                                        device="cuda"))
+    jdir = os.path.join(d, "obs-drills")
+    out = {}
+    obs.enable(jdir)
+    guard.enable(os.path.join(d, "bundles"))
+    try:
+        # (1) the corrupt hop, guarded
+        def corrupt_hop():
+            try:
+                pat.transpose(x, chain[0])
+            except guard.IntegrityError as e:
+                return e
+            return None
+
+        with faults.active("hop.exchange:corrupt"):
+            err, _ = _io_counted(torch, k1, acc, corrupt_hop)
+        if err is None:
+            raise AssertionError("[guard] the corrupt hop did not raise")
+        with open(os.path.join(err.bundle, "plans.json")) as f:
+            kinds = sorted({p["kind"] for p in json.load(f)})
+        if err.kind != "sum" or "fft_plan" not in kinds:
+            raise AssertionError(f"[guard] corrupt drill: {err!r}, bundle "
+                                 f"plans {kinds}")
+        # (1) unguarded: the poke flows through at JAX's element
+        guard.disable()
+        ref = pat.transpose(x, chain[0]).data
+        with faults.active("hop.exchange:corrupt@2"):
+            pat.transpose(x, chain[0])
+            poked = pat.transpose(x, chain[0]).data
+        flat, rflat = poked.reshape(-1), ref.reshape(-1)
+        nan_at = torch.nonzero(torch.isnan(flat)).reshape(-1).tolist()
+        same_rest = torch.equal(flat[2:], rflat[2:]) and torch.equal(
+            flat[:1], rflat[:1])
+        del ref, poked, flat, rflat
+        if nan_at != [1] or not same_rest:
+            raise AssertionError(f"[guard] unguarded poke at {nan_at}, "
+                                 f"rest equal {same_rest} (want [1])")
+        out["corrupt_hop"] = dict(kind=err.kind, bundle=err.bundle,
+                                  plans=kinds, unguarded_nan_at=nan_at)
+        log(f"[guard] hop.exchange:corrupt {n}^3: guarded IntegrityError "
+            f"(kind {err.kind}), bundle {err.bundle} with plans {kinds}; "
+            f"unguarded, hit 2 poked flat index {nan_at} (= hit - 1, the "
+            f"JAX package's element) and nothing else")
+        del x
+        torch.cuda.empty_cache()
+        guard.enable(os.path.join(d, "bundles"))
+
+        # (2) the corrupt restore
+        pen = model.plan.output_pencil
+        uh0 = models.taylor_green(model)
+        mgr = resilience.CheckpointManager(os.path.join(d, "ck"), keep=2)
+        mgr.save(0, {"uh": uh0})
+        with faults.active("ckpt.restore:corrupt"):
+            back = mgr.restore(0).read("uh", pen)
+        bad = torch.nonzero(back.data.reshape(-1) != uh0.data.reshape(-1))
+        try:
+            gi.check_finite_boundary("ckpt.restore", uh0.data, back.data)
+            raise AssertionError("[guard] the corrupt restore was not "
+                                 "caught")
+        except guard.IntegrityError as e:
+            rerr = e
+        if bad.reshape(-1).tolist() != [0] or rerr.kind != "nonfinite":
+            raise AssertionError(f"[guard] restore drill: differs at "
+                                 f"{bad.reshape(-1).tolist()}, {rerr!r}")
+        del back
+        out["corrupt_restore"] = dict(kind=rerr.kind, bundle=rerr.bundle)
+        log(f"[guard] ckpt.restore:corrupt on the {model.plan.shape_physical} "
+            f"NS state: element "
+            f"0 poked (NaN), caught by the finiteness boundary check: "
+            f"IntegrityError (kind {rerr.kind}), bundle {rerr.bundle}")
+
+        # (3) guarded_step: retry, then escalation to a restore
+        step = _ns_hop_step(pat, model, dt)
+        ref = uh0
+        for _ in range(6):
+            ref = step(ref)
+        state = {"uh": uh0, "k": 0}
+        mgr2 = resilience.CheckpointManager(os.path.join(d, "ck2"), keep=1)
+
+        def restore(ckpt):
+            state["uh"] = ckpt.read("uh", pen)
+            state["k"] = ckpt.step
+
+        policy = resilience.RetryPolicy(max_attempts=2, base_delay=0.01)
+        drill = {3: "hop.exchange:corrupt*1", 5: "hop.exchange:corrupt*2"}
+
+        def run_step():
+            state["uh"] = guard.guarded_step(
+                lambda: step(state["uh"]), ckpt_mgr=mgr2, restore=restore,
+                retry=policy, label="ns-guarded")
+            state["k"] += 1
+            if state["k"] == 2:
+                mgr2.save(2, {"uh": state["uh"]})
+
+        def ladder():
+            while state["k"] < 6:
+                spec = drill.pop(state["k"] + 1, None)
+                if spec is None:
+                    run_step()
+                else:
+                    with faults.active(spec):
+                        run_step()
+
+        _io_counted(torch, k1, acc, ladder)
+        stages = [(e["label"], e["stage"]) for e in obs.read_journal(jdir)
+                  if e["ev"] == "guard.recover"]
+        want = [("ns-guarded", s) for s in (
+            "error", "retry", "recovered", "error", "retry", "error",
+            "restore", "recovered")]
+        if not same_bits(torch, state["uh"].data, ref.data) or \
+                stages != want:
+            raise AssertionError(f"[guard] guarded_step ladder: final = "
+                                 f"uninterrupted "
+                                 f"{same_bits(torch, state['uh'].data, ref.data)}"
+                                 f", stages {stages}")
+        out["guarded_step"] = dict(stages=[s for _, s in stages])
+        log(f"[guard] guarded_step over 6 NS steps with a hop each: a "
+            f"corrupt hop at step 3 survived by retry, at step 5 by "
+            f"restoring step 2; stages {[s for _, s in stages]}; final "
+            f"state = the uninterrupted run's bits")
+        del ref, state, uh0
+
+        # (4) the hang drill
+        os.environ[faults.DELAY_S_VAR] = "3"
+        os.environ["PENCILARRAYS_TPU_GUARD_TIMEOUT"] = "0.5"
+        small = pat.Pencil(pat.Topology((1, 1)), (64, 64, 64), (1, 2))
+        y = pat.PencilArray.zeros(small, dtype=torch.float32)
+        t0 = time.perf_counter()
+        try:
+            with faults.active("hop.exchange:delay"):
+                guard.guarded_step(lambda: pat.transpose(
+                    y, small.replace(decomp_dims=(0, 2))), label="hang")
+            raise AssertionError("[guard] the delayed hop did not time out")
+        except guard.HangTimeoutError as e:
+            herr = e
+        finally:
+            os.environ.pop(faults.DELAY_S_VAR, None)
+            os.environ.pop("PENCILARRAYS_TPU_GUARD_TIMEOUT", None)
+        secs = time.perf_counter() - t0
+        if not herr.bundle or secs > 2.5:
+            raise AssertionError(f"[guard] hang drill: {herr!r} after "
+                                 f"{secs:.2f} s")
+        out["hang"] = dict(seconds=secs, bundle=herr.bundle)
+        log(f"[guard] hop.exchange:delay 3 s past a 0.5 s watchdog: "
+            f"HangTimeoutError after {secs:.2f} s, bundle {herr.bundle}")
+    finally:
+        guard.disable()
+        obs.disable()
+    errors = obs.lint_journal(jdir)
+    if errors:
+        raise AssertionError(f"[guard] drill journal lint: {errors[:3]}")
+    return out
+
+
+def obs_rest_check(torch, pat, k1, routing, obs, engine, models, model,
+                   d, acc, n=1024, dt=5e-3):
+    """Phase 5e (e): the rest of obs/ on the card.  ``measure_transpose``
+    of the 1024^3 cycle's hops (``benchtime`` samples), the drift report
+    with its fitted bandwidth per source class; a 1024^3 reshard route
+    planned with trusted drift in the one-process world (a
+    ``route.plan`` record); ``merge_journals`` and ``write_trace`` on the
+    phase's journal and ``python -m pencilarrays_tpu_torch.obs`` ``lint``,
+    ``merge`` and ``trace`` on it (exit 0); ``reconstruct_request`` of one
+    ``run_async`` dispatch that carried a trace; ``MeshAggregator`` over
+    ``FileKV`` at world 1 (``mesh_metrics.json``, the Prometheus text with
+    ``rank`` labels); the straggler rule on one rank (skipped, as the
+    JAX package's).  K1's launches count under the path ``obs_rest``."""
+    from pencilarrays_tpu_torch.cluster.kv import FileKV
+    from pencilarrays_tpu_torch.obs import aggregate, drift, requestflow
+    from pencilarrays_tpu_torch.obs import straggler
+
+    jdir = os.path.join(d, "obs-rest")
+    obs.enable(jdir)
+    drift.drift_tracker.reset()
+    px, chain = _cycle_pencils(pat, n)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x = pat.PencilArray(px, torch.randn(px.size_global(), generator=gen,
+                                        device="cuda"))
+    try:
+        def measure():
+            v, got = x, []
+            for pen in chain[:2]:
+                got.append(drift.measure_transpose(v, pen, k0=1, k1=4,
+                                                   repeats=3))
+                v = pat.transpose(v, pen)
+            return got
+
+        measured, _ = _io_counted(torch, k1, acc, measure)
+        report = obs.drift_report()
+        trusted = routing.trusted_drift_hops()
+        pz = chain[1].replace(decomp_dims=(2, 0),
+                              permutation=pat.Permutation(2, 0, 1))
+        v0 = drift.drift_tracker.version()
+        route = routing.plan_reshard_route(px, pz, (), torch.float32,
+                                           method=pat.AllToAll())
+        _io_counted(torch, k1, acc, lambda: pat.reshard(
+            x, pz, method=pat.AllToAll()))
+        del x
+        torch.cuda.empty_cache()
+        # one run_async dispatch carrying a trace (its hops journal it)
+        tr_id = requestflow.mint_trace()
+        step = _ns_hop_step(pat, model, dt)
+
+        def traced(uh):
+            with requestflow.installed(tr_id):
+                return step(uh)
+
+        eng = engine.Engine("chip-trace")
+        try:
+            uh = models.taylor_green(model)
+            _io_counted(torch, k1, acc, lambda: model.run_async(
+                uh, dt, 1, engine=eng,
+                stepper=lambda s, _dt: traced(s)).result(600))
+        finally:
+            eng.close()
+        snap = obs.snapshot()
+        obs.write_snapshot()
+        agg = aggregate.MeshAggregator(FileKV(os.path.join(d, "kv")), 0, 1,
+                                       cadence=60)
+        published = agg.publish_once()
+        fold = agg.fold_once(wait=True, timeout=30)
+    finally:
+        obs.disable()
+    events = obs.read_journal(jdir)
+    plans = [e for e in events if e["ev"] == "route.plan"]
+    tl = obs.merge_journals(jdir)
+    trace = obs.write_trace(jdir, os.path.join(d, "trace.json"))
+    rt, rt_warn = requestflow.reconstruct_request(jdir, tr_id)
+    cli = {}
+    for cmd in (["lint", jdir], ["merge", jdir, "-o",
+                                 os.path.join(d, "merged.jsonl")],
+                ["trace", jdir, "-o", os.path.join(d, "trace2.json")]):
+        p = subprocess.run([sys.executable, "-m",
+                            "pencilarrays_tpu_torch.obs"] + cmd,
+                           capture_output=True, text=True, timeout=300,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli[cmd[0]] = p.returncode
+        if p.returncode != 0:
+            raise AssertionError(f"[obs] pa-obs {cmd[0]} exit "
+                                 f"{p.returncode}: {p.stdout[-400:]} "
+                                 f"{p.stderr[-400:]}")
+    with open(os.path.join(jdir, "mesh_metrics.prom")) as f:
+        prom = f.read()
+    ranked = 'rank="0"' in prom
+    flags = straggler.detect_from_events(events)
+    scan = straggler.scan_snapshots({0: snap})
+    hops = report["hops"]
+    r = dict(measured=measured, fitted_bytes_per_s=report[
+        "fitted_bytes_per_s"], dispatch_fitted_bytes_per_s=report[
+        "dispatch_fitted_bytes_per_s"],
+        drift_hops={h: {k: e[k] for k in ("source", "predicted_bytes",
+                                          "measured_s", "drift")}
+                    for h, e in hops.items()},
+        route_verdict=route.verdict, trusted=len(trusted),
+        tracker_version=v0, route_plan_events=len(plans),
+        merged_events=len(tl.events), merge_warnings=tl.warnings,
+        trace_events=len(trace["traceEvents"]), cli=cli,
+        request_events=len(rt.events) if rt else 0,
+        request_ranks=rt.ranks if rt else None,
+        mesh_ranks=fold["ranks"] if fold else None,
+        straggler_flags=flags, straggler_scan=scan)
+    log(f"[obs] measure_transpose on {n}^3 hops: "
+        f"{[(m['hop'], round(m['seconds'] * 1e3, 3)) for m in measured]} "
+        f"ms; drift report: fitted bytes/s device "
+        f"{report['fitted_bytes_per_s']}, dispatch "
+        f"{report['dispatch_fitted_bytes_per_s']} (one card: every hop "
+        f"prices 0 wire bytes, so no bandwidth is fitted); hops "
+        f"{r['drift_hops']}")
+    log(f"[obs] reshard route {px.decomposition}->{pz.decomposition} "
+        f"planned with {len(trusted)} trusted drift hops at tracker version "
+        f"{v0} (world 1): verdict {route.verdict}, {len(plans)} route.plan "
+        f"record(s); merged journal {len(tl.events)} events, warnings "
+        f"{tl.warnings}; Chrome trace {len(trace['traceEvents'])} events; "
+        f"pa-obs lint/merge/trace exit {cli}; request {tr_id}: "
+        f"{r['request_events']} events on ranks {r['request_ranks']}; "
+        f"MeshAggregator over FileKV at world 1: published {published}, "
+        f"mesh ranks {r['mesh_ranks']}, rank label in the text "
+        f"{ranked}; straggler rule on one rank: flags "
+        f"{flags}, scan {scan} (one rank: nothing to compare, skipped)")
+    if not (trusted and plans and tl.events and trace["traceEvents"]
+            and rt is not None and r["request_events"] > 0
+            and fold and fold["ranks"] == [0] and ranked
+            and published and not flags and not scan
+            and all(e["source"] == "benchtime" for h, e in hops.items()
+                    if any(h == m["hop"] for m in measured))):
+        raise AssertionError(f"[obs] the rest of obs/: {r}")
+    errors = obs.lint_journal(jdir)
+    if errors:
+        raise AssertionError(f"[obs] journal lint: {errors[:3]}")
+    return r
+
+
+def phase_guard(torch, pat, models, k1, cycle, n=1024, n_ns=512):
+    """Phase 5e: the runtime guard and the rest of obs/, in ``GUARD_DIR``
+    of the checkout (deleted at the end): (a) ``guard_cycle_check``, (b)
+    ``guard_wire_check``, (c) ``guard_ns_check``, (d) ``guard_drills``,
+    (e) ``obs_rest_check``.  K1's launches count under the paths
+    ``guard_cycle``, ``guard_ns``, ``guard_drills`` and ``obs_rest``."""
+    import shutil
+
+    from pencilarrays_tpu_torch import engine, guard, obs, resilience
+    from pencilarrays_tpu_torch.guard import integrity as gi
+    from pencilarrays_tpu_torch.parallel import routing
+
+    t0 = time.perf_counter()
+    # earlier phases' engines and futures hold device tensors in reference
+    # cycles: collect them before the phase's 512^3 steps need the room
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[guard] device memory allocated at the phase's start "
+        f"{_gib(held):.2f} GiB, {_gib(torch.cuda.memory_allocated()):.2f} "
+        f"after collecting garbage")
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), GUARD_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    acc = {p: _guard_acc(k1) for p in ("guard_cycle", "guard_ns",
+                                       "guard_drills", "obs_rest")}
+    r = {}
+    try:
+        r["cycle"] = guard_cycle_check(torch, pat, k1, guard, obs, cycle,
+                                       d, acc["guard_cycle"], n)
+        r["wire"] = guard_wire_check(torch, pat, guard, obs, d, n)
+        guard.enable(os.path.join(d, "bundles"))
+        model = models.NavierStokesSpectral(pat.Topology((1, 1)), n_ns,
+                                            viscosity=1e-2,
+                                            dtype=torch.float32)
+        guard.disable()
+        r["ns"] = guard_ns_check(torch, models, k1, guard, model, d,
+                                 acc["guard_ns"])
+        r["drills"] = guard_drills(torch, pat, models, k1, guard, gi, obs,
+                                   resilience, model, d,
+                                   acc["guard_drills"], n)
+        r["obs"] = obs_rest_check(torch, pat, k1, routing, obs, engine,
+                                  models, model, d, acc["obs_rest"], n)
+        del model
+        torch.backends.cuda.cufft_plan_cache.clear()
+        torch.cuda.empty_cache()
+    finally:
+        guard.disable()
+        obs.disable()
+        shutil.rmtree(d, ignore_errors=True)
+        # the drills' typed errors keep their tracebacks' frames (and the
+        # tensors in them) in reference cycles
+        gc.collect()
+        torch.cuda.empty_cache()
+    r["paths"] = acc
+    r["seconds"] = time.perf_counter() - t0
+    log(f"[guard] phase 5e took {r['seconds']:.1f} s; K1 launches: "
+        + ", ".join(f"{p} {a['launches']} {a['launches_by_instance']}"
+                    for p, a in acc.items())
+        + f"; device memory allocated after it "
+          f"{_gib(torch.cuda.memory_allocated()):.2f} GiB")
+    for p, a in acc.items():
+        if a["launches"] <= 0:
+            raise AssertionError(f"the {p} path launched K1 no time")
+    return r
+
+
 # Tolerances of K2–K4 against their plain versions.  Each row of a tensor
 # (its last dim: one query or key position of one head·batch slice) is
 # held relative to its own largest |plain| (see _rel_err).  The kernels
@@ -3704,6 +4380,7 @@ def main() -> int:
             grid = phase_grid_toolbox(torch, dist, pat, models, k1, tr, bw)
             io_res = phase_io(torch, pat, models, k1)
             eng = phase_engine(torch, pat, models, k1, tr, cycle, ns)
+            grd = phase_guard(torch, pat, models, k1, cycle)
             checks = phase_flash_check(torch, flash, models.attention)
             serve, serve_rec = phase_serving(torch, pat, models, k1, flash)
             train = {f"train_{str(dt).split('.')[-1]}": phase_training(
@@ -3716,7 +4393,7 @@ def main() -> int:
                        "dct": fft["dct"],
                        "spectral_ops": grid["spectral_ops"],
                        "many_pencil_array": grid["many"], "io": io_res,
-                       **eng["paths"]}
+                       **eng["paths"], **grd["paths"]}
             recorded = {**{run: r["recorded"] for run, r in k1_runs.items()},
                         "navier_stokes": ns["recorded"], **serve_rec}
             k1_timed = k1_timing(torch, k1, bw, recorded, HOPS)

@@ -6,9 +6,13 @@ the JAX package does: the ``PENCILARRAYS_TPU_CLUSTER_RANK`` /
 ``_WORLD`` overrides first, then the process group (``torch.distributed``
 in place of ``jax.distributed``), else 0 and 1.  :func:`enabled` is the
 ``PENCILARRAYS_TPU_CLUSTER`` gate and :func:`current_epoch` the recovery
-epoch.  Coordination (KV store, consensus, health leases, elastic
-reformation) is not ported yet: :func:`coordinator`, :func:`enable`,
-and :func:`disable` raise (ROADMAP Queue 1 item 7(d)).
+epoch.  :func:`coordinator` keeps the JAX package's contract where it
+needs no coordinator: ``None`` (the local recovery ladder) when the
+layer is off or the world is one rank.  Coordination itself (consensus,
+health leases, elastic reformation, the KV clients but
+:class:`~pencilarrays_tpu_torch.cluster.kv.FileKV`) is not ported yet:
+:func:`coordinator` raises where the JAX package would build one, and
+:func:`enable` and :func:`disable` raise (ROADMAP Queue 1 item 7(d)).
 """
 
 from __future__ import annotations
@@ -100,6 +104,13 @@ def current_epoch() -> int:
 
 
 def coordinator():
+    """The process's coordinator, or ``None`` when the layer is off *or*
+    the world is a single rank (the degrade-to-local contract of the
+    JAX package, one cached probe on the disabled path).  Where the JAX
+    package would build a coordinator (the layer on, more than one
+    rank) it raises: coordination is not ported yet."""
+    if not enabled() or world_size() <= 1:
+        return None
     raise NotImplementedError(f"cluster.coordinator() is {_LATER}")
 
 

@@ -1,5 +1,5 @@
-"""Telemetry: metrics, the event journal, spans and profiling (the core
-of the JAX package's ``obs/``).
+"""Telemetry: metrics, the event journal, spans and profiling, drift,
+and the mesh observability plane (the JAX package's ``obs/``).
 
 * :mod:`~pencilarrays_tpu_torch.obs.metrics` — counters, gauges,
   histograms; JSON snapshot and Prometheus textfile exporters;
@@ -9,17 +9,28 @@ of the JAX package's ``obs/``).
   ``torch.profiler``, NVTX and the host timers; ``profile`` captures;
 * :mod:`~pencilarrays_tpu_torch.obs.schema` — ``lint_event``,
   ``lint_journal``;
+* :mod:`~pencilarrays_tpu_torch.obs.drift` — the cost-model drift
+  tracker (predicted bytes against measured seconds per hop), which
+  steers the route and decomposition planners;
 * :mod:`~pencilarrays_tpu_torch.obs.correlate` and
   :mod:`~pencilarrays_tpu_torch.obs.requestflow` — the cross-rank and
-  per-request keys stamped into every record.
+  per-request keys stamped into every record, and one request's
+  reconstructed timeline;
+* :mod:`~pencilarrays_tpu_torch.obs.timeline` — N ranks' journals merged
+  into one causally ordered, skew-corrected story, and its Chrome trace;
+* :mod:`~pencilarrays_tpu_torch.obs.straggler` — which rank drags a hop;
+* :mod:`~pencilarrays_tpu_torch.obs.aggregate` — every rank's metrics
+  folded over a KV store (``cluster.kv.FileKV``) into one
+  ``mesh_metrics.json``;
+* ``python -m pencilarrays_tpu_torch.obs`` — the JAX package's
+  ``pa-obs`` command line.
 
 Off by default and one cached probe when off; enable with
 ``PENCILARRAYS_TPU_OBS`` (``1``: journal under
 ``PENCILARRAYS_TPU_OBS_DIR`` or ``./pa_obs``; any other value is the
-journal directory) or :func:`enable`.  The drift tracker, the timeline
-merger, the mesh aggregator, straggler detection and the ``pa-obs``
-command line are not ported yet (ROADMAP Queue 1 item 7(b)): their
-entry points here raise.
+journal directory) or :func:`enable`.  The aggregator's automatic start
+by the cluster coordinator waits for ``cluster/`` (ROADMAP Queue 1 item
+7(d)); a caller starts a :class:`~.aggregate.MeshAggregator` itself.
 """
 
 from __future__ import annotations
@@ -45,8 +56,10 @@ from .metrics import (  # noqa: F401
     write_snapshot,
 )
 from .tracing import io_op, profile, span  # noqa: F401
+from .drift import drift_report, drift_tracker, record_hop_sample  # noqa: F401
 from .schema import lint_event, lint_journal  # noqa: F401
 from .correlate import current_step, next_step, set_plan, step  # noqa: F401
+from .timeline import merge_journals, to_trace, write_trace  # noqa: F401
 from .requestflow import (  # noqa: F401
     current_trace,
     list_requests,
@@ -89,21 +102,3 @@ __all__ = [
     "to_trace",
     "write_trace",
 ]
-
-_LATER = ("not ported yet: ROADMAP.md Queue 1, item 7(b), the rest of obs/ "
-          "(drift, timeline, aggregate, straggler, the pa-obs command line)")
-
-
-def _later(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"obs.{name}() is {_LATER}")
-    fn.__name__ = name
-    return fn
-
-
-drift_tracker = _later("drift_tracker")
-drift_report = _later("drift_report")
-record_hop_sample = _later("record_hop_sample")
-merge_journals = _later("merge_journals")
-to_trace = _later("to_trace")
-write_trace = _later("write_trace")

@@ -8,9 +8,9 @@ only when observability is enabled (call sites guard with
 atomically by :func:`write_snapshot`) or in the Prometheus
 textfile-collector format (:func:`to_prometheus`).  Metric names are
 dotted; labels are keyword pairs.  The snapshot carries the most recent
-benchtime spread (``utils/benchtime.py``); its ``drift`` entry is
-``None`` until the cost-model drift tracker is ported (ROADMAP Queue 1
-item 7(b)).
+benchtime spread (``utils/benchtime.py``) and the cost-model drift report
+(:mod:`~pencilarrays_tpu_torch.obs.drift`), which the Prometheus text
+also exports as gauges.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ def _label_key(labels: Dict[str, str]) -> Tuple[Tuple[str, str], ...]:
 
 
 # -- Prometheus exposition-format helpers -----------------------------------
-# 
+# (shared by the per-process exporter and the mesh aggregator's
+# rank-labeled textfile — obs/aggregate.py)
 
 def _prom_name(name: str, prefix: str = "pa") -> str:
     """Metric/label-name sanitation: the exposition format allows only
@@ -65,13 +66,63 @@ def _prom_escape(value) -> str:
             .replace("\n", "\\n"))
 
 
-def _prom_labels(labels: Dict[str, str]) -> str:
-    if not labels:
+def _prom_labels(labels: Dict[str, str],
+                 extra: Optional[Dict[str, str]] = None) -> str:
+    merged = dict(labels or {})
+    if extra:
+        # the Prometheus honor_labels=false convention: an injected
+        # label (the mesh fold's publisher `rank`) wins the name, and a
+        # colliding series-own label survives as `exported_<name>` —
+        # `cluster.stragglers{rank=1}` published by rank 0 must not
+        # lose WHICH rank was the straggler
+        for k in list(merged):
+            if k in extra:
+                merged[f"exported_{k}"] = merged.pop(k)
+        merged.update(extra)
+    if not merged:
         return ""
     inner = ",".join(
         f'{_prom_name(k, prefix="")}="{_prom_escape(v)}"'
-        for k, v in sorted(labels.items()))
+        for k, v in sorted(merged.items()))
     return "{" + inner + "}"
+
+
+def _drift_prometheus_lines(report: dict, prefix: str = "pa",
+                            extra: Optional[Dict[str, str]] = None,
+                            seen_types: Optional[set] = None) -> list:
+    """The drift report as gauges: per-hop ``<prefix>_drift{hop=...}``
+    plus the two per-source-class fitted bandwidths.  ``seen_types``
+    dedups ``# TYPE`` headers across repeated calls (the mesh fold
+    calls this once per rank — a second TYPE line for the same metric
+    is an exposition-format error that fails the whole scrape)."""
+    lines = []
+    if seen_types is None:
+        seen_types = set()
+
+    def type_line(n: str) -> None:
+        if n not in seen_types:
+            seen_types.add(n)
+            lines.append(f"# TYPE {n} gauge")
+
+    hops = (report or {}).get("hops") or {}
+    drifted = [(h, e) for h, e in sorted(hops.items())
+               if isinstance(e.get("drift"), (int, float))]
+    if drifted:
+        n = _prom_name("drift", prefix)
+        type_line(n)
+        for hop, e in drifted:
+            ls = _prom_labels({"hop": hop, "source": e.get("source", "?")},
+                              extra)
+            lines.append(f"{n}{ls} {e['drift']:g}")
+    for key, cls in (("fitted_bytes_per_s", "device"),
+                     ("dispatch_fitted_bytes_per_s", "dispatch")):
+        bw = (report or {}).get(key)
+        if isinstance(bw, (int, float)):
+            n = _prom_name("drift_fitted_bytes_per_s", prefix)
+            type_line(n)
+            lines.append(
+                f"{n}{_prom_labels({'class': cls}, extra)} {bw:g}")
+    return lines
 
 
 class Counter:
@@ -183,14 +234,15 @@ class MetricsRegistry:
 
     # -- exporters ---------------------------------------------------------
     def snapshot(self) -> dict:
-        """JSON-serializable dump of every instrument plus the latest
-        benchtime spread (noise floor).  Carries
+        """JSON-serializable dump of every instrument plus the drift
+        report and the latest benchtime spread (noise floor).  Carries
         both the human-keyed maps (``name{k=v}`` display keys — the
         stable consumer format) and a structured ``series`` list with
         labels as dicts, which the mesh aggregator folds without
         re-parsing display keys (label VALUES may legally contain
         ``,``/``=``/``{`` — method reprs and plan fingerprints do)."""
         from ..utils.benchtime import last_spread
+        from .drift import drift_report
         from .events import run_id
 
         with self._lock:
@@ -227,11 +279,12 @@ class MetricsRegistry:
                 series.update(kind="histogram", **h)
             out["series"].append(series)
         out["benchtime"] = last_spread()
-        out["drift"] = None     # the drift tracker is not ported yet
+        out["drift"] = drift_report()
         return out
 
     def to_prometheus(self, prefix: str = "pa") -> str:
-        """Prometheus textfile-collector exposition of the registry.
+        """Prometheus textfile-collector exposition of the registry,
+        plus the cost-model drift report as gauges.
         Names and label values go through the exposition-format
         escaping below — a label value carrying ``"`` or a newline
         (plan fingerprints, free-form hop labels) must corrupt neither
@@ -260,6 +313,9 @@ class MetricsRegistry:
                     seen_types.add(n)
                 lines.append(f"{n}_count{ls} {m.count}")
                 lines.append(f"{n}_sum{ls} {m.total:g}")
+        from .drift import drift_report
+
+        lines.extend(_drift_prometheus_lines(drift_report(), prefix))
         return "\n".join(lines) + ("\n" if lines else "")
 
 

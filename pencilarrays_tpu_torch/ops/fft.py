@@ -67,10 +67,13 @@ from ..parallel.transpositions import (
     _dtype_name,
     _Exchange,
     _exchange_operand_extents,
+    _hop_label,
     _method_label,
     _method_wire,
     _no_wired_grad,
+    _obs_record_hop,
     _pipeline_chunk_axis,
+    _probe_group,
     _run_pipeline,
     assert_compatible,
     resolve_method,
@@ -556,10 +559,14 @@ def _iter_priced_hops(steps: tuple):
 
 
 def _schedule_score(plan: "PencilFFTPlan", extra_dims: Tuple[int, ...],
-                    latency_bytes: int) -> dict:
+                    latency_bytes: int, drift_hops: dict) -> dict:
     """Bytes-equivalent score of one forward schedule, the route
-    planner's currency: ``latency_bytes`` per collective call, the bytes,
-    and a wired hop's cast toll."""
+    planner's currency: ``latency_bytes`` per collective call, the bytes
+    scaled by the hop's trusted drift ratio
+    (``parallel/routing.py`` ``trusted_drift``), and a wired hop's cast
+    toll."""
+    from ..parallel.routing import trusted_drift
+
     score = hops = total_bytes = total_count = 0
     for src, dst, hop_dtype, base, k_mult, chunk in _iter_priced_hops(
             plan._steps):
@@ -569,9 +576,10 @@ def _schedule_score(plan: "PencilFFTPlan", extra_dims: Tuple[int, ...],
                               chunk=chunk)
         if not cost:
             continue
+        drift = trusted_drift(drift_hops, _hop_label(src, dst, m, hop_dtype))
         count = sum(v["count"] for v in cost.values())
         nbytes = sum(v["bytes"] for v in cost.values())
-        score += int(count * latency_bytes + nbytes
+        score += int(count * latency_bytes + nbytes * drift
                      + _wire.cast_score_bytes(nbytes, hop_dtype,
                                               _method_wire(m)))
         hops += 1
@@ -606,9 +614,10 @@ def _resolve_decomposition(topology: Topology,
     """The cheapest slab or pencil grid over ``topology``'s ranks for
     ``decomposition=``: each candidate's full schedule (a probe plan on a
     topology without process groups, so pricing is not collective) scored
-    by :func:`_schedule_score`; ties go to fewer hops, then the slab, then
-    dims order.  Returns ``(topology, verdict)``, the JAX package's
-    verdict dict."""
+    by :func:`_schedule_score`, drift-corrected like the route planner
+    (in a one-process world only, ``routing.trusted_drift_hops``); ties
+    go to fewer hops, then the slab, then dims order.  Returns
+    ``(topology, verdict)``, the JAX package's verdict dict."""
     import warnings
 
     from ..parallel.routing import trusted_drift_hops
@@ -622,13 +631,14 @@ def _resolve_decomposition(topology: Topology,
     method = plan_kwargs.get("method")
     latency = (method.latency_bytes if isinstance(method, Auto)
                else Auto().latency_bytes)
+    drift_hops = trusted_drift_hops()
     scored = []
     for dims in cands:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             probe = PencilFFTPlan(Topology.unconnected(dims, topology.device),
-                                  global_shape, **plan_kwargs)
-        entry = _schedule_score(probe, extra_dims, latency)
+                                  global_shape, _probe=True, **plan_kwargs)
+        entry = _schedule_score(probe, extra_dims, latency, drift_hops)
         entry["dims"] = tuple(dims)
         entry["family"] = "slab" if len(dims) == 1 else "pencil"
         scored.append(entry)
@@ -640,7 +650,7 @@ def _resolve_decomposition(topology: Topology,
         "winner": list(win["dims"]),
         "family": win["family"],
         "extra_dims": list(extra_dims),
-        "drift_corrected": bool(trusted_drift_hops()),
+        "drift_corrected": bool(drift_hops),
         "candidates": [
             {"dims": list(c["dims"]), "family": c["family"],
              "score_bytes": c["score_bytes"], "hops": c["hops"],
@@ -672,7 +682,7 @@ class PencilFFTPlan:
                  normalization: str = "backward", pipeline=None,
                  batch: Optional[int] = None,
                  decomposition: Optional[str] = None, wire_dtype=None,
-                 hbm_limit: Optional[int] = None):
+                 hbm_limit: Optional[int] = None, _probe: bool = False):
         if not isinstance(method, (AllToAll, Ring, Pipelined, Auto)):
             raise TypeError(f"unknown transpose method {method!r}")
         if pipeline is not None and pipeline != "auto" and (
@@ -870,6 +880,30 @@ class PencilFFTPlan:
                                         permutation=cfgs[d][1]))
             if kinds[d] == "rfft":
                 sh[d] = sh[d] // 2 + 1
+
+        from .. import guard, obs
+
+        if _probe:
+            # a candidate of the decomposition search: priced and
+            # dropped, so it neither journals nor enters the guard's
+            # plan-fingerprint ring
+            return
+        if obs.enabled() or guard.enabled():
+            summary = self._summary()
+        if obs.enabled():
+            obs.counter("fft.plans_built").inc()
+            obs.counter("plan.decomposition",
+                        verdict=(self.decomposition_verdict or {}).get(
+                            "family", "fixed")).inc()
+            # later records (hops, faults, probes) carry the plan's key
+            from ..obs import correlate
+            from ..parallel.routing import plan_fingerprint
+
+            correlate.set_plan(plan_fingerprint(summary))
+            obs.record_event("plan.build", **summary)
+        if guard.enabled():
+            # crash bundles carry the schedules of recently built plans
+            guard.note_plan("fft_plan", summary)
 
     # -- pencils ----------------------------------------------------------
     @property
@@ -1218,17 +1252,26 @@ class PencilFFTPlan:
         if u.pencil != self.input_pencil:
             raise ValueError(f"input must live on plan.input_pencil "
                              f"({self.input_pencil!r}), got {u.pencil!r}")
+        from .. import obs
+
+        if obs.enabled():
+            from ..obs import correlate
+
+            correlate.set_plan(self.plan_key())
+        tap = self._guard_tap_pre(u)
         x = u
         for step in self._steps:
             if step[0] == "t":
                 x = transpose(x, step[2], method=(
                     step[4] if len(step) > 4 else self.method))
             elif step[0] == "ft":
-                (_, src, tgt, _, post, ops, pre_complex, base, c,
+                (_, src, tgt, hop_dtype, post, ops, pre_complex, base, c,
                  bounds) = step
-                x = PencilArray(post, _fused_hop(
-                    x.data, src, tgt, post, x.ndims_extra, ops, False,
-                    pre_complex, self.normalization, base, c, bounds),
+                x = PencilArray(post, self._dispatch_fused(
+                    x, src, tgt, hop_dtype, base, bounds,
+                    lambda d: _fused_hop(
+                        d, src, tgt, post, x.ndims_extra, ops, False,
+                        pre_complex, self.normalization, base, c, bounds)),
                     x.extra_dims)
             else:
                 _, pre, post, ops, pre_complex = step
@@ -1236,24 +1279,80 @@ class PencilFFTPlan:
                                                   pre_complex), x.extra_dims)
         if x.dtype != self.dtype_spectral:
             x = x.astype(self.dtype_spectral)
+        self._guard_tap_post(tap, "fft.forward", x)
         return x
+
+    @staticmethod
+    def _dispatch_fused(x: PencilArray, hop_src: Pencil, hop_tgt: Pencil,
+                        hop_dtype, base, bounds, fn) -> torch.Tensor:
+        """One fused pipelined hop, journaled as a ``hop`` with observability
+        on (the transpose tap, ``fused(K=..)`` in its key, since its time
+        includes the stage); ``hop_src -> hop_tgt`` is the direction the
+        data moves."""
+        from .. import obs
+
+        if not obs.enabled():
+            return fn(x.data)
+        import time
+
+        t0 = time.perf_counter()
+        data = fn(x.data)
+        _obs_record_hop(hop_src, hop_tgt, assert_compatible(hop_src,
+                                                            hop_tgt),
+                        base, x.extra_dims, hop_dtype,
+                        time.perf_counter() - t0, fused_k=len(bounds))
+        return data
+
+    def _guard_tap_pre(self, u: PencilArray) -> bool:
+        """The sampled finiteness tap, input side (the "NaN born mid-FFT"
+        detector): True when the guard sampled this call and the input
+        (every rank's block) is wholly finite.  One cached probe when the
+        guard is off."""
+        from .. import guard
+
+        if not guard.enabled() or not guard.finite_tick():
+            return False
+        from ..guard import integrity as gi
+
+        return gi.nonfinite_count(u.data, _probe_group(self.topology)) == 0
+
+    def _guard_tap_post(self, tap: bool, label: str, x: PencilArray) -> None:
+        """Output side of the tap: a nonfinite value born across the
+        transform chain raises a typed ``IntegrityError`` (``guard.sdc``,
+        a crash bundle) instead of flowing downstream."""
+        if not tap:
+            return
+        from ..guard import integrity as gi
+
+        gi.report_nonfinite_birth(
+            label, gi.nonfinite_count(x.data, _probe_group(self.topology)),
+            ctx={"shape": list(x.pencil.size_global())})
 
     def backward(self, uh: PencilArray) -> PencilArray:
         """Spectral -> physical (inverse transforms, reverse schedule)."""
         if uh.pencil != self.output_pencil:
             raise ValueError(f"input must live on plan.output_pencil "
                              f"({self.output_pencil!r}), got {uh.pencil!r}")
+        from .. import obs
+
+        if obs.enabled():
+            from ..obs import correlate
+
+            correlate.set_plan(self.plan_key())
+        tap = self._guard_tap_pre(uh)
         x = uh
         for step in reversed(self._steps):
             if step[0] == "t":
                 x = transpose(x, step[1], method=(
                     step[4] if len(step) > 4 else self.method))
             elif step[0] == "ft":
-                (_, src, tgt, _, post, ops, pre_complex, base, c,
+                (_, src, tgt, hop_dtype, post, ops, pre_complex, base, c,
                  bounds) = step
-                x = PencilArray(src, _fused_hop(
-                    x.data, src, tgt, post, x.ndims_extra, ops, True,
-                    pre_complex, self.normalization, base, c, bounds),
+                x = PencilArray(src, self._dispatch_fused(
+                    x, tgt, src, hop_dtype, base, bounds,
+                    lambda d: _fused_hop(
+                        d, src, tgt, post, x.ndims_extra, ops, True,
+                        pre_complex, self.normalization, base, c, bounds)),
                     x.extra_dims)
             else:
                 _, pre, post, ops, pre_complex = step
@@ -1261,6 +1360,7 @@ class PencilFFTPlan:
                                                  pre_complex), x.extra_dims)
         if x.dtype != self.dtype_physical:
             x = x.astype(self.dtype_physical)
+        self._guard_tap_post(tap, "fft.backward", x)
         return x
 
     def scale_factor(self) -> float:

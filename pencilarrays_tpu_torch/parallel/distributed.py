@@ -22,7 +22,11 @@ hosts it may not be up yet when a restarted worker arrives, so
 exponential backoff, not a hang and not a crash) and consults the
 ``dist.initialize`` fault point; :func:`sync_global_devices`, the named
 barrier of the I/O drivers and the checkpoint manager, consults the
-``barrier`` point.  :func:`process_index`, :func:`process_count` and
+``barrier`` point.  With the integrity guard on, each rendezvous attempt
+and each barrier wait runs under its hang watchdog: a peer that never
+arrives leaves a crash bundle and a typed ``HangTimeoutError`` (a
+``TimeoutError``, which the retry policy backs off against) instead of
+an unexplained stall.  :func:`process_index`, :func:`process_count` and
 :func:`is_multiprocess` answer for a process group (the default one unless
 given), where a process is a rank; without ``torch.distributed`` they give
 the trivial answers.
@@ -43,6 +47,8 @@ from typing import Any, Callable, List, Optional
 import torch
 import torch.distributed as dist
 
+from .. import guard
+from ..guard.errors import HangTimeoutError
 from ..resilience import faults
 from ..resilience.retry import RetryPolicy
 
@@ -92,9 +98,14 @@ def initialize(backend: Optional[str] = None, *,
     def _connect():
         faults.fire("dist.initialize", init_method=init_method, rank=rank)
         try:
-            dist.init_process_group(backend, init_method=init_method,
-                                    world_size=world_size, rank=rank,
-                                    timeout=timedelta(seconds=timeout_s))
+            with guard.watchdog("dist.initialize", kind="dist",
+                                init_method=init_method, rank=rank):
+                dist.init_process_group(backend, init_method=init_method,
+                                        world_size=world_size, rank=rank,
+                                        timeout=timedelta(seconds=timeout_s))
+        except HangTimeoutError:
+            _reset_partial_state()
+            raise
         except RuntimeError as e:
             _reset_partial_state()
             if _TRANSIENT_RENDEZVOUS.search(str(e)):
@@ -167,10 +178,11 @@ def sync_global_devices(name: str = "pa_barrier", group=None) -> None:
     """Named barrier of ``group``'s ranks (``MPI.Barrier``).  Consults
     the ``barrier`` fault point first (so drills reach it on one rank
     too), then waits in ``dist.barrier`` when the group has more than one
-    rank."""
+    rank, under the guard's hang watchdog when the guard is on."""
     faults.fire("barrier", name=name)
     if is_multiprocess(group):
-        dist.barrier(group=group)
+        with guard.watchdog(f"barrier:{name}", kind="barrier"):
+            dist.barrier(group=group)
 
 
 def finalize() -> None:

@@ -27,18 +27,26 @@ the port prices its own exchange analytically, from the two pencils alone
 (the largest per-rank send), so every rank plans the same route.  Where
 the two baselines differ, so may the verdicts, never the routes.
 
-The JAX package corrects edge prices by its drift tracker's timings
-(``obs/``), except across processes, where the plan must be a pure
-function of the static configuration on every process.  The port runs
-one process per device and has no drift tracker, so its plan is always
-that pure function: :func:`trusted_drift_hops` returns ``{}``.
+Edge prices are corrected by the drift tracker's trusted timings
+(``obs/drift.py``: ``benchtime`` and ``auto_measure`` samples, never
+dispatch times), a hop measured at twice its modeled time having its
+bytes doubled, as in the JAX package.  Across processes the plan must be
+a pure function of the static configuration on every process, so the
+JAX package drops the correction when ``jax.process_count() > 1``; the
+port runs one process per device, so its rule is ``cluster.world_size()
+> 1``, and drift steers plans only in a one-process world
+(:func:`trusted_drift_hops`).  Cached plans are keyed on the tracker's
+version, so a new trusted sample replans.
 
 :func:`execute_route` runs the hops one after another (the JAX package
 traces them into one jitted program), each hop taking its input out of
 the chain so that an intermediate is freed once the next hop has packed
 it.  A run of unwired hops that cross no rank (over a size-1 topology
 axis, where the JAX package's program holds no collective, and XLA owns
-the intermediates) runs as one K1 permute.
+the intermediates) runs as one K1 permute.  With the integrity guard or
+observability on (the JAX package's rule), the route runs between
+invariant probes: one before the first stage and one after each stage,
+each compared with the first, under the hang watchdog.
 """
 
 from __future__ import annotations
@@ -54,6 +62,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import guard, obs
+from ..obs.drift import drift_tracker
 from ..resilience import faults
 from . import wire as _wire
 from .arrays import PencilArray, as_torch_dtype
@@ -70,9 +80,11 @@ from .transpositions import (
     _dtype_name,
     _exchange_operand_extents,
     _hop,
+    _hop_label,
     _method_label,
     _method_wire,
     _pipeline_chunk_axis,
+    _probe_group,
     _take,
     _transpose_local,
     assert_compatible,
@@ -89,6 +101,7 @@ __all__ = [
     "plan_fingerprint",
     "plan_reshard_route",
     "reshard_key",
+    "trusted_drift",
     "trusted_drift_hops",
 ]
 
@@ -124,12 +137,35 @@ def reshard_key(pin: Pencil, dest: Pencil, dtype=None, method=None,
     return plan_fingerprint(summary)
 
 
+def _drift_allowed() -> bool:
+    """Drift steers plans only in a one-process world: every process of
+    a job must plan the same collectives from the same static inputs
+    (the JAX package's ``process_count() > 1`` rule; the port runs one
+    process per device)."""
+    from .. import cluster
+
+    return cluster.world_size() <= 1
+
+
 def trusted_drift_hops() -> Dict[str, dict]:
-    """Measured drift per hop for cost-model correction: always ``{}``
-    here, so edges are priced by the model alone.  The port has no drift tracker, and it runs one process per
-    device, where the JAX package disables the correction anyway so that
-    every process plans from the same static configuration."""
-    return {}
+    """The drift tracker's per-hop report, for cost-model correction, or
+    ``{}`` when no trusted sample exists yet or the world has more than
+    one process.  Shared by the route planner and the FFT planner's
+    slab/pencil verdict (``ops/fft.py``), so the two pricers agree on
+    which measurements steer plans."""
+    if not _drift_allowed() or not drift_tracker.version():
+        return {}
+    return drift_tracker.report()["hops"]
+
+
+def trusted_drift(drift_hops: Dict[str, dict], label: str) -> float:
+    """Observed drift ratio of one hop (1.0 when unmeasured), from
+    trusted samples only: dispatch times are lower bounds and must not
+    flip planning decisions."""
+    e = drift_hops.get(label)
+    if e and e.get("drift") and e.get("source") != "dispatch":
+        return float(e["drift"])
+    return 1.0
 
 
 @dataclass(frozen=True)
@@ -174,14 +210,14 @@ class ReshardRoute:
         return (self.src,) + tuple(h.dest for h in self.hops)
 
 
-def _score(cost: dict, latency_bytes: int, dtype=None,
+def _score(cost: dict, latency_bytes: int, drift: float = 1.0, dtype=None,
            wire_dtype: Optional[str] = None) -> int:
     """Bytes-equivalent score of one priced hop: ``latency_bytes`` per
-    collective call, the bytes, and a wired hop's cast toll
-    (:func:`~.wire.cast_score_bytes`)."""
+    collective call, the bytes scaled by the hop's drift ratio, and a
+    wired hop's cast toll (:func:`~.wire.cast_score_bytes`)."""
     count = sum(v["count"] for v in cost.values())
     nbytes = sum(v["bytes"] for v in cost.values())
-    return int(count * latency_bytes + nbytes
+    return int(count * latency_bytes + nbytes * drift
                + _wire.cast_score_bytes(nbytes, dtype, wire_dtype))
 
 
@@ -264,7 +300,18 @@ def _node_pencil(node: Tuple[int, ...], pin: Pencil, dest: Pencil) -> Pencil:
 def _plan_cached(pin: Pencil, dest: Pencil, extra_dims: Tuple[int, ...],
                  dtype: torch.dtype, method: AbstractTransposeMethod,
                  latency_bytes: int, hbm_limit: Optional[int],
-                 donate: bool) -> ReshardRoute:
+                 donate: bool, _drift_v: int) -> ReshardRoute:
+    """The search, cached per configuration.  ``_drift_v`` is the drift
+    tracker's version (0: no drift): a new trusted sample replans."""
+    return _plan(pin, dest, extra_dims, dtype, method, latency_bytes,
+                 hbm_limit, donate,
+                 drift_tracker.report()["hops"] if _drift_v else {})
+
+
+def _plan(pin: Pencil, dest: Pencil, extra_dims: Tuple[int, ...],
+          dtype: torch.dtype, method: AbstractTransposeMethod,
+          latency_bytes: int, hbm_limit: Optional[int], donate: bool,
+          drift_hops: Dict[str, dict]) -> ReshardRoute:
     N = pin.ndims
     M = pin.topology.ndims
     # a source the caller keeps stays resident under the whole chain
@@ -284,8 +331,10 @@ def _plan_cached(pin: Pencil, dest: Pencil, extra_dims: Tuple[int, ...],
             if m2 is not None:
                 m, peak = m2, p2 + surcharge
         cost = transpose_cost(psrc, pdst, extra_dims, dtype, m)
+        drift = trusted_drift(drift_hops, _hop_label(psrc, pdst, m, dtype))
         return RouteHop(psrc, pdst, m, cost,
-                        _score(cost, latency_bytes, dtype, _method_wire(m)),
+                        _score(cost, latency_bytes, drift, dtype,
+                               _method_wire(m)),
                         peak)
 
     hops: Tuple[RouteHop, ...] = ()
@@ -355,12 +404,17 @@ def plan_reshard_route(pin: Pencil, dest: Pencil,
                        extra_dims: Tuple[int, ...] = (), dtype=None, *,
                        method: AbstractTransposeMethod = Auto(),
                        hbm_limit: Optional[int] = None,
-                       donate: bool = False) -> ReshardRoute:
+                       donate: bool = False,
+                       _drift: Optional[Dict[str, dict]] = None
+                       ) -> ReshardRoute:
     """Plan the redistribution ``pin -> dest``: the cheapest admissible
     single-slot hop chain and the :class:`Gspmd` baseline's price (see
     the module docstring).  ``method`` resolves each edge; ``hbm_limit``
     bounds each hop's charged peak (time-slicing over-budget hops);
-    ``donate`` drops the resident-source charge."""
+    ``donate`` drops the resident-source charge.  ``_drift`` (private)
+    prices the edges by the given drift report's hops instead of the
+    tracker's, uncached: the parity tests hold the steering to the JAX
+    package's with it."""
     if pin.topology != dest.topology:
         raise ValueError("plan_reshard_route: pencil topologies differ")
     if pin.size_global() != dest.size_global():
@@ -373,10 +427,13 @@ def plan_reshard_route(pin: Pencil, dest: Pencil,
     latency = method.latency_bytes if isinstance(method, Auto) \
         else Auto().latency_bytes
     dt = as_torch_dtype(dtype if dtype is not None else torch.float32)
-    return _plan_cached(pin, dest, tuple(int(e) for e in extra_dims), dt,
-                        method, int(latency),
-                        int(hbm_limit) if hbm_limit is not None else None,
-                        bool(donate))
+    args = (pin, dest, tuple(int(e) for e in extra_dims), dt, method,
+            int(latency), int(hbm_limit) if hbm_limit is not None else None,
+            bool(donate))
+    if _drift is not None:
+        return _plan(*args, _drift)
+    return _plan_cached(*args, drift_tracker.version()
+                        if _drift_allowed() else 0)
 
 
 def execute_route(src: PencilArray, route: ReshardRoute, *,
@@ -384,29 +441,104 @@ def execute_route(src: PencilArray, route: ReshardRoute, *,
     """Run a planned route hop by hop.  ``donate=True`` gives up ``src``'s
     storage, freed once the first hop has packed it; every intermediate
     is freed the same way.  Differentiable through its hops when no hop
-    carries a wire."""
+    carries a wire.  With the integrity guard or observability on, the
+    stages run between invariant probes (:func:`_run_stages`)."""
     if src.pencil != route.src:
         raise ValueError(
             f"array lives on {src.pencil!r}, route starts at {route.src!r}")
     if not route.hops:
         raise ValueError("route has no hops (planner fell back to Gspmd)")
-    if faults.armed("hop.exchange"):
-        hop_fault(kind="route", hops=len(route.hops))
+    # the drill point fires for every routed dispatch, guard on or off,
+    # so the hit counter addresses the same dispatches either way
+    act = (hop_fault(kind="route", hops=len(route.hops))
+           if faults.armed("hop.exchange") else None)
+    hit = faults.hit_count("hop.exchange") if act == "corrupt" else None
+    probed = obs.enabled() or guard.enabled()
+    if probed:
+        # one summary feeds both digests: the journal's plan_fp is a
+        # prefix of the crash bundle's schedule_sha256
+        summary = {
+            "route": [list(h.dest.decomposition) for h in route.hops],
+            "methods": [_method_label(h.method) for h in route.hops],
+            "verdict": route.verdict,
+            "shape": list(route.src.size_global()),
+            "topo": list(route.src.topology.dims)}
+        if obs.enabled():
+            from ..obs import correlate
+
+            correlate.set_plan(correlate.plan_fingerprint(summary))
+        if guard.enabled():
+            guard.note_plan("reshard_route", summary)
     nx = src.ndims_extra
-    if src.data.requires_grad and torch.is_grad_enabled():
-        data = src.data
-        for h in route.hops:
-            data = _dispatch(data, h.src, h.dest, nx, h.method)
-        if donate:
-            src._donate()
-        return PencilArray(route.dest, data, src.extra_dims)
+    grad = src.data.requires_grad and torch.is_grad_enabled()
+    stages = ([(h.src, h.dest, h.method) for h in route.hops] if grad
+              else _stages(route))
     held = [src.data]
     if donate:
         src._donate()
-    for pin, pout, method in _stages(route):
-        held = [_transpose_local(_take(held), pin, pout, nx)
-                if method is None else _hop(held, pin, pout, nx, method)]
-    return PencilArray(route.dest, held.pop(), src.extra_dims)
+    out = _run_stages(held, route, stages, nx, src.extra_dims, grad,
+                      probed, hit)
+    return PencilArray(route.dest, out, src.extra_dims)
+
+
+def _run_stages(held: list, route: ReshardRoute, stages: list, nx: int,
+                extra_dims: tuple, grad: bool, probed: bool,
+                corrupt_hit: Optional[int]) -> torch.Tensor:
+    """Run ``stages`` on the tensor in ``held`` (taken out of the list by
+    the first stage, so a donated source is freed once packed).  With
+    ``probed``, an invariant probe before the first stage and one after
+    each stage, each compared with the first on the host (the JAX
+    package compares every hop's probe with the source's), under the
+    hang watchdog; a wired stage widens the tolerance from there on.
+    ``corrupt_hit`` pokes the first stage's output (the drill)."""
+    from ..guard import integrity as gi
+
+    def step(pin, pout, method, data):
+        if method is None:
+            return _transpose_local(_take(data), pin, pout, nx)
+        if grad:
+            return _dispatch(_take(data), pin, pout, nx, method)
+        return _hop(data, pin, pout, nx, method)
+
+    def poke(k, out):
+        if k == 0 and corrupt_hit is not None:
+            gi.corrupt_array(stages[0][1], out, extra_dims,
+                             max(0, corrupt_hit - 1))
+
+    if not probed:
+        for k, (pin, pout, method) in enumerate(stages):
+            held = [step(pin, pout, method, held)]
+            poke(k, held[0])
+        return held.pop()
+    finite = guard.finite_tick()
+    x = held[0]
+    dtype = x.dtype
+    count = x.numel() * len(route.src.topology)
+    group = _probe_group(route.src.topology)
+    with guard.watchdog("route", kind="route", hops=len(route.hops)):
+        probes = [gi.probe_stats(x, finite)]
+        del x
+        for k, (pin, pout, method) in enumerate(stages):
+            held = [step(pin, pout, method, held)]
+            poke(k, held[0])
+            probes.append(gi.probe_stats(held[0], finite))
+        host = gi.reduce_probes(probes, dtype, group)
+        wired, wire_hops = None, 0
+        for k, ((pin, pout, method), last) in enumerate(
+                zip(stages, _last_hops(route, stages))):
+            hop_wire = _method_wire(method) if method is not None else None
+            if hop_wire is not None:
+                # mixed-wire chains are bound by the coarsest format seen
+                wired = ("bf16" if "bf16" in (wired, hop_wire)
+                         else hop_wire)
+                wire_hops += 1
+            h = route.hops[last]
+            gi.check_hop_probes(
+                f"route[{last}] {_hop_label(h.src, h.dest, h.method, dtype)}",
+                host[0], host[k + 1], count, dtype, finite=finite,
+                wire_dtype=wired, wire_hops=wire_hops,
+                ctx={"hop_index": last, "hops": len(route.hops)})
+    return held.pop()
 
 
 def _stages(route: ReshardRoute) -> list:
@@ -426,3 +558,76 @@ def _stages(route: ReshardRoute) -> list:
         else:
             stages.append((h.src, h.dest, None if local else h.method))
     return stages
+
+
+def _last_hops(route: ReshardRoute, stages: list) -> list:
+    """The index in ``route.hops`` of each stage's last hop (a stage ends
+    where its hop lands; a route visits no layout twice)."""
+    dests = [h.dest for h in route.hops]
+    out, k = [], 0
+    for _, pout, _ in stages:
+        k = dests.index(pout, k)
+        out.append(k)
+        k += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# observability tap
+# ---------------------------------------------------------------------------
+
+
+_ROUTE_LOGGED: set = set()
+
+
+def _obs_record_route_plan(route: ReshardRoute, extra_dims: tuple,
+                           dtype) -> None:
+    """Journal one planning verdict per (obs run, configuration), the
+    ``route.plan`` event: every candidate with its predicted bytes and
+    score, and which one :func:`~.transpositions.reshard` runs."""
+    dt = _dtype_name(dtype)
+    config = (f"{route.src.size_global()}@{route.src.topology.dims} "
+              f"{route.src.decomposition}->{route.dest.decomposition} "
+              f"{dt} extra={tuple(extra_dims)}"
+              + (f" hbm={route.hbm_limit} donate={route.donate}"
+                 if route.hbm_limit is not None else ""))
+    key = (obs.run_id(), config)
+    if key in _ROUTE_LOGGED:
+        return
+    _ROUTE_LOGGED.add(key)
+    candidates = []
+    if route.hops:
+        candidates.append({
+            "kind": "routed",
+            "route": [list(h.dest.decomposition) for h in route.hops],
+            "methods": [_method_label(h.method) for h in route.hops],
+            "chunks": [h.method.chunks
+                       if isinstance(h.method, Pipelined) else 1
+                       for h in route.hops],
+            "hop_peak_hbm_bytes": [h.peak_hbm_bytes for h in route.hops],
+            "predicted_bytes": sum(
+                v["bytes"] for h in route.hops for v in h.cost.values()),
+            "score_bytes": route.score_bytes,
+            "peak_hbm_bytes": route.peak_hbm_bytes,
+        })
+    if route.gspmd_cost is not None:
+        candidates.append({
+            "kind": "gspmd",
+            "predicted_bytes": sum(
+                v["bytes"] for v in route.gspmd_cost.values()),
+            "score_bytes": route.gspmd_score_bytes,
+            "cost": route.gspmd_cost,
+        })
+    winner = candidates[0] if route.use_route else (
+        candidates[-1] if candidates else None)
+    obs.record_event(
+        "route.plan", src=str(route.src.decomposition),
+        dest=str(route.dest.decomposition),
+        shape=list(route.src.size_global()),
+        topo=list(route.src.topology.dims), dtype=dt,
+        verdict=route.verdict, candidates=candidates,
+        predicted_bytes=(winner or {}).get("predicted_bytes", 0),
+        peak_hbm_bytes=route.peak_hbm_bytes,
+        hbm_limit=route.hbm_limit, donate=route.donate,
+        searched_nodes=route.searched_nodes)
+    obs.counter("route.plans", verdict=route.verdict).inc()

@@ -63,15 +63,23 @@ the sequence-parallel attention schedules.  :data:`exchange_calls` and
 :data:`exchange_bytes` count the exchange calls this process makes and
 the bytes it hands them, under the op names of :func:`transpose_cost`.
 
-``Auto(mode="measure")`` is not ported yet: it raises
-``NotImplementedError`` naming the ROADMAP item and the modules it waits
-for.
+With observability on (``obs/``), each call journals a ``hop`` record,
+meters ``transpose.dispatches`` / ``predicted_bytes`` /
+``dispatch_seconds`` and feeds the drift tracker a ``dispatch`` sample
+(the host time of the call: on the card a lower bound, since a dispatch
+returns once its kernels are enqueued).  With the integrity guard on
+(``guard/``), each call runs between two invariant probes, one before
+K1's pack and one after K1's unpack, under the hang watchdog until the
+probes are fetched (:func:`_dispatch_guarded_hop`); the hop itself is
+the unguarded one, so it moves the same bits with the same K1 launches.
+With both off a call pays one cached probe of each gate.
 """
 
 from __future__ import annotations
 
 import math
 import threading
+import time
 from contextlib import contextmanager
 from dataclasses import dataclass, replace
 from functools import lru_cache
@@ -81,6 +89,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import guard, obs
 from ..ops import permute as k1
 from ..resilience import faults
 from . import wire as _wire
@@ -485,6 +494,7 @@ def transpose_cost(pin: Pencil, pout: Pencil, extra_dims: Tuple[int, ...] = (),
 
 
 _MEASURE_REPORTS: dict = {}
+_MEASURE_TIMINGS: dict = {}
 _MEASURE_LOGGED: set = set()
 
 
@@ -548,6 +558,8 @@ def _measured_choice(pin: Pencil, pout: Pencil, R: int, extra_dims: tuple,
                                device=topo.device)
         dist.broadcast(verdict, src=topo.global_rank(0), group=topo.group)
         best = int(verdict.item())
+    _MEASURE_TIMINGS[(pin, pout, R, extra_dims, dname, wire)] = list(
+        zip(candidates, times))
     _MEASURE_REPORTS[(pin, pout, R, extra_dims, dname, wire)] = {
         "config": f"{pin.size_global()}@{pin.topology.dims} R={R} "
                   f"{dstr}" + (f" wire={wire}" if wire else ""),
@@ -562,18 +574,27 @@ def _measured_choice(pin: Pencil, pout: Pencil, R: int, extra_dims: tuple,
 
 
 def _journal_measure_verdict(key: tuple) -> None:
-    """Journal a measured verdict once per (obs run, configuration),
-    from the cached report, so late-armed observability journals
-    configurations measured earlier in the process."""
-    from .. import obs
-
+    """Journal a measured verdict and feed its candidate timings to the
+    drift tracker as ``auto_measure`` samples, once per (obs run,
+    configuration), from the cached report, so late-armed observability
+    journals configurations measured earlier in the process."""
     report = _MEASURE_REPORTS.get(key)
     if report is None:
         return
     dedup = (obs.run_id(), report["config"])
-    if dedup not in _MEASURE_LOGGED:
-        _MEASURE_LOGGED.add(dedup)
-        obs.record_event("auto.verdict", mode="measure", **report)
+    if dedup in _MEASURE_LOGGED:
+        return
+    _MEASURE_LOGGED.add(dedup)
+    obs.record_event("auto.verdict", mode="measure", **report)
+    pin, pout, _, extra_dims, dname, _ = key
+    for cand, t in _MEASURE_TIMINGS.get(key, ()):
+        # candidate timings are forward + back pairs of the same hop:
+        # halved to one hop's seconds
+        cost = transpose_cost(pin, pout, extra_dims, dname, cand)
+        obs.record_hop_sample(
+            _hop_label(pin, pout, cand, dname),
+            sum(v["bytes"] for v in cost.values()), t / 2.0,
+            source="auto_measure")
 
 
 def resolve_method(pin: Pencil, pout: Pencil,
@@ -595,8 +616,6 @@ def resolve_method(pin: Pencil, pout: Pencil,
     if R is None or pin.topology.dims[R] == 1:
         return AllToAll(wire_dtype=wire)
     if method.mode == "measure":
-        from .. import obs
-
         dt = as_torch_dtype(dtype if dtype is not None else torch.float32)
         key = (pin, pout, R, tuple(extra_dims), dt, wire)
         choice = _measured_choice(*key)
@@ -1031,17 +1050,17 @@ def _no_wired_grad(method) -> None:
             f"through them is zero; differentiate a full-precision hop")
 
 
-def hop_fault(**ctx) -> None:
+def hop_fault(**ctx) -> Optional[str]:
     """The ``hop.exchange`` fault point of the JAX package: consulted once
-    per ``transpose`` and once per routed ``reshard``, only where
-    ``faults.armed("hop.exchange")`` (so an unarmed hop pays one cached
-    check).  ``error`` raises, ``delay`` stalls, ``kill`` (and ``torn``,
-    which a hop cannot tear) kills; ``corrupt`` waits for ``guard/``."""
+    per ``transpose``, per routed ``reshard`` and per Gspmd ``reshard``,
+    only where ``faults.armed("hop.exchange")`` (so an unarmed hop pays
+    one cached check).  ``error`` raises, ``delay`` stalls, ``kill`` (and
+    ``torn``, which a hop cannot tear) kills; returns ``"corrupt"`` for
+    the caller to poke the hop's output (``guard/integrity.py``)."""
     act = faults.fire("hop.exchange", **ctx)
     if act == "torn":
         faults.kill_now()
-    if act == "corrupt":
-        raise faults.corrupt_not_ported("hop.exchange")
+    return act
 
 
 def _dispatch(data: torch.Tensor, pin: Pencil, pout: Pencil, nx: int,
@@ -1050,6 +1069,149 @@ def _dispatch(data: torch.Tensor, pin: Pencil, pout: Pencil, nx: int,
         _no_wired_grad(method)
         return _Hop.apply(data, pin, pout, nx, method)
     return _hop(data, pin, pout, nx, method)
+
+
+# ---------------------------------------------------------------------------
+# observability taps and the guarded hop
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=512)
+def _cached_hop_cost(pin: Pencil, pout: Pencil, extra_dims: tuple,
+                     dtype: torch.dtype,
+                     method: AbstractTransposeMethod) -> dict:
+    """:func:`transpose_cost` cached per configuration, so an observed
+    dispatch never prices a hop twice."""
+    return transpose_cost(pin, pout, extra_dims, dtype, method)
+
+
+def _obs_record_hop(pin: Pencil, pout: Pencil, R, method:
+                    AbstractTransposeMethod, extra_dims: tuple, dtype,
+                    dispatch_s: float, fused_k: int = 0) -> None:
+    """Journal and meter one dispatched hop (observability on only), as
+    the JAX package's tap does.  ``fused_k > 0`` marks a pipelined hop
+    fused with its transform stage (``ops/fft.py``): its time includes
+    the stage, so its drift key carries a ``fused(K=..)`` suffix."""
+    label = _method_label(method)
+    chunks = fused_k or (method.chunks if isinstance(method, Pipelined)
+                         else 1)
+    try:
+        cost = (_cached_hop_cost(pin, pout, tuple(extra_dims),
+                                 as_torch_dtype(dtype), method)
+                if R is not None else {})
+    except (TypeError, ValueError):
+        cost = {}
+    nbytes = sum(v["bytes"] for v in cost.values())
+    hop = _hop_label(pin, pout, method, dtype)
+    if fused_k:
+        hop += f" fused(K={fused_k})"
+    obs.counter("transpose.dispatches", method=label).inc()
+    obs.counter("transpose.predicted_bytes").inc(nbytes)
+    obs.histogram("transpose.dispatch_seconds", method=label).observe(
+        dispatch_s)
+    # the host time of the call: free, a lower bound on the card; local
+    # permutes (no bytes) are recorded too, for the straggler detector
+    obs.record_hop_sample(hop, nbytes, dispatch_s, source="dispatch")
+    obs.record_event(
+        "hop", method=label, hop=hop, r=R, chunks=chunks,
+        fused=bool(fused_k), predicted_bytes=nbytes, predicted=cost,
+        dispatch_s=dispatch_s,
+        shape=list(pin.size_global()), topo=list(pin.topology.dims))
+
+
+def _probe_group(topology: Topology):
+    """The group a probe pair is summed over: every rank of the topology
+    (each rank probes its own block; the invariant holds for the global
+    array, as the JAX package's probe sees it)."""
+    return topology.group if topology.connected else None
+
+
+def _dispatch_guarded_hop(pin: Pencil, pout: Pencil, R, method:
+                          AbstractTransposeMethod, data, extra_dims: tuple,
+                          corrupt_hit: Optional[int] = None
+                          ) -> torch.Tensor:
+    """One hop through the guard: an invariant probe of the input before
+    the hop (before K1's pack), the unguarded hop itself, a probe of the
+    output after it (after K1's unpack), both summed over the topology's
+    ranks and fetched to the host, and the host-side check (raising
+    :class:`~pencilarrays_tpu_torch.guard.IntegrityError` on mismatch),
+    all under the hang watchdog: the fetch waits for the card, so a
+    hung kernel or exchange parks there, inside the armed deadline.
+    ``data`` is a tensor, or ``[tensor]`` for the hop to take out of the
+    list once packed.  ``corrupt_hit`` is the drill: the hop's output is
+    poked (the JAX package's element) between the hop and the second
+    probe."""
+    from ..guard import integrity as gi
+
+    x = data[0] if isinstance(data, list) else data
+    dtype, ptr = x.dtype, x.data_ptr()
+    finite = guard.finite_tick()
+    hop = _hop_label(pin, pout, method, dtype)
+    count = x.numel() * len(pin.topology)
+    with guard.watchdog(f"hop:{_method_label(method)}", kind="hop",
+                        hop=hop):
+        pre = gi.probe_stats(x, finite)
+        del x
+        out = _plain_hop(data, pin, pout, len(extra_dims), method)
+        if corrupt_hit is not None:
+            out = _poke(out, ptr, pout, extra_dims, corrupt_hit)
+        post = gi.probe_stats(out, finite)
+        pre_h, post_h = gi.reduce_probes([pre, post], dtype,
+                                         _probe_group(pin.topology))
+        gi.check_hop_probes(hop, pre_h, post_h, count, dtype,
+                            finite=finite, wire_dtype=_method_wire(method),
+                            ctx={"r": R, "method": _method_label(method)})
+    return out
+
+
+def _poke(out: torch.Tensor, ptr: int, pout: Pencil, extra_dims: tuple,
+          hit: int) -> torch.Tensor:
+    """The ``corrupt`` drill's poke of a hop's output for fault hit
+    ``hit`` (the JAX package's element of the global array), on a copy
+    where the hop moved nothing and returned its input (``ptr``)."""
+    from ..guard import integrity as gi
+
+    if out.data_ptr() == ptr:
+        out = out.clone()
+    gi.corrupt_array(pout, out, extra_dims, max(0, hit - 1))
+    return out
+
+
+def _plain_hop(data, pin: Pencil, pout: Pencil, nx: int,
+               method: AbstractTransposeMethod) -> torch.Tensor:
+    """The unguarded hop: ``[tensor]`` gives the tensor up to the hop,
+    a tensor goes through :func:`_dispatch` (autograd included)."""
+    if isinstance(data, list):
+        return _hop(data, pin, pout, nx, method)
+    return _dispatch(data, pin, pout, nx, method)
+
+
+def _run_hop(pin: Pencil, dest: Pencil, R, method:
+             AbstractTransposeMethod, data, extra_dims: tuple,
+             ctx: dict) -> torch.Tensor:
+    """The eager dispatch of one hop, as the JAX package's ``transpose``
+    and Gspmd ``reshard`` make it: the clock (observability on) starts
+    before the ``hop.exchange`` fault point, so an injected delay is part
+    of the measured dispatch; then the guarded hop, or the plain one
+    (where a ``corrupt`` drill's poke flows through undetected).
+    ``data`` as in :func:`_dispatch_guarded_hop`."""
+    x = data[0] if isinstance(data, list) else data
+    dtype, ptr = x.dtype, x.data_ptr()
+    del x
+    t0 = time.perf_counter() if obs.enabled() else None
+    act = hop_fault(**ctx) if faults.armed("hop.exchange") else None
+    hit = faults.hit_count("hop.exchange") if act == "corrupt" else None
+    if guard.enabled():
+        out = _dispatch_guarded_hop(pin, dest, R, method, data, extra_dims,
+                                    corrupt_hit=hit)
+    else:
+        out = _plain_hop(data, pin, dest, len(extra_dims), method)
+        if hit is not None:
+            out = _poke(out, ptr, dest, extra_dims, hit)
+    if t0 is not None:
+        _obs_record_hop(pin, dest, R, method, extra_dims, dtype,
+                        time.perf_counter() - t0)
+    return out
 
 
 def transpose(src: PencilArray, dest: Pencil, *,
@@ -1067,15 +1229,19 @@ def transpose(src: PencilArray, dest: Pencil, *,
             raise ValueError("transpose: pencil topologies differ")
         if pin.size_global() != dest.size_global():
             raise ValueError("transpose: global shapes differ")
+        # any pair of pencils: the slot where one differs, else "gspmd"
+        diff = [i for i, (a, b) in enumerate(zip(pin.decomposition,
+                                                 dest.decomposition))
+                if a != b]
+        R = diff[0] if len(diff) == 1 else (None if not diff else "gspmd")
     else:
-        assert_compatible(pin, dest)
+        R = assert_compatible(pin, dest)
     if isinstance(method, Auto):
         method = resolve_method(pin, dest, src.extra_dims, src.dtype, method)
     if not isinstance(method, (AllToAll, Ring, Pipelined, Gspmd)):
         raise TypeError(f"unknown transpose method {method!r}")
-    if faults.armed("hop.exchange"):
-        hop_fault(method=_method_label(method))
-    out = _dispatch(src.data, pin, dest, src.ndims_extra, method)
+    out = _run_hop(pin, dest, R, method, src.data, src.extra_dims,
+                   {"r": R, "method": _method_label(method)})
     return PencilArray(dest, out, src.extra_dims)
 
 
@@ -1101,7 +1267,8 @@ def reshard(src: PencilArray, dest: Pencil, *,
     time-sliced into ``Pipelined`` chunks, and where no admissible route
     exists :class:`~pencilarrays_tpu_torch.analysis.errors.HbmBoundError`
     is raised instead of running the unbounded Gspmd exchange."""
-    from .routing import execute_route, plan_reshard_route
+    from .routing import (_obs_record_route_plan, execute_route,
+                          plan_reshard_route)
 
     pin = src.pencil
     if pin.topology != dest.topology:
@@ -1118,7 +1285,11 @@ def reshard(src: PencilArray, dest: Pencil, *,
         route = plan_reshard_route(pin, dest, src.extra_dims, src.dtype,
                                    method=method, hbm_limit=hbm_limit,
                                    donate=donate)
+        if obs.enabled():
+            _obs_record_route_plan(route, src.extra_dims, src.dtype)
         if route.use_route:
+            if obs.enabled():
+                obs.counter("reshard.dispatches", path="routed").inc()
             return execute_route(src, route, donate=donate)
         if hbm_limit is not None:
             from ..analysis.errors import HbmBoundError
@@ -1129,13 +1300,17 @@ def reshard(src: PencilArray, dest: Pencil, *,
             raise HbmBoundError(
                 "reshard", f"{pin.decomposition}->{dest.decomposition}",
                 unbounded.peak_hbm_bytes or 0, int(hbm_limit))
-    nx = src.ndims_extra
+    if obs.enabled():
+        obs.counter("reshard.dispatches", path="gspmd").inc()
+    ctx = {"kind": "reshard-gspmd"}
     if donate and not (src.data.requires_grad and torch.is_grad_enabled()):
         held = [src.data]
         src._donate()
-        out = _hop(held, pin, dest, nx, Gspmd())
+        out = _run_hop(pin, dest, "gspmd", Gspmd(), held, src.extra_dims,
+                       ctx)
     else:
-        out = _dispatch(src.data, pin, dest, nx, Gspmd())
+        out = _run_hop(pin, dest, "gspmd", Gspmd(), src.data,
+                       src.extra_dims, ctx)
         if donate:
             src._donate()
     return PencilArray(dest, out, src.extra_dims)

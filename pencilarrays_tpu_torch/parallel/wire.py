@@ -568,12 +568,20 @@ def cast_score_bytes(wire_nbytes: int, dtype, wire_dtype) -> int:
 
 
 def wire_rtol(wire_dtype, count: int) -> float:
-    """Relative tolerance of a content sum of ``count`` elements across
-    one wire round trip: half the format's epsilon, plus the fp8 windows'
-    scale-granularity term, times a small reduction-depth margin: the
-    JAX package's formula (its guard's override comes with the guard)."""
+    """Relative tolerance of the guard's content-sum compare of ``count``
+    elements across one wire round trip (the JAX package's formula):
+    half the format's epsilon, plus the fp8 windows' scale-granularity
+    term (``TILE * sub / (2 * FMAX)``), times a small reduction-depth
+    margin.  A wired hop beyond it raises
+    :class:`~pencilarrays_tpu_torch.guard.errors.WirePrecisionError`.
+    Override: ``PENCILARRAYS_TPU_GUARD_WIRE_RTOL`` (``engine/config.py``)."""
     if wire_dtype is None:
         return 0.0
+    from ..engine import config as _rtc
+
+    override = _rtc.current().guard_wire_rtol
+    if override is not None:
+        return override
     wire = canonical_wire_dtype(wire_dtype)
     base = 0.5 * _WIRE_EPS[wire]
     if wire in FP8_WIRE_DTYPES:

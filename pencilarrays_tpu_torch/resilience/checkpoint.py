@@ -848,13 +848,17 @@ class Checkpoint:
                 out = f.read(name, pencil, extra_dims)
             if faults.armed("ckpt.restore"):
                 # the post-read SDC drill point: data verified on disk,
-                # then (in the JAX package) corrupted in flight
+                # then corrupted in flight (the JAX package's element) —
+                # what guarded_step and the hop probes exist to catch
                 act = faults.fire("ckpt.restore", step=self.step,
                                   dataset=name)
                 if act == "torn":   # cannot tear a read: treat as kill
                     faults.kill_now()
                 if act == "corrupt":
-                    raise faults.corrupt_not_ported("ckpt.restore")
+                    from ..guard import integrity as _gi
+
+                    _gi.corrupt_eager(out,
+                                      faults.hit_count("ckpt.restore") - 1)
         if obs.enabled():
             dt = time.perf_counter() - t0
             obs.counter("ckpt.restores").inc()

@@ -137,7 +137,6 @@ __all__ = [
     "block_write_hook",
     "kill_now",
     "delay_seconds",
-    "corrupt_not_ported",
     "ENV_VAR",
     "DELAY_S_VAR",
 ]
@@ -355,14 +354,6 @@ def block_write_hook(i, start, block, block_observer, put, *,
         block_observer(start, block)
 
 
-def corrupt_not_ported(point: str) -> NotImplementedError:
-    """The error a call site raises for a ``corrupt`` rule: the poke is
-    ``guard.integrity``'s, which waits for ROADMAP.md Queue 1 item 7."""
-    return NotImplementedError(
-        f"fault mode 'corrupt' at {point} is not ported yet: ROADMAP.md "
-        f"Queue 1, item 7 (control planes); it waits for guard/")
-
-
 def _obs_firing(point: str, mode: str, hit: int, ctx: dict) -> None:
     """Journal a triggered rule BEFORE the fault takes effect (for
     ``kill``/``torn`` the fsync'd ``fault`` record is the only trace the
@@ -383,9 +374,8 @@ def fire(point: str, **ctx) -> Optional[str]:
     never returns (``kill``), or returns a cooperative mode string the
     call site honors: ``"torn"`` (write a partial block, then call
     :func:`kill_now`; sites that cannot tear treat it as ``kill``) or
-    ``"corrupt"`` (the JAX package's counter-addressed poke of the
-    point's payload, ``guard.integrity``; the port's call sites raise
-    :func:`corrupt_not_ported` until ``guard/`` is ported)."""
+    ``"corrupt"`` (the counter-addressed poke of the point's payload,
+    ``guard.integrity.corrupt_array``)."""
     rules = _current_rules()
     if not rules:
         return None

@@ -41,6 +41,22 @@ from pencilarrays_tpu.parallel import transpositions as jtr
 from pencilarrays_tpu.resilience import CheckpointManager as JaxManager
 from pencilarrays_tpu_torch.engine import Engine
 from pencilarrays_tpu_torch.parallel.distributed import RankPool
+from pencilarrays_tpu.obs import drift as jax_drift
+from pencilarrays_tpu_torch.obs import drift as port_drift
+
+
+@pytest.fixture(autouse=True)
+def _hermetic_drift():
+    """Plans and routes are drift-sensitive in both packages (a trusted
+    sample left by an earlier test in the same worker changes a JAX
+    plan's decomposition verdict and ``plan_key``): every case starts and
+    ends with both drift trackers empty, as ``tests/test_routing.py``
+    isolates its own."""
+    jax_drift.drift_tracker.reset()
+    port_drift.drift_tracker.reset()
+    yield
+    jax_drift.drift_tracker.reset()
+    port_drift.drift_tracker.reset()
 
 
 @pytest.fixture(scope="module")

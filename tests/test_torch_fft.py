@@ -24,9 +24,25 @@ import pencilarrays_tpu as jpa
 import torch_rank_tasks as tasks
 from pencilarrays_tpu.ops.fft import PencilFFTPlan as JaxPlan
 from pencilarrays_tpu_torch.parallel.distributed import RankPool
+from pencilarrays_tpu.obs import drift as jax_drift
+from pencilarrays_tpu_torch.obs import drift as port_drift
 
 DIMS = (2, 2)
 TOL = {"float32": 2e-5, "float64": 1e-10}
+
+
+@pytest.fixture(autouse=True)
+def _hermetic_drift():
+    """Plans and routes are drift-sensitive in both packages (a trusted
+    sample left by an earlier test in the same worker changes a JAX
+    plan's decomposition verdict and ``plan_key``): every case starts and
+    ends with both drift trackers empty, as ``tests/test_routing.py``
+    isolates its own."""
+    jax_drift.drift_tracker.reset()
+    port_drift.drift_tracker.reset()
+    yield
+    jax_drift.drift_tracker.reset()
+    port_drift.drift_tracker.reset()
 
 
 @pytest.fixture(scope="module")
@@ -414,6 +430,50 @@ def test_plan_options_match_jax(devices, pool, case):
         jv = jplan.with_wire_dtype(w)
         assert key == jv.plan_key() != got["key"]
         _wire_close(spec, _jax_forward(jv, u), w, unwired=want)
+
+
+def test_drift_corrected_verdict_matches_jax(devices):
+    """Both packages hold the same trusted samples (the first hop of the
+    drift-free winner far over its byte model, the runner-up's first hop
+    under it): both decomposition verdicts turn ``drift_corrected`` with
+    the same scores, winner and ``plan_key``.  Planned in one process
+    (the port's drift rule: a one-process world)."""
+    import pencilarrays_tpu_torch as pat
+    from pencilarrays_tpu_torch.ops import fft as pfft
+    from pencilarrays_tpu_torch.parallel import transpositions as ptr
+
+    shape, kw = (16, 12, 10), dict(real=True, decomposition="auto", batch=3)
+    jtopo = jpa.Topology(DIMS, devices=devices[:4])
+    ptopo = pat.Topology(DIMS, device="cpu")
+    j0 = JaxPlan(jtopo, shape, **kw)
+    p0 = pat.PencilFFTPlan(ptopo, shape, **kw)
+    assert p0.plan_key() == j0.plan_key()
+    assert not p0.decomposition_verdict["drift_corrected"]
+    cands = [tuple(c["dims"]) for c in p0.decomposition_verdict[
+        "candidates"]]
+    samples = []
+    for dims, secs in zip(cands[:2], (1.0, 1e-7)):
+        probe = pat.PencilFFTPlan(pat.Topology.unconnected(dims), shape,
+                                  _probe=True, real=True, batch=3)
+        src, dst, dt, _, _, chunk = next(
+            h for h in pfft._iter_priced_hops(probe._steps)
+            if ptr.transpose_cost(h[0], h[1], (3,), h[2], pat.AllToAll()))
+        cost = ptr.transpose_cost(src, dst, (3,), dt, pat.AllToAll())
+        samples.append((ptr._hop_label(src, dst, pat.AllToAll(), dt),
+                        sum(v["bytes"] for v in cost.values()), secs))
+    for label, nbytes, secs in samples:
+        jax_drift.drift_tracker.record(label, nbytes, secs,
+                                       source="benchtime")
+        port_drift.drift_tracker.record(label, nbytes, secs,
+                                        source="benchtime")
+    j1 = JaxPlan(jtopo, shape, **kw)
+    p1 = pat.PencilFFTPlan(ptopo, shape, **kw)
+    assert j1.decomposition_verdict["drift_corrected"]
+    assert p1.decomposition_verdict == {
+        k: v for k, v in j1.decomposition_verdict.items()}
+    assert p1.plan_key() == j1.plan_key() != j0.plan_key()
+    assert p1.decomposition_verdict["candidates"] != \
+        p0.decomposition_verdict["candidates"]
 
 
 def test_decomposition_and_hbm_errors_match_jax(devices):

@@ -10,19 +10,26 @@ these are record shapes, compared key by key.
 """
 
 import json
+import math
 import os
 
+import numpy as np
 import pytest
 
 import pencilarrays_tpu.obs as jobs
 from pencilarrays_tpu.obs import events as jax_events
 from pencilarrays_tpu.obs import metrics as jax_metrics
+from pencilarrays_tpu.obs import drift as jax_drift
 from pencilarrays_tpu.obs import schema as jax_schema
+from pencilarrays_tpu.obs import straggler as jax_straggler
 import pencilarrays_tpu_torch as pat
+import torch_rank_tasks as tasks
 import pencilarrays_tpu_torch.obs as pobs
+from pencilarrays_tpu_torch.obs import drift as drift
 from pencilarrays_tpu_torch.obs import events as events
 from pencilarrays_tpu_torch.obs import metrics as metrics
 from pencilarrays_tpu_torch.obs import schema as schema
+from pencilarrays_tpu_torch.obs import straggler as straggler
 
 # fields whose values differ run to run (ids, clocks, sequence numbers)
 VOLATILE = {"run", "t_wall", "t_mono", "seq", "pid", "argv", "seconds",
@@ -36,11 +43,15 @@ def _clean(monkeypatch):
     jax_events._reset_for_tests()
     metrics.registry.reset()
     jax_metrics.registry.reset()
+    drift.drift_tracker.reset()
+    jax_drift.drift_tracker.reset()
     yield
     events._reset_for_tests()
     jax_events._reset_for_tests()
     metrics.registry.reset()
     jax_metrics.registry.reset()
+    drift.drift_tracker.reset()
+    jax_drift.drift_tracker.reset()
 
 
 def _load(path):
@@ -198,10 +209,142 @@ def test_profile_writes_a_chrome_trace_and_the_stamp(tmp_path):
     assert [e["status"] for e in evs] == ["start", "stop"]
 
 
-def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="7\\(b\\)"):
-        pobs.drift_report()
-    with pytest.raises(NotImplementedError, match="7\\(b\\)"):
-        pobs.merge_journals("x")
-    with pytest.raises(NotImplementedError, match="7\\(b\\)"):
-        pobs.reconstruct_request("x", "t")
+# -- the drift tracker (tests/test_obs.py) -------------------------------------
+
+
+def _close(a, b, rel=1e-12):
+    """Reports equal, floats within ``rel`` relative."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), (a, b)
+        for k in a:
+            _close(a[k], b[k], rel)
+    elif isinstance(a, float) or isinstance(b, float):
+        assert math.isclose(a, b, rel_tol=rel, abs_tol=0.0), (a, b)
+    else:
+        assert a == b, (a, b)
+
+
+SAMPLES = [
+    [("A", 100, 1.0, "benchtime"), ("B", 300, 3.0, "benchtime"),
+     ("B", 300, 9.0, "benchtime"), ("C", 100, 3.0, "benchtime")],
+    [("A", 100, 50.0, "dispatch"), ("A", 100, 1.0, "benchtime"),
+     ("A", 100, 70.0, "dispatch"), ("L", 0, 1.0, "dispatch")],
+    [("D1", 100, 0.001, "dispatch"), ("T1", 100, 1.0, "benchtime"),
+     ("M", 777, 0.37, "auto_measure"), ("M", 777, 0.11, "dispatch")],
+]
+
+
+@pytest.mark.parametrize("samples", SAMPLES, ids=["fit", "rank", "class"])
+def test_drift_report_matches_jax(samples):
+    mine, theirs = drift.DriftTracker(), jax_drift.DriftTracker()
+    for hop, nbytes, secs, source in samples:
+        mine.record(hop, nbytes, secs, source=source)
+        theirs.record(hop, nbytes, secs, source=source)
+        assert mine.version() == theirs.version()
+        _close(mine.report(), theirs.report())
+
+
+def test_drift_arithmetic_synthetic():
+    t = drift.DriftTracker()
+    t.record("A", 100, 1.0, source="benchtime")
+    t.record("B", 300, 3.0, source="benchtime")
+    rep = t.report()
+    assert rep["fitted_bytes_per_s"] == pytest.approx(100.0)
+    assert rep["hops"]["B"]["drift"] == pytest.approx(1.0)
+    t.record("B", 300, 9.0, source="benchtime")
+    rep = t.report()
+    assert rep["hops"]["B"]["measured_s"] == pytest.approx(3.0)
+    assert rep["hops"]["B"]["count"] == 2
+    assert rep["hops"]["B"]["last_s"] == pytest.approx(9.0)
+    t.record("C", 100, 3.0, source="benchtime")
+    rep = t.report()
+    assert rep["fitted_bytes_per_s"] == pytest.approx(500.0 / 7.0)
+    assert rep["hops"]["C"]["drift"] == pytest.approx(15.0 / 7.0)
+
+
+def test_drift_source_ranking_zero_bytes_and_classes():
+    t = drift.DriftTracker()
+    t.record("A", 100, 50.0, source="dispatch")
+    t.record("A", 100, 1.0, source="benchtime")
+    assert t.report()["hops"]["A"]["source"] == "benchtime"
+    t.record("L", 0, 1.0, source="dispatch")
+    assert t.report()["hops"]["L"]["drift"] is None
+    with pytest.raises(ValueError):
+        t.record("A", 1, 1.0, source="bogus")
+    t = drift.DriftTracker()
+    t.record("D1", 100, 0.001, source="dispatch")
+    t.record("T1", 100, 1.0, source="benchtime")
+    rep = t.report()
+    assert rep["fitted_bytes_per_s"] == pytest.approx(100.0)
+    assert rep["dispatch_fitted_bytes_per_s"] == pytest.approx(1e5)
+    assert rep["hops"]["T1"]["drift"] == pytest.approx(1.0)
+
+
+def test_drift_version_counts_trusted_samples_only():
+    t = drift.DriftTracker()
+    assert t.version() == 0
+    t.record("A", 1, 1.0, source="dispatch")
+    assert t.version() == 0
+    t.record("A", 1, 1.0, source="auto_measure")
+    assert t.version() == 1
+    t.reset()
+    assert t.version() == 2 and t.report()["hops"] == {}
+
+
+def test_drift_in_snapshot_and_prometheus_match_jax():
+    for o, t in ((pobs, drift.drift_tracker),
+                 (jobs, jax_drift.drift_tracker)):
+        o.counter("cluster.stragglers", rank="1").inc()
+        t.record("hopA", 100, 1.0, source="benchtime")
+        t.record("hopB", 300, 3.0, source="benchtime")
+        t.record("hopC", 50, 0.2, source="dispatch")
+    assert pobs.to_prometheus() == jobs.to_prometheus()
+    text = pobs.to_prometheus()
+    assert 'pa_drift{hop="hopA",source="benchtime"} 1' in text
+    assert 'pa_drift_fitted_bytes_per_s{class="device"} 100' in text
+    _close(pobs.snapshot()["drift"], jobs.snapshot()["drift"])
+
+
+def test_dispatch_feeds_drift_and_measure_transpose(devices, tmp_path):
+    """On 4 gloo ranks: a hop's ``dispatch`` sample carries the JAX
+    package's hop label and predicted bytes (its ``transpose_cost`` on a
+    4-device mesh), and ``measure_transpose`` upgrades the hop's source
+    to ``benchtime``, journaling a ``drift.sample``."""
+    import pencilarrays_tpu as jpa
+
+    pool = tasks.shared_pool()
+    shape = (16, 12, 10)
+    got = pool.run(tasks.drift_case, (2, 2), shape, str(tmp_path))[0]
+    jt = jpa.Topology((2, 2), devices=devices[:4])
+    jin = jpa.Pencil(jt, shape, (1, 2))
+    jout = jpa.Pencil(jt, shape, (0, 2))
+    label = jpa.parallel.transpositions._hop_label(jin, jout, jpa.AllToAll(),
+                                                   np.float32)
+    nbytes = sum(v["bytes"] for v in jpa.transpose_cost(
+        jin, jout, (), np.float32, jpa.AllToAll()).values())
+    (hop, entry), = got["after_hop"]["hops"].items()
+    assert hop == label and entry["source"] == "dispatch"
+    assert entry["predicted_bytes"] == nbytes > 0
+    assert got["measured"]["hop"] == label
+    assert got["measured"]["predicted_bytes"] == nbytes
+    assert got["after_measure"]["hops"][label]["source"] == "benchtime"
+    assert {"hop", "drift.sample"} <= set(got["events"])
+
+
+STRAGGLER_CASES = [
+    {0: {"H": 0.002}, 1: {"H": 0.302}},
+    {0: {"H": 0.0020}, 1: {"H": 0.0021}},
+    {**{r: {"H": 0.010 + 0.0001 * r} for r in range(7)}, 3: {"H": 0.5}},
+    {0: {"H": 0.1}, 1: {"H": 0.4}, 2: {"H": 0.7}, 3: {"H": 1.0},
+     4: {"H": 1.3}},
+    {0: {"H": 9.0}},
+    {0: {"A": 9.0}, 1: {"B": 0.1}},
+]
+
+
+@pytest.mark.parametrize("durations", STRAGGLER_CASES)
+def test_straggler_rule_matches_jax(durations):
+    assert straggler.detect(durations) == jax_straggler.detect(durations)
+    assert straggler._median([3.0, 1.0, 2.0, 10.0]) == \
+        jax_straggler._median([3.0, 1.0, 2.0, 10.0])
+

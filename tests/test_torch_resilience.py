@@ -296,13 +296,6 @@ def test_hop_exchange_delay_keeps_bits(monkeypatch):
     np.testing.assert_array_equal(pat.gather(y), u)
 
 
-def test_hop_exchange_corrupt_waits_for_guard():
-    x, py, _ = _hop_setup()
-    with faults.active("hop.exchange:corrupt"):
-        with pytest.raises(NotImplementedError, match="guard/"):
-            pat.transpose(x, py)
-
-
 # -- checkpoint cases on 1, 2 and 4 ranks -----------------------------------
 
 @pytest.mark.parametrize("dims", DIMS, ids=DIM_IDS)

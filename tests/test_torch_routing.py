@@ -26,6 +26,8 @@ import pencilarrays_tpu_torch as pat
 import torch_rank_tasks as tasks
 from pencilarrays_tpu_torch.parallel import routing as prouting
 from pencilarrays_tpu_torch.parallel import transpositions as tr
+from pencilarrays_tpu.obs import drift as jax_drift
+from pencilarrays_tpu_torch.obs import drift as port_drift
 
 P201, P120 = (2, 0, 1), (1, 2, 0)
 
@@ -69,6 +71,20 @@ VERDICT_DIFFS = {(g, "Auto-bf16") for g in (
     "4x2-ragged-perm", "2x2-ragged-perm", "default-reshard", "two-hop",
     "cheaper-of-two", "ragged-perm-in", "slab-8")} | {
     ("4x2-ragged-perm", "Auto")}
+
+
+@pytest.fixture(autouse=True)
+def _hermetic_drift():
+    """Plans and routes are drift-sensitive in both packages (a trusted
+    sample left by an earlier test in the same worker changes a JAX
+    plan's decomposition verdict and ``plan_key``): every case starts and
+    ends with both drift trackers empty, as ``tests/test_routing.py``
+    isolates its own."""
+    jax_drift.drift_tracker.reset()
+    port_drift.drift_tracker.reset()
+    yield
+    jax_drift.drift_tracker.reset()
+    port_drift.drift_tracker.reset()
 
 
 def _pencils(devices, dims, shape, src, dest):
@@ -196,6 +212,52 @@ def test_hand_computed_admission_matches_jax(devices):
     assert route.peak_hbm_bytes == 1024
     assert prouting.reshard_key(pin, pout, torch.float32) == \
         jrouting.reshard_key(jin, jout, np.float32)
+
+
+def test_drift_samples_steer_the_route(devices, monkeypatch):
+    """``tests/test_routing.py``'s drift case: the same trusted samples in
+    both trackers (the (2,3)->(2,1) hop far over its byte model, the
+    (2,3)->(0,3) hop under it) flip both planners onto the same route,
+    with the same scores; the port's search given JAX's report as its
+    explicit drift dict agrees too.  Dispatch samples steer neither, and
+    the port's planner drops drift in a world of more than one process."""
+    shape = (9, 8, 6, 4)
+    jin, jout, pin, pout = _pencils(devices, (2, 4), shape,
+                                    ((2, 3), None), ((0, 1), None))
+    jv21, jv03 = (jpa.Pencil(jin.topology, shape, d)
+                  for d in ((2, 1), (0, 3)))
+    pv21, pv03 = (pat.Pencil(pin.topology, shape, d)
+                  for d in ((2, 1), (0, 3)))
+    base = [(2, 1), (0, 1)]
+    for plan in (jpa.plan_reshard_route(jin, jout, (), np.float32),
+                 prouting.plan_reshard_route(pin, pout, (), torch.float32)):
+        assert [h.dest.decomposition for h in plan.hops] == base
+    samples = [((jin, jv21), (pin, pv21), 216 * 4, 1.0),
+               ((jin, jv03), (pin, pv03), 240 * 4, 1e-7)]
+    for (ja, jb), (pa_, pb), nbytes, secs in samples:
+        jl = jpa.parallel.transpositions._hop_label(ja, jb, jpa.AllToAll(),
+                                                    np.float32)
+        pl = tr._hop_label(pa_, pb, pat.AllToAll(), torch.float32)
+        assert jl == pl
+        jax_drift.drift_tracker.record(jl, nbytes, secs, source="benchtime")
+        port_drift.drift_tracker.record(pl, nbytes, secs, source="benchtime")
+        # per-dispatch lower bounds: ignored by both planners
+        for t in (jax_drift.drift_tracker, port_drift.drift_tracker):
+            t.record(pl, nbytes, 50.0, source="dispatch")
+    assert port_drift.drift_tracker.report() == \
+        jax_drift.drift_tracker.report()
+    want = jpa.plan_reshard_route(jin, jout, (), np.float32)
+    got = prouting.plan_reshard_route(pin, pout, (), torch.float32)
+    explicit = prouting.plan_reshard_route(
+        pin, pout, (), torch.float32,
+        _drift=jax_drift.drift_tracker.report()["hops"])
+    assert [h.dest.decomposition for h in want.hops] == [(0, 3), (0, 1)]
+    assert _summary(got) == _summary(want) == _summary(explicit)
+    assert prouting.trusted_drift_hops()
+    monkeypatch.setenv("PENCILARRAYS_TPU_CLUSTER_WORLD", "2")
+    assert prouting.trusted_drift_hops() == {}
+    multi = prouting.plan_reshard_route(pin, pout, (), torch.float32)
+    assert [h.dest.decomposition for h in multi.hops] == base
 
 
 def test_gspmd_cost_is_the_same_on_every_rank():

@@ -2077,3 +2077,173 @@ def two_thread_case(dims, shape, u, hops, tmp):
         e.close()
     dist.barrier()
     return _rank0(dict(ok=_on_every_rank(topo, ok), steps=ck.steps()))
+
+
+# -- the runtime guard and the mesh observability plane ---------------------
+
+
+def guard_hop_case(dims, shape, src, dest, u, methods, tmp):
+    """Per method on the first ``prod(dims)`` ranks: the unguarded hop,
+    the guarded hop, the guarded ``hop.exchange:corrupt`` drill (the
+    typed error's kind, raised on every rank alike: the probes are
+    summed over the ranks) and the unguarded drill (the poke flows
+    through); each hop's padded global bits, rank 0's hop calls counted
+    guard off and on, and every rank's verdict."""
+    from pencilarrays_tpu_torch import guard
+    from pencilarrays_tpu_torch.guard import IntegrityError
+    from pencilarrays_tpu_torch.parallel import transpositions as tr
+    from pencilarrays_tpu_torch.resilience import faults
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pin = _sub_pencil(topo, shape, *src)
+    pout = _sub_pencil(topo, shape, *dest)
+    x = pat.PencilArray.from_global(pin, u)
+    calls = []
+    orig = tr._hop
+
+    def counted(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    out = []
+    tr._hop = counted
+    try:
+        for m in methods:
+            guard._reset_for_tests()
+            faults.clear()
+            del calls[:]
+            plain = to_numpy_padded(pat.transpose(x, pout, method=m))
+            n_plain = len(calls)
+            guard.enable(tmp)
+            del calls[:]
+            guarded = to_numpy_padded(pat.transpose(x, pout, method=m))
+            n_guarded = len(calls)
+            with faults.active("hop.exchange:corrupt"):
+                try:
+                    pat.transpose(x, pout, method=m)
+                    kind = None
+                except IntegrityError as e:
+                    kind = e.kind
+            guard.disable()
+            faults.clear()
+            with faults.active("hop.exchange:corrupt"):
+                poked = to_numpy_padded(pat.transpose(x, pout, method=m))
+            faults.clear()
+            out.append(dict(plain=plain, guarded=guarded, poked=poked,
+                            kinds=_on_every_rank(topo, kind),
+                            hops=(n_plain, n_guarded)))
+    finally:
+        tr._hop = orig
+        guard._reset_for_tests()
+        faults.clear()
+    return _rank0(out)
+
+
+def guard_route_case(dims, shape, src, dest, u, method, tmp):
+    """A routed reshard guarded (bits, and the corrupt drill's kind on
+    every rank) and unguarded (the poke flows through)."""
+    from pencilarrays_tpu_torch import guard
+    from pencilarrays_tpu_torch.guard import IntegrityError
+    from pencilarrays_tpu_torch.resilience import faults
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pin = _sub_pencil(topo, shape, *src)
+    pout = _sub_pencil(topo, shape, *dest)
+    x = pat.PencilArray.from_global(pin, u)
+    try:
+        plain = to_numpy_padded(pat.reshard(x, pout, method=method))
+        guard.enable(tmp)
+        guarded = to_numpy_padded(pat.reshard(x, pout, method=method))
+        with faults.active("hop.exchange:corrupt"):
+            try:
+                pat.reshard(x, pout, method=method)
+                kind = None
+            except IntegrityError as e:
+                kind = e.kind
+        guard.disable()
+        faults.clear()
+        with faults.active("hop.exchange:corrupt"):
+            poked = to_numpy_padded(pat.reshard(x, pout, method=method))
+    finally:
+        guard._reset_for_tests()
+        faults.clear()
+    return _rank0(dict(plain=plain, guarded=guarded, poked=poked,
+                       kinds=_on_every_rank(topo, kind)))
+
+
+def straggler_case(dims, shape, jdir, hops=3, delay_s=0.25):
+    """Every rank journals ``hops`` local-permute hops (no collective, so
+    one rank's stall is its own) with ``hop.exchange:delay%rank1``
+    armed; rank 0 merges the journals and runs the offline straggler
+    rule.  Returns the merged timeline's ranks and warnings and the
+    flags."""
+    import os
+
+    from pencilarrays_tpu_torch import obs
+    from pencilarrays_tpu_torch.obs import events as obs_events
+    from pencilarrays_tpu_torch.obs.straggler import detect_from_events
+    from pencilarrays_tpu_torch.resilience import faults
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pin = _sub_pencil(topo, shape, (0, 1), None)
+    pout = _sub_pencil(topo, shape, (0, 1), (2, 0, 1))
+    x = pat.PencilArray.from_global(pin, np.zeros(shape))
+    old = os.environ.get(faults.DELAY_S_VAR)
+    os.environ[faults.DELAY_S_VAR] = str(delay_s)
+    obs_events._reset_for_tests()
+    obs.enable(jdir)
+    try:
+        with faults.active("hop.exchange:delay%rank1"):
+            for _ in range(hops):
+                pat.transpose(x, pout)
+    finally:
+        obs.disable()
+        faults.clear()
+        if old is None:
+            os.environ.pop(faults.DELAY_S_VAR, None)
+        else:
+            os.environ[faults.DELAY_S_VAR] = old
+    torch.distributed.barrier(group=topo.group)
+    if torch.distributed.get_rank() != 0:
+        return None
+    tl = obs.merge_journals(jdir)
+    return dict(ranks=tl.ranks, warnings=tl.warnings,
+                flags=detect_from_events(tl.events))
+
+
+def drift_case(dims, shape, jdir):
+    """With observability on: one hop (a ``dispatch`` drift sample, a
+    ``hop`` record), then ``measure_transpose`` of the same hop (a
+    ``benchtime`` sample that outranks it).  Returns rank 0's drift
+    reports after each, and its journal's event names."""
+    from pencilarrays_tpu_torch import obs
+    from pencilarrays_tpu_torch.obs import drift
+    from pencilarrays_tpu_torch.obs import events as obs_events
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    pin = _sub_pencil(topo, shape, (1, 2), None)
+    pout = _sub_pencil(topo, shape, (0, 2), None)
+    x = pat.PencilArray.zeros(pin, dtype=torch.float32)
+    drift.drift_tracker.reset()
+    obs_events._reset_for_tests()
+    obs.enable(jdir)
+    try:
+        pat.transpose(x, pout)
+        after_hop = drift.drift_report()
+        measured = drift.measure_transpose(x, pout, k0=1, k1=2, repeats=1)
+        after_measure = obs.snapshot()["drift"]
+    finally:
+        obs.disable()
+        drift.drift_tracker.reset()
+    events = [e["ev"] for e in obs.read_journal(jdir)
+              if e.get("proc") == torch.distributed.get_rank()]
+    return _rank0(dict(after_hop=after_hop, measured=measured,
+                       after_measure=after_measure, events=events))
