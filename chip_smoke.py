@@ -89,7 +89,9 @@ standard output too.  Phases, each printed on its own lines:
    one component's staged block), restore ms with and without
    verification; four drills in subprocesses (a kill before the commit,
    two retried sidecar-flush faults, a flipped byte refused by name, an
-   armed ``hop.exchange``); HDF5 when h5py imports (printed either way);
+   armed ``hop.exchange``); HDF5 when h5py imports and a 256^3 Orbax-layout
+   round trip (``io.OrbaxDriver``) when tensorstore imports (each printed
+   either way);
 5d. the engine (``engine/``), in ``chip_smoke_engine/`` of the checkout
    (three times the bytes it writes must be free; deleted at the end):
    NS Taylor-Green at 512^3 for 48 RK2 steps with a
@@ -139,6 +141,20 @@ standard output too.  Phases, each printed on its own lines:
    ``MeshAggregator`` over ``FileKV`` at world 1 (``rank`` labels) and the
    straggler rule on one rank (skipped); prints ``[guard]`` and ``[obs]``
    lines;
+5f. (run right after phase 1, while this process holds little of the card)
+   the cluster layer as the JAX package's multi-process recovery drills,
+   each rank a process of its own on the card (a one-rank NCCL world on a
+   (1, 1) topology, ``tests/torch_cluster_worker.py``), joined only by a
+   ``FileKV`` under ``chip_smoke_cluster/`` (deleted after); the drill step
+   is one NS RK2 step at 512^3 f32 and an x->y->x round trip of the state.
+   At world 2: ``sdc`` (an agreed retry, then an agreed restore of step 1,
+   bit-identical), ``kill`` (a typed ``PeerFailureError`` naming rank 0
+   within the lease deadline, with a bundle), ``restore`` (fresh processes
+   elect and restore step 1), ``elastic`` against ``elastic_ref`` (rank 1
+   killed mid-step 3, the survivor reforms to world 1, rebuilds its
+   registered plan, restores step 2 and ends with the uninterrupted run's
+   digest; its reformation timings); then the same at world 4 and 256^3
+   (world 4 -> 3); prints ``[cluster]`` lines;
 6. kernels K2–K4 (``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
    ``flash_bwd_tf32.cu``) against their plain versions on the card: three
    forward modes, full and partials backward, causal and not, ragged
@@ -170,9 +186,9 @@ standard output too.  Phases, each printed on its own lines:
     (each counted from 0 just before its run; K1's on the NS steps, the
     four cycles, the six wired cycles, the reshard runs, the fused hop, the DCT plan, the spectral operators,
     the ManyPencilArray cycle, phase 5c's writes and reads, ``io``,
-    phase 5d's ``engine_ns`` and ``compiled_plan``, and phase 5e's
-    ``guard_cycle``, ``guard_ns``, ``guard_drills`` and ``obs_rest``) and
-    their sum, by
+    phase 5d's ``engine_ns`` and ``compiled_plan``, phase 5e's
+    ``guard_cycle``, ``guard_ns``, ``guard_drills`` and ``obs_rest``, and
+    phase 5f's rank processes, ``cluster``) and their sum, by
     instance, its error against the plain version and its times (K1's per
     class in ``timings``);
 11. the last line, ``{"ok": true, "device": {...}}``.
@@ -184,6 +200,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1377,14 +1394,21 @@ def reshard_check(torch, pat, k1, tr, routing, n=1024):
             f"reshard_hbm: peak {out['reshard_hbm']['peak_above_input']} "
             f"above the input, over hbm_limit {peak_model} less the "
             f"input's {held}")
-    # a bf16 hop casts its block into the wire buffer and frees its input
-    # before the exchange allocates, and widens after K1's unpack: the
-    # route keeps its modeled peak
+    # a route's wired hops that cross no rank (one card) run as one K1
+    # permute and each hop's wire round trip in place, slab by slab: the
+    # wired routes keep their modeled peaks (one operand and one packed
+    # chunk)
     bf16 = out["reshard_wire_bf16"]
     if bf16["peak_above_input"] > bf16["peak_hbm_bytes"] - held:
         raise AssertionError(
             f"reshard_wire_bf16: peak {bf16['peak_above_input']} above the "
             f"input, over its modeled peak {bf16['peak_hbm_bytes']} less "
+            f"the input's {held}")
+    fp8 = out["reshard_wire_fp8"]
+    if fp8["peak_above_input"] > fp8["peak_hbm_bytes"] - held:
+        raise AssertionError(
+            f"reshard_wire_fp8: peak {fp8['peak_above_input']} above the "
+            f"input, over its modeled peak {fp8['peak_hbm_bytes']} less "
             f"the input's {held}")
     # the chunked route's hops cross no rank on one card (size-1 axes), so
     # execute_route runs them as one K1 permute, as XLA compiles the JAX
@@ -2479,7 +2503,46 @@ def io_hdf5_check(torch, pat, k1, io, d, acc, n):
     return r
 
 
-def phase_io(torch, pat, models, k1, n_field=1024, n_ns=512, n_h5=512):
+def io_orbax_check(torch, pat, k1, io, d, acc, n):
+    """The Orbax-layout driver (TensorStore alone) when tensorstore
+    imports: an n^3 f32 field written from a z-pencil and read into the
+    x-pencil, bit for bit."""
+    if not io.has_orbax():
+        log("[io] orbax: not run, tensorstore does not import on this "
+            "machine")
+        return None
+    topo = pat.Topology((1, 1))
+    shape = (n, n, n)
+    pz = pat.Pencil(topo, shape, (0, 1), permutation=pat.Permutation(2, 0, 1))
+    px = pat.Pencil(topo, shape, (1, 2), permutation=pat.Permutation(1, 2, 0))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+    src = pat.PencilArray(pz, torch.randn(pz.padded_size_local(
+        pat.MemoryOrder), generator=gen, device="cuda"))
+    path = os.path.join(d, "orbax")
+
+    def write():
+        with io.open_file(io.OrbaxDriver(), path, write=True,
+                          create=True) as f:
+            f.write("u", src)
+
+    def read():
+        with io.open_file(io.OrbaxDriver(), path, read=True) as f:
+            return f.read("u", px)
+
+    _, wsecs = _io_counted(torch, k1, acc, write)
+    y, rsecs = _io_counted(torch, k1, acc, read)
+    if not same_bits(torch, y.data, pat.reshard(src, px,
+                                                method=pat.Gspmd()).data):
+        raise AssertionError("[io] orbax: the field read back differs")
+    r = dict(write_ms=wsecs * 1e3, read_ms=rsecs * 1e3,
+             dir_bytes=_dir_bytes(path))
+    log(f"[io] orbax: ran; {n}^3 f32 z-pencil -> Orbax item -> x-pencil "
+        f"bit-identical; " + json.dumps(r))
+    return r
+
+
+def phase_io(torch, pat, models, k1, n_field=1024, n_ns=512, n_h5=512,
+             n_orbax=256):
     """Phase 5c: parallel I/O and crash-safe checkpoints on the card, in
     ``IO_DIR`` (checked for three times the bytes the phase writes first,
     deleted at the end).  K1's launches and classes over the phase's
@@ -2497,6 +2560,7 @@ def phase_io(torch, pat, models, k1, n_field=1024, n_ns=512, n_h5=512):
         spectral = 3 * n_ns * n_ns * (n_ns // 2 + 1) * 8
         writes = (2 * 4 * n_field ** 3 + 3 * spectral
                   + (4 * n_h5 ** 3 if io.has_hdf5() else 0)
+                  + (4 * n_orbax ** 3 if io.has_orbax() else 0)
                   + 3 * 4 * 64 ** 3)
         log(f"[io] {d}: disk_usage total {usage.total}, used {usage.used}, "
             f"free {usage.free} bytes; the phase writes {writes} bytes")
@@ -2510,7 +2574,8 @@ def phase_io(torch, pat, models, k1, n_field=1024, n_ns=512, n_h5=512):
                  ns=io_ns_check(torch, pat, models, k1, io, resilience, d,
                                 acc, n_ns),
                  drills=io_drills(torch, pat, resilience, d),
-                 hdf5=io_hdf5_check(torch, pat, k1, io, d, acc, n_h5))
+                 hdf5=io_hdf5_check(torch, pat, k1, io, d, acc, n_h5),
+                 orbax=io_orbax_check(torch, pat, k1, io, d, acc, n_orbax))
     finally:
         shutil.rmtree(d, ignore_errors=True)
     r.update(acc)
@@ -3561,6 +3626,200 @@ def phase_guard(torch, pat, models, k1, cycle, n=1024, n_ns=512):
     return r
 
 
+CLUSTER_DIR = "chip_smoke_cluster"
+CLUSTER_TTL = 2.0       # the lease ttl of the JAX package's drill workers
+
+
+def _cluster_run(root, d, world, phase, n, kill=None, timeout=420,
+                 device="cuda"):
+    """One drill phase: ``world`` rank processes of
+    ``tests/torch_cluster_worker.py`` on the card, joined by a ``FileKV``
+    under ``d``; each must print its ``CLUSTER_OK`` line, the rank
+    ``kill`` must die by SIGKILL.  Returns each rank's output."""
+    import signal
+
+    worker = os.path.join(root, "tests", "torch_cluster_worker.py")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PENCILARRAYS_TPU_CLUSTER",
+                                "PENCILARRAYS_TPU_FAULTS",
+                                "PENCILARRAYS_TPU_ELASTIC",
+                                "PENCILARRAYS_TPU_OBS",
+                                "PENCILARRAYS_TPU_GUARD"))}
+    env["PENCILARRAYS_TPU_CLUSTER_LEASE_TTL"] = str(CLUSTER_TTL)
+    env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, worker, os.path.join(d, "kv"), str(world), str(r),
+         d, phase, str(n), device], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    t_end = time.monotonic() + timeout
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, t_end - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs[len(outs):]:
+            outs.append(p.communicate()[0] or "")
+        raise AssertionError(f"[cluster] {phase} world {world} timed out:\n"
+                             + "\n---\n".join(o[-3000:] for o in outs))
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if r == kill:
+            if p.returncode != -signal.SIGKILL:
+                raise AssertionError(f"[cluster] {phase}: rank {r} should "
+                                     f"die by SIGKILL, rc {p.returncode}"
+                                     f"\n{out[-3000:]}")
+            continue
+        if p.returncode != 0 or \
+                f"CLUSTER_OK phase={phase} rank={r}" not in out:
+            raise AssertionError(f"[cluster] {phase} rank {r} failed, rc "
+                                 f"{p.returncode}:\n{out[-3000:]}")
+    return outs
+
+
+def _cluster_k1(outs, acc):
+    """Add the K1 launches each rank reported (``K1=<n> {...}``)."""
+    for out in outs:
+        m = re.search(r"^K1=(\d+) (\{.*\})$", out, re.M)
+        if m:
+            acc["launches"] += int(m.group(1))
+            for inst, c in json.loads(m.group(2)).items():
+                acc["launches_by_instance"][inst] = \
+                    acc["launches_by_instance"].get(inst, 0) + c
+
+
+def _cluster_elastic(root, d, world, n, acc, device):
+    """``elastic_ref`` then ``elastic`` at ``world`` ranks and n^3: every
+    survivor's digest equals the uninterrupted run's; the reformation's
+    report of each survivor."""
+    ref_d, el_d = os.path.join(d, f"ref{world}"), os.path.join(d, f"el{world}")
+    os.makedirs(ref_d)
+    os.makedirs(el_d)
+    t0 = time.perf_counter()
+    outs = _cluster_run(root, ref_d, world, "elastic_ref", n, device=device)
+    ref_s = time.perf_counter() - t0
+    _cluster_k1(outs, acc)
+    finals = {re.search(r"FINAL=([0-9a-f]{64})", o).group(1) for o in outs}
+    if len(finals) != 1:
+        raise AssertionError(f"[cluster] elastic_ref digests differ: "
+                             f"{finals}")
+    shutil.rmtree(ref_d, ignore_errors=True)
+    t0 = time.perf_counter()
+    outs = _cluster_run(root, el_d, world, "elastic", n, kill=world - 1,
+                        device=device)
+    el_s = time.perf_counter() - t0
+    _cluster_k1(outs, acc)
+    reports = []
+    for r, out in enumerate(outs[:-1]):
+        m = re.search(r"FINAL=([0-9a-f]{64})", out)
+        if not m or m.group(1) not in finals:
+            raise AssertionError(f"[cluster] elastic rank {r}: digest "
+                                 f"differs from the uninterrupted run's\n"
+                                 f"{out[-2000:]}")
+        rep = json.loads(re.search(r"^REFORMED (\{.*\})$", out,
+                                   re.M).group(1))
+        if rep["world"] != world - 1 or rep["restored_step"] != 2 or \
+                rep["members"] != list(range(world - 1)):
+            raise AssertionError(f"[cluster] elastic rank {r}: {rep}")
+        rep["step_ms"] = json.loads(re.search(r"^STEP_MS=(.*)$", out,
+                                              re.M).group(1))
+        reports.append(rep)
+    shutil.rmtree(el_d, ignore_errors=True)
+    r = dict(world=world, n=n, final=finals.pop(), ref_s=ref_s,
+             elastic_s=el_s, survivors=reports)
+    log(f"[cluster] elastic world {world} -> {world - 1} at {n}^3: digest "
+        f"= the uninterrupted run's; " + json.dumps(r))
+    return r
+
+
+def phase_cluster(torch, k1, n=512, n4=256, device="cuda"):
+    """Phase 5f: the cluster layer on the card, as the JAX package's
+    ``cluster_worker.py`` drills (module docstring).  The rank processes
+    load K1 from ``ops/_build`` (built in phase 1); their launches count
+    under the path ``cluster``."""
+    from pencilarrays_tpu_torch import obs
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[cluster] device memory at the phase's start: this process "
+        f"allocated {_gib(torch.cuda.memory_allocated()):.2f} GiB, reserved "
+        f"{_gib(torch.cuda.memory_reserved()):.2f} GiB; free on the card "
+        f"{_gib(free):.2f} of {_gib(total):.2f} GiB")
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, CLUSTER_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    acc = {"launches": 0, "launches_by_instance": {}}
+    res = {}
+    try:
+        # sdc: agreed retry, then the agreed restore of step 1
+        sd = os.path.join(d, "seq")
+        os.makedirs(sd)
+        t = time.perf_counter()
+        outs = _cluster_run(root, sd, 2, "sdc", n, device=device)
+        _cluster_k1(outs, acc)
+        events = obs.read_journal(os.path.join(sd, "obs"))
+        if obs.lint_journal(events):
+            raise AssertionError(f"[cluster] sdc journal: "
+                                 f"{obs.lint_journal(events)[:5]}")
+        actions = {r: [e["action"] for e in events
+                       if e["ev"] == "cluster.verdict" and e["proc"] == r]
+                   for r in range(2)}
+        restores = {r: sorted({e["step"] for e in events
+                               if e["ev"] == "ckpt.restore"
+                               and e["proc"] == r}) for r in range(2)}
+        if any(a != ["retry", "restore", "elect", "ok"]
+               for a in actions.values()) or \
+                any(v != [1] for v in restores.values()):
+            raise AssertionError(f"[cluster] sdc verdicts {actions}, "
+                                 f"restores {restores}")
+        res["sdc"] = dict(actions=actions[0], restored_step=1,
+                          seconds=time.perf_counter() - t,
+                          recover_s=[float(re.search(
+                              r"SDC_RECOVERED step=1 s=([0-9.]+)",
+                              o).group(1)) for o in outs])
+        log(f"[cluster] sdc world 2 at {n}^3: every rank agreed retry, "
+            "restore, elect, ok; restored step 1 bit-identical to the "
+            "uninterrupted step; " + json.dumps(res["sdc"]))
+        # kill: rank 0 dies mid-step, the survivor fails typed
+        t = time.perf_counter()
+        outs = _cluster_run(root, sd, 2, "kill", n, kill=0, device=device)
+        _cluster_k1(outs, acc)
+        m = re.search(r"peerfail=(\d+) detect_s=([0-9.]+)", outs[1])
+        if not m or int(m.group(1)) != 0 or \
+                float(m.group(2)) > 4 * CLUSTER_TTL + 5.0:
+            raise AssertionError(f"[cluster] kill: survivor {outs[1][-2000:]}")
+        res["kill"] = dict(peer=0, detect_s=float(m.group(2)),
+                           ttl_s=CLUSTER_TTL,
+                           seconds=time.perf_counter() - t)
+        log(f"[cluster] kill world 2 at {n}^3: rank 0 SIGKILLed at its first "
+            "exchange; rank 1 raised PeerFailureError naming it, with a "
+            "crash bundle; " + json.dumps(res["kill"]))
+        # restore: fresh processes elect and restore step 1
+        t = time.perf_counter()
+        outs = _cluster_run(root, sd, 2, "restore", n, device=device)
+        _cluster_k1(outs, acc)
+        res["restore"] = dict(step=1, seconds=time.perf_counter() - t)
+        log(f"[cluster] restore world 2 at {n}^3: fresh processes elected "
+            "step 1 and restored it bit-identical; "
+            + json.dumps(res["restore"]))
+        shutil.rmtree(sd, ignore_errors=True)
+        res["elastic"] = _cluster_elastic(root, d, 2, n, acc, device)
+        res["elastic4"] = _cluster_elastic(root, d, 4, n4, acc, device)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    res["paths"] = {"cluster": acc}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[cluster] phase 5f took {res['seconds']:.1f} s; K1 launches in the "
+        f"rank processes {acc['launches']} {acc['launches_by_instance']}")
+    if acc["launches"] <= 0:
+        raise AssertionError("the cluster path launched K1 no time")
+    return res
+
+
 # Tolerances of K2–K4 against their plain versions.  Each row of a tensor
 # (its last dim: one query or key position of one head·batch slice) is
 # held relative to its own largest |plain| (see _rel_err).  The kernels
@@ -4372,6 +4631,10 @@ def main() -> int:
             smi, instances = phase_environment(torch, pat, build, dist_dir)
             bw = bandwidth(smi)
             log(f"[env] bound uses {bw / 1e12:.2f} TB/s for '{smi}'")
+            # phase 5f first: its rank processes share the card, and later
+            # phases leave this process holding device memory that two
+            # 512^3 ranks need
+            clu = phase_cluster(torch, k1)
             phase_kernel(torch, k1)
             cycle = phase_cycle(torch, pat, k1, tr)
             wired = phase_wire(torch, pat, k1, tr, cycle)
@@ -4426,6 +4689,11 @@ def main() -> int:
                     **{run: r["launches"] for run, r in k1_runs.items()}}}
     for inst, c in ns["k1_launches_by_instance"].items():
         paths.setdefault(f"k1_{inst}", {})["navier_stokes"] = c
+    # phase 5f's rank processes, each counting from 0 at its start
+    for run, a in clu["paths"].items():
+        paths["k1"][run] = a["launches"]
+        for inst, c in a["launches_by_instance"].items():
+            paths.setdefault(f"k1_{inst}", {})[run] = c
     for run, r in k1_runs.items():
         for inst, c in r["launches_by_instance"].items():
             paths.setdefault(f"k1_{inst}", {})[run] = c

@@ -2,10 +2,11 @@
 package's ``cluster/epoch.py``).
 
 Every agreed recovery action advances a monotonic epoch, identically on
-every rank; the journal stamps it into every record (``obs/correlate``)
-so that N ranks' journals line up without trusting wall clocks.  Epoch 0
-is a job that never recovered; the port has no recovery ladder yet
-(``guard/``, ``cluster/``), so its runs stay at the epoch they are at.
+every rank (the advance is a function of the consensus verdict, which is
+deterministic over the exchanged statuses); the journal stamps it into
+every record (``obs/correlate``), crash bundles and checkpoint manifests
+carry it, so that N ranks' journals line up without trusting wall
+clocks.  Epoch 0 is a job that never recovered.
 """
 
 from __future__ import annotations

@@ -1,35 +1,45 @@
-"""The coordination wire: a small key-value store (the part of the JAX
-package's ``cluster/kv.py`` that works without a cluster runtime).
+"""The coordination wire: a small key-value store with two backends (the
+JAX package's ``cluster/kv.py``).
 
-Everything the cluster layer does reduces to *put a small JSON blob
-under a key; read the peers' blobs back*.  :class:`FileKV` does that over
-a shared directory, each key one atomically published file: N plain
-processes on one box, or N threads in one process, can run the mesh
-aggregator (``obs/aggregate.py``) and the drills that need a KV without
-a process group.  ``get`` is a bounded wait that calls ``on_wait``
-between polls; ``set_if`` is a compare-and-set serialized through a lock
-file.  Every wire operation consults the ``kv.get`` / ``kv.set`` fault
-points, so a drill can run under ``drop`` (lost operations) or
-``partition`` (an unreachable store).
+Everything the cluster layer does reduces to *put a small JSON blob under
+a key; read the peers' blobs back*.  Two interchangeable backends provide
+that:
 
-:class:`JaxKV` (in the port a ``torch.distributed`` store client),
-:class:`FencedKV` and :func:`resolve_kv` wait for the cluster layer
-(ROADMAP.md Queue 1 item 7(d)) and raise.
+* :class:`StoreKV` (alias :class:`JaxKV`, the JAX package's name) — a
+  client over a ``torch.distributed`` store (``TCPStore``, ``FileStore``,
+  the default group's store): the rendezvous service every job already
+  runs, in place of the JAX distributed runtime's KV store;
+* :class:`FileKV` — a shared directory, each key one atomically published
+  file: N plain processes on one box, or N threads in one process, run
+  the full consensus and lease machinery without a process group.
+
+Both expose the same operations, and the keys, values and fence records
+are the JAX package's, so one KV directory serves both packages.  ``get``
+is a bounded wait that calls ``on_wait`` between polls (the lease check,
+so a wait on a dead peer's key becomes a typed
+:class:`~pencilarrays_tpu_torch.cluster.errors.PeerFailureError`);
+``set_if`` is a compare-and-set, serialized through a lock file on
+:class:`FileKV` and a read-verify-``compare_set`` on :class:`StoreKV`;
+:class:`FencedKV` rejects the writes of a rank whose ``(generation,
+epoch)`` token is behind the namespace's published fence.  Every wire
+operation consults the ``kv.get`` / ``kv.set`` fault points, so a drill
+can run under ``drop`` (lost operations) or ``partition`` (an unreachable
+store).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import time
-from typing import Callable, Optional
+from datetime import timedelta
+from typing import Callable, Optional, Tuple
 
 from ..resilience.fsutil import atomic_write_text, fsync_dir
-from .errors import ConsensusTimeoutError
+from .errors import ConsensusTimeoutError, FencedWriteError
 
-__all__ = ["FileKV", "JaxKV", "FencedKV", "resolve_kv"]
-
-_LATER = "not ported yet: ROADMAP.md Queue 1, item 7(d) (cluster/)"
+__all__ = ["FileKV", "StoreKV", "JaxKV", "FencedKV", "resolve_kv"]
 
 _SEGMENT_RE = re.compile(r"^[A-Za-z0-9._=-]+$")
 
@@ -242,22 +252,297 @@ class FileKV:
         return out
 
 
-class JaxKV:
-    """The JAX package's KV over its distributed runtime; in the port a
-    ``torch.distributed`` store client.  Not ported yet."""
+class StoreKV:
+    """A ``torch.distributed`` store as the KV wire (the JAX package's
+    ``JaxKV`` over its distributed runtime's store).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"cluster.kv.JaxKV is {_LATER}")
+    ``store`` is any ``torch.distributed.Store``; the client works on its
+    own clone where the store can be cloned, with a blocking-read timeout
+    of :data:`SLICE_S`, so the process group's client keeps its own.
+    Blocking gets are sliced into short waits so ``on_wait`` (the lease
+    check) still runs while a peer's key is pending.  A store has no
+    conditional write that tells create from swap, so :meth:`set_if`
+    reads, verifies and then ``compare_set``s: atomic against a racing
+    swap of the same expected value, best-effort across a delete, as the
+    JAX package's ``set_if`` is documented to be."""
+
+    SLICE_S = 1.0
+
+    def __init__(self, store):
+        try:
+            client = store.clone()
+            client.set_timeout(timedelta(seconds=self.SLICE_S))
+        except Exception:   # a store without clone(): share its client
+            client = store
+        self._store = client
+
+    @classmethod
+    def from_initialized(cls) -> "StoreKV":
+        from ..parallel.distributed import kv_client
+
+        store = kv_client()
+        if store is None:
+            raise RuntimeError(
+                "no torch.distributed store: call "
+                "pencilarrays_tpu_torch.distributed.initialize() first (or "
+                "point PENCILARRAYS_TPU_CLUSTER at a shared directory to use "
+                "the filesystem backend)")
+        return cls(store)
+
+    def set(self, key: str, value: str) -> None:
+        act = _fire_kv("kv.set", key, "store")
+        if act == "partition":
+            raise ConsensusTimeoutError(
+                f"KV wire partitioned: set of {key!r} unreachable",
+                key=key)
+        if act == "drop":
+            return
+        self._store.set(key, value)
+
+    def set_if(self, key: str, value: str,
+               expected: Optional[str]) -> bool:
+        """Compare-and-set with :class:`FileKV`'s outcomes: ``expected``
+        None creates (the key must not exist), else swaps; True iff this
+        call's value was published."""
+        act = _fire_kv("kv.set", key, "store")
+        if act == "partition":
+            raise ConsensusTimeoutError(
+                f"KV wire partitioned: set_if of {key!r} unreachable",
+                key=key)
+        if act == "drop":
+            return True
+        if self._raw_try_get(key) != expected:
+            return False
+        stored = self._store.compare_set(
+            key, "" if expected is None else expected, value)
+        return _text(stored) == value
+
+    def _raw_try_get(self, key: str) -> Optional[str]:
+        try:
+            if not self._store.check([key]):
+                return None
+            return _text(self._store.get(key))
+        except Exception:   # deleted between check and get, or weather
+            return None
+
+    def try_get(self, key: str) -> Optional[str]:
+        if _fire_kv("kv.get", key, "store") in ("drop", "partition"):
+            return None
+        return self._raw_try_get(key)
+
+    def get(self, key: str, timeout: float, *,
+            poll: float = 0.05,
+            on_wait: Optional[Callable[[], None]] = None) -> str:
+        deadline = time.monotonic() + timeout
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise ConsensusTimeoutError(
+                    f"KV key {key!r} did not appear within {timeout:.1f}s",
+                    key=key, timeout_s=timeout)
+            slice_s = min(self.SLICE_S, remaining)
+            t0 = time.monotonic()
+            if _fire_kv("kv.get", key, "store") in ("drop", "partition"):
+                # the wire is down for this slice: pace like a missed
+                # read so the deadline (and the lease check) still runs
+                if on_wait is not None:
+                    on_wait()
+                time.sleep(min(poll, max(0.0,
+                                         deadline - time.monotonic())))
+                continue
+            try:
+                self._store.wait([key], timedelta(seconds=slice_s))
+                return _text(self._store.get(key))
+            except Exception:
+                if on_wait is not None:
+                    on_wait()
+                # a not-found wait consumes the whole slice; anything that
+                # failed faster is store weather: pace the loop so a dead
+                # store cannot hot-spin the verdict timeout away
+                if time.monotonic() - t0 < slice_s / 2:
+                    time.sleep(min(poll, max(0.0,
+                                             deadline - time.monotonic())))
+
+    def delete(self, key: str) -> None:
+        act = _fire_kv("kv.set", key, "store")
+        if act == "partition":
+            raise ConsensusTimeoutError(
+                f"KV wire partitioned: delete of {key!r} unreachable",
+                key=key)
+        if act == "drop":
+            return
+        try:
+            self._store.delete_key(key)
+        except Exception:
+            pass
+
+    def list_dir(self, prefix: str) -> dict:
+        """The store's keys directly under ``prefix`` (one level), as
+        :class:`FileKV` lists them: a store's own keys (a ``FileStore``'s
+        ``efcount/``) and in-flight scaffolding are left out, and a store
+        without ``list_keys`` (an older torch) lists nothing — join
+        discovery then finds nobody, it never crashes a reformation."""
+        list_keys = getattr(self._store, "list_keys", None)
+        if list_keys is None:
+            return {}
+        try:
+            keys = list_keys()
+        except Exception:
+            return {}
+        head = f"{prefix}/"
+        out = {}
+        for key in sorted(_text(k) for k in keys):
+            name = key[len(head):]
+            if (not key.startswith(head) or "/" in name
+                    or not _SEGMENT_RE.match(name)
+                    or name.endswith((".tmp", ".lock"))):
+                continue
+            v = self._raw_try_get(key)
+            if v is not None:
+                out[key] = v
+        return out
+
+
+#: the JAX package's name of the runtime-store backend
+JaxKV = StoreKV
+
+
+def _text(v) -> str:
+    return v.decode() if isinstance(v, (bytes, bytearray)) else str(v)
 
 
 class FencedKV:
-    """The JAX package's write-fencing KV wrapper.  Not ported yet."""
+    """Write-fencing wrapper over either backend — the zombie guard.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"cluster.kv.FencedKV is {_LATER}")
+    The live mesh publishes a **fence** — the JSON pair
+    ``{"gen": G, "epoch": E}`` under ``<namespace>/fence`` in the *base*
+    namespace (so it spans generation-suffixed sub-namespaces) — advanced
+    by the agreed new generation's rank 0 at every reformation
+    (:meth:`advance`, CAS-guarded, monotonic).  Every write through this
+    wrapper compares its own ``(generation, epoch)`` token against the
+    published fence first: a token strictly behind the fence is a
+    **zombie** — a rank that was evicted, slept through the reformation,
+    and woke up still believing it is a member — and its write is
+    rejected with typed :class:`FencedWriteError` *before* touching the
+    store, journaled fsync-critically (``cluster.fence``) and counted
+    (``cluster.fenced_writes``).
+
+    Check-then-write is not atomic: a write racing the fence advance
+    itself can slip through for one advance window, harmless by
+    construction (the racing writer was a member until this very advance,
+    so its value is at worst one reformation stale).  What the fence kills
+    is the unbounded case — arbitrarily late zombie writes into a
+    namespace that reformed generations ago.  Reads pass through
+    unchecked."""
+
+    FENCE_SEGMENT = "fence"
+
+    def __init__(self, kv, *, namespace: str = "pa",
+                 generation: int = 0, epoch: int = 0):
+        self.kv = kv
+        self.ns = namespace
+        self.generation = int(generation)
+        self.epoch = int(epoch)
+
+    # -- the fence itself ---------------------------------------------------
+    @property
+    def fence_key(self) -> str:
+        return f"{self.ns}/{self.FENCE_SEGMENT}"
+
+    def token(self) -> Tuple[int, int]:
+        """This writer's fencing token — compared lexicographically
+        (generation outranks epoch)."""
+        return (self.generation, self.epoch)
+
+    def fence(self) -> Optional[Tuple[int, int]]:
+        """The published fence, or ``None`` (nobody has fenced this
+        namespace yet — every token passes)."""
+        return _parse_fence(self.kv.try_get(self.fence_key))
+
+    def advance(self, generation: int, epoch: int) -> Tuple[int, int]:
+        """Publish a new fence — monotonic and CAS-guarded: concurrent
+        advances serialize on the swap, and the fence never moves
+        backwards (an advance that lost the race to a *higher* fence
+        adopts it instead of regressing it).  The caller's own token is
+        updated to the published fence.  Returns the fence now in
+        force."""
+        new = (int(generation), int(epoch))
+        for _ in range(64):
+            raw = self.kv.try_get(self.fence_key)
+            cur = _parse_fence(raw)
+            if cur is not None and cur >= new:
+                self.generation, self.epoch = cur
+                return cur
+            value = json.dumps({"gen": new[0], "epoch": new[1]})
+            # kv-unfenced: this CAS is the fence-advance itself
+            if self.kv.set_if(self.fence_key, value, raw):
+                self.generation, self.epoch = new
+                return new
+        raise ConsensusTimeoutError(          # pragma: no cover - needs a
+            f"fence advance at {self.fence_key!r} lost 64 straight CAS "
+            f"races", key=self.fence_key)     # pathological writer storm
+
+    def _check(self, key: str) -> None:
+        fence = self.fence()
+        if fence is None or self.token() >= fence:
+            return
+        from .. import obs
+
+        if obs.enabled():
+            obs.counter("cluster.fenced_writes").inc()
+            obs.record_event("cluster.fence", key=key,
+                             gen=self.generation, epoch=self.epoch,
+                             fence_gen=fence[0], fence_epoch=fence[1])
+        raise FencedWriteError(
+            f"fenced write to {key!r} rejected: token "
+            f"(gen={self.generation}, epoch={self.epoch}) is behind the "
+            f"published fence (gen={fence[0]}, epoch={fence[1]}) — this "
+            f"process was evicted and must stop, not retry",
+            key=key, token=self.token(), fence=fence)
+
+    # -- the KV surface (writes checked, reads passed through) ---------------
+    def set(self, key: str, value: str) -> None:
+        self._check(key)
+        self.kv.set(key, value)        # kv-unfenced: the check above IS the fence
+
+    def set_if(self, key: str, value: str,
+               expected: Optional[str]) -> bool:
+        self._check(key)
+        return self.kv.set_if(key, value, expected)  # kv-unfenced: checked above
+
+    def delete(self, key: str) -> None:
+        self._check(key)
+        self.kv.delete(key)            # kv-unfenced: the check above IS the fence
+
+    def try_get(self, key: str) -> Optional[str]:
+        return self.kv.try_get(key)
+
+    def get(self, key: str, timeout: float, **kwargs) -> str:
+        return self.kv.get(key, timeout, **kwargs)
+
+    def list_dir(self, prefix: str) -> dict:
+        return self.kv.list_dir(prefix)
+
+
+def _parse_fence(raw: Optional[str]) -> Optional[Tuple[int, int]]:
+    """An unparseable fence reads as no fence (fail-open for readers; the
+    advance CAS still serializes on the raw value, so wreckage cannot
+    wedge the namespace)."""
+    if raw is None:
+        return None
+    try:
+        blob = json.loads(raw)
+        return (int(blob["gen"]), int(blob["epoch"]))
+    except (ValueError, KeyError, TypeError):
+        return None
 
 
 def resolve_kv(env_value: str):
-    """The JAX package's KV resolution from the cluster gate's value.
-    Not ported yet."""
-    raise NotImplementedError(f"cluster.kv.resolve_kv() is {_LATER}")
+    """Backend from the gate value: ``1``/``on``/``true`` = the default
+    process group's store (:class:`StoreKV`); any other (non-off) value is
+    a shared directory for :class:`FileKV`.  On/off tokens match
+    case-insensitively (``True``/``ON`` must not silently become a
+    relative FileKV directory literally named ``True``)."""
+    if env_value.strip().lower() in ("1", "on", "true"):
+        return StoreKV.from_initialized()
+    return FileKV(env_value)

@@ -28,9 +28,8 @@ and the mesh observability plane (the JAX package's ``obs/``).
 Off by default and one cached probe when off; enable with
 ``PENCILARRAYS_TPU_OBS`` (``1``: journal under
 ``PENCILARRAYS_TPU_OBS_DIR`` or ``./pa_obs``; any other value is the
-journal directory) or :func:`enable`.  The aggregator's automatic start
-by the cluster coordinator waits for ``cluster/`` (ROADMAP Queue 1 item
-7(d)); a caller starts a :class:`~.aggregate.MeshAggregator` itself.
+journal directory) or :func:`enable`.  With the cluster layer armed too,
+each rank's coordinator starts a :class:`~.aggregate.MeshAggregator`.
 """
 
 from __future__ import annotations

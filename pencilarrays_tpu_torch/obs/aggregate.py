@@ -26,9 +26,8 @@ observable *live*:
   ``clock.sync`` record — the skew correction
   :mod:`~pencilarrays_tpu_torch.obs.timeline` prefers over marker estimation.
 
-In the JAX package the cluster coordinator starts one when both the obs
-and cluster layers are armed; the port's coordinator waits for
-``cluster/`` (ROADMAP Queue 1 item 7(d)), so a caller builds and starts
+The cluster coordinator starts one when both the obs and cluster layers
+are armed, as in the JAX package; a caller may also build and start
 :class:`MeshAggregator` itself.  ``PENCILARRAYS_TPU_OBS_AGG_S`` tunes the
 cadence (seconds, default 10; ``0`` disables).  Everything is best-effort: KV weather
 must never take down the job, and a missing rank's snapshot degrades

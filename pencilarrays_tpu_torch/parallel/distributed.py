@@ -52,8 +52,10 @@ from ..guard.errors import HangTimeoutError
 from ..resilience import faults
 from ..resilience.retry import RetryPolicy
 
-__all__ = ["initialize", "finalize", "RankPool", "spawn", "process_index",
-           "process_count", "is_multiprocess", "sync_global_devices"]
+__all__ = ["initialize", "ensure_initialized", "is_initialized", "finalize",
+           "RankPool", "spawn", "process_index", "process_count",
+           "is_multiprocess", "kv_client", "local_devices",
+           "sync_global_devices"]
 
 # rendezvous failures worth retrying (a peer or the store not up yet, a
 # dropped connection); configuration errors fail on the first attempt
@@ -126,6 +128,76 @@ def _reset_partial_state() -> None:
             dist.destroy_process_group()
         except (RuntimeError, ValueError):
             pass
+
+
+# the launcher's markers of a multi-process job (torchrun and its kin):
+# an argument-less bootstrap joins the job they describe
+_JOB_ENV = ("TORCHELASTIC_RUN_ID", "MASTER_ADDR")
+
+
+def _multiprocess_env() -> bool:
+    """Does the environment describe a multi-process job
+    (``WORLD_SIZE`` above 1 beside a launcher's rendezvous markers)?"""
+    try:
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+    except ValueError:
+        return False
+    return world > 1 and any(k in os.environ for k in _JOB_ENV)
+
+
+def ensure_initialized(backend: Optional[str] = None, *,
+                       init_method: Optional[str] = None,
+                       world_size: Optional[int] = None,
+                       rank: Optional[int] = None, **kw) -> bool:
+    """Idempotent :func:`initialize`: join the job if (and only if) this
+    process is not in a process group yet.  Returns True when it actually
+    initialized.  No-op cases, as the JAX package's: already in a group;
+    an explicitly single-process configuration (``world_size`` <= 1 with
+    no ``init_method``); no arguments at all and no launcher environment
+    (a plain local run).  With a launcher's environment (``WORLD_SIZE``,
+    ``RANK``, ``MASTER_ADDR``) and no arguments it joins through
+    ``env://``."""
+    if is_initialized():
+        return False
+    if init_method is None:
+        if world_size is not None and world_size <= 1:
+            return False
+        if world_size is None and rank is None and not kw:
+            if not _multiprocess_env():
+                return False
+            init_method = "env://"
+            world_size = int(os.environ["WORLD_SIZE"])
+            rank = int(os.environ.get("RANK", "0"))
+    initialize(backend, init_method=init_method,
+               world_size=1 if world_size is None else world_size,
+               rank=0 if rank is None else rank, **kw)
+    return True
+
+
+def is_initialized() -> bool:
+    """Whether this process is in a ``torch.distributed`` default group."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def kv_client():
+    """The default process group's store (the rendezvous every
+    ``torch.distributed`` job runs) — ``None`` before :func:`initialize`.
+    The cluster layer builds its consensus and lease wire on it
+    (``cluster.kv.StoreKV``); reading it never initializes anything."""
+    if not is_initialized():
+        return None
+    try:
+        return dist.distributed_c10d._get_default_store()
+    except Exception:
+        return None
+
+
+def local_devices() -> List[torch.device]:
+    """The devices this process drives: its card (one process per card),
+    or the CPU."""
+    if torch.cuda.is_available():
+        return [torch.device("cuda", torch.cuda.current_device())]
+    return [torch.device("cpu")]
 
 
 def process_index(group=None) -> int:

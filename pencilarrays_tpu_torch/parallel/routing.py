@@ -66,7 +66,7 @@ from .. import guard, obs
 from ..obs.drift import drift_tracker
 from ..resilience import faults
 from . import wire as _wire
-from .arrays import PencilArray, as_torch_dtype
+from .arrays import PencilArray, _inv_axes, as_torch_dtype
 from .pencil import Pencil
 from .transpositions import (
     AbstractTransposeMethod,
@@ -494,8 +494,9 @@ def _run_stages(held: list, route: ReshardRoute, stages: list, nx: int,
     from ..guard import integrity as gi
 
     def step(pin, pout, method, data):
-        if method is None:
-            return _transpose_local(_take(data), pin, pout, nx)
+        if method is None or isinstance(method, _LocalRun):
+            return _local_run(_take(data), pin, pout, method, nx,
+                              extra_dims)
         if grad:
             return _dispatch(_take(data), pin, pout, nx, method)
         return _hop(data, pin, pout, nx, method)
@@ -526,8 +527,7 @@ def _run_stages(held: list, route: ReshardRoute, stages: list, nx: int,
         wired, wire_hops = None, 0
         for k, ((pin, pout, method), last) in enumerate(
                 zip(stages, _last_hops(route, stages))):
-            hop_wire = _method_wire(method) if method is not None else None
-            if hop_wire is not None:
+            for hop_wire in _stage_wires(method):
                 # mixed-wire chains are bound by the coarsest format seen
                 wired = ("bf16" if "bf16" in (wired, hop_wire)
                          else hop_wire)
@@ -541,23 +541,76 @@ def _run_stages(held: list, route: ReshardRoute, stages: list, nx: int,
     return held.pop()
 
 
+class _LocalRun:
+    """A stage of hops that cross no rank: one local permute, then the wire
+    round trip of each wired exchange hop among them, in hop order
+    (``trips``: ``(pin, pout, R, wire)`` per such hop)."""
+
+    __slots__ = ("trips",)
+
+    def __init__(self, trips):
+        self.trips = tuple(trips)
+
+
 def _stages(route: ReshardRoute) -> list:
     """``(pin, pout, method)`` per step :func:`execute_route` runs: each
-    run of unwired hops that cross no rank (a size-1 topology axis, or a
-    memory order alone) becomes one local permute (``method`` None) from
-    its first layout to its last, moving every element once; on such a
-    run every block holds the same logical extents.  Other hops run as
-    planned."""
+    run of hops that cross no rank (a size-1 topology axis, or a memory
+    order alone) becomes one local permute from its first layout to its
+    last, moving every element once (``method`` None, or a
+    :class:`_LocalRun` whose wired hops then round-trip the result through
+    their wires in place: on such a run every block holds the same
+    logical extents, and a wire's windows lie along a logical axis, so
+    the values are the hops' own).  Other hops run as planned."""
     stages = []
     for h in route.hops:
         R = assert_compatible(h.src, h.dest)
-        local = _method_wire(h.method) is None and (
-            R is None or h.src.topology.dims[R] == 1)
-        if local and stages and stages[-1][2] is None:
-            stages[-1] = (stages[-1][0], h.dest, None)
+        local = R is None or h.src.topology.dims[R] == 1
+        if not local:
+            stages.append((h.src, h.dest, h.method))
+            continue
+        wire = _method_wire(h.method)
+        trips = [] if wire is None or R is None else [
+            (h.src, h.dest, R, wire)]
+        prev = stages[-1][2] if stages else False
+        if stages and (prev is None or isinstance(prev, _LocalRun)):
+            trips = list(prev.trips if prev is not None else ()) + trips
+            stages[-1] = (stages[-1][0], h.dest,
+                          _LocalRun(trips) if trips else None)
         else:
-            stages.append((h.src, h.dest, None if local else h.method))
+            stages.append((h.src, h.dest, _LocalRun(trips) if trips
+                           else None))
     return stages
+
+
+def _stage_wires(method) -> list:
+    """The wire of each wired hop a stage runs, in order."""
+    if isinstance(method, _LocalRun):
+        return [w for _, _, _, w in method.trips]
+    wire = _method_wire(method) if method is not None else None
+    return [] if wire is None else [wire]
+
+
+def _local_run(data: torch.Tensor, pin: Pencil, pout: Pencil,
+               run: Optional[_LocalRun], nx: int,
+               extra_dims: tuple) -> torch.Tensor:
+    """One :func:`_stages` local stage: the permute, then each wired hop's
+    round trip in place on the result's logical view (a copy first where
+    the permute handed the input back)."""
+    out = _transpose_local(data, pin, pout, nx)
+    if run is None:
+        return out
+    if out is data:
+        out = data.clone()
+    logical = out.permute(_inv_axes(pout, nx))
+    for hin, hout, R, wire in run.trips:
+        t = None
+        if wire in _wire.FP8_WIRE_DTYPES:
+            shape = tuple(_exchange_operand_extents(hin, hout, R)) + tuple(
+                extra_dims)
+            t = _wire.fp8_tile_axis(shape, hin.decomposition[R],
+                                    hout.decomposition[R])
+        _wire.roundtrip_(logical, wire, t)
+    return out
 
 
 def _last_hops(route: ReshardRoute, stages: list) -> list:

@@ -44,9 +44,14 @@ The payload travels as the wire format's bit pattern (``uint16`` or
 The functions that work on the port's exchange layout take the tile axis
 directly (:func:`pack_axis`, :func:`unpack_axis`): K1 packs the ``P``
 tiles of a hop in the output's memory order, and the windows must hold the
-elements JAX's windows hold, which lie along the same logical axis.  On
-the card this costs several eager passes per pack; a fused K1-and-cast
-pack is queued (ROADMAP Queue 1, item 2).
+elements JAX's windows hold, which lie along the same logical axis.  An
+fp8 pack or unpack walks its operand in slabs of :data:`SLAB_ELEMS`
+elements along an axis other than the tile axis, each slab writing its
+slice of the output, so its temporaries stay within a slab;
+:func:`roundtrip_` applies a wire in place the same way, in slabs of
+:data:`ROUNDTRIP_SLAB_ELEMS`.  On the card
+this costs several eager passes per pack; a fused K1-and-cast pack is
+queued (ROADMAP Queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -67,6 +72,7 @@ __all__ = [
     "unpack",
     "pack_axis",
     "unpack_axis",
+    "roundtrip_",
     "wire_itemsize",
     "wire_bytes",
     "cast_score_bytes",
@@ -344,7 +350,11 @@ def _tile_segments(n_t: int):
 def _reinterpret_last(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``t``'s bytes as ``dtype``, the last axis rescaled by the size
     ratio (little-endian, JAX's ``bitcast_convert_type`` order)."""
-    flat = t.contiguous().reshape(-1).view(dtype)
+    c = t.contiguous()
+    if c.storage_offset() * c.element_size() % \
+            torch.empty((), dtype=dtype).element_size():
+        c = c.clone()       # a slab's view may start mid-word
+    flat = c.reshape(-1).view(dtype)
     return flat.reshape(tuple(t.shape[:-1]) + (-1,))
 
 
@@ -354,14 +364,53 @@ def _split_axis(t: torch.Tensor, axis: int, k: int, L: int) -> torch.Tensor:
     return t.unflatten(axis, (k, L))
 
 
+# the elements of one slab of an fp8 pack or unpack (256 MiB of f32): every
+# temporary of the casts is at most a slab, whatever the operand's size,
+# and a 4 GiB operand takes 16 slabs' launches
+SLAB_ELEMS = 1 << 26
+# the elements of one slab of ``roundtrip_`` (128 MiB of f32): it runs
+# where the result is the only full-size buffer, and a route's model leaves
+# one packed operand (a quarter of it) of room beside it, which a slab's
+# temporaries (about six slabs' worth) must stay within
+ROUNDTRIP_SLAB_ELEMS = 1 << 25
+
+
+def _slab_bounds(shape: Sequence[int], t: int, limit: Optional[int] = None):
+    """``(axis, [(start, length), ...])``: slabs of at most ``limit``
+    (default :data:`SLAB_ELEMS`) elements (one index where a single index
+    holds more) along the largest axis other than ``t`` (ties to the
+    lowest), so that a slab holds whole fp8 windows."""
+    limit = SLAB_ELEMS if limit is None else limit
+    axes = [i for i in range(len(shape)) if i != t]
+    s = max(axes, key=lambda i: (int(shape[i]), -i))
+    n = int(shape[s])
+    per = math.prod(int(d) for d in shape) // max(1, n)
+    step = max(1, limit // max(1, per))
+    return s, [(i, min(step, n - i)) for i in range(0, n, step)]
+
+
 def _fp8_pack_parts(parts: torch.Tensor, wire: str, t: int,
                     ftz: bool) -> torch.Tensor:
-    fmax = _FP8_FMAX[wire]
+    """The fp8 wire bytes of ``parts``, slab by slab (:func:`_slab_bounds`):
+    each slab writes its payload and its scales into its slice of the
+    output, so no temporary exceeds one slab."""
     n_t = parts.shape[t]
     ntiles = -(-n_t // FP8_TILE)
     out_shape = list(parts.shape)
     out_shape[t] = n_t + 4 * ntiles
     out = torch.empty(out_shape, dtype=torch.uint8, device=parts.device)
+    if out.numel() == 0:
+        return out
+    s, bounds = _slab_bounds(parts.shape, t)
+    for i0, n in bounds:
+        _fp8_pack_slab(parts.narrow(s, i0, n), out.narrow(s, i0, n), wire,
+                       t, n_t, ntiles, ftz)
+    return out
+
+
+def _fp8_pack_slab(parts: torch.Tensor, out: torch.Tensor, wire: str,
+                   t: int, n_t: int, ntiles: int, ftz: bool) -> None:
+    fmax = _FP8_FMAX[wire]
     sshape = list(parts.shape)
     sshape[t] = ntiles
     scale = torch.empty(sshape, dtype=torch.float32, device=parts.device)
@@ -397,7 +446,6 @@ def _fp8_pack_parts(parts: torch.Tensor, wire: str, t: int,
             _to_wire(q, wire, nan_neg, ftz))
     out.narrow(t, n_t, 4 * ntiles).copy_(
         _reinterpret_last(scale.movedim(t, -1), torch.uint8).movedim(-1, t))
-    return out
 
 
 def _real_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -407,12 +455,28 @@ def _real_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def _fp8_unpack_parts(y: torch.Tensor, real_dt: torch.dtype, wire: str,
                       t: int, n_t: int, ftz: bool) -> torch.Tensor:
+    """Inverse of :func:`_fp8_pack_parts`, slab by slab into one output
+    buffer: no temporary exceeds one slab."""
+    shape = list(y.shape)
+    shape[t] = n_t
+    out = torch.empty(shape, dtype=real_dt, device=y.device)
+    if out.numel() == 0:
+        return out
+    s, bounds = _slab_bounds(shape, t)
+    for i0, n in bounds:
+        _fp8_unpack_slab(y.narrow(s, i0, n), out.narrow(s, i0, n), wire, t,
+                         n_t, ftz)
+    return out
+
+
+def _fp8_unpack_slab(y: torch.Tensor, out: torch.Tensor, wire: str,
+                     t: int, n_t: int, ftz: bool) -> None:
+    real_dt = out.dtype
     ntiles = -(-n_t // FP8_TILE)
     scale = _reinterpret_last(y.narrow(t, n_t, 4 * ntiles).movedim(t, -1),
                               torch.float32).movedim(-1, t).to(real_dt)
     bits = y.narrow(t, 0, n_t)
     vals = bits.view(_torch_wire(wire)).to(real_dt)
-    out = torch.empty(vals.shape, dtype=real_dt, device=y.device)
     for k0, k, L in _tile_segments(n_t):
         v = _split_axis(vals.narrow(t, k0 * FP8_TILE, k * L), t, k, L)
         r = v * scale.narrow(t, k0, k).unsqueeze(t + 1)
@@ -429,7 +493,6 @@ def _fp8_unpack_parts(y: torch.Tensor, real_dt: torch.dtype, wire: str,
                                          device=v.device))
         _split_axis(out.narrow(t, k0 * FP8_TILE, k * L), t, k, L).copy_(
             _canonical_nan(r, neg))
-    return out
 
 
 def _ftz(x: torch.Tensor, ftz: Optional[bool]) -> bool:
@@ -476,6 +539,35 @@ def unpack_axis(y: torch.Tensor, orig_dtype, wire_dtype,
     if orig.is_complex:
         return torch.view_as_complex(parts.contiguous())
     return parts.to(orig)
+
+
+def roundtrip_(x: torch.Tensor, wire_dtype,
+               tile_axis: Optional[int] = None, *,
+               ftz: Optional[bool] = None) -> torch.Tensor:
+    """``x`` replaced in place by ``unpack_axis(pack_axis(x))``, slab by
+    slab (:data:`ROUNDTRIP_SLAB_ELEMS`), so no temporary exceeds one slab:
+    what a
+    hop's wire does to its operand where the hop crosses no rank.  ``x``
+    may be any view; an fp8 wire needs its tile axis."""
+    wire = canonical_wire_dtype(wire_dtype)
+    fp8 = wire in FP8_WIRE_DTYPES
+    if fp8 and tile_axis is None:
+        raise ValueError(f"wire_dtype={wire!r} needs a tile axis")
+    if x.numel() == 0:
+        return x
+    t = int(tile_axis) if fp8 else -1
+    s, bounds = _slab_bounds(tuple(x.shape), t, ROUNDTRIP_SLAB_ELEMS)
+    for i0, n in bounds:
+        v = x.narrow(s, i0, n)
+        if fp8:
+            back = unpack_axis(pack_axis(v, wire, t, ftz=ftz), v.dtype, wire,
+                               t, v.shape[t], ftz=ftz)
+        else:
+            back = unpack_axis(pack_axis(v, wire, ftz=ftz), v.dtype, wire,
+                               ftz=ftz)
+        v.copy_(back)
+        del back
+    return x
 
 
 def pack(x: torch.Tensor, wire_dtype, *,

@@ -40,12 +40,10 @@ collective protocols, each rank's block checksum is merged by rank 0
 by the same named barriers the drivers use; with observability on, the
 save, commit, GC, verification and restore journal the JAX package's
 ``ckpt.*`` records.  :meth:`CheckpointManager.save_async` runs a save on
-the engine's host pool.  Two pieces wait for layers the port has not
-ported (ROADMAP.md Queue 1, item 7): the mesh-wide election of
-:meth:`CheckpointManager.common_latest_valid` (``cluster/``: without a
-coordinator it is :meth:`~CheckpointManager.latest_valid`), and the
-``corrupt`` mode of the ``ckpt.restore`` fault point (``guard/``); the
-manifest's recovery ``epoch`` is 0 until ``cluster/`` exists.
+the engine's host pool.  :meth:`CheckpointManager.common_latest_valid`
+is the mesh-wide election over the cluster coordinator (without one it is
+:meth:`~CheckpointManager.latest_valid`), and each manifest carries the
+recovery ``epoch`` it was saved in.
 """
 
 from __future__ import annotations
@@ -69,8 +67,6 @@ from .fsutil import atomic_write_text, fsync_dir as _fsync_dir
 from .retry import RetryPolicy, logger
 
 __all__ = ["CheckpointManager", "Checkpoint"]
-
-_LATER = "not ported yet: ROADMAP.md Queue 1, item 7 (control planes)"
 
 MANIFEST_NAME = "MANIFEST.json"
 COMMIT_NAME = "COMMIT"
@@ -288,13 +284,16 @@ class CheckpointManager:
                     for n, blocks in merged.items():
                         entries[n]["blocks"] = sorted(
                             blocks, key=lambda b: tuple(b["start"]))
+                from ..cluster import epoch as _epoch
+
                 manifest = {
                     "format": "pencilarrays-tpu-checkpoint",
                     "version": MANIFEST_VERSION,
                     "step": step,
-                    # the JAX package's recovery-epoch stamp; 0 (never
-                    # recovered) until the cluster layer is ported
-                    "epoch": 0,
+                    # recovery-epoch stamp: lets a post-mortem align this
+                    # checkpoint with the journals and bundles of the
+                    # recovery generation that produced it
+                    "epoch": _epoch.current(),
                     "driver": type(self.driver).__name__,
                     "data_file": self._data_name,
                     "algo": ALGO if self.checksums else None,
@@ -754,16 +753,49 @@ class CheckpointManager:
 
     def common_latest_valid(self, *, coordinator=None) -> Optional[int]:
         """Newest step that is :meth:`latest_valid`-grade on **every**
-        rank — the JAX package's agreed-checkpoint election, which
-        publishes each rank's :meth:`valid_steps` through the cluster
-        layer's coordinator.  Without a coordinator it is
-        :meth:`latest_valid` exactly; the election itself waits for
-        ``cluster/``."""
-        if coordinator is not None:
-            raise NotImplementedError(
-                f"the checkpoint election is {_LATER}; it waits for "
-                f"cluster/")
-        return self.latest_valid()
+        rank of the mesh — the agreed-checkpoint election.
+
+        The divergent-restore hazard this removes: a torn write on one
+        rank silently shifts that rank's ``latest_valid()`` to an older
+        step, and per-rank restores then reload DIFFERENT steps.  Here
+        every rank publishes its full valid-step set over the cluster KV
+        (one allgather round, ``coordinator.agree_steps``), the
+        intersection is computed identically everywhere, and its maximum
+        is the one step the whole mesh restores.  ``None`` when no step
+        is valid on every rank.  The election fully verifies every
+        retained checkpoint on every rank (bounded by ``keep``): one
+        consensus round on a cold recovery path.
+
+        With no coordinator given it asks ``cluster.coordinator()``; with
+        none there (layer off, or a single-process mesh) this is
+        :meth:`latest_valid` exactly."""
+        if coordinator is None:
+            from .. import cluster
+
+            coordinator = cluster.coordinator()
+        if coordinator is None:
+            return self.latest_valid()
+        local = self.valid_steps()
+        common = coordinator.agree_steps("ckpt-valid", local)
+        agreed = max(common) if common else None
+        from .. import obs
+        from ..cluster import epoch as _epoch
+
+        if obs.enabled():
+            obs.record_event(
+                "cluster.verdict", label="ckpt-elect", action="elect",
+                epoch=_epoch.current(), step=agreed,
+                local_steps=local, common_steps=common)
+        if agreed is None:
+            logger.warning(
+                "no checkpoint step is valid on every rank (local valid "
+                "steps here: %s)", local)
+        elif local and agreed != local[-1]:
+            logger.warning(
+                "mesh-agreed checkpoint step %d is older than this "
+                "rank's newest valid step %d (a peer's newer step is "
+                "torn or missing)", agreed, local[-1])
+        return agreed
 
     # -- restore -----------------------------------------------------------
     def restore(self, step: Optional[int] = None,

@@ -732,19 +732,63 @@ def test_delay_for_jitter_bounds():
             assert nominal * 0.75 - 1e-12 <= d <= nominal * 1.25 + 1e-12
 
 
-def test_mesh_ladder_and_elastic_wait_for_the_cluster_layer(monkeypatch):
+def test_mesh_ladder_and_elastic_wait_for_the_cluster_layer(monkeypatch,
+                                                            tmp_path):
+    """The cluster layer is ported: off, or armed on one rank, both ladders
+    degrade to the local one; armed at world 2 the env-built coordinator
+    runs the mesh ladder with a peer over the same FileKV (an agreed
+    retry of the peer's failure, both ranks rerun), and elastic_step with
+    its gate off is that ladder."""
     from pencilarrays_tpu_torch import cluster
+    from pencilarrays_tpu_torch.cluster.consensus import Coordinator
+    from pencilarrays_tpu_torch.cluster.kv import FileKV
 
-    assert cluster.coordinator() is None            # layer off
-    monkeypatch.setenv(cluster.ENV_VAR, "1")
-    assert cluster.coordinator() is None            # one rank
-    monkeypatch.setenv(cluster.WORLD_VAR, "2")
-    with pytest.raises(NotImplementedError, match="7\\(d\\)"):
-        cluster.coordinator()
-    with pytest.raises(NotImplementedError, match="7\\(d\\)"):
-        guard.guarded_step(lambda: 1)
-    with pytest.raises(NotImplementedError, match="7\\(d\\)"):
-        guard.elastic_step(lambda: 1)
+    for var in (cluster.ENV_VAR, cluster.RANK_VAR, cluster.WORLD_VAR):
+        monkeypatch.delenv(var, raising=False)
+    cluster._reset_for_tests()
+    try:
+        assert cluster.coordinator() is None            # layer off
+        kvdir = str(tmp_path / "kv")
+        monkeypatch.setenv(cluster.ENV_VAR, kvdir)
+        assert cluster.coordinator() is None            # one rank
+        assert guard.guarded_step(lambda: 1) == 1
+        assert guard.elastic_step(lambda: 2) == 2
+        monkeypatch.setenv(cluster.RANK_VAR, "0")
+        monkeypatch.setenv(cluster.WORLD_VAR, "2")
+        c0 = cluster.coordinator()
+        assert (c0.rank, c0.world) == (0, 2)
+        assert cluster.coordinator() is c0              # cached
+        c1 = Coordinator(FileKV(kvdir), 1, 2, lease_ttl=15.0,
+                         verdict_timeout=30.0)
+        calls = {0: 0, 1: 0}
+        out = {}
+
+        def peer():
+            def step():
+                calls[1] += 1
+                if calls[1] == 1:
+                    raise IntegrityError("sdc", hop="t", kind="sum")
+                return "peer"
+            out[1] = guard.guarded_step(
+                step, retry=RetryPolicy(max_attempts=2, base_delay=0.01),
+                label="env-mesh", coordinator=c1)
+
+        t = threading.Thread(target=peer)
+        t.start()
+
+        def mine():
+            calls[0] += 1
+            return "env"
+        out[0] = guard.elastic_step(
+            mine, retry=RetryPolicy(max_attempts=2, base_delay=0.01),
+            label="env-mesh")
+        t.join(60)
+        c1.shutdown()
+        assert out == {0: "env", 1: "peer"} and calls == {0: 2, 1: 2}
+        cluster.disable()
+        assert cluster.coordinator() is None            # programmatic off
+    finally:
+        cluster._reset_for_tests()
 
 
 # -- journaling and bundles ---------------------------------------------------------

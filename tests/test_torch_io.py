@@ -22,6 +22,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import pencilarrays_tpu as jpa
 import pencilarrays_tpu.io as jio
@@ -137,14 +138,118 @@ def test_io_threads_env(monkeypatch):
     assert native.default_threads() == 16
 
 
-def test_orbax_is_not_ported():
-    from pencilarrays_tpu_torch.io import OrbaxDriver, OrbaxFile, has_orbax
+def test_orbax_is_not_ported(tmp_path, devices):
+    """The Orbax driver is ported on TensorStore alone: files cross both
+    ways with the JAX package's Orbax driver (f64, f32 with an extra dim,
+    a collection, bfloat16; synchronous and async writes), each read back
+    bit for bit under another decomposition and memory order."""
+    import pencilarrays_tpu_torch as pat
+    from pencilarrays_tpu_torch.io import OrbaxDriver, has_orbax, open_file
 
-    assert has_orbax() is False
-    for cls in (OrbaxDriver, OrbaxFile):
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1, item 6, the Orbax driver"):
-            cls()
+    assert has_orbax() is True
+    if not jio.has_orbax():
+        pytest.skip("the JAX package's Orbax driver needs orbax")
+    data = {n: u for n, u in _dataset_arrays().items() if n != "c"}
+    jpen = _jax_pencil((2, 4), WRITER, devices)
+    jread = _jax_pencil((1, 1), READER, devices)
+    ptopo = pat.Topology((1, 1), device="cpu")
+
+    def ppen(spec):
+        decomp, perm = spec
+        return pat.Pencil(ptopo, SHAPE, decomp,
+                          permutation=pat.Permutation(*perm))
+
+    def parr(pen, u):
+        if isinstance(u, tuple):
+            return tuple(parr(pen, c) for c in u)
+        t = torch.from_numpy(np.ascontiguousarray(u).view(np.uint16)).view(
+            torch.bfloat16) if u.dtype.name == "bfloat16" else u
+        return pat.PencilArray.from_global(pen, t)
+
+    def pget(x):
+        g = pat.gather(x)
+        if x.dtype == torch.bfloat16 and g.dtype != np.uint16:
+            # the gathered values (exact in bf16) as bf16 bit patterns
+            g = torch.from_numpy(np.ascontiguousarray(g)).to(
+                torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+        return g
+
+    def jarr(pen, u):
+        if isinstance(u, tuple):
+            return tuple(jarr(pen, c) for c in u)
+        return jpa.PencilArray.from_global(pen, u)
+
+    for async_write in (False, True):
+        # the JAX package writes, the port reads
+        jdir = str(tmp_path / f"jax{int(async_write)}")
+        with jio.open_file(jio.OrbaxDriver(async_write=async_write), jdir,
+                           write=True, create=True) as f:
+            for n, u in data.items():
+                f.write(n, jarr(jpen, u))
+        with open_file(OrbaxDriver(), jdir, read=True) as f:
+            assert f.datasets() == sorted(data)
+            for n, u in data.items():
+                got = f.read(n, ppen(READER))
+                for g, want in zip(got if isinstance(got, tuple) else (got,),
+                                   u if isinstance(u, tuple) else (u,)):
+                    _same(pget(g), want)
+        # the port writes, the JAX package reads (and its sidecars match)
+        pdir = str(tmp_path / f"port{int(async_write)}")
+        with open_file(OrbaxDriver(async_write=async_write), pdir,
+                       write=True, create=True) as f:
+            for n, u in data.items():
+                f.write(n, parr(ppen(WRITER), u))
+        with jio.open_file(jio.OrbaxDriver(), pdir, read=True) as f:
+            for n, u in data.items():
+                got = f.read(n, jread)
+                for g, want in zip(got if isinstance(got, tuple) else (got,),
+                                   u if isinstance(u, tuple) else (u,)):
+                    _same(np.asarray(jpa.gather(g)), want)
+        for n in data:
+            with open(os.path.join(pdir, n + ".meta.json")) as f:
+                pm = json.load(f)
+            with open(os.path.join(jdir, n + ".meta.json")) as f:
+                jm = json.load(f)
+            assert set(pm) == set(jm) and pm["dtype"] == jm["dtype"]
+            assert pm["dims_logical"] == jm["dims_logical"]
+            assert {k: v for k, v in pm["metadata"].items()
+                    if k != "process_dims"} == \
+                {k: v for k, v in jm["metadata"].items()
+                 if k != "process_dims"}
+
+
+def test_orbax_checkpoints_cross_with_checksums_off(tmp_path, devices):
+    """The Orbax half of the JAX package's
+    ``test_checksums_off_validates_chunks_and_orbax_layouts``, both ways:
+    an Orbax-driver checkpoint with structural verification saved by one
+    package verifies and restores in the other."""
+    import pencilarrays_tpu_torch as pat
+    from pencilarrays_tpu_torch.io import OrbaxDriver
+    from pencilarrays_tpu_torch.resilience import CheckpointManager
+
+    if not jio.has_orbax():
+        pytest.skip("the JAX package's Orbax driver needs orbax")
+    u = np.random.default_rng(21).standard_normal(SHAPE)
+    jpen = _jax_pencil((2, 4), WRITER, devices)
+    ptopo = pat.Topology((1, 1), device="cpu")
+    ppen = pat.Pencil(ptopo, SHAPE, READER[0],
+                      permutation=pat.Permutation(*READER[1]))
+    JaxManager(str(tmp_path / "jax"), driver=jio.OrbaxDriver(),
+               checksums=False).save(0, {"u": jpa.PencilArray.from_global(
+                   jpen, u)})
+    mgr = CheckpointManager(str(tmp_path / "jax"), driver=OrbaxDriver(),
+                            checksums=False)
+    assert mgr.latest_valid() == 0
+    _same(pat.gather(mgr.restore().read("u", ppen)), u)
+    with pytest.raises(ValueError, match="checksums"):
+        CheckpointManager(str(tmp_path / "x"), driver=OrbaxDriver())
+    CheckpointManager(str(tmp_path / "port"), driver=OrbaxDriver(),
+                      checksums=False).save(
+        0, {"u": pat.PencilArray.from_global(ppen, u)})
+    jm = JaxManager(str(tmp_path / "port"), driver=jio.OrbaxDriver(),
+                    checksums=False)
+    assert jm.latest_valid() == 0
+    _same(np.asarray(jpa.gather(jm.restore().read("u", jpen))), u)
 
 
 # -- files cross between the packages -------------------------------------

@@ -249,10 +249,48 @@ def test_initialize_runtime_error_classification(monkeypatch, message,
 
 
 def test_election_waits_for_the_cluster_layer(tmp_path):
-    mgr = CheckpointManager(str(tmp_path))
-    assert mgr.common_latest_valid() is None
-    with pytest.raises(NotImplementedError, match="cluster/"):
-        mgr.common_latest_valid(coordinator=object())
+    """The election is ported: without a coordinator it is latest_valid();
+    two ranks (a thread each over one FileKV) agree on the newest step
+    valid on both, though rank 0's newest step is torn."""
+    import threading
+
+    from pencilarrays_tpu_torch.cluster.consensus import Coordinator
+    from pencilarrays_tpu_torch.cluster.kv import FileKV
+
+    assert CheckpointManager(str(tmp_path / "none")).common_latest_valid() \
+        is None
+    topo = pat.Topology((1, 1), device="cpu")
+    pen = pat.Pencil(topo, (6, 5, 4), (1, 2))
+    u = pat.PencilArray.from_global(
+        pen, np.random.default_rng(2).standard_normal((6, 5, 4)))
+    mgrs = [CheckpointManager(str(tmp_path / f"ck{r}"), keep=4)
+            for r in range(2)]
+    for m in mgrs:
+        m.save(1, {"u": u})
+        m.save(2, {"u": u})
+    with open(str(tmp_path / "ck0" / "step-00000002" / "data.bin"),
+              "r+b") as f:
+        f.seek(16)
+        b = f.read(1)
+        f.seek(16)
+        f.write(bytes([b[0] ^ 0xFF]))
+    assert [m.latest_valid() for m in mgrs] == [1, 2]
+    kv = FileKV(str(tmp_path / "kv"))
+    coords = [Coordinator(kv, r, 2, lease_ttl=10.0, verdict_timeout=30.0)
+              for r in range(2)]
+    got = {}
+
+    def elect(r):
+        got[r] = mgrs[r].common_latest_valid(coordinator=coords[r])
+
+    threads = [threading.Thread(target=elect, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    for c in coords:
+        c.shutdown()
+    assert got == {0: 1, 1: 1}
 
 
 def test_process_queries_without_a_group(monkeypatch):

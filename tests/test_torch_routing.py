@@ -422,3 +422,50 @@ def test_reshard_errors_match_jax(devices, pool):
     assert got[0]["error"][0] == "HbmBoundError"
     assert got[1]["error"][0] == "ValueError" and "Gspmd" in got[1][
         "error"][1]
+
+
+@pytest.mark.parametrize("guarded", [False, True], ids=["plain", "guarded"])
+@pytest.mark.parametrize("wire", ["bf16", "f16", "fp8_e4m3", "fp8_e5m2"])
+def test_wired_route_across_no_rank_keeps_each_hops_bits(wire, guarded,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """A route whose wired hops cross no rank runs as one K1 permute and
+    each hop's wire round trip in place (slab by slab, within the route's
+    modeled peak): the bits of running its hops one by one, the input
+    untouched, with the guard's probes too."""
+    from pencilarrays_tpu_torch import guard
+    from pencilarrays_tpu_torch.parallel import wire as pwire
+
+    monkeypatch.setattr(pwire, "SLAB_ELEMS", 64)
+    monkeypatch.setattr(pwire, "ROUNDTRIP_SLAB_ELEMS", 96)
+    if guarded:
+        guard.enable(str(tmp_path / "bundles"))
+    try:
+        topo = pat.Topology.unconnected((1, 1), "cpu")
+        for dtype, shape, extra in ((torch.float32, (24, 20, 300), ()),
+                                    (torch.complex64, (8, 10, 260), (3,))):
+            px = pat.Pencil(topo, shape, (1, 2),
+                            permutation=pat.Permutation(1, 2, 0))
+            pd = pat.Pencil(topo, shape, (2, 0),
+                            permutation=pat.Permutation(2, 0, 1))
+            g = torch.Generator().manual_seed(5)
+            data = torch.randn(px.padded_size_local(pat.MemoryOrder) + extra,
+                               generator=g, dtype=dtype)
+            if not guarded:      # the guard's content sums reject NaN
+                data.view(-1)[:5] = float("nan")
+            keep = data.clone()
+            x = pat.PencilArray(px, data, extra)
+            m = pat.AllToAll(wire_dtype=wire)
+            route = prouting.plan_reshard_route(px, pd, extra, dtype,
+                                                method=m)
+            assert [type(st[2]).__name__ for st in
+                    prouting._stages(route)] == ["_LocalRun"]
+            got = pat.reshard(x, pd, method=m)
+            v = x
+            for h in route.hops:
+                v = pat.transpose(v, h.dest, method=h.method)
+            assert torch.equal(got.data.view(torch.uint8),
+                               v.data.view(torch.uint8))
+            assert torch.equal(data.view(torch.uint8), keep.view(torch.uint8))
+    finally:
+        guard.disable()

@@ -110,6 +110,36 @@ def test_pack_bit_identical_to_jax(wire, dtype):
             pwire.pack(t.transpose(0, 1), wire, axes=axes).numpy(), want)
 
 
+@pytest.mark.parametrize("dtype", PAYLOADS,
+                         ids=[np.dtype(d).name for d in PAYLOADS])
+@pytest.mark.parametrize("wire", [w for w in WIRES if w.startswith("fp8")])
+def test_fp8_slabs_keep_jax_bytes(wire, dtype, monkeypatch):
+    """An fp8 pack and unpack walked in slabs of a few elements (each
+    slab writing its slice of the output) give JAX's bytes and values,
+    and ``roundtrip_`` on a strided view is ``unpack(pack(x))`` in
+    place."""
+    monkeypatch.setattr(pwire, "SLAB_ELEMS", 37)
+    monkeypatch.setattr(pwire, "ROUNDTRIP_SLAB_ELEMS", 53)
+    rng = np.random.default_rng([7, WIRES.index(wire), PAYLOADS.index(dtype)])
+    for shape, axes in GEOMETRIES:
+        if len(shape) < 3:
+            continue
+        x = _edge_array(shape, dtype, rng)
+        want = np.asarray(jax.jit(lambda v: jwire.pack(v, wire, axes=axes))(
+            jnp.asarray(x)))
+        got = pwire.pack(torch.from_numpy(x), wire, axes=axes).numpy()
+        np.testing.assert_array_equal(got, want)
+        back = pwire.unpack(torch.from_numpy(want.copy()),
+                            torch.from_numpy(x).dtype, wire, axes=axes,
+                            orig_shape=shape)
+        t = pwire.fp8_tile_axis(shape, *axes)
+        y = torch.from_numpy(np.ascontiguousarray(np.swapaxes(x, 0, 1)))
+        pwire.roundtrip_(y.transpose(0, 1), wire, t)
+        np.testing.assert_array_equal(
+            y.transpose(0, 1).contiguous().numpy().view(np.uint8),
+            back.numpy().view(np.uint8))
+
+
 # the edge values with no subnormal in the scale arithmetic (1e-300 is
 # not one: alone in a ragged window its f32 scale underflows; and no f64
 # value past f32's range, whose infinite window scale makes x86's negative

@@ -1297,6 +1297,35 @@ def _case_h5_collection(topo, flat, tmp):
     assert not isinstance(one, tuple)
 
 
+def _case_orbax(topo, flat, tmp):
+    """The Orbax driver on several ranks: an f64 field, an f32 field with
+    an extra dim and a collection written from one pencil (gathered to the
+    topology's rank 0), read back on every rank under another
+    decomposition and memory order, bit for bit, synchronous and async."""
+    from pencilarrays_tpu_torch.io import OrbaxDriver
+
+    u = _io_data(IO_SHAPE, seed=31)
+    v = _io_data(IO_SHAPE, (2,), seed=32, dtype="float32")
+    w = (_io_data(IO_SHAPE, seed=33), _io_data(IO_SHAPE, seed=34))
+    _, x = _io_array(topo, IO_WRITER, u)
+    _, y = _io_array(topo, IO_WRITER, v)
+    comps = tuple(_io_array(topo, IO_WRITER, c)[1] for c in w)
+    reader = _sub_pencil(topo, IO_SHAPE, *IO_READER)
+    for async_write in (False, True):
+        path = f"{tmp}/orbax{int(async_write)}"
+        with _io_open(path, topo, OrbaxDriver(async_write=async_write),
+                      write=True, create=True) as f:
+            f.write("u", x)
+            f.write("v", y)
+            f.write("w", comps)
+        with _io_open(path, topo, OrbaxDriver(), read=True) as f:
+            assert f.datasets() == ["u", "v", "w"]
+            _check_gathered(f.read("u", reader), u)
+            _check_gathered(f.read("v", reader), v)
+            for got, want in zip(f.read("w", reader), w):
+                _check_gathered(got, want)
+
+
 _IO_CASES = {
     "roundtrip": _case_roundtrip,
     "layout": _case_layout,
@@ -1319,6 +1348,7 @@ _IO_CASES = {
     "h5_chunked": _case_h5_chunked,
     "h5_bf16": _case_h5_bf16,
     "h5_collection": _case_h5_collection,
+    "orbax": _case_orbax,
 }
 
 
@@ -1709,7 +1739,7 @@ def _ck_bad_configs(topo, flat, tmp):
     from pencilarrays_tpu_torch.resilience import CheckpointNotFoundError
 
     _, x = _io_array(topo, IO_WRITER, _io_data(IO_SHAPE))
-    with pytest.raises(NotImplementedError, match="Orbax driver"):
+    with pytest.raises(ValueError, match="checksums"):
         _mgr(topo, tmp, driver=OrbaxDriver())
     mgr = _mgr(topo, tmp)
     with pytest.raises(ValueError, match="chunks"):
@@ -2247,3 +2277,33 @@ def drift_case(dims, shape, jdir):
               if e.get("proc") == torch.distributed.get_rank()]
     return _rank0(dict(after_hop=after_hop, measured=measured,
                        after_measure=after_measure, events=events))
+
+
+def store_kv_case(ns):
+    """The cluster layer's wire on the pool's default store: every rank
+    resolves ``PENCILARRAYS_TPU_CLUSTER=1`` to a ``StoreKV`` over it and
+    the ranks agree one verdict in namespace ``ns`` (rank 3 failing)."""
+    from pencilarrays_tpu_torch.cluster.consensus import Coordinator
+    from pencilarrays_tpu_torch.cluster.kv import StoreKV, resolve_kv
+
+    from pencilarrays_tpu_torch.cluster import epoch
+
+    dist = torch.distributed
+    kv = resolve_kv("1")
+    assert isinstance(kv, StoreKV)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    c = Coordinator(kv, rank, world, lease_ttl=30.0, verdict_timeout=60.0,
+                    namespace=ns)
+    try:
+        status = {"status": "integrity" if rank == 3 else "ok",
+                  "can_retry": True, "can_restore": False,
+                  "error": "sdc" if rank == 3 else None}
+        v = c.agree("store", status)
+        steps = c.agree_steps("ck", [1, 2, rank + 3])
+    finally:
+        c.shutdown()
+        # the agreed retry advanced this pool process's recovery epoch,
+        # which later cases' checkpoint manifests would carry
+        epoch._reset_for_tests()
+    return {"action": v["action"], "ranks": v["ranks"], "round": v["round"],
+            "steps": steps}
