@@ -153,8 +153,36 @@ standard output too.  Phases, each printed on its own lines:
    elect and restore step 1), ``elastic`` against ``elastic_ref`` (rank 1
    killed mid-step 3, the survivor reforms to world 1, rebuilds its
    registered plan, restores step 2 and ends with the uninterrupted run's
-   digest; its reformation timings); then the same at world 4 and 256^3
-   (world 4 -> 3); prints ``[cluster]`` lines;
+   digest; its reformation timings, and a ``PlanService`` riding the
+   drill: two host requests queued before the kill drain after the
+   reformation, ``SERVE_RESUMED=2``), ``storm`` (each rank's service sheds
+   4 sheddable reshards typed at submit, rank 1 is killed inside the
+   storm batch, the survivor reforms and serves its 4 protected reshards
+   bit-identical), ``scale`` at 256^3 (idle scale-down by
+   ``announce_leave``, the leaver rejoins pre-warmed, admitted by the
+   scale-up); then ``elastic`` at world 4 and 256^3 (world 4 -> 3); each
+   rank reports the K1 classes it launched, timed in phase 2 under the
+   path ``cluster``; prints ``[cluster]`` lines;
+5g. (run right after 5f) the plan service (``serve/``) at BASELINE config
+   3, the 512^3 r2c f32 PencilFFT, on a (1, 1) topology: tenants ``a`` (8
+   host forwards), ``b`` (8 host backwards), ``c`` (8 device forwards),
+   ``d`` (4 reshards of 512^3 f32 between two pencils), submitted tenant
+   by tenant, coalesced (``max_batch=8``) and serialized
+   (``max_batch=1``), each after a warm-up pass that captures every batch
+   size: requests/s, dispatches per key (coalesced: 2, 1, 1), per-tenant
+   p50/p99, each batch's host pack, host-to-device, stack and split
+   seconds, K1 launches by instance, the peak above the idle service,
+   every graph variant's pool bytes; every result owns its storage, one
+   sample's size, and equals its sequential call (reshards bit for bit,
+   FFTs within ``PSVC_FFT_TOL`` of max|u_hat|: cuFFT's batched plan rounds
+   apart); the drills: ``hop.exchange:corrupt`` with the guard armed
+   fails exactly ``d``'s tickets typed while ``a``'s and ``c``'s batch
+   completes, an overload sheds the sheddable tier typed at submit while
+   the protected one completes under its deadline, bf16 and fp8 rungs
+   serve reshards within their envelopes, the journal lints clean and
+   ``python -m pencilarrays_tpu_torch.obs request`` reconstructs a
+   coalesced request; K1's split and stack timed against their bound;
+   prints ``[plan_service]`` lines;
 6. kernels K2–K4 (``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
    ``flash_bwd_tf32.cu``) against their plain versions on the card: three
    forward modes, full and partials backward, causal and not, ragged
@@ -187,8 +215,9 @@ standard output too.  Phases, each printed on its own lines:
     four cycles, the six wired cycles, the reshard runs, the fused hop, the DCT plan, the spectral operators,
     the ManyPencilArray cycle, phase 5c's writes and reads, ``io``,
     phase 5d's ``engine_ns`` and ``compiled_plan``, phase 5e's
-    ``guard_cycle``, ``guard_ns``, ``guard_drills`` and ``obs_rest``, and
-    phase 5f's rank processes, ``cluster``) and their sum, by
+    ``guard_cycle``, ``guard_ns``, ``guard_drills`` and ``obs_rest``,
+    phase 5f's rank processes, ``cluster``, and phase 5g's wrapper
+    launches, ``plan_service``) and their sum, by
     instance, its error against the plain version and its times (K1's per
     class in ``timings``);
 11. the last line, ``{"ok": true, "device": {...}}``.
@@ -2757,13 +2786,25 @@ def engine_async_calls_check(torch, pat, model, k1, engine, analysis, acc):
     return dict(bit_identical=ok, certificate=cert)
 
 
+def graph_pool_bytes(torch, handle) -> int:
+    """Bytes of the device segments in the CUDA graph memory pool
+    ``handle`` (None: 0), as the caching allocator's snapshot lists
+    them."""
+    if handle is None:
+        return 0
+    return sum(s["total_size"] for s in torch.cuda.memory._snapshot()[
+        "segments"] if tuple(s.get("segment_pool_id") or ()) == tuple(handle))
+
+
 def compiled_plan_check(torch, pat, model, k1, acc, calls=20):
     """Phase 5d (c): ``compile()`` of the NS plan (batch 3) as one CUDA
     graph per direction: forward and backward bit-identical to the eager
     chain; every call one replay and no K1 launch through the wrapper (no
     eager chain ran); the graph's pool bytes and the K1 launches captured
     in it; median ms over ``calls`` calls of eager against compiled, and
-    the input copy, the replay and the output copy timed apart."""
+    the input copy, the replay and the output copy timed apart.  The
+    pool's bytes after each direction's capture are read here, from the
+    allocator's snapshot: both directions share the plan's one pool."""
     from pencilarrays_tpu_torch.models import taylor_green
 
     plan = model.plan
@@ -2773,11 +2814,15 @@ def compiled_plan_check(torch, pat, model, k1, acc, calls=20):
         raise AssertionError("[compiled] compile() is not cached, or not a "
                              "CUDA graph on the card")
     f = _io_counted(torch, k1, acc, lambda: c.forward(u))[0]
+    pool_fwd = graph_pool_bytes(torch, c.pool_handle)
     b = _io_counted(torch, k1, acc, lambda: c.backward(f))[0]
+    pool_both = graph_pool_bytes(torch, c.pool_handle)
     ef, eb = plan.forward(u), plan.backward(f)
     ok = dict(forward=same_bits(torch, f.data, ef.data),
               backward=same_bits(torch, b.data, eb.data))
     info = {d: c.graph_info(d) for d in ("forward", "backward")}
+    info["forward"]["pool_total_bytes"] = pool_fwd
+    info["backward"]["pool_total_bytes"] = pool_both
     if not all(ok.values()):
         raise AssertionError(f"[compiled] differs from the eager chain: {ok}")
 
@@ -3678,8 +3723,13 @@ def _cluster_run(root, d, world, phase, n, kill=None, timeout=420,
     return outs
 
 
+def _tuples(x):
+    return tuple(_tuples(i) for i in x) if isinstance(x, list) else x
+
+
 def _cluster_k1(outs, acc):
-    """Add the K1 launches each rank reported (``K1=<n> {...}``)."""
+    """Add the K1 launches each rank reported (``K1=<n> {...}``) and the
+    classes it launched (``K1_CLASSES=[[class, count], ...]``)."""
     for out in outs:
         m = re.search(r"^K1=(\d+) (\{.*\})$", out, re.M)
         if m:
@@ -3687,6 +3737,11 @@ def _cluster_k1(outs, acc):
             for inst, c in json.loads(m.group(2)).items():
                 acc["launches_by_instance"][inst] = \
                     acc["launches_by_instance"].get(inst, 0) + c
+        m = re.search(r"^K1_CLASSES=(\[.*\])$", out, re.M)
+        if m:
+            for cls, c in json.loads(m.group(1)):
+                cls = _tuples(cls)
+                acc["recorded"][cls] = acc["recorded"].get(cls, 0) + c
 
 
 def _cluster_elastic(root, d, world, n, acc, device):
@@ -3712,6 +3767,10 @@ def _cluster_elastic(root, d, world, n, acc, device):
     _cluster_k1(outs, acc)
     reports = []
     for r, out in enumerate(outs[:-1]):
+        if "SERVE_RESUMED=2" not in out:
+            raise AssertionError(f"[cluster] elastic rank {r}: the served "
+                                 f"plan's requests did not drain after the "
+                                 f"reformation\n{out[-2000:]}")
         m = re.search(r"FINAL=([0-9a-f]{64})", out)
         if not m or m.group(1) not in finals:
             raise AssertionError(f"[cluster] elastic rank {r}: digest "
@@ -3733,6 +3792,51 @@ def _cluster_elastic(root, d, world, n, acc, device):
     return r
 
 
+def _cluster_storm(root, d, n, acc, device):
+    """``storm`` at world 2 and n^3: 4 sheddable reshards shed typed, rank
+    1 killed inside the storm batch, the survivor's serve dispatch reforms
+    and drains its 4 protected tickets bit-identical to ``reshard``."""
+    sd = os.path.join(d, "storm")
+    os.makedirs(sd)
+    t0 = time.perf_counter()
+    outs = _cluster_run(root, sd, 2, "storm", n, kill=1, device=device)
+    _cluster_k1(outs, acc)
+    if "STORM_SHED=4" not in outs[0]:
+        raise AssertionError(f"[cluster] storm: {outs[0][-2000:]}")
+    rep = json.loads(re.search(r"^STORM_OK=(\{.*\})$", outs[0],
+                               re.M).group(1))
+    rep["seconds"] = time.perf_counter() - t0
+    shutil.rmtree(sd, ignore_errors=True)
+    log(f"[cluster] storm world 2 -> 1 at {n}^3: 4 sheddable reshards shed "
+        f"at submit, rank 1 killed in the storm batch, 4 protected served "
+        f"bit-identical after the reformation; " + json.dumps(rep))
+    return rep
+
+
+def _cluster_scale(root, d, n, acc, device):
+    """``scale`` at world 2 and n^3: idle scale-down by ``announce_leave``,
+    the leaver rejoins pre-warmed, admitted by the scale-up."""
+    sd = os.path.join(d, "scale")
+    os.makedirs(sd)
+    t0 = time.perf_counter()
+    outs = _cluster_run(root, sd, 2, "scale", n, device=device)
+    _cluster_k1(outs, acc)
+    up = re.search(r"SCALE_UP gen=(\d+) detail=(\S+)", outs[0])
+    joined = re.search(r"SCALE_JOINED gen=(\d+) rank=(\d+) warm_s=([0-9.]+)",
+                       outs[1])
+    if "SCALE_DOWN world=1" not in outs[0] or not up or not joined:
+        raise AssertionError(f"[cluster] scale: {outs[0][-1500:]}\n---\n"
+                             f"{outs[1][-1500:]}")
+    rep = dict(up_gen=int(up.group(1)), detail=up.group(2),
+               joined_rank=int(joined.group(2)),
+               warm_s=float(joined.group(3)),
+               seconds=time.perf_counter() - t0)
+    shutil.rmtree(sd, ignore_errors=True)
+    log(f"[cluster] scale at {n}^3: world 2 -> 1 (idle, announce_leave) -> "
+        f"2 (pre-warmed joiner admitted by the scale-up); " + json.dumps(rep))
+    return rep
+
+
 def phase_cluster(torch, k1, n=512, n4=256, device="cuda"):
     """Phase 5f: the cluster layer on the card, as the JAX package's
     ``cluster_worker.py`` drills (module docstring).  The rank processes
@@ -3752,7 +3856,7 @@ def phase_cluster(torch, k1, n=512, n4=256, device="cuda"):
     d = os.path.join(root, CLUSTER_DIR)
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
-    acc = {"launches": 0, "launches_by_instance": {}}
+    acc = {"launches": 0, "launches_by_instance": {}, "recorded": {}}
     res = {}
     try:
         # sdc: agreed retry, then the agreed restore of step 1
@@ -3808,9 +3912,12 @@ def phase_cluster(torch, k1, n=512, n4=256, device="cuda"):
             + json.dumps(res["restore"]))
         shutil.rmtree(sd, ignore_errors=True)
         res["elastic"] = _cluster_elastic(root, d, 2, n, acc, device)
+        res["storm"] = _cluster_storm(root, d, n, acc, device)
+        res["scale"] = _cluster_scale(root, d, n4, acc, device)
         res["elastic4"] = _cluster_elastic(root, d, 4, n4, acc, device)
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    res["recorded"] = acc.pop("recorded")
     res["paths"] = {"cluster": acc}
     res["seconds"] = time.perf_counter() - t0
     log(f"[cluster] phase 5f took {res['seconds']:.1f} s; K1 launches in the "
@@ -3818,6 +3925,487 @@ def phase_cluster(torch, k1, n=512, n4=256, device="cuda"):
     if acc["launches"] <= 0:
         raise AssertionError("the cluster path launched K1 no time")
     return res
+
+
+PSVC_DIR = "chip_smoke_serve"
+# A served result is held to the sequential call's bits, or within this
+# share of max|ref|: on the card cuFFT's batched plan (the B = 8 batch,
+# the batch dim outermost) rounds apart from its single-sample plan, by
+# 2.1e-7 of max|u_hat| on an H100 (ROADMAP Queue 3).  Reshards, and
+# the split and stack copies, are held to the bits: they move data.
+PSVC_FFT_TOL = 1e-6
+
+
+def _psvc_same(torch, got, ref, what, diffs, fft=True):
+    """A served result against its sequential call: the bits, or for an
+    FFT within ``PSVC_FFT_TOL`` of max|ref|; every difference is kept in
+    ``diffs``."""
+    if same_bits(torch, got, ref):
+        return
+    err = max_abs_err(torch, got, ref) / max(
+        float(ref.abs().max()), 1e-30)
+    diffs.append({"what": what, "rel_err": err})
+    if not fft or not err <= PSVC_FFT_TOL:
+        raise AssertionError(f"[plan_service] {what}: not the sequential "
+                             f"call's bits (max|diff| / max|ref| {err:.3e})")
+
+
+def _psvc_owned(got, shape):
+    """A result owns its storage and is one sample's size."""
+    t = got.data
+    if tuple(t.shape) != tuple(shape) or not t.is_contiguous() or \
+            t.untyped_storage().nbytes() != t.numel() * t.element_size():
+        raise AssertionError(f"[plan_service] a result of shape "
+                             f"{tuple(t.shape)} holds "
+                             f"{t.untyped_storage().nbytes()} bytes of "
+                             f"storage (one sample: {t.numel() * t.element_size()})")
+
+
+def _psvc_traffic(np, pat, plan, pin, n_fft, n_resh, seed):
+    """The four tenants' payloads from one numpy seed: ``a`` host
+    physical fields, ``b`` host spectra, ``c`` the same kind of fields on
+    the card, ``d`` fields on the card to reshard."""
+    rng = np.random.default_rng(seed)
+
+    def real():
+        return rng.random(plan.shape_physical, dtype=np.float32) - 0.5
+
+    def spec():
+        x = np.empty(plan.shape_spectral, np.complex64)
+        rng.random(out=x.view(np.float32), dtype=np.float32)
+        return x
+
+    a = [real() for _ in range(n_fft)]
+    b = [spec() for _ in range(n_fft)]
+    c = [pat.PencilArray.from_global(plan.input_pencil, real())
+         for _ in range(n_fft)]
+    d = [pat.PencilArray.from_global(pin, real()) for _ in range(n_resh)]
+    return a, b, c, d
+
+
+def _psvc_submit(svc, plan, traffic, pout, tenants="abcd"):
+    """Tenant by tenant, in that order: ``a`` host forwards, ``b`` host
+    backwards, ``c`` device forwards, ``d`` reshards."""
+    a, b, c, d = traffic
+    tickets = {}
+    for t in tenants:
+        if t == "a":
+            tickets[t] = [svc.submit("a", u, plan=plan) for u in a]
+        elif t == "b":
+            tickets[t] = [svc.submit("b", u, plan=plan,
+                                     direction="backward") for u in b]
+        elif t == "c":
+            tickets[t] = [svc.submit("c", u, plan=plan) for u in c]
+        else:
+            tickets[t] = [svc.submit_reshard("d", u, pout) for u in d]
+    return tickets
+
+
+def _psvc_check(torch, pat, plan, traffic, tickets, pout, diffs, label):
+    """Every served result against its sequential call (``plan.compile()``
+    at B = 1 for the FFTs, ``reshard`` for ``d``), owning its storage."""
+    a, b, c, d = traffic
+    cp = plan.compile(())
+    refs = {"a": lambda i: cp.forward(pat.PencilArray.from_global(
+                plan.input_pencil, a[i])),
+            "b": lambda i: cp.backward(pat.PencilArray.from_global(
+                plan.output_pencil, b[i])),
+            "c": lambda i: cp.forward(c[i]),
+            "d": lambda i: pat.reshard(d[i], pout)}
+    for t, ts in tickets.items():
+        for i, tk in enumerate(ts):
+            got = tk.result(600)
+            ref = refs[t](i)
+            _psvc_owned(got, ref.data.shape)
+            _psvc_same(torch, got.data, ref.data, f"{label} {t}[{i}]", diffs,
+                       fft=t != "d")
+            del got, ref
+
+
+def _psvc_arm(torch, pat, k1, plan, traffic, pout, max_batch, diffs):
+    """One arm: a warm-up pass (every batch size the traffic forms,
+    captured), then the timed pass with K1 counted from 0 and the peak
+    above the idle service, and the card after ``close()``; its metrics
+    and recorded K1 classes."""
+    from pencilarrays_tpu_torch.serve import PlanService
+
+    plan.release_compiled()     # the previous arm's references' graphs
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    svc = PlanService(max_batch=max_batch, max_wait_s=60.0)
+    # the warm-up forms the timed pass's batch sizes from device
+    # payloads (zeros), so it captures every graph without the host work
+    a, b, c, d = traffic
+    zf = [plan.allocate_input() for _ in range(min(max_batch, len(a)))]
+    zb = [plan.allocate_output() for _ in range(min(max_batch, len(b)))]
+    warm = _psvc_submit(svc, plan, ([], [], zf, d[:max_batch]), pout,
+                        tenants="cd")
+    warm["b"] = [svc.submit("b", u, plan=plan, direction="backward")
+                 for u in zb]
+    svc.drain()
+    for ts in warm.values():
+        for tk in ts:
+            tk.result(600)
+    del warm, zf, zb, ts, tk
+    torch.cuda.synchronize()
+    n_warm = len(svc.batch_timings())
+    idle = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_k1(k1)
+    k1.recorded = {}
+    t0 = time.perf_counter()
+    tickets = _psvc_submit(svc, plan, traffic, pout)
+    svc.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"launches": k1.launches,
+                "launches_by_instance": dict(k1.launches_by_instance)}
+    recorded, k1.recorded = k1.recorded, None
+    peak = torch.cuda.max_memory_allocated() - idle
+    batches = svc.batch_timings()[n_warm:]
+    nreq = sum(len(v) for v in tickets.values())
+    per_key = {}
+    for bt in batches:
+        per_key[bt["key"]] = per_key.get(bt["key"], 0) + 1
+    lat = {}
+    for t, ts in tickets.items():
+        ms = sorted((tk.t_done - tk.t_submit) * 1e3 for tk in ts)
+        lat[t] = {"p50_ms": ms[len(ms) // 2],
+                  "p99_ms": ms[min(len(ms) - 1,
+                                   math.ceil(0.99 * len(ms)) - 1)]}
+    r = dict(max_batch=max_batch, requests=nreq, wall_s=wall,
+             requests_per_s=nreq / wall, dispatches_per_key=per_key,
+             tenants=lat, peak_above_idle_gib=_gib(peak),
+             batches=[{k: v for k, v in bt.items() if k != "key"}
+                      for bt in batches], **launches)
+    graphs = {f"{k[0]}:{k[1]}": v for k, v in
+              svc.registry.graph_info().items()}
+    svc.close()
+    r["after_close"] = _psvc_freed(torch, base, tickets,
+                                   f"max_batch={max_batch} close()")
+    _psvc_check(torch, pat, plan, traffic, tickets, pout, diffs,
+                f"max_batch={max_batch}")
+    del tickets
+    return r, recorded, graphs
+
+
+# What the card may hold after a service's close() beyond what it held
+# before the service and the results still referenced: small caches
+# (cuFFT, K1); one leaked 512^3 sample is 512 MiB, a batch's graph GiBs.
+PSVC_LEFT_BYTES = 64 << 20
+
+
+def _psvc_freed(torch, base, tickets, what):
+    """After ``what``, the card holds what it held at ``base`` and the
+    served results still referenced (each its own storage), within
+    ``PSVC_LEFT_BYTES``: the service's CUDA graphs, their pool and its
+    batch buffers are gone."""
+    gc.collect()
+    held = sum(tk.result(600).data.untyped_storage().nbytes()
+               for ts in tickets.values() for tk in ts)
+    left = torch.cuda.memory_allocated() - base - held
+    torch.cuda.empty_cache()
+    r = dict(allocated_left_gib=_gib(left), results_held_gib=_gib(held),
+             reserved_gib=_gib(torch.cuda.memory_reserved()))
+    if not abs(left) <= PSVC_LEFT_BYTES:
+        raise AssertionError(f"[plan_service] after {what} the card holds "
+                             f"{_gib(left):.3f} GiB beyond the results: "
+                             f"{r}")
+    return r
+
+
+def _psvc_drills(torch, pat, k1, plan, traffic, pout, d, diffs):
+    """Isolation, overload and precision drills, journaled, the journal
+    linted and one coalesced request reconstructed by
+    ``python -m pencilarrays_tpu_torch.obs request``."""
+    import numpy as np
+
+    from pencilarrays_tpu_torch import guard, obs
+    from pencilarrays_tpu_torch.guard import IntegrityError
+    from pencilarrays_tpu_torch.resilience import RetryPolicy, faults
+    from pencilarrays_tpu_torch.serve import (SLO, AdmissionError,
+                                              PlanService, PressurePolicy,
+                                              precision)
+
+    a, b, c, dd = traffic
+    jdir = os.path.join(d, "obs")
+    # armed by the environment, as phase 5d arms it: a programmatic
+    # obs.disable() would keep the journal off for every later phase
+    os.environ["PENCILARRAYS_TPU_OBS"] = jdir
+    res = {}
+    try:
+        # isolation: the guard armed (the eager schedule), every exchange
+        # corrupted: on one card only the reshard batch makes a hop
+        guard.enable(os.path.join(d, "bundles"))
+        svc = PlanService(max_batch=8, max_wait_s=60.0,
+                          retry=RetryPolicy(max_attempts=1))
+        sub = (a[:2], b[:0], c[:2], dd[:2])
+        with faults.active("hop.exchange:corrupt"):
+            tickets = _psvc_submit(svc, plan, sub, pout, tenants="acd")
+            svc.drain()
+        guard.disable()
+        errs = [tk.error() for tk in tickets["d"]]
+        if not all(isinstance(e, IntegrityError) for e in errs):
+            raise AssertionError(f"[plan_service] isolation: d's tickets "
+                                 f"{[type(e).__name__ for e in errs]}")
+        _psvc_check(torch, pat, plan, sub, {t: tickets[t] for t in "ac"},
+                    pout, diffs, "isolation")
+        trace = next(e["trace"] for e in obs.read_journal(jdir)
+                     if e["ev"] == "serve.coalesce" and e["n"] >= 2
+                     and e["key"].startswith("fft:"))
+        res["isolation"] = dict(stats=svc.stats()["completed"],
+                                d=[type(e).__name__ for e in errs])
+        svc.close()
+        del tickets
+        # overload: the protected tier under its deadline, the sheddable
+        # one rejected typed at submit
+        svc = PlanService(
+            max_batch=8, max_wait_s=60.0,
+            slos={"prot": SLO(deadline_s=60.0, shed_priority=10),
+                  "bulk": SLO(shed_priority=0)},
+            pressure=PressurePolicy(high_water_s=1e-4, low_water_s=5e-5))
+        w = svc.submit_reshard("prot", dd[0], pout)
+        svc.drain()
+        w.result(600)
+        prot = [svc.submit_reshard("prot", u, pout) for u in dd]
+        shed = []
+        for u in dd:
+            try:
+                svc.submit_reshard("bulk", u, pout)
+                shed.append("admitted")
+            except AdmissionError as e:
+                shed.append(e.reason)
+        svc.drain()
+        if shed != ["shed"] * len(dd):
+            raise AssertionError(f"[plan_service] overload: bulk {shed}")
+        late = [tk.t_done - tk.t_submit for tk in prot]
+        if max(late) >= 60.0 or svc.stats()["slo_violations"]:
+            raise AssertionError(f"[plan_service] overload: protected "
+                                 f"{late} s")
+        _psvc_check(torch, pat, plan, ([], [], [], dd), {"d": prot}, pout,
+                    diffs, "overload")
+        res["overload"] = dict(shed=shed, protected_s=late,
+                               pressure=svc.stats()["pressure"])
+        svc.close()
+        del prot
+        # precision: sheddable budget tenants' reshards on cheaper wires
+        env16 = precision.wire_error_envelope("bf16")
+        svc = PlanService(
+            max_batch=8, max_wait_s=60.0,
+            slos={"gold": SLO(shed_priority=2),
+                  "flex16": SLO(shed_priority=0, max_rel_l2=env16),
+                  "flex8": SLO(shed_priority=0, max_rel_l2=0.5)},
+            pressure=PressurePolicy(high_water_s=1.0, low_water_s=0.1,
+                                    degrade_water_s=0.5))
+        svc._gate._state = "degrade"        # held: the rung, not the load
+        svc._gate.update = lambda *args, **kw: "degrade"
+        ts = {t: svc.submit_reshard(t, dd[0], pout)
+              for t in ("gold", "flex16", "flex8")}
+        svc.drain()
+        ref = pat.reshard(dd[0], pout).data
+        rungs = {e["tenant"]: e for e in obs.read_journal(jdir)
+                 if e["ev"] == "serve.precision"}
+        prec = {}
+        for t, tk in ts.items():
+            got = tk.result(600).data
+            err = float(torch.linalg.vector_norm((got - ref).double())
+                        / torch.linalg.vector_norm(ref.double()))
+            rung = rungs.get(t)
+            prec[t] = dict(rel_l2=err, wire=rung["wire_to"] if rung else
+                           None, envelope=rung["envelope"] if rung else 0.0)
+            if not err <= prec[t]["envelope"]:
+                raise AssertionError(f"[plan_service] precision {t}: "
+                                     f"{prec[t]}")
+            del got
+        if prec["flex8"]["wire"] is None or prec["flex8"]["rel_l2"] <= 0:
+            raise AssertionError(f"[plan_service] precision: {prec}")
+        res["precision"] = prec
+        svc.close()
+        del ts, ref
+    finally:
+        guard.disable()
+        os.environ.pop("PENCILARRAYS_TPU_OBS", None)
+    events = obs.read_journal(jdir)
+    lint = obs.lint_journal(events)
+    if lint:
+        raise AssertionError(f"[plan_service] journal: {lint[:5]}")
+    cli = subprocess.run(
+        [sys.executable, "-m", "pencilarrays_tpu_torch.obs", "request",
+         jdir, trace], capture_output=True, text=True, timeout=120)
+    if cli.returncode != 0 or trace[:8] not in cli.stdout:
+        raise AssertionError(f"[plan_service] pa-obs request rc "
+                             f"{cli.returncode}: {cli.stdout[-800:]}"
+                             f"{cli.stderr[-800:]}")
+    res["journal"] = dict(records=len(events), request=trace,
+                          request_lines=len(cli.stdout.splitlines()))
+    return res
+
+
+def _psvc_copies(torch, k1, plan, bw, B=8):
+    """K1's split and stack at the coalesced batch's shapes, timed alone
+    (CUDA events, 3 calls) against their bound (every byte read once and
+    written once)."""
+    from pencilarrays_tpu_torch.serve.service import PlanService, _split_fn
+
+    out = plan.allocate_output((B,)).data
+    split_ms = cuda_ms(torch, lambda: _split_fn(B)(out), 3)
+    nbytes = 2 * out.numel() * out.element_size()
+    xs = [plan.allocate_input() for _ in range(B)]
+    stack_ms = cuda_ms(torch, lambda: PlanService._stack(xs), 3)
+    sbytes = 2 * B * xs[0].data.numel() * xs[0].data.element_size()
+    r = dict(split_ms=split_ms, split_bound_ms=nbytes / bw * 1e3,
+             split_gib=_gib(nbytes / 2), stack_ms=stack_ms,
+             stack_bound_ms=sbytes / bw * 1e3, stack_gib=_gib(sbytes / 2))
+    del out, xs
+    torch.cuda.empty_cache()
+    return r
+
+
+def _psvc_shared(torch, pat, plan, traffic, pout, diffs, most=200):
+    """The plan's graph pool shared across threads and streams: a user's
+    own ``plan.compile(())`` replayed on a thread and a stream of its own
+    while a service on the same plan serves tenants ``a`` and ``c`` in
+    batches of up to 8 (graphs of the same pool).  Every user result is
+    the eager chain's bits, every served one the sequential call's; the
+    user calls made while the service drained are counted."""
+    import threading
+
+    from pencilarrays_tpu_torch.serve import PlanService
+
+    a, b, c, d = traffic
+    x = c[0]
+    ref = plan.forward(x).data
+    cp = plan.compile(())
+    cp.forward(x)                       # captured before the race
+    svc = PlanService(max_batch=8, max_wait_s=60.0)
+    draining = threading.Event()
+    res = dict(calls=0, overlapped=0, bad=[], error=None)
+
+    def user():
+        side = torch.cuda.Stream()
+        try:
+            with torch.cuda.stream(side):
+                while res["calls"] < most and (
+                        draining.is_set() or res["calls"] < 4):
+                    y = cp.forward(x).data
+                    res["overlapped"] += draining.is_set()
+                    if not same_bits(torch, y, ref):
+                        res["bad"].append(max_abs_err(torch, y, ref))
+                    res["calls"] += 1
+                    del y
+            side.synchronize()
+        except BaseException as e:      # noqa: BLE001 - reported below
+            res["error"] = repr(e)
+
+    sub = (a, [], c, [])
+    tickets = _psvc_submit(svc, plan, sub, pout, tenants="ac")
+    th = threading.Thread(target=user)
+    draining.set()
+    th.start()
+    try:
+        svc.drain()
+    finally:
+        draining.clear()
+        th.join(600)
+    _psvc_check(torch, pat, plan, sub, tickets, pout, diffs, "shared pool")
+    res["served"] = svc.stats()["completed"]
+    svc.close()
+    del tickets
+    if res["error"] or res["bad"] or not res["overlapped"]:
+        raise AssertionError(f"[plan_service] shared pool: {res}")
+    return res
+
+
+def phase_plan_service(torch, pat, k1, bw, n=512, n_fft=8, n_resh=4):
+    """Phase 5g: the plan service (``serve/``) at BASELINE config 3, the
+    512^3 r2c f32 PencilFFT, on a (1, 1) topology: tenants ``a`` (host
+    forwards), ``b`` (host backwards), ``c`` (device forwards), ``d``
+    (reshards of 512^3 f32 between two pencils), coalesced
+    (``max_batch=8``) and serialized (``max_batch=1``), each arm's
+    service closed and the card back to what it held before it but the
+    results; then the isolation, overload, precision and shared-pool
+    drills, and the card back to the phase's start once the plan's own
+    executables are released."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, PSVC_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    topo = pat.Topology((1, 1))
+    plan = pat.PencilFFTPlan(topo, (n, n, n), real=True,
+                             dtype=torch.float32)
+    pin = pat.Pencil(topo, (n, n, n), (1, 2))
+    pout = pin.replace(decomp_dims=(0, 2))
+    t = time.perf_counter()
+    traffic = _psvc_traffic(np, pat, plan, pin, n_fft, n_resh, SEED + 14)
+    make_s = time.perf_counter() - t
+    diffs = []
+    try:
+        arms, recorded, graphs = {}, {}, {}
+        for name, mb in (("coalesced", 8), ("serialized", 1)):
+            arms[name], rec, g = _psvc_arm(torch, pat, k1, plan, traffic,
+                                           pout, mb, diffs)
+            graphs.update(g)
+            for cls, c in rec.items():
+                recorded[cls] = recorded.get(cls, 0) + c
+            log(f"[plan_service] {name} (max_batch={mb}) at {n}^3: "
+                + json.dumps(arms[name]))
+        co = arms["coalesced"]["dispatches_per_key"]
+        want = {"fft-forward": 2, "fft-backward": 1, "reshard": 1}
+        got = {"fft-forward": sum(v for k, v in co.items()
+                                  if k.endswith(":forward")),
+               "fft-backward": sum(v for k, v in co.items()
+                                   if k.endswith(":backward")),
+               "reshard": sum(v for k, v in co.items()
+                              if k.startswith("reshard:"))}
+        if got != want:
+            raise AssertionError(f"[plan_service] coalesced dispatches "
+                                 f"{got}, want {want}")
+        drills = _psvc_drills(torch, pat, k1, plan, traffic, pout, d, diffs)
+        drills["shared_pool"] = _psvc_shared(torch, pat, plan, traffic,
+                                             pout, diffs)
+        log("[plan_service] drills: " + json.dumps(drills))
+        copies = _psvc_copies(torch, k1, plan, bw)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if plan.topology.device.type == "cuda" and not any(
+            v.get("pool_total_bytes", 0) > 0 for g in graphs.values()
+            for v in g.values()):
+        raise AssertionError(f"[plan_service] no graph pool measured: "
+                             f"{graphs}")
+    # the plan's own executables (the sequential references' B = 1 and
+    # the shared-pool drill's) go with the phase, by the plan's public
+    # release: the engine's dispatch log keeps the plan object alive
+    del traffic
+    released = plan.release_compiled()
+    freed = _psvc_freed(torch, start, {}, "release_compiled()")
+    freed["graphs_released"] = released
+    r = dict(freed=freed,arms=arms, graphs=graphs, drills=drills, copies=copies,
+             diffs=diffs, make_payloads_s=make_s,
+             speedup=arms["coalesced"]["requests_per_s"]
+             / arms["serialized"]["requests_per_s"],
+             seconds=time.perf_counter() - t0)
+    log(f"[plan_service] pools {json.dumps(graphs)}; after the release "
+        f"{json.dumps(freed)}; K1 split and stack "
+        f"{json.dumps(copies)}; results off the sequential bits "
+        f"{json.dumps(diffs)}; coalesced / serialized requests/s "
+        f"{r['speedup']:.3f}; phase 5g took {r['seconds']:.1f} s")
+    co = arms["coalesced"]
+    r["paths"] = {"plan_service": {
+        "launches": co["launches"] + arms["serialized"]["launches"],
+        "launches_by_instance": {
+            i: co["launches_by_instance"][i]
+            + arms["serialized"]["launches_by_instance"][i]
+            for i in k1.INSTANCES}}}
+    r["recorded"] = recorded
+    if r["paths"]["plan_service"]["launches"] <= 0:
+        raise AssertionError("the plan service launched K1 no time")
+    return r
 
 
 # Tolerances of K2–K4 against their plain versions.  Each row of a tensor
@@ -4635,6 +5223,7 @@ def main() -> int:
             # phases leave this process holding device memory that two
             # 512^3 ranks need
             clu = phase_cluster(torch, k1)
+            psvc = phase_plan_service(torch, pat, k1, bw)
             phase_kernel(torch, k1)
             cycle = phase_cycle(torch, pat, k1, tr)
             wired = phase_wire(torch, pat, k1, tr, cycle)
@@ -4658,7 +5247,9 @@ def main() -> int:
                        "many_pencil_array": grid["many"], "io": io_res,
                        **eng["paths"], **grd["paths"]}
             recorded = {**{run: r["recorded"] for run, r in k1_runs.items()},
-                        "navier_stokes": ns["recorded"], **serve_rec}
+                        "navier_stokes": ns["recorded"], **serve_rec,
+                        "cluster": clu["recorded"],
+                        "plan_service": psvc["recorded"]}
             k1_timed = k1_timing(torch, k1, bw, recorded, HOPS)
         finally:
             pat.distributed.finalize()
@@ -4690,7 +5281,7 @@ def main() -> int:
     for inst, c in ns["k1_launches_by_instance"].items():
         paths.setdefault(f"k1_{inst}", {})["navier_stokes"] = c
     # phase 5f's rank processes, each counting from 0 at its start
-    for run, a in clu["paths"].items():
+    for run, a in {**clu["paths"], **psvc["paths"]}.items():
         paths["k1"][run] = a["launches"]
         for inst, c in a["launches_by_instance"].items():
             paths.setdefault(f"k1_{inst}", {})[run] = c

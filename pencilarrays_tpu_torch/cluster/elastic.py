@@ -301,18 +301,22 @@ def clear_plan_caches() -> int:
     (``parallel/routing.py``), K1's copy plans and launch arguments
     (``ops/permute.py``) and the FFT planner's refactored topologies
     (``ops/fft.py``), the one cache holding process groups of the old
-    mesh.  The JAX package's shape-keyed ``guard`` jit wrappers have no
-    counterpart here (``guard/integrity.py`` caches nothing)."""
+    mesh, and the serve layer's B-way splitters (``serve/service.py``
+    ``_split_fn``, as the JAX package registers its own).  The JAX
+    package's shape-keyed ``guard`` jit wrappers have no counterpart here
+    (``guard/integrity.py`` caches nothing)."""
     cleared = 0
     from ..ops import fft as _fft
     from ..ops import permute as _permute
     from ..parallel import routing as _routing
     from ..parallel import transpositions as _tr
+    from ..serve import service as _serve
 
     for mod, names in (
             (_tr, ("_cached_hop_cost", "_measured_choice")),
             (_routing, ("_plan_cached",)),
-            (_permute, ("plan_copy", "_plan_args"))):
+            (_permute, ("plan_copy", "_plan_args")),
+            (_serve, ("_split_fn",))):
         for name in names:
             fn = getattr(mod, name, None)
             if fn is None or not hasattr(fn, "cache_clear"):

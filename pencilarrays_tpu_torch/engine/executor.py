@@ -1029,6 +1029,10 @@ class Engine:
                 self._host_done += 1
                 self._host_busy_s += t1 - t0
                 self._cv.notify_all()
+            # an idle worker must not keep its last item alive: the item's
+            # closure holds its batch (a served batch: the tickets and
+            # their results on the card) until the next item arrives
+            item = out = err = None
 
 
 # ---------------------------------------------------------------------------

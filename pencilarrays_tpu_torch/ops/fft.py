@@ -47,6 +47,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import threading
+import weakref
 from itertools import permutations as _iperms
 from typing import List, Optional, Sequence, Tuple
 
@@ -160,6 +162,24 @@ def _plain_move(x: torch.Tensor, axes, out=None) -> torch.Tensor:
     return x.permute(tuple(axes))
 
 
+def _per_sample(transform, moved: torch.Tensor, E: int) -> torch.Tensor:
+    """``transform`` of a CPU block whose ``E`` extra dims lead, one
+    sample at a time, each written into its slot of one output.  By
+    contract a CPU stage is per sample: pocketfft groups a transform's
+    lines into SIMD vectors by their count, and a vector line rounds
+    apart from a scalar one, so only a sample transformed as a call of
+    its own keeps a batch bit-identical to its samples' calls (the serve
+    layer's coalescing contract)."""
+    flat = moved.reshape((-1,) + tuple(moved.shape[E:]))
+    first = transform(flat[0], 0)
+    res = torch.empty((flat.shape[0],) + tuple(first.shape),
+                      dtype=first.dtype)
+    res[0].copy_(first)
+    for i in range(1, flat.shape[0]):
+        res[i].copy_(transform(flat[i], 0))
+    return res.reshape(tuple(moved.shape[:E]) + tuple(first.shape))
+
+
 def _stage_op(ops: tuple, inverse: bool, pre_complex: bool, norm: str,
               nspace: int, move=k1.permute):
     """Per-block batched local transform of one schedule step:
@@ -222,7 +242,11 @@ def _stage_op(ops: tuple, inverse: bool, pre_complex: bool, norm: str,
         else:
             front = tuple(range(nspace, nspace + E)) + tuple(range(nspace))
             back = tuple(range(E, E + nspace)) + tuple(range(E))
-            res = transform(move(blk, front), E)
+            moved = move(blk, front)
+            if moved.device.type == "cpu":
+                res = _per_sample(transform, moved, E)
+            else:
+                res = transform(moved, E)
             # torch.fft lays a transform over some of the dims out batch
             # dims first (a DCT x FFT x FFT stage); K1 moved that layout at
             # a tenth of its bound (20.0 against 1.9 ms, 512^3 x 3 c64 on
@@ -1157,7 +1181,8 @@ class PencilFFTPlan:
         return cache[key]
 
     def compile(self, extra_dims: Optional[Tuple[int, ...]] = None, *,
-                donate: bool = False) -> "CompiledPlan":
+                donate: bool = False,
+                _counters: bool = True) -> "CompiledPlan":
         """The whole forward and backward chains as one replay each
         (:class:`CompiledPlan`): on the card, one CUDA graph per
         direction, captured at its first call; on the CPU the eager
@@ -1165,7 +1190,11 @@ class PencilFFTPlan:
         :meth:`forward`/:meth:`backward`.  ``extra_dims`` defaults to
         :attr:`batch_dims`; ``donate=True`` gives up each call's input
         (it is invalid afterwards).  Cached per ``(extra_dims,
-        donate)`` on the plan."""
+        donate)`` on the plan; every executable of the plan captures into
+        the plan's one graph memory pool, and :meth:`release_compiled`
+        frees them.  ``_counters=False`` skips the plan-level cache
+        counters (a caller counting its own resolve, as the serve
+        registry does)."""
         if extra_dims is None:
             extra_dims = self.batch_dims
         key = (tuple(int(e) for e in extra_dims), bool(donate))
@@ -1175,10 +1204,20 @@ class PencilFFTPlan:
             cache[key] = CompiledPlan(self, key[0], donate=key[1])
         from .. import obs
 
-        if obs.enabled():
+        if _counters and obs.enabled():
             obs.counter(f"compile.cache_{'hits' if hit else 'misses'}",
                         cache="plan").inc()
         return cache[key]
+
+    def release_compiled(self) -> int:
+        """Free the CUDA graphs of every executable :meth:`compile` made
+        for this plan (each recaptures at its next call) and with the
+        last of them the plan's graph memory pool; returns the number of
+        graphs freed (0 on the CPU).  The memory goes back to the
+        allocator's cache once no result of :meth:`CompiledPlan.replay`
+        that the caller kept lies in the pool."""
+        cache = self.__dict__.get("_compiled_plans", {})
+        return sum(cp.release() for cp in list(cache.values()))
 
     def forward_async(self, u: Optional[PencilArray] = None, *,
                       pack=None, engine=None, donate: bool = False):
@@ -1435,6 +1474,35 @@ class PencilFFTPlan:
                 f"permute={self.permute})")
 
 
+_pools_lock = threading.Lock()
+
+
+class _GraphPool:
+    """One plan's CUDA graph memory pool, shared by the graphs of every
+    :class:`CompiledPlan` of the plan.  Graphs of one pool overwrite
+    each other's intermediates and static outputs, so each replay runs
+    under :attr:`lock`, from the copy of its input to the copy of its
+    output, and its stream waits for :attr:`done`, the event recorded
+    after the previous replay's copy-out, whichever stream that ran on.
+    A pool whose last graph was freed is retired: the allocator frees it
+    and refuses to capture into it again, so the plan makes a new one."""
+
+    def __init__(self):
+        self.handle = torch.cuda.graph_pool_handle()
+        self.lock = threading.RLock()
+        self.members: "weakref.WeakSet[CompiledPlan]" = weakref.WeakSet()
+        self.done: Optional[torch.cuda.Event] = None
+        self.retired = False
+
+
+def _plan_pool(plan: "PencilFFTPlan") -> _GraphPool:
+    with _pools_lock:
+        pool = plan.__dict__.get("_graph_pool")
+        if pool is None:
+            pool = plan.__dict__["_graph_pool"] = _GraphPool()
+        return pool
+
+
 class CompiledPlan:
     """One replay for each of a plan's full transform chains (built by
     :meth:`PencilFFTPlan.compile`), the JAX package's whole-plan
@@ -1442,15 +1510,25 @@ class CompiledPlan:
 
     On the card each direction is one CUDA graph, captured at its first
     call: a warm-up run first (cuFFT plans, the K1 library, K1's
-    shared-memory opt-in), then the chain captured into the graph's own
-    memory pool with a static input block.  :meth:`forward` copies its
-    input into the static block, replays the graph and returns a fresh
-    copy of the static output, so every result stays valid (as JAX's
-    do).  A capture that fails raises; nothing falls back to the eager
-    chain on the card.  A chain with exchanges across ranks holds NCCL
-    calls in its graph; that is not verified on several cards yet.  On
-    the CPU the object runs the eager chain.  ``donate=True`` gives up
-    the caller's input after each call."""
+    shared-memory opt-in), then the chain captured with a static input
+    block.  :meth:`forward` copies its input into the static block,
+    replays the graph and returns a fresh copy of the static output, so
+    every result stays valid (as JAX's do).  Every executable of one
+    plan (each ``extra_dims`` and donate variant, both directions)
+    captures into the plan's ONE graph memory pool (a served plan holds
+    one pool for all its batch sizes), so the replays of a plan are
+    serialized: each runs under the pool's lock from the copy of its
+    input to the copy of its output, and on the card after the previous
+    replay's copy-out, from whichever thread and stream they come.
+    :meth:`replay` hands the static output to a callback under the same
+    lock.  :meth:`release` frees the graphs.  A capture runs in
+    ``thread_local`` error mode and empties no allocator cache, so
+    host-pool work of other threads on other streams goes on beside it.
+    A capture that fails raises; nothing falls back to the eager chain
+    on the card.  A chain with exchanges across ranks holds NCCL calls
+    in its graph; that is not verified on several cards yet.  On the
+    CPU the object runs the eager chain.  ``donate=True`` gives up the
+    caller's input after each call."""
 
     def __init__(self, plan: PencilFFTPlan, extra_dims: Tuple[int, ...],
                  *, donate: bool = False):
@@ -1459,8 +1537,15 @@ class CompiledPlan:
         self.donate = bool(donate)
         self.graphed = plan.topology.device.type == "cuda"
         self._graphs: dict = {}
+        self._pool: Optional[_GraphPool] = None
         self.replays = 0
         """Graph replays since construction (the card's calls)."""
+
+    @property
+    def pool_handle(self):
+        """The graph memory pool its captured graphs live in (None before
+        a capture, after :meth:`release`, and on the CPU)."""
+        return None if self._pool is None else self._pool.handle
 
     def _check(self, u: PencilArray, pen, what: str) -> None:
         if u.pencil != pen:
@@ -1472,14 +1557,16 @@ class CompiledPlan:
                 f"{u.extra_dims} (compile() again for this batch shape)")
 
     def graph_info(self, direction: str) -> Optional[dict]:
-        """A captured direction's ``{"pool_bytes", "k1_launches"}``: the
-        device memory the capture took (its pool) and the K1 launches it
-        recorded (each replayed on every call); ``None`` before the
-        direction's first call or on the CPU."""
+        """A captured direction's ``{"k1_launches"}``: the K1 launches
+        its graph recorded (each replayed on every call); ``None`` before
+        the direction's first call, after :meth:`release` or on the CPU.
+        The pool's bytes are read where they are reported
+        (:meth:`~pencilarrays_tpu_torch.serve.registry.PlanRegistry.
+        graph_info`, from :attr:`pool_handle`)."""
         g = self._graphs.get(direction)
         return None if g is None else dict(g[3])
 
-    def _capture(self, direction: str):
+    def _capture(self, direction: str, pool: _GraphPool):
         plan = self.plan
         fwd = direction == "forward"
         pen = plan.input_pencil if fwd else plan.output_pencil
@@ -1495,37 +1582,87 @@ class CompiledPlan:
             run(PencilArray(pen, static, self.extra_dims))
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
-        # the capture empties the allocator's cache first; doing it here
-        # lets the reserved bytes it adds be read as the graph's pool
-        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         before = k1.launches
-        reserved = torch.cuda.memory_reserved(dev)
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, pool=pool.handle,
+                              capture_error_mode="thread_local"):
             out = run(PencilArray(pen, static, self.extra_dims)).data
-        info = {"pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
-                "k1_launches": k1.launches - before}
+        info = {"k1_launches": k1.launches - before}
         self._graphs[direction] = (graph, static, out, info, out_pen)
+        self._pool = pool
+        pool.members.add(self)
         return self._graphs[direction]
 
-    def _call(self, u: PencilArray, direction: str) -> PencilArray:
+    def _call(self, u: PencilArray, direction: str, take=None):
         plan = self.plan
         fwd = direction == "forward"
         if not self.graphed:
             out = (plan.forward if fwd else plan.backward)(u)
-        else:
-            g = self._graphs.get(direction) or self._capture(direction)
-            graph, static, res, _, out_pen = g
-            if u.data.dtype != static.dtype:
-                raise ValueError(f"compiled for {static.dtype}, got "
-                                 f"{u.data.dtype}")
-            static.copy_(u.data)
-            graph.replay()
-            self.replays += 1
-            out = PencilArray(out_pen, res.clone(), self.extra_dims)
+            if self.donate:
+                u._donate()
+            return out if take is None else take(out)
+        while True:
+            pool = self._pool or _plan_pool(plan)
+            with pool.lock:
+                if pool.retired:
+                    continue        # retired meanwhile: the plan's new one
+                g = self._graphs.get(direction) or self._capture(direction,
+                                                                 pool)
+                graph, static, res, _, out_pen = g
+                if u.data.dtype != static.dtype:
+                    raise ValueError(f"compiled for {static.dtype}, got "
+                                     f"{u.data.dtype}")
+                stream = torch.cuda.current_stream(plan.topology.device)
+                if pool.done is not None:
+                    stream.wait_event(pool.done)
+                static.copy_(u.data)
+                graph.replay()
+                self.replays += 1
+                out = (PencilArray(out_pen, res.clone(), self.extra_dims)
+                       if take is None else
+                       take(PencilArray(out_pen, res, self.extra_dims)))
+                pool.done = torch.cuda.Event()
+                pool.done.record(stream)
+                break
         if self.donate:
             u._donate()
         return out
+
+    def replay(self, u: PencilArray, direction: str, take):
+        """One call of ``direction`` whose result, on the card the
+        graph's static output itself, goes to ``take(result)`` under the
+        pool's lock: ``take`` copies out what it keeps (the serve layer's
+        split copies each sample into storage of its own) before any
+        other replay of the plan's pool can overwrite it.  Returns what
+        ``take`` returns.  On the CPU ``take`` gets the eager chain's
+        fresh result."""
+        pen = (self.plan.input_pencil if direction == "forward"
+               else self.plan.output_pencil)
+        self._check(u, pen, "input_pencil" if direction == "forward"
+                    else "output_pencil")
+        return self._call(u, direction, take)
+
+    def release(self) -> int:
+        """Free this executable's CUDA graphs (the next call recaptures)
+        and, when they were the last in the plan's graph pool, retire the
+        pool; returns the number of graphs freed."""
+        while True:
+            pool = self._pool
+            if pool is None:
+                return 0
+            with pool.lock:
+                if self._pool is not pool:
+                    continue        # released and recaptured meanwhile
+                n = len(self._graphs)
+                self._graphs.clear()
+                self._pool = None
+                pool.members.discard(self)
+                if not len(pool.members):
+                    with _pools_lock:
+                        pool.retired = True
+                        if self.plan.__dict__.get("_graph_pool") is pool:
+                            del self.plan.__dict__["_graph_pool"]
+                return n
 
     def forward(self, u: PencilArray) -> PencilArray:
         """Physical -> spectral, one replay."""

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 
 __all__ = ["fsync_dir", "atomic_write_json", "atomic_write_text"]
 
@@ -29,7 +30,10 @@ def fsync_dir(path: str) -> None:
 
 
 def _atomic_publish(path: str, write_body) -> None:
-    tmp = path + ".tmp"
+    # the temporary is the writer's own (process and thread): two writers
+    # publishing one path at once must not write, and rename away, each
+    # other's temporary (the last replace wins)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     with open(tmp, "w") as f:
         write_body(f)
         f.flush()

@@ -173,6 +173,26 @@ def test_compile_cached_checked_and_bit_identical():
     assert x.is_deleted() and not u.is_deleted()
 
 
+def test_compile_replay_and_release():
+    """``replay`` hands the chain's result to its callback and returns what
+    the callback does; ``release_compiled`` frees no graph on the CPU and
+    keeps every executable cached (on the card each recaptures)."""
+    topo = pat.Topology((1, 1), device="cpu")
+    plan = pat.PencilFFTPlan(topo, (8, 6, 4), real=True)
+    c = plan.compile(())
+    u = pat.PencilArray.from_global(
+        plan.input_pencil, np.random.default_rng(2).standard_normal(
+            (8, 6, 4)).astype(np.float32))
+    pen, got = c.replay(u, "forward", lambda out: (out.pencil, out.data))
+    assert pen == plan.output_pencil
+    np.testing.assert_array_equal(got.numpy(), plan.forward(u).data.numpy())
+    with pytest.raises(ValueError, match="output_pencil"):
+        c.replay(u, "backward", lambda out: out)
+    assert plan.release_compiled() == 0 and c.release() == 0
+    assert plan.compile(()) is c and c.pool_handle is None
+    np.testing.assert_array_equal(c.forward(u).data.numpy(), got.numpy())
+
+
 @pytest.mark.parametrize("dims", [(2, 1), (4, 1)])
 def test_auto_measure_matches_jax_candidates(devices, pool, dims):
     shape = (12, 10, 8)

@@ -44,6 +44,19 @@ def _verdict(v):
             if k in v}
 
 
+@pytest.fixture(autouse=True)
+def _port_epoch_stays_zero():
+    """Every case must leave the port's process-global recovery epoch at
+    0: a raised epoch leaks into every later test of the same process
+    (the JAX package's epoch is not checked: its own tests, run earlier
+    in a worker, may leave it raised)."""
+    yield
+    from pencilarrays_tpu_torch.cluster import epoch
+
+    assert epoch.current() == 0, \
+        f"the test left the port's recovery epoch at {epoch.current()}"
+
+
 # -- KV backend ---------------------------------------------------------------
 
 def s_filekv_roundtrip(P, d, mp):
@@ -1011,34 +1024,60 @@ def _store_kv_case(kv):
     assert kv.get("pa/late", 10.0, on_wait=late) == "now"
 
 
-@pytest.mark.parametrize("backend", ["tcp", "file"])
-def test_store_kv_over_a_store(backend, tmp_path):
+def _store(backend, tmp_path):
     from datetime import timedelta
 
     import torch.distributed as tdist
 
-    from pencilarrays_tpu_torch.cluster.kv import JaxKV, StoreKV
-
-    assert JaxKV is StoreKV
     if backend == "tcp":
-        store = tdist.TCPStore("localhost", 0, 1, True,
-                               timeout=timedelta(seconds=30))
-    else:
-        store = tdist.FileStore(str(tmp_path / "store"), 1)
-    _store_kv_case(StoreKV(store))
-    # a coordinator pair agrees over it (the store is the wire)
+        return tdist.TCPStore("localhost", 0, 1, True,
+                              timeout=timedelta(seconds=30))
+    return tdist.FileStore(str(tmp_path / "store"), 1)
+
+
+def _store_pair_agree(store):
+    """A coordinator pair agreeing over ``store`` (the store is the wire):
+    one ``retry`` verdict, which advances the recovery epoch; the port's
+    cluster state (the epoch with it) is reset after, as ``run_both``
+    resets it after each scenario."""
+    from pencilarrays_tpu_torch import cluster
     from pencilarrays_tpu_torch.cluster.consensus import Coordinator
+    from pencilarrays_tpu_torch.cluster.kv import StoreKV
 
     c0 = Coordinator(StoreKV(store), 0, 2, lease_ttl=10.0,
                      verdict_timeout=30.0)
     c1 = Coordinator(StoreKV(store), 1, 2, lease_ttl=10.0,
                      verdict_timeout=30.0)
     try:
-        v = run_ranks(lambda: c0.agree("s", OK), lambda: c1.agree("s", BAD))
-        assert v[0] == v[1] and v[0]["action"] == "retry"
+        return run_ranks(lambda: c0.agree("s", OK),
+                         lambda: c1.agree("s", BAD))
     finally:
         c0.shutdown()
         c1.shutdown()
+        cluster._reset_for_tests()
+
+
+@pytest.mark.parametrize("backend", ["tcp", "file"])
+def test_store_kv_over_a_store(backend, tmp_path):
+    from pencilarrays_tpu_torch.cluster.kv import JaxKV, StoreKV
+
+    assert JaxKV is StoreKV
+    store = _store(backend, tmp_path)
+    _store_kv_case(StoreKV(store))
+    v = _store_pair_agree(store)
+    assert v[0] == v[1] and v[0]["action"] == "retry"
+    assert v[0]["epoch"] >= 1
+
+
+def test_store_pair_leaves_the_epoch_at_zero(tmp_path):
+    """The agreed verdict of a coordinator pair advances the epoch; after
+    the pair's reset nothing of it stays in this process: the journal's
+    correlation stamp reads epoch 0 again."""
+    from pencilarrays_tpu_torch.obs import correlate
+
+    v = _store_pair_agree(_store("file", tmp_path))
+    assert v[0]["action"] == "retry" and v[0]["epoch"] >= 1
+    assert correlate.stamp()["epoch"] == 0
 
 
 def test_store_kv_on_the_pools_default_store():
@@ -1157,6 +1196,9 @@ def _elastic_sequence(tmp_path, world, n=16):
         if r == victim:
             continue
         assert _final(out) == next(iter(finals)), out[-2000:]
+        # the served plan rode the reformation: both queued requests
+        # drained bit-identically on the rebuilt plan
+        assert "SERVE_RESUMED=2" in out, out[-2000:]
         rep = json.loads(re.search(r"REFORMED (\{.*\})", out).group(1))
         assert rep["world"] == world - 1 and rep["restored_step"] == 2
         assert rep["members"] == list(range(world - 1))
@@ -1218,6 +1260,45 @@ def _ns_against_jax(tmp_path, n, steps):
     assert got.shape == want.shape
     err = np.abs(got - want).max() / np.abs(want).max()
     assert err <= 1e-4, err
+
+
+@pytest.mark.chaos
+def test_serve_storm_survives_rank_loss(tmp_path):
+    """2 ranks at 16^3: each rank's service sheds its 4 sheddable
+    reshards typed at submit; rank 1 is SIGKILLed inside the storm batch
+    and rank 0's serve dispatch reforms to world 1 and drains: every
+    protected ticket resolves once, bit-identical to ``reshard``."""
+    outs = _launch(tmp_path, 2, "storm", expect_kill_rank=1)
+    out = outs[0]
+    assert "STORM_SHED=4" in out, out[-2000:]
+    rep = json.loads(re.search(r"STORM_OK=(\{.*\})", out).group(1))
+    assert rep["protected"] == 4 and rep["world"] == 1, rep
+    events = _events(tmp_path)
+    mine = [e for e in events if e.get("proc") == 0]
+    assert [e for e in mine if e["ev"] == "serve.pressure"]
+    stages = [e["stage"] for e in mine if e["ev"] == "cluster.reform"]
+    assert stages.count("complete") == 1, stages
+    done = [e for e in mine if e["ev"] == "serve.complete"]
+    assert sorted(e["outcome"] for e in done) == ["ok"] * 5
+
+
+@pytest.mark.chaos
+def test_serve_autoscaler_scale_down_and_up(tmp_path):
+    """2 ranks at 16^3: both controllers decide ``down`` on idle windows,
+    rank 1 leaves by ``announce_leave`` and rank 0 reforms to world 1;
+    rank 1 rejoins pre-warmed (``join_prewarmed``), admitted by rank 0's
+    overload-driven scale-up; both close with an aligned step."""
+    outs = _launch(tmp_path, 2, "scale")
+    assert "SCALE_DOWN world=1" in outs[0], outs[0][-2000:]
+    assert re.search(r"SCALE_UP gen=\d+ detail=admitted=", outs[0]), \
+        outs[0][-2000:]
+    assert re.search(r"SCALE_JOINED gen=\d+ rank=1 warm_s=", outs[1]), \
+        outs[1][-2000:]
+    events = _events(tmp_path)
+    scale = [(e["proc"], e["direction"], e["acted"]) for e in events
+             if e["ev"] == "serve.scale" and e["reason"] != "prewarm"]
+    assert (0, "down", False) in scale and (1, "down", True) in scale
+    assert (0, "up", True) in scale, scale
 
 
 @pytest.mark.chaos

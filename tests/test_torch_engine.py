@@ -150,6 +150,30 @@ def test_host_task_and_timers():
     engine.close()
 
 
+def test_idle_host_worker_keeps_nothing_alive():
+    """A host worker waiting for its next item holds nothing of its last
+    one: the item's closure (a served batch's tickets, and with them
+    their results on the card) goes once the item ran."""
+    import gc
+    import weakref
+
+    class Held:
+        pass
+
+    engine = Engine("host-idle")
+    held = Held()
+    ref = weakref.ref(held)
+    assert engine.host_task(lambda h=held: 1).result(10) == 1
+    assert engine.submit(lambda x: x, pack=lambda h=held: 2).result(10) == 2
+    del held
+    deadline = time.monotonic() + 5
+    while ref() is not None and time.monotonic() < deadline:
+        gc.collect()
+        time.sleep(0.01)
+    assert ref() is None
+    engine.close()
+
+
 # -- RuntimeConfig ----------------------------------------------------------------
 
 

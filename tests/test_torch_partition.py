@@ -20,6 +20,17 @@ import pytest
 
 from torch_cluster_parity import run_both, run_ranks
 
+
+@pytest.fixture(autouse=True)
+def _port_epoch_stays_zero():
+    """Every case must leave the port's process-global recovery epoch at
+    0 (a raised epoch leaks into every later test of the same process)."""
+    yield
+    from pencilarrays_tpu_torch.cluster import epoch
+
+    assert epoch.current() == 0, \
+        f"the test left the port's recovery epoch at {epoch.current()}"
+
 # -- compare-and-set ----------------------------------------------------------
 
 

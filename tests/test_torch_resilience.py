@@ -436,3 +436,32 @@ def test_killed_save_leaves_the_previous_step(tmp_path, spec):
     again = _drill(tmp_path, 3, 3)
     assert again.returncode == 0, again.stderr
     assert sorted(os.listdir(tmp_path)) == ["step-00000001", "step-00000003"]
+
+
+def test_concurrent_publishes_of_one_path(tmp_path):
+    """Two threads publishing one path at once (two writers of one KV
+    key): each writes a temporary of its own, neither fails, and the
+    file holds one of the two values whole."""
+    import threading
+
+    from pencilarrays_tpu_torch.resilience.fsutil import atomic_write_text
+
+    path = str(tmp_path / "key")
+    errors = []
+
+    def writer(c):
+        try:
+            for _ in range(300):
+                atomic_write_text(path, c * 64)
+        except Exception as e:      # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=writer, args=(c,)) for c in "ab"]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors[:2]
+    with open(path) as f:
+        assert f.read() in ("a" * 64, "b" * 64)
+    assert os.listdir(tmp_path) == ["key"]

@@ -33,7 +33,25 @@ Phases (each gets a fresh KV namespace):
   exchange of step 3.  Survivors detect the loss by lease expiry, reform
   to ``world - 1`` ranks, re-invoke their ``register_plan`` factory (the
   ``n``^3 ``PencilFFTPlan``), restore the agreed step 2, rerun and finish:
-  ``FINAL=<sha256>`` must equal the uninterrupted run's.
+  ``FINAL=<sha256>`` must equal the uninterrupted run's.  A
+  ``serve.PlanService`` with a named ``n``^3 r2c plan and two host-payload
+  requests queued before the loop rides along: the reformation re-invokes
+  its factory, the queue re-binds, and the drain after the loop answers
+  both bit-identically to the rebuilt plan's compiled calls
+  (``SERVE_RESUMED=2``).
+* ``storm`` — the overload drill: each rank's ``PlanService`` (a protected
+  tenant with a deadline, a sheddable one; the pressure gate armed) takes
+  4 protected ``n``^3 f32 reshards while all 4 sheddable ones are shed
+  typed at submit; rank 1 is SIGKILLed at its next exchange, inside the
+  storm batch, and the survivor's serve dispatch (``elastic_step``)
+  reforms to world 1 and drains: every protected ticket resolves once,
+  under its deadline, bit-identical to ``reshard`` (``STORM_OK=4``).
+* ``scale`` — the autoscaler's round trip: both ranks' controllers agree
+  the mesh is idle, the highest rank ``announce_leave``s and the survivor
+  reforms down; the departed process pre-warms an ``n``^3 plan and
+  rejoins (``join_prewarmed``), admitted by the survivor's
+  overload-driven scale-up reformation; an aligned ``guarded_step`` on
+  the grown mesh closes it.
 * ``partition`` — the split-brain drill: the highest rank loses the KV
   wire (``kv.get:partition,kv.set:partition``); it must exit its
   reformation typed ``QuorumLossError``, the majority reforms around it,
@@ -43,7 +61,9 @@ Phases (each gets a fresh KV namespace):
   it exactly once.
 
 Every rank prints ``K1=<launches> <launches by instance>`` (its K1
-launches) and ``CLUSTER_OK phase=<phase> rank=<rank>`` at the end.
+launches), ``K1_CLASSES=<json>`` (the classes it launched, as
+``permute.recorded`` keys them, with their counts) and ``CLUSTER_OK
+phase=<phase> rank=<rank>`` at the end.
 
 Usage::
 
@@ -84,6 +104,7 @@ def main():
     from pencilarrays_tpu_torch.ops import permute as k1
     from pencilarrays_tpu_torch.resilience import CheckpointManager, RetryPolicy
 
+    k1.recorded = {}
     pat.distributed.initialize("nccl" if device == "cuda" else "gloo")
     guard.enable(os.path.join(tmpdir, "bundles", f"r{rank}"))
     topo = pat.Topology((1, 1), device=device)
@@ -202,6 +223,25 @@ def main():
                                      dtype=torch.float32, batch=3)
 
         elastic.register_plan("ns-fft", plan_factory)
+        # the served plan rides the reformation: its requests are queued
+        # before the loop and drained after it, across the reformation
+        # (the uninterrupted reference run has no reformation to cross)
+        from pencilarrays_tpu_torch.serve import PlanService
+
+        def served_plan_factory(ctx=None):
+            return pat.PencilFFTPlan(pat.Topology((1, 1), device=device),
+                                     (n, n, n), real=True,
+                                     dtype=torch.float32)
+
+        svc = None
+        if phase == "elastic":
+            svc = PlanService(max_batch=4, max_wait_s=60.0)
+            svc.register_plan("served-fft", served_plan_factory)
+            serve_rng = np.random.default_rng(23)
+            serve_payloads = [serve_rng.random((n, n, n), dtype=np.float32)
+                              - 0.5 for _ in range(2)]
+            serve_tickets = [svc.submit("client", u, name="served-fft")
+                             for u in serve_payloads]
         state = {"u": truth}
 
         def erestore(ckpt):
@@ -242,8 +282,159 @@ def main():
         if phase == "elastic":
             assert elastic.last_reformation() is not None, \
                 "survivor finished without reforming"
+            sp = elastic.plan("serve:served-fft")
+            assert sp is not None and svc.plan("served-fft") is sp, \
+                "the service did not re-bind to the rebuilt served plan"
+            assert svc.drain() >= 1, "the service had nothing queued"
+            cur = svc.plan("served-fft")
+            scp = cur.compile(())
+            ok = 0
+            for u, t in zip(serve_payloads, serve_tickets):
+                got = t.result(5)
+                ref = scp.forward(pat.PencilArray.from_global(
+                    cur.input_pencil, u))
+                _served_equal(got, ref, "served request after the "
+                                        "reformation")
+                ok += 1
+            svc.close()
+            print(f"SERVE_RESUMED={ok}")
+            del svc, scp, serve_tickets
         final = hashlib.sha256(bits(state["u"])).hexdigest()
         print(f"FINAL={final}")
+    elif phase == "storm":
+        from pencilarrays_tpu_torch.resilience import faults
+        from pencilarrays_tpu_torch.serve import (SLO, AdmissionError,
+                                                  PlanService,
+                                                  PressurePolicy)
+
+        os.environ["PENCILARRAYS_TPU_ELASTIC"] = "1"
+        pin = pat.Pencil(topo, (n, n, n), (1, 2))
+        pout = pin.replace(decomp_dims=(0, 2))
+        svc = PlanService(
+            max_batch=4, max_wait_s=60.0,
+            slos={"prot": SLO(deadline_s=120.0, shed_priority=10),
+                  "bulk": SLO(shed_priority=0)},
+            pressure=PressurePolicy(high_water_s=1e-4, low_water_s=5e-5),
+            retry=RetryPolicy(max_attempts=2, base_delay=0.01))
+        payloads = [np.random.default_rng(100 + i).random(
+            (n, n, n), dtype=np.float32) - 0.5 for i in range(4)]
+
+        def field(u):
+            return pat.PencilArray.from_global(pin, u)
+
+        # warm-up: one aligned boundary that seeds the service rate
+        w = svc.submit_reshard("prot", field(payloads[0]), pout)
+        assert svc.drain() == 1
+        w.result(120)
+        prot = [svc.submit_reshard("prot", field(p), pout)
+                for p in payloads]
+        shed = 0
+        for p in payloads:
+            try:
+                svc.submit_reshard("bulk", field(p), pout)
+            except AdmissionError as e:
+                assert e.reason == "shed", e.reason
+                shed += 1
+        assert shed == 4, f"expected 4 shed, got {shed}"
+        print(f"STORM_SHED={shed}")
+        k = faults.hit_count("hop.exchange")
+        os.environ["PENCILARRAYS_TPU_FAULTS"] = \
+            f"hop.exchange:kill%rank1@{k + 1}"
+        t0 = time.perf_counter()
+        assert svc.drain() >= 1
+        drain_s = time.perf_counter() - t0
+        digest = hashlib.sha256()
+        for p, t in zip(payloads, prot):
+            out = t.result(120)
+            ref = pat.reshard(field(p), pout)
+            assert bits(out) == bits(ref), \
+                "protected result differs from unloaded execution"
+            assert t.t_done - t.t_submit < 120.0, "deadline busted"
+            digest.update(bits(out))
+        st = svc.stats()
+        assert st["completed"] == {"ok": 5}, st["completed"]
+        assert st["slo_violations"] == 0 and \
+            st["pressure"] in ("shed", "evict"), st
+        from pencilarrays_tpu_torch.cluster import elastic
+
+        r = elastic.last_reformation()
+        assert r is not None and r.membership.new_world == world - 1
+        svc.close()
+        print("STORM_OK=" + json.dumps({
+            "protected": len(prot), "drain_s": drain_s,
+            "timings": r.timings, "world": r.membership.new_world}))
+        print(f"FINAL={digest.hexdigest()}")
+    elif phase == "scale":
+        from pencilarrays_tpu_torch import cluster
+        from pencilarrays_tpu_torch.serve import (SLO, AutoscalePolicy,
+                                                  Autoscaler, PlanService)
+        from pencilarrays_tpu_torch.serve.autoscale import join_prewarmed
+
+        os.environ["PENCILARRAYS_TPU_ELASTIC"] = "1"
+        policy = RetryPolicy(max_attempts=2, base_delay=0.01)
+        svc = PlanService(max_batch=4, max_wait_s=60.0,
+                          slos={"prot": SLO(shed_priority=1)})
+        asc = Autoscaler(svc, policy=AutoscalePolicy(
+            overload_drain_s=0.05, windows=2, cooldown_s=0.0, min_world=1))
+
+        def tick_step():
+            return pat.transpose(truth, alt)
+
+        asc.tick()
+        d = asc.tick()
+        assert d.direction == "down", d
+        coord = cluster.coordinator()
+        if rank == world - 1:
+            assert d.acted and coord.leaving, d
+            assert guard.guarded_step(tick_step, retry=policy,
+                                      label="scale-boundary") is not None
+            kv = coord.kv
+            coord.leave()
+            t_wait = time.monotonic() + 60
+            while kv.try_get("pa.g1/lease/r0") is None:
+                if time.monotonic() >= t_wait:
+                    raise SystemExit("scale-down reformation never landed")
+                time.sleep(0.1)
+
+            def factory(ctx=None):
+                return pat.PencilFFTPlan(pat.Topology((1, 1), device=device),
+                                         (n, n, n), real=True,
+                                         dtype=torch.float32)
+
+            r, warm = join_prewarmed(coord.kv, f"s{rank}",
+                                     factories={"scale-plan": factory},
+                                     timeout=180)
+            print(f"SCALE_JOINED gen={r.membership.gen} "
+                  f"rank={r.membership.new_rank} "
+                  f"warm_s={warm['warm_s']:.3f}")
+            assert guard.guarded_step(lambda: "post-join", retry=policy,
+                                      label="post-join",
+                                      coordinator=r.coordinator) == \
+                "post-join"
+        else:
+            assert not d.acted and d.detail == "not-leaver", d
+            assert guard.elastic_step(tick_step, retry=policy,
+                                      label="scale-boundary") is not None
+            coord = cluster.coordinator()
+            assert coord.world == world - 1, coord.world
+            print(f"SCALE_DOWN world={coord.world}")
+            svc.queue.load.note_completed(1000, 1, 1.0)
+            svc.queue.load.note_arrival(10_000)
+            deadline_t = time.monotonic() + 120
+            acted = None
+            while time.monotonic() < deadline_t:
+                dd = asc.tick()
+                if dd.direction == "up" and dd.acted:
+                    acted = dd
+                    break
+                time.sleep(0.25)
+            assert acted is not None, "scale-up never admitted a joiner"
+            print(f"SCALE_UP gen={acted.gen} detail={acted.detail}")
+            newc = cluster.coordinator()
+            assert newc.world == world, newc.world
+            assert guard.guarded_step(lambda: "post-join", retry=policy,
+                                      label="post-join",
+                                      coordinator=newc) == "post-join"
     elif phase == "partition":
         from pencilarrays_tpu_torch import cluster
         from pencilarrays_tpu_torch.cluster import (FencedWriteError,
@@ -326,10 +517,32 @@ def main():
     print(f"CLUSTER_OK phase={phase} rank={rank}", flush=True)
 
 
+def _served_equal(got, ref, what):
+    """A served result against the sequential compiled call: bit for bit
+    (the CPU, and the card unless the coalesced cuFFT plan rounds apart
+    from the single one: then within 1e-6 of the reference's largest
+    magnitude, and the difference printed as ``SERVE_CUFFT_DIFF``)."""
+    import torch
+
+    a, b = got.data, ref.data
+    if torch.equal(a, b):
+        return
+    err = ((a - b).abs().max() / b.abs().max()).item()
+    print(f"SERVE_CUFFT_DIFF {what}: max |diff| / max |ref| = {err:.3e}")
+    assert a.is_cuda and err <= 1e-6, f"{what}: not the sequential bits"
+
+
 def _report(k1, step_ms):
     print(f"STEP_MS={json.dumps([round(t, 3) for t in step_ms])}")
     print(f"K1={k1.launches} {json.dumps(dict(k1.launches_by_instance))}",
           flush=True)
+    print("K1_CLASSES=" + json.dumps([[list(_lists(c)), n] for c, n in
+                                      (k1.recorded or {}).items()]),
+          flush=True)
+
+
+def _lists(x):
+    return [_lists(i) for i in x] if isinstance(x, tuple) else x
 
 
 if __name__ == "__main__":

@@ -2307,3 +2307,27 @@ def store_kv_case(ns):
         epoch._reset_for_tests()
     return {"action": v["action"], "ranks": v["ranks"], "round": v["round"],
             "steps": steps}
+
+
+def serve_scenario(dims, name, args, tmp):
+    """One scenario of ``tests/torch_serve_scenarios.py`` through the
+    port on the first ``prod(dims)`` ranks of the pool (each rank its own
+    ``PlanService``, the same submissions), in ``tmp/r<rank>``; rank 0's
+    result (``None`` from the other ranks)."""
+    import pathlib
+
+    import torch_serve_scenarios as S
+
+    topo = sub_topology(dims)
+    if topo is None:
+        return None
+    d = pathlib.Path(tmp) / f"r{torch.distributed.get_rank()}"
+    d.mkdir(parents=True, exist_ok=True)
+    P = S.SPkg("torch", topo=lambda want: sub_topology(want))
+    P.reset()
+    try:
+        out = S.SCENARIOS[name](P, *[d if a == "<tmp>" else a
+                                     for a in args])
+    finally:
+        P.reset()
+    return out if P.rank0() else None
