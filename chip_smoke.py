@@ -183,6 +183,28 @@ standard output too.  Phases, each printed on its own lines:
    ``python -m pencilarrays_tpu_torch.obs request`` reconstructs a
    coalesced request; K1's split and stack timed against their bound;
    prints ``[plan_service]`` lines;
+5h. (run right after 5g) the fleet (``fleet/``) and the rest of
+   ``analysis/``: two mesh processes of ``tests/torch_fleet_worker.py``
+   share the card behind a router in this process (no device, joined by
+   a ``FileKV``), each serving the 512^3 r2c f32 ``whale`` and the 128^3
+   ``minnow`` through a ``PlanService`` (``max_batch=4``): a timed storm
+   (tenants ``a``: 2 whale forwards, ``b``: 2 whale backwards, ``c``: 16
+   minnow forwards; a whale's capsule takes the router about 10 s to
+   encode, so 4 + 4 whales kept the run past its time) with requests/s, per-tenant p50/p99, per whale
+   request the seconds of each part of the wire (the router's encode and
+   KV write, the worker's decode, the service, the result's encode and
+   KV write, the router's decode), placements per mesh, each worker's K1
+   launches, peak above its idle service and graph pool bytes, the card
+   kept at least ``FLEET_FREE_BYTES`` free, every result within
+   ``PSVC_FFT_TOL`` of its sequential call; drills at 256^3 (whole-mesh
+   loss by ``fleet.route:kill%mesh1@4`` with detect, rebind and resolve
+   times; a router process SIGKILLed at its 7th admission and its WAL
+   replayed, each committed admission resolved once; a retire by the
+   stop key seen as ``MeshLeftError``), the merged journal linted and a
+   rebound request reconstructed; each worker's ``certify`` of its
+   resident variants (predicted peak beside the measured one); the
+   port's ``pa-lint`` over the repo; the workers' K1 classes are timed
+   in phase 2 under the path ``fleet``; prints ``[fleet]`` lines;
 6. kernels K2–K4 (``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
    ``flash_bwd_tf32.cu``) against their plain versions on the card: three
    forward modes, full and partials backward, causal and not, ragged
@@ -216,8 +238,9 @@ standard output too.  Phases, each printed on its own lines:
     the ManyPencilArray cycle, phase 5c's writes and reads, ``io``,
     phase 5d's ``engine_ns`` and ``compiled_plan``, phase 5e's
     ``guard_cycle``, ``guard_ns``, ``guard_drills`` and ``obs_rest``,
-    phase 5f's rank processes, ``cluster``, and phase 5g's wrapper
-    launches, ``plan_service``) and their sum, by
+    phase 5f's rank processes, ``cluster``, phase 5g's wrapper
+    launches, ``plan_service``, and phase 5h's mesh processes,
+    ``fleet``) and their sum, by
     instance, its error against the plain version and its times (K1's per
     class in ``timings``);
 11. the last line, ``{"ok": true, "device": {...}}``.
@@ -4408,6 +4431,605 @@ def phase_plan_service(torch, pat, k1, bw, n=512, n_fft=8, n_resh=4):
     return r
 
 
+FLEET_DIR = "chip_smoke_fleet"
+# The leases' ttl, the drills' and the storm's.  A worker's heartbeat is
+# a thread of its process, and the wire's codec holds the interpreter
+# lock for as long as it encodes or decodes a capsule: about 1 s for a
+# 256^3 one (85 MiB of base64), seconds at 512^3 (683 MiB).  A lease
+# shorter than that expires on a live mesh, and the router finds none:
+# the JAX package's 2 s did so in the storm and in a drill.
+FLEET_TTL = 5.0
+FLEET_STORM_TTL = 30.0
+FLEET_FREE_BYTES = 10 << 30     # the card two storm workers must leave free
+
+
+def _fleet_spawn(root, d, mesh, whale_n, minnow_n, *, fault="",
+                 max_s=900, warm="minnow,whale", ttl=FLEET_TTL,
+                 device="cuda"):
+    """One mesh process of ``tests/torch_fleet_worker.py`` (on
+    ``device``: the card, or the CPU in a rehearsal), joined by the
+    ``FileKV`` under ``d``, advertising the plans ``warm`` as warm; its
+    output in ``d/m<mesh>.log``."""
+    worker = os.path.join(root, "tests", "torch_fleet_worker.py")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PENCILARRAYS_TPU_")}
+    env.update(PA_FLEET_TEST_TTL=str(ttl),
+               PENCILARRAYS_TPU_FAULTS=fault,
+               PENCILARRAYS_TPU_OBS=os.path.join(d, "obs"))
+    env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    args = [sys.executable, worker, os.path.join(d, "kv"), str(mesh), d,
+            str(max_s), device, str(whale_n), str(minnow_n), warm]
+    with open(os.path.join(d, f"m{mesh}.log"), "w") as out:
+        return subprocess.Popen(args, env=env, stdout=out,
+                                stderr=subprocess.STDOUT, text=True)
+
+
+def _fleet_log(d, mesh):
+    with open(os.path.join(d, f"m{mesh}.log")) as f:
+        return f.read()
+
+
+def _fleet_await(fleet, kv, procs, d, timeout=180.0, ttl=FLEET_TTL):
+    """Every mesh's lease live; a worker that exits first (no card, a
+    failed start) fails the phase with its output."""
+    board = fleet.MeshBoard(kv, ttl=ttl)
+    meshes = sorted(procs)
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        if board.live_meshes(meshes) == meshes:
+            return
+        for m, p in procs.items():
+            if p.poll() is not None:
+                raise AssertionError(f"[fleet] mesh {m} exited rc "
+                                     f"{p.returncode} before serving:\n"
+                                     f"{_fleet_log(d, m)[-3000:]}")
+        time.sleep(0.1)
+    raise AssertionError(f"[fleet] meshes {meshes} never all came alive")
+
+
+def _fleet_stop(kv, procs, d, timeout=240.0, failed=False):
+    """Retire every live mesh by its stop key and wait for it (after a
+    failure, kill it and print the end of its output); each one's
+    output."""
+    for m, p in procs.items():
+        if p.poll() is None:
+            if failed:
+                p.kill()
+            else:
+                kv.set(f"pa/fleet/stop/m{m}", "stop")
+    t_end = time.monotonic() + timeout
+    for p in procs.values():
+        try:
+            p.wait(timeout=max(1.0, t_end - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    outs = {m: _fleet_log(d, m) for m in procs}
+    if failed:
+        for m, out in outs.items():
+            log(f"[fleet] mesh {m}'s output (end):\n{out[-4000:]}")
+    return outs
+
+
+def _fleet_json(out, tag):
+    m = re.search(rf"^{tag} (\{{.*\}})$", out, re.M)
+    return json.loads(m.group(1)) if m else None
+
+
+def _fleet_exited(outs, what):
+    """Every retired worker left cleanly, its resident variants
+    certified; their ``CERTIFY`` and ``STATS`` lines by mesh."""
+    rep = {}
+    for m, out in outs.items():
+        cert = _fleet_json(out, "CERTIFY")
+        if f"EXITED mesh={m}" not in out or cert is None \
+                or not cert["ok"]:
+            raise AssertionError(f"[fleet] {what}: mesh {m} did not exit "
+                                 f"certified:\n{out[-3000:]}")
+        rep[m] = {"certify": cert, "stats": _fleet_json(out, "STATS")}
+    return rep
+
+
+def _fleet_refs(torch, pat, n, requests, device="cuda"):
+    """Each request's sequential call (``compile(())``, B = 1) on a
+    ``(1, 1)`` topology in this process, gathered to the host: the
+    reference a served result is held to (yielded one at a time)."""
+    topo = pat.Topology((1, 1), device=device)
+    plan = pat.PencilFFTPlan(topo, (n, n, n), real=True,
+                             dtype=torch.float32)
+    cp = plan.compile(())
+    try:
+        for direction, u in requests:
+            fwd = direction == "forward"
+            x = pat.PencilArray.from_global(
+                plan.input_pencil if fwd else plan.output_pencil, u)
+            yield pat.gather((cp.forward if fwd else cp.backward)(x))
+            del x
+    finally:
+        plan.release_compiled()
+
+
+def _fleet_check(np, got, ref, what, diffs):
+    """A served result against its sequential call: the bits, or within
+    ``PSVC_FFT_TOL`` of max|ref| (cuFFT's batched rounding, as phase 5g
+    holds FFTs); the wire's own round trip is bit-exact."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"[fleet] {what}: {got.shape} {got.dtype}, "
+                             f"want {ref.shape} {ref.dtype}")
+    if np.array_equal(got, ref):
+        return
+    err = float(np.abs(got - ref).max()
+                / max(float(np.abs(ref).max()), 1e-30))
+    diffs.append({"what": what, "rel_err": err})
+    if not err <= PSVC_FFT_TOL:
+        raise AssertionError(f"[fleet] {what}: max|diff| / max|ref| "
+                             f"{err:.3e} above {PSVC_FFT_TOL}")
+
+
+def _fleet_payloads(np, rng, n, small, plan):
+    """``(tenant, name, direction, payload)`` per request of ``plan``,
+    a list of ``(tenant, count)``: ``a`` whale forwards (real n^3),
+    ``b`` whale backwards (complex spectra), ``c`` minnow forwards
+    (real small^3)."""
+    out = []
+    for tenant, count in plan:
+        for _ in range(count):
+            if tenant == "a":
+                out.append(("a", "whale", "forward",
+                            rng.random((n,) * 3, dtype=np.float32) - 0.5))
+            elif tenant == "b":
+                x = np.empty((n // 2 + 1, n, n), np.complex64)
+                rng.random(out=x.view(np.float32), dtype=np.float32)
+                out.append(("b", "whale", "backward", x))
+            else:
+                out.append(("c", "minnow", "forward",
+                            rng.random((small,) * 3, dtype=np.float32)
+                            - 0.5))
+    return out
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]
+
+
+def _fleet_storm(torch, np, pat, root, d, n, small, acc, device, n_whale,
+                 n_minnow):
+    """The timed storm: two mesh processes sharing the card (whale n^3,
+    minnow small^3), the router in this process (no WAL, no device);
+    tenants a, b, c submitted in that order and pumped until every
+    ticket resolved; the card's free memory read throughout; then the
+    workers retire, certify and report, and every result is held to its
+    sequential call.  Mesh 1 advertises the minnow warm and mesh 2 the
+    whale: a worker exports its load between takes, when its queue is
+    empty, so the backlog term ties and the compile-cache locality term
+    places (with both warm, every request would tie to mesh 1)."""
+    from pencilarrays_tpu_torch import fleet, obs
+    from pencilarrays_tpu_torch.cluster.kv import FileKV
+    from pencilarrays_tpu_torch.fleet import wire
+
+    sd = os.path.join(d, "storm")
+    os.makedirs(sd)
+    kv = FileKV(os.path.join(sd, "kv"))
+    t = time.perf_counter()
+    reqs = _fleet_payloads(np, np.random.default_rng(SEED + 15), n, small,
+                           [("a", n_whale), ("b", n_whale),
+                            ("c", n_minnow)])
+    make_s = time.perf_counter() - t
+    # the router's wire parts by ticket: a harness probe around the
+    # codec and the KV writes (neither is changed)
+    parts = {}
+    plain_enc, plain_dec, plain_set = (wire.encode_request,
+                                       wire.decode_result, kv.set)
+
+    def enc(tid, **kw):
+        t = time.perf_counter()
+        out = plain_enc(tid, **kw)
+        parts.setdefault(tid, {})["router_encode_s"] = \
+            time.perf_counter() - t
+        return out
+
+    def dec(raw):
+        t = time.perf_counter()
+        out = plain_dec(raw)
+        parts.setdefault(out[0]["ticket"], {}).update(
+            router_decode_s=time.perf_counter() - t,
+            service_s=out[0]["seconds"], mesh=out[0]["mesh"])
+        return out
+
+    def kv_set(key, value):
+        t = time.perf_counter()
+        plain_set(key, value)
+        if "/req/" in key:
+            parts.setdefault(wire.ticket_id_of(key), {})[
+                "router_kv_write_s"] = time.perf_counter() - t
+
+    def free():
+        return torch.cuda.mem_get_info()[0] if device == "cuda" else None
+
+    procs = {m: _fleet_spawn(root, sd, m, n, small, device=device,
+                             warm={1: "minnow", 2: "whale"}[m],
+                             ttl=FLEET_STORM_TTL)
+             for m in (1, 2)}
+    router = None
+    frees = []
+    ok = False
+    try:
+        _fleet_await(fleet, kv, procs, sd, ttl=FLEET_STORM_TTL)
+        # armed by the environment, as phase 5g arms it: a programmatic
+        # disable would keep the journal off for every later phase
+        os.environ["PENCILARRAYS_TPU_OBS"] = os.path.join(sd, "obs")
+        wire.encode_request, wire.decode_result = enc, dec
+        kv.set = kv_set
+        router = fleet.FleetRouter(kv, ttl=FLEET_STORM_TTL)
+        router.register_mesh(1)
+        router.register_mesh(2)
+        t0 = time.perf_counter()
+        tickets = []
+        for tenant, name, direction, u in reqs:
+            tickets.append(router.submit(tenant, u, name=name,
+                                         direction=direction))
+            router.pump()
+            frees.append(free())
+        log(f"[fleet] storm: {len(reqs)} requests submitted in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t_end = time.monotonic() + 600.0
+        while router.stats()["pending"] and time.monotonic() < t_end:
+            router.pump()
+            frees.append(free())
+            time.sleep(0.005)
+        wall = time.perf_counter() - t0
+        stats = router.stats()
+        if stats["pending"] or stats["completed"] != len(reqs) or \
+                stats["failed"] or stats["duplicates"]:
+            raise AssertionError(f"[fleet] storm: {stats}")
+        ok = True
+    finally:
+        wire.encode_request, wire.decode_result = plain_enc, plain_dec
+        if router is not None:
+            router.close()
+        os.environ.pop("PENCILARRAYS_TPU_OBS", None)
+        outs = _fleet_stop(kv, procs, sd, failed=not ok)
+    workers = _fleet_exited(outs, "storm")
+    _cluster_k1(outs.values(), acc)
+    for out in outs.values():
+        for line in re.findall(r"^WIRE (\{.*\})$", out, re.M):
+            w = json.loads(line)
+            parts.setdefault(w["tid"], {}).update(
+                worker_decode_s=w["decode_s"], worker_encode_s=w["encode_s"],
+                worker_kv_write_s=w["kv_write_s"], result_bytes=w["bytes"])
+    events = obs.read_journal(os.path.join(sd, "obs"))
+    placed = {}
+    for e in events:
+        if e["ev"] == "fleet.route" and e["reason"] == "placed":
+            placed[e["mesh"]] = placed.get(e["mesh"], 0) + 1
+    lat = {}
+    for (tenant, *_), tk in zip(reqs, tickets):
+        lat.setdefault(tenant, []).append(tk.t_done - tk.t_submit)
+    whales = [dict(tenant=tenant, direction=direction,
+                   **parts.get(str(tk.id), {}))
+              for (tenant, name, direction, _), tk in zip(reqs, tickets)
+              if name == "whale"]
+    frees = [f for f in frees if f is not None]
+    res = dict(
+        requests=len(reqs), whale_n=n, minnow_n=small, wall_s=wall,
+        requests_per_s=len(reqs) / wall, make_payloads_s=make_s,
+        latency_s={t: {"p50": _pct(v, 0.5), "p99": _pct(v, 0.99)}
+                   for t, v in sorted(lat.items())},
+        placed_per_mesh={str(m): c for m, c in sorted(placed.items())},
+        whale_wire_s=whales, workers=workers,
+        min_free_gib=_gib(min(frees)) if frees else None)
+    if frees and min(frees) < FLEET_FREE_BYTES:
+        raise AssertionError(f"[fleet] the two workers left "
+                             f"{_gib(min(frees)):.2f} GiB of the card free, "
+                             f"under {_gib(FLEET_FREE_BYTES):.0f}")
+    # every result against its sequential call on the card
+    diffs = []
+    t = time.perf_counter()
+    for name, size in (("whale", n), ("minnow", small)):
+        mine = [(r, tk) for r, tk in zip(reqs, tickets) if r[1] == name]
+        refs = _fleet_refs(torch, pat, size,
+                           [(r[2], r[3]) for r, _ in mine], device)
+        for ((tenant, _, direction, _), tk), ref in zip(mine, refs):
+            _fleet_check(np, np.asarray(tk.result(0)), ref,
+                         f"storm {tenant} {name} {direction} #{tk.id}",
+                         diffs)
+        refs.close()
+    res["check_s"] = time.perf_counter() - t
+    res["diffs"] = diffs
+    return res
+
+
+def _fleet_drills(torch, np, pat, root, d, n, small, acc, device):
+    """The drills at whale n^3 and minnow small^3: (a) whole-mesh loss
+    (``fleet.route:kill%mesh1@4`` in both workers' environments), (b) a
+    router process SIGKILLed at its 7th admission and its WAL replayed
+    by a fresh router, (c) the surviving mesh retired by its stop key;
+    every ticket resolved exactly once and held to its sequential call,
+    and the merged journal linted, rendered and one rebound request
+    reconstructed by ``python -m pencilarrays_tpu_torch.obs``."""
+    import signal
+
+    from pencilarrays_tpu_torch import fleet, obs
+    from pencilarrays_tpu_torch.cluster.kv import FileKV
+    from pencilarrays_tpu_torch.obs.requestflow import reconstruct_request
+
+    dd = os.path.join(d, "drills")
+    os.makedirs(dd)
+    obsdir = os.path.join(dd, "obs")
+    kv = FileKV(os.path.join(dd, "kv"))
+    rng = np.random.default_rng(SEED + 16)
+    res = {}
+    procs = {m: _fleet_spawn(root, dd, m, n, small, device=device,
+                             fault="fleet.route:kill%mesh1@4")
+             for m in (1, 2)}
+    router = None
+    ok = False
+    try:
+        _fleet_await(fleet, kv, procs, dd)
+        os.environ["PENCILARRAYS_TPU_OBS"] = obsdir
+        # (a) whole-mesh loss: a mixed burst lands on mesh 1 (both warm,
+        # no backlog exported: the tie breaks low), whose 4th take dies
+        router = fleet.FleetRouter(kv, ttl=FLEET_TTL)
+        router.register_mesh(1)
+        router.register_mesh(2)
+        wave = [_fleet_payloads(np, rng, n, small,
+                                [("a" if i % 3 == 0 else "c", 1)])[0]
+                for i in range(12)]
+        t0 = time.monotonic()
+        tickets = [router.submit(tenant, u, name=name, direction=direction)
+                   for tenant, name, direction, u in wave]
+        t_kill = t_rebind = None
+        pumps = []      # (start, seconds) of each pump up to detection
+        t_end = time.monotonic() + 120.0
+        while time.monotonic() < t_end:
+            if t_kill is None and procs[1].poll() is not None:
+                t_kill = time.monotonic()
+            p0 = time.monotonic()
+            s = router.pump()
+            pumps.append((p0, time.monotonic() - p0))
+            if s["dead"]:
+                if s["rebound"]:
+                    t_rebind = p0 + pumps[-1][1]
+                break
+            time.sleep(0.01)
+        if router.stats()["dead_meshes"] != [1] or \
+                procs[1].wait(timeout=30) != -signal.SIGKILL:
+            raise AssertionError(f"[fleet] drill a: {router.stats()}, "
+                                 f"mesh 1 rc {procs[1].returncode}")
+        # the sweep that found mesh 1 dead journaled the failover: its
+        # clock is this process's, and the pump that ran it went on to
+        # re-bind the parked tickets (their payloads encoded anew)
+        fo1 = next(e for e in obs.read_journal(obsdir)
+                   if e["ev"] == "fleet.failover" and e["mesh"] == 1)
+        t_detect = fo1["t_mono"]
+        t_kill = min(t_kill or t_detect, t_detect)
+        while t_rebind is None and time.monotonic() < t_end:
+            if router.pump()["rebound"]:
+                t_rebind = time.monotonic()
+        while not all(tk.done() for tk in tickets) and \
+                time.monotonic() < t_end:
+            router.pump()
+            time.sleep(0.005)
+        t_resolved = time.monotonic()
+        # The lease expires at most TTL after the kill (its last beat came
+        # before it), and the router sweeps once a pump, after harvesting
+        # results: detection comes at most one pump (the one running at
+        # expiry, with the loop's 10 ms sleep) plus the detecting pump's
+        # harvest after expiry.  0.25 s covers the failover record's fsync
+        # and the poll that stamps the kill.
+        before = max((d for _, d in pumps[:-1]), default=0.0)
+        harvest = t_detect - pumps[-1][0]
+        bound = FLEET_TTL + before + 0.01 + harvest + 0.25
+        if t_detect - t_kill > bound:
+            raise AssertionError(
+                f"[fleet] drill a: mesh loss detected {t_detect - t_kill:.3f}"
+                f" s after the kill, over TTL {FLEET_TTL} + one pump "
+                f"{before:.3f} + harvest {harvest:.3f} + 0.26 s")
+        wave2 = _fleet_payloads(np, rng, n, small, [("a", 1), ("c", 3)])
+        tickets += [router.submit(tenant, u, name=name, direction=direction)
+                    for tenant, name, direction, u in wave2]
+        wave += wave2
+        if router.drain(120.0):
+            raise AssertionError(f"[fleet] drill a: {router.stats()}")
+        st = router.stats()
+        if st["completed"] != len(wave) or st["failed"] or \
+                st["duplicates"]:
+            raise AssertionError(f"[fleet] drill a: {st}")
+        res["mesh_loss"] = dict(
+            requests=len(wave), stats=st, ttl_s=FLEET_TTL,
+            detect_s=t_detect - t_kill, detect_bound_s=bound,
+            lease_age_at_detect_s=fo1["detect_s"], pumps=len(pumps),
+            longest_pump_before_s=before, detect_pump_harvest_s=harvest,
+            detect_pump_s=pumps[-1][1], rebind_round_s=t_rebind - t_detect,
+            resolve_s=t_resolved - t_rebind,
+            time_to_recover_s=t_resolved - t_kill,
+            wave1_s=t_resolved - t0)
+        router.close()
+        router = None
+        os.environ.pop("PENCILARRAYS_TPU_OBS", None)
+        # (b) the router SIGKILLed at its 7th admission, its WAL replayed
+        waldir = os.path.join(dd, "wal")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("PENCILARRAYS_TPU_")}
+        env.update(PA_FLEET_TEST_TTL=str(FLEET_TTL),
+                   PENCILARRAYS_TPU_FAULTS="fleet.route:kill@7",
+                   PENCILARRAYS_TPU_OBS=obsdir,
+                   PENCILARRAYS_TPU_CLUSTER_RANK="3")
+        rproc = subprocess.run(
+            [sys.executable, os.path.join(root, "tests",
+                                          "torch_router_worker.py"),
+             os.path.join(dd, "kv"), waldir, "10", "2", "minnow",
+             str(small)], env=env, capture_output=True, text=True,
+            timeout=240)
+        if rproc.returncode != -signal.SIGKILL or \
+                "ROUTER_READY" not in rproc.stdout:
+            raise AssertionError(f"[fleet] drill b: router rc "
+                                 f"{rproc.returncode}\n"
+                                 f"{(rproc.stdout + rproc.stderr)[-3000:]}")
+        os.environ["PENCILARRAYS_TPU_OBS"] = obsdir
+        t = time.perf_counter()
+        router = fleet.FleetRouter(kv, ttl=FLEET_TTL, wal_dir=waldir)
+        router.register_mesh(2)
+        rep = router.recover()
+        with router._lock:
+            held = [(p.ticket, np.asarray(p.payload))
+                    for p in router._pending.values()]
+        if rep["outcome"] != "clean" or \
+                rep["resolved"] + rep["reparked"] != 6 or \
+                len(held) != rep["reparked"] or router.drain(120.0):
+            raise AssertionError(f"[fleet] drill b: {rep}, "
+                                 f"{router.stats()}")
+        recover_s = time.perf_counter() - t
+        st = router.stats()
+        rep2 = router.recover()
+        records, skipped = fleet.wal.read_wal(waldir)
+        fold = fleet.wal.replay(records)
+        if st["completed"] != rep["reparked"] or st["failed"] or \
+                st["duplicates"] or rep2["reparked"] or \
+                rep2["resolved"] != 6 or skipped or fold["pending"] or \
+                fold["duplicates"] or len(fold["resolved"]) != 6:
+            raise AssertionError(f"[fleet] drill b: {st}, {rep2}, "
+                                 f"{skipped}, {fold}")
+        wal_bytes = sum(os.path.getsize(os.path.join(waldir, f))
+                        for f in os.listdir(waldir))
+        res["router_wal"] = dict(
+            recover=rep, stats=st, recover_and_drain_s=recover_s,
+            wal_bytes=wal_bytes, wal_bytes_per_admission=wal_bytes / 6,
+            records=len(records))
+        # (c) the survivor retired by its stop key: a clean leave
+        fleet.FleetSupervisor(spawn=lambda m: None, kv=kv).retire(2)
+        t = time.perf_counter()
+        t_end = time.monotonic() + 4 * FLEET_TTL + 30.0
+        while router.stats()["dead_meshes"] != [2] and \
+                time.monotonic() < t_end:
+            router.pump()
+            time.sleep(0.05)
+        dead = router._meshes[2]["dead"]
+        if not isinstance(dead, fleet.MeshLeftError):
+            raise AssertionError(f"[fleet] drill c: mesh 2 {dead!r}")
+        res["retire"] = dict(error=type(dead).__name__,
+                             seen_s=time.perf_counter() - t)
+        ok = True
+    finally:
+        if router is not None:
+            router.close()
+        os.environ.pop("PENCILARRAYS_TPU_OBS", None)
+        outs = _fleet_stop(kv, procs, dd, failed=not ok)
+    _cluster_k1(outs.values(), acc)
+    res["workers"] = _fleet_exited({2: outs[2]}, "drills")
+    # the resolved tickets of (a) and (b) against their sequential calls
+    diffs = []
+    served = [(r, tk.result(0)) for r, tk in zip(wave, tickets)]
+    served += [(("b", "minnow", "forward", u), tk.result(0))
+               for tk, u in held]
+    for name, size in (("whale", n), ("minnow", small)):
+        mine = [(r, got) for r, got in served if r[1] == name]
+        refs = _fleet_refs(torch, pat, size,
+                           [(r[2], r[3]) for r, _ in mine], device)
+        for (r, got), ref in zip(mine, refs):
+            _fleet_check(np, np.asarray(got), ref,
+                         f"drill {r[0]} {name}", diffs)
+        refs.close()
+    res["diffs"] = diffs
+    # the merged journal of the router, both meshes and the dead router
+    events = obs.read_journal(obsdir)
+    fo = [e for e in events if e["ev"] == "fleet.failover"]
+    if not any(e["mesh"] == 1 and e["error"] == "MeshFailureError"
+               for e in fo) or \
+            not any(e["mesh"] == 2 and e["error"] == "MeshLeftError"
+                    for e in fo):
+        raise AssertionError(f"[fleet] failover records {fo}")
+    rebinds = sorted({e["trace"] for e in events
+                      if e["ev"] == "fleet.route" and e["reason"] == "rebind"})
+    rt, _ = reconstruct_request(obsdir, rebinds[0])
+    if rt is None or rt.rebinds < 1 or rt.outcome != "ok" or \
+            len(rt.ranks) < 2:
+        raise AssertionError(f"[fleet] rebound request {rebinds[0]}: {rt}")
+    for args in (["lint", obsdir], ["timeline", obsdir],
+                 ["request", obsdir, rebinds[0]]):
+        p = subprocess.run([sys.executable, "-m",
+                            "pencilarrays_tpu_torch.obs", *args],
+                           capture_output=True, text=True, timeout=120,
+                           cwd=root)
+        if p.returncode != 0:
+            raise AssertionError(f"[fleet] pa-obs {args[0]}: rc "
+                                 f"{p.returncode}\n{p.stdout[-2000:]}"
+                                 f"{p.stderr[-2000:]}")
+    res["journal"] = dict(records=len(events), failovers=len(fo),
+                          rebound_request=dict(
+                              trace=rebinds[0], ranks=sorted(rt.ranks),
+                              rebinds=rt.rebinds, outcome=rt.outcome))
+    return res
+
+
+def phase_fleet(torch, k1, n=512, small=128, n_whale=2, n_minnow=16,
+                drill_n=256, device="cuda"):
+    """Phase 5h: ``fleet/`` and the rest of ``analysis/`` on the card: a
+    router in this process (no device) in front of two mesh processes of
+    ``tests/torch_fleet_worker.py`` sharing the card, each serving the
+    n^3 r2c f32 ``whale`` (BASELINE config 3, phase 5g's plan) and the
+    small^3 ``minnow`` through a ``PlanService`` (``max_batch=4``): the
+    timed storm, the drills at drill_n^3, each worker's ``certify`` of
+    its resident variants, and the port's ``pa-lint`` over the repo.
+    The workers load K1 from ``ops/_build`` (built in phase 1); their
+    launches (the service's split and stack) count under the path
+    ``fleet``."""
+    import numpy as np
+
+    import pencilarrays_tpu_torch as pat
+
+    t0 = time.perf_counter()
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(f"[fleet] free on the card at the phase's start "
+            f"{_gib(free):.2f} of {_gib(total):.2f} GiB")
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, FLEET_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    acc = {"launches": 0, "launches_by_instance": {}, "recorded": {}}
+    res = {}
+    try:
+        res["storm"] = _fleet_storm(torch, np, pat, root, d, n, small, acc,
+                                    device, n_whale, n_minnow)
+        st = res["storm"]
+        log(f"[fleet] storm at {n}^3 / {small}^3: {st['requests']} "
+            f"requests, {st['requests_per_s']:.3f} requests/s; latency "
+            f"{json.dumps(st['latency_s'])}; placed "
+            f"{json.dumps(st['placed_per_mesh'])}; min free "
+            f"{st['min_free_gib']} GiB; whale wire parts "
+            f"{json.dumps(st['whale_wire_s'])}; workers "
+            f"{json.dumps(st['workers'])}; off the sequential bits "
+            f"{json.dumps(st['diffs'])}")
+        res["drills"] = _fleet_drills(torch, np, pat, root, d, drill_n,
+                                      small, acc, device)
+        log("[fleet] drills: " + json.dumps(res["drills"]))
+        t = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m",
+                            "pencilarrays_tpu_torch.analysis", root,
+                            "--no-spmd"], capture_output=True, text=True,
+                           timeout=300, cwd=root)
+        if p.returncode != 0 or "pa-lint: clean" not in p.stdout:
+            raise AssertionError(f"[fleet] pa-lint rc {p.returncode}:\n"
+                                 f"{p.stdout[-3000:]}{p.stderr[-2000:]}")
+        res["pa_lint"] = dict(rc=p.returncode, seconds=time.perf_counter() - t,
+                              summary=p.stdout.strip().splitlines()[-1])
+        log(f"[fleet] pa-lint of the port: {res['pa_lint']['summary']}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    res["recorded"] = acc.pop("recorded")
+    res["paths"] = {"fleet": acc}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[fleet] phase 5h took {res['seconds']:.1f} s; K1 launches in the "
+        f"mesh processes {acc['launches']} {acc['launches_by_instance']}")
+    if acc["launches"] <= 0:
+        raise AssertionError("the fleet path launched K1 no time")
+    return res
+
+
 # Tolerances of K2–K4 against their plain versions.  Each row of a tensor
 # (its last dim: one query or key position of one head·batch slice) is
 # held relative to its own largest |plain| (see _rel_err).  The kernels
@@ -5224,6 +5846,7 @@ def main() -> int:
             # 512^3 ranks need
             clu = phase_cluster(torch, k1)
             psvc = phase_plan_service(torch, pat, k1, bw)
+            flt = phase_fleet(torch, k1)
             phase_kernel(torch, k1)
             cycle = phase_cycle(torch, pat, k1, tr)
             wired = phase_wire(torch, pat, k1, tr, cycle)
@@ -5249,7 +5872,8 @@ def main() -> int:
             recorded = {**{run: r["recorded"] for run, r in k1_runs.items()},
                         "navier_stokes": ns["recorded"], **serve_rec,
                         "cluster": clu["recorded"],
-                        "plan_service": psvc["recorded"]}
+                        "plan_service": psvc["recorded"],
+                        "fleet": flt["recorded"]}
             k1_timed = k1_timing(torch, k1, bw, recorded, HOPS)
         finally:
             pat.distributed.finalize()
@@ -5280,8 +5904,9 @@ def main() -> int:
                     **{run: r["launches"] for run, r in k1_runs.items()}}}
     for inst, c in ns["k1_launches_by_instance"].items():
         paths.setdefault(f"k1_{inst}", {})["navier_stokes"] = c
-    # phase 5f's rank processes, each counting from 0 at its start
-    for run, a in {**clu["paths"], **psvc["paths"]}.items():
+    # phases 5f, 5g and 5h: their processes, each counting from 0 at its start
+    for run, a in {**clu["paths"], **psvc["paths"],
+                   **flt["paths"]}.items():
         paths["k1"][run] = a["launches"]
         for inst, c in a["launches_by_instance"].items():
             paths.setdefault(f"k1_{inst}", {})[run] = c

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..parallel import collectives as _collectives
 from .errors import IntegrityError, WirePrecisionError
 
 __all__ = [
@@ -155,6 +156,8 @@ def reduce_probes(probes, dtype: torch.dtype, group=None) -> list:
     flat = torch.cat([p.reshape(-1) for p in probes])
     if group is not None and dist.get_world_size(group) > 1:
         dist.all_reduce(flat, group=group)
+        _collectives.note("all-reduce", flat.numel() * flat.element_size(),
+                          group=group, shape=flat.shape, dtype=flat.dtype)
     host = flat.cpu()
     out = []
     if _exact(dtype):
@@ -371,6 +374,8 @@ def nonfinite_count(x, group=None) -> int:
     n = _nonfinite(x.detach())
     if group is not None and dist.get_world_size(group) > 1:
         dist.all_reduce(n, group=group)
+        _collectives.note("all-reduce", n.numel() * n.element_size(),
+                          group=group, shape=n.shape, dtype=n.dtype)
     return int(n)
 
 

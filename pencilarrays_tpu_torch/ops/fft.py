@@ -55,6 +55,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel import collectives as _collectives
 from ..parallel import wire as _wire
 from ..parallel.arrays import PencilArray, as_torch_dtype
 from ..parallel.pencil import LogicalOrder, MemoryOrder, Pencil
@@ -1240,7 +1241,6 @@ class PencilFFTPlan:
     def _submit_async(self, direction: str, u, pack, engine,
                       donate: bool):
         from ..engine import get_engine
-        from ..parallel import transpositions as tr
 
         eng = engine if engine is not None else get_engine()
         if (u is None) == (pack is None):
@@ -1258,11 +1258,12 @@ class PencilFFTPlan:
             # consumer thread issues this chain's exchanges
             meta["extra_dims"] = tuple(arr.extra_dims)
             meta["wire_bytes"] = self.predicted_wire_bytes(arr.extra_dims)
-            with tr.collective_tally() as got:
+            with _collectives.recording() as rec:
                 out = run_plan(arr)
             if give_up:
                 arr._donate()
-            meta["collectives"] = got
+            meta["collectives"] = _collectives.stats(
+                rec["ops"], _collectives.EXCHANGE_KINDS)
             return out
 
         if pack is None:
@@ -1557,8 +1558,11 @@ class CompiledPlan:
                 f"{u.extra_dims} (compile() again for this batch shape)")
 
     def graph_info(self, direction: str) -> Optional[dict]:
-        """A captured direction's ``{"k1_launches"}``: the K1 launches
-        its graph recorded (each replayed on every call); ``None`` before
+        """A captured direction's ``{"k1_launches", "collectives"}``: the
+        K1 launches its graph recorded (each replayed on every call) and
+        the collectives it issued while captured
+        (``parallel/collectives.py`` records, what ``analysis.spmd.
+        trace_compiled_plan`` reads); ``None`` before
         the direction's first call, after :meth:`release` or on the CPU.
         The pool's bytes are read where they are reported
         (:meth:`~pencilarrays_tpu_torch.serve.registry.PlanRegistry.
@@ -1584,10 +1588,11 @@ class CompiledPlan:
         torch.cuda.synchronize(dev)
         graph = torch.cuda.CUDAGraph()
         before = k1.launches
-        with torch.cuda.graph(graph, pool=pool.handle,
-                              capture_error_mode="thread_local"):
+        with _collectives.recording() as rec, torch.cuda.graph(
+                graph, pool=pool.handle, capture_error_mode="thread_local"):
             out = run(PencilArray(pen, static, self.extra_dims)).data
-        info = {"k1_launches": k1.launches - before}
+        info = {"k1_launches": k1.launches - before,
+                "collectives": rec["ops"]}
         self._graphs[direction] = (graph, static, out, info, out_pen)
         self._pool = pool
         pool.members.add(self)
@@ -1618,6 +1623,7 @@ class CompiledPlan:
                 static.copy_(u.data)
                 graph.replay()
                 self.replays += 1
+                _collectives.replayed(g[3]["collectives"])
                 out = (PencilArray(out_pen, res.clone(), self.extra_dims)
                        if take is None else
                        take(PencilArray(out_pen, res, self.extra_dims)))

@@ -29,6 +29,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from ..parallel import collectives as _collectives
 from ..parallel.arrays import PencilArray
 from ..parallel.pencil import MemoryOrder
 
@@ -97,6 +98,10 @@ def _combine(local: torch.Tensor, op: Callable, group) -> torch.Tensor:
                             torch.view_as_real(local), group=group)
         else:
             dist.all_gather(parts, local, group=group)
+        _collectives.note("all-gather",
+                          len(parts) * local.numel() * local.element_size(),
+                          group=group, shape=(len(parts),) + local.shape,
+                          dtype=local.dtype)
         out = parts[0]
         for p in parts[1:]:
             out = out * p
@@ -104,9 +109,13 @@ def _combine(local: torch.Tensor, op: Callable, group) -> torch.Tensor:
     if local.dtype == torch.bool:     # any/all, min/max of bools
         flag = local.to(torch.uint8)
         dist.all_reduce(flag, op=_OPS[op], group=group)
+        _collectives.note("all-reduce", flag.numel(), group=group,
+                          shape=flag.shape, dtype=flag.dtype)
         return flag.bool()
     buf = torch.view_as_real(local) if local.is_complex() else local
     dist.all_reduce(buf, op=_OPS[op], group=group)
+    _collectives.note("all-reduce", buf.numel() * buf.element_size(),
+                      group=group, shape=local.shape, dtype=local.dtype)
     return local
 
 

@@ -50,6 +50,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils.permutations import NO_PERMUTATION
+from . import collectives as _collectives
 from .pencil import IndexOrder, LogicalOrder, MemoryOrder, Pencil
 
 __all__ = ["PencilArray", "as_torch_dtype", "global_view", "numpy_to_torch"]
@@ -314,6 +315,8 @@ class PencilArray:
         if group is not None and out.numel():
             dist.all_reduce(out.reshape(-1).view(torch.uint8),
                             op=dist.ReduceOp.SUM, group=group)
+            _collectives.note("all-reduce", out.numel() * out.element_size(),
+                              group=group, shape=out.shape, dtype=out.dtype)
         return out.reshape([n for n, k in zip(shape, key)
                             if not isinstance(k, int)])
 
@@ -581,6 +584,8 @@ class PencilArray:
         group = self._reduce_group()
         if group is not None:
             dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+            _collectives.note("all-reduce", t.element_size(), group=group,
+                              shape=t.shape, dtype=t.dtype)
         return t.bool()
 
     def equals(self, other: "PencilArray") -> torch.Tensor:

@@ -30,16 +30,26 @@ an unexplained stall.  :func:`process_index`, :func:`process_count` and
 :func:`is_multiprocess` answer for a process group (the default one unless
 given), where a process is a rank; without ``torch.distributed`` they give
 the trivial answers.
+
+:func:`agree` lets rank 0 of a topology take a decision that every other
+rank of it then follows (a value sent over the default group's store, no
+collective): the plan service's take and the fleet worker's take of
+routed requests, which must be one decision on every rank.
+:func:`agree_all` gives every rank of a topology every rank's value the
+same way: the fleet worker's outcomes of admission and execution, which
+every rank must act on alike.
 """
 
 from __future__ import annotations
 
+import json
 import multiprocessing as mp
 import os
 import queue
 import re
 import shutil
 import tempfile
+import threading
 import traceback
 from datetime import timedelta
 from typing import Any, Callable, List, Optional
@@ -55,7 +65,7 @@ from ..resilience.retry import RetryPolicy
 __all__ = ["initialize", "ensure_initialized", "is_initialized", "finalize",
            "RankPool", "spawn", "process_index", "process_count",
            "is_multiprocess", "kv_client", "local_devices",
-           "sync_global_devices"]
+           "sync_global_devices", "agree", "agree_all"]
 
 # rendezvous failures worth retrying (a peer or the store not up yet, a
 # dropped connection); configuration errors fail on the first attempt
@@ -255,6 +265,90 @@ def sync_global_devices(name: str = "pa_barrier", group=None) -> None:
     if is_multiprocess(group):
         with guard.watchdog(f"barrier:{name}", kind="barrier"):
             dist.barrier(group=group)
+
+
+_agree_lock = threading.Lock()
+_agree_seq: dict = {}
+_agree_world = None     # the default group the numbering belongs to
+
+
+def _agree_key(topology, label: str):
+    """``(store, ranks, key)`` of the next decision of ``label`` on
+    ``topology``'s ranks, or None on one rank or without process groups.
+
+    Decisions are numbered per label and rank set in the order each rank
+    asks for them, and the numbering restarts with every new default
+    group: a world made anew after a scale-down or a rejoin (a process
+    group cannot shrink or grow) starts at 1 on its survivors and on a
+    fresh process alike, and never reads a dead world's keys."""
+    global _agree_world
+    ranks = tuple(int(r) for r in topology._global_ranks)
+    if len(ranks) <= 1 or not topology.connected:
+        return None
+    store = kv_client()
+    if store is None:
+        raise RuntimeError("agree() across ranks needs torch.distributed")
+    world = dist.distributed_c10d._get_default_group()
+    with _agree_lock:
+        if world is not _agree_world:
+            _agree_world = world
+            _agree_seq.clear()
+        n = _agree_seq.get((label, ranks), 0) + 1
+        _agree_seq[(label, ranks)] = n
+    return store, ranks, f"pa/agree/{label}/{'.'.join(map(str, ranks))}/{n}"
+
+
+def _consume(store, keys, readers: int, counter: str) -> None:
+    """Count one reader of ``keys``; the last of ``readers`` deletes
+    them."""
+    if store.add(counter, 1) == readers:
+        for k in (*keys, counter):
+            try:
+                store.delete_key(k)
+            except Exception:   # a store without deletes keeps the key
+                pass
+
+
+def agree(topology, label: str, decide: Callable[[], Any]) -> Any:
+    """One decision for every rank of ``topology``: its rank 0 calls
+    ``decide()`` and publishes the result (a JSON value) on the default
+    group's store, every other rank reads it there and returns it.  On
+    one rank, or without process groups, ``decide()`` alone.
+
+    Every rank of the topology must ask for the decisions of one label
+    in the same order (as the SPMD contract has it for the collectives
+    these decisions precede); see :func:`_agree_key` for the numbering.
+    Nothing here is a collective: any thread may ask.  A rank other than
+    0 waits up to the store's timeout; the last reader deletes the
+    key."""
+    at = _agree_key(topology, label)
+    if at is None:
+        return decide()
+    store, ranks, key = at
+    if dist.get_rank() == ranks[0]:
+        value = decide()
+        store.set(key, json.dumps(value))
+        return value
+    value = json.loads(store.get(key))
+    _consume(store, [key], len(ranks) - 1, key + "/read")
+    return value
+
+
+def agree_all(topology, label: str, value: Any) -> List[Any]:
+    """Every rank's ``value`` (a JSON value), in the topology's rank
+    order, on every rank of ``topology``: each rank publishes its own on
+    the default group's store and reads the others'.  ``[value]`` on one
+    rank.  Numbered as :func:`agree` numbers; the last reader deletes
+    the keys."""
+    at = _agree_key(topology, label)
+    if at is None:
+        return [value]
+    store, ranks, key = at
+    keys = [f"{key}/{r}" for r in ranks]
+    store.set(keys[ranks.index(dist.get_rank())], json.dumps(value))
+    values = [json.loads(store.get(k)) for k in keys]
+    _consume(store, keys, len(ranks), key + "/read")
+    return values
 
 
 def finalize() -> None:

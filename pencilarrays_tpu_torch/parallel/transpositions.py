@@ -78,9 +78,7 @@ With both off a call pays one cached probe of each gate.
 from __future__ import annotations
 
 import math
-import threading
 import time
-from contextlib import contextmanager
 from dataclasses import dataclass, replace
 from functools import lru_cache
 from typing import List, Optional, Sequence, Tuple
@@ -92,6 +90,7 @@ import torch.distributed as dist
 from .. import guard, obs
 from ..ops import permute as k1
 from ..resilience import faults
+from . import collectives as _collectives
 from . import wire as _wire
 from .arrays import PencilArray, _fwd_axes, _inv_axes, as_torch_dtype
 from .pencil import MemoryOrder, Pencil
@@ -107,7 +106,6 @@ __all__ = [
     "Ring",
     "Transposition",
     "assert_compatible",
-    "collective_tally",
     "exchange_bytes",
     "exchange_calls",
     "gspmd_reshard_cost",
@@ -132,32 +130,19 @@ exchange_bytes = {"all-to-all": 0, "collective-permute": 0}
 (the packed wire bytes of a wired hop): the measured counterpart of
 :func:`transpose_cost`'s bytes."""
 
-_tally = threading.local()
-
-
-@contextmanager
-def collective_tally():
-    """Count, into the dict it yields (``{op: {"count", "bytes"}}``), the
-    exchange calls this thread issues inside the block that cross ranks:
-    what :func:`transpose_cost` prices.  A one-rank all-to-all is a device
-    copy, priced at nothing (the JAX package's compiled programs hold no
-    collective there), and is left out."""
-    got: dict = {}
-    outer, _tally.got = getattr(_tally, "got", None), got
-    try:
-        yield got
-    finally:
-        _tally.got = outer
-
-
-def _count(op: str, nbytes: int, crosses: bool) -> None:
+def _count(op: str, nbytes: int, crosses: bool, *, group=None,
+           shape=(), dtype=None, pair=None, buffer=None) -> None:
+    """Count one exchange call (:data:`exchange_calls`) and, where it
+    crosses ranks, report it to the collective recorder
+    (``parallel/collectives.py``): a one-rank all-to-all is a device
+    copy, priced at nothing (the JAX package's compiled programs hold
+    no collective there)."""
     exchange_calls[op] += 1
     exchange_bytes[op] += nbytes
-    got = getattr(_tally, "got", None)
-    if crosses and got is not None:
-        c = got.setdefault(op, {"count": 0, "bytes": 0})
-        c["count"] += 1
-        c["bytes"] += nbytes
+    if crosses:
+        _collectives.note(op, nbytes, group=group, shape=shape,
+                          dtype=dtype, async_start=True, pair=pair,
+                          buffer=buffer)
 
 
 class AbstractTransposeMethod:
@@ -744,7 +729,8 @@ class _Exchange:
             dst = torch.empty_like(src)
             h["works"] = [dist.all_to_all_single(dst, src, group=group,
                                                  async_op=True)]
-            _count("all-to-all", src.numel(), self.P > 1)
+            _count("all-to-all", src.numel(), self.P > 1, group=group,
+                   shape=send.shape, dtype=send.dtype, buffer=send)
             h["recv"] = dst.view(send.dtype).reshape(send.shape)
             return h
         G, S_b = self.ring
@@ -770,7 +756,10 @@ class _Exchange:
                    dist.P2POp(dist.irecv, recv[frm].reshape(-1).view(
                        torch.uint8), peer(frm), group)]
             h["works"] += dist.batch_isend_irecv(ops)
-            _count("collective-permute", out_t.numel(), True)
+            _count("collective-permute", out_t.numel(), True,
+                   shape=send[to].shape, dtype=send.dtype, buffer=send,
+                   pair=(self.topo.global_rank(self.topo.rank_local),
+                         peer(to)))
         h["recv"] = recv
         return h
 
@@ -1002,7 +991,8 @@ def _gspmd_exchange(data, pin: Pencil, pout: Pencil,
                            output_split_sizes=[n * esize for n in sizes_in],
                            input_split_sizes=[n * esize for n in sizes_out],
                            group=topo.group)
-    _count("all-to-all", src8.numel(), True)
+    _count("all-to-all", src8.numel(), True, group=topo.group,
+           shape=send.shape, dtype=send.dtype, buffer=send)
     del send, src8
     ident = tuple(range(out.dim()))
     off = 0
@@ -1334,12 +1324,16 @@ def ring_shift(tensors: Sequence[torch.Tensor], topology: Topology,
     src = topology.global_rank(topology.rank(coords))
     group = topology.subcomm(axis)
     ops, outs = [], []
+    me_global = topology.global_rank(topology.rank_local)
     for t in tensors:
         send = t.contiguous().reshape(-1).view(torch.uint8)
         recv = torch.empty_like(send)
         ops += [dist.P2POp(dist.isend, send, dst, group),
                 dist.P2POp(dist.irecv, recv, src, group)]
         outs.append(recv.view(t.dtype).reshape(t.shape))
+        _collectives.note("collective-permute", send.numel(),
+                          shape=t.shape, dtype=t.dtype, async_start=True,
+                          pair=(me_global, dst))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return outs

@@ -3,13 +3,10 @@
 PyTorch counterpart of the JAX package's ``resilience/faults.py``: the
 same points, rule grammar, modes and deterministic hit counters, read
 from the same environment variable, so one spec arms both packages.
-Two things differ: ``%rank<k>`` matches the ``torch.distributed``
-rank (0 without a process group), and ``%mesh<k>`` never matches until
-the fleet layer is ported (a process that is no mesh worker answers -1,
-as in the JAX package).  Firings are journaled as ``fault`` records when
-observability is on.  The port consults ``io.*``, ``ckpt.*``,
-``dist.initialize``, ``barrier`` and ``hop.exchange``; the other points
-parse and wait for their layers.
+One thing differs: ``%rank<k>`` matches the ``torch.distributed``
+rank (0 without a process group).  ``%mesh<k>`` matches the fleet mesh
+id of ``fleet.mesh_id()``, as in the JAX package.  Firings are
+journaled as ``fault`` records when observability is on.
 
 The I/O drivers, the checkpoint manager and ``parallel/distributed.py``
 consult named **injection points** at their failure-critical moments, so
@@ -321,10 +318,14 @@ def _self_rank() -> int:
 
 
 def _self_mesh() -> int:
-    """This process's fleet mesh id for ``%mesh<k>`` matching: -1, the
-    JAX fleet layer's answer for a process that is no mesh worker (the
-    port has no fleet layer yet), so a mesh selector never matches."""
-    return -1
+    """This process's fleet mesh id for ``%mesh<k>`` matching —
+    delegated to the fleet layer (``fleet.mesh_id``, the
+    ``PENCILARRAYS_TPU_FLEET_MESH`` env var a mesh worker's launcher
+    sets; -1 = not a mesh worker, matches no selector).  Resolved
+    lazily, only when a rule carries a mesh selector."""
+    from ..fleet import mesh_id
+
+    return mesh_id()
 
 
 def kill_now() -> None:

@@ -25,6 +25,17 @@ are formed or ordered relative to each other):
   whose oldest request has waited ``starve_after_s`` jumps the cost
   order (FIFO among the starved), so expensive batches are delayed,
   never parked forever.
+
+A take is a decision that changes nothing (which queued entries
+expired, which batches are due, in what order, all by one clock) and
+one step that applies it.  On a topology of several ranks (the port
+runs one process, one queue, per rank) the clock is rank 0's: rank 0
+decides and publishes the decision (:func:`~pencilarrays_tpu_torch.
+parallel.distributed.agree`, the entries named by their admission
+number since that topology took over), and every rank, rank 0 too,
+applies it to its own queue by the same code, so every rank sheds the
+same entries and issues the same batches in the same order, as the JAX
+package's one controller does with its one clock.
 """
 
 from __future__ import annotations
@@ -165,7 +176,7 @@ class AdmissionQueue:
         self.quotas = dict(quotas or {})
         self._lock = threading.Lock()
         self._closed = False
-        self._seq = itertools.count(1)
+        self._last_seq = 0     # the last admission's number
         # coalesce key -> entries in admission order
         self._pending: Dict[str, List[_Entry]] = {}
         # per-tenant accounting: requests/bytes admitted and not yet
@@ -214,6 +225,30 @@ class AdmissionQueue:
         self._depth_total = 0
         self._depth_tenant: Dict[str, int] = {}
         self._depth_entries_scanned = 0
+        # queued entries by admission sequence (maintained at offer and
+        # at every departure); a take decision names an entry by its
+        # number counted from _seq_base, the last admission before the
+        # deciding topology took over, so a rank that joined with a
+        # fresh queue names it alike
+        self._by_seq: Dict[int, _Entry] = {}
+        self._seq_base = 0
+        # the topology whose rank 0 decides every take (None: this
+        # queue's own clock decides — one rank); a take, and anything
+        # else that removes queued entries, holds _take_lock from the
+        # decision to its application
+        self._agree_topo = None
+        self._take_lock = threading.Lock()
+
+    def agree_on(self, topology) -> None:
+        """Take by the decision of ``topology``'s rank 0 from now on, or
+        by this queue's own clock when ``topology`` has one rank (the
+        service calls this at every admission, and when a reformation
+        re-plans: the newest topology decides)."""
+        want = topology if len(topology) > 1 else None
+        if want is not self._agree_topo:
+            with self._take_lock, self._lock:
+                self._agree_topo = want
+                self._seq_base = self._last_seq
 
     # -- admission ---------------------------------------------------------
     def quota_for(self, tenant: str) -> TenantQuota:
@@ -246,8 +281,10 @@ class AdmissionQueue:
                     f"tenant {t!r}: {b + entry.nbytes} in-flight bytes "
                     f"would exceed quota ({q.max_bytes})", tenant=t,
                     reason="inflight-bytes")
-            entry.seq = next(self._seq)
+            self._last_seq += 1
+            entry.seq = self._last_seq
             entry.departed = False
+            self._by_seq[entry.seq] = entry
             self._tenant_requests[t] = n + 1
             self._tenant_bytes[t] = b + entry.nbytes
             self._depth_total += 1
@@ -281,6 +318,7 @@ class AdmissionQueue:
         departure path MUST come through here — the depth counters are
         only as honest as their bookkeeping.  Caller holds the lock."""
         entry.departed = True
+        self._by_seq.pop(entry.seq, None)
         t = entry.ticket.tenant
         self._depth_total -= 1
         left = self._depth_tenant.get(t, 0) - 1
@@ -288,6 +326,35 @@ class AdmissionQueue:
             self._depth_tenant[t] = left
         else:
             self._depth_tenant.pop(t, None)
+
+    def cancel_split(self, ticket: Optional[Ticket],
+                     error: BaseException) -> None:
+        """Undo one admission on which the ranks of a mesh split (some
+        admitted the request, others refused it): ``ticket``'s request,
+        admitted here, leaves the queue, returns its quota and fails
+        with ``error``; with ``ticket=None`` (refused here) this queue
+        spends the admission number the others gave it, so the ranks
+        keep naming their entries alike."""
+        with self._take_lock, self._lock:
+            if ticket is None:
+                self._last_seq += 1
+                return
+            group = self._pending.get(ticket.key, [])
+            entry = next((e for e in group if e.ticket is ticket), None)
+            if entry is None:
+                raise RuntimeError(
+                    f"request {ticket.id} left the queue before the ranks "
+                    f"agreed on its admission")
+            self._depart_locked(entry)
+            group.remove(entry)
+            if not group:
+                del self._pending[ticket.key]
+            if len(group) < self.max_batch:
+                self._full.discard(ticket.key)
+            self._clean_heaps_locked()
+            self.load.note_removed(entry.cost_bytes)
+        self.release(entry)
+        ticket._fail(error)
 
     def release(self, entry: _Entry) -> None:
         """Return one request's quota (called at completion, ok or
@@ -316,110 +383,173 @@ class AdmissionQueue:
         while queued are shed BEFORE batch formation (an expired
         request must not burn mesh time that makes its neighbors late
         too) — the service pops them via :meth:`pop_expired` and fails
-        their tickets typed ``DeadlineError(reason="expired")``."""
+        their tickets typed ``DeadlineError(reason="expired")``.
+
+        A take is a decision (:meth:`_decide`, which changes nothing)
+        and its one application (:meth:`_apply`).  On a topology of
+        several ranks (:meth:`agree_on`) the decision is rank 0's, by
+        its clock, and every rank applies it (module docstring)."""
+        with self._take_lock:
+            topo = self._agree_topo
+            if topo is None:
+                decision = self._decide(flush, now)
+            else:
+                from ..parallel.distributed import agree
+
+                decision = agree(topo, "serve-take",
+                                 lambda: self._decide(flush, now))
+            return self._apply(decision)
+
+    def _decide(self, flush: bool, now: Optional[float]) -> dict:
+        """The take by this queue's clock, as a JSON decision: the
+        entries it sheds as expired and the batches it forms
+        (``[reason, entries, cost]``, in dispatch order), every entry
+        named by its admission number since the deciding topology took
+        over.  Reads the queue, changes nothing (the caller holds
+        ``_take_lock``)."""
         now = time.monotonic() if now is None else now
-        out: List[Batch] = []
+        expired: List[_Entry] = []
+        formed: List[Batch] = []
         with self._lock:
-            self._take_calls += 1
             keys = (list(self._pending) if flush
                     else self._due_keys_locked(now))
-            self._groups_scanned += len(keys)
             for key in keys:
-                self._take_key_locked(key, now, flush, out)
-        for b in out:
+                live = []
+                for e in self._pending.get(key, ()):
+                    if e.deadline is not None and now > e.deadline:
+                        expired.append(e)
+                    else:
+                        live.append(e)
+                while len(live) >= self.max_batch:
+                    formed.append(self._mk_batch(
+                        key, live[: self.max_batch], "full"))
+                    live = live[self.max_batch:]
+                if live and (flush or now - live[0].ticket.t_submit
+                             >= self.max_wait_s):
+                    formed.append(self._mk_batch(
+                        key, live, "flush" if flush else "deadline"))
+        for b in formed:
             b.cost = self._batch_cost(b)
-            for e in b.entries:
-                self.load.note_taken(e.cost_bytes)
 
         def order(b: Batch):
             starved = (now - b.entries[0].ticket.t_submit
                        >= self.starve_after_s)
             return (0, b.seq) if starved else (1, b.cost, b.seq)
 
-        out.sort(key=order)
+        formed.sort(key=order)
+        base = self._seq_base
+        return {"expired": [e.seq - base for e in expired],
+                "batches": [[b.reason, [e.seq - base for e in b.entries],
+                             b.cost] for b in formed]}
+
+    def _apply(self, decision: dict) -> List[Batch]:
+        """Carry out a take decision, this queue's own or rank 0's (its
+        entries are the same admissions on every rank that submitted
+        the same requests in the same order): the one path by which a
+        take changes the queue.  Returns the batches in dispatch
+        order."""
+        out: List[Batch] = []
+        with self._lock:
+            self._take_calls += 1
+            touched: Dict[str, None] = {}
+
+            def pull(seq: int) -> _Entry:
+                e = self._by_seq.get(seq + self._seq_base)
+                if e is None:
+                    raise RuntimeError(
+                        f"the take names request #{seq}, which is not "
+                        f"queued here: the ranks did not submit the same "
+                        f"requests in the same order before this take")
+                self._depart_locked(e)
+                touched[e.ticket.key] = None
+                return e
+
+            for seq in decision["expired"]:
+                e = pull(seq)
+                self._expired.append(e)
+                self.load.note_removed(e.cost_bytes)
+            for reason, seqs, cost in decision["batches"]:
+                entries = [pull(s) for s in seqs]
+                b = self._mk_batch(entries[0].ticket.key, entries, reason)
+                b.cost = cost
+                out.append(b)
+            self._groups_scanned += len(touched)
+            for key in touched:
+                left = [e for e in self._pending[key] if not e.departed]
+                if left:
+                    # the survivors' coalescing deadline re-enters the
+                    # index (the one that surfaced this key is stale)
+                    self._pending[key] = left
+                    heapq.heappush(self._due_heap, (
+                        left[0].ticket.t_submit + self.max_wait_s,
+                        next(self._heap_seq), key))
+                else:
+                    del self._pending[key]
+                if len(left) < self.max_batch:
+                    self._full.discard(key)
+            self._clean_heaps_locked()
+        for b in out:
+            for e in b.entries:
+                self.load.note_taken(e.cost_bytes)
         return out
 
-    def _take_key_locked(self, key: str, now: float, flush: bool,
-                         out: List[Batch]) -> None:
-        """The per-group take body: shed
-        deadline-expired members, split full batches, take the rest if
-        due (or flushing).  Caller holds the lock and picked ``key``
-        from the index (or the full scan, under flush)."""
-        entries = self._pending.get(key)
-        if entries is None:
-            return
-        live = [e for e in entries
-                if e.deadline is None or now <= e.deadline]
-        if len(live) != len(entries):
-            for e in entries:
-                if e.deadline is not None and now > e.deadline:
-                    self._depart_locked(e)
-                    self._expired.append(e)
-                    self.load.note_removed(e.cost_bytes)
-            entries = live
-            self._pending[key] = entries
-        while len(entries) >= self.max_batch:
-            take, entries = (entries[: self.max_batch],
-                             entries[self.max_batch:])
-            self._pending[key] = entries
-            for e in take:
-                self._depart_locked(e)
-            out.append(self._mk_batch(key, take, "full"))
-        if entries and (flush or now - entries[0].ticket.t_submit
-                        >= self.max_wait_s):
-            del self._pending[key]
-            for e in entries:
-                self._depart_locked(e)
-            out.append(self._mk_batch(
-                key, entries, "flush" if flush else "deadline"))
-        elif not entries:
-            del self._pending[key]
-        if key in self._full and \
-                len(self._pending.get(key, ())) < self.max_batch:
-            self._full.discard(key)
-        remainder = self._pending.get(key)
-        if remainder:
-            # the survivors' coalescing deadline re-enters the index
-            # (their original due entry was consumed popping this key)
-            heapq.heappush(self._due_heap, (
-                remainder[0].ticket.t_submit + self.max_wait_s,
-                next(self._heap_seq), key))
+    def _clean_heaps_locked(self) -> None:
+        """Pop the stale entries off the heaps' tops: departed SLO
+        entries, and coalescing deadlines of groups that left or whose
+        head changed (such a group is re-indexed at its live head's
+        deadline).  A stale entry below a live top waits until it
+        surfaces (the heaps are lazy).  Caller holds the lock."""
+        while self._slo_heap and self._slo_heap[0][2].departed:
+            heapq.heappop(self._slo_heap)
+        while self._due_heap:
+            d, _, k = self._due_heap[0]
+            group = self._pending.get(k)
+            actual = (group[0].ticket.t_submit + self.max_wait_s
+                      if group else None)
+            if actual is not None and actual <= d:
+                break
+            heapq.heappop(self._due_heap)
+            if actual is not None:
+                heapq.heappush(self._due_heap,
+                               (actual, next(self._heap_seq), k))
+
+    @staticmethod
+    def _heap_upto(heap: list, bound: float) -> list:
+        """The entries of ``heap`` keyed at or before ``bound``, without
+        popping them: a heap's children never precede their parent, so
+        the walk visits only those entries and their children."""
+        out, stack = [], [0]
+        while stack:
+            i = stack.pop()
+            if i < len(heap) and heap[i][0] <= bound:
+                out.append(heap[i])
+                stack += (2 * i + 1, 2 * i + 2)
+        return out
 
     def _due_keys_locked(self, now: float) -> List[str]:
         """Every key that can yield work at ``now``: full groups,
         groups whose coalescing deadline passed, and groups holding an
         SLO-expired entry (the take-point shed must fire even when the
-        group itself is not due).  O(due + full + log n), NOT
-        O(groups).  Caller holds the lock."""
+        group itself is not due).  O(due + full), NOT O(groups); reads
+        the heaps without popping them (:meth:`_apply` cleans them).
+        Caller holds the lock."""
         keys: List[str] = []
         seen = set()
-        while self._slo_heap and self._slo_heap[0][0] <= now:
-            _, _, entry = heapq.heappop(self._slo_heap)
-            if entry.departed:
-                continue
-            k = entry.ticket.key
-            if k in self._pending and k not in seen:
+
+        def add(k: str) -> None:
+            if k not in seen:
                 seen.add(k)
                 keys.append(k)
+
+        for _, _, entry in self._heap_upto(self._slo_heap, now):
+            if not entry.departed and entry.ticket.key in self._pending:
+                add(entry.ticket.key)
         for k in self._full:
-            if k not in seen:
-                seen.add(k)
-                keys.append(k)
-        while self._due_heap and self._due_heap[0][0] <= now:
-            _, _, k = heapq.heappop(self._due_heap)
+            add(k)
+        for _, _, k in self._heap_upto(self._due_heap, now):
             group = self._pending.get(k)
-            if not group:
-                continue        # stale: the group was fully taken
-            actual = group[0].ticket.t_submit + self.max_wait_s
-            if actual > now:
-                # stale-but-live: the head that set this deadline left;
-                # re-index at the live head's deadline
-                heapq.heappush(self._due_heap,
-                               (actual, next(self._heap_seq), k))
-                continue
-            if k not in seen:
-                seen.add(k)
-                keys.append(k)
+            if group and group[0].ticket.t_submit + self.max_wait_s <= now:
+                add(k)
         return keys
 
     def scan_stats(self) -> dict:
@@ -458,7 +588,7 @@ class AdmissionQueue:
         sets; the clock only gates WHEN the rung fires).  The service
         fails their tickets typed ``AdmissionError(reason="shed")``."""
         evicted: List[_Entry] = []
-        with self._lock:
+        with self._take_lock, self._lock:
             for key in list(self._pending):
                 entries = self._pending[key]
                 keep = [e for e in entries

@@ -40,7 +40,8 @@ deterministic loop that composes them into a *service*:
 
 Determinism contract (multi-controller meshes): one service instance
 runs per rank; batching and ordering decisions are pure functions of
-the submission sequence (see :class:`~pencilarrays_tpu_torch.serve.queue.
+the submission sequence and of rank 0's clock, whose take every rank
+applies (see :class:`~pencilarrays_tpu_torch.serve.queue.
 AdmissionQueue`), so ranks that submit identically and drain at the
 same points dispatch identical collective programs in identical order.
 
@@ -81,8 +82,7 @@ tenant's result keeps the whole batch alive.  The registry's compiled
 executables are CUDA graphs, one pool per plan
 (:class:`~pencilarrays_tpu_torch.ops.fft.CompiledPlan`).  Each batch's
 host pack and host-to-device seconds are kept in
-:meth:`PlanService.batch_timings`.  :meth:`PlanService.certify` waits
-for the port's ``analysis.spmd.certify_plan``.
+:meth:`PlanService.batch_timings`.
 """
 
 from __future__ import annotations
@@ -111,6 +111,14 @@ _solo_ids = itertools.count(1)      # per-request coalesce-key suffixes
 _service_ids = itertools.count(1)   # dispatch-log attribution tokens:
 # NEVER id(self) — a recycled address would pull a dead service's
 # records into another service's certify(engine=True)
+
+
+def _topology_of(entry: _Entry):
+    """The topology a request runs on: its plan's, or its reshard
+    payload's."""
+    if entry.plan is not None:
+        return entry.plan.topology
+    return entry.payload.pencil.topology
 
 
 @lru_cache(maxsize=64)
@@ -309,6 +317,9 @@ class PlanService:
         with self._lock:
             self._named[name] = plan
         self.registry.register(plan, replace=True)
+        # the reformed mesh's rank 0 decides the takes from now on (its
+        # clock alone on one rank)
+        self.queue.agree_on(plan.topology)
         # re-point EVERY queued entry of this fingerprint, not just the
         # name= submissions: a plan= submission resolves to the same
         # canonical object (registry dedupe) and shares the coalesce
@@ -562,6 +573,8 @@ class PlanService:
         # (error raises InjectedFault to THIS submitter, delay drags
         # the admission path — docs/Resilience.md)
         faults.fire("serve.submit", tenant=t, kind=entry.ticket.kind)
+        # one clock, rank 0's, decides every take on several ranks
+        self.queue.agree_on(_topology_of(entry))
         try:
             self._enforce_slo(entry)
             full = self.queue.offer(entry)
@@ -1132,6 +1145,19 @@ class PlanService:
         timing = {"s": 0.0}
         meta = self._dispatch_meta(batch)
 
+        def counted(host_operand):
+            # the collectives this dispatch issued across ranks (a graph
+            # replay's included), what certify(engine=True) holds to the
+            # plan's prediction; the attempt that succeeded sets them
+            from ..parallel import collectives
+
+            with collectives.recording() as rec:
+                out = self._run_batch(batch, host_operand)
+            if batch.kind == "fft":
+                meta["collectives"] = collectives.stats(
+                    rec["ops"], collectives.EXCHANGE_KINDS)
+            return out
+
         def run(host_operand=None):
             # elastic_step, not guarded_step: when the elastic layer is
             # armed a PeerFailureError/PeerLeftError mid-batch reforms
@@ -1142,7 +1168,7 @@ class PlanService:
             t0 = time.perf_counter()
             try:
                 return elastic_step(
-                    lambda: self._run_batch(batch, host_operand),
+                    lambda: counted(host_operand),
                     retry=self.retry, label=f"serve:{batch.key}",
                     meta={"tenants": tenants,
                           "reqs": [e.ticket.id for e in batch.entries]})
@@ -1177,11 +1203,10 @@ class PlanService:
         e0 = batch.entries[0]
         if batch.kind == "fft":
             own = f"plan:{e0.plan.plan_key()}"
-            topo = e0.plan.topology
         else:
             own = "route:" + batch.key.split("#solo", 1)[0]
-            topo = e0.payload.pencil.topology
-        return (own, "serve-mesh") if len(topo) > 1 else (own,)
+        return (own, "serve-mesh") if len(_topology_of(e0)) > 1 \
+            else (own,)
 
     def _lane_for(self, batch: Batch) -> int:
         """The batch's engine priority lane: the max ``shed_priority``
@@ -1581,13 +1606,88 @@ class PlanService:
     # -- pre-flight certification ------------------------------------------
     def certify(self, *, hbm_limit: Optional[int] = None,
                 raise_on_error: bool = True, engine: bool = False) -> dict:
-        """The JAX package's pre-flight certification of every resident
-        executable against its ``collective_costs`` prediction.  It needs
-        ``analysis.spmd.certify_plan``, which the port does not have yet
-        (ROADMAP Queue 1 item 7(g)); until then this raises."""
-        raise NotImplementedError(
-            "PlanService.certify needs analysis.spmd.certify_plan, not "
-            "ported yet (ROADMAP Queue 1 item 7(g))")
+        """Certify every resident plan BEFORE it serves traffic: each
+        registered fingerprint's resident executables (forward AND
+        backward, every resident ``extra_dims``/donate variant — or the
+        plan's default batch when nothing has compiled yet) are traced
+        with :mod:`pencilarrays_tpu_torch.analysis.spmd` and proved
+        equal, op for op, to the plan's ``collective_costs``
+        prediction; ``hbm_limit`` additionally bounds each certified
+        variant's static peak memory at that variant's OWN
+        ``extra_dims`` (a coalesced-batch executable is priced at its
+        batch).  A trace runs the program once on zeros, so on a
+        topology of several ranks every rank's service certifies
+        together, in the same order.
+
+        One ``analysis.check`` journal record per certified target
+        (non-ok fsync-critical).  Returns the sweep report; with
+        ``raise_on_error`` the first divergence re-raises its typed
+        error (:class:`~pencilarrays_tpu_torch.analysis.errors.
+        ScheduleMismatchError` naming the offending op, ...) after the
+        report entry is journaled — the pre-flight gate.
+
+        ``engine=True`` additionally certifies the pipelined execution
+        this service actually ran: the engine's issued dispatch log
+        (filtered to this service's batches) is proved equal to the
+        serialized schedule (:func:`~pencilarrays_tpu_torch.analysis.
+        spmd.verify_dispatch_log`; typed :class:`~pencilarrays_tpu_torch.
+        analysis.errors.DispatchOrderError` /
+        :class:`~pencilarrays_tpu_torch.analysis.errors.
+        ScheduleMismatchError` naming the first divergence).  The
+        result rides the report under ``"engine"``."""
+        from ..analysis.errors import AnalysisError
+        from ..analysis.spmd import certify_plan
+
+        t0 = time.perf_counter()
+        report: dict = {"plans": [], "ok": True}
+        for key in self.registry.keys():
+            plan = self.registry.plan(key)
+            if plan is None:
+                continue
+            compiled = self.registry.executables(key)
+            targets = ([(cp, cp.extra_dims) for cp in compiled]
+                       or [(None, None)])
+            for cp, extra in targets:
+                # hbm_limit rides each variant's certification: a
+                # resident coalesced-batch executable is bounded at ITS
+                # extra_dims, not the plan's default batch
+                try:
+                    rec = certify_plan(plan, extra, compiled=cp,
+                                       hbm_limit=hbm_limit,
+                                       target=f"serve:{key}")
+                except AnalysisError as e:
+                    if raise_on_error:
+                        raise
+                    rec = {"target": f"serve:{key}",
+                           "outcome": type(e).__name__,
+                           "error": str(e),
+                           "extra_dims": list(
+                               extra if extra is not None
+                               else plan.batch_dims)}
+                    report["ok"] = False
+                report["plans"].append(rec)
+        if engine:
+            from ..analysis.spmd import verify_dispatch_log
+
+            eng = self.engine()
+            mine = [r for r in eng.dispatch_log()
+                    if r.meta.get("service") == self._sid]
+            try:
+                report["engine"] = verify_dispatch_log(
+                    mine, source=f"serve-engine:{eng.name}")
+                # the log is a bounded window: a certification that did
+                # not see the whole run must say so, never imply it did
+                report["engine"]["log_truncated"] = \
+                    eng.stats()["log_truncated"]
+            except AnalysisError as e:
+                if raise_on_error:
+                    raise
+                report["engine"] = {"outcome": type(e).__name__,
+                                    "error": str(e)}
+                report["ok"] = False
+        report["seconds"] = time.perf_counter() - t0
+        report["certified"] = len(report["plans"])
+        return report
 
     # -- introspection -----------------------------------------------------
     def batch_timings(self) -> List[dict]:

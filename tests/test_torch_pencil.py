@@ -175,6 +175,8 @@ def _imported_modules(path: Path):
 def test_no_port_module_imports_jax():
     files = sorted((ROOT / "pencilarrays_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    # the drills' process scripts run the port alone too
+    files += sorted((ROOT / "tests").glob("torch_*_worker.py"))
     assert len(files) > 10
     for path in files:
         for mod in _imported_modules(path):

@@ -3,8 +3,8 @@
 Every case of the JAX package's ``tests/test_serve.py`` (but the bench
 smoke: its benchmark is not ported) and ``tests/test_serve_depth.py``,
 the ``PlanService`` cases of ``tests/test_engine.py`` (but the certify
-one: ``PlanService.certify`` waits for ``analysis.spmd.certify_plan``)
-and the three serve-whale cases of ``tests/test_reshard_hbm.py``.
+one, which ``tests/test_torch_analysis.py`` runs on two ranks) and the
+three serve-whale cases of ``tests/test_reshard_hbm.py``.
 
 Scenarios (``tests/torch_serve_scenarios.py``) run the JAX test's body
 through both packages (``tests/torch_serve_parity.py``): the JAX service
@@ -255,13 +255,29 @@ def test_elastic_reform_rebuilds_engine(tmp_path):
 
 
 def test_serve_certify_waits_for_the_analysis_port():
-    """``PlanService.certify`` needs ``analysis.spmd.certify_plan``
-    (ROADMAP Queue 1 item 7(g)); the port raises instead of certifying
-    nothing."""
+    """``PlanService.certify`` runs on the port's ``analysis.spmd``
+    (it raised ``NotImplementedError`` until that was ported): a service
+    with nothing registered certifies nothing, as the JAX package's
+    does, and the engine's (empty) log of it verifies.  The sweep over
+    resident plans is ``tests/test_torch_analysis.py``'s."""
+    from pencilarrays_tpu.serve import PlanService as JaxService
     from pencilarrays_tpu_torch.serve import PlanService
 
-    with pytest.raises(NotImplementedError, match="7\\(g\\)"):
-        PlanService().certify()
+    got = {}
+    for which, cls in (("jax", JaxService), ("torch", PlanService)):
+        svc = cls()
+        try:
+            r = svc.certify(engine=True)
+        finally:
+            svc.close()
+        got[which] = {"ok": r["ok"], "plans": r["plans"],
+                      "certified": r["certified"],
+                      "engine": {k: r["engine"][k] for k in (
+                          "dispatches", "order_ok", "verified_traces")}}
+    assert got["torch"] == got["jax"] == {
+        "ok": True, "plans": [], "certified": 0,
+        "engine": {"dispatches": 0, "order_ok": True,
+                   "verified_traces": 0}}
 
 
 # -- serve whales: hbm-limited reshards (8 ranks) -----------------------------

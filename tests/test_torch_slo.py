@@ -15,6 +15,7 @@ everything else equal.
 """
 
 import json
+import time
 
 import pytest
 
@@ -121,6 +122,86 @@ def test_blind_tracker_admits_everything(tmp_path):
 
 def test_expired_entry_shed_at_take_typed(tmp_path):
     both("s_expired_shed", ONE, "<tmp>", tmp=tmp_path)
+
+
+def test_split_clock_take_is_agreed(tmp_path):
+    """Two ranks, one service each, the same submissions; rank 1's
+    queue clock reads 60 s ahead at the take (past two requests' 30 s
+    deadlines and past the starvation age).  Both ranks apply rank 0's
+    take: the same outcomes and the same dispatch order, equal to the
+    JAX package's single controller.  On a take by each rank's own
+    clock, rank 1 sheds what rank 0 dispatches and rank 0 waits alone
+    in the exchange: the private pool's 90 s limit fails the test
+    instead of stalling the suite."""
+    from torch_serve_parity import run_jax
+
+    import torch_rank_tasks as tasks
+    from pencilarrays_tpu_torch.parallel.distributed import RankPool
+
+    want = run_jax("s_split_clock_take", (2, 1), tmp=tmp_path)
+    assert want["outcomes"] == ["ok", "ok", "DeadlineError:expired"]
+    with RankPool(2, timeout_s=90) as pool:
+        got = pool.run(tasks.serve_scenario, (2, 1), "s_split_clock_take",
+                       [(2, 1), 1], str(tmp_path / "port"), True)
+    assert got[0] == got[1] == want, (got, want)
+
+
+def test_serve_on_two_ranks_after_scale_down_and_rejoin(tmp_path):
+    """One service serves on two ranks, on the survivor alone after the
+    other rank leaves and the cluster reforms down, and on two ranks
+    again after a fresh process rejoins: every result within the FFT
+    tolerance.  Each reformation makes a new process group; the agreed
+    take numbers its decisions per process group and follows the
+    reformed plan's topology, so the survivor (after many takes) and
+    the fresh joiner (after none) ask for the same decision.  A
+    numbering kept across worlds, or the first world's topology kept,
+    leaves the joiner waiting for a decision the survivor never
+    publishes: the 150 s limit fails the test instead."""
+    import multiprocessing as mp
+    import queue as _queue
+
+    import torch_rank_tasks as tasks
+
+    ctx = mp.get_context("spawn")
+    out, left, down = ctx.Queue(), ctx.Event(), ctx.Event()
+
+    def proc(role):
+        p = ctx.Process(target=tasks.scale_rejoin_role,
+                        args=(role, str(tmp_path), out, left, down))
+        p.start()
+        return p
+
+    t_end = time.monotonic() + 150
+    procs = [proc("survivor"), proc("leaver")]
+    got = {}
+    try:
+        while len(got) < 3:
+            if down.is_set() and len(procs) == 2:
+                procs.append(proc("joiner"))
+            assert time.monotonic() < t_end, f"the drill did not finish: {got}"
+            assert all(p.exitcode in (None, 0) for p in procs), \
+                [(p.exitcode, got) for p in procs]
+            try:
+                role, res = out.get(timeout=0.2)
+            except _queue.Empty:
+                continue
+            assert not isinstance(res, str), f"{role}:\n{res}"
+            got[role] = res
+        for p in procs:
+            p.join(max(1.0, t_end - time.monotonic()))
+            assert p.exitcode == 0, (p.name, p.exitcode)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    worlds = [w for w, _ in got["survivor"]]
+    assert worlds == [2, 1, 2]
+    assert [w for w, _ in got["leaver"]] == [2]
+    assert [w for w, _ in got["joiner"]] == [2]
+    errs = [e for _, es in got["survivor"] for e in es]
+    assert len(errs) == 9 and max(errs) <= 2e-5, errs
+    assert got["leaver"][0][1] == got["joiner"][0][1] == []
 
 
 def test_expiry_feeds_pump_deadline(tmp_path):

@@ -7,6 +7,8 @@ from the other ranks).  Pencils are described as ``(decomp_dims, perm)``
 with ``perm`` a tuple or ``None``.
 """
 
+import os
+
 import numpy as np
 import torch
 
@@ -2309,11 +2311,12 @@ def store_kv_case(ns):
             "steps": steps}
 
 
-def serve_scenario(dims, name, args, tmp):
+def serve_scenario(dims, name, args, tmp, every=False):
     """One scenario of ``tests/torch_serve_scenarios.py`` through the
     port on the first ``prod(dims)`` ranks of the pool (each rank its own
     ``PlanService``, the same submissions), in ``tmp/r<rank>``; rank 0's
-    result (``None`` from the other ranks)."""
+    result (``None`` from the other ranks), or with ``every`` each
+    rank's own."""
     import pathlib
 
     import torch_serve_scenarios as S
@@ -2330,4 +2333,488 @@ def serve_scenario(dims, name, args, tmp):
                                      for a in args])
     finally:
         P.reset()
-    return out if P.rank0() else None
+    return out if every or P.rank0() else None
+
+
+def fleet_mesh_case(kvroot, mesh, max_seconds, fault=""):
+    """One fleet mesh of every rank of the pool: each rank its own
+    ``PlanService`` (the JAX fleet worker's ``minnow`` and ``whale`` c2c
+    plans on a ``(P, 1)`` topology) behind a ``MeshWorker`` over the
+    ``FileKV`` at ``kvroot``; rank 0 speaks for the mesh.  Serves until
+    the mesh's stop key (or ``max_seconds``), under the fault rules
+    ``fault``; every rank's counts."""
+    from pencilarrays_tpu_torch.cluster.kv import FileKV
+    from pencilarrays_tpu_torch.fleet import MeshWorker
+    from pencilarrays_tpu_torch.resilience import faults
+    from pencilarrays_tpu_torch.serve import PlanService
+
+    faults.install(fault)
+
+    topo = pat.Topology((torch.distributed.get_world_size(), 1),
+                        device="cpu")
+    svc = PlanService(max_batch=4, max_wait_s=0.0)
+    svc.register_plan("minnow", lambda ctx: pat.PencilFFTPlan(
+        topo, (8, 6, 4)))
+    svc.register_plan("whale", lambda ctx: pat.PencilFFTPlan(
+        topo, (16, 12, 8)))
+    w = MeshWorker(FileKV(kvroot), mesh, service=svc, ttl=2.0)
+    w.prewarm(["minnow", "whale"])
+    w.start()
+    try:
+        w.run(poll_s=0.01, max_seconds=max_seconds)
+    finally:
+        svc.close()
+        faults.clear()
+    return {"handled": w.handled, "stopped": w.stopped,
+            "depth": svc.queue.depth()}
+
+
+# -- the static analysis (analysis/spmd.py) -----------------------------------
+
+def _ops(trace):
+    return [[o.kind, o.bytes] for o in trace.ops]
+
+
+def _method(name):
+    return {"alltoall": pat.AllToAll(), "ring": pat.Ring(),
+            "pipelined": pat.Pipelined(chunks=2)}[name]
+
+
+def analysis_case(name, *args):
+    """One case of the JAX package's ``tests/test_analysis.py`` pillar 1
+    on the pool's ranks (every rank traces; each asserts the port's trace
+    against the port's own prediction); rank 0's comparable values."""
+    from pencilarrays_tpu_torch.analysis import spmd
+
+    out = globals()["_an_" + name](spmd, *args)
+    return out if torch.distributed.get_rank() == 0 else None
+
+
+def _an_transpose(spmd, method, extra):
+    topo = sub_topology((4,))
+    if topo is None:
+        return None
+    pin = pat.Pencil(topo, (16, 12, 20), (1,))
+    pout = pat.Pencil(topo, (16, 12, 20), (0,))
+    m = _method(method)
+    tr = spmd.trace_transpose(pin, pout, tuple(extra), torch.complex64, m)
+    pred = pat.transpose_cost(pin, pout, tuple(extra), torch.complex64, m)
+    assert tr.stats() == pred, (tr.stats(), pred)
+    assert all(o.bytes > 0 for o in tr.ops)
+    assert [o.index for o in tr.ops] == list(range(len(tr.ops)))
+    assert any(o.replica_groups for o in tr.ops)
+    return {"stats": tr.stats(), "pred": pred, "ops": _ops(tr)}
+
+
+def _an_plan(spmd, dims, real, extra):
+    topo = sub_topology(tuple(dims))
+    if topo is None:
+        return None
+    plan = pat.PencilFFTPlan(topo, (8, 8, 4), real=real)
+    fwd = spmd.verify_plan(plan, tuple(extra), "forward")
+    bwd = spmd.verify_plan(plan, tuple(extra), "backward")
+    assert len(fwd) > 0 and len(bwd) > 0
+    return {"pred": plan.collective_costs(tuple(extra)),
+            "fwd": _ops(fwd), "bwd": _ops(bwd)}
+
+
+def _route8(dest_decomp=(0, 1)):
+    from pencilarrays_tpu_torch.parallel.routing import plan_reshard_route
+
+    topo = sub_topology((2, 4))
+    pin = pat.Pencil(topo, (16, 12, 8), (1, 2))
+    dest = pat.Pencil(topo, (16, 12, 8), dest_decomp)
+    return plan_reshard_route(pin, dest, (), torch.float32)
+
+
+def _an_routed(spmd):
+    route = _route8()
+    assert route.hops
+    tr = spmd.verify_route(route, (), torch.float32)
+    assert len(tr) == sum(c["count"] for h in route.hops
+                          for c in h.cost.values())
+    return {"ops": _ops(tr), "costs": [h.cost for h in route.hops],
+            "verdict": route.verdict}
+
+
+def _an_compiled(spmd):
+    topo = sub_topology((2, 2))
+    if topo is None:
+        return None
+    plan = pat.PencilFFTPlan(topo, (8, 8, 4), dtype=torch.complex64,
+                             batch=3)
+    cp = plan.compile()
+    f = spmd.trace_compiled_plan(cp, "forward")
+    b = spmd.trace_compiled_plan(cp, "backward")
+    pred = plan.collective_costs((3,))
+    assert f.stats() == pred and b.stats() == pred
+    return {"pred": pred, "fwd": _ops(f), "bwd": _ops(b)}
+
+
+def _an_corrupted(spmd):
+    from pencilarrays_tpu_torch.analysis.errors import ScheduleMismatchError
+
+    topo = sub_topology((2, 2))
+    if topo is None:
+        return None
+    plan = pat.PencilFFTPlan(topo, (8, 8, 4), dtype=torch.complex64)
+    good = spmd.trace_plan(plan, ())
+    assert good.ops
+    corrupted = spmd.CollectiveTrace(source="corrupted", ops=good.ops[:-1],
+                                     donated_params=good.donated_params)
+    out = {}
+    try:
+        spmd.verify_plan(plan, (), "forward", trace=corrupted)
+        raise AssertionError("a dropped collective certified")
+    except ScheduleMismatchError as e:
+        assert e.op == good.ops[-1].kind and e.predicted is not None
+        assert good.ops[-1].kind in str(e)
+        out["dropped"] = [e.op, e.predicted, e.observed]
+    real_costs = plan.collective_costs
+
+    def tampered(extra_dims=None, **kw):
+        costs = real_costs(extra_dims, **kw)
+        op = next(iter(costs))
+        costs[op] = {"count": costs[op]["count"] + 1,
+                     "bytes": costs[op]["bytes"]}
+        return costs
+
+    plan.collective_costs = tampered
+    try:
+        spmd.verify_plan(plan, (), "forward", trace=good)
+        raise AssertionError("a tampered prediction certified")
+    except ScheduleMismatchError as e:
+        assert e.op in good.stats()
+        out["tampered"] = [e.op, e.predicted, e.observed]
+    finally:
+        del plan.collective_costs
+    return out
+
+
+def _an_hbm(spmd):
+    from pencilarrays_tpu_torch.analysis.errors import HbmBoundError
+
+    topo = sub_topology((2, 2))
+    route = _route8()
+    out = None
+    if topo is not None:
+        plan = pat.PencilFFTPlan(topo, (8, 8, 4), dtype=torch.complex64)
+        peak, label = spmd.predicted_peak_hbm(plan)
+        assert peak > 0 and label.startswith("hop[")
+        assert spmd.verify_hbm(plan, peak) == peak
+        try:
+            spmd.verify_hbm(plan, peak - 1, source="drill")
+            raise AssertionError("over the bound certified")
+        except HbmBoundError as e:
+            assert e.hop == label and e.peak_bytes == peak
+            assert "drill" in str(e) and label in str(e)
+        out = {"plan": [peak, label]}
+    rpeak, rlabel = spmd.predicted_peak_hbm(route)
+    assert rpeak == max(h.peak_hbm_bytes for h in route.hops)
+    try:
+        spmd.verify_hbm(route, rpeak - 1)
+        raise AssertionError("over the bound certified")
+    except HbmBoundError as e:
+        assert e.hop == rlabel and rlabel.startswith("route[")
+    if out is not None:
+        out["route"] = [rpeak, rlabel]
+    return out
+
+
+def _an_consistency(spmd):
+    import tempfile
+
+    from pencilarrays_tpu_torch import guard
+    from pencilarrays_tpu_torch.analysis.errors import TraceDivergenceError
+
+    topo = sub_topology((2, 2))
+    if topo is None:
+        return None
+    plan = pat.PencilFFTPlan(topo, (8, 8, 4), dtype=torch.complex64)
+    t1 = spmd.trace_plan(plan, ())
+    t3 = spmd.trace_plan(plan, (3,))
+    spmd.verify_consistent(t1, t3, bytes_ratio=3)
+    try:
+        spmd.verify_consistent(t1, t3, bytes_ratio=1)
+        raise AssertionError("a wrong ratio certified")
+    except TraceDivergenceError as e:
+        assert e.op in t1.stats()
+        div = e.op
+    pin = pat.Pencil(topo, (8, 8, 4), (1, 2))
+    pout = pat.Pencil(topo, (8, 8, 4), (0, 2))
+    off = spmd.trace_transpose(pin, pout, (), torch.float32)
+    with tempfile.TemporaryDirectory() as d:
+        guard.enable(d)
+        try:
+            on = spmd.trace_transpose(pin, pout, (), torch.float32)
+        finally:
+            guard._reset_for_tests()
+    spmd.verify_consistent(off, on)
+    return {"t1": _ops(t1), "t3": _ops(t3), "div": div,
+            "off": _ops(off),
+            "on_exchange": [o for o in _ops(on)
+                            if o[0] in spmd.EXCHANGE_KINDS]}
+
+
+def _an_donation(spmd):
+    from pencilarrays_tpu_torch.analysis.errors import DonationError
+
+    route = _route8()
+    donated = spmd.trace_route(route, (), torch.float32, donate=True)
+    spmd.verify_donation(donated)
+    assert 0 in donated.donated_params
+    plain = spmd.trace_route(route, (), torch.float32, donate=False)
+    try:
+        spmd.verify_donation(plain)
+        raise AssertionError("a held operand certified as donated")
+    except DonationError:
+        pass
+    return {"donated": list(donated.donated_params),
+            "plain": list(plain.donated_params)}
+
+
+def _an_certify_sweep(spmd, tmp):
+    import os
+
+    from pencilarrays_tpu_torch import obs
+    from pencilarrays_tpu_torch.cluster import elastic
+    from pencilarrays_tpu_torch.obs.schema import lint_journal
+    from pencilarrays_tpu_torch.serve.service import PlanService
+
+    topo = sub_topology((2, 2))
+    if topo is None:
+        return None
+    jdir = os.path.join(tmp, f"r{torch.distributed.get_rank()}")
+    obs.enable(jdir)
+    svc = PlanService(max_batch=4)
+    try:
+        svc.register_plan("c2c", lambda ctx: pat.PencilFFTPlan(
+            topo, (8, 8, 4), dtype=torch.complex64))
+        svc.register_plan("r2c", lambda ctx: pat.PencilFFTPlan(
+            topo, (8, 8, 4), real=True))
+        svc.registry.compiled(svc.plan("c2c"), (2,))
+        report = svc.certify()
+        keys = {n: svc.plan(n).plan_key() for n in ("c2c", "r2c")}
+    finally:
+        svc.close()
+        obs.disable()
+        elastic.unregister_plan("serve:c2c")
+        elastic.unregister_plan("serve:r2c")
+    assert report["ok"] and report["certified"] >= 2
+    assert all(r["outcome"] == "ok" for r in report["plans"])
+    targets = {r["target"] for r in report["plans"]}
+    assert {f"serve:{k}" for k in keys.values()} <= targets
+    events = [e for e in obs.read_journal(jdir)
+              if e["ev"] == "analysis.check"]
+    assert len(events) == report["certified"]
+    assert all(e["outcome"] == "ok" and e["seconds"] >= 0 for e in events)
+    assert lint_journal(obs.read_journal(jdir)) == []
+    return {"ok": report["ok"], "certified": report["certified"],
+            "targets": sorted(targets), "keys": keys,
+            "plans": sorted([r["target"], r["extra_dims"], r["ops"],
+                             r["predicted_bytes"]]
+                            for r in report["plans"])}
+
+
+def _an_certify_hbm(spmd):
+    from pencilarrays_tpu_torch.analysis.errors import HbmBoundError
+    from pencilarrays_tpu_torch.serve.service import PlanService
+
+    topo = sub_topology((2, 2))
+    if topo is None:
+        return None
+    svc = PlanService()
+    plan = pat.PencilFFTPlan(topo, (8, 8, 4), dtype=torch.complex64)
+    svc.registry.register(plan)
+    svc.registry.compiled(plan, (16,))
+    try:
+        unbatched, _ = spmd.predicted_peak_hbm(plan, ())
+        batched, _ = spmd.predicted_peak_hbm(plan, (16,))
+        assert batched > unbatched
+        try:
+            svc.certify(hbm_limit=unbatched)
+            raise AssertionError("the batched variant escaped the limit")
+        except HbmBoundError:
+            pass
+        report = svc.certify(hbm_limit=unbatched, raise_on_error=False)
+        assert not report["ok"]
+        bad = [r for r in report["plans"]
+               if r["outcome"] == "HbmBoundError"]
+        assert len(bad) == 1 and bad[0]["extra_dims"] == [16]
+        assert "error" in bad[0]
+        assert svc.certify(hbm_limit=batched)["ok"]
+    finally:
+        svc.close()
+    return {"peaks": [unbatched, batched], "bad": bad[0]["extra_dims"]}
+
+
+def _an_certify_failure(spmd, tmp):
+    import os
+
+    from pencilarrays_tpu_torch import obs
+    from pencilarrays_tpu_torch.analysis.errors import ScheduleMismatchError
+
+    topo = sub_topology((2, 2))
+    if topo is None:
+        return None
+    jdir = os.path.join(tmp, f"r{torch.distributed.get_rank()}")
+    obs.enable(jdir)
+    plan = pat.PencilFFTPlan(topo, (8, 8, 4), dtype=torch.complex64)
+    real_costs = plan.collective_costs
+    good = spmd.trace_plan(plan, ())
+    op = next(iter(good.stats()))
+
+    def tampered(extra_dims=None, **kw):
+        costs = real_costs(extra_dims, **kw)
+        costs[op] = {"count": costs[op]["count"] + 1,
+                     "bytes": costs[op]["bytes"]}
+        return costs
+
+    plan.collective_costs = tampered
+    try:
+        spmd.certify_plan(plan, (), target="drill")
+        raise AssertionError("a tampered schedule certified")
+    except ScheduleMismatchError as e:
+        assert e.op == op
+    finally:
+        obs.disable()
+    events = [e for e in obs.read_journal(jdir)
+              if e["ev"] == "analysis.check"]
+    assert len(events) == 1
+    assert events[0]["outcome"] == "ScheduleMismatchError"
+    assert events[0]["target"] == "drill"
+    return {"op": op, "outcome": events[0]["outcome"]}
+
+
+def _an_certify_engine(spmd):
+    from pencilarrays_tpu_torch.engine import Engine
+    from pencilarrays_tpu_torch.serve import PlanService
+
+    topo = sub_topology((2,))
+    if topo is None:
+        return None
+    plan = pat.PencilFFTPlan(topo, (8, 6, 4))
+    rng = np.random.default_rng(3)
+    engine = Engine("certify", workers=2)
+    svc = PlanService(max_batch=4, max_wait_s=0.0, engine=engine)
+    try:
+        for _ in range(8):
+            svc.submit("t0", (rng.standard_normal((8, 6, 4))
+                              + 1j * rng.standard_normal((8, 6, 4))
+                              ).astype(np.complex64), plan=plan)
+        svc.drain()
+        report = svc.certify(engine=True)
+    finally:
+        svc.close()
+        engine.close()
+    assert report["ok"] and report["engine"]["order_ok"]
+    e = report["engine"]
+    assert e["dispatches"] == 2 and e["verified_traces"] == 2
+    assert e["unverified"] == 0
+    return {k: e[k] for k in ("dispatches", "verified_traces",
+                              "unverified", "mode", "wire_checked", "ops")}
+
+
+# -- a service across a scale-down and a rejoin -------------------------------
+
+def scale_rejoin_role(role, tmp, out, left, down):
+    """One process of the scale-down-and-rejoin serve drill (a process of
+    its own, not a pool rank).  ``survivor`` and ``leaver`` form a world
+    of two gloo ranks and serve three requests through one
+    ``PlanService`` each; the leaver leaves the cluster (``left``), the
+    survivor reforms down to one rank and serves alone (``down``), then
+    admits ``joiner``, a fresh process, by a second reformation and the
+    two serve again.  A process group cannot shrink or grow, so each
+    reformation makes a new one: the first factory it re-invokes joins
+    the new world.  Each process puts ``(role, result)`` on ``out``:
+    the worlds it served on and, on the serving world's rank 0, each
+    result's error relative to ``numpy.fft.fftn``."""
+    import torch.distributed as dist
+
+    from pencilarrays_tpu_torch.cluster import elastic
+    from pencilarrays_tpu_torch.cluster.consensus import Coordinator
+    from pencilarrays_tpu_torch.cluster.kv import FileKV
+    from pencilarrays_tpu_torch.parallel.gather import gather
+    from pencilarrays_tpu_torch.serve import PlanService
+
+    torch.set_num_threads(1)
+    kv = FileKV(os.path.join(tmp, "kv"))
+    shape = (8, 6, 4)
+
+    def join_world(gen, world, rank):
+        pat.distributed.finalize()
+        pat.distributed.initialize(
+            "gloo", init_method=f"file://{tmp}/pg.g{gen}", world_size=world,
+            rank=rank, timeout_s=60)
+
+    def regroup(ctx):
+        join_world(ctx.membership.gen, ctx.membership.new_world,
+                   ctx.membership.new_rank)
+
+    def factory(ctx=None):
+        topo = pat.Topology((dist.get_world_size(), 1), device="cpu")
+        return pat.PencilFFTPlan(topo, shape)
+
+    def serve(svc, seed):
+        rng = np.random.default_rng(seed)
+        us = [(rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+               ).astype(np.complex64) for _ in range(3)]
+        tickets = [svc.submit("acme", u, name="fft") for u in us]
+        svc.drain()
+        errs = []
+        for u, t in zip(us, tickets):
+            got = gather(t.result(0))
+            if dist.get_rank() == 0:
+                ref = np.fft.fftn(u)
+                errs.append(float(np.abs(got - ref).max()
+                                  / np.abs(ref).max()))
+        return [dist.get_world_size(), errs]
+
+    svc = coord = None
+    try:
+        if role == "joiner":
+            r = elastic.request_join(kv, "spare", namespace="pa",
+                                     timeout=60)
+            coord = r.coordinator
+            join_world(r.membership.gen, r.membership.new_world,
+                       r.membership.new_rank)
+            svc = PlanService(max_batch=4, max_wait_s=60.0)
+            svc.register_plan("fft", factory)
+            out.put((role, [serve(svc, 3)]))
+            return
+        rank = 0 if role == "survivor" else 1
+        join_world(0, 2, rank)
+        coord = Coordinator(kv, rank, 2, lease_ttl=1.0, verdict_timeout=30)
+        elastic.register_plan("regroup", regroup)
+        svc = PlanService(max_batch=4, max_wait_s=60.0)
+        svc.register_plan("fft", factory)
+        served = [serve(svc, 1)]
+        if role == "leaver":
+            svc.close()
+            svc = None
+            coord.leave()
+            pat.distributed.finalize()
+            left.set()
+            out.put((role, served))
+            return
+        assert left.wait(60), "the leaver never left"
+        coord = elastic.reform(coord, reason="scale-down",
+                               install=True).coordinator
+        served.append(serve(svc, 2))
+        down.set()
+        kv.get("pa/join/sspare", 60.0)
+        coord = elastic.reform(coord, reason="scale-up",
+                               install=True).coordinator
+        served.append(serve(svc, 3))
+        out.put((role, served))
+    except BaseException:
+        import traceback
+
+        out.put((role, traceback.format_exc()))
+        raise
+    finally:
+        if svc is not None:
+            svc.close()
+        if coord is not None:
+            coord.shutdown()
+        pat.distributed.finalize()

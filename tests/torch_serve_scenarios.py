@@ -108,11 +108,15 @@ class SPkg:
         return self.pa.PencilArray.from_global(pen, u)
 
     def rank0(self) -> bool:
+        return self.rank() == 0
+
+    def rank(self) -> int:
+        """This process's rank (0 for the JAX package's one controller)."""
         if self.name == "jax":
-            return True
+            return 0
         import torch.distributed as dist
 
-        return not dist.is_initialized() or dist.get_rank() == 0
+        return dist.get_rank() if dist.is_initialized() else 0
 
     def reset(self):
         """Start (and leave) obs, guard, faults and the cluster layer off
@@ -982,6 +986,55 @@ def s_expired_shed(P, dims, d):
                          if "shed" in k or "completed" in k},
             "records": [r for r in serve_records(P, str(d))
                         if r[0] != "serve.slo_violation"]}
+
+
+class _SkewedClock:
+    """The ``time`` module with ``monotonic`` reading ``skew`` seconds
+    ahead (one rank's clock running past a deadline)."""
+
+    def __init__(self, real, skew):
+        self._real, self._skew = real, skew
+
+    def monotonic(self):
+        return self._real.monotonic() + self._skew
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+
+def s_split_clock_take(P, dims, skew_rank=None):
+    """Three queued requests: a big plan's and a small plan's with a
+    30 s deadline, and a small one whose 0.05 s deadline expires while
+    queued.  On rank ``skew_rank`` the queue's clock then reads 60 s
+    ahead, past the 30 s deadlines and past ``starve_after_s`` (which
+    flips the take to admission order).  The take every rank applies is
+    rank 0's: the same one as the JAX package's single controller
+    (the expired request shed, the other two dispatched, the cheaper
+    batch first)."""
+    big = P.plan(dims, (16, 12, 8))
+    small = P.plan(dims, (8, 6, 4))
+    rng = np.random.default_rng(21)
+    svc = P.serve.PlanService(
+        max_batch=4, max_wait_s=60.0, starve_after_s=5.0,
+        slos={"dl": P.serve.SLO(deadline_s=30.0),
+              "fast": P.serve.SLO(deadline_s=0.05)})
+    ta = svc.submit("dl", host(rng, (16, 12, 8)), plan=big)
+    tc = svc.submit("dl", host(rng, (8, 6, 4)), plan=small)
+    tb = svc.submit("fast", host(rng, (8, 6, 4)), plan=small)
+    time.sleep(0.3)
+    qmod = importlib.import_module(P.serve.__name__ + ".queue")
+    real = qmod.time
+    if skew_rank is not None and P.rank() == skew_rank:
+        qmod.time = _SkewedClock(real, 60.0)
+    try:
+        svc.drain()
+    finally:
+        qmod.time = real
+    order = [r.meta.get("key") for r in svc.engine().dispatch_log()
+             if r.meta.get("service") == svc._sid]
+    svc.close()
+    return {"outcomes": [outcome(t) for t in (ta, tc, tb)],
+            "order": order}
 
 
 def s_expiry_feeds_pump(P, dims):
