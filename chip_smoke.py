@@ -26,8 +26,10 @@ standard output too.  Phases, each printed on its own lines:
    alignment and ones that do not) and one launch over more than 2^31
    words; its timings run last (after phase 9): kernel, call, plain,
    bound, copy and library times and the instance of every (shape, axes,
-   dtype, view layout) class phases 3, 4, 5 and 7 launched (recorded by
-   ``permute.recorded``) and of two 512^3 hop classes, and K1's time per
+   dtype, view layout) class phases 3, 4, 5, 5i and 7 launched
+   (recorded by ``permute.recorded``; a class only phase 5i launched
+   over 3 launches; the process groups of the phases before released
+   first) and of two 512^3 hop classes, and K1's time per
    run (per NS RK2 step, per cycle and method, per Ulysses call);
 3. an x->y->z->y->x transpose cycle of a 1024^3 float32 field on a (1, 1)
    topology under AllToAll(), Ring(), Pipelined(4) and Pipelined(3,
@@ -94,8 +96,8 @@ standard output too.  Phases, each printed on its own lines:
    either way);
 5d. the engine (``engine/``), in ``chip_smoke_engine/`` of the checkout
    (three times the bytes it writes must be free; deleted at the end):
-   NS Taylor-Green at 512^3 for 48 RK2 steps with a
-   ``CheckpointManager(keep=2)`` save every 16, once as a synchronous
+   NS Taylor-Green at 512^3 for 24 RK2 steps with a
+   ``CheckpointManager(keep=2)`` save every 8, once as a synchronous
    loop and once by ``run_async`` (saves on the engine's host pool): the
    final states and the kept steps restored from both directories bit
    for bit, the saves counted as host tasks, the dispatch log verified
@@ -188,9 +190,9 @@ standard output too.  Phases, each printed on its own lines:
    share the card behind a router in this process (no device, joined by
    a ``FileKV``), each serving the 512^3 r2c f32 ``whale`` and the 128^3
    ``minnow`` through a ``PlanService`` (``max_batch=4``): a timed storm
-   (tenants ``a``: 2 whale forwards, ``b``: 2 whale backwards, ``c``: 16
+   (tenants ``a``: 1 whale forward, ``b``: 1 whale backward, ``c``: 16
    minnow forwards; a whale's capsule takes the router about 10 s to
-   encode, so 4 + 4 whales kept the run past its time) with requests/s, per-tenant p50/p99, per whale
+   encode, and the run's time allows one of each) with requests/s, per-tenant p50/p99, per whale
    request the seconds of each part of the wire (the router's encode and
    KV write, the worker's decode, the service, the result's encode and
    KV write, the router's decode), placements per mesh, each worker's K1
@@ -205,6 +207,24 @@ standard output too.  Phases, each printed on its own lines:
    resident variants (predicted peak beside the measured one); the
    port's ``pa-lint`` over the repo; the workers' K1 classes are timed
    in phase 2 under the path ``fleet``; prints ``[fleet]`` lines;
+5i. (run after 5e, the process groups of the phases before released)
+   gradients on the card (``phase_autodiff``), each
+   path's K1 launches forward and backward: the gradient of sum(v*v)
+   through the 1024^3 f32 reshard by the default method and by a forced
+   ``AllToAll()`` route (folded into one K1 permute), 2u bit for bit;
+   512^3 f32 plans over 3 components, c2c against Parseval (2 N u) and
+   the r2c round trip against w, within 1e-5; one NS RK2 step in f64 at
+   64^3 against a central difference (1e-4), eager in f32 at 256^3 (and
+   at 512^3 where 8 times that peak stays under 70 GiB), and at 512^3
+   under ``torch.utils.checkpoint`` bit for bit against the same
+   gradient with the plain moves (ms, peak); the 1024^3 cycle in f16,
+   int16, int64, uint8, bool and c128 (every hop bit-identical, ms, K1
+   instance); ragged f16/bf16/int16/uint8 maximum and minimum; a
+   (1, 1, 1) topology's M = N permutation change and BASELINE config 4
+   (a 4 GiB 4-D c64 array, M = 2, permuted), bit for bit; one
+   ``Pencil.similar``; then K1's backward against the plain inverse
+   permute at every permute class launched backward; prints
+   ``[autodiff]`` lines;
 6. kernels K2–K4 (``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
    ``flash_bwd_tf32.cu``) against their plain versions on the card: three
    forward modes, full and partials backward, causal and not, ragged
@@ -239,8 +259,9 @@ standard output too.  Phases, each printed on its own lines:
     phase 5d's ``engine_ns`` and ``compiled_plan``, phase 5e's
     ``guard_cycle``, ``guard_ns``, ``guard_drills`` and ``obs_rest``,
     phase 5f's rank processes, ``cluster``, phase 5g's wrapper
-    launches, ``plan_service``, and phase 5h's mesh processes,
-    ``fleet``) and their sum, by
+    launches, ``plan_service``, phase 5h's mesh processes, ``fleet``,
+    and phase 5i's ``grad_reshard``, ``grad_fft``, ``grad_ns``,
+    ``grad_ns_checkpoint``, ``dtypes`` and ``topo3``) and their sum, by
     instance, its error against the plain version and its times (K1's per
     class in ``timings``);
 11. the last line, ``{"ok": true, "device": {...}}``.
@@ -264,6 +285,9 @@ WATCHDOG_S = 1080   # the run's own limit, under the 1200 s it must keep
 KERNEL_SOURCES = ["permute", "flash_fwd", "flash_bwd", "flash_bwd_tf32"]
 H100_BW = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
 H100_SXM_BW = 3.35e12  # bytes/s; also the default for an unlisted card
+# phase 5i's paths (their classes alone are timed over 3 launches)
+AUTODIFF_PATHS = ("grad_reshard", "grad_fft", "grad_ns",
+                  "grad_ns_checkpoint", "dtypes", "topo3")
 
 
 def log(*parts):
@@ -292,6 +316,38 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def release_groups(torch, label):
+    """Destroy every process group but the default one, and the port's
+    caches that hold topologies (``cluster.elastic.clear_plan_caches``):
+    each one-rank NCCL communicator holds hundreds of MiB of the card
+    outside PyTorch's allocator (two per ``Topology((1, 1))``), and the
+    phases before 5i make dozens of them; the line printed says what
+    was freed.  Only between phases: the topologies of the phases
+    before are dead after it."""
+    import torch.distributed as dist
+    from pencilarrays_tpu_torch.cluster import elastic
+
+    gc.collect()
+    torch.cuda.synchronize()
+    free0, _ = torch.cuda.mem_get_info()
+    cached = elastic.clear_plan_caches()
+    world = dist.group.WORLD
+    groups = [g for g in list(dist.distributed_c10d._world.pg_map)
+              if g is not world]
+    for g in groups:
+        dist.destroy_process_group(g)
+    torch.backends.cuda.cufft_plan_cache.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    reserved = torch.cuda.memory_reserved()
+    log(f"[{label}] released {len(groups)} process groups and {cached} "
+        f"cached plans: free on the card {_gib(free0):.2f} -> "
+        f"{_gib(free):.2f} of {_gib(total):.2f} GiB, "
+        f"{_gib(reserved):.2f} reserved by PyTorch, "
+        f"{_gib(total - free - reserved):.2f} outside it")
+
+
 def same_bits(torch, a, b) -> bool:
     return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
         a.contiguous().reshape(-1).view(torch.uint8),
@@ -299,15 +355,15 @@ def same_bits(torch, a, b) -> bool:
 
 
 def max_abs_err(torch, a, b) -> float:
-    """max|a - b| in float64, a slab of dim 0 at a time (a 12 GiB pair
-    needs no 36 GiB of temporaries)."""
+    """max|a - b| in float64, 2^27 elements at a time (a 12 GiB pair
+    needs no 36 GiB of temporaries, whatever its leading dim)."""
     if a.is_complex():
         a, b = torch.view_as_real(a), torch.view_as_real(b)
-    if a.dim() == 0 or a.numel() <= 1 << 27:
-        return float((a.double() - b.double()).abs().max())
-    step = max(1, (a.shape[0] << 27) // a.numel())
-    return max(float((a[i:i + step].double() - b[i:i + step].double())
-                     .abs().max()) for i in range(0, a.shape[0], step))
+    a, b = a.reshape(-1), b.reshape(-1)
+    step = 1 << 27
+    return max((float((a[i:i + step].double() - b[i:i + step].double())
+                      .abs().max()) for i in range(0, a.numel(), step)),
+               default=0.0)
 
 
 def random_tensor(torch, shape, dtype, gen):
@@ -841,19 +897,25 @@ def _k1_desc(k1, cls):
 
 
 def k1_timing(torch, k1, bw, recorded, extra):
-    """Kernel (``run_plan`` into one output buffer), call (the wrapper,
+    """Kernel (``run_plan`` into the checked output), call (the wrapper,
     which allocates its output each call), plain, copy (``dst.copy_`` of
-    the input's bytes) and library times (CUDA-event means of 10 launches
-    after a warm-up), bound (input
-    and output bytes over the card's memory rate), instance and error of
-    every K1 class the runs in ``recorded`` launched ({run: {class:
-    count}}), and of the ``extra`` (label, shape, axes, dtype) permutes;
-    for a narrow class also ``ring_ms``, the same copy walked by the tiled
-    instance.  A class of views (a Pipelined hop's chunks, a fused hop's
-    slices) is timed on views with its strides and offsets; returns
-    {class: row}."""
+    the input's bytes) and library times (CUDA-event means of 10
+    launches, 3 for a class only phase 5i launched, after a warm-up),
+    bound (input and output bytes over the card's memory rate), instance
+    and error of every K1 class the runs in ``recorded`` launched ({run:
+    {class: count}}), and of the ``extra`` (label, shape, axes, dtype)
+    permutes; for a narrow class also ``ring_ms``, the same copy walked by
+    the tiled instance.  A class of views (a Pipelined hop's chunks, a
+    fused hop's slices) is timed on views with its strides and offsets;
+    returns {class: row}.  At most three tensors of a class's size are
+    held at once (phase 5i's 16 GiB c128 cycle class needs 48 GiB)."""
     gc.collect()                 # tensors held in the phases' cycles
+    torch.backends.cuda.cufft_plan_cache.clear()
     torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[k1] timings start with {_gib(free):.2f} of {_gib(total):.2f} "
+        f"GiB free, {_gib(torch.cuda.memory_reserved()):.2f} reserved by "
+        f"PyTorch")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     classes = {}
     for run, rec in recorded.items():
@@ -865,32 +927,33 @@ def k1_timing(torch, k1, bw, recorded, extra):
     for cls, runs in classes.items():
         kind, shape, axes, dim, arg, dname, layout = _k1_cls(cls)
         x, out, (kernel, plain, lib) = _k1_class_call(torch, k1, cls, gen)
-        want = plain().clone()
+        want = plain()
         if out is not None:
-            out.zero_()       # the plain version wrote there first
+            want = want.clone()
+            out.zero_()           # the plain version wrote there first
         got = kernel()
         if not same_bits(torch, got, want):
             raise AssertionError(f"K1 class {cls} differs from plain")
+        err = (max_abs_err(torch, got, want)
+               if got.is_floating_point() or got.is_complex() else 0.0)
+        want = None
         nbytes = (x.numel() * x.element_size()
                   + got.numel() * got.element_size())
-        dst = torch.empty_like(x)
         plan = k1.plan_copy(_k1_desc(k1, cls), x.element_size(),
                             k1._address_align(x, got))
         by0 = dict(k1.launches_by_instance)
-        it = 10
-        into = torch.empty_like(got) if out is None else _k1_out(
-            torch, k1, cls)
+        it = 3 if set(runs) <= set(AUTODIFF_PATHS) else 10
         r = dict(kind=kind, shape=list(shape), axes=list(axes), dtype=dname,
                  layout=layout, instance=plan.instance, launches=runs,
-                 ms=cuda_ms(torch, lambda: k1.run_plan(plan, x, into), it),
-                 call_ms=cuda_ms(torch, kernel, it),
+                 ms=cuda_ms(torch, lambda: k1.run_plan(plan, x, got), it))
+        dst = torch.empty_like(x)
+        r.update(copy_ms=cuda_ms(torch, lambda: dst.copy_(x), it))
+        dst = None
+        r.update(call_ms=cuda_ms(torch, kernel, it),
                  plain_ms=cuda_ms(torch, plain, it),
-                 copy_ms=cuda_ms(torch, lambda: dst.copy_(x), it),
                  library_ms=cuda_ms(torch, lib, it) if lib else None,
                  bound_ms=nbytes / bw * 1e3, bound_by="bytes",
-                 max_abs_err=max_abs_err(torch, got, want)
-                 if got.is_floating_point() or got.is_complex() else 0.0,
-                 bytes=nbytes)
+                 max_abs_err=err, bytes=nbytes)
         if kind != "permute":
             r.update(dim=dim, P_or_n=arg)
         by = {i: k1.launches_by_instance[i] - by0[i] for i in by0}
@@ -905,7 +968,7 @@ def k1_timing(torch, k1, bw, recorded, extra):
             again = torch.empty_like(got) if out is None else _k1_out(
                 torch, k1, cls)
             k1.run_plan(ring, x, again)
-            if not same_bits(torch, again, want):
+            if not same_bits(torch, again, got):
                 raise AssertionError(f"K1 class {cls}: ring walk differs")
             r["ring_ms"] = cuda_ms(torch, lambda: k1.run_plan(ring, x, again),
                                    it)
@@ -915,7 +978,8 @@ def k1_timing(torch, k1, bw, recorded, extra):
             {k: (round(v, 4) if isinstance(v, float) else v)
              for k, v in r.items() if k not in ("kind", "shape", "axes",
                                                 "dtype")}))
-        del x, out, got, want, dst, into
+        # the closures hold this class's tensors too
+        x = out = got = kernel = plain = lib = None
         torch.cuda.empty_cache()
     return rows
 
@@ -2992,8 +3056,8 @@ def benchtime_check(torch, pat, k1, tr, cycle, n=1024):
     return r
 
 
-def phase_engine(torch, pat, models, k1, tr, cycle, ns, n=512, steps=48,
-                 every=16):
+def phase_engine(torch, pat, models, k1, tr, cycle, ns, n=512, steps=24,
+                 every=8):
     """Phase 5d: the engine on the card, in ``ENGINE_DIR`` of the checkout
     (which must hold three times the bytes the phase writes; deleted at
     the end): (a) ``engine_ns_check``, (b) ``engine_async_calls_check``,
@@ -4963,7 +5027,7 @@ def _fleet_drills(torch, np, pat, root, d, n, small, acc, device):
     return res
 
 
-def phase_fleet(torch, k1, n=512, small=128, n_whale=2, n_minnow=16,
+def phase_fleet(torch, k1, n=512, small=128, n_whale=1, n_minnow=16,
                 drill_n=256, device="cuda"):
     """Phase 5h: ``fleet/`` and the rest of ``analysis/`` on the card: a
     router in this process (no device) in front of two mesh processes of
@@ -5027,6 +5091,540 @@ def phase_fleet(torch, k1, n=512, small=128, n_whale=2, n_minnow=16,
         f"mesh processes {acc['launches']} {acc['launches_by_instance']}")
     if acc["launches"] <= 0:
         raise AssertionError("the fleet path launched K1 no time")
+    return res
+
+
+# -- phase 5i: gradients on the card -----------------------------------------
+
+NS_EAGER_LIMIT = 70 * 2 ** 30   # run the eager 512^3 NS gradient only below
+
+
+def _path():
+    """A path's K1 counts, each window of its run added (``_k1_window``)."""
+    return {"launches": 0, "launches_by_instance": {}, "recorded": {}}
+
+
+def _k1_window(torch, k1, acc, fn):
+    """``fn()`` with K1 counted from 0, the counts added to the path
+    ``acc``: ``fn``'s result, its K1 launches, the classes launched and
+    its host ms (ending in a synchronize)."""
+    torch.cuda.synchronize()
+    _reset_k1(k1)
+    k1.recorded = {}
+    t0 = time.perf_counter()
+    try:
+        res = fn()
+        torch.cuda.synchronize()
+    finally:
+        rec, k1.recorded = k1.recorded, None
+    ms = (time.perf_counter() - t0) * 1e3
+    acc["launches"] += k1.launches
+    for i, c in k1.launches_by_instance.items():
+        acc["launches_by_instance"][i] = acc["launches_by_instance"].get(
+            i, 0) + c
+    for cls, c in rec.items():
+        acc["recorded"][cls] = acc["recorded"].get(cls, 0) + c
+    return res, k1.launches, rec, ms
+
+
+def _peak_from(torch):
+    """Reset the peak and return the bytes held now (the base it is read
+    above)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _sq_norm(torch, t):
+    """sum |t|^2 (a complex tensor through its real view)."""
+    return (torch.view_as_real(t) if t.is_complex() else t).square().sum()
+
+
+def _warm(torch, fwd):
+    """One uncounted forward and backward of ``fwd`` (cuFFT plans,
+    autograd's and the checkpoint's first-call set-up), so the counted
+    run's ms are a warm call's."""
+    fwd().backward()
+    torch.cuda.synchronize()
+
+
+def _grad_reshard(torch, pat, k1, topo, acc, n, bwd_classes):
+    """The gradient of sum(v * v), v the 1024^3 f32 reshard between
+    pencils differing in both slots and in memory order, by the default
+    method (the Gspmd exchange: one K1 permute each way) and by a forced
+    ``AllToAll()`` route (its hops over size-1 axes folded into one K1
+    permute, differentiated through K1's autograd function): 2u bit for
+    bit, K1 launches forward and backward, ms and peak."""
+    shape = (n, n, n)
+    px = pat.Pencil(topo, shape, (1, 2), permutation=pat.Permutation(1, 2, 0))
+    pz = pat.Pencil(topo, shape, (0, 1))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    u = torch.randn(px.padded_size_local(pat.MemoryOrder), generator=gen,
+                    device="cuda")
+    rows = {}
+    for run, kw in (("default", {}), ("AllToAll", {"method": pat.AllToAll()})):
+        leaf = u.clone().requires_grad_()
+
+        def fwd():
+            v = pat.reshard(pat.PencilArray(px, leaf), pz, **kw)
+            return pat.ops.sum(v * v)
+
+        _warm(torch, fwd)
+        leaf.grad = None
+        base = _peak_from(torch)
+        loss, nf, _, ms_f = _k1_window(torch, k1, acc, fwd)
+        _, nb, rec, ms_b = _k1_window(torch, k1, acc, loss.backward)
+        peak = torch.cuda.max_memory_allocated() - base
+        del loss
+        if not same_bits(torch, leaf.grad, 2 * u):
+            raise AssertionError(f"reshard gradient ({run}) is not 2u")
+        for cls, c in rec.items():
+            bwd_classes[cls] = bwd_classes.get(cls, 0) + c
+        rows[run] = dict(fwd_launches=nf, bwd_launches=nb, fwd_ms=ms_f,
+                         bwd_ms=ms_b, peak_above=peak)
+        log(f"[autodiff] reshard {n}^3 f32 ({run}): d/du sum(v*v) = 2u bit "
+            f"for bit; K1 forward {nf}, backward {nb} ({sorted(rec)}); "
+            f"forward {ms_f:.2f} ms, backward {ms_b:.2f} ms; peak "
+            f"{_gib(peak):.2f} GiB above u and its leaf")
+        if nb <= 0:
+            raise AssertionError(f"reshard gradient ({run}) launched K1 no "
+                                 f"time backward")
+        del leaf
+    del u
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _grad_fft(torch, pat, k1, topo, acc, n, bwd_classes):
+    """512^3 f32 plans over 3 components (each stage moves them around
+    cuFFT with K1): c2c, the gradient of sum|F u|^2 against 2 N u
+    (Parseval) within 1e-5 of its max; r2c, the gradient of
+    sum(backward(forward(u)) * w) against w within 1e-5 of max|w|."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    rows = {}
+    for run in ("c2c", "r2c"):
+        real = run == "r2c"
+        plan = pat.PencilFFTPlan(topo, (n, n, n), real=real,
+                                 dtype=torch.float32 if real
+                                 else torch.complex64)
+        pen = plan.input_pencil
+        shape = pen.padded_size_local(pat.MemoryOrder) + (3,)
+        u = random_tensor(torch, shape, plan.dtype_physical, gen)
+        w = random_tensor(torch, shape, torch.float32, gen) if real else None
+        leaf = u.clone().requires_grad_()
+
+        def fwd():
+            x = pat.PencilArray(pen, leaf, (3,))
+            if real:
+                return (plan.backward(plan.forward(x)).data * w).sum()
+            return _sq_norm(torch, plan.forward(x).data)
+
+        _warm(torch, fwd)
+        leaf.grad = None
+        base = _peak_from(torch)
+        loss, nf, _, ms_f = _k1_window(torch, k1, acc, fwd)
+        _, nb, rec, ms_b = _k1_window(torch, k1, acc, loss.backward)
+        peak = torch.cuda.max_memory_allocated() - base
+        del loss
+        want = w if real else (2.0 * n ** 3) * u
+        scale = float(want.abs().max())
+        err = max_abs_err(torch, leaf.grad, want) / scale
+        del want
+        for cls, c in rec.items():
+            bwd_classes[cls] = bwd_classes.get(cls, 0) + c
+        rows[run] = dict(fwd_launches=nf, bwd_launches=nb, fwd_ms=ms_f,
+                         bwd_ms=ms_b, peak_above=peak, rel_err=err)
+        what = ("d/du sum(roundtrip(u) * w) against w" if real else
+                "d/du sum|F u|^2 against 2 N u (Parseval)")
+        log(f"[autodiff] fft {n}^3 x 3 {run} f32: {what}, max error "
+            f"{err:.3e} of its max (<= 1e-5); K1 forward {nf}, backward "
+            f"{nb}; forward {ms_f:.2f} ms, backward {ms_b:.2f} ms; peak "
+            f"{_gib(peak):.2f} GiB above the input")
+        if not err <= 1e-5:
+            raise AssertionError(f"{run} plan gradient off by {err}")
+        if nb <= 0:
+            raise AssertionError(f"{run} plan gradient launched K1 no time "
+                                 f"backward")
+        del u, w, leaf, plan
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _ns_loss(torch, pat, model, pen, dt):
+    def loss(data):
+        out = model.step(pat.PencilArray(pen, data, (3,)), dt)
+        return _sq_norm(torch, out.data)
+    return loss
+
+
+def _ns_fd(torch, pat, models, k1, topo, acc, n, nu=0.05, dt=1e-2):
+    """One f64 RK2 step at n^3: the gradient's directional derivative
+    along a random real unit direction against a central difference,
+    within 1e-4 (the JAX package's bar).  The step is 1e-6 of the
+    state's norm: the loss grows as n^6, and the JAX test's 1e-5 at 8^3
+    leaves a 64^3 difference to f64 cancellation (2.2e-4)."""
+    model = models.NavierStokesSpectral(topo, n, viscosity=nu,
+                                        dtype=torch.float64)
+    uh0 = models.taylor_green(model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    d = torch.randn(uh0.data.shape, dtype=torch.float64, generator=gen,
+                    device="cuda")
+    d /= d.norm()
+    eps = 1e-6 * float(torch.linalg.vector_norm(uh0.data))
+    loss = _ns_loss(torch, pat, model, uh0.pencil, dt)
+    leaf = uh0.data.clone().requires_grad_()
+    _k1_window(torch, k1, acc, lambda: loss(leaf).backward())
+    # PyTorch's gradient of a real loss is dL/dx + i dL/dy
+    dd = float((leaf.grad * d).real.sum())
+    with torch.no_grad():
+        fd = (float(loss(uh0.data + eps * d))
+              - float(loss(uh0.data - eps * d))) / (2 * eps)
+    rel = abs(dd - fd) / abs(fd)
+    log(f"[autodiff] NS {n}^3 f64, one RK2 step: directional derivative "
+        f"{dd:.12e} against the central difference {fd:.12e} (step "
+        f"{eps:.3e}), rel {rel:.3e} (<= 1e-4)")
+    if not rel <= 1e-4:
+        raise AssertionError(f"NS f64 gradient off the central difference "
+                             f"by {rel}")
+    return dict(n=n, dd=dd, fd=fd, eps=eps, rel=rel)
+
+
+def _ns_grad(torch, pat, models, k1, acc, model, uh0, remat, dt=5e-3):
+    """The gradient of sum|step(uh).data|^2 (eager, or under
+    ``torch.utils.checkpoint``): the gradient, K1 forward and backward
+    (recomputation included), the classes launched backward, ms, peak."""
+    from torch.utils.checkpoint import checkpoint
+
+    loss_fn = _ns_loss(torch, pat, model, uh0.pencil, dt)
+    leaf = uh0.data.clone().requires_grad_()
+
+    def fwd():
+        if remat:
+            return checkpoint(loss_fn, leaf, use_reentrant=False)
+        return loss_fn(leaf)
+
+    _warm(torch, fwd)
+    leaf.grad = None
+    base = _peak_from(torch)
+    loss, nf, _, ms_f = _k1_window(torch, k1, acc, fwd)
+    _, nb, rec, ms_b = _k1_window(torch, k1, acc, loss.backward)
+    peak = torch.cuda.max_memory_allocated() - base
+    return leaf.grad, dict(fwd_launches=nf, bwd_launches=nb, fwd_ms=ms_f,
+                           bwd_ms=ms_b, peak_above=peak), rec
+
+
+def _plain_moves(k1):
+    """Every K1 call on the card as its plain version (phase 2's
+    yardstick): ``permute._check`` answers ``"cpu"`` after its checks."""
+    check = k1._check
+
+    def plain(x, out=None, out_shape=None):
+        check(x, out, out_shape)
+        return "cpu"
+
+    k1._check = plain
+    return check
+
+
+def _grad_ns(torch, pat, models, k1, topo, paths, n, n_fd, bwd_classes):
+    """The NS step's gradient: f64 at n_fd^3 against finite differences;
+    eager (at 512^3 where 8 times the 256^3 run's peak stays under
+    ``NS_EAGER_LIMIT``, else at 256^3); at n^3 f32 under
+    ``torch.utils.checkpoint``, held bit for bit to the same gradient
+    with the plain moves."""
+    res = {"fd": _ns_fd(torch, pat, models, k1, topo, paths["grad_ns"],
+                        n_fd)}
+    eager = {}
+    half = n // 2
+    for m in ((half, n) if half >= 16 else (n,)):
+        if m > half and half in eager \
+                and eager[half]["peak_above"] * 8 >= NS_EAGER_LIMIT:
+            log(f"[autodiff] NS eager gradient at {n}^3 reckoned at "
+                f"{_gib(eager[half]['peak_above'] * 8):.2f} GiB above the "
+                f"state (8 x the {half}^3 peak), over "
+                f"{_gib(NS_EAGER_LIMIT):.0f}: run at {half}^3 only")
+            break
+        model = models.NavierStokesSpectral(topo, m, viscosity=1e-2,
+                                            dtype=torch.float32)
+        uh0 = models.taylor_green(model)
+        g, row, rec = _ns_grad(torch, pat, models, k1, paths["grad_ns"],
+                               model, uh0, False)
+        for cls, c in rec.items():
+            bwd_classes[cls] = bwd_classes.get(cls, 0) + c
+        eager[m] = row
+        log(f"[autodiff] NS {m}^3 f32 eager gradient: K1 forward "
+            f"{row['fwd_launches']}, backward {row['bwd_launches']}; "
+            f"forward {row['fwd_ms']:.2f} ms, backward {row['bwd_ms']:.2f} "
+            f"ms; peak {_gib(row['peak_above']):.2f} GiB above the state")
+        if row["bwd_launches"] <= 0:
+            raise AssertionError("NS eager gradient launched K1 no time "
+                                 "backward")
+        del model, uh0, g
+        torch.cuda.empty_cache()
+    res["eager"] = eager
+    model = models.NavierStokesSpectral(topo, n, viscosity=1e-2,
+                                        dtype=torch.float32)
+    uh0 = models.taylor_green(model)
+    g, row, rec = _ns_grad(torch, pat, models, k1,
+                           paths["grad_ns_checkpoint"], model, uh0, True)
+    for cls, c in rec.items():
+        bwd_classes[cls] = bwd_classes.get(cls, 0) + c
+    check = _plain_moves(k1)
+    try:
+        g_plain, twin, _ = _ns_grad(torch, pat, models, k1, _path(), model,
+                                    uh0, True)
+    finally:
+        k1._check = check
+    if twin["fwd_launches"] or twin["bwd_launches"]:
+        raise AssertionError("the plain-move twin launched K1")
+    same = same_bits(torch, g, g_plain)
+    diff = 0.0 if same else max_abs_err(torch, g, g_plain) / float(
+        g_plain.abs().max())
+    row.update(same_as_plain=same, rel_diff_plain=diff,
+               plain_fwd_ms=twin["fwd_ms"], plain_bwd_ms=twin["bwd_ms"],
+               plain_peak_above=twin["peak_above"],
+               finite=bool(torch.isfinite(torch.view_as_real(g)).all()))
+    res["checkpoint"] = row
+    log(f"[autodiff] NS {n}^3 f32 gradient under torch.utils.checkpoint: "
+        f"K1 forward {row['fwd_launches']}, backward {row['bwd_launches']} "
+        f"(recomputation included); forward {row['fwd_ms']:.2f} ms, "
+        f"backward {row['bwd_ms']:.2f} ms; peak "
+        f"{_gib(row['peak_above']):.2f} GiB above the state; the same "
+        f"gradient with the plain moves: "
+        + ("bit-identical" if same else f"NOT bit-identical, max diff "
+           f"{diff:.3e} of max|g| (bar 1e-6)")
+        + f" ({twin['fwd_ms']:.2f} + {twin['bwd_ms']:.2f} ms, peak "
+        f"{_gib(twin['peak_above']):.2f} GiB)")
+    if not row["finite"]:
+        raise AssertionError("NS gradient is not finite")
+    if not diff <= 1e-6:
+        raise AssertionError(f"NS gradient off its plain-move twin by {diff}")
+    if row["bwd_launches"] <= 0:
+        raise AssertionError("NS checkpointed gradient launched K1 no time "
+                             "backward")
+    del model, uh0, g, g_plain
+    torch.cuda.empty_cache()
+    return res
+
+
+def _int_view(torch, t):
+    """``t``'s bits as integers of its element size (a complex tensor as
+    its real view: one more trailing dim)."""
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    if t.dtype == torch.bool:
+        return t.view(torch.uint8)
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _logical_bits(torch, x):
+    """The logical-order view of a (1, 1) array's block, as bits."""
+    from pencilarrays_tpu_torch.parallel.arrays import _inv_axes
+
+    d = _int_view(torch, x.data)
+    return d.permute(_inv_axes(x.pencil, d.dim() - x.pencil.ndims))
+
+
+def _same_logical(torch, a, b) -> bool:
+    return torch.equal(_logical_bits(torch, a), _logical_bits(torch, b))
+
+
+CYCLE_DTYPES = ("float16", "int16", "int64", "uint8", "bool", "complex128")
+
+
+def _dtype_cycles(torch, pat, k1, topo, acc, n):
+    """The n^3 x->y->z->y->x cycle (phase 3's pencils, AllToAll) in each
+    dtype of ``CYCLE_DTYPES``: every hop's logical content equal to its
+    input's bit for bit (so the round trip too), ms (the hops alone) and
+    K1 launches by instance."""
+    shape = (n, n, n)
+    px = pat.Pencil(topo, shape, (1, 2), permutation=pat.Permutation(1, 2, 0))
+    py = pat.Pencil(topo, shape, (0, 2), permutation=pat.Permutation(0, 2, 1))
+    pz = pat.Pencil(topo, shape, (0, 1))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    rows = {}
+    for name in CYCLE_DTYPES:
+        dtype = getattr(torch, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem = px.padded_size_local(pat.MemoryOrder)
+        data = (torch.randint(0, 2, mem, generator=gen, device="cuda").bool()
+                if dtype == torch.bool else
+                random_tensor(torch, mem, dtype, gen))
+        v = pat.PencilArray(px, data)
+        del data
+        base = _peak_from(torch)
+        by0 = dict(acc["launches_by_instance"])
+        ms, launches = 0.0, 0
+        for i, pen in enumerate((py, pz, py, px)):
+            w, nl, _, t = _k1_window(
+                torch, k1, acc, lambda: pat.transpose(v, pen))
+            ms += t
+            launches += nl
+            if not _same_logical(torch, v, w):
+                raise AssertionError(f"{name} cycle: hop {i + 1} moved bits")
+            v = w
+        peak = torch.cuda.max_memory_allocated() - base
+        del v, w
+        by = {i: c - by0.get(i, 0)
+              for i, c in acc["launches_by_instance"].items()
+              if c != by0.get(i, 0)}
+        rows[name] = dict(ms=ms, launches=launches, by_instance=by,
+                          peak_above=peak)
+        log(f"[autodiff] dtypes: {n}^3 {name} x->y->z->y->x, every hop "
+            f"bit-identical (so the round trip); {ms:.2f} ms over the four "
+            f"hops; K1 launches {launches}, by instance {by}; peak "
+            f"{_gib(peak):.2f} GiB above the input")
+        if launches <= 0:
+            raise AssertionError(f"{name} cycle launched K1 no time")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _narrow_reductions(torch, pat, topo, shape=(257, 255, 253)):
+    """maximum and minimum of f16, bf16, int16 and uint8 arrays of a
+    ragged shape against the same values reduced on the host."""
+    pen = pat.Pencil(topo, shape, (1, 2))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    rows = {}
+    for name in ("float16", "bfloat16", "int16", "uint8"):
+        data = random_tensor(torch, pen.padded_size_local(pat.MemoryOrder),
+                             getattr(torch, name), gen)
+        x = pat.PencilArray(pen, data)
+        got = (float(pat.ops.maximum(x)), float(pat.ops.minimum(x)))
+        host = data.cpu().float()
+        want = (float(host.max()), float(host.min()))
+        rows[name] = got
+        if got != want:
+            raise AssertionError(f"{name} max/min {got} != {want}")
+    log(f"[autodiff] ragged {shape} maximum/minimum on the card equal the "
+        f"host's: {rows}")
+    return rows
+
+
+def _topo3(torch, pat, k1, topo2, acc, n, shape4):
+    """A (1, 1, 1) topology: M = N = 3, a transpose changing only the
+    permutation and back, bit for bit; BASELINE config 4, a 4-D c64 array
+    (M = 2, permuted pencils; 4 GiB at ``shape4``) transposed and back,
+    bit for bit; one ``Pencil.similar``."""
+    topo3 = pat.Topology((1, 1, 1))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 45)
+    pen1 = pat.Pencil(topo3, (n, n, n))
+    if pen1.decomposition != (0, 1, 2):
+        raise AssertionError(f"default decomposition {pen1.decomposition}")
+    pen2 = pen1.replace(permutation=pat.Permutation(1, 2, 0))
+    pa = pat.Pencil(topo2, shape4, (1, 2),
+                    permutation=pat.Permutation(2, 0, 3, 1))
+    pb = pat.Pencil(topo2, shape4, (1, 3),
+                    permutation=pat.Permutation(1, 3, 0, 2))
+    rows = {}
+    for run, p_from, p_to, dtype in (("m_eq_n", pen1, pen2, torch.float32),
+                                     ("config4", pa, pb, torch.complex64)):
+        x = pat.PencilArray(p_from, random_tensor(
+            torch, p_from.padded_size_local(pat.MemoryOrder), dtype, gen))
+        y, n1, _, t1 = _k1_window(torch, k1, acc,
+                                  lambda: pat.transpose(x, p_to))
+        back, n2, _, t2 = _k1_window(torch, k1, acc,
+                                     lambda: pat.transpose(y, p_from))
+        if not (_same_logical(torch, x, y)
+                and same_bits(torch, back.data, x.data)):
+            raise AssertionError(f"{run}: the transpose moved bits")
+        nbytes = x.data.numel() * x.data.element_size()
+        rows[run] = dict(shape=list(p_from.size_global()), gib=_gib(nbytes),
+                         ms=[t1, t2], launches=[n1, n2])
+        log(f"[autodiff] topo {run}: {p_from.size_global()} "
+            f"{str(dtype).split('.')[-1]} ({_gib(nbytes):.2f} GiB) "
+            f"{p_from.decomposition}/{p_from.permutation} -> "
+            f"{p_to.decomposition}/{p_to.permutation} and back, bit for "
+            f"bit; {t1:.2f} + {t2:.2f} ms, K1 launches {n1} + {n2}")
+        del x, y, back
+    sim = pa.similar(global_shape=(64, 64, 64, 64))
+    if (sim.size_global() != (64, 64, 64, 64)
+            or sim.decomposition != pa.decomposition
+            or sim.permutation != pa.permutation
+            or sim.topology is not pa.topology or pa.similar() != pa):
+        raise AssertionError(f"Pencil.similar gave {sim!r}")
+    log(f"[autodiff] Pencil.similar: {sim!r}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _k1_backward_bits(torch, k1, classes):
+    """K1's autograd permute at every permute class the gradient paths
+    launched backward: its backward (K1 with the inverse axes) against the
+    plain inverse permute of the same cotangent, bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 46)
+    seen = []
+    for cls in classes:
+        kind, shape, axes, _, _, dname, _ = _k1_cls(cls)
+        if kind != "permute" or (shape, axes, dname) in seen:
+            continue
+        seen.append((shape, axes, dname))
+        dtype = getattr(torch, dname)
+        x = random_tensor(torch, shape, dtype, gen).requires_grad_()
+        y = k1.permute(x, axes)
+        if y.grad_fn is None:
+            raise AssertionError(f"K1 permute {cls} is not differentiable")
+        g = random_tensor(torch, tuple(y.shape), dtype, gen)
+        y.backward(g)
+        inv = tuple(axes.index(i) for i in range(len(axes)))
+        if not same_bits(torch, x.grad, k1.permute_plain(g, inv)):
+            raise AssertionError(f"K1 backward at {cls} differs from the "
+                                 f"plain inverse permute")
+        del x, y, g
+    log(f"[autodiff] K1's backward bit-identical to the plain inverse "
+        f"permute at the {len(seen)} permute classes the gradient paths "
+        f"launched backward: {seen}")
+    if not seen:
+        raise AssertionError("the gradient paths launched no K1 permute "
+                             "backward")
+    torch.cuda.empty_cache()
+    return [list(s) for s in seen]
+
+
+def phase_autodiff(torch, pat, models, k1, n_reshard=1024, n_fft=512,
+                   n_ns=512, n_fd=64, n_cycle=1024, n_topo=512,
+                   shape4=(256, 256, 128, 64)):
+    """Phase 5i: gradients on the card, K1 forward and backward (each
+    path counted from 0 just before its run): ``grad_reshard``,
+    ``grad_fft``, ``grad_ns`` (f64 finite differences and the eager f32
+    gradient), ``grad_ns_checkpoint``; the dtypes the cycle never ran
+    (``dtypes``), the narrow ragged reductions, a 3-D topology and
+    BASELINE config 4 (``topo3``); then K1's backward against the plain
+    inverse permute at every permute class launched backward."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.backends.cuda.cufft_plan_cache.clear()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[autodiff] free on the card at the phase's start {_gib(free):.2f} "
+        f"of {_gib(total):.2f} GiB")
+    paths = {name: _path() for name in AUTODIFF_PATHS}
+    bwd = {}
+    # one topology for the phase: each makes NCCL communicators, whose
+    # device memory the process keeps
+    topo = pat.Topology((1, 1))
+    res = {"reshard": _grad_reshard(torch, pat, k1, topo,
+                                    paths["grad_reshard"], n_reshard, bwd),
+           "fft": _grad_fft(torch, pat, k1, topo, paths["grad_fft"], n_fft,
+                            bwd),
+           "ns": _grad_ns(torch, pat, models, k1, topo, paths, n_ns, n_fd,
+                          bwd),
+           "dtypes": _dtype_cycles(torch, pat, k1, topo, paths["dtypes"],
+                                   n_cycle),
+           "narrow_reductions": _narrow_reductions(torch, pat, topo),
+           "topo3": _topo3(torch, pat, k1, topo, paths["topo3"], n_topo,
+                           shape4)}
+    res["k1_backward_classes"] = _k1_backward_bits(torch, k1, bwd)
+    for run, a in paths.items():
+        if a["launches"] <= 0:
+            raise AssertionError(f"the {run} path launched K1 no time")
+    res["paths"] = paths
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[autodiff] phase 5i took {res['seconds']:.1f} s; K1 launches by "
+        f"path " + json.dumps({run: a["launches"]
+                               for run, a in paths.items()}))
     return res
 
 
@@ -5856,6 +6454,8 @@ def main() -> int:
             io_res = phase_io(torch, pat, models, k1)
             eng = phase_engine(torch, pat, models, k1, tr, cycle, ns)
             grd = phase_guard(torch, pat, models, k1, cycle)
+            release_groups(torch, "autodiff")
+            ad = phase_autodiff(torch, pat, models, k1)
             checks = phase_flash_check(torch, flash, models.attention)
             serve, serve_rec = phase_serving(torch, pat, models, k1, flash)
             train = {f"train_{str(dt).split('.')[-1]}": phase_training(
@@ -5868,12 +6468,13 @@ def main() -> int:
                        "dct": fft["dct"],
                        "spectral_ops": grid["spectral_ops"],
                        "many_pencil_array": grid["many"], "io": io_res,
-                       **eng["paths"], **grd["paths"]}
+                       **eng["paths"], **grd["paths"], **ad["paths"]}
             recorded = {**{run: r["recorded"] for run, r in k1_runs.items()},
                         "navier_stokes": ns["recorded"], **serve_rec,
                         "cluster": clu["recorded"],
                         "plan_service": psvc["recorded"],
                         "fleet": flt["recorded"]}
+            release_groups(torch, "k1")
             k1_timed = k1_timing(torch, k1, bw, recorded, HOPS)
         finally:
             pat.distributed.finalize()

@@ -226,7 +226,7 @@ class MeshWorker:
                         f"mesh {self.mesh}: rank 0 took {key}, which this "
                         f"rank cannot read from the KV")
                 req = wire.decode_request(raw)
-            refusal = self._take(tid, req)
+            refusal = self._take(tid, req, several=topo is not None)
             if topo is not None:
                 # one outcome on every rank (admitted where every rank
                 # admitted it): a rank that admitted a request another
@@ -251,12 +251,15 @@ class MeshWorker:
         self.publish_load(force=bool(taken))
         return done
 
-    def _take(self, tid: str, req: dict) -> Optional[str]:
+    def _take(self, tid: str, req: dict, several: bool = False
+              ) -> Optional[str]:
         """Admit one routed request into the service (the mesh's
         admission path — the ``fleet.route`` injection point fires
         here, addressable per mesh via ``%mesh<k>``).  Returns None, or
         the encoded result of a request that resolved typed at
-        admission."""
+        admission.  On a mesh of ``several`` ranks a request refused
+        here still goes to the service, which refuses it on every rank
+        (the other ranks' admissions wait for this rank's vote)."""
         from ..obs import requestflow
         from ..resilience import faults
         from ..serve.errors import ServeError
@@ -267,11 +270,18 @@ class MeshWorker:
             # layer adopts it (never re-mints — trace-ctx lint) and a
             # fault fired HERE journals under the dying request's id
             with requestflow.installed(req.get("trace")):
-                faults.fire("fleet.route", mesh=self.mesh, ticket=tid,
-                            tenant=req["tenant"])
+                refused = None
+                try:
+                    faults.fire("fleet.route", mesh=self.mesh, ticket=tid,
+                                tenant=req["tenant"])
+                except faults.InjectedFault as e:
+                    if not several:
+                        raise
+                    refused = e
                 ticket = self.service.submit(
                     req["tenant"], np.ascontiguousarray(req["payload"]),
-                    name=req["name"], direction=req["direction"])
+                    name=req["name"], direction=req["direction"],
+                    _refusal=refused)
         except Exception as e:
             if not isinstance(e, (ServeError, faults.InjectedFault)):
                 raise

@@ -38,8 +38,14 @@ stay in full precision), ``decomposition="slab" | "pencil" | "auto"``
 re-factorizes the topology's ranks into the 1-D or 2-D grid the cost model
 scores cheapest, and ``hbm_limit=`` time-slices every hop whose modeled
 peak exceeds the limit (or raises ``HbmBoundError`` naming it).
-``compile()`` and the async entry points raise ``NotImplementedError``
-naming the ROADMAP item and the modules they wait for.
+``compile()`` captures each direction's chain as a CUDA graph on the
+card (an eager chain on the CPU), and ``forward_async``/``backward_async``
+run a call on an ``engine.Engine``.
+
+Every plan is differentiable: a hop through ``transpositions._Hop`` (its
+backward is the inverse hop), a fused hop through :class:`_FusedHop`
+(the mirrored program), and a stage's extra-dim moves through K1's
+autograd function, each backward launching K1 on the card.
 """
 
 from __future__ import annotations
@@ -159,10 +165,6 @@ def _idst(blk: torch.Tensor, dim: int) -> torch.Tensor:
     return out * _alt_signs(out, dim)
 
 
-def _plain_move(x: torch.Tensor, axes, out=None) -> torch.Tensor:
-    return x.permute(tuple(axes))
-
-
 def _per_sample(transform, moved: torch.Tensor, E: int) -> torch.Tensor:
     """``transform`` of a CPU block whose ``E`` extra dims lead, one
     sample at a time, each written into its slot of one output.  By
@@ -190,7 +192,7 @@ def _stage_op(ops: tuple, inverse: bool, pre_complex: bool, norm: str,
     ``ops`` is a tuple of ``(kind, mem_axis, n_logical)`` — every transform
     applied at this stage, along axes local in the stage pencil.  Blocks
     carry ``nspace`` spatial dims followed by their extra dims, which
-    ``move`` (K1, or a plain permute where autograd must see it) takes
+    ``move`` (K1, differentiable on the card: ``permute._Permute``) takes
     outermost and back around the transform.  R2R kinds run before the
     Fourier kinds forward and after them inverse, ortho in every
     normalization mode."""
@@ -276,7 +278,7 @@ def _stage_vjp(ops: tuple, inverse: bool, pre_complex: bool, norm: str,
     """``g -> J^T g`` of a stage's transform on blocks of ``shape`` and
     ``dtype`` — the transform is linear, so its vector-Jacobian product
     needs no saved input (autograd of ``torch.fft`` on zeros)."""
-    op = _stage_op(ops, inverse, pre_complex, norm, nspace, _plain_move)
+    op = _stage_op(ops, inverse, pre_complex, norm, nspace)
 
     def vjp(g):
         with torch.enable_grad():

@@ -23,7 +23,11 @@ into its slice of the output, moving the bytes of the unchunked hop.
 For a tensor on the CPU each function runs its plain PyTorch version
 (``*_plain``: ``permute``/``cat``/``reshape``/``narrow``/``contiguous``,
 then ``out.copy_``); for a CUDA tensor it launches the kernel or raises —
-there is no fallback, and a copy the kernel cannot plan raises.
+there is no fallback, and a copy the kernel cannot plan raises.  On the
+card :func:`permute` is an autograd function whose backward is K1 with
+the inverse axes; :func:`pack` and :func:`unpack` have no gradient of
+their own (a hop's, ``transpositions._Hop``, is the inverse hop) and
+raise on an input that wants one.
 
 All three share one description of the copy (:class:`CopyPlan`): an index
 space whose element ``I`` reads ``in[sum I_k si_k]`` and writes
@@ -692,16 +696,58 @@ def _check_axes(x: torch.Tensor, axes: Sequence[int]) -> Tuple[int, ...]:
     return axes
 
 
+def _wants_grad(x: torch.Tensor) -> bool:
+    return x.requires_grad and torch.is_grad_enabled()
+
+
+class _Permute(torch.autograd.Function):
+    """K1's permute under autograd: forward one launch, backward one
+    launch of the inverse permute on the cotangent (the JAX package's
+    ``pallas_permute`` is differentiated by JAX as the transpose it
+    computes)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, desc):
+        ctx.axes = axes
+        return _launch(desc, x, ("permute", tuple(x.shape), axes))
+
+    @staticmethod
+    def backward(ctx, g):
+        inv = tuple(ctx.axes.index(i) for i in range(len(ctx.axes)))
+        return permute(g.contiguous(), inv), None, None
+
+
+def _no_grad_out(what: str, x: torch.Tensor, out) -> None:
+    if out is not None and _wants_grad(x):
+        raise RuntimeError(
+            f"K1 {what} into out= has no gradient: autograd cannot see a "
+            f"write into a view; call it without out= or under "
+            f"torch.no_grad()")
+
+
 def permute(x: torch.Tensor, axes: Sequence[int],
             out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x.permute(axes)`` materialized contiguously, or written into the
-    view ``out``."""
+    view ``out``.  Differentiable: on the card, an input that requires
+    grad (grad mode on) goes through :class:`_Permute`, whose backward
+    is K1 again with the inverse axes; such a call with ``out=`` raises.
+    """
     axes = _check_axes(x, axes)
     desc = _describe_permute(tuple(x.shape), axes, _strides(x),
                              _strides(out))
     if _check(x, out, desc[0]) == "cpu":
         return _plain_into(permute_plain(x, axes), out)
+    if _wants_grad(x):
+        _no_grad_out("permute", x, out)
+        return _Permute.apply(x, axes, desc)
     return _launch(desc, x, ("permute", tuple(x.shape), axes), out)
+
+
+def _no_grad_hop(what: str, x: torch.Tensor) -> None:
+    if _wants_grad(x):
+        raise RuntimeError(
+            f"K1 {what} has no gradient of its own: differentiate through "
+            f"the hop that runs it (parallel.transpositions._Hop)")
 
 
 def pack(x: torch.Tensor, axes: Sequence[int], dim: int, P: int,
@@ -716,6 +762,7 @@ def pack(x: torch.Tensor, axes: Sequence[int], dim: int, P: int,
                           _strides(out))
     if _check(x, out, desc[0]) == "cpu":
         return _plain_into(pack_plain(x, axes, dim, P), out)
+    _no_grad_hop("pack", x)
     return _launch(desc, x, ("pack", tuple(x.shape), axes, dim, P), out)
 
 
@@ -735,4 +782,5 @@ def unpack(x: torch.Tensor, axes: Sequence[int], dim: int, n: int,
                             _strides(out))
     if _check(x, out, desc[0]) == "cpu":
         return _plain_into(unpack_plain(x, axes, dim, n), out)
+    _no_grad_hop("unpack", x)
     return _launch(desc, x, ("unpack", tuple(x.shape), axes, dim, n), out)

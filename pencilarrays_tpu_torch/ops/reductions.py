@@ -88,8 +88,12 @@ def _valid_mask(x: PencilArray):
     return mask
 
 
-def _combine(local: torch.Tensor, op: Callable, group) -> torch.Tensor:
-    """Every rank's ``local`` combined by ``op``'s rule, on every rank."""
+def _combine(local: torch.Tensor, op: Callable, group,
+             ties: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every rank's ``local`` combined by ``op``'s rule, on every rank.
+    ``ties``: for a differentiable max or min, how many of this rank's
+    elements equal ``local`` (the global extremum's gradient is split
+    evenly among every rank's tied elements, as ``jnp.max``'s is)."""
     if op is torch.prod:
         parts = [torch.empty_like(local) for _ in range(
             dist.get_world_size(group))]
@@ -102,6 +106,8 @@ def _combine(local: torch.Tensor, op: Callable, group) -> torch.Tensor:
                           len(parts) * local.numel() * local.element_size(),
                           group=group, shape=(len(parts),) + local.shape,
                           dtype=local.dtype)
+        # this rank's factor as the tensor autograd knows
+        parts[dist.get_rank(group)] = local
         out = parts[0]
         for p in parts[1:]:
             out = out * p
@@ -112,11 +118,53 @@ def _combine(local: torch.Tensor, op: Callable, group) -> torch.Tensor:
         _collectives.note("all-reduce", flag.numel(), group=group,
                           shape=flag.shape, dtype=flag.dtype)
         return flag.bool()
+    if local.requires_grad and torch.is_grad_enabled():
+        return _AllReduce.apply(local, op, group, ties)
+    return _all_reduce_(local, op, group)
+
+
+def _all_reduce_(local: torch.Tensor, op: Callable, group) -> torch.Tensor:
+    if local.dtype == torch.int16:
+        # neither gloo nor NCCL reduces int16: reduce in int32, and wrap
+        # back as int16 arithmetic would have wrapped
+        wide = local.to(torch.int32)
+        dist.all_reduce(wide, op=_OPS[op], group=group)
+        _collectives.note("all-reduce", wide.numel() * wide.element_size(),
+                          group=group, shape=local.shape, dtype=wide.dtype)
+        return local.copy_(wide)
     buf = torch.view_as_real(local) if local.is_complex() else local
     dist.all_reduce(buf, op=_OPS[op], group=group)
     _collectives.note("all-reduce", buf.numel() * buf.element_size(),
                       group=group, shape=local.shape, dtype=local.dtype)
     return local
+
+
+class _AllReduce(torch.autograd.Function):
+    """The combining all-reduce under autograd (c10d's in-place
+    all-reduce has no autograd kernel).  Every rank holds the same
+    reduced value and differentiates it on its own, so the cotangent of
+    a sum flows unchanged into each rank's term; that of a max or min
+    only into the ranks whose local extremum is the result, each taking
+    its share of the tied elements on every rank (``ties``: this rank's
+    count, summed across ranks here)."""
+
+    @staticmethod
+    def forward(ctx, local, op, group, ties):
+        out = _all_reduce_(local.clone(), op, group)
+        ctx.op = op
+        if op is not torch.sum:
+            mine = ties * (local == out)
+            total = _all_reduce_(mine.clone(), torch.sum, group)
+            ctx.save_for_backward(mine.to(local.dtype)
+                                  / total.to(local.dtype))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.op is torch.sum:
+            return g, None, None, None
+        share, = ctx.saved_tensors
+        return g * share, None, None, None
 
 
 def mapreduce(f: Callable, op: Callable, *arrays: PencilArray,
@@ -140,7 +188,9 @@ def mapreduce(f: Callable, op: Callable, *arrays: PencilArray,
     local = op(val)
     topo = x0.pencil.topology
     if topo.connected and len(topo) > 1:
-        local = _combine(local, op, topo.group)
+        ties = (val == local).sum() if op in (torch.amax, torch.amin) \
+            and local.requires_grad and torch.is_grad_enabled() else None
+        local = _combine(local, op, topo.group, ties)
     return local
 
 

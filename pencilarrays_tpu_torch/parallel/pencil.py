@@ -285,6 +285,11 @@ class Pencil:
             timer=self.timer if timer == "keep" else timer,
         )
 
+    def similar(self, global_shape=None) -> "Pencil":
+        """Same decomposition over a (possibly) new global shape
+        (reference ``similar(p, dims)``, ``Pencils.jl:315-361``)."""
+        return self.replace(global_shape=global_shape)
+
     # -- comparison / hashing --------------------------------------------
     def _key(self):
         return (self._topology, self._global_shape, self._decomp_dims,

@@ -83,6 +83,7 @@ from .transpositions import (
     _hop_label,
     _method_label,
     _method_wire,
+    _no_wired_grad,
     _pipeline_chunk_axis,
     _probe_group,
     _take,
@@ -440,9 +441,12 @@ def execute_route(src: PencilArray, route: ReshardRoute, *,
                   donate: bool = False) -> PencilArray:
     """Run a planned route hop by hop.  ``donate=True`` gives up ``src``'s
     storage, freed once the first hop has packed it; every intermediate
-    is freed the same way.  Differentiable through its hops when no hop
-    carries a wire.  With the integrity guard or observability on, the
-    stages run between invariant probes (:func:`_run_stages`)."""
+    is freed the same way.  Differentiable when no hop carries a wire
+    (else it raises under grad): an exchange hop through
+    ``transpositions._Hop``, a folded local stage (:func:`_stages`)
+    through K1's autograd permute.  With the integrity guard or
+    observability on, the stages run between invariant probes
+    (:func:`_run_stages`)."""
     if src.pencil != route.src:
         raise ValueError(
             f"array lives on {src.pencil!r}, route starts at {route.src!r}")
@@ -471,8 +475,11 @@ def execute_route(src: PencilArray, route: ReshardRoute, *,
             guard.note_plan("reshard_route", summary)
     nx = src.ndims_extra
     grad = src.data.requires_grad and torch.is_grad_enabled()
-    stages = ([(h.src, h.dest, h.method) for h in route.hops] if grad
-              else _stages(route))
+    if grad:
+        # a wired hop, folded into a local stage or not, has no gradient
+        for h in route.hops:
+            _no_wired_grad(h.method)
+    stages = _stages(route)
     held = [src.data]
     if donate:
         src._donate()

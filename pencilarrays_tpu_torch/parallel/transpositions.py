@@ -1020,7 +1020,9 @@ def _hop(data, pin: Pencil, pout: Pencil, extra_ndims: int,
 class _Hop(torch.autograd.Function):
     """One hop with the inverse hop, by the same method, as its backward
     (the exact adjoint: both are pack -> exchange -> unpack, and each
-    drops the padding the other zero-fills)."""
+    drops the padding the other zero-fills).  The backward is itself
+    differentiable (``create_graph=True``), so a double backward gives
+    the hop's JVP: the hop applied to the tangent."""
 
     @staticmethod
     def forward(ctx, data, pin, pout, extra_ndims, method):
@@ -1029,7 +1031,8 @@ class _Hop(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return _hop(grad.contiguous(), *ctx.hop), None, None, None, None
+        return (_dispatch(grad.contiguous(), *ctx.hop), None, None, None,
+                None)
 
 
 def _no_wired_grad(method) -> None:

@@ -125,6 +125,7 @@ class _Entry:
     method: object = None         # reshard method
     seq: int = 0                  # admission order (deterministic ties)
     deadline: Optional[float] = None  # absolute monotonic SLO deadline
+    deadline_s: Optional[float] = None  # its budget, the SLO's own value
     shed_priority: int = 0        # the tenant's SLO shed tier
     cost_bytes: int = 0           # priced B=1 cost (projection currency)
     departed: bool = False        # left _pending (lazy SLO-heap skip)

@@ -387,7 +387,7 @@ class PlanService:
 
     # -- submission --------------------------------------------------------
     def submit(self, tenant: str, u, *, plan=None, name: Optional[str] = None,
-               direction: str = "forward") -> Ticket:
+               direction: str = "forward", _refusal=None) -> Ticket:
         """Submit one single-sample FFT request.
 
         ``u`` is the sample: a host array in the plan's *global logical*
@@ -398,7 +398,11 @@ class PlanService:
         plan directly or by registered ``name``.  Returns a
         :class:`~pencilarrays_tpu_torch.serve.queue.Ticket`; same-fingerprint
         submissions coalesce into one batched dispatch, bit-identical
-        to sequential per-request execution (test-pinned)."""
+        to sequential per-request execution (test-pinned).
+
+        ``_refusal`` (the port's fleet worker): an error this rank
+        already refused the request with before the service; its
+        admission vote carries it, so every rank refuses."""
         if direction not in ("forward", "backward"):
             raise ValueError(
                 f"direction must be 'forward' or 'backward', "
@@ -422,7 +426,7 @@ class PlanService:
         entry = _Entry(ticket=ticket, plan=plan, direction=direction,
                        payload=u, nbytes=nbytes, plan_name=plan_name)
         self._stamp_slo(entry)
-        self._admit(entry, direction=direction)
+        self._admit(entry, direction=direction, refusal=_refusal)
         return ticket
 
     def submit_reshard(self, tenant: str, u, dest, *,
@@ -501,8 +505,11 @@ class PlanService:
         entry.shed_priority = slo.shed_priority
         if slo.deadline_s is not None:
             # the admission-time deadline every later enforcement point
-            # (take shed, completion accounting) measures against
+            # (take shed, completion accounting) measures against; the
+            # budget is kept as set: ``deadline - t_submit`` rounds off
+            # an ulp where the sum crosses a power of two
             entry.deadline = entry.ticket.t_submit + slo.deadline_s
+            entry.deadline_s = slo.deadline_s
 
     @staticmethod
     def _check_payload(u) -> None:
@@ -552,14 +559,11 @@ class PlanService:
         return (math.prod(plan.shape_spectral)
                 * plan.dtype_spectral.itemsize)
 
-    def _admit(self, entry: _Entry, *, direction: Optional[str] = None
-               ) -> None:
+    def _admit(self, entry: _Entry, *, direction: Optional[str] = None,
+               refusal: Optional[BaseException] = None) -> None:
         from .. import obs
         from ..obs import requestflow
-        from ..resilience import faults
 
-        if self._closed:
-            raise ServiceClosedError("service is closed")
         t = entry.ticket.tenant
         # trace context: ADOPT the ambient inbound trace (a fleet
         # worker installed the routed request's id — re-minting here
@@ -568,15 +572,12 @@ class PlanService:
         # serve layer is the second of the two admission points
         entry.trace = (requestflow.current_trace()
                        or requestflow.mint_trace())
-        # the admission-boundary injection point: overload and
-        # flaky-client drills inject here like at every other layer
-        # (error raises InjectedFault to THIS submitter, delay drags
-        # the admission path — docs/Resilience.md)
-        faults.fire("serve.submit", tenant=t, kind=entry.ticket.kind)
+        topo = _topology_of(entry)
+        self._agreed_refusal(topo, entry, refusal)
         # one clock, rank 0's, decides every take on several ranks
-        self.queue.agree_on(_topology_of(entry))
+        self.queue.agree_on(topo)
         try:
-            self._enforce_slo(entry)
+            self._agreed_slo(entry)
             full = self.queue.offer(entry)
         except ServeError as e:
             if obs.enabled():
@@ -607,8 +608,99 @@ class PlanService:
             else:
                 self._schedule_pump()
 
+    def _agreed_refusal(self, topo, entry: _Entry,
+                        mine: Optional[BaseException] = None) -> None:
+        """The refusals before the SLO as one outcome on the ranks of
+        ``topo``: a closed service, and the admission-boundary injection
+        point (overload and flaky-client drills inject here like at
+        every other layer: error raises ``InjectedFault`` to the
+        submitter, delay drags the admission path —
+        docs/Resilience.md).  Each rank publishes its own refusal
+        (``agree_all``, label ``serve-refuse``) and every rank refuses
+        when one does: its own error (``mine``, one it refused with
+        before the service, or the two above), else the same type as the
+        first refusing rank's.  A refusal on one rank alone would skip a
+        ``serve-admit`` decision the other ranks number, and each later
+        admission there would apply the verdict of another request."""
+        from ..parallel.distributed import agree_all
+        from ..resilience import InjectedFault, faults
+
+        if mine is None:
+            try:
+                if self._closed:
+                    raise ServiceClosedError("service is closed")
+                faults.fire("serve.submit", tenant=entry.ticket.tenant,
+                            kind=entry.ticket.kind)
+            except Exception as e:
+                mine = e
+        votes = agree_all(topo, "serve-refuse", None if mine is None
+                          else [type(mine).__name__, str(mine)])
+        if mine is not None:
+            raise mine
+        for rank, vote in zip(topo._global_ranks, votes):
+            if vote is None:
+                continue
+            name, msg = vote
+            msg = f"refused on rank {rank}: {msg}"
+            if name == "InjectedFault":
+                raise InjectedFault(msg, point="serve.submit")
+            if name == "ServiceClosedError":
+                raise ServiceClosedError(msg)
+            raise ServeError(f"{msg} ({name})")
+
     # -- SLO / pressure enforcement ----------------------------------------
-    def _enforce_slo(self, entry: _Entry) -> None:
+    def _agreed_slo(self, entry: _Entry) -> None:
+        """:meth:`_enforce_slo` as one decision on several ranks: rank 0
+        decides by its own gate and load and every other rank applies
+        its verdict (the rung it degraded to, or its typed error), as
+        the take applies rank 0's take: the JAX package's one
+        controller.  Each rank deciding by its own load admits a
+        request on one rank that another rejects, and the ranks' batches
+        then differ."""
+        topo = self.queue._agree_topo
+        if topo is None or not self._slo_armed:
+            self._enforce_slo(entry)
+            return
+        from ..parallel.distributed import agree
+
+        decided = []
+
+        def decide():
+            # every outcome is published, a failure too: the other
+            # ranks wait for it
+            try:
+                rung = self._enforce_slo(entry)
+            except Exception as e:
+                decided.append(e)
+                return {"error": [type(e).__name__, str(e), {
+                    k: getattr(e, k) for k in (
+                        "tenant", "reason", "deadline_s", "projected_s")
+                    if hasattr(e, k)}]}
+            decided.append(None)
+            return {"rung": None if rung is None else list(rung)}
+
+        verdict = agree(topo, "serve-admit", decide)
+        if decided:             # rank 0: applied (or raised) already
+            if decided[0] is not None:
+                raise decided[0]
+            return
+        if self._gate is not None:
+            # the gate steps as rank 0's does (its evict rung stays this
+            # rank's own: ROADMAP Queue 3)
+            self._feed_gate()
+        if "error" in verdict:
+            name, msg, fields = verdict["error"]
+            cls = {"AdmissionError": AdmissionError,
+                   "DeadlineError": DeadlineError}.get(name)
+            if cls is None:
+                raise ServeError(f"rank 0 failed the admission: {name}: "
+                                 f"{msg}")
+            raise cls(msg, **fields)
+        if verdict["rung"] is not None:
+            self._maybe_degrade(entry, tuple(verdict["rung"]))
+        entry.cost_bytes = self.queue.entry_cost(entry)
+
+    def _enforce_slo(self, entry: _Entry):
         """The admission enforcement point (raises typed): feed the
         pressure gate, downgrade wire precision under its first rung
         (a sheddable tenant with an ``SLO.max_rel_l2`` budget
@@ -616,10 +708,12 @@ class PlanService:
         its last rung, shed sheddable priorities, and reject requests
         whose projected wait already busts their deadline.  A no-SLO
         no-pressure service returns on the first line — the disabled
-        path does no pricing at all."""
+        path does no pricing at all.  Returns the rung of a downgrade
+        (:meth:`_maybe_degrade`), else None."""
         if not self._slo_armed:
-            return
+            return None
         t = entry.ticket.tenant
+        degraded = None
         if self._gate is not None:
             self._feed_gate()
             degraded = (
@@ -639,7 +733,7 @@ class PlanService:
         load = self.queue.load
         if entry.deadline is not None:
             projected = load.projected_wait_s()
-            budget = entry.deadline - entry.ticket.t_submit
+            budget = entry.deadline_s
             # boundary contract (test-pinned): a projection EQUAL to
             # the deadline still admits — only a wait the model says
             # is strictly too long is rejected up front
@@ -650,15 +744,17 @@ class PlanService:
                     f"admission, not answered late", tenant=t,
                     reason="projected", deadline_s=budget,
                     projected_s=projected)
+        return degraded or None
 
-    def _maybe_degrade(self, entry: _Entry) -> bool:
+    def _maybe_degrade(self, entry: _Entry, rung=None):
         """The precision-downgrade rung: swap a sheddable fft entry onto
         the deepest wire-precision plan variant whose
         CALIBRATED error envelope (``serve/precision.py``,
         ``BENCH_WIRE.json``) fits under the tenant's declared
-        ``SLO.max_rel_l2``.  Returns True when a downgrade was applied
-        — the caller then skips the shed rung: served degraded beats
-        shed.
+        ``SLO.max_rel_l2`` (or onto ``rung``, another rank's choice).
+        Returns the rung ``(wire, envelope)`` when a downgrade was
+        applied — the caller then skips the shed rung: served degraded
+        beats shed.
 
         The swap happens BEFORE the entry is priced or queued: the
         coalesce key is rebuilt from the variant's ``plan_key()`` (wire
@@ -683,7 +779,7 @@ class PlanService:
         t = entry.ticket.tenant
         slo = self._slos.get(t)
         if slo is None or slo.max_rel_l2 is None:
-            return False
+            return None
         if entry.ticket.kind == "fft" and entry.plan is not None:
             cur = entry.plan.wire_dtype
         elif (entry.ticket.kind == "reshard"
@@ -691,10 +787,11 @@ class PlanService:
                                             tr.Auto, tr.Pipelined))):
             cur = tr._method_wire(entry.method)
         else:
-            return False
-        rung = select_rung(slo.max_rel_l2, cur)
+            return None
         if rung is None:
-            return False
+            rung = select_rung(slo.max_rel_l2, cur)
+        if rung is None:
+            return None
         wire, envelope = rung
         wire_from = cur or "full"
         if entry.plan is not None:
@@ -725,7 +822,7 @@ class PlanService:
                 trace=entry.trace, wire_from=wire_from, wire_to=wire,
                 envelope=envelope, max_rel_l2=slo.max_rel_l2,
                 gate=self._gate.state)
-        return True
+        return rung
 
     def _slo_maintenance(self) -> None:
         """The take-side enforcement: re-feed the gate (pressure can
@@ -753,8 +850,7 @@ class PlanService:
         from .. import obs
 
         for e in self.queue.pop_expired():
-            budget = (e.deadline - e.ticket.t_submit
-                      if e.deadline is not None else 0.0)
+            budget = e.deadline_s if e.deadline is not None else 0.0
             if obs.enabled():
                 obs.counter("serve.shed", tenant=e.ticket.tenant,
                             reason="expired").inc()
@@ -1577,7 +1673,7 @@ class PlanService:
                             tenant=t.tenant).inc()
                 obs.record_event(
                     "serve.slo_violation", tenant=t.tenant, req=t.id,
-                    deadline_s=e.deadline - t.t_submit,
+                    deadline_s=e.deadline_s,
                     late_s=t.t_done - e.deadline, key=batch_key,
                     trace=e.trace)
         slo = self._slos.get(t.tenant)

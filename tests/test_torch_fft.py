@@ -295,7 +295,7 @@ def test_pipeline_auto_and_validation(monkeypatch):
                           dtype="float64")
 
 
-def test_fft_unported_options_raise():
+def test_fft_plan_options_construct():
     """Every plan option of the JAX package is ported now and constructs
     (``compile``, the async calls and ``Auto(mode="measure")`` joined
     ``decomposition=``, ``wire_dtype=`` and ``hbm_limit=``); the async

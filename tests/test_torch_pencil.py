@@ -123,6 +123,31 @@ def test_make_pencil_matches_jax(devices, shape, ndims_decomp):
         jpa.MemoryOrder)
 
 
+def test_replace_and_similar_match_jax(devices):
+    """``tests/test_pencils.py::test_replace_and_similar`` through both
+    packages: ``replace`` and ``similar`` keep the topology and the
+    decomposition, and give the JAX package's tables."""
+    jtopo = jpa.Topology((2, 4), devices=devices)
+    ptopo = pat.Topology((2, 4), device="cpu")
+    jpen = jpa.Pencil(jtopo, (42, 31, 29), (1, 2))
+    ppen = pat.Pencil(ptopo, (42, 31, 29), (1, 2))
+    pen_y = ppen.replace(decomp_dims=(0, 2))
+    assert pen_y.decomposition == (0, 2)
+    assert pen_y.topology is ppen.topology
+    assert pen_y.size_global() == ppen.size_global()
+    pen2 = ppen.similar(global_shape=(16, 16, 16))
+    jpen2 = jpen.similar(global_shape=(16, 16, 16))
+    assert pen2.size_global() == jpen2.size_global() == (16, 16, 16)
+    assert pen2.decomposition == jpen2.decomposition == ppen.decomposition
+    assert pen2.topology is ppen.topology
+    assert pen2.padded_size_local(pat.MemoryOrder) == \
+        jpen2.padded_size_local(jpa.MemoryOrder)
+    assert ppen.similar() == ppen
+    pen_p = ppen.replace(permutation=pat.Permutation(1, 2, 0))
+    assert pen_p.permutation == pat.Permutation(1, 2, 0)
+    assert ppen.permutation.is_identity()
+
+
 def test_topology_defaults_to_the_card():
     """Without ``device=`` the topology lives on CUDA, and asking for CUDA
     where there is none raises (never a silent CPU fallback)."""

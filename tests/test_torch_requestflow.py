@@ -7,9 +7,9 @@ traceless v5 journals) go through both packages' ``reconstruct_request``
 / ``list_requests`` / renderers and both ``pa-obs`` command lines: the
 port's answers, warnings, texts and exit codes must equal the JAX
 package's exactly (no tolerance: these are records and strings).  The
-serve layer's burn-rate monitor is not ported (ROADMAP Queue 1 item
-7(e)); its cases stay with the JAX package.  The real-dispatch case runs
-one engine dispatch of the port with a minted trace in its meta.
+serve layer's burn-rate monitor is ported with the serve layer; its
+cases are held in ``tests/test_torch_slo.py``.  The real-dispatch case
+runs one engine dispatch of the port with a minted trace in its meta.
 """
 
 import json

@@ -109,9 +109,100 @@ def test_disabled_path_prices_nothing(dims, tmp_path):
 
 # -- enforcement point 1: admission projection --------------------------------
 
+# the queue's clock for the boundary cases: frozen mid-binade (a deadline
+# sum exact in both packages), and just above 506 s, where
+# ``t_submit + 6 s`` crosses 512 and ``(t_submit + 6) - t_submit`` rounds
+# an ulp short of 6
+MID_BINADE = 1536.0
+ACROSS_512 = 506.00000000000006
+
+
 @pytest.mark.parametrize("dims", [ONE, (2,)])
 def test_deadline_projection_boundary_exact_equality_admits(dims, tmp_path):
-    both("s_deadline_boundary", dims, tmp=tmp_path, pool_dims=dims)
+    both("s_deadline_boundary", dims, MID_BINADE, tmp=tmp_path,
+         pool_dims=dims)
+
+
+@pytest.mark.parametrize("dims", [ONE, (2,)])
+def test_deadline_boundary_across_a_power_of_two_admits(dims, tmp_path):
+    """The port's budget is the SLO's deadline as set, so a projection
+    equal to it admits wherever the clock stands.  The JAX package reads
+    it back as ``deadline - t_submit`` and rejects this request: its own
+    ``tests/test_slo.py:133`` fails when a submit lands in such a window
+    (a monotonic clock in [506, 512) s)."""
+    from torch_serve_parity import run_port
+
+    assert (ACROSS_512 + 6.0) - ACROSS_512 < 6.0
+    got = run_port("s_deadline_boundary", dims, ACROSS_512, tmp=tmp_path,
+                   pool_dims=dims)
+    assert got["projected"] == [6.0, 8.0] and got["reason"] == "projected"
+
+
+def test_admission_is_agreed_when_rank_loads_differ(tmp_path):
+    """Two ranks, one service each, the same submissions; rank 1 measured
+    its batch ten times slower, so its own projection busts a deadline
+    that rank 0's meets.  Both ranks apply rank 0's admission: the
+    request is served on both, as by the JAX package's single
+    controller.  Deciding alone, rank 1 rejects what rank 0 queues and
+    their batches differ: the private pool's 90 s limit fails the test
+    instead of stalling the suite."""
+    from torch_serve_parity import compare, run_jax
+
+    import torch_rank_tasks as tasks
+    from pencilarrays_tpu_torch.parallel.distributed import RankPool
+
+    want = run_jax("s_split_load_admission", (2, 1), tmp=tmp_path)
+    assert want["edge"] == "ok", want
+    with RankPool(2, timeout_s=90) as pool:
+        got = pool.run(tasks.serve_scenario, (2, 1),
+                       "s_split_load_admission", [(2, 1), 1],
+                       str(tmp_path / "port"), True)
+    for g in got:
+        compare(want, g)
+
+
+def test_admission_fault_on_one_rank_is_agreed(tmp_path):
+    """Two ranks, one service each, the same submissions; the
+    ``serve.submit`` fault fires on rank 1 alone at the second request.
+    Every rank refuses that request typed and admits the others, as the
+    JAX package's single controller (which takes the fault once) does:
+    the same admissions, outcomes and served results on both ranks.
+    Refused on rank 1 alone, the later admissions there apply rank 0's
+    verdicts for other requests and the batches differ: the private
+    pool's 90 s limit fails the test instead of stalling the suite."""
+    from torch_serve_parity import compare, run_jax
+
+    import torch_rank_tasks as tasks
+    from pencilarrays_tpu_torch.parallel.distributed import RankPool
+
+    want = run_jax("s_submit_fault_on_one_rank", (2, 1),
+                   "serve.submit:error*1@2", tmp=tmp_path)
+    assert want["admission"] == ["admitted", "InjectedFault", "admitted",
+                                 "admitted", "DeadlineError:projected"], want
+    with RankPool(2, timeout_s=90) as pool:
+        got = pool.run(tasks.serve_scenario, (2, 1),
+                       "s_submit_fault_on_one_rank",
+                       [(2, 1), "serve.submit:error%rank1*1@2"],
+                       str(tmp_path / "port"), True)
+    for g in got:
+        compare(want, g)
+
+
+def test_failed_admission_decision_reaches_every_rank(tmp_path):
+    """Two ranks; rank 0's admission decision fails once with an error
+    of no serve type.  Rank 0 raises it and rank 1 a ``ServeError``
+    (rank 1 waited on a verdict rank 0 never published: the private
+    pool's 60 s limit fails the test instead of stalling the suite);
+    the next request is admitted and served on both."""
+    import torch_rank_tasks as tasks
+    from pencilarrays_tpu_torch.parallel.distributed import RankPool
+
+    with RankPool(2, timeout_s=60) as pool:
+        got = pool.run(tasks.serve_scenario, (2, 1), "s_decider_fails",
+                       [(2, 1)], str(tmp_path / "port"), True)
+    assert got[0]["admission"] == ["RuntimeError", "admitted"], got
+    assert got[1]["admission"] == ["ServeError", "admitted"], got
+    assert got[0]["outcomes"] == got[1]["outcomes"] == ["ok"], got
 
 
 def test_blind_tracker_admits_everything(tmp_path):

@@ -13,6 +13,7 @@ equal.  On several ranks every rank runs the scenario; arrays are
 gathered on every rank.
 """
 
+import contextlib
 import importlib
 import itertools
 import json
@@ -914,7 +915,45 @@ def s_disabled_path(P, dims):
     return {"stats": svc.stats()["completed"]}
 
 
-def s_deadline_boundary(P, dims):
+class _FrozenClock:
+    """The ``time`` module with ``monotonic`` standing at ``at``."""
+
+    def __init__(self, real, at):
+        self._real, self._at = real, at
+
+    def monotonic(self):
+        return self._at
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+
+@contextlib.contextmanager
+def _queue_clock(P, at):
+    """The serve queue's clock (tickets' submit times, takes) frozen at
+    ``at``; the real one where ``at`` is None."""
+    qmod = importlib.import_module(P.serve.__name__ + ".queue")
+    real = qmod.time
+    if at is not None:
+        qmod.time = _FrozenClock(real, at)
+    try:
+        yield
+    finally:
+        qmod.time = real
+
+
+def s_deadline_boundary(P, dims, clock_at=None):
+    """A projection equal to the deadline admits, half of it rejects.
+    ``clock_at`` freezes the queue's clock there: a budget read back as
+    ``(t_submit + deadline) - t_submit`` is an ulp short wherever the
+    sum crosses a power of two (``t_submit`` just above 506 s with a 6 s
+    deadline), which the JAX package's arithmetic does
+    (``pencilarrays_tpu/serve/service.py:464``, ``:599``)."""
+    with _queue_clock(P, clock_at):
+        return _deadline_boundary(P, dims)
+
+
+def _deadline_boundary(P, dims):
     SLO = P.serve.SLO
     plan = P.plan(dims, (8, 6, 4))
     rng = np.random.default_rng(1)
@@ -945,6 +984,107 @@ def s_deadline_boundary(P, dims):
     svc.drain()
     return {"cost": cost, "projected": [projected, projected2],
             "reason": err.reason}
+
+
+def s_split_load_admission(P, dims, slow_rank=None):
+    """Three queued requests and one measured batch, then a request
+    whose 7 s deadline the projection (6 s) meets.  On rank
+    ``slow_rank`` the measured batch took ten times as long, so that
+    rank alone projects 60 s.  Every rank applies rank 0's admission
+    (the JAX package's one controller): the request is served on every
+    rank.  Admitted by rank 0 and rejected by rank 1, the ranks' batches
+    would differ."""
+    SLO = P.serve.SLO
+    plan = P.plan(dims, (8, 6, 4))
+    rng = np.random.default_rng(5)
+    svc = P.serve.PlanService(max_batch=8, max_wait_s=60.0,
+                              slos={"bulk": SLO(shed_priority=0),
+                                    "edge": SLO(deadline_s=7.0)})
+    us = [host(rng, (8, 6, 4)) for _ in range(4)]
+    tickets = [svc.submit("bulk", u, plan=plan) for u in us[:3]]
+    cost = svc.queue.load.snapshot()["queued_cost_bytes"] // 3
+    slow = slow_rank is not None and P.rank() == slow_rank
+    svc.queue.load.note_completed(cost, 1, 20.0 if slow else 2.0)
+    try:
+        tickets.append(svc.submit("edge", us[3], plan=plan))
+    except P.serve.DeadlineError as e:
+        return {"edge": f"DeadlineError:{e.reason}"}
+    svc.drain()
+    return {"edge": outcome(tickets[-1]),
+            "outcomes": [outcome(t) for t in tickets],
+            "fft": {"served": np.stack([P.gather(t.result(5))
+                                        for t in tickets])}}
+
+
+def s_submit_fault_on_one_rank(P, dims, spec):
+    """Four submissions under armed SLOs; the admission fault ``spec``
+    refuses the second on one rank alone (``%rank1`` in the port; the
+    JAX package's one controller takes it once).  Every rank refuses
+    that request and admits the others, and the edge tenant's deadline
+    verdict is its own: the ranks' queues and batches agree.  Refused on
+    one rank alone, that rank would skip a decision the others number,
+    apply each later verdict to the wrong request and batch apart."""
+    SLO = P.serve.SLO
+    plan = P.plan(dims, (8, 6, 4))
+    rng = np.random.default_rng(9)
+    svc = P.serve.PlanService(max_batch=8, max_wait_s=60.0,
+                              slos={"bulk": SLO(shed_priority=0),
+                                    "edge": SLO(deadline_s=7.0)})
+    us = [host(rng, (8, 6, 4)) for _ in range(5)]
+    admission, tickets = [], []
+    with P.faults.active(spec):
+        for i, u in enumerate(us):
+            if i == 3:
+                # one measured batch, 3 s a request: the first edge
+                # request's 7 s deadline is met at 6 s of projected wait,
+                # the second's is not (9 s)
+                cost = svc.queue.load.snapshot()["queued_cost_bytes"] // 2
+                svc.queue.load.note_completed(cost, 1, 3.0)
+            try:
+                tickets.append(svc.submit("edge" if i >= 3 else "bulk", u,
+                                          plan=plan))
+                admission.append("admitted")
+            except P.InjectedFault:
+                admission.append("InjectedFault")
+            except P.serve.DeadlineError as e:
+                admission.append(f"DeadlineError:{e.reason}")
+    svc.drain()
+    return {"admission": admission,
+            "outcomes": [outcome(t) for t in tickets],
+            "fft": {"served": np.stack([P.gather(t.result(5))
+                                        for t in tickets])}}
+
+
+def s_decider_fails(P, dims):
+    """The deciding rank's SLO enforcement fails once with an error of
+    no serve type (as a failing pressure gate would): that rank raises
+    it, the other ranks a ``ServeError`` naming it instead of waiting
+    for a verdict that never comes, and the next admission is agreed as
+    before.  The port only (the JAX package has one controller)."""
+    plan = P.plan(dims, (8, 6, 4))
+    rng = np.random.default_rng(4)
+    svc = P.serve.PlanService(max_batch=8, max_wait_s=60.0,
+                              slos={"edge": P.serve.SLO(deadline_s=60.0)})
+    enforce, calls = svc._enforce_slo, []
+
+    def failing_once(entry):
+        calls.append(entry)
+        if len(calls) == 1:
+            raise RuntimeError("the pressure gate failed")
+        return enforce(entry)
+
+    if P.rank() == 0:
+        svc._enforce_slo = failing_once
+    admission, tickets = [], []
+    for u in [host(rng, (8, 6, 4)) for _ in range(2)]:
+        try:
+            tickets.append(svc.submit("edge", u, plan=plan))
+            admission.append("admitted")
+        except Exception as e:
+            admission.append(type(e).__name__)
+    svc.drain()
+    return {"admission": admission,
+            "outcomes": [outcome(t) for t in tickets]}
 
 
 def s_blind_tracker(P, dims):
