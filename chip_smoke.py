@@ -26,7 +26,7 @@ standard output too.  Phases, each printed on its own lines:
    alignment and ones that do not) and one launch over more than 2^31
    words; its timings run last (after phase 9): kernel, call, plain,
    bound, copy and library times and the instance of every (shape, axes,
-   dtype, view layout) class phases 3, 4, 5, 5i and 7 launched
+   dtype, view layout) class phases 3, 4, 5, 5i, 5j and 7 launched
    (recorded by ``permute.recorded``; a class only phase 5i launched
    over 3 launches; the process groups of the phases before released
    first) and of two 512^3 hop classes, and K1's time per
@@ -96,7 +96,7 @@ standard output too.  Phases, each printed on its own lines:
    either way);
 5d. the engine (``engine/``), in ``chip_smoke_engine/`` of the checkout
    (three times the bytes it writes must be free; deleted at the end):
-   NS Taylor-Green at 512^3 for 24 RK2 steps with a
+   NS Taylor-Green at 512^3 for 16 RK2 steps with a
    ``CheckpointManager(keep=2)`` save every 8, once as a synchronous
    loop and once by ``run_async`` (saves on the engine's host pool): the
    final states and the kept steps restored from both directories bit
@@ -225,6 +225,20 @@ standard output too.  Phases, each printed on its own lines:
    ``Pencil.similar``; then K1's backward against the plain inverse
    permute at every permute class launched backward; prints
    ``[autodiff]`` lines;
+5j. the user entry points (``phase_examples``, in the process without
+   its NCCL world, as one process runs them): each of the nine
+   ``pencilarrays_tpu_torch/examples`` modules' ``run()`` at its card
+   default (the quickstart walkthrough at (42, 31, 29); the spectral
+   gradient, Navier–Stokes checkpoint and restart, adjoint
+   optimization, heat stencil, checkpoint collection and observability
+   demo at 512^3; attention and training at S = 4096, H = 8, D = 128 in
+   f32 and bf16), each with its own asserts, then ``entry()`` and
+   ``dryrun(1)`` (no byte across ranks); each example's wall seconds,
+   checks and K1–K4 launches (paths ``examples.<name>``,
+   ``entry.dryrun``); then each at a small shape on the card against
+   the same on the CPU (which launches no kernel); files in
+   ``chip_smoke_examples/``, deleted after; the NCCL world made again
+   after it; prints ``[examples]`` lines;
 6. kernels K2–K4 (``ops/csrc/flash_fwd.cu``, ``flash_bwd.cu``,
    ``flash_bwd_tf32.cu``) against their plain versions on the card: three
    forward modes, full and partials backward, causal and not, ragged
@@ -242,8 +256,9 @@ standard output too.  Phases, each printed on its own lines:
    ring attention over NCCL on a (1,) topology, f32 and bf16, each held
    to dense attention, with the K1/K2 launches of each call and K2's by
    instance (bf16 calls launch only the wgmma one, f32 only the simt one);
-8. training: the block of ``examples/long_context_training.py`` at full
-   width (causal ring attention, which runs the naive schedule on one
+8. training: the block of ``examples/long_context_training.py``,
+   through its port (``pencilarrays_tpu_torch/examples/
+   long_context_training.py``), at full width (causal ring attention, which runs the naive schedule on one
    rank; MSE; SGD) for 3 steps, in f32 and in bf16 (f32 master weights,
    bf16 projections and attention): the loss falls, one step's gradients
    match the plain path, K2–K4 launched by the wgmma instances in bf16,
@@ -251,7 +266,10 @@ standard output too.  Phases, each printed on its own lines:
 9. K2–K4 times at the headline shape, f32 and bf16, causal and not:
    kernel, plain, SDPA (a yardstick the port never calls; the CUDA
    kernels it launches, from the profiler) and bound, each kernel by the
-   instance its dtype picks, held to the plain version;
+   instance its dtype picks, held to the plain version; then the simt
+   instances at D = 512 (the head dims above 256 they serve), f32 and
+   bf16 operands, non-causal, SDPA by its default dispatch (flash and
+   cuDNN refuse D = 512; the memory-efficient backend takes it);
 10. a ``{"kernels": [...]}`` line: per kernel its launches on each path
     (each counted from 0 just before its run; K1's on the NS steps, the
     four cycles, the six wired cycles, the reshard runs, the fused hop, the DCT plan, the spectral operators,
@@ -260,8 +278,9 @@ standard output too.  Phases, each printed on its own lines:
     ``guard_cycle``, ``guard_ns``, ``guard_drills`` and ``obs_rest``,
     phase 5f's rank processes, ``cluster``, phase 5g's wrapper
     launches, ``plan_service``, phase 5h's mesh processes, ``fleet``,
-    and phase 5i's ``grad_reshard``, ``grad_fft``, ``grad_ns``,
-    ``grad_ns_checkpoint``, ``dtypes`` and ``topo3``) and their sum, by
+    phase 5i's ``grad_reshard``, ``grad_fft``, ``grad_ns``,
+    ``grad_ns_checkpoint``, ``dtypes`` and ``topo3``, and phase 5j's
+    ``examples.<name>`` and ``entry.dryrun``) and their sum, by
     instance, its error against the plain version and its times (K1's per
     class in ``timings``);
 11. the last line, ``{"ok": true, "device": {...}}``.
@@ -2510,9 +2529,9 @@ else:
 }
 
 
-def _drill(root, kind, spec, **kw):
-    """A drill in a subprocess on the card (a kill really kills): the
-    port's code of ``_DRILL_BODIES[kind]`` with ``spec`` armed."""
+def _drill_start(root, kind, spec, **kw):
+    """A drill in a subprocess on the card (a kill really kills), started:
+    the port's code of ``_DRILL_BODIES[kind]`` with ``spec`` armed."""
     from pencilarrays_tpu_torch.resilience import faults
 
     env = dict(os.environ)
@@ -2523,9 +2542,24 @@ def _drill(root, kind, spec, **kw):
     kw.setdefault("seed", SEED + 51)
     code = _DRILL.format(root=root, body=_DRILL_BODIES[kind].format(**kw),
                          **kw)
-    p = subprocess.run([sys.executable, "-c", code], env=env,
-                       capture_output=True, text=True, timeout=180)
-    return p.returncode, p.stdout.strip(), p.stderr.strip()
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _drill_end(p):
+    """A started drill's return code, stdout and stderr (it is killed
+    after 180 s)."""
+    try:
+        so, se = p.communicate(timeout=180)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        so, se = p.communicate()
+    return p.returncode, so.strip(), se.strip()
+
+
+def _drill(root, kind, spec, **kw):
+    return _drill_end(_drill_start(root, kind, spec, **kw))
 
 
 def io_drills(torch, pat, resilience, d):
@@ -2533,9 +2567,21 @@ def io_drills(torch, pat, resilience, d):
     the commit leaves the previous step and the next save sweeps it; two
     transient sidecar-flush faults are retried; a flipped byte is refused
     by name; an armed ``hop.exchange`` raises from ``transpose``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    # the hop drill shares nothing with the checkpoint drills: it runs
+    # beside them
+    hop = _drill_start(root, "hop", "hop.exchange:error")
+    try:
+        return _io_drills(torch, pat, resilience, d, root, hop)
+    finally:
+        if hop.poll() is None:
+            hop.kill()
+            hop.communicate()
+
+
+def _io_drills(torch, pat, resilience, d, root, hop):
     import json as _json
 
-    root = os.path.dirname(os.path.abspath(__file__))
     ck = os.path.join(d, "drills")
     mgr = resilience.CheckpointManager(ck, keep=4)
     topo = pat.Topology((1, 1))
@@ -2574,7 +2620,7 @@ def io_drills(torch, pat, resilience, d):
         raise AssertionError(f"[io] drill flipped byte: rc {rc}\n{so}\n"
                              f"{se[-2000:]}")
     out["flipped_byte"] = dict(rc=rc, refused=so)
-    rc, so, se = _drill(root, "hop", "hop.exchange:error")
+    rc, so, se = _drill_end(hop)
     if rc != 0 or "InjectedFault" not in so:
         raise AssertionError(f"[io] drill hop.exchange:error: rc {rc}\n{so}"
                              f"\n{se[-2000:]}")
@@ -3056,7 +3102,7 @@ def benchtime_check(torch, pat, k1, tr, cycle, n=1024):
     return r
 
 
-def phase_engine(torch, pat, models, k1, tr, cycle, ns, n=512, steps=24,
+def phase_engine(torch, pat, models, k1, tr, cycle, ns, n=512, steps=16,
                  every=8):
     """Phase 5d: the engine on the card, in ``ENGINE_DIR`` of the checkout
     (which must hold three times the bytes the phase writes; deleted at
@@ -5628,6 +5674,196 @@ def phase_autodiff(torch, pat, models, k1, n_reshard=1024, n_fft=512,
     return res
 
 
+# -- phase 5j: the user entry points (examples/ and entry.py) ----------------
+
+EXAMPLES_DIR = "chip_smoke_examples"
+# each example once more at a small shape, on the card and on the CPU
+# (launching no kernel), held together: fields within 1e-5 of
+# the CPU's largest magnitude (the NS state within 1e-4: phase 5's 64^3
+# bar), the attention schemes per row (the example's TOL: phase 7's
+# bars), the loss series per step (1e-4 f32, 2^-6 bf16), bits where
+# only data moves, and the quickstart's normal fill within 1e-5 (its
+# Box-Muller transcendentals are the CPU's and the card's own)
+EXAMPLES_SMALL = {
+    "quickstart": {},
+    "gradient_spectral": {"shape": (64, 64, 64), "dtype": "float32"},
+    "navier_stokes": {"n": 64},
+    "adjoint_optimization": {"shape": (64, 64, 64)},
+    "heat_stencil": {"n": 64},
+    "checkpoint_collections": {"shape": (64, 64, 64)},
+    "observability_demo": {"shape": (64, 64, 64)},
+    "sequence_parallel_attention": {"seq": 256},
+    "long_context_training": {"seq": 256},
+}
+EXAMPLES_CARD_CPU = {
+    "quickstart": [("u", 1e-5), ("grid", 1e-5), ("numpy_sum", 1e-5)],
+    "gradient_spectral": [("dfdx", 1e-5)],
+    "navier_stokes": [("velocity", 1e-4), ("continued", 1e-4),
+                      ("energy_continued", 1e-4)],
+    "adjoint_optimization": [("u", 1e-5), ("losses", "losses")],
+    "heat_stencil": [("u", 1e-5), ("exact", 1e-5)],
+    "checkpoint_collections": [("binary_restart", "bits"),
+                               ("managed_restart", "bits")],
+    "observability_demo": [("event_kinds", "equal")],
+    "sequence_parallel_attention": [
+        (f"{s}_{d}", "rows") for s in ("ulysses", "ring", "zigzag")
+        for d in ("float32", "bfloat16")],
+    "long_context_training": [("losses_float32", "losses"),
+                              ("losses_bfloat16", 2 ** -6)],
+}
+
+# the kernels each path of phase 5j must launch on one card.  The
+# spectral gradient's and the adjoint's scalar r2c plans on a one-rank
+# topology make no hop and move no extra dim (as the JAX plan makes
+# none on one device): no kernel there; their hops run on the CPU tests'
+# 8 gloo ranks
+EXAMPLES_KERNELS = {
+    "examples.quickstart": ("k1",), "examples.gradient_spectral": (),
+    "examples.navier_stokes": ("k1",), "examples.adjoint_optimization": (),
+    "examples.heat_stencil": ("k1",),
+    "examples.checkpoint_collections": ("k1",),
+    "examples.observability_demo": ("k1",),
+    "examples.sequence_parallel_attention": ("k1", "k2"),
+    "examples.long_context_training": ("k2", "k3", "k4"),
+    "entry.dryrun": ("k1",)}
+
+def _example_held(np, name, key, how, card, cpu):
+    """The card's value of ``key`` against the CPU's; the error (0 for
+    bits and equality), or raise."""
+    a, b = card[key], cpu[key]
+    if how == "equal":
+        if a != b:
+            raise AssertionError(f"{name} {key}: card {a} != CPU {b}")
+        return 0.0
+    if how == "losses":
+        # each step within 1e-4 of its loss; a loss below 1e-6 of the
+        # first is at the f32 round-off floor of its sum: within 1e-10 of
+        # the first (tests/test_torch_examples.py's rule)
+        errs = [abs(x - y) / (y if y >= 1e-6 * b[0] else 1e6 * b[0])
+                for x, y in zip(a, b)]
+        if len(a) != len(b) or not max(errs) <= 1e-4:
+            raise AssertionError(f"{name} {key}: card {a} vs CPU {b}")
+        return max(errs)
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        raise AssertionError(f"{name} {key}: shape {a.shape} vs {b.shape}")
+    if how == "bits":
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{name} {key}: card bits != CPU bits")
+        return 0.0
+    if how == "rows":
+        from pencilarrays_tpu_torch.examples import \
+            sequence_parallel_attention as spa
+        err, how = (spa.row_rel_err(a, b),
+                                      spa.TOL[key.rsplit("_", 1)[1]])
+    else:
+        err = float(np.abs(a - b).max() / max(float(np.abs(b).max()),
+                                              1e-30))
+    if not err <= how:
+        raise AssertionError(f"{name} {key}: card vs CPU {err} > {how}")
+    return err
+
+
+def phase_examples(torch, pat, k1, flash):
+    """Phase 5j: the repo's user entry points on the card.  Each example
+    of ``pencilarrays_tpu_torch/examples`` at its card default (its
+    ``SIZES``; every count reset just before it, read just after: the
+    path ``examples.<name>``), then ``entry()`` and ``dryrun(1)`` (path
+    ``entry.dryrun``); then each example at a small shape on the card
+    against the same on the CPU, which must launch no kernel.  Files go
+    to ``EXAMPLES_DIR`` (deleted at the end)."""
+    import importlib
+    import shutil
+
+    import numpy as np
+    from pencilarrays_tpu_torch import entry as port_entry
+    from pencilarrays_tpu_torch.examples import EXAMPLES, _launch
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, EXAMPLES_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    old_tmp = tempfile.tempdir
+    tempfile.tempdir = d          # the examples' temporary directories
+    paths, recorded = {}, {}
+    try:
+        for name in EXAMPLES:
+            mod = importlib.import_module(
+                f"pencilarrays_tpu_torch.examples.{name}")
+            kw = ({"workdir": os.path.join(d, "obs_card")}
+                  if name == "observability_demo" else {})
+            torch.cuda.synchronize()
+            _reset_counts(k1, flash)
+            k1.recorded = {}
+            t1 = time.perf_counter()
+            res = mod.run(**kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            n = _counts(k1, flash)
+            recorded[f"examples.{name}"], k1.recorded = k1.recorded, None
+            paths[f"examples.{name}"] = dict(n, seconds=wall)
+            checks = {k: v for k, v in _launch.scalars(res).items()
+                      if not isinstance(v, list) or len(v) <= 8}
+            log(f"[examples] {name} {mod.SIZES}: {wall:.2f} s, checks "
+                + json.dumps(checks) + f"; launches K1 {n['k1']} K2 "
+                f"{n['k2']} K3 {n['k3']} K4 {n['k4']}")
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the driver entry points: the flagship step, the dry run of one
+        torch.cuda.synchronize()
+        _reset_counts(k1, flash)
+        k1.recorded = {}
+        t1 = time.perf_counter()
+        fn, args = port_entry.entry()
+        y = fn(*args)
+        if y.shape != args[0].shape or not bool(
+                torch.isfinite(torch.view_as_real(y)).all()):
+            raise AssertionError("entry(): the step's output")
+        dry = port_entry.dryrun(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        if not dry["ok"]:
+            raise AssertionError(f"dryrun(1): {dry}")
+        n = _counts(k1, flash)
+        recorded["entry.dryrun"], k1.recorded = k1.recorded, None
+        paths["entry.dryrun"] = dict(n, seconds=wall)
+        log(f"[examples] entry() step {tuple(y.shape)} finite, dryrun(1) "
+            f"ok with no byte across ranks ({json.dumps(dry['forward'])}): "
+            f"{wall:.2f} s; launches K1 {n['k1']} K2 {n['k2']}")
+        # the small runs record no time; the CPU's launch no kernel
+        for name, held in EXAMPLES_CARD_CPU.items():
+            mod = importlib.import_module(
+                f"pencilarrays_tpu_torch.examples.{name}")
+            small = {}
+            for dev in ("card", "cpu"):
+                kw = dict(EXAMPLES_SMALL[name])
+                if name == "observability_demo":
+                    kw["workdir"] = os.path.join(d, f"obs_small_{dev}")
+                _reset_counts(k1, flash)
+                small[dev] = mod.run(device=None if dev == "card" else dev,
+                                     **kw)
+            n = _counts(k1, flash)
+            if any(n[k] for k in ("k1", "k2", "k3", "k4")):
+                raise AssertionError(f"{name} on the CPU launched {n}")
+            errs = {key: _example_held(np, name, key, how, small["card"],
+                                       small["cpu"]) for key, how in held}
+            log(f"[examples] {name} {EXAMPLES_SMALL[name]} card vs CPU: "
+                + json.dumps(errs))
+    finally:
+        tempfile.tempdir = old_tmp
+        shutil.rmtree(d, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"[examples] phase 5j took {seconds:.1f} s; launches by path "
+        + json.dumps({p: {k: n[k] for k in ("k1", "k2", "k3", "k4")}
+                      for p, n in paths.items()}))
+    for p, keys in EXAMPLES_KERNELS.items():
+        if min((paths[p][k] for k in keys), default=1) <= 0:
+            raise AssertionError(f"the {p} path launched {paths[p]}")
+    return dict(paths=paths, recorded=recorded, seconds=seconds)
+
+
 # Tolerances of K2–K4 against their plain versions.  Each row of a tensor
 # (its last dim: one query or key position of one head·batch slice) is
 # held relative to its own largest |plain| (see _rel_err).  The kernels
@@ -6108,11 +6344,6 @@ SERVE_TOL = {"float32": 2e-5, "bfloat16": 2 ** -6}
 # over all S x H rows of the projections; in bf16 each grad is held to the
 # per-row bar of the bf16 kernels (phases 6-7), 2^-6
 TRAIN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
-# SGD step: the example's 0.1 in f32.  bf16 projections round the f32
-# master weights to bf16 (2^-11 at |w| ~ D^-1/2) and an update of
-# 0.1 x grad (~3e-6 here) would leave nearly all of them unchanged, so the
-# bf16 run steps 100x further (~3e-4, about one bf16 ulp of a weight)
-TRAIN_LR = {"float32": 0.1, "bfloat16": 10.0}
 
 
 def _by_instance(flash):
@@ -6209,15 +6440,20 @@ def phase_serving(torch, pat, models, k1, flash):
 
 
 def phase_training(torch, pat, models, k1, flash, dtype, steps=3):
-    """The block of examples/long_context_training.py with the port's API
+    """The block of ``pencilarrays_tpu_torch/examples/
+    long_context_training.py`` (the JAX package's
+    ``examples/long_context_training.py``), trained through that module
     at full width: replicated D x D projections wq, wk, wv, wo, causal
-    ring attention with zigzag=True as in the example (on a (1,) topology
-    ring_attention runs the naive schedule: the zigzag one is checked in
-    phase 6), MSE loss, SGD (TRAIN_LR).  The weights are f32 masters; in
+    ring attention with zigzag=True (on a (1,) topology ring_attention
+    runs the naive schedule: the zigzag one is checked in phase 6), MSE
+    loss, SGD (the example's ``LR``).  The weights are f32 masters; in
     bf16, x and the weights are cast to bf16 for the projections, so
-    q/k/v, the attention and its output are bf16, and the loss is taken in
-    f32.  One step's gradients on the kernel path against the plain path,
+    q/k/v, the attention and its output are bf16, and the loss is taken
+    in f32.
+    One step's gradients on the kernel path against the plain path,
     then ``steps`` steps with every count reset just before."""
+    from pencilarrays_tpu_torch.examples import long_context_training as lct
+
     S, H, D = S_ATT, H_ATT, D_ATT
     name = str(dtype).split(".")[-1]
     topo = pat.Topology((1,))
@@ -6230,18 +6466,10 @@ def phase_training(torch, pat, models, k1, flash, dtype, steps=3):
     x = models.to_zigzag(pat.PencilArray(pen, rnd(S, H, D))).data
     target = models.to_zigzag(pat.PencilArray(pen, rnd(S, H, D))).data
     params = {w: rnd(D, D, scale=D ** -0.5).requires_grad_()
-              for w in ("wq", "wk", "wv", "wo")}
-    xc = x.to(dtype)
+              for w in lct.WEIGHTS}
 
     def loss_and_grads(impl):
-        def proj(w):
-            return pat.PencilArray(pen, xc @ params[w].to(dtype), (D,))
-        out = models.ring_attention(proj("wq"), proj("wk"), proj("wv"),
-                                    causal=True, zigzag=True, impl=impl)
-        y = (out.data @ params["wo"].to(dtype)).float()
-        loss = ((y - target) ** 2).mean()
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return float(loss.detach()), dict(zip(params, grads))
+        return lct.loss_and_grads(params, x, target, pen, dtype, impl)
 
     _, g_kernel = loss_and_grads("kernel")
     _, g_plain = loss_and_grads("plain")
@@ -6254,9 +6482,7 @@ def phase_training(torch, pat, models, k1, flash, dtype, steps=3):
 
     def step():
         loss, grads = loss_and_grads("auto")
-        with torch.no_grad():
-            for w in params:
-                params[w] -= TRAIN_LR[name] * grads[w]
+        lct.sgd(params, grads, lct.LR[name])
         return loss
 
     torch.cuda.synchronize()
@@ -6282,22 +6508,27 @@ def phase_training(torch, pat, models, k1, flash, dtype, steps=3):
                 grad_err=grad_err, profile=prof)
 
 
-def phase_flash_timing(torch, flash, bw):
-    """K2, K3 and K4 at the headline shape, f32 and bf16, causal and not:
-    kernel ms (each by the instance its dtype picks), plain ms, SDPA ms (a
-    yardstick the port never calls) with the CUDA kernels SDPA launches,
-    bound ms and the error against the plain version (rows of dq and dk
-    held to their largest term where it is above their own max|plain|,
-    as flash_compare holds them)."""
+# the head dim of phase 9's timings of the simt instances (D > 256 only)
+SIMT_D = 512
+
+
+def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True)):
+    """K2, K3 and K4 at S = S_ATT, H = H_ATT and head dim ``D``, f32 and
+    bf16, for each of ``causals``: kernel ms (each by the instance its
+    dtype and ``D`` pick: the headline instances at D_ATT, ``simt`` above
+    256), plain ms, SDPA ms (a yardstick the port never calls) with the
+    CUDA kernels SDPA launches, bound ms and the error against the plain
+    version (rows of dq and dk held to their largest term where it is
+    above their own max|plain|, as flash_compare holds them)."""
     import torch.nn.functional as F
 
-    S, H, D = S_ATT, H_ATT, D_ATT
+    S, H = S_ATT, H_ATT
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         peak = peak_flops(name)
-        for causal in (False, True):
+        for causal in causals:
             q, k, v, do = (torch.randn((S, H, 1, D), generator=gen,
                                        device="cuda").to(dtype)
                            for _ in range(4))
@@ -6314,7 +6545,8 @@ def phase_flash_timing(torch, flash, bw):
                                                        **kw)]
             tq, tk = _bwd_terms(torch, flash, q, k, v, do, L, Dr, **kw)
             it = 5
-            timed = [(key, HEADLINE_INSTANCE[name][key])
+            timed = [(key, "simt" if D > 256
+                      else HEADLINE_INSTANCE[name][key])
                      for key in ("k2", "k3", "k4")]
             launch = {
                 "k2": lambda: flash.flash_attention_fwd(q, k, v, **kw),
@@ -6363,9 +6595,9 @@ def phase_flash_timing(torch, flash, bw):
 
             lib_fwd = cuda_ms(torch, sdpa_fwd, it)
             lib_fb = cuda_ms(torch, sdpa_fwd_bwd, it)
-            # the CUDA kernels SDPA launches (names cut to 120 characters),
-            # from two calls in one profile: a profile of one f32 forward
-            # call has recorded no kernel
+            # the CUDA kernels SDPA launches (names cut to 120
+            # characters), from two calls in one profile: a profile of
+            # one f32 forward call has recorded no kernel
             fwd_kernels = [n[:120] for _, _, n in _kernel_rows(
                 torch, lambda: (sdpa_fwd(), sdpa_fwd()))[1]]
             bwd_kernels = [n[:120] for _, _, n in _kernel_rows(
@@ -6385,10 +6617,10 @@ def phase_flash_timing(torch, flash, bw):
                 t = got[key]
                 bound = max(flops[key] / peak, nbytes[key] / bw) * 1e3
                 r = dict(kernel=key, dtype=name, causal=causal,
-                         instance=inst, ms=t["ms"],
+                         head_dim=D, instance=inst, ms=t["ms"],
                          plain_ms=plain_fwd if key == "k2" else plain_bwd,
-                         library_ms=lib_fwd if key == "k2"
-                         else lib_fb - lib_fwd,
+                         library_ms=None if lib_fwd is None
+                         else lib_fwd if key == "k2" else lib_fb - lib_fwd,
                          library_kernels=fwd_kernels if key == "k2"
                          else bwd_kernels,
                          bound_ms=bound, bound_by="operations"
@@ -6403,8 +6635,8 @@ def phase_flash_timing(torch, flash, bw):
                     f"{'causal' if causal else 'full'}: " + json.dumps(r))
             ms = {key: got[key]["ms"] for key in ("k2", "k3", "k4")}
             log(f"[time] SDPA S={S} H={H} D={D} {name} "
-                f"{'causal' if causal else 'full'}: fwd {lib_fwd:.4f} ms, "
-                f"fwd+bwd {lib_fb:.4f} ms, kernels fwd {fwd_kernels} bwd "
+                f"{'causal' if causal else 'full'}: fwd {lib_fwd} ms, "
+                f"fwd+bwd {lib_fb} ms, kernels fwd {fwd_kernels} bwd "
                 f"{bwd_kernels}; port fwd+bwd "
                 f"{ms['k2'] + ms['k3'] + ms['k4']:.4f} ms (K2+K3+K4); plain fwd+bwd {plain_fwd + plain_bwd:.4f} ms")
             del q, k, v, do, qt, kt, vt, gt, qg, kg, vg
@@ -6434,34 +6666,72 @@ def main() -> int:
     # ends) prints every thread's stack and exits within the time limit
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True, file=sys.stdout)
     t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(phase):
+        # each phase's wall seconds, printed after [done]
+        marks.append((phase, time.perf_counter()))
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as dist_dir:
         try:
             smi, instances = phase_environment(torch, pat, build, dist_dir)
             bw = bandwidth(smi)
+            mark("1")
             log(f"[env] bound uses {bw / 1e12:.2f} TB/s for '{smi}'")
             # phase 5f first: its rank processes share the card, and later
             # phases leave this process holding device memory that two
             # 512^3 ranks need
             clu = phase_cluster(torch, k1)
+            mark("5f")
             psvc = phase_plan_service(torch, pat, k1, bw)
+            mark("5g")
             flt = phase_fleet(torch, k1)
+            mark("5h")
             phase_kernel(torch, k1)
+            mark("2")
             cycle = phase_cycle(torch, pat, k1, tr)
+            mark("3")
             wired = phase_wire(torch, pat, k1, tr, cycle)
+            mark("3w")
             fft = phase_fft(torch, dist, pat, k1, tr)
+            mark("4")
             ns = phase_navier_stokes(torch, dist, pat, k1, models)
+            mark("5")
             grid = phase_grid_toolbox(torch, dist, pat, models, k1, tr, bw)
+            mark("5b")
             io_res = phase_io(torch, pat, models, k1)
+            mark("5c")
             eng = phase_engine(torch, pat, models, k1, tr, cycle, ns)
+            mark("5d")
             grd = phase_guard(torch, pat, models, k1, cycle)
+            mark("5e")
             release_groups(torch, "autodiff")
             ad = phase_autodiff(torch, pat, models, k1)
+            mark("5i")
+            # phase 5j as a user runs the examples on one card: in one
+            # process without a process group (no one-rank NCCL
+            # communicators to build and destroy); the world is made again
+            # after it
+            release_groups(torch, "examples")
+            pat.distributed.finalize()
+            ex = phase_examples(torch, pat, k1, flash)
+            pat.distributed.initialize(
+                "nccl", init_method=f"file://{os.path.join(dist_dir, 'rdv2')}",
+                world_size=1, rank=0)
+            mark("5j")
             checks = phase_flash_check(torch, flash, models.attention)
+            mark("6")
             serve, serve_rec = phase_serving(torch, pat, models, k1, flash)
+            mark("7")
             train = {f"train_{str(dt).split('.')[-1]}": phase_training(
                 torch, pat, models, k1, flash, dt)
                 for dt in (torch.float32, torch.bfloat16)}
+            mark("8")
             timing = phase_flash_timing(torch, flash, bw)
+            # the simt instances at a head dim they serve
+            simt = phase_flash_timing(torch, flash, bw, D=SIMT_D,
+                                      causals=(False,))
+            mark("9")
             # phase 2's timings: every class phases 3-5c and 7 launched
             k1_runs = {**cycle, **wired["cycles"], **wired["reshard"],
                        "fused_hop": fft["fused_hop"],
@@ -6473,9 +6743,10 @@ def main() -> int:
                         "navier_stokes": ns["recorded"], **serve_rec,
                         "cluster": clu["recorded"],
                         "plan_service": psvc["recorded"],
-                        "fleet": flt["recorded"]}
+                        "fleet": flt["recorded"], **ex["recorded"]}
             release_groups(torch, "k1")
             k1_timed = k1_timing(torch, k1, bw, recorded, HOPS)
+            mark("2t")
         finally:
             pat.distributed.finalize()
     per = {run: _k1_per_run(k1_timed, rec) for run, rec in recorded.items()
@@ -6500,7 +6771,9 @@ def main() -> int:
     # kernels line gives their sum and each
     runs = {**{run: {k: c for k, c in n.items() if k != "ms"}
                for run, n in serve.items()},
-            **{run: t["launches"] for run, t in train.items()}}
+            **{run: t["launches"] for run, t in train.items()},
+            **{run: {k: c for k, c in n.items() if k != "seconds"}
+               for run, n in ex["paths"].items()}}
     paths = {"k1": {"navier_stokes": ns["k1_launches"],
                     **{run: r["launches"] for run, r in k1_runs.items()}}}
     for inst, c in ns["k1_launches_by_instance"].items():
@@ -6587,9 +6860,18 @@ def main() -> int:
                 "library_ms", "tflops", "max_abs_err", "rel_err",
                 "timed_launches_by_instance")}
                 for r in mine if not r["causal"]},
-            "instances": instances[key]})
+            "instances": instances[key],
+            # simt at D = SIMT_D (> 256, the only calls it takes): 0
+            # launches on every path
+            f"simt_d{SIMT_D}": [{k: r[k] for k in (
+                "dtype", "instance", "ms", "plain_ms", "library_ms",
+                "library_kernels", "bound_ms", "bound_by", "tflops",
+                "max_abs_err", "rel_err")}
+                for r in simt if r["kernel"] == key]})
     faulthandler.cancel_dump_traceback_later()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log("[phases] wall s by phase (2t: phase 2's timings): " + json.dumps(
+        {b[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -90,7 +90,7 @@ def _sweep_rank(device: str) -> Optional[List[dict]]:
                    "error": str(e)}
         results.append(rec)
 
-    from pencilarrays_tpu_torch.parallel.topology import _axis_lines
+    from pencilarrays_tpu_torch.parallel.topology import axis_lines
 
     dev = None if device == "cuda" else "cpu"
     shape = (8, 8, 4)
@@ -106,7 +106,7 @@ def _sweep_rank(device: str) -> Optional[List[dict]]:
         if rank < n:
             return Topology(dims, device=dev, group=group)
         for axis in range(len(dims)):
-            for line in _axis_lines(dims, axis):
+            for line in axis_lines(dims, axis):
                 dist.new_group(list(line))
         return None
 

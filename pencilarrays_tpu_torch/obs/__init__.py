@@ -40,6 +40,7 @@ from .events import (  # noqa: F401
     enable,
     enabled,
     journal_dir,
+    journal_to,
     read_journal,
     record_event,
     run_id,

@@ -153,6 +153,25 @@ def disable() -> None:
         _override_dir = None
 
 
+@contextmanager
+def journal_to(directory: str):
+    """:func:`enable` into ``directory`` for the block, then back to the
+    configuration before it (a programmatic enable or disable, or the
+    environment's) with a fresh run id; a bare :func:`disable` after the
+    block would outlive it and win over the environment."""
+    global _override, _override_dir, _run_id
+    with _lock:
+        saved = (_override, _override_dir)
+    enable(directory)
+    try:
+        yield
+    finally:
+        with _lock:
+            _close_locked()
+            _override, _override_dir = saved
+            _run_id = None
+
+
 def _reset_for_tests() -> None:
     """Full reset: drop overrides AND the shared config snapshot (tests
     toggle the env between cases; production code never needs this)."""

@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.arrays import PencilArray
+from ..parallel import collectives as _collectives
 from ..parallel.pencil import Pencil
 
 __all__ = ["shift", "diff", "fd_gradient", "fd_divergence", "fd_laplacian",
@@ -132,6 +133,12 @@ def _shift_data(data: torch.Tensor, pen: Pencil, axis: int, k: int,
             ops.append(dist.P2POp(dist.isend, buf, peer(p), group))
             halo_exchange["messages"] += 1
             halo_exchange["bytes"] += buf.numel() * buf.element_size()
+            _collectives.note("collective-permute",
+                              buf.numel() * buf.element_size(),
+                              shape=buf.shape, dtype=buf.dtype,
+                              async_start=True,
+                              pair=(topo.global_rank(topo.rank_local),
+                                    peer(p)))
     for q in range(P):                    # rows I need from other blocks
         want = [(j, m) for j, qq, _, m in mine if qq == q and q != me]
         if want:

@@ -4,8 +4,9 @@ The JAX package reads a program's collectives from its compiled HLO
 (``analysis/spmd.py`` ``trace_hlo``).  The port has no compiled program
 to read, so its choke points report each collective they issue here, as
 they issue it: the exchange of a hop (``_Exchange``'s ``all_to_all``
-and ring rounds, the Gspmd exchange), ``ring_shift``, the reductions'
-``all_reduce`` and ``all_gather`` and the guard's probes.  Nothing is
+and ring rounds, the Gspmd exchange), ``ring_shift``, the stencil
+shifts' halo sends, the reductions' ``all_reduce`` and ``all_gather``
+and the guard's probes.  Nothing is
 recorded unless a :func:`recording` block is open on the calling
 thread: :mod:`~pencilarrays_tpu_torch.analysis.spmd` opens one to trace
 a program, an engine dispatch of a plan (``forward_async``, a served

@@ -65,7 +65,8 @@ from ..resilience.retry import RetryPolicy
 __all__ = ["initialize", "ensure_initialized", "is_initialized", "finalize",
            "RankPool", "spawn", "process_index", "process_count",
            "is_multiprocess", "kv_client", "local_devices",
-           "sync_global_devices", "agree", "agree_all"]
+           "sync_global_devices", "agree", "agree_all", "backend_for",
+           "is_root"]
 
 # rendezvous failures worth retrying (a peer or the store not up yet, a
 # dropped connection); configuration errors fail on the first attempt
@@ -187,6 +188,29 @@ def ensure_initialized(backend: Optional[str] = None, *,
 def is_initialized() -> bool:
     """Whether this process is in a ``torch.distributed`` default group."""
     return dist.is_available() and dist.is_initialized()
+
+
+def is_root() -> bool:
+    """Whether this process is rank 0 (or the only process)."""
+    return not is_initialized() or dist.get_rank() == 0
+
+
+def backend_for(device, ranks: int) -> str:
+    """The process-group backend of ``ranks`` ranks on ``device``:
+    gloo when the CPU is named, NCCL when the machine has a card for
+    every rank; anything else raises."""
+    if ranks < 1:
+        raise ValueError(f"ranks must be positive, got {ranks}")
+    if device is not None and torch.device(device).type == "cpu":
+        return "gloo"
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu "
+                           "(device='cpu') to run the example on the CPU")
+    cards = torch.cuda.device_count()
+    if ranks > cards:
+        raise RuntimeError(f"{ranks} ranks need {ranks} cards; this machine "
+                           f"has {cards} (pass --device cpu for gloo ranks)")
+    return "nccl"
 
 
 def kv_client():

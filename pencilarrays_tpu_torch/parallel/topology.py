@@ -94,7 +94,7 @@ def resolve_device(device=None, rank: Optional[int] = None) -> torch.device:
     return dev
 
 
-def _axis_lines(dims: Tuple[int, ...], axis: int):
+def axis_lines(dims: Tuple[int, ...], axis: int):
     """All rank lines along ``axis``: for every coordinate of the other
     axes, the ranks whose ``axis`` coordinate runs 0..dims[axis]-1, in that
     order.  The order of lines is fixed, so every rank creates the
@@ -188,7 +188,7 @@ class Topology:
         subgroups = []
         for axis in range(len(self._dims)):
             mine = None
-            for line in _axis_lines(self._dims, axis):
+            for line in axis_lines(self._dims, axis):
                 g = dist.new_group([ranks[r] for r in line], backend=backend)
                 if me in line:
                     mine = g

@@ -130,6 +130,7 @@ class _Entry:
     cost_bytes: int = 0           # priced B=1 cost (projection currency)
     departed: bool = False        # left _pending (lazy SLO-heap skip)
     trace: Optional[str] = None   # request trace context (schema v6)
+    feed: Optional[dict] = None   # the gate feed its admission made
 
 
 @dataclass
@@ -581,22 +582,40 @@ class AdmissionQueue:
         out.sort(key=lambda e: e.seq)
         return out
 
-    def evict_sheddable(self, protected_priority: int) -> List[_Entry]:
+    def evict_sheddable(self, protected_priority: int,
+                        seqs: Optional[List[int]] = None) -> List[_Entry]:
         """The pressure gate's second rung: remove every queued entry
         whose ``shed_priority`` is strictly below the protected tier
         and return them in admission-sequence order — deterministic in
         the submission sequence (identical submissions evict identical
-        sets; the clock only gates WHEN the rung fires).  The service
-        fails their tickets typed ``AdmissionError(reason="shed")``."""
+        sets; the clock only gates WHEN the rung fires).  With ``seqs``
+        (rank 0's eviction, its entries named by admission number since
+        the deciding topology took over) exactly those entries.  The
+        service fails their tickets typed
+        ``AdmissionError(reason="shed")``."""
         evicted: List[_Entry] = []
         with self._take_lock, self._lock:
+            if seqs is None:
+                def goes(e):
+                    return e.shed_priority < protected_priority
+            else:
+                named = {s + self._seq_base for s in seqs}
+                missing = named - set(self._by_seq)
+                if missing:
+                    raise RuntimeError(
+                        f"the eviction names requests "
+                        f"{sorted(s - self._seq_base for s in missing)}, "
+                        f"which are not queued here: the ranks did not "
+                        f"submit the same requests in the same order")
+
+                def goes(e):
+                    return e.seq in named
             for key in list(self._pending):
                 entries = self._pending[key]
-                keep = [e for e in entries
-                        if e.shed_priority >= protected_priority]
+                keep = [e for e in entries if not goes(e)]
                 if len(keep) != len(entries):
                     for e in entries:
-                        if e.shed_priority < protected_priority:
+                        if goes(e):
                             self._depart_locked(e)
                             evicted.append(e)
                             self.load.note_removed(e.cost_bytes)

@@ -667,27 +667,28 @@ class PlanService:
 
         def decide():
             # every outcome is published, a failure too: the other
-            # ranks wait for it
+            # ranks wait for it; so is the gate feed it made, if any
             try:
                 rung = self._enforce_slo(entry)
             except Exception as e:
                 decided.append(e)
-                return {"error": [type(e).__name__, str(e), {
-                    k: getattr(e, k) for k in (
-                        "tenant", "reason", "deadline_s", "projected_s")
-                    if hasattr(e, k)}]}
+                return {"feed": entry.feed, "error": [
+                    type(e).__name__, str(e), {
+                        k: getattr(e, k) for k in (
+                            "tenant", "reason", "deadline_s", "projected_s")
+                        if hasattr(e, k)}]}
             decided.append(None)
-            return {"rung": None if rung is None else list(rung)}
+            return {"feed": entry.feed,
+                    "rung": None if rung is None else list(rung)}
 
         verdict = agree(topo, "serve-admit", decide)
         if decided:             # rank 0: applied (or raised) already
             if decided[0] is not None:
                 raise decided[0]
             return
-        if self._gate is not None:
-            # the gate steps as rank 0's does (its evict rung stays this
-            # rank's own: ROADMAP Queue 3)
-            self._feed_gate()
+        if verdict["feed"] is not None:
+            # the gate steps, and evicts, as rank 0's did
+            self._feed_gate(verdict["feed"])
         if "error" in verdict:
             name, msg, fields = verdict["error"]
             cls = {"AdmissionError": AdmissionError,
@@ -715,7 +716,7 @@ class PlanService:
         t = entry.ticket.tenant
         degraded = None
         if self._gate is not None:
-            self._feed_gate()
+            entry.feed = self._feed_gate()
             degraded = (
                 self._gate.degrades(entry.shed_priority, self._protected)
                 and self._maybe_degrade(entry))
@@ -829,19 +830,57 @@ class PlanService:
         cross a mark between admissions), run the evict rung, and fail
         take-point-expired entries typed.  Called by every dispatch
         path (step / streaming pump) around ``take_ready``."""
-        if not self._slo_armed:
+        if not self._slo_armed or self._gate is None:
             return
-        if self._gate is not None:
+        topo = self.queue._agree_topo
+        if topo is None:
             self._feed_gate()
+            return
+        from ..parallel.distributed import agree
 
-    def _feed_gate(self) -> None:
+        fed = []
+
+        def decide():
+            # a failure is published too: the other ranks wait for it
+            try:
+                feed = self._feed_gate()
+            except Exception as e:
+                fed.append(e)
+                return {"error": [type(e).__name__, str(e)]}
+            fed.append(None)
+            return feed
+
+        feed = agree(topo, "serve-evict", decide)
+        if fed:                 # rank 0: applied (or raised) already
+            if fed[0] is not None:
+                raise fed[0]
+            return
+        if "error" in feed:
+            name, msg = feed["error"]
+            raise ServeError(f"rank 0 failed the gate feed: {name}: {msg}")
+        self._feed_gate(feed)
+
+    def _feed_gate(self, feed: Optional[dict] = None) -> dict:
         """THE one gate-feed sequence (admission and take enforcement
         points must never diverge): update with the live drain
-        projection, then run the evict rung if the gate escalated."""
+        projection, then run the evict rung if the gate escalated.
+        Returns the feed as a JSON value (the projection and the
+        evicted admission numbers).  On several ranks rank 0 feeds and
+        every other rank applies its ``feed``: its gate steps by rank
+        0's projection and evicts exactly rank 0's entries, as the JAX
+        package's one gate does.  Evicting by its own load, a rank
+        would fail tickets that rank 0 still queues."""
         load = self.queue.load
-        self._gate.update(load.drain_s(), load.snapshot)
-        if self._gate.evicting():
-            self._evict_sheddable()
+        if feed is None:
+            drain = load.drain_s()
+            self._gate.update(drain, load.snapshot)
+            evicted = (self._evict_sheddable() if self._gate.evicting()
+                       else [])
+            return {"drain_s": drain, "evicted": evicted}
+        self._gate.update(feed["drain_s"], load.snapshot)
+        if feed["evicted"]:
+            self._evict_sheddable(feed["evicted"])
+        return feed
 
     def _shed_expired(self) -> None:
         """Fail every entry ``take_ready`` shed as deadline-expired:
@@ -861,13 +900,17 @@ class PlanService:
                     f"before dispatch", tenant=e.ticket.tenant,
                     reason="expired", deadline_s=budget))
 
-    def _evict_sheddable(self) -> None:
+    def _evict_sheddable(self, seqs: Optional[List[int]] = None
+                         ) -> List[int]:
         """The pressure gate's second rung: evict queued sheddable
-        entries (admission-sequence order, deterministic) and fail
-        their tickets typed ``AdmissionError(reason="shed")``."""
+        entries (admission-sequence order, deterministic), or the
+        entries ``seqs`` names (rank 0's eviction), and fail their
+        tickets typed ``AdmissionError(reason="shed")``.  Returns the
+        evicted entries' admission numbers."""
         from .. import obs
 
-        for e in self.queue.evict_sheddable(self._protected):
+        evicted = self.queue.evict_sheddable(self._protected, seqs)
+        for e in evicted:
             if obs.enabled():
                 obs.counter("serve.shed", tenant=e.ticket.tenant,
                             reason="evicted").inc()
@@ -877,6 +920,7 @@ class PlanService:
                     f"queue under overload (priority {e.shed_priority} "
                     f"below the protected tier {self._protected})",
                     tenant=e.ticket.tenant, reason="shed"))
+        return [e.seq - self.queue._seq_base for e in evicted]
 
     # -- dispatch ----------------------------------------------------------
     def step(self, *, flush: bool = False) -> int:

@@ -161,6 +161,31 @@ def test_admission_is_agreed_when_rank_loads_differ(tmp_path):
         compare(want, g)
 
 
+def test_eviction_is_agreed_when_rank_loads_differ(tmp_path):
+    """Two ranks, one service each, the same submissions; rank 1 measured
+    a batch a thousand times slower, so its own gate reaches ``evict``
+    while rank 0's stays open.  Every rank applies rank 0's gate: nothing
+    is evicted until rank 0's load crosses the mark too, and then every
+    rank evicts the same sheddable tickets, typed
+    ``AdmissionError(reason="shed")``, as the JAX package's single
+    controller does.  Evicting by its own gate, rank 1 fails tickets
+    that rank 0 still queues and serves."""
+    from torch_serve_parity import compare, run_jax
+
+    import torch_rank_tasks as tasks
+    from pencilarrays_tpu_torch.parallel.distributed import RankPool
+
+    want = run_jax("s_split_load_evict", (2, 1), tmp=tmp_path)
+    assert [p["gate"] for p in want["phases"]] == ["ok", "evict"], want
+    assert want["outcomes"] == ["AdmissionError:shed", "ok"] * 2 + [
+        "AdmissionError:shed"], want
+    with RankPool(2, timeout_s=90) as pool:
+        got = pool.run(tasks.serve_scenario, (2, 1), "s_split_load_evict",
+                       [(2, 1), 1], str(tmp_path / "port"), True)
+    for g in got:
+        compare(want, g)
+
+
 def test_admission_fault_on_one_rank_is_agreed(tmp_path):
     """Two ranks, one service each, the same submissions; the
     ``serve.submit`` fault fires on rank 1 alone at the second request.
@@ -203,6 +228,24 @@ def test_failed_admission_decision_reaches_every_rank(tmp_path):
     assert got[0]["admission"] == ["RuntimeError", "admitted"], got
     assert got[1]["admission"] == ["ServeError", "admitted"], got
     assert got[0]["outcomes"] == got[1]["outcomes"] == ["ok"], got
+
+
+def test_failed_evict_decision_reaches_every_rank(tmp_path):
+    """Two ranks; rank 0's evict rung fails once at the take with an
+    error of no serve type.  Rank 0 raises it and rank 1 a
+    ``ServeError`` (rank 1 waited on a feed rank 0 never published: the
+    private pool's 60 s limit fails the test instead of stalling the
+    suite); the next take evicts the same sheddable tickets on both."""
+    import torch_rank_tasks as tasks
+    from pencilarrays_tpu_torch.parallel.distributed import RankPool
+
+    with RankPool(2, timeout_s=60) as pool:
+        got = pool.run(tasks.serve_scenario, (2, 1), "s_evict_decider_fails",
+                       [(2, 1)], str(tmp_path / "port"), True)
+    assert got[0]["takes"] == ["RuntimeError", "fed"], got
+    assert got[1]["takes"] == ["ServeError", "fed"], got
+    assert got[0]["outcomes"] == got[1]["outcomes"] == [
+        "AdmissionError:shed", "ok"] * 2 + ["AdmissionError:shed"], got
 
 
 def test_blind_tracker_admits_everything(tmp_path):

@@ -304,7 +304,7 @@ def sub_topology(dims):
     ``None`` on the other ranks.  Every rank of the pool calls it."""
     import math
 
-    from pencilarrays_tpu_torch.parallel.topology import _axis_lines
+    from pencilarrays_tpu_torch.parallel.topology import axis_lines
 
     dims = tuple(dims)
     if dims not in _SUB:
@@ -318,7 +318,7 @@ def sub_topology(dims):
                 _SUB[dims] = pat.Topology(dims, device="cpu", group=group)
             else:
                 for axis in range(len(dims)):
-                    for line in _axis_lines(dims, axis):
+                    for line in axis_lines(dims, axis):
                         dist.new_group(list(line))
                 _SUB[dims] = None
     return _SUB[dims]
@@ -2818,3 +2818,20 @@ def scale_rejoin_role(role, tmp, out, left, down):
         if coord is not None:
             coord.shutdown()
         pat.distributed.finalize()
+
+
+def example_case(name, kwargs):
+    """``run(device="cpu", **kwargs)`` of the port's example ``name`` on
+    every rank of the pool; rank 0's result."""
+    import importlib
+
+    mod = importlib.import_module(f"pencilarrays_tpu_torch.examples.{name}")
+    return _rank0(mod.run(device="cpu", **kwargs))
+
+
+def dryrun_case(n):
+    """The port's dry run on every rank of a pool of ``n``; every rank's
+    result."""
+    from pencilarrays_tpu_torch.entry import dryrun
+
+    return dryrun(n, device="cpu")

@@ -1329,6 +1329,72 @@ def s_evict_rung(P, dims, d):
             "records": serve_records(P, str(d))}
 
 
+def s_split_load_evict(P, dims, slow_rank=None):
+    """Five queued requests, three of them sheddable, under an evict
+    water mark of 1 s.  First one measured batch: on rank ``slow_rank``
+    alone it took a thousand times as long, so that rank's own gate
+    would reach ``evict`` while rank 0's stays open.  Every rank steps
+    its gate by rank 0's projection and evicts what rank 0 evicts:
+    nothing.  Then a slow batch on every rank: rank 0's gate evicts the
+    sheddable requests, and every rank fails the same tickets typed
+    ``AdmissionError(reason="shed")``, as the JAX package's one
+    controller does.  Evicting by its own gate, rank 1 would fail
+    tickets that rank 0 still queues and serves."""
+    rng = np.random.default_rng(7)
+    svc, plan = _storm_service(P, dims, evict_water_s=1.0)
+    u = host(rng, (8, 6, 4))
+    tickets = [svc.submit(name, u, plan=plan)
+               for name in ("bulk", "prot", "bulk", "prot", "bulk")]
+    cost = svc.queue.load.snapshot()["queued_cost_bytes"] // 5
+    slow = slow_rank is not None and P.rank() == slow_rank
+    phases = []
+    for execute_s in (10.0 if slow else 0.01, 10.0):
+        svc.queue.load.note_completed(cost, 1, execute_s)
+        svc._slo_maintenance()
+        phases.append({"gate": svc._gate.state,
+                       "outcomes": [outcome(t) for t in tickets]})
+    svc.drain()
+    return {"phases": phases,
+            "outcomes": [outcome(t) for t in tickets],
+            "fft": {"served": np.stack([P.gather(t.result(5))
+                                        for t in tickets[1::2]])}}
+
+
+def s_evict_decider_fails(P, dims):
+    """The deciding rank's evict rung fails once with an error of no
+    serve type, at the take: that rank raises it, the other ranks a
+    ``ServeError`` naming it instead of waiting for a feed that never
+    comes, and the next take evicts the same sheddable tickets on every
+    rank.  The port only (the JAX package has one controller)."""
+    rng = np.random.default_rng(7)
+    svc, plan = _storm_service(P, dims, evict_water_s=1.0)
+    u = host(rng, (8, 6, 4))
+    tickets = [svc.submit(name, u, plan=plan)
+               for name in ("bulk", "prot", "bulk", "prot", "bulk")]
+    evict, calls = svc._evict_sheddable, []
+
+    def failing_once(seqs=None):
+        calls.append(seqs)
+        if len(calls) == 1:
+            raise RuntimeError("the evict rung failed")
+        return evict(seqs)
+
+    if P.rank() == 0:
+        svc._evict_sheddable = failing_once
+    cost = svc.queue.load.snapshot()["queued_cost_bytes"] // 5
+    svc.queue.load.note_completed(cost, 1, 10.0)
+    takes = []
+    for _ in range(2):
+        try:
+            svc._slo_maintenance()
+            takes.append("fed")
+        except Exception as e:
+            takes.append(type(e).__name__)
+    svc.drain()
+    return {"takes": takes, "gate": svc._gate.state,
+            "outcomes": [outcome(t) for t in tickets]}
+
+
 def s_reasons_never_conflated(P, dims, dims4):
     SLO, TQ = P.serve.SLO, P.serve.TenantQuota
     plan = P.plan(dims, (8, 6, 4))
