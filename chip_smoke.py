@@ -13,10 +13,11 @@ standard output too.  Phases, each printed on its own lines:
 1. environment — card name and power limit (``nvidia-smi``), torch and
    CUDA versions, the kernel build time, each K2–K4 kernel's registers
    and spill bytes (``-Xptxas -v``), a ``cuobjdump -sass`` check that
-   every wgmma kernel of K2, K3 and K4 holds HGMMA and UTMALDG
-   instructions and spills nothing, and every tf32x3 kernel of K3 and K4
-   TF32 HMMA ones, spilling no more than it did when tuned; a 1-rank
-   NCCL process group;
+   every wgmma kernel of K2, K3 and K4 (K3/K4's wide ones above D = 256
+   among them) holds HGMMA and UTMALDG instructions and spills nothing,
+   and every tf32x3 kernel of K3 and K4 TF32 HMMA ones (the wide ones
+   UTMALDG too), spilling no more than it did when tuned; a 1-rank NCCL
+   process group;
 2. kernel K1 (``pencilarrays_tpu_torch/ops/csrc/permute.cu``) against its
    plain PyTorch versions on the card, bit for bit, over the main path's
    shapes, ragged shapes in six dtypes, pack/unpack with P = 1, 2, 4,
@@ -247,11 +248,12 @@ standard output too.  Phases, each printed on its own lines:
    and flash attention on q/k/v of mixed dtypes, each row held relative
    to its own scale (rows of m, dq and dk to their largest term where it
    is larger: a sum that cancels is held to its rounding); every K3/K4 call launches the instance
-   ``bwd_instance`` picks (D <= 256: wgmma for all-bf16 operands, tf32x3
-   for any f32 one; simt above); then the tensor-core instances at their
-   edges, in bf16 (K2–K4's wgmma) and in f32 (K3/K4's tf32x3): head dims
-   40 to 256, Sq < 64, Skv = 1, ragged Skv, k/v views with a storage
-   offset, aligned and not;
+   ``bwd_instance`` picks (wgmma for all-bf16 operands, tf32x3 for any
+   f32 one, at every head dim: above 256 their wide kernels); then the
+   tensor-core instances at their edges, in bf16 (K2–K4's wgmma) and in
+   f32 (K3/K4's tf32x3): head dims 40 to 256 and the wide 264 and 1000,
+   Sq < 64, Skv = 1, ragged Skv, k/v views with a storage offset, aligned
+   and not;
 7. serving at full width (S = 4096, H = 8, D = 128): Ulysses and causal
    ring attention over NCCL on a (1,) topology, f32 and bf16, each held
    to dense attention, with the K1/K2 launches of each call and K2's by
@@ -262,14 +264,17 @@ standard output too.  Phases, each printed on its own lines:
    rank; MSE; SGD) for 3 steps, in f32 and in bf16 (f32 master weights,
    bf16 projections and attention): the loss falls, one step's gradients
    match the plain path, K2–K4 launched by the wgmma instances in bf16,
-   K2's simt and K3/K4's tf32x3 ones in f32;
+   K2's simt and K3/K4's tf32x3 ones in f32; then 2 steps a dtype at
+   D = 512, where K3 and K4 run their wide kernels (K2 its simt
+   instance) and no backward call takes the retired simt kernels;
 9. K2–K4 times at the headline shape, f32 and bf16, causal and not:
    kernel, plain, SDPA (a yardstick the port never calls; the CUDA
    kernels it launches, from the profiler) and bound, each kernel by the
-   instance its dtype picks, held to the plain version; then the simt
-   instances at D = 512 (the head dims above 256 they serve), f32 and
-   bf16 operands, non-causal, SDPA by its default dispatch (flash and
-   cuDNN refuse D = 512; the memory-efficient backend takes it);
+   instance its dtype picks, held to the plain version; then D = 512,
+   causal and not: K2's simt instance, K3/K4's wide kernels and, non-
+   causal, their retired simt kernels on the same inputs, SDPA by its
+   default dispatch (flash and cuDNN refuse D = 512; the
+   memory-efficient backend takes it);
 10. a ``{"kernels": [...]}`` line: per kernel its launches on each path
     (each counted from 0 just before its run; K1's on the NS steps, the
     four cycles, the six wired cycles, the reshard runs, the fused hop, the DCT plan, the spectral operators,
@@ -282,7 +287,9 @@ standard output too.  Phases, each printed on its own lines:
     ``grad_ns_checkpoint``, ``dtypes`` and ``topo3``, and phase 5j's
     ``examples.<name>`` and ``entry.dryrun``) and their sum, by
     instance, its error against the plain version and its times (K1's per
-    class in ``timings``);
+    class in ``timings``); K3 and K4's wide kernels (D > 256) have entries
+    of their own, launched on phase 8's wide paths and timed at D = 512
+    beside the retired simt kernels;
 11. the last line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -400,9 +407,11 @@ def random_tensor(torch, shape, dtype, gen):
 KERNEL_GROUPS = [
     ("k2_flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_simt_kernel")),
     ("k3_flash_dq", ("flash_dq_wgmma_kernel", "flash_dq_tf32x3_kernel",
-                     "flash_dq_kernel")),
+                     "flash_dq_wgmma_wide_kernel",
+                     "flash_dq_tf32x3_wide_kernel", "flash_dq_kernel")),
     ("k4_flash_dkv", ("flash_dkv_wgmma_kernel", "flash_dkv_tf32x3_kernel",
-                      "flash_dkv_kernel")),
+                      "flash_dkv_wgmma_wide_kernel",
+                      "flash_dkv_tf32x3_wide_kernel", "flash_dkv_kernel")),
     ("k1_permute", ("permute_",)),
     ("gemm", ("gemm", "xmma", "cutlass", "Kernel2")),
     ("cufft", ("fft", "FFT")),
@@ -514,13 +523,18 @@ FLASH_LIBS = {"flash_fwd": {"k2": "flash_fwd_"},
               "flash_bwd": {"k3": "flash_dq_", "k4": "flash_dkv_"},
               "flash_bwd_tf32": {"k3": "flash_dq_", "k4": "flash_dkv_"}}
 # SASS each tensor-core instance must hold: wgmma (HGMMA) on TMA tile loads
-# (UTMALDG); mma.sync on TF32 operands (HMMA ... TF32)
+# (UTMALDG); mma.sync on TF32 operands (HMMA ... TF32), and in the tf32x3
+# instance's wide kernels (D > 256) on TMA tile loads as well
 SASS_WANT = {"wgmma": ["HGMMA", "UTMALDG"], "tf32x3": ["HMMA.TF32"]}
+SASS_WANT_WIDE = {"wgmma": ["HGMMA", "UTMALDG"],
+                  "tf32x3": ["HMMA.TF32", "UTMALDG"]}
 # spill bytes (stores + loads) each instance's kernels of K2–K4 may total:
 # none for wgmma; for tf32x3 what ptxas 12.8 gave when the kernels were
-# tuned (K3 4 + 4 at D = 256, K4 16 + 20 at D = 128), so that growth fails
+# tuned (K3 4 + 4 at D = 256 and 48 + 32 wide; K4 16 + 20 at D = 128 and
+# 84 + 56 wide: the wide kernels with 16-row streamed tiles spill nothing
+# but run longer), so that growth fails
 SPILL_LIMIT = {"wgmma": {"k2": 0, "k3": 0, "k4": 0},
-               "tf32x3": {"k3": 8, "k4": 36}}
+               "tf32x3": {"k3": 88, "k4": 176}}
 
 
 def _sass_ops(line: str) -> set:
@@ -534,8 +548,8 @@ def flash_instances(build) -> dict:
     """Each K2–K4 kernel's registers and spill bytes, and a ``cuobjdump
     -sass`` check: every wgmma kernel must hold HGMMA (wgmma) and UTMALDG
     (TMA tile load) instructions, every tf32x3 kernel TF32 HMMA (mma.sync)
-    ones, and each instance's kernels of a kernel K spill no more than
-    SPILL_LIMIT allows.  Returns
+    ones (the wide ones UTMALDG too), and each instance's kernels of a
+    kernel K spill no more than SPILL_LIMIT allows.  Returns
     ``{"k2": {label: report}, "k3": ..., "k4": ...}``."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     out = {}
@@ -566,14 +580,17 @@ def flash_instances(build) -> dict:
             mine = {k: r for k, r in out.get(key, {}).items() if inst in k}
             spills = sum(r.get("spill_stores", 0) + r.get("spill_loads", 0)
                          for r in mine.values())
-            if not mine or any(r["sass"] != want for r in mine.values()) or (
-                    spills > limit):
+            if not mine or any(
+                    r["sass"] != (SASS_WANT_WIDE if "wide" in k
+                                  else SASS_WANT)[inst]
+                    for k, r in mine.items()) or spills > limit:
                 raise AssertionError(f"{key.upper()} {inst} instance lacks "
                                      f"{want} or spills more than {limit} "
                                      f"bytes: {mine}")
             log(f"[env] SASS: {len(mine)} {inst} kernels of {key.upper()} "
-                f"hold {' and '.join(want)}, {spills} spill bytes (stores + "
-                f"loads; at most {limit})")
+                f"hold {' and '.join(want)} (the wide ones "
+                f"{' and '.join(SASS_WANT_WIDE[inst])}), {spills} spill "
+                f"bytes (stores + loads; at most {limit})")
     return out
 
 
@@ -5883,6 +5900,15 @@ FLASH_TOL = {("fwd", "float32"): 1e-5, ("bwd", "float32"): 5e-5,
              ("fwd", "bfloat16"): 2 ** -6, ("bwd", "bfloat16"): 2 ** -6}
 FLASH_OFFSETS = [(False, 0, 0), (True, 0, 0), (True, 5, 0), (True, 0, 3),
                  (True, 17, 9)]
+# head dims of phase 6's main cases: every tile class of K2–K4, and above
+# 256 K3/K4's wide kernels on whole column boxes (384, 512, 1024) and on a
+# ragged last box (520)
+FLASH_DIMS = (40, 64, 128, 256, 384, 512, 520, 1024)
+# head dims of the tensor-core edge cases: each class of the narrow
+# kernels and off their boxes or warp tiles, and the wide kernels with one
+# live column past a CTA's first output block (264) and a ragged last box
+# (1000)
+EDGE_DIMS = (40, 64, 96, 128, 200, 256, 264, 1000)
 
 
 def _rel_err(torch, got, want, rows=None, terms=None) -> float:
@@ -6186,7 +6212,8 @@ def _tensor_core_edges(torch, flash, keep, dtype, own):
     """The tensor-core instances at their edges: in bf16 the wgmma ones of
     K2, K3 and K4, in f32 the tf32x3 ones of K3 and K4 (K2 runs simt).
     Head dims of each class and off its 64-column boxes or 16-row warp
-    tiles, Sq below one warpgroup, Skv = 1, Skv off the key tile, k/v
+    tiles (EDGE_DIMS: above 256 K3/K4's wide kernels, and K2's simt),
+    Sq below one warpgroup, Skv = 1, Skv off the key tile, k/v
     views with a storage offset (a row slice, as ring rounds pass, and a
     flat offset of one element, which the wrappers copy to a 16-byte
     boundary); every mode and offset case of flash_compare (its own-scale
@@ -6211,7 +6238,7 @@ def _tensor_core_edges(torch, flash, keep, dtype, own):
     n0 = {key: dict(c) for key, c in by.items()}
     copies0 = flash.realigned_copies
     cases = 0
-    for d in (40, 64, 96, 128, 200, 256):
+    for d in EDGE_DIMS:
         for sq, skv in ((237, 301), (50, 1), (50, 200)):
             q, k, v = rnd(sq, H, B, d), rnd(skv, H, B, d), rnd(skv, H, B, d)
             for causal, qo, ko in FLASH_OFFSETS:
@@ -6237,8 +6264,9 @@ def _tensor_core_edges(torch, flash, keep, dtype, own):
     copies = flash.realigned_copies - copies0
     want = {"k2": "wgmma" if inst == "wgmma" else "simt", "k3": inst,
             "k4": inst}
-    # in bf16 the partials calls with an f32 dO take tf32x3
-    allowed = {"k2": {want["k2"]}, "k3": {inst, "tf32x3"},
+    # in bf16 the partials calls with an f32 dO take tf32x3; K2 at the wide
+    # head dims takes simt
+    allowed = {"k2": {want["k2"], "simt"}, "k3": {inst, "tf32x3"},
                "k4": {inst, "tf32x3"}}
     if any(n[k][want[k]] <= 0 or any(c for i, c in n[k].items()
                                      if i not in allowed[k]) for k in n):
@@ -6246,7 +6274,7 @@ def _tensor_core_edges(torch, flash, keep, dtype, own):
     if copies <= 0:
         raise AssertionError("the flat-offset k/v were not realigned")
     log(f"[flash] {inst} instances at their edges ({name}): {cases} cases "
-        f"(d 40 64 96 128 200 256; (Sq, Skv) (237, 301) (50, 1) (50, 200); "
+        f"(d {' '.join(map(str, EDGE_DIMS))}; (Sq, Skv) (237, 301) (50, 1) (50, 200); "
         f"k/v row slice and flat offset), launches by instance {n}"
         + (" (K3/K4 tf32x3: the partials calls with an f32 dO)"
            if inst == "wgmma" else "") + f", realigned copies {copies}")
@@ -6274,7 +6302,7 @@ def phase_flash_check(torch, flash, attention):
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for d in (40, 64, 128, 256, 520, 1024):
+        for d in FLASH_DIMS:
             def rnd(*shape):
                 return torch.randn(shape, generator=gen,
                                    device="cuda").to(dtype)
@@ -6304,8 +6332,8 @@ def phase_flash_check(torch, flash, attention):
             str(dtype).split(".")[-1], {}))
     torch.cuda.synchronize()
     log(f"[flash] K2-K4 within tolerance of the plain versions on the card: "
-        f"{cases} cases (Sq={sq}, Skv={skv}, H={H}, B={B}; d 40 64 128 256 "
-        f"520 1024; f32 bf16; non-causal and causal offsets "
+        f"{cases} cases (Sq={sq}, Skv={skv}, H={H}, B={B}; d "
+        f"{' '.join(map(str, FLASH_DIMS))}; f32 bf16; non-causal and causal offsets "
         f"{[o[1:] for o in FLASH_OFFSETS[1:]]}; out, return_stats, partials, "
         f"bwd, bwd_partials) + P=4 naive and zigzag causal rings emulated at "
         f"kernel level + flash_attention on mixed q/k/v dtypes "
@@ -6369,19 +6397,22 @@ def _reset_counts(k1, flash):
             by[inst] = 0
 
 
-# the instance of each kernel that takes all-bf16 or all-f32 operands at
-# D = D_ATT (<= 256)
-HEADLINE_INSTANCE = {"bfloat16": {"k2": "wgmma", "k3": "wgmma",
-                                  "k4": "wgmma"},
-                     "float32": {"k2": "simt", "k3": "tf32x3",
-                                 "k4": "tf32x3"}}
+def expected_instance(name: str, D: int, key: str) -> str:
+    """The instance of kernel ``key`` that a call with all operands of
+    dtype ``name`` at head dim ``D`` launches: K2 wgmma for bf16 with D <=
+    256, else simt; K3 and K4 wgmma for bf16, tf32x3 for f32, at every D
+    (their wide kernels above 256; the retired simt ones never)."""
+    if key == "k2":
+        return "wgmma" if name == "bfloat16" and D <= 256 else "simt"
+    return "wgmma" if name == "bfloat16" else "tf32x3"
 
 
-def _check_instance(n, name, what, kernels=("k2",)):
-    """A call at the headline width launches each kernel by the instance
-    HEADLINE_INSTANCE names for its dtype, and by no other."""
+def _check_instance(n, name, what, kernels=("k2",), D=None):
+    """A call at head dim ``D`` (the headline D_ATT by default) launches
+    each kernel by the instance expected_instance names for its dtype,
+    and by no other."""
     for key in kernels:
-        want = HEADLINE_INSTANCE[name][key]
+        want = expected_instance(name, D or D_ATT, key)
         others = [k for k in n if k.startswith(f"{key}_")
                   and k != f"{key}_{want}"]
         if n[f"{key}_{want}"] <= 0 or any(n[k] for k in others):
@@ -6439,7 +6470,8 @@ def phase_serving(torch, pat, models, k1, flash):
     return out, recorded
 
 
-def phase_training(torch, pat, models, k1, flash, dtype, steps=3):
+def phase_training(torch, pat, models, k1, flash, dtype, steps=3, D=None,
+                   profiled=True):
     """The block of ``pencilarrays_tpu_torch/examples/
     long_context_training.py`` (the JAX package's
     ``examples/long_context_training.py``), trained through that module
@@ -6451,10 +6483,12 @@ def phase_training(torch, pat, models, k1, flash, dtype, steps=3):
     q/k/v, the attention and its output are bf16, and the loss is taken
     in f32.
     One step's gradients on the kernel path against the plain path,
-    then ``steps`` steps with every count reset just before."""
+    then ``steps`` steps with every count reset just before, and one more
+    under the profiler when ``profiled``.  ``D`` is the head dim (D_ATT
+    by default; WIDE_D runs K3 and K4's wide kernels)."""
     from pencilarrays_tpu_torch.examples import long_context_training as lct
 
-    S, H, D = S_ATT, H_ATT, D_ATT
+    S, H, D = S_ATT, H_ATT, D or D_ATT
     name = str(dtype).split(".")[-1]
     topo = pat.Topology((1,))
     pen = pat.Pencil(topo, (S, H), (0,))
@@ -6500,26 +6534,30 @@ def phase_training(torch, pat, models, k1, flash, dtype, steps=3):
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"training {name} loss did not fall: {losses}")
     # after the counts were read: where one step's time goes
-    prof = profile(torch, step, f"training step S={S} H={H} D={D} {name}")
+    prof = (profile(torch, step, f"training step S={S} H={H} D={D} {name}")
+            if profiled else None)
     if min(n["k2"], n["k3"], n["k4"]) <= 0:
         raise AssertionError(f"training {name} launched {n}")
-    _check_instance(n, name, "training", ("k2", "k3", "k4"))
+    _check_instance(n, name, "training", ("k2", "k3", "k4"), D)
     return dict(losses=losses, step_ms=step_ms, launches=n,
                 grad_err=grad_err, profile=prof)
 
 
-# the head dim of phase 9's timings of the simt instances (D > 256 only)
-SIMT_D = 512
+# the head dim above 256 of phase 8's wide training steps and phase 9's
+# wide timings (K2's simt, K3/K4's wide kernels and their retired simt ones)
+WIDE_D = 512
 
 
-def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True)):
+def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
+                       retired=()):
     """K2, K3 and K4 at S = S_ATT, H = H_ATT and head dim ``D``, f32 and
-    bf16, for each of ``causals``: kernel ms (each by the instance its
-    dtype and ``D`` pick: the headline instances at D_ATT, ``simt`` above
-    256), plain ms, SDPA ms (a yardstick the port never calls) with the
-    CUDA kernels SDPA launches, bound ms and the error against the plain
-    version (rows of dq and dk held to their largest term where it is
-    above their own max|plain|, as flash_compare holds them)."""
+    bf16, for each of ``causals``: kernel ms (each by the instance
+    expected_instance names for its dtype and ``D``; for the causal values
+    in ``retired`` also K3 and K4's retired simt kernels on the same
+    inputs), plain ms, SDPA ms (a yardstick the port never calls) with
+    the CUDA kernels SDPA launches, bound ms and the error against the
+    plain version (rows of dq and dk held to their largest term where it
+    is above their own max|plain|, as flash_compare holds them)."""
     import torch.nn.functional as F
 
     S, H = S_ATT, H_ATT
@@ -6545,21 +6583,22 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True)):
                                                        **kw)]
             tq, tk = _bwd_terms(torch, flash, q, k, v, do, L, Dr, **kw)
             it = 5
-            timed = [(key, "simt" if D > 256
-                      else HEADLINE_INSTANCE[name][key])
+            timed = [(key, expected_instance(name, D, key))
                      for key in ("k2", "k3", "k4")]
+            if causal in retired:
+                timed += [("k3", "simt"), ("k4", "simt")]
             launch = {
-                "k2": lambda: flash.flash_attention_fwd(q, k, v, **kw),
-                "k3": lambda: flash.launch_dq(qf, kf, vf, dof, L, Dr, dq,
-                                              **kw),
-                "k4": lambda: flash.launch_dkv(qf, kf, vf, dof, L, Dr, dk,
-                                               dv, **kw)}
+                "k2": lambda inst: flash.flash_attention_fwd(q, k, v, **kw),
+                "k3": lambda inst: flash.launch_dq(
+                    qf, kf, vf, dof, L, Dr, dq, instance=inst, **kw),
+                "k4": lambda inst: flash.launch_dkv(
+                    qf, kf, vf, dof, L, Dr, dk, dv, instance=inst, **kw)}
             pairs = {"k2": [(out, out_p, None)],
                      "k3": [(dq, grads_p[0], tq)],
                      "k4": [(dk, grads_p[1], tk), (dv, grads_p[2], None)]}
             got = {}
             for key, inst in timed:
-                launch[key]()
+                launch[key](inst)
                 err = max(max_abs_err(torch, a, b) for a, b, _ in pairs[key])
                 rel = max(_rel_err(torch, a, b, terms=t)
                           for a, b, t in pairs[key])
@@ -6569,13 +6608,13 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True)):
                                          f"{causal} at the headline shape: "
                                          f"rel err {rel} > {tol}")
                 by0 = dict(_by_instance(flash)[key])
-                ms = cuda_ms(torch, launch[key], it)
+                ms = cuda_ms(torch, lambda: launch[key](inst), it)
                 by = {i: c - by0[i] for i, c in _by_instance(flash)[key].items()}
                 if by != {i: (it + 1) * (i == inst) for i in by}:
                     raise AssertionError(f"{key} {name} timing of {inst} "
                                          f"launched {by}")
-                got[key] = dict(ms=ms, max_abs_err=err, rel_err=rel,
-                                timed_launches_by_instance=by)
+                got[(key, inst)] = dict(ms=ms, max_abs_err=err, rel_err=rel,
+                                        timed_launches_by_instance=by)
             plain_fwd = cuda_ms(torch, lambda: flash.flash_attention_fwd_plain(
                 q, k, v, **kw), it)
             plain_bwd = cuda_ms(torch, lambda: flash.flash_attention_bwd_plain(
@@ -6614,7 +6653,7 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True)):
                       "k3": (5 * S * H * D) * isz + 2 * S * H * 4,
                       "k4": (6 * S * H * D) * isz + 2 * S * H * 4}
             for key, inst in timed:
-                t = got[key]
+                t = got[(key, inst)]
                 bound = max(flops[key] / peak, nbytes[key] / bw) * 1e3
                 r = dict(kernel=key, dtype=name, causal=causal,
                          head_dim=D, instance=inst, ms=t["ms"],
@@ -6633,7 +6672,7 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True)):
                 rows.append(r)
                 log(f"[time] {key} {inst} S={S} H={H} D={D} {name} "
                     f"{'causal' if causal else 'full'}: " + json.dumps(r))
-            ms = {key: got[key]["ms"] for key in ("k2", "k3", "k4")}
+            ms = {key: got[(key, inst)]["ms"] for key, inst in timed[:3]}
             log(f"[time] SDPA S={S} H={H} D={D} {name} "
                 f"{'causal' if causal else 'full'}: fwd {lib_fwd} ms, "
                 f"fwd+bwd {lib_fb} ms, kernels fwd {fwd_kernels} bwd "
@@ -6642,6 +6681,92 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True)):
             del q, k, v, do, qt, kt, vt, gt, qg, kg, vg
             torch.cuda.empty_cache()
     return rows
+
+
+def flash_entries(paths, timing, wide, checks, instances) -> list:
+    """The kernels line's K2–K4 entries: K2, K3 and K4 timed at S = S_ATT,
+    H = H_ATT, D = D_ATT in f32 (also per dtype, each by its instance),
+    with their launches on every path but phase 8's wide ones; then K3 and
+    K4's wide kernels (D > 256), timed at D = WIDE_D in f32 (also per
+    dtype, beside the retired simt kernels), with their launches on phase
+    8's wide paths (the ``_d{WIDE_D}`` runs).  ``paths`` maps each counter
+    of ``_counts`` to its launches by run; ``timing`` and ``wide`` are
+    phase 9's rows at D_ATT and WIDE_D."""
+    out = []
+    src = "pencilarrays_tpu_torch/ops/csrc/"
+    narrow = {key: {run: c for run, c in by.items()
+                    if not run.endswith(f"_d{WIDE_D}")}
+              for key, by in paths.items()}
+    wide_paths = {key: {run: c for run, c in by.items()
+                        if run.endswith(f"_d{WIDE_D}")}
+                  for key, by in paths.items()}
+
+    def entry(name, key, rows, by_path, replaces, insts, D):
+        head = next(r for r in rows
+                    if r["dtype"] == "float32" and not r["causal"])
+        return {
+            "name": name, "route": "cuda",
+            "source": src + ("flash_bwd_tf32.cu" if head["instance"] ==
+                             "tf32x3" else "flash_fwd.cu" if key == "k2"
+                             else "flash_bwd.cu"),
+            "instance": head["instance"],
+            "sources": {i: src + ("flash_bwd_tf32.cu" if i == "tf32x3" else
+                                  "flash_fwd.cu" if key == "k2" else
+                                  "flash_bwd.cu") for i in insts},
+            "replaces": replaces, "launches": sum(by_path[key].values()),
+            "launches_by_path": by_path[key],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "checked": True,
+            "shape": f"S={S_ATT} H={H_ATT} D={D} float32 non-causal",
+            "check_rel_err": {f"{a} {b}": v for (a, b), v in checks.items()
+                              if (a == "fwd") == (key == "k2")},
+            "timings": [{k: r[k] for k in ("dtype", "causal", "instance",
+                                           "ms", "plain_ms",
+                                           "library_ms", "bound_ms",
+                                           "tflops", "max_abs_err",
+                                           "rel_err")}
+                        for r in rows],
+            "library_kernels": {r["dtype"]: r["library_kernels"]
+                                for r in rows if not r["causal"]},
+            "launches_by_instance": {
+                i: sum(by_path[f"{key}_{i}"].values()) for i in insts},
+            "by_dtype": {r["dtype"]: {k: r[k] for k in (
+                "instance", "ms", "bound_ms", "bound_by", "plain_ms",
+                "library_ms", "tflops", "max_abs_err", "rel_err",
+                "timed_launches_by_instance")}
+                for r in rows if not r["causal"]},
+            "instances": {label: r for label, r in instances[key].items()
+                          if ("wide" in label) == (D > 256)}}
+
+    pallas = "pencilarrays_tpu/ops/flash_pallas.py"
+    for key, name, line, insts in (
+            ("k2", "flash_fwd", 287, ("wgmma", "simt")),
+            ("k3", "flash_bwd_dq", 589, ("wgmma", "tf32x3", "simt")),
+            ("k4", "flash_bwd_dkv", 609, ("wgmma", "tf32x3", "simt"))):
+        # K2 has no wide kernel: its simt instance takes every D > 256, so
+        # its entry counts the wide paths too and keeps its D = WIDE_D rows
+        e = entry(name, key, [r for r in timing if r["kernel"] == key],
+                  paths if key == "k2" else narrow, f"{pallas}:{line}",
+                  insts, D_ATT)
+        if key == "k2":
+            e[f"d{WIDE_D}"] = [r for r in wide if r["kernel"] == key]
+        out.append(e)
+    for key, name, line in (("k3", "flash_bwd_dq_wide", 589),
+                            ("k4", "flash_bwd_dkv_wide", 609)):
+        rows = [r for r in wide if r["kernel"] == key]
+        e = entry(name, key, [r for r in rows if r["instance"] != "simt"],
+                  wide_paths, f"{pallas}:{line}", ("wgmma", "tf32x3"),
+                  WIDE_D)
+        # the retired simt kernels on the same inputs (0 launches on every
+        # path)
+        e["retired_simt"] = [{k: r[k] for k in (
+            "dtype", "causal", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "tflops", "max_abs_err", "rel_err")}
+            for r in rows if r["instance"] == "simt"]
+        out.append(e)
+    return out
 
 
 def main() -> int:
@@ -6726,11 +6851,18 @@ def main() -> int:
             train = {f"train_{str(dt).split('.')[-1]}": phase_training(
                 torch, pat, models, k1, flash, dt)
                 for dt in (torch.float32, torch.bfloat16)}
+            # and at D = WIDE_D, where K3 and K4 run their wide kernels
+            train.update({
+                f"train_{str(dt).split('.')[-1]}_d{WIDE_D}": phase_training(
+                    torch, pat, models, k1, flash, dt, steps=2, D=WIDE_D,
+                    profiled=False)
+                for dt in (torch.float32, torch.bfloat16)})
             mark("8")
             timing = phase_flash_timing(torch, flash, bw)
-            # the simt instances at a head dim they serve
-            simt = phase_flash_timing(torch, flash, bw, D=SIMT_D,
-                                      causals=(False,))
+            # above 256: K3/K4's wide kernels, beside their retired simt
+            # ones (non-causal), K2's simt and SDPA
+            wide = phase_flash_timing(torch, flash, bw, D=WIDE_D,
+                                      retired=(False,))
             mark("9")
             # phase 2's timings: every class phases 3-5c and 7 launched
             k1_runs = {**cycle, **wired["cycles"], **wired["reshard"],
@@ -6814,60 +6946,7 @@ def main() -> int:
         "timings": [{k: v for k, v in r.items() if k != "bytes"}
                     for r in k1_timed.values()],
     }]
-    # K2-K4: times at S=4096 H=8 D=128 f32 full by the instance f32 picks;
-    # also per dtype (each by its instance)
-    for key, name, src, replaces, insts in (
-            ("k2", "flash_fwd", "flash_fwd.cu",
-             "pencilarrays_tpu/ops/flash_pallas.py:287", ("wgmma", "simt")),
-            ("k3", "flash_bwd_dq", "flash_bwd_tf32.cu",
-             "pencilarrays_tpu/ops/flash_pallas.py:589",
-             ("wgmma", "tf32x3", "simt")),
-            ("k4", "flash_bwd_dkv", "flash_bwd_tf32.cu",
-             "pencilarrays_tpu/ops/flash_pallas.py:609",
-             ("wgmma", "tf32x3", "simt"))):
-        mine = [r for r in timing if r["kernel"] == key]
-        head = next(r for r in mine
-                    if r["dtype"] == "float32" and not r["causal"])
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"pencilarrays_tpu_torch/ops/csrc/{src}",
-            "instance": head["instance"],
-            "sources": {i: "pencilarrays_tpu_torch/ops/csrc/" + (
-                "flash_bwd_tf32.cu" if i == "tf32x3" else
-                "flash_fwd.cu" if key == "k2" else "flash_bwd.cu")
-                for i in insts},
-            "replaces": replaces, "launches": sum(paths[key].values()),
-            "launches_by_path": paths[key],
-            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "checked": True,
-            "shape": f"S={S_ATT} H={H_ATT} D={D_ATT} float32 non-causal",
-            "check_rel_err": {f"{a} {b}": v for (a, b), v in checks.items()
-                              if (a == "fwd") == (key == "k2")},
-            "timings": [{k: r[k] for k in ("dtype", "causal", "instance",
-                                           "ms", "plain_ms",
-                                           "library_ms", "bound_ms",
-                                           "tflops", "max_abs_err",
-                                           "rel_err")}
-                        for r in mine],
-            "library_kernels": {r["dtype"]: r["library_kernels"]
-                                for r in mine if not r["causal"]},
-            "launches_by_instance": {
-                i: sum(paths[f"{key}_{i}"].values()) for i in insts},
-            "by_dtype": {r["dtype"]: {k: r[k] for k in (
-                "instance", "ms", "bound_ms", "bound_by", "plain_ms",
-                "library_ms", "tflops", "max_abs_err", "rel_err",
-                "timed_launches_by_instance")}
-                for r in mine if not r["causal"]},
-            "instances": instances[key],
-            # simt at D = SIMT_D (> 256, the only calls it takes): 0
-            # launches on every path
-            f"simt_d{SIMT_D}": [{k: r[k] for k in (
-                "dtype", "instance", "ms", "plain_ms", "library_ms",
-                "library_kernels", "bound_ms", "bound_by", "tflops",
-                "max_abs_err", "rel_err")}
-                for r in simt if r["kernel"] == key]})
+    kernels += flash_entries(paths, timing, wide, checks, instances)
     faulthandler.cancel_dump_traceback_later()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log("[phases] wall s by phase (2t: phase 2's timings): " + json.dumps(

@@ -1,6 +1,7 @@
 // K3 and K4 — the flash-attention backward for Hopper (sm_90a), CUDA C++:
-// two of the three instances of each that ops/flash.py::bwd_instance picks
-// from per call (the third, tf32x3, is flash_bwd_tf32.cu).
+// the wgmma instance of each that ops/flash.py::bwd_instance picks for
+// all-bf16 calls (the tf32x3 instance, for any f32 operand, is
+// flash_bwd_tf32.cu), and the retired simt kernels.
 //
 // Replace the TPU kernels pencilarrays_tpu/ops/flash_pallas.py::
 // _flash_bwd_dq_kernel (K3, pallas_call at :589) and _flash_bwd_dkv_kernel
@@ -29,7 +30,7 @@
 // kernels does 14·S²·D of work where a fused backward with atomic dQ does
 // 10: the price of owning every output row.
 //
-// * wgmma instance (q, k, v and dO all bf16, D <= 256): tensor cores.  A
+// * wgmma instance (q, k, v and dO all bf16), D <= 256: tensor cores.  A
 //   producer warp TMA-loads the CTA's two resident tiles once (K3: Q and
 //   dO of its q tile; K4: K and V of its key tile) and streams the other
 //   two through a two-stage ring on mbarriers (K3: K and V tiles; K4: Q
@@ -45,10 +46,30 @@
 //   products read K-major.  The bf16 rounding of P and dS is that packing
 //   (FlashAttention-2/3 practice; the TPU kernels and the plain version
 //   keep them in f32).
-// * simt instance (D > 256, any dtypes; at D <= 256 the tf32x3 instance
-//   takes every f32 operand): f32 FMA on the CUDA cores from padded
-//   shared-memory tiles, every operand widened to f32 as the TPU kernels
-//   do (:399-402).
+// * wgmma instance, 256 < D <= 1024 (the wide kernels): the tiles above
+//   do not fit there (Q and dO of 128 rows at D = 512 are 256 KB of bf16,
+//   a block gets 227 KB; K4's f32 dK and dV of 64 keys x 512 columns are
+//   the whole register file; a wgmma accumulator is at most 256 wide).
+//   So nothing is resident: a producer warp streams every operand through
+//   one ring of 64-row x 64-column TMA boxes, the score products reduce
+//   over D one box a step, and the output columns are split twice.
+//   Between the two consumer warpgroups, which hold the same 64 rows: in
+//   K3 warpgroup 0 builds S and P and warpgroup 1 dP, they swap P and dP
+//   through shared memory and each accumulates dQ over its own 256
+//   columns (512 a CTA); in K4 warpgroup 0 builds Sᵀ and Pᵀ and
+//   accumulates dV, warpgroup 1 builds dPᵀ, takes Pᵀ and accumulates dK,
+//   256 columns each.  Between CTAs (gridDim.z) when a CTA's columns do
+//   not cover D; each such CTA rebuilds the score blocks.  FLOPs executed
+//   per (q row, key) pair, against the bound's 6·D (K3) and 8·D (K4):
+//   K3 (4·z + 2)·D with z = ceil(D / 512): 6·D up to D = 512, 10·D at
+//   1024; K4 (4·z + 4)·D with z = ceil(D / 256): 12·D at 512, 20·D at
+//   1024.  Splitting K4 across warpgroups alone would need dK and dV of
+//   64 x 512 in registers; splitting it across CTAs alone (four of 128
+//   columns at D = 512) would execute 20·D.
+// * simt kernels (retired: bwd_instance picks them for no call since the
+//   wide kernels; chip_smoke.py times them beside those at D = 512): f32
+//   FMA on the CUDA cores from padded shared-memory tiles, every operand
+//   widened to f32 as the TPU kernels do (:399-402), any D <= 1024.
 //
 // Conventions of the TPU kernels' _bwd_common (:348-383), kept by both:
 // the score is masked BEFORE the exp and the masked entries of P are 0, so
@@ -58,7 +79,9 @@
 // are skipped (K3 ends its key loop there, K4 starts its q loop at the
 // first visible tile); the wgmma instance masks only tiles that cross the
 // key tail or the diagonal, and starts the longest CTAs first.  Rows >= S
-// and columns >= D are never written.
+// and columns >= D are never written; columns D..64·ceil(D/64) arrive as
+// zeros (TMA's fill past the tensor), and a box wholly past D is neither
+// loaded nor multiplied.
 #include "flash_common.cuh"
 #include "sm90.cuh"
 
@@ -671,6 +694,438 @@ int run_dkv_wgmma(BwdWgArgs& w, void* stream) {
   return launch(flash_dkv_wgmma_kernel<T>, grid, T::NT, T::SMEM, stream, w);
 }
 
+// ---------------------------------------------------------------------------
+// wgmma instance above D = 256
+// ---------------------------------------------------------------------------
+
+// Tiles of the wgmma instance for 256 < D <= 1024: a CTA owns BM = 64 rows
+// (K3: q rows; K4: keys) and streams BN = 64 rows a tile of the other side;
+// its two consumer warpgroups cover the same 64 rows and split the work
+// (see the kernels).  Nothing is resident: every operand arrives through
+// one ring of STAGES stages, each four 64-row x 64-column boxes (32 KB),
+// in the order the consumers take them: per tile, nb = ceil(D / 64) score
+// steps (one column box of each of the four operands), then one or two
+// output steps (the boxes of the B operand of the accumulating products,
+// 128 columns a warpgroup a step).  Two f32 score blocks a warpgroup,
+// double-buffered by tile, carry P (and in K3 dP) from one warpgroup to
+// the other.  Shared memory: 4·32 + 4·16 KB + 1 KB of alignment slack.
+struct WideTiles {
+  static constexpr int BM = 64, BN = 64, STAGES = 4, NT = 384;
+  static constexpr int PREG = 24, CREG = 240;
+  static_assert(128 * PREG + 256 * CREG <= NT * 168, "register budget");
+  static constexpr int BOX = 64 * 128;       // one box, bytes
+  static constexpr int STAGE = 4 * BOX;      // one ring stage
+  static constexpr int XCH = BM * BN;        // one f32 score block, words
+  static constexpr int SMEM = STAGES * STAGE + 4 * XCH * 4 + 1024;
+  static constexpr int DQ_COLS = 512;        // columns of dq a CTA writes
+  static constexpr int DKV_COLS = 256;       // columns of dk and dv a CTA
+};
+
+// The consumer warps' release of ring stage `st`: one arrival a warp.
+__device__ __forceinline__ void release_stage(uint64_t* bar_free, int st,
+                                              int lane) {
+  __syncwarp();
+  if (lane == 0) pa_sm90::mbar_arrive(&bar_free[st]);
+}
+
+// The score steps of one tile: acc (64 x BN) = A·Bᵀ over the nb column
+// boxes of ring steps [step, step + nb), A the box at `aoff` bytes into
+// each stage and B the next one, both K-major.  Each step's products are
+// one commit group; a stage is released once the group after it is issued
+// and its own has completed.  Returns with every group complete.
+template <class T>
+__device__ __forceinline__ void wide_scores(float (&acc)[T::BN / 2],
+                                            uint8_t* ring, uint64_t* full,
+                                            uint64_t* bar_free, int step,
+                                            int nb, int aoff, int lane) {
+  using namespace pa_sm90;
+  constexpr int ST = T::STAGES;
+  for (int b = 0; b < nb; ++b) {
+    const int st = (step + b) % ST;
+    mbar_wait(&full[st], ((step + b) / ST) & 1);
+    const uint8_t* A = ring + st * T::STAGE + aoff;
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+      wgmma_ss_n64(acc, wgmma_desc(A + 32 * kc, 16, 1024),
+                   wgmma_desc(A + T::BOX + 32 * kc, 16, 1024),
+                   b > 0 || kc > 0);
+    wgmma_commit();
+    if (b > 0) {
+      wgmma_wait<1>();
+      release_stage(bar_free, (step + b - 1) % ST, lane);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release_stage(bar_free, (step + nb - 1) % ST, lane);
+}
+
+// The output steps of one tile: acc0 (columns c, c + 128) and acc1 (c + 128,
+// c + 256) of a warpgroup's 64 x 256 accumulator += X·B, X the packed
+// fragment (64 x BN) and B the warpgroup's two boxes at `boff` bytes into
+// the stages of ring steps step, step + 1 (na of them), read MN-major; a
+// step whose first column `c + 128 j` is past d holds none of this
+// warpgroup's boxes and is skipped.
+template <class T>
+__device__ __forceinline__ void wide_outputs(
+    float (&acc0)[64], float (&acc1)[64], const uint32_t (&x)[T::BN / 16][4],
+    uint8_t* ring, uint64_t* full, uint64_t* bar_free, int step, int na,
+    int boff, int c, int d, int lane) {
+  using namespace pa_sm90;
+  constexpr int ST = T::STAGES;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (j >= na) continue;
+    const int st = (step + j) % ST;
+    mbar_wait(&full[st], ((step + j) / ST) & 1);
+    if (c + 128 * j >= d) continue;
+    wgmma_fence();
+    if (j == 0)
+      rs_block<T::BN, 128>(acc0, x, ring + st * T::STAGE + boff);
+    else
+      rs_block<T::BN, 128>(acc1, x, ring + st * T::STAGE + boff);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc0);
+  fence_regs(acc1);
+  for (int j = 0; j < na; ++j)
+    release_stage(bar_free, (step + j) % ST, lane);
+}
+
+// The producer's loads of ring step `step`, once its stage's previous use
+// is released: a score step's four boxes at column c (maps a0, b0, a1, b1
+// at rows ra, rb, ra, rb), or an output step's boxes at columns c, c + 64
+// (map o0) and c + cg, c + cg + 64 (map o1), all at rows rb; a box whose
+// first column is past d is not loaded (its consumer skips it).
+__device__ __forceinline__ uint8_t* wide_stage(uint8_t* ring, uint64_t* full,
+                                               uint64_t* bar_free, int step,
+                                               uint32_t bytes) {
+  using namespace pa_sm90;
+  constexpr int ST = WideTiles::STAGES;
+  const int st = step % ST, u = step / ST;
+  if (u > 0) mbar_wait(&bar_free[st], (u - 1) & 1);
+  mbar_arrive_expect_tx(&full[st], bytes);
+  return ring + st * WideTiles::STAGE;
+}
+
+__device__ __forceinline__ void wide_load_scores(
+    uint8_t* ring, uint64_t* full, uint64_t* bar_free, int step,
+    const CUtensorMap* a0, const CUtensorMap* b0, const CUtensorMap* a1,
+    const CUtensorMap* b1, int c, int hb, int ra, int rb) {
+  using namespace pa_sm90;
+  constexpr int BOX = WideTiles::BOX;
+  uint64_t* bar = &full[step % WideTiles::STAGES];
+  uint8_t* dst = wide_stage(ring, full, bar_free, step, 4 * BOX);
+  tma_load_3d(dst, a0, bar, c, hb, ra);
+  tma_load_3d(dst + BOX, b0, bar, c, hb, rb);
+  tma_load_3d(dst + 2 * BOX, a1, bar, c, hb, ra);
+  tma_load_3d(dst + 3 * BOX, b1, bar, c, hb, rb);
+}
+
+__device__ __forceinline__ void wide_load_outputs(
+    uint8_t* ring, uint64_t* full, uint64_t* bar_free, int step,
+    const CUtensorMap* o0, const CUtensorMap* o1, int c, int cg, int hb,
+    int rb, int d) {
+  using namespace pa_sm90;
+  constexpr int BOX = WideTiles::BOX;
+  uint64_t* bar = &full[step % WideTiles::STAGES];
+  const int live = (c < d) + (c + 64 < d) + (c + cg < d) + (c + cg + 64 < d);
+  uint8_t* dst = wide_stage(ring, full, bar_free, step, live * BOX);
+  for (int i = 0; i < 4; ++i) {
+    const int col = c + (i >= 2 ? cg : 0) + 64 * (i & 1);
+    if (col < d)
+      tma_load_3d(dst + i * BOX, i >= 2 ? o1 : o0, bar, col, hb, rb);
+  }
+}
+
+// K3 above D = 256: one CTA per (64 q rows, slice, 512 columns of dq), key
+// tiles inner.  Warpgroup 0 builds S = Q·Kᵀ and P, warpgroup 1 dP = dO·Vᵀ
+// (each score step one column box of Q and K, or of dO and V); they swap P
+// and dP through shared memory, each forms dS = P∘(dP - D) and accumulates
+// dQ += dS·K over its own 256 columns (warpgroup w: col0 + 256 w ..).
+template <class T>
+__global__ void __launch_bounds__(T::NT, 1)
+    flash_dq_wgmma_wide_kernel(const __grid_constant__ BwdWgArgs w) {
+  using namespace pa_sm90;
+  constexpr int BQ = T::BM, BK = T::BN, ST = T::STAGES, BOX = T::BOX;
+  const BwdArgs& a = w.a;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_full[ST], bar_free[ST];
+  uint8_t* ring = align1024(smem_raw);
+  float* xch = reinterpret_cast<float*>(ring + ST * T::STAGE);
+
+  int hb;
+  long long r0;
+  cta_tile(a.n, BQ, r0, hb);
+  const int col0 = blockIdx.z * T::DQ_COLS;
+  const int nk =
+      visible_tiles(a.skv, a.causal, a.q_off, a.kv_off, r0, BQ, BK);
+  const int nb = (a.d + 63) / 64;                // score steps a tile
+  const int na = col0 + 128 < a.d ? 2 : 1;       // output steps a tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&bar_full[s], 1);
+      mbar_init(&bar_free[s], 8);   // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // producer: per key tile, Q/K/dO/V box b for each score step, then K's
+    // boxes of the output steps (warpgroup 0's two, warpgroup 1's two)
+    setmaxnreg_dec<T::PREG>();
+    if (warp == 8 && lane == 0) {
+      int step = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int c0 = kt * BK;
+        for (int b = 0; b < nb; ++b, ++step)
+          wide_load_scores(ring, bar_full, bar_free, step, &w.tq, &w.tk,
+                           &w.tdo, &w.tv, 64 * b, hb, (int)r0, c0);
+        for (int j = 0; j < na; ++j, ++step)
+          wide_load_outputs(ring, bar_full, bar_free, step, &w.tk, &w.tk,
+                            col0 + 128 * j, 256, hb, c0, a.d);
+      }
+    }
+  } else {
+    setmaxnreg_inc<T::CREG>();
+    // consumers: both warpgroups hold the tile's 64 q rows; lane (g, t) of
+    // warp wq holds rows 16 wq + g (+ 8) of each fragment
+    const int wg = warp / 4, wq = warp % 4, g = lane / 4, t = lane % 4;
+    const int tid = threadIdx.x % 128;
+    const long long row0 = r0 + wq * 16 + g;
+    const long long qpos[2] = {a.q_off + row0, a.q_off + row0 + 8};
+    const float sl2 = a.scale * kLog2e;
+    float lrow[2], drow[2];   // L·log2(e) and D of the fragment's two rows
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = row0 + 8 * h;
+      const bool in = row < a.sq;
+      lrow[h] = in ? a.L[(size_t)hb * a.sq + row] * kLog2e : INFINITY;
+      drow[h] = in ? a.D[(size_t)hb * a.sq + row] : 0.f;
+    }
+    float acc0[64], acc1[64], sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    int step = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      const long long c0 = (long long)kt * BK;
+      // S (warpgroup 0: boxes Q, K) or dP (warpgroup 1: dO, V)
+      wide_scores<T>(sc, ring, bar_full, bar_free, step, nb, 2 * wg * BOX,
+                     lane);
+      step += nb;
+      float* mine = xch + (2 * (kt & 1) + wg) * T::XCH;
+      const float* other = xch + (2 * (kt & 1) + (wg ^ 1)) * T::XCH;
+      if (wg == 0) {
+        // P = exp(scale·S - L), masked only where the tile crosses the key
+        // tail or the diagonal; a masked entry never reaches the exp
+        const bool edge =
+            c0 + BK > a.skv ||
+            (a.causal && a.q_off + r0 < a.kv_off + c0 + BK - 1);
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int h = (i >> 1) & 1;
+          bool valid = true;
+          if (edge) {
+            const long long col = c0 + 8 * (i / 4) + 2 * t + (i & 1);
+            valid = col < a.skv && (!a.causal || qpos[h] >= a.kv_off + col);
+          }
+          sc[i] = valid ? exp2f(fmaf(sc[i], sl2, -lrow[h])) : 0.f;
+        }
+      }
+      // swap P and dP (same fragment layout in both warpgroups), then
+      // dS = P∘(dP - D) in both
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) mine[i * 128 + tid] = sc[i];
+      named_bar_sync(1, 256);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const float o = other[i * 128 + tid], dr = drow[(i >> 1) & 1];
+        sc[i] = wg == 0 ? sc[i] * (o - dr) : o * (sc[i] - dr);
+      }
+      uint32_t pa[BK / 16][4];
+      pack_a<BK>(pa, sc);
+      // dQ += dS·K over this warpgroup's 256 columns
+      wide_outputs<T>(acc0, acc1, pa, ring, bar_full, bar_free, step, na,
+                      2 * wg * BOX, col0 + 256 * wg, a.d, lane);
+      step += na;
+    }
+    const int c = col0 + 256 * wg;
+    store_frag<128>(a.g0, a.g_dt, acc0, row0, a.sq, a.n, hb, a.d, c, t,
+                    a.scale);
+    store_frag<128>(a.g0, a.g_dt, acc1, row0, a.sq, a.n, hb, a.d, c + 128,
+                    t, a.scale);
+  }  // consumers
+}
+
+// K4 above D = 256: one CTA per (64 keys, slice, 256 columns of dk and
+// dv), q tiles inner.  Warpgroup 0 builds Sᵀ = K·Qᵀ and Pᵀ and accumulates
+// dV += Pᵀ·dO; warpgroup 1 builds dPᵀ = V·dOᵀ, takes Pᵀ from warpgroup 0
+// through shared memory, forms dSᵀ and accumulates dK += dSᵀ·Q.
+template <class T>
+__global__ void __launch_bounds__(T::NT, 1)
+    flash_dkv_wgmma_wide_kernel(const __grid_constant__ BwdWgArgs w) {
+  using namespace pa_sm90;
+  constexpr int BK = T::BM, BQ = T::BN, ST = T::STAGES, BOX = T::BOX;
+  const BwdArgs& a = w.a;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_full[ST], bar_free[ST];
+  uint8_t* ring = align1024(smem_raw);
+  float* xch = reinterpret_cast<float*>(ring + ST * T::STAGE);
+
+  // CTAs in the order of their linear index, key tiles outer: under a
+  // causal mask the first key tiles see the most q rows and start first
+  const long long lin = blockIdx.x + (long long)blockIdx.y * gridDim.x;
+  const int hb = (int)(lin % a.n);
+  const long long c0 = lin / a.n * BK;
+  const int col0 = blockIdx.z * T::DKV_COLS;
+  const int nq = (a.sq + BQ - 1) / BQ;
+  int q0 = 0;   // the first q tile whose last row reaches key c0
+  if (a.causal) {
+    const long long lim = a.kv_off + c0 - a.q_off - (BQ - 1);
+    if (lim > 0) q0 = (int)min((long long)nq, (lim + BQ - 1) / BQ);
+  }
+  const int nt = nq - q0;
+  const int nb = (a.d + 63) / 64;
+  const int na = col0 + 128 < a.d ? 2 : 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&bar_full[s], 1);
+      mbar_init(&bar_free[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // producer: per q tile, K/Q/V/dO box b for each score step, then the
+    // boxes of the output steps (dO's two for warpgroup 0, Q's two for 1)
+    setmaxnreg_dec<T::PREG>();
+    if (warp == 8 && lane == 0) {
+      int step = 0;
+      for (int it = 0; it < nt; ++it) {
+        const int r0 = (q0 + it) * BQ;
+        for (int b = 0; b < nb; ++b, ++step)
+          wide_load_scores(ring, bar_full, bar_free, step, &w.tk, &w.tq,
+                           &w.tv, &w.tdo, 64 * b, hb, (int)c0, r0);
+        for (int j = 0; j < na; ++j, ++step)
+          wide_load_outputs(ring, bar_full, bar_free, step, &w.tdo, &w.tq,
+                            col0 + 128 * j, 0, hb, r0, a.d);
+      }
+    }
+  } else {
+    setmaxnreg_inc<T::CREG>();
+    // consumers: both warpgroups hold the CTA's 64 keys; in the transposed
+    // blocks lane (g, t) of warp wq holds keys 16 wq + g (+ 8) and q
+    // columns 8 j + 2 t (+ 1)
+    const int wg = warp / 4, wq = warp % 4, g = lane / 4, t = lane % 4;
+    const int tid = threadIdx.x % 128;
+    const long long krow0 = c0 + wq * 16 + g;
+    const long long kpos[2] = {a.kv_off + krow0, a.kv_off + krow0 + 8};
+    const float sl2 = a.scale * kLog2e;
+    float acc0[64], acc1[64], sc[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) sc[i] = 0.f;
+    int step = 0;
+    for (int it = 0; it < nt; ++it) {
+      const long long r0 = (long long)(q0 + it) * BQ;
+      // Sᵀ (warpgroup 0: boxes K, Q) or dPᵀ (warpgroup 1: V, dO)
+      wide_scores<T>(sc, ring, bar_full, bar_free, step, nb, 2 * wg * BOX,
+                     lane);
+      step += nb;
+      float* pbuf = xch + (it & 1) * T::XCH;
+      if (wg == 0) {
+        // Pᵀ with L per column (q row; +inf past Sq, so P = 0 there
+        // without a mask); the causal mask only where the tile crosses
+        // the diagonal
+        const bool edge =
+            a.causal && a.q_off + r0 < a.kv_off + c0 + BK - 1;
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          const int h = (i >> 1) & 1;
+          const int c = 8 * (i / 4) + 2 * t + (i & 1);
+          const long long row = r0 + c;
+          const float lc = row < a.sq
+                               ? a.L[(size_t)hb * a.sq + row] * kLog2e
+                               : INFINITY;
+          const bool valid = !edge || a.q_off + row >= kpos[h];
+          sc[i] = valid ? exp2f(fmaf(sc[i], sl2, -lc)) : 0.f;
+          pbuf[i * 128 + tid] = sc[i];
+        }
+      }
+      named_bar_sync(1, 256);
+      if (wg == 1) {
+        // dSᵀ = Pᵀ∘(dPᵀ - D), D per column
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          const long long row = r0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const float dc = row < a.sq ? a.D[(size_t)hb * a.sq + row] : 0.f;
+          sc[i] = pbuf[i * 128 + tid] * (sc[i] - dc);
+        }
+      }
+      uint32_t pa[BQ / 16][4];
+      pack_a<BQ>(pa, sc);
+      // warpgroup 0: dV += Pᵀ·dO; warpgroup 1: dK += dSᵀ·Q
+      wide_outputs<T>(acc0, acc1, pa, ring, bar_full, bar_free, step, na,
+                      2 * wg * BOX, col0, a.d, lane);
+      step += na;
+    }
+    void* out = wg == 0 ? a.g1 : a.g0;
+    const float mul = wg == 0 ? 1.f : a.scale;
+    store_frag<128>(out, a.g_dt, acc0, krow0, a.skv, a.n, hb, a.d, col0, t,
+                    mul);
+    store_frag<128>(out, a.g_dt, acc1, krow0, a.skv, a.n, hb, a.d,
+                    col0 + 128, t, mul);
+  }  // consumers
+}
+
+// Tensor maps of every operand with 64-row boxes (rows past a tensor
+// arrive as zeros; with no rows on one side nothing is loaded, and that
+// side's maps describe the other's tensors).
+inline bool wide_maps(BwdWgArgs& w) {
+  using pa_sm90::encode_rows_bf16;
+  const BwdArgs& a = w.a;
+  const bool keys = a.skv > 0, rows = a.sq > 0;
+  return encode_rows_bf16(&w.tq, rows ? a.q : a.k, rows ? a.sq : a.skv, a.n,
+                          a.d, 64) &&
+         encode_rows_bf16(&w.tdo, rows ? a.dout : a.k, rows ? a.sq : a.skv,
+                          a.n, a.d, 64) &&
+         encode_rows_bf16(&w.tk, keys ? a.k : a.q, keys ? a.skv : a.sq, a.n,
+                          a.d, 64) &&
+         encode_rows_bf16(&w.tv, keys ? a.v : a.q, keys ? a.skv : a.sq, a.n,
+                          a.d, 64);
+}
+
+int run_dq_wgmma_wide(BwdWgArgs& w, void* stream) {
+  using T = WideTiles;
+  const BwdArgs& a = w.a;
+  if (!wide_maps(w)) return (int)cudaErrorInvalidValue;
+  dim3 grid((a.sq + T::BM - 1) / T::BM, a.n,
+            (a.d + T::DQ_COLS - 1) / T::DQ_COLS);
+  return launch(flash_dq_wgmma_wide_kernel<T>, grid, T::NT, T::SMEM, stream,
+                w);
+}
+
+int run_dkv_wgmma_wide(BwdWgArgs& w, void* stream) {
+  using T = WideTiles;
+  const BwdArgs& a = w.a;
+  if (!wide_maps(w)) return (int)cudaErrorInvalidValue;
+  dim3 grid((a.skv + T::BM - 1) / T::BM, a.n,
+            (a.d + T::DKV_COLS - 1) / T::DKV_COLS);
+  return launch(flash_dkv_wgmma_wide_kernel<T>, grid, T::NT, T::SMEM, stream,
+                w);
+}
+
 }  // namespace pa_flash
 
 extern "C" int pa_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -710,7 +1165,7 @@ extern "C" int pa_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// q, k, v and dout bf16 with d <= 256; dq in dq_dt.
+// q, k, v and dout bf16 with d <= 1024; dq in dq_dt.
 extern "C" int pa_flash_bwd_dq_wgmma(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const float* L, const float* D, void* dq,
@@ -725,10 +1180,11 @@ extern "C" int pa_flash_bwd_dq_wgmma(const void* q, const void* k,
   if (d <= 64) return run_dq_wgmma<BwdTiles<64, 64>>(w, stream);
   if (d <= 128) return run_dq_wgmma<BwdTiles<128, 64>>(w, stream);
   if (d <= 256) return run_dq_wgmma<BwdTiles<256, 32>>(w, stream);
+  if (d <= 1024) return run_dq_wgmma_wide(w, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// q, k, v and dout bf16 with d <= 256; dk and dv in dkv_dt.
+// q, k, v and dout bf16 with d <= 1024; dk and dv in dkv_dt.
 extern "C" int pa_flash_bwd_dkv_wgmma(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const float* L, const float* D,
@@ -744,5 +1200,6 @@ extern "C" int pa_flash_bwd_dkv_wgmma(const void* q, const void* k,
   if (d <= 64) return run_dkv_wgmma<BwdTiles<64, 64>>(w, stream);
   if (d <= 128) return run_dkv_wgmma<BwdTiles<128, 64>>(w, stream);
   if (d <= 256) return run_dkv_wgmma<BwdTiles<256, 32, 128>>(w, stream);
+  if (d <= 1024) return run_dkv_wgmma_wide(w, stream);
   return (int)cudaErrorInvalidValue;
 }

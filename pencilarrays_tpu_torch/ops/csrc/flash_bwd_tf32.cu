@@ -1,6 +1,7 @@
 // K3 and K4, tf32x3 instance: the flash-attention backward on Hopper's
 // tensor cores at float32 accuracy (sm_90a, mma.sync), for every call with
-// a float32 operand and D <= 256 (ops/flash.py::bwd_instance).
+// a float32 operand, D <= 1024 (ops/flash.py::bwd_instance); above 256 by
+// the wide kernels at the end of this file.
 //
 // Replaces, as flash_bwd.cu's two other instances do, the TPU kernels
 // pencilarrays_tpu/ops/flash_pallas.py::_flash_bwd_dq_kernel (K3,
@@ -51,7 +52,28 @@
 //   its q loop at the first; a warp whose 16 rows see nothing of a tile
 //   skips its products; only tiles that cross the diagonal or the key tail
 //   are masked; CTAs start longest-first.
+// * Above D = 256 (the wide kernels): f32 rows of pitch DMAX + 4 do not
+//   fit (K4's K and V tiles of 64 keys at D = 512 are 264 KB; a block gets
+//   227 KB) and a warp's accumulators of 16 rows x D do not either.  So
+//   nothing is resident: thread 0 streams every operand through one ring
+//   of TMA boxes (32 f32 columns, 128-byte swizzle, read back by the
+//   fragment loads through the same XOR), the score products reduce over
+//   D one 32-column box at a time (the chunks above), and the output
+//   columns are split as in flash_bwd.cu's wide kernels: between two
+//   groups of four warps over the same 64 rows (K3: S and P in group 0,
+//   dP in group 1, swapped through shared memory, dQ over 256 columns
+//   each; K4: group 0 Sᵀ, Pᵀ and dV, group 1 dPᵀ and dK), and between CTAs
+//   where 512 (K3) or 256 (K4) columns do not cover D.  FLOPs executed
+//   per (q row, key) pair as there: K3 6·D up to D = 512 and 10·D at
+//   1024, K4 12·D at 512 and 20·D at 1024, against the bound's 6·D and
+//   8·D.  TMA takes the loads off the warps that multiply: fed by their
+//   own cp.async copies (every tile re-reads its Q and dO), the loads and
+//   the products ran one after the other, 1.7x the TMA-fed time at
+//   D = 512 (PERF.md).  TMA copies bytes as they are, so these kernels
+//   read f32 operands only: ops/flash.py widens a bf16 operand of a mix
+//   first.
 #include "flash_common.cuh"
+#include "sm90.cuh"
 
 namespace pa_flash {
 
@@ -460,9 +482,484 @@ int run_dkv_tf32(const BwdArgs& a, void* stream) {
                 stream, a);
 }
 
+// ---------------------------------------------------------------------------
+// above D = 256
+// ---------------------------------------------------------------------------
+
+// Arguments of the wide kernels: f32 tensor maps of q, k, v and dO, boxes
+// of 32 columns (128-byte rows, written with the 128-byte swizzle) and the
+// rows of one tile, and the call's arguments.
+struct Tf32WideArgs {
+  CUtensorMap tq, tk, tv, tdo;
+  BwdArgs a;
+};
+
+// Tiles above D = 256: a CTA of 8 warps owns RES = 64 rows (K3: q rows;
+// K4: keys) and streams STR rows a tile of the other side.  Its two groups
+// of four warps cover the same 64 rows (warp w: rows 16 (w % 4) ..) and
+// split the work (see the kernels).  Nothing is resident: thread 0 feeds
+// one ring of STAGES stages by TMA, in the order the warps take them: per
+// tile, nb = ceil(D / 64) score steps (two 32-column boxes of each of the
+// four operands: RES rows of two, STR of the other two), then one or two
+// output steps (the B operand's rows of the tile, four boxes, 128 columns,
+// for each group).  Two f32 score blocks a group, double-buffered by tile,
+// carry P (and in K3 dP) from one group to the other.
+struct Tf32WideTiles {
+  static constexpr int RES = 64, STR = 32, STAGES = 4, NT = 256;
+  static constexpr int RBOX = RES * 128, SBOX = STR * 128;   // box bytes
+  static constexpr int GRP = 2 * RBOX + 2 * SBOX;   // a group's score boxes
+  static constexpr int SLAB = 2 * GRP;              // a score step
+  static constexpr int OUTB = 8 * SBOX;             // an output step
+  static constexpr int STAGE = SLAB > OUTB ? SLAB : OUTB;
+  static constexpr int XCH = RES * STR;             // one score block, words
+  static constexpr int SMEM = STAGES * STAGE + 4 * XCH * 4 + 1024;
+  static constexpr int DQ_COLS = 512, DKV_COLS = 256;
+  static_assert(STR % 8 == 0 && STAGE % 1024 == 0 && SMEM + 64 <= 232448,
+                "tiles");
+};
+
+// Boxes of 32 f32 columns are written with the 128-byte swizzle: 16-byte
+// chunk c / 4 of row r sits at chunk (c / 4) ^ (r % 8), so element (r, c)
+// is word r·32 + ((c & ~3) ^ 4·(r % 8)) + c % 4.  For the fragment loads
+// that is a row offset plus a column offset XOR a lane constant: lane
+// (g, t) reads rows r ≡ g (mod 8) at columns k + t (k a multiple of 4),
+// word r·32 + (k ^ (4 g + t)), and rows 2 t + e (mod 8) at columns
+// 8 m + g, word r·32 + (8 m ^ y_e) with y_e = 4·((g / 4) ^ (2 t + e)) +
+// g % 4.  Either way a warp's 32 loads fall on 32 distinct banks.
+
+// out (16 x 8·NJ) += A·Bᵀ over one 32-column box each: A at the lane's
+// row (g of a 16-row group; rows g + 8 are 256 words on), B at its row g
+// of rows 0 .. 8·NJ - 1; x = 4 g + t.  As score_steps over 32 columns of
+// a padded tile.
+template <int NJ>
+__device__ __forceinline__ void box_scores(float (&out)[4 * NJ],
+                                           const float* A, const float* B,
+                                           int x) {
+#pragma unroll 2
+  for (int k = 0; k < 32; k += 8) {
+    const int o0 = k ^ x, o1 = (k + 4) ^ x;
+    uint32_t ab[4], as[4];
+    split(A[o0], ab[0], as[0]);
+    split(A[256 + o0], ab[1], as[1]);
+    split(A[o1], ab[2], as[2]);
+    split(A[256 + o1], ab[3], as[3]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t bb0, bs0, bb1, bs1;
+      split(B[256 * j + o0], bb0, bs0);
+      split(B[256 * j + o1], bb1, bs1);
+      mma3(out, j, ab, as, bb0, bb1, bs0, bs1);
+    }
+  }
+}
+
+// acc_block (acc (16 x 128) += X·B) with B the ROWS rows of four
+// consecutive 32-column boxes at Bs.
+template <int NK, int ROWS>
+__device__ __forceinline__ void box_outputs(float (&acc)[64],
+                                            const float (&x)[4 * NK],
+                                            const float* Bs, int g, int t) {
+  uint32_t ab[NK][4], as[NK][4];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    split(x[4 * j], ab[j][0], as[j][0]);
+    split(x[4 * j + 2], ab[j][1], as[j][1]);
+    split(x[4 * j + 1], ab[j][2], as[j][2]);
+    split(x[4 * j + 3], ab[j][3], as[j][3]);
+  }
+  // rows 2 t (+ 1) of each 8-row group, and their lane constants y_e
+  const float* b0 = Bs + 2 * t * 32;
+  const int y0 = 4 * ((g >> 2) ^ (2 * t)) + (g & 3);
+  const int y1 = 4 * ((g >> 2) ^ (2 * t + 1)) + (g & 3);
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    const float* b = b0 + (c >> 2) * ROWS * 32;
+    const int m = 8 * (c & 3);
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      uint32_t bb0, bs0, bb1, bs1;
+      split(b[256 * j + (m ^ y0)], bb0, bs0);
+      split(b[256 * j + 32 + (m ^ y1)], bb1, bs1);
+      mma3(part, 0, ab[j], as[j], bb0, bb1, bs0, bs1);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[4 * c + i] += part[i];
+  }
+}
+
+// The score step of a group: out (16 x STR) += A·Bᵀ over the slab's 64
+// columns (A's rows from ar, a multiple of 8), a fresh accumulator for
+// each 32-column box that one f32 add moves into out (as score_block does
+// over a whole row); a box wholly past d (the last slab's second) was not
+// loaded and is skipped.
+template <class T>
+__device__ __forceinline__ void wide_score_step(float (&out)[T::STR / 2],
+                                                const uint8_t* A, int ar,
+                                                bool two, int g, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (h == 1 && !two) break;
+    float part[T::STR / 2];
+#pragma unroll
+    for (int i = 0; i < T::STR / 2; ++i) part[i] = 0.f;
+    box_scores<T::STR / 8>(
+        part,
+        reinterpret_cast<const float*>(A + h * T::RBOX) + (ar + g) * 32,
+        reinterpret_cast<const float*>(A + 2 * T::RBOX + h * T::SBOX) +
+            g * 32,
+        4 * g + t);
+#pragma unroll
+    for (int i = 0; i < T::STR / 2; ++i) out[i] += part[i];
+  }
+}
+
+// Thread 0's loads of a ring step: a score step's boxes at column c (two
+// of each operand, or one where the second starts past d: the A operands
+// of the two groups by maps a0/a1 at rows ra, the B operands by b0/b1 at
+// rows rb), or an output step's boxes of map `o` at rows rb (four a group
+// at columns c + 32 i and c + cg + 32 i; none past d).
+template <class T>
+__device__ __forceinline__ void wide_score_load(
+    uint8_t* dst, uint64_t* bar, const CUtensorMap* a0, const CUtensorMap* b0,
+    const CUtensorMap* a1, const CUtensorMap* b1, int c, int hb, int ra,
+    int rb, int d) {
+  using namespace pa_sm90;
+  const int nbx = c + 32 < d ? 2 : 1;
+  mbar_arrive_expect_tx(bar, nbx * T::GRP);
+  for (int h = 0; h < nbx; ++h) {
+    const int col = c + 32 * h;
+    tma_load_3d(dst + h * T::RBOX, a0, bar, col, hb, ra);
+    tma_load_3d(dst + 2 * T::RBOX + h * T::SBOX, b0, bar, col, hb, rb);
+    tma_load_3d(dst + T::GRP + h * T::RBOX, a1, bar, col, hb, ra);
+    tma_load_3d(dst + T::GRP + 2 * T::RBOX + h * T::SBOX, b1, bar, col, hb,
+                rb);
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void wide_out_load(uint8_t* dst, uint64_t* bar,
+                                              const CUtensorMap* o0,
+                                              const CUtensorMap* o1, int c,
+                                              int cg, int hb, int rb, int d) {
+  using namespace pa_sm90;
+  int live = 0;
+  for (int i = 0; i < 8; ++i) live += c + (i >= 4 ? cg : 0) + 32 * (i & 3) < d;
+  mbar_arrive_expect_tx(bar, live * T::SBOX);
+  for (int i = 0; i < 8; ++i) {
+    const int col = c + (i >= 4 ? cg : 0) + 32 * (i & 3);
+    if (col < d)
+      tma_load_3d(dst + i * T::SBOX, i >= 4 ? o1 : o0, bar, col, hb, rb);
+  }
+}
+
+// K3 above D = 256: one CTA per (64 q rows, slice, 512 columns of dq), key
+// tiles of STR inner.  Group 0 builds S = Q·Kᵀ and P, group 1 dP = dO·Vᵀ;
+// they swap P and dP through shared memory, each forms dS = P∘(dP - D)
+// and accumulates dQ += dS·K over its own 256 columns (group G: col0 +
+// 256 G ..).
+template <class T>
+__global__ void __launch_bounds__(T::NT, 1)
+    flash_dq_tf32x3_wide_kernel(const __grid_constant__ Tf32WideArgs w) {
+  using namespace pa_sm90;
+  constexpr int RES = T::RES, STR = T::STR, ST = T::STAGES;
+  const BwdArgs& a = w.a;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[ST];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* xch = reinterpret_cast<float*>(ring + ST * T::STAGE);
+
+  int hb;
+  long long r0;
+  cta_tile(a.n, RES, r0, hb);
+  const int col0 = blockIdx.z * T::DQ_COLS;
+  const int nk =
+      visible_tiles(a.skv, a.causal, a.q_off, a.kv_off, r0, RES, STR);
+  const int nb = (a.d + 63) / 64;               // score steps a tile
+  const int na = col0 + 128 < a.d ? 2 : 1;      // output steps a tile
+  const int per = nb + na, total = nk * per;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, grp = warp / 4,
+            wq = warp % 4, g = lane / 4, t = lane % 4, tid = threadIdx.x % 128;
+  const long long rw = r0 + 16 * wq;   // the warp's first row
+  const float sl2 = a.scale * kLog2e;
+  float lrow[2], drow[2];   // L·log2(e) and D of the lane's two rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long row = rw + g + 8 * h;
+    const bool in = row < a.sq;
+    lrow[h] = in ? a.L[(size_t)hb * a.sq + row] * kLog2e : INFINITY;
+    drow[h] = in ? a.D[(size_t)hb * a.sq + row] : 0.f;
+  }
+
+  // step s (thread 0): Q/K/dO/V boxes of a score step, or K's boxes at the
+  // two groups' 128 columns of an output step
+  auto issue = [&](int s) {
+    if (s >= total) return;
+    const int kt = s / per, j = s % per, st = s % ST;
+    uint8_t* dst = ring + st * T::STAGE;
+    if (j < nb)
+      wide_score_load<T>(dst, &full[st], &w.tq, &w.tk, &w.tdo, &w.tv, 64 * j,
+                         hb, (int)r0, kt * STR, a.d);
+    else
+      wide_out_load<T>(dst, &full[st], &w.tk, &w.tk, col0 + 128 * (j - nb),
+                       256, hb, kt * STR, a.d);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) mbar_init(&full[i], 1);
+    mbar_fence_init();
+    for (int i = 0; i < ST; ++i) issue(i);
+  }
+  __syncthreads();
+
+  float acc0[64], acc1[64], sc[STR / 2];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+  int s = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const long long c0 = (long long)kt * STR;
+#pragma unroll
+    for (int i = 0; i < STR / 2; ++i) sc[i] = 0.f;
+    // S (group 0: Q, K) or dP (group 1: dO, V), a slab a step
+    for (int j = 0; j < nb; ++j, ++s) {
+      const int st = s % ST;
+      mbar_wait(&full[st], (s / ST) & 1);
+      wide_score_step<T>(sc, ring + st * T::STAGE + grp * T::GRP, 16 * wq,
+                         64 * j + 32 < a.d, g, t);
+      __syncthreads();   // stage st read: it takes step s + ST
+      if (threadIdx.x == 0) issue(s + ST);
+    }
+    float* mine = xch + (2 * (kt & 1) + grp) * T::XCH;
+    const float* other = xch + (2 * (kt & 1) + (grp ^ 1)) * T::XCH;
+    if (grp == 0) {
+      // P = exp(scale·S - L), masked only where the tile crosses the key
+      // tail or the CTA's diagonal
+      const bool edge =
+          c0 + STR > a.skv ||
+          (a.causal && a.q_off + r0 < a.kv_off + c0 + STR - 1);
+#pragma unroll
+      for (int i = 0; i < STR / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        bool valid = true;
+        if (edge) {
+          const long long col = c0 + 8 * (i / 4) + 2 * t + (i & 1);
+          valid = col < a.skv &&
+                  (!a.causal || a.q_off + rw + g + 8 * h >= a.kv_off + col);
+        }
+        sc[i] = valid ? exp2f(fmaf(sc[i], sl2, -lrow[h])) : 0.f;
+      }
+    }
+    // swap P and dP (same fragment layout in both groups), then dS = P∘(dP
+    // - D) in both
+#pragma unroll
+    for (int i = 0; i < STR / 2; ++i) mine[i * 128 + tid] = sc[i];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < STR / 2; ++i) {
+      const float o = other[i * 128 + tid], dr = drow[(i >> 1) & 1];
+      sc[i] = grp == 0 ? sc[i] * (o - dr) : o * (sc[i] - dr);
+    }
+    // dQ += dS·K over the group's 256 columns, 128 a step
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j >= na) continue;
+      const int st = s % ST;
+      mbar_wait(&full[st], (s / ST) & 1);
+      if (col0 + 256 * grp + 128 * j < a.d) {
+        const float* B = reinterpret_cast<const float*>(
+            ring + st * T::STAGE + grp * 4 * T::SBOX);
+        if (j == 0)
+          box_outputs<STR / 8, STR>(acc0, sc, B, g, t);
+        else
+          box_outputs<STR / 8, STR>(acc1, sc, B, g, t);
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) issue(s + ST);
+      ++s;
+    }
+  }
+  const int c = col0 + 256 * grp;
+  store_frag<128>(a.g0, a.g_dt, acc0, rw + g, a.sq, a.n, hb, a.d, c, t,
+                  a.scale);
+  store_frag<128>(a.g0, a.g_dt, acc1, rw + g, a.sq, a.n, hb, a.d, c + 128, t,
+                  a.scale);
+}
+
+// K4 above D = 256: one CTA per (64 keys, slice, 256 columns of dk and
+// dv), q tiles of STR inner.  Group 0 builds Sᵀ = K·Qᵀ and Pᵀ and
+// accumulates dV += Pᵀ·dO; group 1 builds dPᵀ = V·dOᵀ, takes Pᵀ from
+// group 0 through shared memory, forms dSᵀ and accumulates dK += dSᵀ·Q.
+template <class T>
+__global__ void __launch_bounds__(T::NT, 1)
+    flash_dkv_tf32x3_wide_kernel(const __grid_constant__ Tf32WideArgs w) {
+  using namespace pa_sm90;
+  constexpr int RES = T::RES, STR = T::STR, ST = T::STAGES;
+  const BwdArgs& a = w.a;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[ST];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* xch = reinterpret_cast<float*>(ring + ST * T::STAGE);
+
+  // CTAs in the order of their linear index, key tiles outer: under a
+  // causal mask the first key tiles see the most q rows and start first
+  const long long lin = blockIdx.x + (long long)blockIdx.y * gridDim.x;
+  const int hb = (int)(lin % a.n);
+  const long long c0 = lin / a.n * RES;
+  const int col0 = blockIdx.z * T::DKV_COLS;
+  const int nq = (a.sq + STR - 1) / STR;
+  int q0 = 0;   // the first q tile whose last row reaches key c0
+  if (a.causal) {
+    const long long lim = a.kv_off + c0 - a.q_off - (STR - 1);
+    if (lim > 0) q0 = (int)min((long long)nq, (lim + STR - 1) / STR);
+  }
+  const int nt = nq - q0;
+  const int nb = (a.d + 63) / 64;
+  const int na = col0 + 128 < a.d ? 2 : 1;
+  const int per = nb + na, total = nt * per;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, grp = warp / 4,
+            wq = warp % 4, g = lane / 4, t = lane % 4, tid = threadIdx.x % 128;
+  const long long kw = c0 + 16 * wq;   // the warp's first key
+  const float sl2 = a.scale * kLog2e;
+
+  // step s (thread 0): K/Q/V/dO boxes of a score step, or the q tile's
+  // rows of dO and of Q at the CTA's columns c .. c + 128 (output step)
+  auto issue = [&](int s) {
+    if (s >= total) return;
+    const int it = s / per, j = s % per, st = s % ST;
+    const int r0 = (q0 + it) * STR;
+    uint8_t* dst = ring + st * T::STAGE;
+    if (j < nb)
+      wide_score_load<T>(dst, &full[st], &w.tk, &w.tq, &w.tv, &w.tdo, 64 * j,
+                         hb, (int)c0, r0, a.d);
+    else
+      wide_out_load<T>(dst, &full[st], &w.tdo, &w.tq, col0 + 128 * (j - nb),
+                       0, hb, r0, a.d);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) mbar_init(&full[i], 1);
+    mbar_fence_init();
+    for (int i = 0; i < ST; ++i) issue(i);
+  }
+  __syncthreads();
+
+  float acc0[64], acc1[64], sc[STR / 2];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+  int s = 0;
+  for (int it = 0; it < nt; ++it) {
+    const long long r0 = (long long)(q0 + it) * STR;
+#pragma unroll
+    for (int i = 0; i < STR / 2; ++i) sc[i] = 0.f;
+    // Sᵀ (group 0: K, Q) or dPᵀ (group 1: V, dO), a slab a step
+    for (int j = 0; j < nb; ++j, ++s) {
+      const int st = s % ST;
+      mbar_wait(&full[st], (s / ST) & 1);
+      wide_score_step<T>(sc, ring + st * T::STAGE + grp * T::GRP, 16 * wq,
+                         64 * j + 32 < a.d, g, t);
+      __syncthreads();
+      if (threadIdx.x == 0) issue(s + ST);
+    }
+    float* pbuf = xch + (it & 1) * T::XCH;
+    if (grp == 0) {
+      // Pᵀ with L per column (q row; +inf past Sq, so P = 0 there without
+      // a mask); the causal mask only where the tile crosses the diagonal
+      const bool edge = a.causal && a.q_off + r0 < a.kv_off + c0 + RES - 1;
+#pragma unroll
+      for (int i = 0; i < STR / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        const long long row = r0 + 8 * (i / 4) + 2 * t + (i & 1);
+        const float lc = row < a.sq ? a.L[(size_t)hb * a.sq + row] * kLog2e
+                                    : INFINITY;
+        const bool valid =
+            !edge || a.q_off + row >= a.kv_off + kw + g + 8 * h;
+        sc[i] = valid ? exp2f(fmaf(sc[i], sl2, -lc)) : 0.f;
+        pbuf[i * 128 + tid] = sc[i];
+      }
+    }
+    __syncthreads();
+    if (grp == 1) {
+      // dSᵀ = Pᵀ∘(dPᵀ - D), D per column
+#pragma unroll
+      for (int i = 0; i < STR / 2; ++i) {
+        const long long row = r0 + 8 * (i / 4) + 2 * t + (i & 1);
+        const float dc = row < a.sq ? a.D[(size_t)hb * a.sq + row] : 0.f;
+        sc[i] = pbuf[i * 128 + tid] * (sc[i] - dc);
+      }
+    }
+    // group 0: dV += Pᵀ·dO; group 1: dK += dSᵀ·Q; 128 columns a step
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j >= na) continue;
+      const int st = s % ST;
+      mbar_wait(&full[st], (s / ST) & 1);
+      if (col0 + 128 * j < a.d) {
+        const float* B = reinterpret_cast<const float*>(
+            ring + st * T::STAGE + grp * 4 * T::SBOX);
+        if (j == 0)
+          box_outputs<STR / 8, STR>(acc0, sc, B, g, t);
+        else
+          box_outputs<STR / 8, STR>(acc1, sc, B, g, t);
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) issue(s + ST);
+      ++s;
+    }
+  }
+  void* out = grp == 0 ? a.g1 : a.g0;
+  const float mul = grp == 0 ? 1.f : a.scale;
+  store_frag<128>(out, a.g_dt, acc0, kw + g, a.skv, a.n, hb, a.d, col0, t,
+                  mul);
+  store_frag<128>(out, a.g_dt, acc1, kw + g, a.skv, a.n, hb, a.d, col0 + 128,
+                  t, mul);
+}
+
+// The wide kernels' tensor maps: q and dO with boxes of `qrows` rows, k and
+// v of `krows` (with no rows on one side nothing is loaded, and that
+// side's maps describe the other's tensors).  Every operand must be f32.
+inline int wide_tf32_maps(Tf32WideArgs& w, int qrows, int krows) {
+  using pa_sm90::encode_rows_f32;
+  const BwdArgs& a = w.a;
+  if (a.q_dt != kF32 || a.k_dt != kF32 || a.v_dt != kF32 || a.do_dt != kF32)
+    return (int)cudaErrorInvalidValue;
+  const bool keys = a.skv > 0, rows = a.sq > 0;
+  const bool ok =
+      encode_rows_f32(&w.tq, rows ? a.q : a.k, rows ? a.sq : a.skv, a.n, a.d,
+                      qrows) &&
+      encode_rows_f32(&w.tdo, rows ? a.dout : a.k, rows ? a.sq : a.skv, a.n,
+                      a.d, qrows) &&
+      encode_rows_f32(&w.tk, keys ? a.k : a.q, keys ? a.skv : a.sq, a.n, a.d,
+                      krows) &&
+      encode_rows_f32(&w.tv, keys ? a.v : a.q, keys ? a.skv : a.sq, a.n, a.d,
+                      krows);
+  return ok ? 0 : (int)cudaErrorInvalidValue;
+}
+
+int run_dq_tf32_wide(const BwdArgs& a, void* stream) {
+  using T = Tf32WideTiles;
+  Tf32WideArgs w{};
+  w.a = a;
+  if (const int err = wide_tf32_maps(w, T::RES, T::STR)) return err;
+  dim3 grid((a.sq + T::RES - 1) / T::RES, a.n,
+            (a.d + T::DQ_COLS - 1) / T::DQ_COLS);
+  return launch(flash_dq_tf32x3_wide_kernel<T>, grid, T::NT, T::SMEM, stream,
+                w);
+}
+
+int run_dkv_tf32_wide(const BwdArgs& a, void* stream) {
+  using T = Tf32WideTiles;
+  Tf32WideArgs w{};
+  w.a = a;
+  if (const int err = wide_tf32_maps(w, T::STR, T::RES)) return err;
+  dim3 grid((a.skv + T::RES - 1) / T::RES, a.n,
+            (a.d + T::DKV_COLS - 1) / T::DKV_COLS);
+  return launch(flash_dkv_tf32x3_wide_kernel<T>, grid, T::NT, T::SMEM,
+                stream, w);
+}
+
 }  // namespace pa_flash
 
-// q, k, v, dout each f32 or bf16, d <= 256; dq in dq_dt.
+// q, k, v, dout each f32 or bf16, d <= 1024; dq in dq_dt.
 extern "C" int pa_flash_bwd_dq_tf32x3(
     const void* q, const void* k, const void* v, const void* dout, int q_dt,
     int k_dt, int v_dt, int do_dt, const float* L, const float* D, void* dq,
@@ -475,10 +972,11 @@ extern "C" int pa_flash_bwd_dq_tf32x3(
   if (d <= 64) return run_dq_tf32<Tf32Tiles<64, 128, 32>>(a, stream);
   if (d <= 128) return run_dq_tf32<Tf32Tiles<128, 128, 32>>(a, stream);
   if (d <= 256) return run_dq_tf32<Tf32Tiles<256, 64, 16>>(a, stream);
+  if (d <= 1024) return run_dq_tf32_wide(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// q, k, v, dout each f32 or bf16, d <= 256; dk and dv in dkv_dt.
+// q, k, v, dout each f32 or bf16, d <= 1024; dk and dv in dkv_dt.
 extern "C" int pa_flash_bwd_dkv_tf32x3(
     const void* q, const void* k, const void* v, const void* dout, int q_dt,
     int k_dt, int v_dt, int do_dt, const float* L, const float* D, void* dk,
@@ -492,5 +990,6 @@ extern "C" int pa_flash_bwd_dkv_tf32x3(
   if (d <= 128) return run_dkv_tf32<Tf32Tiles<128, 128, 32>>(a, stream);
   if (d <= 256)
     return run_dkv_tf32<Tf32Tiles<256, 64, 16, 128>>(a, stream);
+  if (d <= 1024) return run_dkv_tf32_wide(a, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels: TMA
 // tensor maps and tile loads, mbarriers, and warpgroup matrix multiplies
-// (wgmma) with their shared-memory descriptors, and the packing of an
-// accumulator into the A fragment of the next product.  Used by the bf16
-// (wgmma) instances of K2 (flash_fwd.cu) and of K3/K4 (flash_bwd.cu).
+// (wgmma) with their shared-memory descriptors, named barriers, and the
+// packing of an accumulator into the A fragment of the next product.  Used
+// by the bf16 (wgmma) instances of K2 (flash_fwd.cu) and of K3/K4
+// (flash_bwd.cu); its TMA and mbarriers also by the tf32x3 instance's wide
+// kernels (flash_bwd_tf32.cu).
 //
 // Shared-memory tiles are TMA boxes of 64 bf16 columns (128 bytes a row)
 // written with the 128-byte swizzle; a box of R rows takes R * 128 bytes
@@ -59,6 +61,22 @@ inline bool encode_rows_bf16(CUtensorMap* map, const void* base, int s, int n,
   const cuuint32_t box[3] = {64, 1, (cuuint32_t)rows};
   const cuuint32_t step[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same over f32: boxes of {32, 1, rows} (128-byte rows) with the
+// 128-byte swizzle (the tf32x3 instance's wide kernels).
+inline bool encode_rows_f32(CUtensorMap* map, const void* base, int s, int n,
+                            int d, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)s};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)n * d * 4};
+  const cuuint32_t box[3] = {32, 1, (cuuint32_t)rows};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base),
             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -168,6 +186,12 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads's) over `count` threads,
+// whole warps: the consumer warpgroups of a CTA meet without its producer.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of an accumulator

@@ -21,12 +21,18 @@ in place: nothing is transposed or padded around a launch.
   inner, rebuilding each score block from the saved logsumexp
   ``L = m + log l``: :func:`flash_attention_bwd` (grads in the input
   dtypes) and :func:`flash_attention_bwd_partials` (one ring round against
-  a global ``L``; f32 grads).  Three instances of each, chosen by
-  :func:`bwd_instance`: ``"wgmma"`` (q, k, v and dO all bf16, ``d <= 256``:
-  tensor cores fed by TMA), ``"tf32x3"`` (any other mix with ``d <= 256``:
-  tensor cores at f32 accuracy, each f32 product as three TF32 ones, fed
-  by ``cp.async``) and ``"simt"`` (``d > 256``: f32 FMA).  The first two
-  load 16-byte units, so operands not on 16 bytes are copied as for K2.
+  a global ``L``; f32 grads).  Two instances of each, chosen by
+  :func:`bwd_instance` for every head dim: ``"wgmma"`` (q, k, v and dO all
+  bf16: tensor cores fed by TMA) and ``"tf32x3"`` (any other mix: tensor
+  cores at f32 accuracy, each f32 product as three TF32 ones, fed by
+  ``cp.async``); above ``d = 256`` each runs wide kernels that stream
+  every operand in TMA boxes, reduce the score products over the head dim
+  a box at a time and split the output columns between two warp groups
+  (the tf32x3 ones read f32 only: a bf16 operand of such a call is
+  widened first).  Both load 16-byte units, so operands not on 16 bytes
+  are copied as for K2.  The retired ``"simt"`` kernels (f32 FMA) launch
+  only when a caller names them (``instance="simt"``: ``chip_smoke.py``
+  times them).
 
 Conventions of the TPU kernels, kept bit for bit where they are defined:
 masked scores take ``NEG = finfo(float32).min / 2``; the causal mask is
@@ -84,8 +90,8 @@ boundary."""
 launches_dq = 0
 """K3 launches since the last reset."""
 launches_dq_by_instance = {"wgmma": 0, "tf32x3": 0, "simt": 0}
-"""K3 launches by instance (see :func:`bwd_instance`); they sum to
-:data:`launches_dq`."""
+"""K3 launches by instance (see :func:`bwd_instance`; ``"simt"`` counts the
+retired kernel's launches by name); they sum to :data:`launches_dq`."""
 launches_dkv = 0
 """K4 launches since the last reset."""
 launches_dkv_by_instance = {"wgmma": 0, "tf32x3": 0, "simt": 0}
@@ -120,13 +126,12 @@ def fwd_instance(d: int, q_dtype: torch.dtype, k_dtype: torch.dtype,
 
 def bwd_instance(d: int, q_dtype: torch.dtype, k_dtype: torch.dtype,
                  v_dtype: torch.dtype, do_dtype: torch.dtype) -> str:
-    """Which instance of K3 and K4 takes a call: ``"wgmma"`` when q, k, v
-    and the cotangent dO are all bfloat16 and ``d <= 256`` (bf16 tensor
-    cores), else ``"tf32x3"`` when ``d <= 256`` (any float32 operand:
-    tensor cores at f32 accuracy), else ``"simt"`` (f32 FMA).  None is a
-    fallback for another."""
-    if d > 256:
-        return "simt"
+    """Which instance of K3 and K4 takes a call, at every head dim the
+    kernels take (``d <= 1024``): ``"wgmma"`` when q, k, v and the
+    cotangent dO are all bfloat16 (bf16 tensor cores), else ``"tf32x3"``
+    (any float32 operand: tensor cores at f32 accuracy).  Above ``d =
+    256`` each runs its wide kernels (the head dim streamed in slabs).
+    Neither is a fallback for the other."""
     return ("wgmma" if _all_bf16(q_dtype, k_dtype, v_dtype, do_dtype)
             else "tf32x3")
 
@@ -446,24 +451,36 @@ _BWD_ENTRIES = {
 }
 
 
-def _bwd_call(qf, kf, vf, dof) -> Tuple[str, tuple]:
-    """The instance :func:`bwd_instance` picks for a K3/K4 launch and the
-    launch's leading arguments."""
-    inst = _bwd_inst(qf, kf, vf, dof)
-    head = (_ptr(qf), _ptr(kf), _ptr(vf), _ptr(dof))
+def _bwd_call(qf, kf, vf, dof, instance) -> Tuple[str, tuple, tuple]:
+    """The instance of a K3/K4 launch (``instance``, else the one
+    :func:`bwd_instance` picks), the operands the launch reads and its
+    leading arguments, which point to them (hold the operands until the
+    launch returns).  The tf32x3 instance's wide kernels (``d > 256``)
+    load f32 tiles by TMA: a bf16 operand of such a call is widened to a
+    fresh f32 tensor first, one pass each."""
+    inst = instance or _bwd_inst(qf, kf, vf, dof)
+    if inst not in _BWD_ENTRIES:
+        raise ValueError(f"flash backward: no instance {inst!r}")
+    ops = (qf, kf, vf, dof)
+    if inst == "tf32x3" and qf.shape[-1] > 256:
+        ops = tuple(x.float() for x in ops)
+    head = tuple(_ptr(x) for x in ops)
     if inst != "wgmma":
-        head += (_DT[qf.dtype], _DT[kf.dtype], _DT[vf.dtype], _DT[dof.dtype])
-    return inst, head
+        head += tuple(_DT[x.dtype] for x in ops)
+    return inst, ops, head
 
 
-def launch_dq(qf, kf, vf, dof, L, D, dq, *, causal, q_offset, kv_offset):
-    """One K3 launch, by the instance :func:`bwd_instance` picks: ``dq``
-    (folded ``(Sq, N, D)``, f32 or bf16) from folded contiguous operands
-    (for the wgmma and tf32x3 instances starting on 16 bytes) and
-    ``(N, Sq)`` f32 residuals."""
+def launch_dq(qf, kf, vf, dof, L, D, dq, *, causal, q_offset, kv_offset,
+              instance: Optional[str] = None):
+    """One K3 launch, by the instance :func:`bwd_instance` picks (or
+    ``instance``: ``"simt"`` launches the retired kernel): ``dq`` (folded
+    ``(Sq, N, D)``, f32 or bf16) from folded contiguous operands (for the
+    wgmma and tf32x3 instances starting on 16 bytes) and ``(N, Sq)`` f32
+    residuals."""
     global launches_dq
     sq, n, d = qf.shape
-    inst, head = _bwd_call(qf, kf, vf, dof)
+    # `held` keeps the tensors `head` points to alive through the launch
+    inst, held, head = _bwd_call(qf, kf, vf, dof, instance)
     lib, entry, _ = _BWD_ENTRIES[inst]
     with torch.cuda.device(qf.device):
         err = _fn(lib, entry)(
@@ -476,16 +493,17 @@ def launch_dq(qf, kf, vf, dof, L, D, dq, *, causal, q_offset, kv_offset):
 
 
 def launch_dkv(qf, kf, vf, dof, L, D, dk, dv, *, causal, q_offset,
-               kv_offset):
-    """One K4 launch, by the instance :func:`bwd_instance` picks: ``dk``
-    and ``dv`` (folded ``(Skv, N, D)``, one dtype) from folded contiguous
-    operands (for the wgmma and tf32x3 instances starting on 16 bytes) and
-    ``(N, Sq)`` f32 residuals."""
+               kv_offset, instance: Optional[str] = None):
+    """One K4 launch, by the instance :func:`bwd_instance` picks (or
+    ``instance``, as for :func:`launch_dq`): ``dk`` and ``dv`` (folded
+    ``(Skv, N, D)``, one dtype) from folded contiguous operands (for the
+    wgmma and tf32x3 instances starting on 16 bytes) and ``(N, Sq)`` f32
+    residuals."""
     global launches_dkv
     sq, n, d = qf.shape
     if dk.dtype != dv.dtype:
         raise TypeError("flash backward: dk and dv must share a dtype")
-    inst, head = _bwd_call(qf, kf, vf, dof)
+    inst, held, head = _bwd_call(qf, kf, vf, dof, instance)
     lib, _, entry = _BWD_ENTRIES[inst]
     with torch.cuda.device(qf.device):
         err = _fn(lib, entry)(
@@ -540,8 +558,7 @@ def _bwd_kernels(qf, kf, vf, dof, L, D, dq_dtype, dkv_dtype, *, causal,
     sq, n, d = qf.shape
     skv = kf.shape[0]
     dev = qf.device
-    if _bwd_inst(qf, kf, vf, dof) != "simt":
-        qf, kf, vf, dof = (_aligned(x) for x in (qf, kf, vf, dof))
+    qf, kf, vf, dof = (_aligned(x) for x in (qf, kf, vf, dof))
     dq = torch.empty((sq, n, d), dtype=dq_dtype, device=dev)
     dk = torch.empty((skv, n, d), dtype=dkv_dtype, device=dev)
     dv = torch.empty((skv, n, d), dtype=dkv_dtype, device=dev)

@@ -103,21 +103,23 @@ def test_fwd_plain_matches_pallas(case):
     close(gparts[2], parts[2], 0)               # acc: (Sq, H, B, D)
 
 
-# (sq, skv, causal, q_offset, kv_offset, bf16)
+# (sq, skv, causal, q_offset, kv_offset, bf16[, head dim; 16 if absent])
 BWD = [
     (80, 140, False, 0, 0, False),
     (72, 96, True, 5, 3, False),
     (16, 140, True, 0, 9, False),   # several key tiles, offset origin
     (64, 64, True, 0, 0, True),
+    (40, 70, True, 5, 3, False, 512),   # a head dim of the wide kernels
 ]
 
 
 @pytest.mark.parametrize("case", BWD, ids=lambda c: "-".join(map(str, c)))
 def test_bwd_plain_matches_pallas(case):
     """Plain K3 + K4 (full backward and one-block partials backward)
-    against the Pallas backward kernels, from the same residuals."""
-    sq, skv, causal, qo, ko, bf16 = case
-    h, b, d = 2, 1, 16
+    against the Pallas backward kernels, from the same residuals; at head
+    dim 16 and at 512, where the card runs K3/K4's wide kernels."""
+    sq, skv, causal, qo, ko, bf16 = case[:6]
+    h, b, d = 2, 1, case[6] if len(case) > 6 else 16
     q, k, v, do = _arrays(2, (sq, h, b, d), (skv, h, b, d), (skv, h, b, d),
                           (sq, h, b, d))
     do[(qo + np.arange(sq)) < ko] = 0.0   # defined outputs only
@@ -276,17 +278,17 @@ MIXES_BWD = [m + (e,) for m in MIXES for e in ("float32", "bfloat16")]
 
 
 @pytest.mark.parametrize("mix", MIXES_BWD, ids=lambda m: "-".join(m))
-@pytest.mark.parametrize("d", [8, 40, 64, 72, 128, 200, 256, 264, 1024])
+@pytest.mark.parametrize("d", [8, 40, 64, 72, 128, 200, 256, 264, 384, 512,
+                               1024])
 def test_bwd_instance(d, mix):
-    """K3/K4's instance rule: with d <= 256 the bf16 tensor-core (wgmma)
-    instance takes q, k, v and dO all bf16 and the tf32x3 one every mix
-    with an f32 operand (a bf16 ring's partials with an f32 dO among
-    them); the simt instance takes every d > 256.  CPU tensors run the
-    plain versions and launch none."""
+    """K3/K4's instance rule, the same at every head dim up to 1024: the
+    bf16 tensor-core (wgmma) instance takes q, k, v and dO all bf16, the
+    tf32x3 one every mix with an f32 operand (a bf16 ring's partials with
+    an f32 dO among them); above d = 256 both run their wide kernels, and
+    no call takes the retired simt kernels.  CPU tensors run the plain
+    versions and launch none."""
     dtypes = [getattr(torch, name) for name in mix]
-    if d > 256:
-        want = "simt"
-    elif all(dt == torch.bfloat16 for dt in dtypes):
+    if all(dt == torch.bfloat16 for dt in dtypes):
         want = "wgmma"
     else:
         want = "tf32x3"
@@ -416,7 +418,9 @@ def _tf32x3_bwd(q, k, v, do, L, D, *, causal, q_offset, kv_offset,
     as fmaf) masked before the exp, dS = P∘(dP - D), then dQ = scale·dS·K,
     dV = Pᵀ·dO, dK = scale·dSᵀ·Q as split products of the f32 P and dS
     summed ``block`` keys (q rows) a fresh accumulator: the streamed tile,
-    32 rows for d <= 128."""
+    32 rows for d <= 128 and above 256.  Above d = 256 the kernels stream S
+    and dP over the head dim in slabs of two 32-column chunks and add each
+    chunk's sum in turn: the order modelled here for every d."""
     sq, n, d = q.shape
     scale = np.float32(1.0 / np.sqrt(d))
     log2e = np.float32(1.4426950408889634)
@@ -463,6 +467,8 @@ def _tf32x3_errs(sq, skv, n, d, seed, kw, **how):
     ((45, 67, 3, 64), (True, 5, 0), dict(passes=1)),
     ((45, 67, 3, 64), (True, 17, 9), dict(passes=1)),
     ((16, 8192, 2, 128), (False, 0, 0), dict(block=8192)),
+    ((45, 67, 3, 320), (True, 17, 9), dict(passes=1)),   # the wide kernels
+    ((45, 67, 3, 512), (False, 0, 0), dict(passes=1)),
 ])
 def test_tf32x3_split_meets_the_f32_tolerance(shape, offsets, without):
     """The numerical case for the tf32x3 instance, checked without a card:
