@@ -13,11 +13,11 @@ standard output too.  Phases, each printed on its own lines:
 1. environment — card name and power limit (``nvidia-smi``), torch and
    CUDA versions, the kernel build time, each K2–K4 kernel's registers
    and spill bytes (``-Xptxas -v``), a ``cuobjdump -sass`` check that
-   every wgmma kernel of K2, K3 and K4 (K3/K4's wide ones above D = 256
+   every wgmma kernel of K2, K3 and K4 (their wide ones above D = 256
    among them) holds HGMMA and UTMALDG instructions and spills nothing,
-   and every tf32x3 kernel of K3 and K4 TF32 HMMA ones (the wide ones
-   UTMALDG too), spilling no more than it did when tuned; a 1-rank NCCL
-   process group;
+   and every tf32x3 kernel of K2 (its wide one), K3 and K4 TF32 HMMA
+   ones (the wide ones UTMALDG too), spilling no more than it did when
+   tuned; a 1-rank NCCL process group;
 2. kernel K1 (``pencilarrays_tpu_torch/ops/csrc/permute.cu``) against its
    plain PyTorch versions on the card, bit for bit, over the main path's
    shapes, ragged shapes in six dtypes, pack/unpack with P = 1, 2, 4,
@@ -247,17 +247,21 @@ standard output too.  Phases, each printed on its own lines:
    to 1024, P = 4 naive and zigzag causal rings emulated at kernel level,
    and flash attention on q/k/v of mixed dtypes, each row held relative
    to its own scale (rows of m, dq and dk to their largest term where it
-   is larger: a sum that cancels is held to its rounding); every K3/K4 call launches the instance
-   ``bwd_instance`` picks (wgmma for all-bf16 operands, tf32x3 for any
-   f32 one, at every head dim: above 256 their wide kernels); then the
-   tensor-core instances at their edges, in bf16 (K2–K4's wgmma) and in
-   f32 (K3/K4's tf32x3): head dims 40 to 256 and the wide 264 and 1000,
-   Sq < 64, Skv = 1, ragged Skv, k/v views with a storage offset, aligned
-   and not;
+   is larger: a sum that cancels is held to its rounding); every K2 call
+   launches the instance ``fwd_instance`` picks (wgmma for all-bf16
+   operands at every head dim; for any f32 one simt up to 256 and tf32x3
+   above: no call takes the simt tiles above 256) and every K3/K4 call
+   the one ``bwd_instance`` picks (wgmma for all-bf16 operands, tf32x3
+   for any f32 one, at every head dim); above 256 all run their wide
+   kernels; then the tensor-core instances at their edges, in bf16
+   (K2–K4's wgmma) and in f32 (K3/K4's tf32x3, K2's wide one): head dims
+   40 to 256 and the wide 264 and 1000, Sq < 64, Skv = 1, ragged Skv,
+   k/v views with a storage offset, aligned and not;
 7. serving at full width (S = 4096, H = 8, D = 128): Ulysses and causal
    ring attention over NCCL on a (1,) topology, f32 and bf16, each held
    to dense attention, with the K1/K2 launches of each call and K2's by
-   instance (bf16 calls launch only the wgmma one, f32 only the simt one);
+   instance (bf16 calls launch only the wgmma one, f32 at D = 128 only the
+   simt one);
 8. training: the block of ``examples/long_context_training.py``,
    through its port (``pencilarrays_tpu_torch/examples/
    long_context_training.py``), at full width (causal ring attention, which runs the naive schedule on one
@@ -265,16 +269,16 @@ standard output too.  Phases, each printed on its own lines:
    bf16 projections and attention): the loss falls, one step's gradients
    match the plain path, K2–K4 launched by the wgmma instances in bf16,
    K2's simt and K3/K4's tf32x3 ones in f32; then 2 steps a dtype at
-   D = 512, where K3 and K4 run their wide kernels (K2 its simt
-   instance) and no backward call takes the retired simt kernels;
+   D = 512, where K2, K3 and K4 run their wide kernels, wgmma in bf16 and
+   tf32x3 in f32, and nothing else;
 9. K2–K4 times at the headline shape, f32 and bf16, causal and not:
    kernel, plain, SDPA (a yardstick the port never calls; the CUDA
    kernels it launches, from the profiler) and bound, each kernel by the
    instance its dtype picks, held to the plain version; then D = 512,
-   causal and not: K2's simt instance, K3/K4's wide kernels and, non-
-   causal, their retired simt kernels on the same inputs, SDPA by its
-   default dispatch (flash and cuDNN refuse D = 512; the
-   memory-efficient backend takes it);
+   causal and not: K2–K4's wide kernels and K2's retired simt tiles
+   (launched by name) on the same inputs, SDPA by its default dispatch
+   (flash and cuDNN refuse D = 512; the memory-efficient backend takes
+   it);
 10. a ``{"kernels": [...]}`` line: per kernel its launches on each path
     (each counted from 0 just before its run; K1's on the NS steps, the
     four cycles, the six wired cycles, the reshard runs, the fused hop, the DCT plan, the spectral operators,
@@ -287,9 +291,9 @@ standard output too.  Phases, each printed on its own lines:
     ``grad_ns_checkpoint``, ``dtypes`` and ``topo3``, and phase 5j's
     ``examples.<name>`` and ``entry.dryrun``) and their sum, by
     instance, its error against the plain version and its times (K1's per
-    class in ``timings``); K3 and K4's wide kernels (D > 256) have entries
-    of their own, launched on phase 8's wide paths and timed at D = 512
-    beside the retired simt kernels;
+    class in ``timings``); K2, K3 and K4's wide kernels (D > 256) have
+    entries of their own, launched on phase 8's wide paths and timed at
+    D = 512 (K2's beside its retired simt tiles);
 11. the last line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -405,13 +409,15 @@ def random_tensor(torch, shape, dtype, gen):
 
 # device kernels by the layer that launches them (substrings of the name)
 KERNEL_GROUPS = [
-    ("k2_flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_simt_kernel")),
+    ("k2_flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_simt_kernel",
+                      "flash_fwd_wgmma_wide_kernel",
+                      "flash_fwd_tf32x3_wide_kernel")),
     ("k3_flash_dq", ("flash_dq_wgmma_kernel", "flash_dq_tf32x3_kernel",
                      "flash_dq_wgmma_wide_kernel",
-                     "flash_dq_tf32x3_wide_kernel", "flash_dq_kernel")),
+                     "flash_dq_tf32x3_wide_kernel")),
     ("k4_flash_dkv", ("flash_dkv_wgmma_kernel", "flash_dkv_tf32x3_kernel",
                       "flash_dkv_wgmma_wide_kernel",
-                      "flash_dkv_tf32x3_wide_kernel", "flash_dkv_kernel")),
+                      "flash_dkv_tf32x3_wide_kernel")),
     ("k1_permute", ("permute_",)),
     ("gemm", ("gemm", "xmma", "cutlass", "Kernel2")),
     ("cufft", ("fft", "FFT")),
@@ -530,11 +536,12 @@ SASS_WANT_WIDE = {"wgmma": ["HGMMA", "UTMALDG"],
                   "tf32x3": ["HMMA.TF32", "UTMALDG"]}
 # spill bytes (stores + loads) each instance's kernels of K2–K4 may total:
 # none for wgmma; for tf32x3 what ptxas 12.8 gave when the kernels were
-# tuned (K3 4 + 4 at D = 256 and 48 + 32 wide; K4 16 + 20 at D = 128 and
-# 84 + 56 wide: the wide kernels with 16-row streamed tiles spill nothing
-# but run longer), so that growth fails
+# tuned (K2 40 + 48 in its wide kernel, at 255 registers; K3 4 + 4 at
+# D = 256 and 48 + 32 wide; K4 16 + 20 at D = 128 and 84 + 56 wide: the
+# wide kernels with 16-row streamed tiles spill nothing but run longer),
+# so that growth fails
 SPILL_LIMIT = {"wgmma": {"k2": 0, "k3": 0, "k4": 0},
-               "tf32x3": {"k3": 88, "k4": 176}}
+               "tf32x3": {"k2": 88, "k3": 88, "k4": 176}}
 
 
 def _sass_ops(line: str) -> set:
@@ -5901,8 +5908,9 @@ FLASH_TOL = {("fwd", "float32"): 1e-5, ("bwd", "float32"): 5e-5,
 FLASH_OFFSETS = [(False, 0, 0), (True, 0, 0), (True, 5, 0), (True, 0, 3),
                  (True, 17, 9)]
 # head dims of phase 6's main cases: every tile class of K2–K4, and above
-# 256 K3/K4's wide kernels on whole column boxes (384, 512, 1024) and on a
-# ragged last box (520)
+# 256 the wide kernels of K2, K3 and K4 on whole column boxes (384, 512,
+# 1024) and on a ragged last box (520); 520 and 1024 are where K2's bf16
+# wide kernel streams Q (above 512)
 FLASH_DIMS = (40, 64, 128, 256, 384, 512, 520, 1024)
 # head dims of the tensor-core edge cases: each class of the narrow
 # kernels and off their boxes or warp tiles, and the wide kernels with one
@@ -5911,8 +5919,9 @@ FLASH_DIMS = (40, 64, 128, 256, 384, 512, 520, 1024)
 EDGE_DIMS = (40, 64, 96, 128, 200, 256, 264, 1000)
 
 
-def _rel_err(torch, got, want, rows=None, terms=None) -> float:
-    """Worst error of ``got`` against ``want``, each row relative to its
+def _rel_err(torch, got, want, rows=None, terms=None, mean=False) -> float:
+    """Worst error of ``got`` against ``want`` (with ``mean``, the mean of
+    the rows' worst errors), each row relative to its
     own max|want|: a row is the last dim, and its scale is floored at
     1e-3 max|want| so that a row of zeros compares nearly absolutely.
     ``rows`` (a boolean mask along dim 0) selects the rows compared.
@@ -5931,7 +5940,8 @@ def _rel_err(torch, got, want, rows=None, terms=None) -> float:
     scale = want.abs().amax(dim=-1, keepdim=True)
     if terms is not None:
         scale = torch.maximum(scale, terms.amax(dim=-1, keepdim=True))
-    return float(((got - want).abs() / scale.clamp_min(floor)).max())
+    err = ((got - want).abs() / scale.clamp_min(floor)).amax(dim=-1)
+    return float(err.mean() if mean else err.max())
 
 
 def _bwd_terms(torch, flash, q, k, v, do, L, D, *, causal, q_offset,
@@ -5968,6 +5978,20 @@ def _bwd_terms(torch, flash, q, k, v, do, L, D, *, causal, q_offset,
     return tq, tk
 
 
+def _fwd_launched(flash, fn, dtypes, what):
+    """``fn()``, which must launch K2 once by the instance ``fwd_instance``
+    picks for the head dim and the q, k, v dtypes (so no call takes the
+    retired simt tiles above 256)."""
+    before = dict(flash.launches_fwd_by_instance)
+    out = fn()
+    want = flash.fwd_instance(*dtypes)
+    got = {i: c - before[i] for i, c in flash.launches_fwd_by_instance.items()}
+    if got != {i: int(i == want) for i in got}:
+        raise AssertionError(f"{what}: K2 launches by instance {got}, "
+                             f"expected one {want}")
+    return out
+
+
 def _bwd_launched(flash, fn, dtypes, what):
     """``fn()``, which must launch K3 and K4 once each, by the instance
     ``bwd_instance`` picks for the head dim and the q, k, v, dO dtypes."""
@@ -5995,7 +6019,8 @@ def flash_compare(torch, flash, q, k, v, causal, q_off, kv_off, own=None):
     dict, keeps the worst rows of each direction relative to their own
     max|plain| alone.  The partials backward runs with dO in q's dtype (as
     the ring backwards pass it) and, for a bf16 q, also widened to f32;
-    each K3/K4 call must launch the instance ``bwd_instance`` picks."""
+    each K2 call must launch the instance ``fwd_instance`` picks and each
+    K3/K4 call the one ``bwd_instance`` picks."""
     sq = q.shape[0]
     rows = (q_off + torch.arange(sq, device=q.device)) >= kv_off
     kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
@@ -6010,7 +6035,15 @@ def flash_compare(torch, flash, q, k, v, causal, q_off, kv_off, own=None):
     d = q.shape[-1]
     m_terms = (q.float().abs().amax(-1) * float(k.float().abs().max())
                / math.sqrt(d))                                # (Sq, H, B)
-    out, (m, l) = flash.flash_attention_fwd(q, k, v, return_stats=True, **kw)
+    what = (f"d={d} {q.dtype}/{k.dtype}/{v.dtype} causal={causal} "
+            f"offsets=({q_off},{kv_off})")
+
+    def fwd(**modes):
+        return _fwd_launched(flash, lambda: flash.flash_attention_fwd(
+            q, k, v, **modes, **kw), (d, q.dtype, k.dtype, v.dtype),
+            f"fwd {what}")
+
+    out, (m, l) = fwd(return_stats=True)
     out_p, (m_p, l_p) = flash.flash_attention_fwd_plain(
         q, k, v, return_stats=True, **kw)
     if not bool(torch.isfinite(out.float()).all()):
@@ -6018,8 +6051,8 @@ def flash_compare(torch, flash, q, k, v, causal, q_off, kv_off, own=None):
     held("fwd", out, out_p, rows)
     held("fwd", m.t(), m_p.t(), rows, m_terms)
     held("fwd", l.t(), l_p.t(), rows)
-    held("fwd", flash.flash_attention_fwd(q, k, v, **kw), out_p, rows)
-    parts = flash.flash_attention_fwd(q, k, v, partials=True, **kw)
+    held("fwd", fwd(), out_p, rows)
+    parts = fwd(partials=True)
     parts_p = flash.flash_attention_fwd_plain(q, k, v, partials=True, **kw)
     for a, b, t in zip(parts[:2], parts_p[:2], (m_terms, None)):
         held("fwd", a.movedim(-1, 0), b.movedim(-1, 0), rows, t)  # m, l
@@ -6030,10 +6063,9 @@ def flash_compare(torch, flash, q, k, v, causal, q_off, kv_off, own=None):
     gen = torch.Generator(device=q.device).manual_seed(SEED + 7)
     do = torch.randn(q.shape, generator=gen, device=q.device)
     do = (do * rows.view(-1, *([1] * (q.dim() - 1)))).to(q.dtype)
-    what = (f"bwd d={d} {q.dtype}/{k.dtype}/{v.dtype} causal={causal} "
-            f"offsets=({q_off},{kv_off})")
     L, D = flash.residuals(out_p, do, m_p, l_p)
     terms = _bwd_terms(torch, flash, q, k, v, do, L, D, **kw) + (None,)
+    what = f"bwd {what}"
     got = _bwd_launched(flash, lambda: flash.flash_attention_bwd(
         q, k, v, out_p, do, m_p, l_p, **kw),
         (d, q.dtype, k.dtype, v.dtype, do.dtype), what)
@@ -6176,51 +6208,114 @@ def _zigzag_emulation(torch, flash, merge, pairs, dtype, b, H, D, P=4):
 MIXED_DTYPES = [("bfloat16", "float32", "float32"),
                 ("float32", "bfloat16", "float32"),
                 ("float32", "float32", "bfloat16")]
+# head dims of the mixed cases: K2's simt instance (64), and its wide
+# tf32x3 kernel, which reads the bf16 operand widened to f32, with one
+# output column block (264, 512) and two (1024)
+MIXED_DIMS = (64, 264, 512, 1024)
+# keys a tile of K2's wide tf32x3 kernel (flash_fwd.cu)
+WIDE_TF32_KEYS = 32
 
 
-def _mixed_check(torch, flash, attention, own=None):
-    """q/k/v of mixed dtypes: K2–K4 against their plain versions
-    (flash_compare, which keeps its own-scale rows in ``own``), and flash_attention under impl="auto" forward and
-    backward, which must launch K2, K3 and K4 once each, give grads in the
-    leaves' dtypes and the plain K2's output."""
+def _p_rounding(torch, flash, q, k, v, causal, q_off, kv_off):
+    """K2 on f32 q, k and bf16 v above d = 256 (the wide tf32x3 kernel)
+    must round P to bf16 before P·V.  Its out against the plain version
+    in float64 streamed in the kernel's own key tiles, which rounds P
+    against the same running maxima, and that plain version's distance
+    from itself without the rounding, each as the mean of the rows' worst
+    errors (_rel_err): the first is the level of the scores' f32 error
+    (the rare P that it moves across a bf16 rounding boundary), the
+    second that of the rounding, about 2^-9/sqrt(3) of a row's scale.
+    Returns both."""
+    kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off)
+    rows = (q_off + torch.arange(q.shape[0], device=q.device)) >= kv_off
+    out = flash.flash_attention_fwd(q, k, v, **kw)
+    qf, kf, vf = (flash._fold(x) for x in (q, k, v))
+
+    def plain(p_dtype):
+        m, l, acc = flash.stream_stats(
+            qf.double(), kf.double(), vf.double(), chunk=WIDE_TF32_KEYS,
+            score_dtype=torch.float64, p_dtype=p_dtype, **kw)
+        return flash.normalize(l, acc, torch.float64).reshape(q.shape)
+
+    rounded, exact = plain(torch.bfloat16), plain(None)
+    return (_rel_err(torch, out, rounded, rows, mean=True),
+            _rel_err(torch, exact, rounded, rows, mean=True))
+
+
+def _mixed_check(torch, flash, attention, own=None, by_d=None):
+    """q/k/v of mixed dtypes at each of MIXED_DIMS: K2–K4 against their
+    plain versions (flash_compare, which keeps its own-scale rows in
+    ``own``), and flash_attention under impl="auto" forward and backward,
+    which must launch K2, K3 and K4 once each (K2 by simt up to d = 256,
+    by tf32x3 above), give grads in the leaves' dtypes and the plain K2's
+    output.  Above 256 with a bf16 v, K2's out must lie nearer the plain
+    version that rounds P to bf16 than a quarter of that version's
+    distance from the one that does not (_p_rounding).  ``by_d`` (a dict)
+    keeps each d's worst rows and its P-rounding pairs."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     errs = {"fwd": 0.0, "bwd": 0.0}
-    for names in MIXED_DTYPES:
-        q, k, v = (torch.randn((173, 2, 2, 64), generator=gen, device="cuda")
-                   .to(getattr(torch, n)) for n in names)
-        for key, err in flash_compare(torch, flash, q, k, v, True, 17,
-                                      9, own).items():
-            errs[key] = max(errs[key], err)
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        n0 = (flash.launches_fwd, flash.launches_dq, flash.launches_dkv)
-        out = attention.flash_attention(*leaves, causal=True)
-        out.float().sum().backward()
-        n = (flash.launches_fwd - n0[0], flash.launches_dq - n0[1],
-             flash.launches_dkv - n0[2])
-        if n != (1, 1, 1):
-            raise AssertionError(f"mixed {names}: impl=auto launched {n}")
-        if any(t.grad.dtype != t.dtype or not bool(torch.isfinite(
-                t.grad.float()).all()) for t in leaves):
-            raise AssertionError(f"mixed {names}: grads")
-        errs["fwd"] = max(errs["fwd"], _rel_err(
-            torch, out.detach(), flash.flash_attention_fwd_plain(
-                q, k, v, causal=True)))
+    for d in MIXED_DIMS:
+        at = {"fwd": 0.0, "bwd": 0.0, "p_rounding": []}
+        for names in MIXED_DTYPES:
+            q, k, v = (torch.randn((173, 2, 2, d), generator=gen,
+                                   device="cuda").to(getattr(torch, n))
+                       for n in names)
+            for key, err in flash_compare(torch, flash, q, k, v, True, 17,
+                                          9, own).items():
+                at[key] = max(at[key], err)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            n0 = (flash.launches_fwd, flash.launches_dq, flash.launches_dkv)
+            by0 = dict(flash.launches_fwd_by_instance)
+            out = attention.flash_attention(*leaves, causal=True)
+            out.float().sum().backward()
+            n = (flash.launches_fwd - n0[0], flash.launches_dq - n0[1],
+                 flash.launches_dkv - n0[2])
+            by = {i: c - by0[i]
+                  for i, c in flash.launches_fwd_by_instance.items()}
+            inst = "tf32x3" if d > 256 else "simt"
+            if n != (1, 1, 1) or by != {i: int(i == inst) for i in by}:
+                raise AssertionError(f"mixed {names} d={d}: impl=auto "
+                                     f"launched {n}, K2 by instance {by}")
+            if any(t.grad.dtype != t.dtype or not bool(torch.isfinite(
+                    t.grad.float()).all()) for t in leaves):
+                raise AssertionError(f"mixed {names} d={d}: grads")
+            at["fwd"] = max(at["fwd"], _rel_err(
+                torch, out.detach(), flash.flash_attention_fwd_plain(
+                    q, k, v, causal=True)))
+            if d > 256 and names[2] == "bfloat16":
+                for causal, qo, ko in FLASH_OFFSETS:
+                    err, dist = _p_rounding(torch, flash, q, k, v, causal,
+                                            qo, ko)
+                    if not err <= dist / 4:
+                        raise AssertionError(
+                            f"mixed {names} d={d} causal={causal} offsets="
+                            f"({qo},{ko}): K2's out is {err} from the plain "
+                            f"version that rounds P to bf16, above a "
+                            f"quarter of its distance {dist} from the one "
+                            f"that does not")
+                    at["p_rounding"].append([err, dist])
+        for key in errs:
+            errs[key] = max(errs[key], at[key])
+        if by_d is not None:
+            by_d[d] = at
     return errs
 
 
 def _tensor_core_edges(torch, flash, keep, dtype, own):
     """The tensor-core instances at their edges: in bf16 the wgmma ones of
-    K2, K3 and K4, in f32 the tf32x3 ones of K3 and K4 (K2 runs simt).
-    Head dims of each class and off its 64-column boxes or 16-row warp
-    tiles (EDGE_DIMS: above 256 K3/K4's wide kernels, and K2's simt),
+    K2, K3 and K4, in f32 the tf32x3 ones of K3 and K4 and K2's wide one
+    (K2 runs simt up to 256).  Head dims of each class and off its
+    64-column boxes or 16-row warp tiles (EDGE_DIMS: above 256 the wide
+    kernels),
     Sq below one warpgroup, Skv = 1, Skv off the key tile, k/v
     views with a storage offset (a row slice, as ring rounds pass, and a
     flat offset of one element, which the wrappers copy to a 16-byte
     boundary); every mode and offset case of flash_compare (its own-scale
     rows kept in ``own``, but at Skv = 1).  In bf16 K2
     launches only its wgmma instance and K3/K4 theirs, except the partials
-    calls with an f32 dO (tf32x3); in f32 K3/K4 launch only tf32x3; as
-    flash_compare checks call by call."""
+    calls with an f32 dO (tf32x3); in f32 K2 launches simt up to d = 256
+    and tf32x3 above, K3/K4 only tf32x3; as flash_compare checks call by
+    call."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
     name = str(dtype).split(".")[-1]
     inst = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
@@ -6262,14 +6357,15 @@ def _tensor_core_edges(torch, flash, keep, dtype, own):
     torch.cuda.synchronize()
     n = {key: {i: by[key][i] - n0[key][i] for i in n0[key]} for key in by}
     copies = flash.realigned_copies - copies0
-    want = {"k2": "wgmma" if inst == "wgmma" else "simt", "k3": inst,
-            "k4": inst}
-    # in bf16 the partials calls with an f32 dO take tf32x3; K2 at the wide
-    # head dims takes simt
-    allowed = {"k2": {want["k2"], "simt"}, "k3": {inst, "tf32x3"},
+    # each must launch, and no other: in bf16 the partials calls with an
+    # f32 dO take K3/K4's tf32x3; in f32 K2 takes simt up to 256
+    want = {"k2": {inst} if inst == "wgmma" else {"simt", inst},
+            "k3": {inst}, "k4": {inst}}
+    allowed = {"k2": want["k2"], "k3": {inst, "tf32x3"},
                "k4": {inst, "tf32x3"}}
-    if any(n[k][want[k]] <= 0 or any(c for i, c in n[k].items()
-                                     if i not in allowed[k]) for k in n):
+    if any(any(n[k][i] <= 0 for i in want[k])
+           or any(c for i, c in n[k].items() if i not in allowed[k])
+           for k in n):
         raise AssertionError(f"{name} edge cases launched instances {n}")
     if copies <= 0:
         raise AssertionError("the flat-offset k/v were not realigned")
@@ -6324,9 +6420,15 @@ def phase_flash_check(torch, flash, attention):
                                      attention._zigzag_pairs, dtype, b, 4, 64)
             for key, err in zip(("fwd", "bwd"), errs):
                 keep(f"zigzag ring emulation b={b}", key, name, err)
+    mixed = {}
     for key, err in _mixed_check(torch, flash, attention,
-                                 own.setdefault("mixed", {})).items():
+                                 own.setdefault("mixed", {}), mixed).items():
         keep("mixed dtypes", key, "bfloat16", err)
+    log("[flash] mixed q/k/v dtypes by head dim: worst rows (held to the "
+        "bf16 bar) and, above 256 with a bf16 v, K2's mean row error "
+        "against the plain version that rounds P in the kernel's key tiles "
+        "beside that version's distance from the one that does not, per "
+        "FLASH_OFFSETS case: " + json.dumps(mixed))
     for dtype in (torch.bfloat16, torch.float32):
         cases += _tensor_core_edges(torch, flash, keep, dtype, own.setdefault(
             str(dtype).split(".")[-1], {}))
@@ -6337,7 +6439,8 @@ def phase_flash_check(torch, flash, attention):
         f"{[o[1:] for o in FLASH_OFFSETS[1:]]}; out, return_stats, partials, "
         f"bwd, bwd_partials) + P=4 naive and zigzag causal rings emulated at "
         f"kernel level + flash_attention on mixed q/k/v dtypes "
-        f"{MIXED_DTYPES} (impl=auto: K2, K3, K4 once each) + the wgmma "
+        f"{MIXED_DTYPES} at d {' '.join(map(str, MIXED_DIMS))} (impl=auto: "
+        f"K2, K3, K4 once each) + the wgmma "
         f"(bf16) and tf32x3 (f32) edge cases; every K3/K4 call by its "
         f"bwd_instance; worst per-row "
         f"rel err " + json.dumps({f"{a} {b}": v for (a, b), v in
@@ -6399,12 +6502,13 @@ def _reset_counts(k1, flash):
 
 def expected_instance(name: str, D: int, key: str) -> str:
     """The instance of kernel ``key`` that a call with all operands of
-    dtype ``name`` at head dim ``D`` launches: K2 wgmma for bf16 with D <=
-    256, else simt; K3 and K4 wgmma for bf16, tf32x3 for f32, at every D
-    (their wide kernels above 256; the retired simt ones never)."""
-    if key == "k2":
-        return "wgmma" if name == "bfloat16" and D <= 256 else "simt"
-    return "wgmma" if name == "bfloat16" else "tf32x3"
+    dtype ``name`` at head dim ``D`` launches: wgmma for bf16 at every D
+    (the wide kernels above 256); for f32 K2 simt up to D = 256 and
+    tf32x3 above, K3 and K4 tf32x3 at every D (K2's simt tiles above 256
+    never)."""
+    if name == "bfloat16":
+        return "wgmma"
+    return "simt" if key == "k2" and D <= 256 else "tf32x3"
 
 
 def _check_instance(n, name, what, kernels=("k2",), D=None):
@@ -6544,17 +6648,18 @@ def phase_training(torch, pat, models, k1, flash, dtype, steps=3, D=None,
 
 
 # the head dim above 256 of phase 8's wide training steps and phase 9's
-# wide timings (K2's simt, K3/K4's wide kernels and their retired simt ones)
+# wide timings (K2-K4's wide kernels and K2's retired simt tiles)
 WIDE_D = 512
 
 
 def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
-                       retired=()):
+                       retired=False):
     """K2, K3 and K4 at S = S_ATT, H = H_ATT and head dim ``D``, f32 and
     bf16, for each of ``causals``: kernel ms (each by the instance
-    expected_instance names for its dtype and ``D``; for the causal values
-    in ``retired`` also K3 and K4's retired simt kernels on the same
-    inputs), plain ms, SDPA ms (a yardstick the port never calls) with
+    expected_instance names for its dtype and ``D``; with ``retired`` also
+    K2's retired simt tiles, launched by name, on the same inputs; K2's
+    picked instance also through flash_attention_fwd, as wrapper_ms), plain
+    ms, SDPA ms (a yardstick the port never calls) with
     the CUDA kernels SDPA launches, bound ms and the error against the
     plain version (rows of dq and dk held to their largest term where it
     is above their own max|plain|, as flash_compare holds them)."""
@@ -6576,6 +6681,7 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
             out_p = flash.flash_attention_fwd_plain(q, k, v, **kw)
             L, Dr = flash.residuals(out, do, m, l)
             qf, kf, vf, dof = (x.reshape(S, H, D) for x in (q, k, v, do))
+            o2 = torch.empty_like(qf)
             dq = torch.empty_like(qf)
             dk, dv = torch.empty_like(kf), torch.empty_like(vf)
             grads_p = [g.reshape(S, H, D) for g in
@@ -6585,15 +6691,16 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
             it = 5
             timed = [(key, expected_instance(name, D, key))
                      for key in ("k2", "k3", "k4")]
-            if causal in retired:
-                timed += [("k3", "simt"), ("k4", "simt")]
+            if retired:
+                timed += [("k2", "simt")]
             launch = {
-                "k2": lambda inst: flash.flash_attention_fwd(q, k, v, **kw),
+                "k2": lambda inst: flash.launch_fwd(
+                    qf, kf, vf, o2, None, None, None, instance=inst, **kw),
                 "k3": lambda inst: flash.launch_dq(
                     qf, kf, vf, dof, L, Dr, dq, instance=inst, **kw),
                 "k4": lambda inst: flash.launch_dkv(
                     qf, kf, vf, dof, L, Dr, dk, dv, instance=inst, **kw)}
-            pairs = {"k2": [(out, out_p, None)],
+            pairs = {"k2": [(o2, out_p.reshape(S, H, D), None)],
                      "k3": [(dq, grads_p[0], tq)],
                      "k4": [(dk, grads_p[1], tk), (dv, grads_p[2], None)]}
             got = {}
@@ -6615,6 +6722,11 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
                                          f"launched {by}")
                 got[(key, inst)] = dict(ms=ms, max_abs_err=err, rel_err=rel,
                                         timed_launches_by_instance=by)
+            # K2 is timed through launch_fwd, as K3 and K4 are through
+            # theirs, and also through the wrapper a user calls, which
+            # folds the operands and allocates the output
+            wrapper_ms = cuda_ms(torch, lambda: flash.flash_attention_fwd(
+                q, k, v, **kw), it)
             plain_fwd = cuda_ms(torch, lambda: flash.flash_attention_fwd_plain(
                 q, k, v, **kw), it)
             plain_bwd = cuda_ms(torch, lambda: flash.flash_attention_bwd_plain(
@@ -6669,6 +6781,8 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
                          max_abs_err=t["max_abs_err"], rel_err=t["rel_err"],
                          timed_launches_by_instance=t[
                              "timed_launches_by_instance"])
+                if key == "k2" and (key, inst) == timed[0]:
+                    r["wrapper_ms"] = wrapper_ms
                 rows.append(r)
                 log(f"[time] {key} {inst} S={S} H={H} D={D} {name} "
                     f"{'causal' if causal else 'full'}: " + json.dumps(r))
@@ -6686,12 +6800,12 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
 def flash_entries(paths, timing, wide, checks, instances) -> list:
     """The kernels line's K2–K4 entries: K2, K3 and K4 timed at S = S_ATT,
     H = H_ATT, D = D_ATT in f32 (also per dtype, each by its instance),
-    with their launches on every path but phase 8's wide ones; then K3 and
-    K4's wide kernels (D > 256), timed at D = WIDE_D in f32 (also per
-    dtype, beside the retired simt kernels), with their launches on phase
-    8's wide paths (the ``_d{WIDE_D}`` runs).  ``paths`` maps each counter
-    of ``_counts`` to its launches by run; ``timing`` and ``wide`` are
-    phase 9's rows at D_ATT and WIDE_D."""
+    with their launches on every path but phase 8's wide ones; then K2, K3
+    and K4's wide kernels (D > 256), timed at D = WIDE_D in f32 (also per
+    dtype; K2's beside its retired simt tiles), with their launches on
+    phase 8's wide paths (the ``_d{WIDE_D}`` runs).  ``paths`` maps each
+    counter of ``_counts`` to its launches by run; ``timing`` and ``wide``
+    are phase 9's rows at D_ATT and WIDE_D."""
     out = []
     src = "pencilarrays_tpu_torch/ops/csrc/"
     narrow = {key: {run: c for run, c in by.items()
@@ -6701,18 +6815,19 @@ def flash_entries(paths, timing, wide, checks, instances) -> list:
                         if run.endswith(f"_d{WIDE_D}")}
                   for key, by in paths.items()}
 
+    def source(key, inst):
+        return src + ("flash_fwd.cu" if key == "k2" else
+                      "flash_bwd_tf32.cu" if inst == "tf32x3" else
+                      "flash_bwd.cu")
+
     def entry(name, key, rows, by_path, replaces, insts, D):
         head = next(r for r in rows
                     if r["dtype"] == "float32" and not r["causal"])
         return {
             "name": name, "route": "cuda",
-            "source": src + ("flash_bwd_tf32.cu" if head["instance"] ==
-                             "tf32x3" else "flash_fwd.cu" if key == "k2"
-                             else "flash_bwd.cu"),
+            "source": source(key, head["instance"]),
             "instance": head["instance"],
-            "sources": {i: src + ("flash_bwd_tf32.cu" if i == "tf32x3" else
-                                  "flash_fwd.cu" if key == "k2" else
-                                  "flash_bwd.cu") for i in insts},
+            "sources": {i: source(key, i) for i in insts},
             "replaces": replaces, "launches": sum(by_path[key].values()),
             "launches_by_path": by_path[key],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
@@ -6723,10 +6838,10 @@ def flash_entries(paths, timing, wide, checks, instances) -> list:
             "check_rel_err": {f"{a} {b}": v for (a, b), v in checks.items()
                               if (a == "fwd") == (key == "k2")},
             "timings": [{k: r[k] for k in ("dtype", "causal", "instance",
-                                           "ms", "plain_ms",
+                                           "ms", "wrapper_ms", "plain_ms",
                                            "library_ms", "bound_ms",
                                            "tflops", "max_abs_err",
-                                           "rel_err")}
+                                           "rel_err") if k in r}
                         for r in rows],
             "library_kernels": {r["dtype"]: r["library_kernels"]
                                 for r in rows if not r["causal"]},
@@ -6741,30 +6856,24 @@ def flash_entries(paths, timing, wide, checks, instances) -> list:
                           if ("wide" in label) == (D > 256)}}
 
     pallas = "pencilarrays_tpu/ops/flash_pallas.py"
-    for key, name, line, insts in (
-            ("k2", "flash_fwd", 287, ("wgmma", "simt")),
-            ("k3", "flash_bwd_dq", 589, ("wgmma", "tf32x3", "simt")),
-            ("k4", "flash_bwd_dkv", 609, ("wgmma", "tf32x3", "simt"))):
-        # K2 has no wide kernel: its simt instance takes every D > 256, so
-        # its entry counts the wide paths too and keeps its D = WIDE_D rows
-        e = entry(name, key, [r for r in timing if r["kernel"] == key],
-                  paths if key == "k2" else narrow, f"{pallas}:{line}",
-                  insts, D_ATT)
-        if key == "k2":
-            e[f"d{WIDE_D}"] = [r for r in wide if r["kernel"] == key]
-        out.append(e)
-    for key, name, line in (("k3", "flash_bwd_dq_wide", 589),
-                            ("k4", "flash_bwd_dkv_wide", 609)):
+    kernels = (("k2", "flash_fwd", 287), ("k3", "flash_bwd_dq", 589),
+               ("k4", "flash_bwd_dkv", 609))
+    for key, name, line in kernels:
+        insts = ("wgmma", "simt") if key == "k2" else ("wgmma", "tf32x3")
+        out.append(entry(name, key, [r for r in timing if r["kernel"] == key],
+                         narrow, f"{pallas}:{line}", insts, D_ATT))
+    for key, name, line in kernels:
         rows = [r for r in wide if r["kernel"] == key]
-        e = entry(name, key, [r for r in rows if r["instance"] != "simt"],
-                  wide_paths, f"{pallas}:{line}", ("wgmma", "tf32x3"),
-                  WIDE_D)
-        # the retired simt kernels on the same inputs (0 launches on every
-        # path)
-        e["retired_simt"] = [{k: r[k] for k in (
-            "dtype", "causal", "ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "tflops", "max_abs_err", "rel_err")}
-            for r in rows if r["instance"] == "simt"]
+        e = entry(f"{name}_wide", key,
+                  [r for r in rows if r["instance"] != "simt"], wide_paths,
+                  f"{pallas}:{line}", ("wgmma", "tf32x3"), WIDE_D)
+        if key == "k2":
+            # the retired simt tiles on the same inputs (0 launches on
+            # every path)
+            e["retired_simt"] = [{k: r[k] for k in (
+                "dtype", "causal", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "tflops", "max_abs_err", "rel_err")}
+                for r in rows if r["instance"] == "simt"]
         out.append(e)
     return out
 
@@ -6851,7 +6960,7 @@ def main() -> int:
             train = {f"train_{str(dt).split('.')[-1]}": phase_training(
                 torch, pat, models, k1, flash, dt)
                 for dt in (torch.float32, torch.bfloat16)}
-            # and at D = WIDE_D, where K3 and K4 run their wide kernels
+            # and at D = WIDE_D, where K2, K3 and K4 run their wide kernels
             train.update({
                 f"train_{str(dt).split('.')[-1]}_d{WIDE_D}": phase_training(
                     torch, pat, models, k1, flash, dt, steps=2, D=WIDE_D,
@@ -6859,10 +6968,10 @@ def main() -> int:
                 for dt in (torch.float32, torch.bfloat16)})
             mark("8")
             timing = phase_flash_timing(torch, flash, bw)
-            # above 256: K3/K4's wide kernels, beside their retired simt
-            # ones (non-causal), K2's simt and SDPA
+            # above 256: K2-K4's wide kernels, K2's retired simt tiles on
+            # the same inputs, and SDPA
             wide = phase_flash_timing(torch, flash, bw, D=WIDE_D,
-                                      retired=(False,))
+                                      retired=True)
             mark("9")
             # phase 2's timings: every class phases 3-5c and 7 launched
             k1_runs = {**cycle, **wired["cycles"], **wired["reshard"],

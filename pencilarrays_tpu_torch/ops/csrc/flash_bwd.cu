@@ -1,7 +1,7 @@
 // K3 and K4 — the flash-attention backward for Hopper (sm_90a), CUDA C++:
 // the wgmma instance of each that ops/flash.py::bwd_instance picks for
 // all-bf16 calls (the tf32x3 instance, for any f32 operand, is
-// flash_bwd_tf32.cu), and the retired simt kernels.
+// flash_bwd_tf32.cu).
 //
 // Replace the TPU kernels pencilarrays_tpu/ops/flash_pallas.py::
 // _flash_bwd_dq_kernel (K3, pallas_call at :589) and _flash_bwd_dkv_kernel
@@ -65,220 +65,25 @@
 //   1024; K4 (4·z + 4)·D with z = ceil(D / 256): 12·D at 512, 20·D at
 //   1024.  Splitting K4 across warpgroups alone would need dK and dV of
 //   64 x 512 in registers; splitting it across CTAs alone (four of 128
-//   columns at D = 512) would execute 20·D.
-// * simt kernels (retired: bwd_instance picks them for no call since the
-//   wide kernels; chip_smoke.py times them beside those at D = 512): f32
-//   FMA on the CUDA cores from padded shared-memory tiles, every operand
-//   widened to f32 as the TPU kernels do (:399-402), any D <= 1024.
+//   columns at D = 512) would execute 20·D.  The ring's shared pieces
+//   (WideTiles, the output steps, the producer's stage claim) are in
+//   flash_wide.cuh, which K2's wide kernel uses too.
 //
-// Conventions of the TPU kernels' _bwd_common (:348-383), kept by both:
+// Conventions of the TPU kernels' _bwd_common (:348-383), kept by every
+// kernel of K3 and K4:
 // the score is masked BEFORE the exp and the masked entries of P are 0, so
 // no intermediate inf exists even on rows whose L is garbage; padded rows
 // carry L = +inf (P = 0) and D = 0; the causal mask is start-aligned by
 // global position with per-call offsets; tiles wholly above the diagonal
 // are skipped (K3 ends its key loop there, K4 starts its q loop at the
-// first visible tile); the wgmma instance masks only tiles that cross the
-// key tail or the diagonal, and starts the longest CTAs first.  Rows >= S
+// first visible tile); only tiles that cross the key tail or the diagonal
+// are masked, and starts the longest CTAs first.  Rows >= S
 // and columns >= D are never written; columns D..64·ceil(D/64) arrive as
 // zeros (TMA's fill past the tensor), and a box wholly past D is neither
 // loaded nor multiplied.
-#include "flash_common.cuh"
-#include "sm90.cuh"
+#include "flash_wide.cuh"
 
 namespace pa_flash {
-
-// ---------------------------------------------------------------------------
-// simt instance
-// ---------------------------------------------------------------------------
-
-// One (BQ x BK) block at q rows r0 and keys c0: P and dS in registers, for
-// rows ty + TR*i and keys tx + TC*j.  Ls/Ds hold the tile's L and D rows.
-template <class T>
-__device__ __forceinline__ void rebuild_block(
-    float (&p)[T::BQ / T::TR][T::BK / T::TC],
-    float (&ds)[T::BQ / T::TR][T::BK / T::TC], const float* Qs,
-    const float* dOs, const float* Ks, const float* Vs, const float* Ls,
-    const float* Ds, const BwdArgs& a, long long r0, long long c0, int ty,
-    int tx) {
-  constexpr int RI = T::BQ / T::TR, CJ = T::BK / T::TC;
-  float dp[RI][CJ];
-  dot_rows<RI, CJ, T::TR, T::TC, T::DMAX>(p, Qs, Ks, ty, tx);
-  dot_rows<RI, CJ, T::TR, T::TC, T::DMAX>(dp, dOs, Vs, ty, tx);
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = ty + T::TR * i;
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      const long long col = c0 + tx + T::TC * j;
-      const bool valid =
-          col < a.skv && (!a.causal || a.q_off + r0 + r >= a.kv_off + col);
-      const float s = valid ? p[i][j] * a.scale : kNeg;
-      const float pij = valid ? expf(s - Ls[r]) : 0.f;
-      p[i][j] = pij;
-      ds[i][j] = pij * (dp[i][j] - Ds[r]);
-    }
-  }
-}
-
-// K3: one CTA per (slice, q tile), key tiles inner.
-template <class T>
-__global__ void __launch_bounds__(T::NT) flash_dq_kernel(BwdArgs a) {
-  constexpr int BQ = T::BQ, BK = T::BK, DMAX = T::DMAX, TR = T::TR,
-                TC = T::TC, NT = T::NT, LD = T::LD, LS = T::LS;
-  constexpr int RI = BQ / TR, CJ = BK / TC, DJ = DMAX / TC;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * LD;
-  float* Ks = dOs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* DSs = Vs + BK * LD;
-  float* Ls = DSs + BQ * LS;
-  float* Ds = Ls + BQ;
-
-  const int tid = threadIdx.x, ty = tid / TC, tx = tid % TC;
-  const int hb = blockIdx.y;
-  const long long r0 = (long long)(gridDim.x - 1 - blockIdx.x) * BQ;
-  load_tile<BQ, DMAX, NT>(Qs, a.q, a.q_dt, a.n, hb, a.sq, a.d, r0);
-  load_tile<BQ, DMAX, NT>(dOs, a.dout, a.do_dt, a.n, hb, a.sq, a.d, r0);
-  load_rows<BQ, NT>(Ls, a.L, hb, a.sq, r0, INFINITY);
-  load_rows<BQ, NT>(Ds, a.D, hb, a.sq, r0, 0.f);
-
-  float acc[RI][DJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  const int nk = (a.skv + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const long long c0 = (long long)kt * BK;
-    if (!tile_visible(a.causal, a.q_off, r0, BQ, a.kv_off, c0)) break;
-    __syncthreads();
-    load_tile<BK, DMAX, NT>(Ks, a.k, a.k_dt, a.n, hb, a.skv, a.d, c0);
-    load_tile<BK, DMAX, NT>(Vs, a.v, a.v_dt, a.n, hb, a.skv, a.d, c0);
-    __syncthreads();
-    float p[RI][CJ], ds[RI][CJ];
-    rebuild_block<T>(p, ds, Qs, dOs, Ks, Vs, Ls, Ds, a, r0, c0, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        DSs[(ty + TR * i) * LS + tx + TC * j] = ds[i][j];
-    __syncthreads();
-    acc_rows<RI, DJ, TR, TC, BK, LS, LD, false>(acc, DSs, Ks, ty, tx, 0);
-  }
-
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const long long row = r0 + ty + TR * i;
-    if (row >= a.sq) continue;
-    const size_t base = ((size_t)row * a.n + hb) * a.d;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int col = tx + TC * j;
-      if (col < a.d) store_elem(a.g0, base + col, acc[i][j] * a.scale, a.g_dt);
-    }
-  }
-}
-
-// K4: one CTA per (slice, key tile, DCOL columns of dk/dv), q tiles inner.
-template <class T>
-__global__ void __launch_bounds__(T::NT) flash_dkv_kernel(BwdArgs a) {
-  constexpr int BQ = T::BQ, BK = T::BK, DMAX = T::DMAX, DCOL = T::DCOL,
-                TR = T::TR, TC = T::TC, NT = T::NT, LD = T::LD, LS = T::LS;
-  constexpr int RK = BK / TR, DJ = DCOL / TC;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * LD;
-  float* Qs = Vs + BK * LD;
-  float* dOs = Qs + BQ * LD;
-  float* Ps = dOs + BQ * LD;
-  float* DSs = Ps + BQ * LS;
-  float* Ls = DSs + BQ * LS;
-  float* Ds = Ls + BQ;
-
-  const int tid = threadIdx.x, ty = tid / TC, tx = tid % TC;
-  const int hb = blockIdx.y;
-  const long long c0 = (long long)blockIdx.x * BK;
-  const int col0 = blockIdx.z * DCOL;
-  load_tile<BK, DMAX, NT>(Ks, a.k, a.k_dt, a.n, hb, a.skv, a.d, c0);
-  load_tile<BK, DMAX, NT>(Vs, a.v, a.v_dt, a.n, hb, a.skv, a.d, c0);
-
-  float dk[RK][DJ], dv[RK][DJ];
-#pragma unroll
-  for (int i = 0; i < RK; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
-  const int nq = (a.sq + BQ - 1) / BQ;
-  for (int qt = 0; qt < nq; ++qt) {
-    const long long r0 = (long long)qt * BQ;
-    if (!tile_visible(a.causal, a.q_off, r0, BQ, a.kv_off, c0)) continue;
-    __syncthreads();
-    load_tile<BQ, DMAX, NT>(Qs, a.q, a.q_dt, a.n, hb, a.sq, a.d, r0);
-    load_tile<BQ, DMAX, NT>(dOs, a.dout, a.do_dt, a.n, hb, a.sq, a.d, r0);
-    load_rows<BQ, NT>(Ls, a.L, hb, a.sq, r0, INFINITY);
-    load_rows<BQ, NT>(Ds, a.D, hb, a.sq, r0, 0.f);
-    __syncthreads();
-    constexpr int RI = BQ / TR, CJ = BK / TC;
-    float p[RI][CJ], ds[RI][CJ];
-    rebuild_block<T>(p, ds, Qs, dOs, Ks, Vs, Ls, Ds, a, r0, c0, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int at = (ty + TR * i) * LS + tx + TC * j;
-        Ps[at] = p[i][j];
-        DSs[at] = ds[i][j];
-      }
-    __syncthreads();
-    // rows of dk/dv are keys: read P and dS transposed
-    acc_rows<RK, DJ, TR, TC, BQ, LS, LD, true>(dv, Ps, dOs, ty, tx, col0);
-    acc_rows<RK, DJ, TR, TC, BQ, LS, LD, true>(dk, DSs, Qs, ty, tx, col0);
-  }
-
-#pragma unroll
-  for (int i = 0; i < RK; ++i) {
-    const long long row = c0 + ty + TR * i;
-    if (row >= a.skv) continue;
-    const size_t base = ((size_t)row * a.n + hb) * a.d;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int col = col0 + tx + TC * j;
-      if (col >= a.d) continue;
-      store_elem(a.g0, base + col, dk[i][j] * a.scale, a.g_dt);
-      store_elem(a.g1, base + col, dv[i][j], a.g_dt);
-    }
-  }
-}
-
-// K3 tiles (BQ, BK) by head dim; shared = (2·BQ + 2·BK)·(DMAX + 1)·4 +
-// BQ·(BK + 1)·4 + 2·BQ·4 bytes:
-//   DMAX   64: 64 x 64  ( 83.7 KB)      DMAX 512:  16 x 16 (132.4 KB)
-//   DMAX  128: 64 x 32  (107.9 KB)      DMAX 1024:  8 x 16 (197.4 KB)
-//   DMAX  256: 32 x 16  (101.1 KB)
-template <class T>
-int run_dq(const BwdArgs& a, void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)(2 * T::BQ + 2 * T::BK) *
-                                           T::LD +
-                                       T::BQ * T::LS + 2 * T::BQ);
-  dim3 grid((a.sq + T::BQ - 1) / T::BQ, a.n);
-  return launch(flash_dq_kernel<T>, grid, T::NT, smem, stream, a);
-}
-
-// K4 tiles (BQ, BK, DCOL) by head dim; shared = (2·BQ + 2·BK)·(DMAX + 1)·4
-// + 2·BQ·(BK + 1)·4 + 2·BQ·4 bytes; DCOL < DMAX splits dk/dv's columns
-// over gridDim.z (each CTA recomputes P and dS) to keep the two
-// accumulators at 64 registers:
-//   DMAX   64: 64 x 64, 64  (100.4 KB)  DMAX 512:  8 x 16, 256 ( 99.6 KB)
-//   DMAX  128: 32 x 32, 128 ( 74.8 KB)  DMAX 1024: 8 x 16, 256 (197.9 KB)
-//   DMAX  256: 32 x 16, 256 (103.3 KB)
-template <class T>
-int run_dkv(const BwdArgs& a, void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)(2 * T::BQ + 2 * T::BK) *
-                                           T::LD +
-                                       2 * T::BQ * T::LS + 2 * T::BQ);
-  dim3 grid((a.skv + T::BK - 1) / T::BK, a.n, T::DMAX / T::DCOL);
-  return launch(flash_dkv_kernel<T>, grid, T::NT, smem, stream, a);
-}
 
 // ---------------------------------------------------------------------------
 // wgmma instance
@@ -321,11 +126,6 @@ struct BwdTiles {
   static_assert(DP % DCOL == 0 && DCOL % 64 == 0, "output column split");
 };
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
 // acc (64 x BN) = A·Bᵀ over DP, both K-major: A the warpgroup's 64 rows of
 // a tile whose boxes hold RA rows, B a tile of BN rows.
 template <int DP, int RA, int BN>
@@ -342,27 +142,6 @@ __device__ __forceinline__ void ss_block(float (&acc)[BN / 2],
       wgmma_ss_n64(acc, da, db, kc > 0);
     else
       wgmma_ss_n32(acc, da, db, kc > 0);
-  }
-}
-
-// acc (64 x N) += A·B over RB: A the packed fragment (64 x RB), B the N
-// columns of a tile of RB rows starting at B, read MN-major: the depth
-// runs down the rows (16 rows, 2048 bytes, a step), 64-column boxes
-// RB·128 bytes apart.
-template <int RB, int N>
-__device__ __forceinline__ void rs_block(float (&acc)[N / 2],
-                                         const uint32_t (&pa)[RB / 16][4],
-                                         const uint8_t* B) {
-  using namespace pa_sm90;
-#pragma unroll
-  for (int kk = 0; kk < RB / 16; ++kk) {
-    const uint64_t db = wgmma_desc(B + kk * 16 * 128, RB * 128, 1024);
-    if constexpr (N == 256)
-      wgmma_rs_n256(acc, pa[kk], db);
-    else if constexpr (N == 128)
-      wgmma_rs_n128(acc, pa[kk], db);
-    else
-      wgmma_rs_n64(acc, pa[kk], db);
   }
 }
 
@@ -695,38 +474,8 @@ int run_dkv_wgmma(BwdWgArgs& w, void* stream) {
 }
 
 // ---------------------------------------------------------------------------
-// wgmma instance above D = 256
+// wgmma instance above D = 256 (WideTiles, output steps: flash_wide.cuh)
 // ---------------------------------------------------------------------------
-
-// Tiles of the wgmma instance for 256 < D <= 1024: a CTA owns BM = 64 rows
-// (K3: q rows; K4: keys) and streams BN = 64 rows a tile of the other side;
-// its two consumer warpgroups cover the same 64 rows and split the work
-// (see the kernels).  Nothing is resident: every operand arrives through
-// one ring of STAGES stages, each four 64-row x 64-column boxes (32 KB),
-// in the order the consumers take them: per tile, nb = ceil(D / 64) score
-// steps (one column box of each of the four operands), then one or two
-// output steps (the boxes of the B operand of the accumulating products,
-// 128 columns a warpgroup a step).  Two f32 score blocks a warpgroup,
-// double-buffered by tile, carry P (and in K3 dP) from one warpgroup to
-// the other.  Shared memory: 4·32 + 4·16 KB + 1 KB of alignment slack.
-struct WideTiles {
-  static constexpr int BM = 64, BN = 64, STAGES = 4, NT = 384;
-  static constexpr int PREG = 24, CREG = 240;
-  static_assert(128 * PREG + 256 * CREG <= NT * 168, "register budget");
-  static constexpr int BOX = 64 * 128;       // one box, bytes
-  static constexpr int STAGE = 4 * BOX;      // one ring stage
-  static constexpr int XCH = BM * BN;        // one f32 score block, words
-  static constexpr int SMEM = STAGES * STAGE + 4 * XCH * 4 + 1024;
-  static constexpr int DQ_COLS = 512;        // columns of dq a CTA writes
-  static constexpr int DKV_COLS = 256;       // columns of dk and dv a CTA
-};
-
-// The consumer warps' release of ring stage `st`: one arrival a warp.
-__device__ __forceinline__ void release_stage(uint64_t* bar_free, int st,
-                                              int lane) {
-  __syncwarp();
-  if (lane == 0) pa_sm90::mbar_arrive(&bar_free[st]);
-}
 
 // The score steps of one tile: acc (64 x BN) = A·Bᵀ over the nb column
 // boxes of ring steps [step, step + nb), A the box at `aoff` bytes into
@@ -761,55 +510,8 @@ __device__ __forceinline__ void wide_scores(float (&acc)[T::BN / 2],
   release_stage(bar_free, (step + nb - 1) % ST, lane);
 }
 
-// The output steps of one tile: acc0 (columns c, c + 128) and acc1 (c + 128,
-// c + 256) of a warpgroup's 64 x 256 accumulator += X·B, X the packed
-// fragment (64 x BN) and B the warpgroup's two boxes at `boff` bytes into
-// the stages of ring steps step, step + 1 (na of them), read MN-major; a
-// step whose first column `c + 128 j` is past d holds none of this
-// warpgroup's boxes and is skipped.
-template <class T>
-__device__ __forceinline__ void wide_outputs(
-    float (&acc0)[64], float (&acc1)[64], const uint32_t (&x)[T::BN / 16][4],
-    uint8_t* ring, uint64_t* full, uint64_t* bar_free, int step, int na,
-    int boff, int c, int d, int lane) {
-  using namespace pa_sm90;
-  constexpr int ST = T::STAGES;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    if (j >= na) continue;
-    const int st = (step + j) % ST;
-    mbar_wait(&full[st], ((step + j) / ST) & 1);
-    if (c + 128 * j >= d) continue;
-    wgmma_fence();
-    if (j == 0)
-      rs_block<T::BN, 128>(acc0, x, ring + st * T::STAGE + boff);
-    else
-      rs_block<T::BN, 128>(acc1, x, ring + st * T::STAGE + boff);
-    wgmma_commit();
-  }
-  wgmma_wait<0>();
-  fence_regs(acc0);
-  fence_regs(acc1);
-  for (int j = 0; j < na; ++j)
-    release_stage(bar_free, (step + j) % ST, lane);
-}
-
-// The producer's loads of ring step `step`, once its stage's previous use
-// is released: a score step's four boxes at column c (maps a0, b0, a1, b1
-// at rows ra, rb, ra, rb), or an output step's boxes at columns c, c + 64
-// (map o0) and c + cg, c + cg + 64 (map o1), all at rows rb; a box whose
-// first column is past d is not loaded (its consumer skips it).
-__device__ __forceinline__ uint8_t* wide_stage(uint8_t* ring, uint64_t* full,
-                                               uint64_t* bar_free, int step,
-                                               uint32_t bytes) {
-  using namespace pa_sm90;
-  constexpr int ST = WideTiles::STAGES;
-  const int st = step % ST, u = step / ST;
-  if (u > 0) mbar_wait(&bar_free[st], (u - 1) & 1);
-  mbar_arrive_expect_tx(&full[st], bytes);
-  return ring + st * WideTiles::STAGE;
-}
-
+// The producer's loads of a score step: four boxes at column c, maps a0,
+// b0, a1, b1 at rows ra, rb, ra, rb.
 __device__ __forceinline__ void wide_load_scores(
     uint8_t* ring, uint64_t* full, uint64_t* bar_free, int step,
     const CUtensorMap* a0, const CUtensorMap* b0, const CUtensorMap* a1,
@@ -822,22 +524,6 @@ __device__ __forceinline__ void wide_load_scores(
   tma_load_3d(dst + BOX, b0, bar, c, hb, rb);
   tma_load_3d(dst + 2 * BOX, a1, bar, c, hb, ra);
   tma_load_3d(dst + 3 * BOX, b1, bar, c, hb, rb);
-}
-
-__device__ __forceinline__ void wide_load_outputs(
-    uint8_t* ring, uint64_t* full, uint64_t* bar_free, int step,
-    const CUtensorMap* o0, const CUtensorMap* o1, int c, int cg, int hb,
-    int rb, int d) {
-  using namespace pa_sm90;
-  constexpr int BOX = WideTiles::BOX;
-  uint64_t* bar = &full[step % WideTiles::STAGES];
-  const int live = (c < d) + (c + 64 < d) + (c + cg < d) + (c + cg + 64 < d);
-  uint8_t* dst = wide_stage(ring, full, bar_free, step, live * BOX);
-  for (int i = 0; i < 4; ++i) {
-    const int col = c + (i >= 2 ? cg : 0) + 64 * (i & 1);
-    if (col < d)
-      tma_load_3d(dst + i * BOX, i >= 2 ? o1 : o0, bar, col, hb, rb);
-  }
 }
 
 // K3 above D = 256: one CTA per (64 q rows, slice, 512 columns of dq), key
@@ -1127,43 +813,6 @@ int run_dkv_wgmma_wide(BwdWgArgs& w, void* stream) {
 }
 
 }  // namespace pa_flash
-
-extern "C" int pa_flash_bwd_dq(const void* q, const void* k, const void* v,
-                               const void* dout, int q_dt, int k_dt, int v_dt,
-                               int do_dt, const float* L, const float* D,
-                               void* dq, int dq_dt, int n, int sq, int skv,
-                               int d, float scale, int causal, long long q_off,
-                               long long kv_off, void* stream) {
-  using namespace pa_flash;
-  const BwdArgs a{q,     k,       v,    dout, q_dt, k_dt,  v_dt,
-                  do_dt, L,       D,    dq,   nullptr, dq_dt, n,
-                  sq,    skv,     d,    scale, causal, q_off, kv_off};
-  if (d <= 64) return run_dq<Tiles<64, 64, 64>>(a, stream);
-  if (d <= 128) return run_dq<Tiles<64, 32, 128>>(a, stream);
-  if (d <= 256) return run_dq<Tiles<32, 16, 256>>(a, stream);
-  if (d <= 512) return run_dq<Tiles<16, 16, 512>>(a, stream);
-  if (d <= 1024) return run_dq<Tiles<8, 16, 1024>>(a, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int pa_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                const void* dout, int q_dt, int k_dt,
-                                int v_dt, int do_dt, const float* L,
-                                const float* D, void* dk, void* dv,
-                                int dkv_dt, int n, int sq, int skv, int d,
-                                float scale, int causal, long long q_off,
-                                long long kv_off, void* stream) {
-  using namespace pa_flash;
-  const BwdArgs a{q,     k,   v,   dout, q_dt,   k_dt,  v_dt,  do_dt,
-                  L,     D,   dk,  dv,   dkv_dt, n,     sq,    skv,
-                  d,     scale, causal, q_off, kv_off};
-  if (d <= 64) return run_dkv<Tiles<64, 64, 64>>(a, stream);
-  if (d <= 128) return run_dkv<Tiles<32, 32, 128>>(a, stream);
-  if (d <= 256) return run_dkv<Tiles<32, 16, 256>>(a, stream);
-  if (d <= 512) return run_dkv<Tiles<8, 16, 512, 256>>(a, stream);
-  if (d <= 1024) return run_dkv<Tiles<8, 16, 1024, 256>>(a, stream);
-  return (int)cudaErrorInvalidValue;
-}
 
 // q, k, v and dout bf16 with d <= 1024; dq in dq_dt.
 extern "C" int pa_flash_bwd_dq_wgmma(const void* q, const void* k,

@@ -3,14 +3,15 @@
 // a float32 operand, D <= 1024 (ops/flash.py::bwd_instance); above 256 by
 // the wide kernels at the end of this file.
 //
-// Replaces, as flash_bwd.cu's two other instances do, the TPU kernels
+// Replaces, as flash_bwd.cu's wgmma instance does, the TPU kernels
 // pencilarrays_tpu/ops/flash_pallas.py::_flash_bwd_dq_kernel (K3,
-// pallas_call at :589) and _flash_bwd_dkv_kernel (K4, :609), and computes
-// what flash_bwd.cu's simt kernels compute, with the conventions of that
-// file's header: masked before the exp, masked P = 0; L = +inf and D = 0 on
-// padded rows; a start-aligned causal mask with per-call offsets; tiles
-// wholly above the diagonal skipped; every output row owned by one CTA (no
-// atomics); rows >= S and columns >= D never written; grads in g_dt.
+// pallas_call at :589) and _flash_bwd_dkv_kernel (K4, :609), computing
+// every operand in f32 as the TPU kernels do (:399-402), with the
+// conventions of flash_bwd.cu's header: masked before the exp, masked
+// P = 0; L = +inf and D = 0 on padded rows; a start-aligned causal mask
+// with per-call offsets; tiles wholly above the diagonal skipped; every
+// output row owned by one CTA (no atomics); rows >= S and columns >= D
+// never written; grads in g_dt.
 //
 // Bound: operations.  K3 does 6·Sq·Skv·D FLOPs a slice and K4 8·Sq·Skv·D
 // (halved when causal), ~1000 FLOPs a byte at S = 4096, D = 128.  The CUDA
@@ -71,52 +72,11 @@
 //   the products ran one after the other, 1.7x the TMA-fed time at
 //   D = 512 (PERF.md).  TMA copies bytes as they are, so these kernels
 //   read f32 operands only: ops/flash.py widens a bf16 operand of a mix
-//   first.
-#include "flash_common.cuh"
-#include "sm90.cuh"
+//   first.  The 3xTF32 split, the box products and the wide tiles are in
+//   flash_wide.cuh, which K2's wide tf32x3 kernel uses too.
+#include "flash_wide.cuh"
 
 namespace pa_flash {
-
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
-// from zero; the low 13 bits zero) for every finite x, by two integer
-// operations: half an ulp added to the magnitude, then the low bits
-// cleared.  sm_90 has no instruction for the cvt: its PTX form compiles to
-// a longer sequence that guards inf and NaN, which made K3 + K4 markedly
-// slower, two roundings of every operand value being on the hot path.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = big + small, both TF32.
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-// (d0..d3) += a·b: one m16n8k8 TF32 product with f32 accumulation.
-__device__ __forceinline__ void mma_tf32(float& d0, float& d1, float& d2,
-                                         float& d3, const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// n-tile j of acc (acc[4 j .. 4 j + 3]) += a·b in 3xTF32, small terms first.
-template <int N>
-__device__ __forceinline__ void mma3(float (&acc)[N], int j,
-                                     const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], uint32_t bb0,
-                                     uint32_t bb1, uint32_t bs0,
-                                     uint32_t bs1) {
-  float &d0 = acc[4 * j], &d1 = acc[4 * j + 1], &d2 = acc[4 * j + 2],
-        &d3 = acc[4 * j + 3];
-  mma_tf32(d0, d1, d2, d3, as, bb0, bb1);
-  mma_tf32(d0, d1, d2, d3, ab, bs0, bs1);
-  mma_tf32(d0, d1, d2, d3, ab, bb0, bb1);
-}
 
 // out (16 x 8·NJ; n-tile j at out[4 j ..]) += A·Bᵀ over k in [k0, k1): A
 // the 16 rows at As, B the 8·NJ rows at Bs, both f32 tiles of pitch LD.
@@ -483,7 +443,7 @@ int run_dkv_tf32(const BwdArgs& a, void* stream) {
 }
 
 // ---------------------------------------------------------------------------
-// above D = 256
+// above D = 256 (Tf32WideTiles and the box products: flash_wide.cuh)
 // ---------------------------------------------------------------------------
 
 // Arguments of the wide kernels: f32 tensor maps of q, k, v and dO, boxes
@@ -494,131 +454,10 @@ struct Tf32WideArgs {
   BwdArgs a;
 };
 
-// Tiles above D = 256: a CTA of 8 warps owns RES = 64 rows (K3: q rows;
-// K4: keys) and streams STR rows a tile of the other side.  Its two groups
-// of four warps cover the same 64 rows (warp w: rows 16 (w % 4) ..) and
-// split the work (see the kernels).  Nothing is resident: thread 0 feeds
-// one ring of STAGES stages by TMA, in the order the warps take them: per
-// tile, nb = ceil(D / 64) score steps (two 32-column boxes of each of the
-// four operands: RES rows of two, STR of the other two), then one or two
-// output steps (the B operand's rows of the tile, four boxes, 128 columns,
-// for each group).  Two f32 score blocks a group, double-buffered by tile,
-// carry P (and in K3 dP) from one group to the other.
-struct Tf32WideTiles {
-  static constexpr int RES = 64, STR = 32, STAGES = 4, NT = 256;
-  static constexpr int RBOX = RES * 128, SBOX = STR * 128;   // box bytes
-  static constexpr int GRP = 2 * RBOX + 2 * SBOX;   // a group's score boxes
-  static constexpr int SLAB = 2 * GRP;              // a score step
-  static constexpr int OUTB = 8 * SBOX;             // an output step
-  static constexpr int STAGE = SLAB > OUTB ? SLAB : OUTB;
-  static constexpr int XCH = RES * STR;             // one score block, words
-  static constexpr int SMEM = STAGES * STAGE + 4 * XCH * 4 + 1024;
-  static constexpr int DQ_COLS = 512, DKV_COLS = 256;
-  static_assert(STR % 8 == 0 && STAGE % 1024 == 0 && SMEM + 64 <= 232448,
-                "tiles");
-};
-
-// Boxes of 32 f32 columns are written with the 128-byte swizzle: 16-byte
-// chunk c / 4 of row r sits at chunk (c / 4) ^ (r % 8), so element (r, c)
-// is word r·32 + ((c & ~3) ^ 4·(r % 8)) + c % 4.  For the fragment loads
-// that is a row offset plus a column offset XOR a lane constant: lane
-// (g, t) reads rows r ≡ g (mod 8) at columns k + t (k a multiple of 4),
-// word r·32 + (k ^ (4 g + t)), and rows 2 t + e (mod 8) at columns
-// 8 m + g, word r·32 + (8 m ^ y_e) with y_e = 4·((g / 4) ^ (2 t + e)) +
-// g % 4.  Either way a warp's 32 loads fall on 32 distinct banks.
-
-// out (16 x 8·NJ) += A·Bᵀ over one 32-column box each: A at the lane's
-// row (g of a 16-row group; rows g + 8 are 256 words on), B at its row g
-// of rows 0 .. 8·NJ - 1; x = 4 g + t.  As score_steps over 32 columns of
-// a padded tile.
-template <int NJ>
-__device__ __forceinline__ void box_scores(float (&out)[4 * NJ],
-                                           const float* A, const float* B,
-                                           int x) {
-#pragma unroll 2
-  for (int k = 0; k < 32; k += 8) {
-    const int o0 = k ^ x, o1 = (k + 4) ^ x;
-    uint32_t ab[4], as[4];
-    split(A[o0], ab[0], as[0]);
-    split(A[256 + o0], ab[1], as[1]);
-    split(A[o1], ab[2], as[2]);
-    split(A[256 + o1], ab[3], as[3]);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      uint32_t bb0, bs0, bb1, bs1;
-      split(B[256 * j + o0], bb0, bs0);
-      split(B[256 * j + o1], bb1, bs1);
-      mma3(out, j, ab, as, bb0, bb1, bs0, bs1);
-    }
-  }
-}
-
-// acc_block (acc (16 x 128) += X·B) with B the ROWS rows of four
-// consecutive 32-column boxes at Bs.
-template <int NK, int ROWS>
-__device__ __forceinline__ void box_outputs(float (&acc)[64],
-                                            const float (&x)[4 * NK],
-                                            const float* Bs, int g, int t) {
-  uint32_t ab[NK][4], as[NK][4];
-#pragma unroll
-  for (int j = 0; j < NK; ++j) {
-    split(x[4 * j], ab[j][0], as[j][0]);
-    split(x[4 * j + 2], ab[j][1], as[j][1]);
-    split(x[4 * j + 1], ab[j][2], as[j][2]);
-    split(x[4 * j + 3], ab[j][3], as[j][3]);
-  }
-  // rows 2 t (+ 1) of each 8-row group, and their lane constants y_e
-  const float* b0 = Bs + 2 * t * 32;
-  const int y0 = 4 * ((g >> 2) ^ (2 * t)) + (g & 3);
-  const int y1 = 4 * ((g >> 2) ^ (2 * t + 1)) + (g & 3);
-#pragma unroll
-  for (int c = 0; c < 16; ++c) {
-    const float* b = b0 + (c >> 2) * ROWS * 32;
-    const int m = 8 * (c & 3);
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NK; ++j) {
-      uint32_t bb0, bs0, bb1, bs1;
-      split(b[256 * j + (m ^ y0)], bb0, bs0);
-      split(b[256 * j + 32 + (m ^ y1)], bb1, bs1);
-      mma3(part, 0, ab[j], as[j], bb0, bb1, bs0, bs1);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[4 * c + i] += part[i];
-  }
-}
-
-// The score step of a group: out (16 x STR) += A·Bᵀ over the slab's 64
-// columns (A's rows from ar, a multiple of 8), a fresh accumulator for
-// each 32-column box that one f32 add moves into out (as score_block does
-// over a whole row); a box wholly past d (the last slab's second) was not
-// loaded and is skipped.
-template <class T>
-__device__ __forceinline__ void wide_score_step(float (&out)[T::STR / 2],
-                                                const uint8_t* A, int ar,
-                                                bool two, int g, int t) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (h == 1 && !two) break;
-    float part[T::STR / 2];
-#pragma unroll
-    for (int i = 0; i < T::STR / 2; ++i) part[i] = 0.f;
-    box_scores<T::STR / 8>(
-        part,
-        reinterpret_cast<const float*>(A + h * T::RBOX) + (ar + g) * 32,
-        reinterpret_cast<const float*>(A + 2 * T::RBOX + h * T::SBOX) +
-            g * 32,
-        4 * g + t);
-#pragma unroll
-    for (int i = 0; i < T::STR / 2; ++i) out[i] += part[i];
-  }
-}
-
-// Thread 0's loads of a ring step: a score step's boxes at column c (two
-// of each operand, or one where the second starts past d: the A operands
-// of the two groups by maps a0/a1 at rows ra, the B operands by b0/b1 at
-// rows rb), or an output step's boxes of map `o` at rows rb (four a group
-// at columns c + 32 i and c + cg + 32 i; none past d).
+// Thread 0's loads of a score step: its boxes at column c (two of each
+// operand, or one where the second starts past d: the A operands of the
+// two groups by maps a0/a1 at rows ra, the B operands by b0/b1 at rows
+// rb).  An output step's loads are flash_wide.cuh's wide_out_load.
 template <class T>
 __device__ __forceinline__ void wide_score_load(
     uint8_t* dst, uint64_t* bar, const CUtensorMap* a0, const CUtensorMap* b0,
@@ -634,22 +473,6 @@ __device__ __forceinline__ void wide_score_load(
     tma_load_3d(dst + T::GRP + h * T::RBOX, a1, bar, col, hb, ra);
     tma_load_3d(dst + T::GRP + 2 * T::RBOX + h * T::SBOX, b1, bar, col, hb,
                 rb);
-  }
-}
-
-template <class T>
-__device__ __forceinline__ void wide_out_load(uint8_t* dst, uint64_t* bar,
-                                              const CUtensorMap* o0,
-                                              const CUtensorMap* o1, int c,
-                                              int cg, int hb, int rb, int d) {
-  using namespace pa_sm90;
-  int live = 0;
-  for (int i = 0; i < 8; ++i) live += c + (i >= 4 ? cg : 0) + 32 * (i & 3) < d;
-  mbar_arrive_expect_tx(bar, live * T::SBOX);
-  for (int i = 0; i < 8; ++i) {
-    const int col = c + (i >= 4 ? cg : 0) + 32 * (i & 3);
-    if (col < d)
-      tma_load_3d(dst + i * T::SBOX, i >= 4 ? o1 : o0, bar, col, hb, rb);
   }
 }
 

@@ -1,4 +1,4 @@
-// K2 — forward flash attention for Hopper (sm_90a), CUDA C++: two
+// K2 — forward flash attention for Hopper (sm_90a), CUDA C++: three
 // instances, picked per call by ops/flash.py::fwd_instance.
 //
 // Replaces the TPU kernel pencilarrays_tpu/ops/flash_pallas.py::_flash_kernel
@@ -12,23 +12,64 @@
 // Bound: operations.  4·Sq·Skv·D FLOPs per slice (halved when causal) over
 // q/k/v reads of (Sq + 2·Skv)·D elements: at S = 4096, D = 128 about 1000
 // FLOPs a byte, far above the card's balance point.  The least time is the
-// FLOPs over 989 TFLOP/s (bf16, tensor cores) or 67 TFLOP/s (f32, CUDA
-// cores, no TF32).
+// FLOPs over 989 TFLOP/s (bf16, tensor cores) or, for f32, 165 TFLOP/s
+// (three TF32 tensor-core products per f32 product, which beats the CUDA
+// cores' 67).
 //
-// * wgmma instance (q, k, v all bf16, D <= 256): tensor cores.  One
-//   producer warp loads Q once and keeps a ring of two K/V stages in flight
-//   with TMA (128-byte swizzled boxes, zero-filled past the tensor) on
-//   mbarriers; two consumer warpgroups of 64 q rows each run S = Q·Kᵀ as a
-//   shared-shared wgmma and O += P·V as a register-shared wgmma, P going
-//   from the S accumulator to the A fragment in registers (the bf16
-//   rounding of P is that conversion).  The softmax runs on the
-//   accumulator fragment: a row lives in the 4 lanes of a quad.
-// * simt instance (everything else: any f32 operand, D > 256): CUDA-core
-//   f32 FMA, register-blocked.  Each thread computes an RI x CJ block of S
-//   and an RI x DJ block of O from 16-byte shared loads; K and V tiles
-//   arrive by cp.async, V(t) while S(t) is computed and K(t+1) while
-//   P(t)·V(t) is, so every copy overlaps FMAs.  bf16 operands of a mix are
-//   copied raw and widened to f32 in shared memory after they land.
+// * wgmma instance (q, k, v all bf16, every D <= 1024): tensor cores.
+//   Up to D = 256 one producer warp loads Q once and keeps a ring of two
+//   K/V stages in flight with TMA (128-byte swizzled boxes, zero-filled
+//   past the tensor) on mbarriers; two consumer warpgroups of 64 q rows
+//   each run S = Q·Kᵀ as a shared-shared wgmma and O += P·V as a
+//   register-shared wgmma, P going from the S accumulator to the A
+//   fragment in registers (the bf16 rounding of P is that conversion).
+//   The softmax runs on the accumulator fragment: a row lives in the 4
+//   lanes of a quad.
+// * simt instance (any f32 operand, D <= 256): CUDA-core f32 FMA,
+//   register-blocked.  Each thread computes an RI x CJ block of S and an
+//   RI x DJ block of O from 16-byte shared loads; K and V tiles arrive by
+//   cp.async, V(t) while S(t) is computed and K(t+1) while P(t)·V(t) is,
+//   so every copy overlaps FMAs.  bf16 operands of a mix are copied raw
+//   and widened to f32 in shared memory after they land.  Its D > 256
+//   tiles are retired: no call picks them, chip_smoke.py times them by
+//   name beside the wide kernels.
+// * the wide kernels, 256 < D <= 1024, wgmma (all bf16) and tf32x3 (any
+//   f32 operand): a Q tile, a K/V stage and the O accumulator of a row
+//   tile do not fit there (O of 64 rows x 512 columns is 128 f32 registers
+//   a thread across two warpgroups; a wgmma accumulator is at most 256
+//   wide).  So K and V stream through one ring of TMA boxes
+//   (flash_wide.cuh), and two groups of warps hold the same 64 q rows.
+//   Each reduces S = Q·Kᵀ over half of the column boxes (the boxes
+//   alternate between the groups), they swap the f32 partial S through
+//   shared memory, and each adds the two partials in the same f32 sum
+//   (a + b == b + a), so both run the identical online softmax and hold
+//   bit-identical m and l; each then accumulates O over its own 256
+//   columns from V's boxes.  Above 512 columns the CTAs of gridDim.z
+//   split the output columns, each rebuilding S.  FLOPs executed per
+//   (q row, key) pair, against the bound's 4·D: (2·z + 2)·D with
+//   z = ceil(D / 512), so 4·D up to D = 512 and 6·D at 1024.
+//   - wgmma: a producer warp feeds 64-row x 64-column bf16 boxes, four a
+//     stage; S as shared-shared wgmma m64n64, O += P·V register-shared
+//     from MN-major V boxes (flash_bwd.cu's wide K3 is the same ring).
+//     Up to D = 512 Q's boxes (64 KB) stay resident and a score step
+//     carries four K boxes; above, Q streams beside K, two boxes each a
+//     step (resident, the ring moves a third less a tile: faster in
+//     short calls on the card).  Each warpgroup's score block has one
+//     buffer, written again only once the other warpgroup has read it
+//     (an mbarrier, which a second named barrier would make lockstep).
+//   - tf32x3: nothing resident (Q of 64 rows x 512 f32 columns is 128
+//     KB); thread 0 streams boxes of 32 f32 columns, 64 q rows and 32
+//     keys a tile; mma.sync TF32 with three products per f32 product
+//     (flash_bwd_tf32.cu's header says why).  The tensor cores round their
+//     accumulation toward zero, and K2's f32 bar is 1e-5: each 32-column
+//     box of S and each key tile's P·V go to a fresh accumulator that an
+//     f32 add, rounding to nearest, moves into the running value
+//     (tests/test_torch_flash.py emulates this arithmetic: about 1.6e-6
+//     of a row's scale; one accumulator over D = 1024, or over 8192 keys,
+//     misses 1e-5, and over D = 512 reaches 1.1e-5).  TMA copies
+//     bytes as they are, so the kernel reads f32 q, k and v: ops/flash.py
+//     widens a bf16 operand first and passes v's own dtype, so that P is
+//     rounded to bf16 before P·V when v was bf16.
 //
 // Conventions kept from the TPU kernel: masked scores are NEG =
 // finfo(f32).min / 2; the key tail is masked by position; the causal mask
@@ -43,8 +84,7 @@
 // out_dt, folded (Sq, N, D); `acc` = raw f32 accumulator (Sq, N, D);
 // `m`, `l` = f32 row statistics (N, Sq).  Rows >= Sq and columns >= D are
 // never written.
-#include "flash_common.cuh"
-#include "sm90.cuh"
+#include "flash_wide.cuh"
 
 namespace pa_flash {
 
@@ -314,6 +354,341 @@ int run_wgmma(WgArgs& w, void* stream) {
 }
 
 // ---------------------------------------------------------------------------
+// the wide kernels (256 < D <= 1024): shared pieces
+// ---------------------------------------------------------------------------
+
+// out = o / l in out_dt, acc = o raw, for the 16 x N fragment o of a warp
+// (rows row0 and row0 + 8, columns col0 + 8 j + 2 t (+1) at o[4 j + 2 h
+// (+1)]: a wgmma m64 fragment or N / 8 mma.sync m16n8 ones); rows < sq and
+// columns < d only (d % 8 == 0: col < d implies col + 1 < d).
+template <int N>
+__device__ __forceinline__ void store_rows(const FwdArgs& a,
+                                           const float (&o)[N / 2],
+                                           long long row0, int hb, int col0,
+                                           int t, const float (&lrow)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long row = row0 + 8 * h;
+    if (row >= a.sq) continue;
+    const size_t base = ((size_t)row * a.n + hb) * a.d;
+    const float den = lrow[h] == 0.f ? 1.f : lrow[h];
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int col = col0 + 8 * j + 2 * t;
+      if (col >= a.d) continue;
+      const float x0 = o[4 * j + 2 * h], x1 = o[4 * j + 2 * h + 1];
+      if (a.out) {
+        if (a.out_dt == kBF16)
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(a.out) + base + col) =
+              __floats2bfloat162_rn(x0 / den, x1 / den);
+        else
+          *reinterpret_cast<float2*>(static_cast<float*>(a.out) + base +
+                                     col) = make_float2(x0 / den, x1 / den);
+      }
+      if (a.acc)
+        *reinterpret_cast<float2*>(a.acc + base + col) = make_float2(x0, x1);
+    }
+  }
+}
+
+// One tile's online-softmax update on the summed score fragment s (a
+// warp's 16 rows x NC keys: register i is row half (i >> 1) & 1, key
+// c0 + 8 (i / 4) + 2 t + (i & 1)): scale, mask where the tile crosses the
+// key tail or the diagonal (`edge`), the new running max m, the
+// correction corr[h] = exp(m_old - m), P = exp(scale·S - m) into s,
+// rounded to bf16 when round_p (the denominator sums it unrounded), and
+// l = l·corr + rowsum(P).  Both groups of warps run it on the same values.
+template <int NC>
+__device__ __forceinline__ void online_softmax(float (&s)[NC / 2],
+                                               float (&mrow)[2],
+                                               float (&lrow)[2],
+                                               float (&corr)[2],
+                                               const FwdArgs& a, bool edge,
+                                               long long c0,
+                                               const long long (&qpos)[2],
+                                               int t, bool round_p) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) {
+    const int h = (i >> 1) & 1;
+    float x = s[i] * a.scale;
+    if (edge) {
+      const long long col = c0 + 8 * (i / 4) + 2 * t + (i & 1);
+      const bool valid =
+          col < a.skv && (!a.causal || qpos[h] >= a.kv_off + col);
+      x = valid ? x : kNeg;
+    }
+    s[i] = x;
+    mx[h] = fmaxf(mx[h], x);
+  }
+  float mscaled[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mn = fmaxf(mrow[h], row_max<4>(mx[h]));
+    corr[h] = exp2f((mrow[h] - mn) * kLog2e);
+    mrow[h] = mn;
+    mscaled[h] = mn * kLog2e;
+  }
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) {
+    const int h = (i >> 1) & 1;
+    const float p = exp2f(fmaf(s[i], kLog2e, -mscaled[h]));
+    rs[h] += p;
+    s[i] = round_p ? round_bf16(p) : p;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) lrow[h] = lrow[h] * corr[h] + row_sum<4>(rs[h]);
+}
+
+// ---------------------------------------------------------------------------
+// wgmma instance above D = 256
+// ---------------------------------------------------------------------------
+
+// The producer's loads of a score step, into the stage's four slots: with
+// Q streamed (QRES 0), Q's and K's boxes at column c (rows rq and rk),
+// and at c + 64 unless that is past d; with Q resident (QRES 1), K's boxes
+// at columns c + 64 i (i < 4), none past d.
+template <int QRES>
+__device__ __forceinline__ void fwd_load_scores(
+    uint8_t* ring, uint64_t* full, uint64_t* bar_free, int step,
+    const CUtensorMap* tq, const CUtensorMap* tk, int c, int hb, int rq,
+    int rk, int d) {
+  using namespace pa_sm90;
+  constexpr int BOX = WideTiles::BOX;
+  uint64_t* bar = &full[step % WideTiles::STAGES];
+  int live = 0;
+  for (int i = 0; i < (QRES ? 4 : 2); ++i) live += c + 64 * i < d;
+  uint8_t* dst =
+      wide_stage(ring, full, bar_free, step, (QRES ? 1 : 2) * live * BOX);
+  for (int i = 0; i < live; ++i) {
+    if (QRES) {
+      tma_load_3d(dst + i * BOX, tk, bar, c + 64 * i, hb, rk);
+    } else {
+      tma_load_3d(dst + 2 * i * BOX, tq, bar, c + 64 * i, hb, rq);
+      tma_load_3d(dst + (2 * i + 1) * BOX, tk, bar, c + 64 * i, hb, rk);
+    }
+  }
+}
+
+// A warpgroup's part of one tile's scores: acc (64 x BN) = Q·Kᵀ over its
+// column boxes of ring steps [step, step + ns), both operands K-major.
+// Q streamed: box 2 s + wg of nb, Q's at slot 2 wg of the stage, K's at
+// 2 wg + 1.  Q resident (at Qs): boxes 4 s + wg and 4 s + 2 + wg, K's at
+// slots wg and 2 + wg.  A warpgroup may have none in the last step.  Each
+// box's products are one commit group, issued whole or not at all (a
+// group whose wgmma ops sit in a branch of their own keeps ptxas from
+// serializing them); a stage is released once its groups have completed.
+// Returns with every group complete.
+template <class T, int QRES>
+__device__ __forceinline__ void fwd_scores(float (&acc)[T::BN / 2],
+                                           const uint8_t* Qs, uint8_t* ring,
+                                           uint64_t* full, uint64_t* bar_free,
+                                           int step, int ns, int nb, int wg,
+                                           int lane) {
+  using namespace pa_sm90;
+  constexpr int ST = T::STAGES, BOX = T::BOX;
+  for (int s = 0; s < ns; ++s) {
+    const int st = (step + s) % ST;
+    mbar_wait(&full[st], ((step + s) / ST) & 1);
+    const uint8_t* stage = ring + st * T::STAGE;
+    const int b0 = QRES ? 4 * s + wg : 2 * s + wg;
+    const bool live0 = b0 < nb, live1 = QRES && b0 + 2 < nb;
+    if (live0) {
+      const uint8_t* A = QRES ? Qs + b0 * BOX : stage + 2 * wg * BOX;
+      const uint8_t* B = QRES ? stage + wg * BOX : A + BOX;
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_ss_n64(acc, wgmma_desc(A + 32 * kc, 16, 1024),
+                     wgmma_desc(B + 32 * kc, 16, 1024), s > 0 || kc > 0);
+      wgmma_commit();
+    }
+    if (live1) {
+      const uint8_t* A = Qs + (b0 + 2) * BOX;
+      const uint8_t* B = stage + (2 + wg) * BOX;
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_ss_n64(acc, wgmma_desc(A + 32 * kc, 16, 1024),
+                     wgmma_desc(B + 32 * kc, 16, 1024), 1);
+      wgmma_commit();
+    }
+    if (s > 0) {   // this step's groups may stay in flight
+      if (live1)
+        wgmma_wait<2>();
+      else if (live0)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      release_stage(bar_free, (step + s - 1) % ST, lane);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release_stage(bar_free, (step + ns - 1) % ST, lane);
+}
+
+// Shared memory of the wide wgmma kernel: Q's boxes when resident (D <=
+// 512: 64 KB), the ring (4 x 32 KB) and one f32 score block a warpgroup
+// (2 x 16 KB), + 1 KB of alignment slack: 225 KB resident, 161 streamed.
+template <int QRES>
+struct FwdWide {
+  using T = WideTiles;
+  static constexpr int Q_BYTES = QRES ? 8 * T::BOX : 0;
+  static constexpr int SMEM =
+      Q_BYTES + T::STAGES * T::STAGE + 2 * T::XCH * 4 + 1024;
+  static_assert(SMEM + 128 <= 232448, "shared memory");
+};
+
+// One CTA per (64 q rows, slice, 512 columns of out), key tiles of 64
+// inner.  Per tile the producer streams ns score steps (QRES 0: column
+// boxes 2 s and 2 s + 1 of Q and K; QRES 1: boxes 4 s .. 4 s + 3 of K,
+// against Q loaded once) and one or two output steps (V's boxes at
+// warpgroup 0's and warpgroup 1's 128 columns).
+template <class T, int QRES>
+__global__ void __launch_bounds__(T::NT, 1)
+    flash_fwd_wgmma_wide_kernel(const __grid_constant__ WgArgs w) {
+  using namespace pa_sm90;
+  constexpr int BQ = T::BM, BK = T::BN, ST = T::STAGES, BOX = T::BOX;
+  const FwdArgs& a = w.a;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_full[ST], bar_free[ST],
+      bar_read[2];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* ring = Qs + FwdWide<QRES>::Q_BYTES;
+  float* xch = reinterpret_cast<float*>(ring + ST * T::STAGE);
+
+  int hb;
+  long long r0;
+  cta_tile(a.n, BQ, r0, hb);
+  const int col0 = blockIdx.z * T::FWD_COLS;
+  const int nk =
+      visible_tiles(a.skv, a.causal, a.q_off, a.kv_off, r0, BQ, BK);
+  const int nb = (a.d + 63) / 64;                  // column boxes of S
+  const int ns = QRES ? (nb + 3) / 4 : (nb + 1) / 2;   // score steps a tile
+  const int na = col0 + 128 < a.d ? 2 : 1;         // output steps a tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&bar_full[s], 1);
+      mbar_init(&bar_free[s], 8);   // one arrival per consumer warp
+    }
+    mbar_init(&bar_read[0], 4);     // one arrival per warp of the reader
+    mbar_init(&bar_read[1], 4);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    setmaxnreg_dec<T::PREG>();
+    if (warp == 8 && lane == 0) {
+      if (QRES && nk > 0) {
+        mbar_arrive_expect_tx(&bar_q, nb * BOX);
+        for (int b = 0; b < nb; ++b)
+          tma_load_3d(Qs + b * BOX, &w.tq, &bar_q, 64 * b, hb, (int)r0);
+      }
+      int step = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int c0 = kt * BK;
+        for (int s = 0; s < ns; ++s, ++step)
+          fwd_load_scores<QRES>(ring, bar_full, bar_free, step, &w.tq,
+                                &w.tk, (QRES ? 256 : 128) * s, hb, (int)r0,
+                                c0, a.d);
+        for (int j = 0; j < na; ++j, ++step)
+          wide_load_outputs(ring, bar_full, bar_free, step, &w.tv, &w.tv,
+                            col0 + 128 * j, 256, hb, c0, a.d);
+      }
+    }
+  } else {
+    setmaxnreg_inc<T::CREG>();
+    // consumers: both warpgroups hold the tile's 64 q rows; lane (g, t) of
+    // warp wq holds rows 16 wq + g (+ 8) of each fragment
+    const int wg = warp / 4, wq = warp % 4, g = lane / 4, t = lane % 4;
+    const int tid = threadIdx.x % 128;
+    const long long row0 = r0 + wq * 16 + g;
+    const long long qpos[2] = {a.q_off + row0, a.q_off + row0 + 8};
+    float acc0[64], acc1[64], sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    float mrow[2] = {kNeg, kNeg}, lrow[2] = {0.f, 0.f};
+    if (QRES && nk > 0) mbar_wait(&bar_q, 0);
+    float* mine = xch + wg * T::XCH;
+    const float* other = xch + (wg ^ 1) * T::XCH;
+    int step = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      const long long c0 = (long long)kt * BK;
+      fwd_scores<T, QRES>(sc, Qs, ring, bar_full, bar_free, step, ns, nb,
+                          wg, lane);
+      step += ns;
+      // swap the partial scores; S = S0 + S1 in both warpgroups.  A
+      // warpgroup writes its block again only once the other has read
+      // the last one (bar_read[wg], passed long before in practice), so
+      // neither waits for the other past the exchange.
+      if (kt > 0) mbar_wait(&bar_read[wg], (kt - 1) & 1);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) mine[i * 128 + tid] = sc[i];
+      named_bar_sync(1, 256);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] += other[i * 128 + tid];
+      release_stage(bar_read, wg ^ 1, lane);
+      const bool edge =
+          c0 + BK > a.skv ||
+          (a.causal && a.q_off + r0 < a.kv_off + c0 + BK - 1);
+      float corr[2];
+      online_softmax<BK>(sc, mrow, lrow, corr, a, edge, c0, qpos, t, false);
+      uint32_t pa[BK / 16][4];
+      pack_a<BK>(pa, sc);   // P to bf16: the rounding of the bf16 rule
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        acc0[i] *= corr[(i >> 1) & 1];
+        acc1[i] *= corr[(i >> 1) & 1];
+      }
+      // O += P·V over this warpgroup's 256 columns
+      wide_outputs<T>(acc0, acc1, pa, ring, bar_full, bar_free, step, na,
+                      2 * wg * BOX, col0 + 256 * wg, a.d, lane);
+      step += na;
+    }
+    const int c = col0 + 256 * wg;
+    store_rows<128>(a, acc0, row0, hb, c, t, lrow);
+    store_rows<128>(a, acc1, row0, hb, c + 128, t, lrow);
+    if (a.m && t == 0 && wg == 0 && blockIdx.z == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = row0 + 8 * h;
+        if (row >= a.sq) continue;
+        a.m[(size_t)hb * a.sq + row] = mrow[h];
+        a.l[(size_t)hb * a.sq + row] = lrow[h];
+      }
+    }
+  }  // consumers
+}
+
+// Tensor maps of q, k and v with 64-row boxes (with no keys nothing is
+// loaded, and the k/v maps describe q); Q resident up to D = 512.
+template <int QRES>
+int run_wgmma_wide(WgArgs& w, void* stream) {
+  using pa_sm90::encode_rows_bf16;
+  using T = WideTiles;
+  const FwdArgs& a = w.a;
+  const bool keys = a.skv > 0;
+  if (!encode_rows_bf16(&w.tq, a.q, a.sq, a.n, a.d, T::BM) ||
+      !encode_rows_bf16(&w.tk, keys ? a.k : a.q, keys ? a.skv : a.sq, a.n,
+                        a.d, T::BN) ||
+      !encode_rows_bf16(&w.tv, keys ? a.v : a.q, keys ? a.skv : a.sq, a.n,
+                        a.d, T::BN))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((a.sq + T::BM - 1) / T::BM, a.n,
+            (a.d + T::FWD_COLS - 1) / T::FWD_COLS);
+  return launch(flash_fwd_wgmma_wide_kernel<T, QRES>, grid, T::NT,
+                FwdWide<QRES>::SMEM, stream, w);
+}
+
+// ---------------------------------------------------------------------------
 // simt instance
 // ---------------------------------------------------------------------------
 
@@ -510,16 +885,193 @@ __global__ void __launch_bounds__(T::NT, T::MINB)
 //   DMAX   64: 64 x 64, 256 threads ( 68.0 KB)
 //   DMAX  128: 64 x 48, 256 threads ( 95.5 KB)
 //   DMAX  256: 32 x 32, 256 threads (102.0 KB)
-//   DMAX  512: 16 x 16, 128 threads ( 98.0 KB)
-//   DMAX 1024:  8 x 16, 128 threads (161.3 KB)
+//   DMAX  512: 16 x 16, 128 threads ( 98.0 KB)  } retired: launched only
+//   DMAX 1024:  8 x 16, 128 threads (161.3 KB)  } by name (phase 9)
 template <class T>
 int run_simt(const FwdArgs& a, void* stream) {
   dim3 grid((a.sq + T::BQ - 1) / T::BQ, a.n);
   return launch(flash_fwd_simt_kernel<T>, grid, T::NT, T::SMEM, stream, a);
 }
 
+// ---------------------------------------------------------------------------
+// tf32x3 instance above D = 256
+// ---------------------------------------------------------------------------
+
+// Arguments of the wide tf32x3 kernel: f32 tensor maps of q (boxes of 32
+// columns x RES rows), k and v (32 columns x STR rows), and the call's.
+struct Tf32FwdArgs {
+  CUtensorMap tq, tk, tv;
+  FwdArgs a;
+};
+
+// Thread 0's loads of a score step: Q's and K's boxes at columns c + 32 i
+// (i < 4; none past d), i = 0, 1 into group 0's half of the stage and
+// i = 2, 3 into group 1's (each: its Q boxes, then its K boxes, the layout
+// wide_score_step reads).
+template <class T>
+__device__ __forceinline__ void fwd_tf32_load_scores(
+    uint8_t* dst, uint64_t* bar, const CUtensorMap* tq, const CUtensorMap* tk,
+    int c, int hb, int rq, int rk, int d) {
+  using namespace pa_sm90;
+  int live = 0;
+  for (int i = 0; i < 4; ++i) live += c + 32 * i < d;
+  mbar_arrive_expect_tx(bar, live * (T::RBOX + T::SBOX));
+  for (int i = 0; i < live; ++i) {
+    uint8_t* grp = dst + (i / 2) * T::GRP;
+    tma_load_3d(grp + (i % 2) * T::RBOX, tq, bar, c + 32 * i, hb, rq);
+    tma_load_3d(grp + 2 * T::RBOX + (i % 2) * T::SBOX, tk, bar, c + 32 * i,
+                hb, rk);
+  }
+}
+
+// One CTA per (64 q rows, slice, 512 columns of out), key tiles of STR
+// inner; warp w of group G = w / 4 holds q rows 16 (w % 4) ...  Per tile
+// the ring carries ns = ceil(d / 128) score steps (boxes 4 s, 4 s + 1 of
+// Q and K for group 0, 4 s + 2, 4 s + 3 for group 1) and one or two
+// output steps (V's rows of the tile at the two groups' 128 columns).
+template <class T>
+__global__ void __launch_bounds__(T::NT, 1)
+    flash_fwd_tf32x3_wide_kernel(const __grid_constant__ Tf32FwdArgs w) {
+  using namespace pa_sm90;
+  constexpr int RES = T::RES, STR = T::STR, ST = T::STAGES;
+  const FwdArgs& a = w.a;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[ST];
+  uint8_t* ring = align1024(smem_raw);
+  float* xch = reinterpret_cast<float*>(ring + ST * T::STAGE);
+
+  int hb;
+  long long r0;
+  cta_tile(a.n, RES, r0, hb);
+  const int col0 = blockIdx.z * T::FWD_COLS;
+  const int nk =
+      visible_tiles(a.skv, a.causal, a.q_off, a.kv_off, r0, RES, STR);
+  const int ns = (a.d + 127) / 128;             // score steps a tile
+  const int na = col0 + 128 < a.d ? 2 : 1;      // output steps a tile
+  const int per = ns + na, total = nk * per;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, grp = warp / 4,
+            wq = warp % 4, g = lane / 4, t = lane % 4, tid = threadIdx.x % 128;
+  const long long row0 = r0 + 16 * wq + g;   // the lane's row of half 0
+  const long long qpos[2] = {a.q_off + row0, a.q_off + row0 + 8};
+
+  // step s (thread 0): Q/K boxes of a score step, or V's boxes at the two
+  // groups' 128 columns of an output step
+  auto issue = [&](int s) {
+    if (s >= total) return;
+    const int kt = s / per, j = s % per, st = s % ST;
+    uint8_t* dst = ring + st * T::STAGE;
+    if (j < ns)
+      fwd_tf32_load_scores<T>(dst, &full[st], &w.tq, &w.tk, 128 * j, hb,
+                              (int)r0, kt * STR, a.d);
+    else
+      wide_out_load<T>(dst, &full[st], &w.tv, &w.tv, col0 + 128 * (j - ns),
+                       256, hb, kt * STR, a.d);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) mbar_init(&full[i], 1);
+    mbar_fence_init();
+    for (int i = 0; i < ST; ++i) issue(i);
+  }
+  __syncthreads();
+
+  float acc0[64], acc1[64], sc[STR / 2];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+  float mrow[2] = {kNeg, kNeg}, lrow[2] = {0.f, 0.f};
+  const bool round_p = a.v_dt == kBF16;
+  int s = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const long long c0 = (long long)kt * STR;
+#pragma unroll
+    for (int i = 0; i < STR / 2; ++i) sc[i] = 0.f;
+    // this group's part of S = Q·Kᵀ: its boxes of each score step
+    for (int j = 0; j < ns; ++j, ++s) {
+      const int st = s % ST, c = 128 * j + 64 * grp;
+      mbar_wait(&full[st], (s / ST) & 1);
+      if (c < a.d)
+        wide_score_step<T>(sc, ring + st * T::STAGE + grp * T::GRP, 16 * wq,
+                           c + 32 < a.d, g, t);
+      __syncthreads();   // stage st read: it takes step s + ST
+      if (threadIdx.x == 0) issue(s + ST);
+    }
+    // swap the partial scores; S = S0 + S1 in both groups
+    float* mine = xch + (2 * (kt & 1) + grp) * T::XCH;
+    const float* other = xch + (2 * (kt & 1) + (grp ^ 1)) * T::XCH;
+#pragma unroll
+    for (int i = 0; i < STR / 2; ++i) mine[i * 128 + tid] = sc[i];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < STR / 2; ++i) sc[i] += other[i * 128 + tid];
+    const bool edge =
+        c0 + STR > a.skv ||
+        (a.causal && a.q_off + r0 < a.kv_off + c0 + STR - 1);
+    float corr[2];
+    online_softmax<STR>(sc, mrow, lrow, corr, a, edge, c0, qpos, t,
+                        round_p);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      acc0[i] *= corr[(i >> 1) & 1];
+      acc1[i] *= corr[(i >> 1) & 1];
+    }
+    // O += P·V over the group's 256 columns, 128 a step
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j >= na) continue;
+      const int st = s % ST;
+      mbar_wait(&full[st], (s / ST) & 1);
+      if (col0 + 256 * grp + 128 * j < a.d) {
+        const float* B = reinterpret_cast<const float*>(
+            ring + st * T::STAGE + grp * 4 * T::SBOX);
+        if (j == 0)
+          box_outputs<STR / 8, STR>(acc0, sc, B, g, t);
+        else
+          box_outputs<STR / 8, STR>(acc1, sc, B, g, t);
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) issue(s + ST);
+      ++s;
+    }
+  }
+  const int c = col0 + 256 * grp;
+  store_rows<128>(a, acc0, row0, hb, c, t, lrow);
+  store_rows<128>(a, acc1, row0, hb, c + 128, t, lrow);
+  if (a.m && t == 0 && grp == 0 && blockIdx.z == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = row0 + 8 * h;
+      if (row >= a.sq) continue;
+      a.m[(size_t)hb * a.sq + row] = mrow[h];
+      a.l[(size_t)hb * a.sq + row] = lrow[h];
+    }
+  }
+}
+
+// Registers a thread, floats: 128 (O over 256 columns) + STR / 2 (S) + the
+// split P fragments (2·STR / 2) + the box products' operands; ptxas's
+// count and spills: chip_smoke.py phase 1.  Shared memory: Tf32WideTiles.
+int run_tf32_wide(const FwdArgs& a, void* stream) {
+  using pa_sm90::encode_rows_f32;
+  using T = Tf32WideTiles;
+  Tf32FwdArgs w{};
+  w.a = a;
+  // with no keys nothing is loaded; the k/v maps then describe q
+  const bool keys = a.skv > 0;
+  if (!encode_rows_f32(&w.tq, a.q, a.sq, a.n, a.d, T::RES) ||
+      !encode_rows_f32(&w.tk, keys ? a.k : a.q, keys ? a.skv : a.sq, a.n,
+                       a.d, T::STR) ||
+      !encode_rows_f32(&w.tv, keys ? a.v : a.q, keys ? a.skv : a.sq, a.n,
+                       a.d, T::STR))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((a.sq + T::RES - 1) / T::RES, a.n,
+            (a.d + T::FWD_COLS - 1) / T::FWD_COLS);
+  return launch(flash_fwd_tf32x3_wide_kernel<T>, grid, T::NT, T::SMEM,
+                stream, w);
+}
+
 }  // namespace pa_flash
 
+// q, k, v each f32 or bf16, d <= 1024 (above 256 the retired tiles, which
+// only a caller that names the instance launches); out in out_dt.
 extern "C" int pa_flash_fwd_simt(const void* q, const void* k, const void* v,
                                  int q_dt, int k_dt, int v_dt, void* out,
                                  int out_dt, float* acc, float* m, float* l,
@@ -538,7 +1090,7 @@ extern "C" int pa_flash_fwd_simt(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// q, k, v bf16 with d <= 256; out in out_dt.
+// q, k, v bf16 with d <= 1024 (above 256 the wide kernel); out in out_dt.
 extern "C" int pa_flash_fwd_wgmma(const void* q, const void* k, const void* v,
                                   void* out, int out_dt, float* acc, float* m,
                                   float* l, int n, int sq, int skv, int d,
@@ -552,5 +1104,24 @@ extern "C" int pa_flash_fwd_wgmma(const void* q, const void* k, const void* v,
   if (d <= 64) return run_wgmma<WgTiles<64, 128>>(w, stream);
   if (d <= 128) return run_wgmma<WgTiles<128, 128>>(w, stream);
   if (d <= 256) return run_wgmma<WgTiles<256, 64>>(w, stream);
+  if (d <= 512) return run_wgmma_wide<1>(w, stream);
+  if (d <= 1024) return run_wgmma_wide<0>(w, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q, k, v f32 (a bf16 operand of a mixed call widened by the caller) with
+// 256 < d <= 1024; v_dt is v's dtype before that (bf16 rounds P before
+// P·V); out in out_dt.
+extern "C" int pa_flash_fwd_tf32x3(const void* q, const void* k,
+                                   const void* v, int v_dt, void* out,
+                                   int out_dt, float* acc, float* m, float* l,
+                                   int n, int sq, int skv, int d, float scale,
+                                   int causal, long long q_off,
+                                   long long kv_off, void* stream) {
+  using namespace pa_flash;
+  const FwdArgs a{q,  k,  v,   kF32, kF32,  v_dt,   out,   out_dt, acc,
+                  m,  l,  n,   sq,   skv,   d,      scale, causal, q_off,
+                  kv_off};
+  if (d > 256 && d <= 1024) return run_tf32_wide(a, stream);
   return (int)cudaErrorInvalidValue;
 }

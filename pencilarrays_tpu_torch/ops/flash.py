@@ -11,11 +11,20 @@ in place: nothing is transposed or padded around a launch.
   package: the normalized output, ``return_stats`` (output plus the folded
   ``(m, l)`` row statistics) and ``partials`` (raw ``(m, l, acc)`` in f32,
   which merge exactly across disjoint key sets — one call per ring round).
-  Two instances, chosen by :func:`fwd_instance`: ``"wgmma"`` (q, k and v
-  all bf16, ``d <= 256``: tensor cores fed by TMA) and ``"simt"`` (every
-  other case: register-blocked f32 FMA fed by ``cp.async``).  Both load
-  tiles in 16-byte units, so an operand whose data does not start on a
-  16-byte boundary is first copied (counted in :data:`realigned_copies`);
+  Three instances, chosen by :func:`fwd_instance`: ``"wgmma"`` (q, k and
+  v all bf16, every ``d``: bf16 tensor cores fed by TMA), ``"tf32x3"``
+  (any f32 operand, ``d > 256``: tensor cores at f32 accuracy, each f32
+  product as three TF32 ones) and ``"simt"`` (any f32 operand, ``d <=
+  256``: register-blocked f32 FMA fed by ``cp.async``).  Above ``d = 256``
+  the wgmma and tf32x3 kernels stream K and V (and Q, but for the wgmma
+  one up to ``d = 512``) in TMA boxes, reduce the scores over the head
+  dim a box at a time in two warp groups and split the output columns
+  between them (the tf32x3 one reads f32 only: a bf16 operand of such a
+  call is widened first).  All load 16-byte
+  units, so an operand whose data does not start on a 16-byte boundary is
+  first copied (counted in :data:`realigned_copies`).  The simt kernel's
+  tiles above ``d = 256`` are retired: only :func:`launch_fwd` with
+  ``instance="simt"`` runs them (``chip_smoke.py`` times them);
 * K3 and K4 (``csrc/flash_bwd.cu``, ``csrc/flash_bwd_tf32.cu``) — the
   backward as two kernels, dq with key tiles inner and dk/dv with q tiles
   inner, rebuilding each score block from the saved logsumexp
@@ -30,9 +39,7 @@ in place: nothing is transposed or padded around a launch.
   a box at a time and split the output columns between two warp groups
   (the tf32x3 ones read f32 only: a bf16 operand of such a call is
   widened first).  Both load 16-byte units, so operands not on 16 bytes
-  are copied as for K2.  The retired ``"simt"`` kernels (f32 FMA) launch
-  only when a caller names them (``instance="simt"``: ``chip_smoke.py``
-  times them).
+  are copied as for K2.
 
 Conventions of the TPU kernels, kept bit for bit where they are defined:
 masked scores take ``NEG = finfo(float32).min / 2``; the causal mask is
@@ -67,6 +74,7 @@ __all__ = [
     "bwd_instance",
     "stream_stats",
     "normalize",
+    "launch_fwd",
     "launch_dq",
     "launch_dkv",
     "flash_attention_fwd",
@@ -80,21 +88,22 @@ __all__ = [
 
 launches_fwd = 0
 """K2 launches since the last reset (``flash.launches_fwd = 0``)."""
-launches_fwd_by_instance = {"wgmma": 0, "simt": 0}
-"""K2 launches by instance (see :func:`fwd_instance`) since the last reset
-(set each entry to 0); they sum to :data:`launches_fwd`."""
+launches_fwd_by_instance = {"wgmma": 0, "tf32x3": 0, "simt": 0}
+"""K2 launches by instance (see :func:`fwd_instance`; ``"simt"`` above
+``d = 256`` counts the retired tiles' launches by name) since the last
+reset (set each entry to 0); they sum to :data:`launches_fwd`."""
 realigned_copies = 0
 """Operands of K2 and of K3/K4's wgmma and tf32x3 instances copied to a
 fresh allocation because their data did not start on a 16-byte
 boundary."""
 launches_dq = 0
 """K3 launches since the last reset."""
-launches_dq_by_instance = {"wgmma": 0, "tf32x3": 0, "simt": 0}
-"""K3 launches by instance (see :func:`bwd_instance`; ``"simt"`` counts the
-retired kernel's launches by name); they sum to :data:`launches_dq`."""
+launches_dq_by_instance = {"wgmma": 0, "tf32x3": 0}
+"""K3 launches by instance (see :func:`bwd_instance`); they sum to
+:data:`launches_dq`."""
 launches_dkv = 0
 """K4 launches since the last reset."""
-launches_dkv_by_instance = {"wgmma": 0, "tf32x3": 0, "simt": 0}
+launches_dkv_by_instance = {"wgmma": 0, "tf32x3": 0}
 """K4 launches by instance (see :func:`bwd_instance`); they sum to
 :data:`launches_dkv`."""
 
@@ -117,11 +126,14 @@ def supported(d: int, *dtypes) -> bool:
 def fwd_instance(d: int, q_dtype: torch.dtype, k_dtype: torch.dtype,
                  v_dtype: torch.dtype) -> str:
     """Which instance of K2 takes a call: ``"wgmma"`` when q, k and v are
-    all bfloat16 and ``d <= 256`` (the tensor-core kernel), else
-    ``"simt"`` (any float32 operand, mixes included, and every ``d >
-    256``).  Neither is a fallback for the other."""
-    return ("wgmma" if _all_bf16(q_dtype, k_dtype, v_dtype) and d <= 256
-            else "simt")
+    all bfloat16 (bf16 tensor cores, at every head dim the kernels take;
+    above ``d = 256`` its wide kernel), else, for any float32 operand,
+    mixes included, ``"tf32x3"`` above ``d = 256`` (tensor cores at f32
+    accuracy) and ``"simt"`` up to it (f32 FMA on the CUDA cores).  None
+    is a fallback for another."""
+    if _all_bf16(q_dtype, k_dtype, v_dtype):
+        return "wgmma"
+    return "tf32x3" if d > 256 else "simt"
 
 
 def bwd_instance(d: int, q_dtype: torch.dtype, k_dtype: torch.dtype,
@@ -326,8 +338,7 @@ _ARGTYPES = {   # the C signatures of csrc/flash_fwd.cu, flash_bwd.cu and
     #               flash_bwd_tf32.cu
     "pa_flash_fwd_simt": "pppiiipipppiiiifillp",
     "pa_flash_fwd_wgmma": "ppppipppiiiifillp",
-    "pa_flash_bwd_dq": "ppppiiiipppiiiiifillp",
-    "pa_flash_bwd_dkv": "ppppiiiippppiiiiifillp",
+    "pa_flash_fwd_tf32x3": "pppipipppiiiifillp",
     "pa_flash_bwd_dq_wgmma": "pppppppiiiiifillp",
     "pa_flash_bwd_dkv_wgmma": "ppppppppiiiiifillp",
     "pa_flash_bwd_dq_tf32x3": "ppppiiiipppiiiiifillp",
@@ -411,26 +422,41 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _launch_fwd(qf, kf, vf, out, acc, m, l, *, causal, q_offset,
-                kv_offset):
+def launch_fwd(qf, kf, vf, out, acc, m, l, *, causal, q_offset, kv_offset,
+               instance: Optional[str] = None):
     """One K2 launch on folded contiguous 16-byte-aligned ``(S, N, D)``
-    operands, by the instance :func:`fwd_instance` picks."""
+    operands, by the instance :func:`fwd_instance` picks (or ``instance``:
+    ``"simt"`` above ``d = 256`` launches the retired tiles), into the
+    outputs given (``None``: not written): ``out`` ``(Sq, N, D)`` in f32 or
+    bf16, ``acc`` ``(Sq, N, D)`` f32, ``m`` and ``l`` ``(N, Sq)`` f32.
+    The tf32x3 instance reads f32 q, k and v: a bf16 operand is widened to
+    a fresh f32 tensor first, one pass each, and v's own dtype still
+    decides the rounding of P."""
     global launches_fwd
     sq, n, d = qf.shape
-    inst = fwd_instance(d, qf.dtype, kf.dtype, vf.dtype)
+    inst = instance or fwd_instance(d, qf.dtype, kf.dtype, vf.dtype)
     out_dt = _DT[out.dtype] if out is not None else 0
-    tail = (n, sq, kf.shape[0], d, 1.0 / math.sqrt(d), int(causal),
-            q_offset, kv_offset, _stream(qf))
+    tail = (_ptr(out), out_dt, _ptr(acc), _ptr(m), _ptr(l), n, sq,
+            kf.shape[0], d, 1.0 / math.sqrt(d), int(causal), q_offset,
+            kv_offset, _stream(qf))
+    # `held` keeps the tensors the pointers name alive through the launch
+    held = (qf, kf, vf)
+    if inst == "wgmma":
+        if not _all_bf16(qf.dtype, kf.dtype, vf.dtype):
+            raise TypeError("flash forward: the wgmma instance takes bf16 "
+                            "q, k and v")
+        entry, head = "pa_flash_fwd_wgmma", ()
+    elif inst == "tf32x3":
+        held = tuple(x.float() for x in held)
+        entry, head = "pa_flash_fwd_tf32x3", (_DT[vf.dtype],)
+    elif inst == "simt":
+        entry = "pa_flash_fwd_simt"
+        head = tuple(_DT[x.dtype] for x in held)
+    else:
+        raise ValueError(f"flash forward: no instance {inst!r}")
     with torch.cuda.device(qf.device):
-        if inst == "wgmma":
-            err = _fn("flash_fwd", "pa_flash_fwd_wgmma")(
-                _ptr(qf), _ptr(kf), _ptr(vf), _ptr(out), out_dt, _ptr(acc),
-                _ptr(m), _ptr(l), *tail)
-        else:
-            err = _fn("flash_fwd", "pa_flash_fwd_simt")(
-                _ptr(qf), _ptr(kf), _ptr(vf), _DT[qf.dtype], _DT[kf.dtype],
-                _DT[vf.dtype], _ptr(out), out_dt, _ptr(acc), _ptr(m),
-                _ptr(l), *tail)
+        err = _fn("flash_fwd", entry)(*(_ptr(x) for x in held), *head,
+                                      *tail)
     _raise_on(err, f"flash forward ({inst})")
     launches_fwd += 1
     launches_fwd_by_instance[inst] += 1
@@ -447,7 +473,6 @@ _BWD_ENTRIES = {
     "wgmma": ("flash_bwd", "pa_flash_bwd_dq_wgmma", "pa_flash_bwd_dkv_wgmma"),
     "tf32x3": ("flash_bwd_tf32", "pa_flash_bwd_dq_tf32x3",
                "pa_flash_bwd_dkv_tf32x3"),
-    "simt": ("flash_bwd", "pa_flash_bwd_dq", "pa_flash_bwd_dkv"),
 }
 
 
@@ -473,7 +498,7 @@ def _bwd_call(qf, kf, vf, dof, instance) -> Tuple[str, tuple, tuple]:
 def launch_dq(qf, kf, vf, dof, L, D, dq, *, causal, q_offset, kv_offset,
               instance: Optional[str] = None):
     """One K3 launch, by the instance :func:`bwd_instance` picks (or
-    ``instance``: ``"simt"`` launches the retired kernel): ``dq`` (folded
+    ``instance``, ``"wgmma"`` or ``"tf32x3"``): ``dq`` (folded
     ``(Sq, N, D)``, f32 or bf16) from folded contiguous operands (for the
     wgmma and tf32x3 instances starting on 16 bytes) and ``(N, Sq)`` f32
     residuals."""
@@ -545,8 +570,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False, q_offset=0,
         m = torch.empty((n, sq), dtype=f32, device=dev)
         l = torch.empty((n, sq), dtype=f32, device=dev)
     if sq and n and d:
-        _launch_fwd(qf, kf, vf, out, acc, m, l, causal=causal,
-                    q_offset=q_offset, kv_offset=kv_offset)
+        launch_fwd(qf, kf, vf, out, acc, m, l, causal=causal,
+                   q_offset=q_offset, kv_offset=kv_offset)
     if partials:
         return _unfold_partials(q, m, l, acc)
     out = out.reshape(q.shape)

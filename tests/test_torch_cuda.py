@@ -106,12 +106,12 @@ def _by_instance():
 def _flash_case(dtype, causal, q_off, kv_off, q, k, v):
     """flash_compare within chip_smoke.py's tolerances, with the launches
     it makes: K2 three times (its three modes), by the wgmma instance in
-    bf16 with d <= 256 and the simt one otherwise; K3 and K4 twice each in
-    f32 (full and partials backward), by the tf32x3 instance, three times
-    each in bf16 (full and partials with a bf16 dO by the wgmma instance,
-    partials with an f32 dO by the tf32x3 one), at every head dim (above
-    d = 256 by their wide kernels); the retired simt kernels of K3 and K4
-    never."""
+    bf16 and in f32 by the simt one up to d = 256, the tf32x3 one above;
+    K3 and K4 twice each in f32 (full and partials backward), by the
+    tf32x3 instance, three times each in bf16 (full and partials with a
+    bf16 dO by the wgmma instance, partials with an f32 dO by the tf32x3
+    one), at every head dim; above d = 256 each by its wide kernels, and
+    K2's simt tiles there never."""
     from chip_smoke import FLASH_TOL, flash_compare
 
     n0 = (flash.launches_fwd, flash.launches_dq, flash.launches_dkv)
@@ -127,10 +127,10 @@ def _flash_case(dtype, causal, q_off, kv_off, q, k, v):
     by = [{i: c[i] - c0[i] for i in c0}
           for c, c0 in zip(_by_instance(), by0)]
     wide = q.shape[-1] > 256
-    want_fwd = {"wgmma": 3 * (bf16 and not wide),
-                "simt": 3 * (wide or not bf16)}
-    want_bwd = ({"wgmma": 2, "tf32x3": 1, "simt": 0} if bf16 else
-                {"wgmma": 0, "tf32x3": 2, "simt": 0})
+    want_fwd = {"wgmma": 3 * bf16, "tf32x3": 3 * (wide and not bf16),
+                "simt": 3 * (not wide and not bf16)}
+    want_bwd = ({"wgmma": 2, "tf32x3": 1} if bf16 else
+                {"wgmma": 0, "tf32x3": 2})
     assert by == [want_fwd, want_bwd, want_bwd]
 
 
@@ -145,7 +145,7 @@ def test_flash_kernels_match_plain_on_the_card(dtype, causal, q_off, kv_off,
     against the plain versions, each row relative to its own scale, within
     chip_smoke.py's tolerances; one launch of each kernel per call, by the
     instance the head dim and dtypes pick (see _flash_case): every
-    instance of each kernel, and K3/K4's wide kernels above d = 256, is
+    instance of each kernel, and K2–K4's wide kernels above d = 256, is
     held to the plain version."""
     _skip_without_card()
     sq, skv, h, b = 133, 201, 2, 3
@@ -179,7 +179,9 @@ def test_flash_storage_offset_on_the_card(dtype):
 @pytest.mark.cuda
 def test_mixed_dtypes_launch_the_kernels():
     """flash_attention with q/k/v of mixed f32/bf16 dtypes takes K2–K4
-    under impl="auto", and agrees with impl="plain"."""
+    under impl="auto", and agrees with impl="plain", at each head dim of
+    chip_smoke.MIXED_DIMS (K2 by simt, then by its wide tf32x3 kernel,
+    which must round P to bf16 for a bf16 v)."""
     _skip_without_card()
     from chip_smoke import _mixed_check
     from pencilarrays_tpu_torch.models import attention

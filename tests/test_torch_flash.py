@@ -63,12 +63,16 @@ FWD = [
     (72, 96, 2, 1, 16, True, 0, 3, 32, False),     # rows with no key
     (72, 96, 2, 1, 16, True, 17, 9, 32, False),
     (64, 64, 2, 1, 32, True, 0, 0, 64, True),
+    (40, 70, 2, 1, 320, True, 5, 3, 32, False),    # head dims of the wide
+    (48, 64, 2, 1, 512, False, 0, 0, 64, False),   # kernels
 ]
 
 
 @pytest.mark.parametrize("case", FWD, ids=lambda c: "-".join(map(str, c)))
 def test_fwd_plain_matches_pallas(case):
-    """Plain K2 in all three output modes against the Pallas kernel."""
+    """Plain K2 in all three output modes against the Pallas kernel; at
+    head dims 16 and 32, and at 320 and 512, where the card runs K2's wide
+    kernels."""
     sq, skv, h, b, d, causal, qo, ko, bq, bf16 = case
     q, k, v = _arrays(1, (sq, h, b, d), (skv, h, b, d), (skv, h, b, d))
     kw = dict(causal=causal, q_offset=qo, kv_offset=ko)
@@ -254,14 +258,18 @@ MIXES = [(a, b, c) for a in ("float32", "bfloat16")
 
 
 @pytest.mark.parametrize("mix", MIXES, ids=lambda m: "-".join(m))
-@pytest.mark.parametrize("d", [8, 64, 72, 128, 256, 264, 1024])
+@pytest.mark.parametrize("d", [8, 64, 72, 128, 256, 264, 384, 512, 1024])
 def test_fwd_instance(d, mix):
-    """K2's instance rule: the tensor-core (wgmma) instance takes q, k and
-    v all bf16 with d <= 256, the simt instance every other case the
-    kernels take.  CPU tensors run the plain version and launch neither."""
+    """K2's instance rule: the bf16 tensor-core (wgmma) instance takes q,
+    k and v all bf16 at every head dim (above d = 256 its wide kernel);
+    any f32 operand goes to the tf32x3 instance above d = 256 and to the
+    simt one up to it.  CPU tensors run the plain version and launch
+    none."""
     dtypes = [getattr(torch, name) for name in mix]
-    want = ("wgmma" if d <= 256 and all(dt == torch.bfloat16 for dt in dtypes)
-            else "simt")
+    if all(dt == torch.bfloat16 for dt in dtypes):
+        want = "wgmma"
+    else:
+        want = "tf32x3" if d > 256 else "simt"
     assert flash.fwd_instance(d, *dtypes) == want
     q, k, v = (_torch(a).to(dt) for a, dt in zip(
         _arrays(10, (5, 2, 1, d), (7, 2, 1, d), (7, 2, 1, d)), dtypes))
@@ -485,3 +493,154 @@ def test_tf32x3_split_meets_the_f32_tolerance(shape, offsets, without):
     errs_without = _tf32x3_errs(*shape, 21, kw, **without)
     assert max(errs) <= 1e-5, errs
     assert max(errs_without) > 5e-5, errs_without
+
+
+def _chain(acc, a, b, passes):
+    """float32 ``acc + a @ b`` as one mma.sync accumulator chain: per k8
+    step the split products (as ``_mm``) each added to ``acc`` and rounded
+    toward zero."""
+    ab, bb = _tf32(a), _tf32(b)
+    prods = [(ab, bb)]
+    if passes == 3:
+        prods = [(_tf32(a - ab), bb), (ab, _tf32(b - bb)), (ab, bb)]
+    for k in range(0, a.shape[-1], 8):
+        for x, y in prods:
+            acc = _rz(acc.double() + x[..., k:k + 8].double()
+                      @ y[..., k:k + 8, :].double())
+    return acc
+
+
+def _tf32x3_fwd(q, k, v, *, causal, q_offset, kv_offset, passes=3,
+                one_s=False, one_o=False, round_p=False):
+    """The arithmetic of K2's wide tf32x3 kernel on folded (S, N, D)
+    float32 tensors (``round_p``: P rounded to bf16 after the row sum, as
+    the kernel does for a bf16 v, which it reads widened to f32).  S = Q·Kᵀ by 32-column boxes, each box's
+    split products a fresh accumulator chain; the two warp groups take the
+    boxes in pairs by turns (4 s, 4 s + 1 and 4 s + 2, 4 s + 3), each adds
+    its boxes in order with float32 adds (to nearest), and S is the sum of
+    the two groups' parts.  Then per tile of 32 keys the online softmax
+    (running max m, corr = exp2((m_old - m)·log2 e), P = exp2(S·scale·log2
+    e - m·log2 e) as one fmaf, l = l·corr + rowsum P) and O = O·corr +
+    P·V, P·V of the tile a fresh accumulator chain.  ``one_s``: one chain
+    over the whole head dim in place of a fresh one per box; ``one_o``: O
+    itself the chain over all keys; ``passes=1``: single-pass TF32."""
+    sq, n, d = q.shape
+    skv = k.shape[0]
+    scale = np.float32(1.0 / np.sqrt(d))
+    log2e = np.float32(1.4426950408889634)
+    qh, vh = q.permute(1, 0, 2), v.permute(1, 0, 2)
+    kt = k.permute(1, 2, 0)
+    zero = torch.zeros((n, sq, skv))
+    if one_s:
+        s = _chain(zero, qh, kt, passes)
+    else:
+        part = [zero, zero]
+        for b in range((d + 31) // 32):
+            c = slice(32 * b, 32 * b + 32)
+            g = (b // 2) % 2
+            part[g] = part[g] + _chain(zero, qh[..., c], kt[:, c], passes)
+        s = part[0] + part[1]
+    rows = q_offset + torch.arange(sq)[:, None]
+    m = torch.full((n, sq), flash.NEG)
+    l = torch.zeros((n, sq))
+    acc = torch.zeros((n, sq, d))
+    for c0 in range(0, skv, 32):
+        x = s[..., c0:c0 + 32] * scale
+        if causal:
+            cols = kv_offset + c0 + torch.arange(x.shape[-1])[None, :]
+            x = torch.where(rows >= cols, x, torch.tensor(flash.NEG))
+        mn = torch.maximum(m, x.amax(-1))
+        corr = torch.exp2((m - mn) * log2e)
+        p = torch.exp2((x.double() * float(log2e)
+                        - (mn * log2e).double()[..., None]).float())
+        l = l * corr + p.sum(-1)
+        if round_p:
+            p = p.bfloat16().float()
+        acc = acc * corr[..., None]
+        if one_o:
+            acc = _chain(acc, p, vh[:, c0:c0 + 32], passes)
+        else:
+            acc = acc + _chain(torch.zeros_like(acc), p, vh[:, c0:c0 + 32],
+                               passes)
+        m = mn
+    return (acc / l[..., None]).permute(1, 0, 2), m, l
+
+
+def _tf32x3_fwd_errs(sq, skv, n, d, seed, kw, **how):
+    """Per-row errors (chip_smoke's _rel_err; m held to the larger of its
+    own max|exact| and its largest term, as flash_compare holds it) of the
+    emulated tf32x3 forward's out, m and l against the plain forward in
+    float64, on the rows that see a key."""
+    from chip_smoke import _rel_err
+
+    q, k, v = (torch.from_numpy(a) for a in _arrays(
+        seed, (sq, n, d), (skv, n, d), (skv, n, d)))
+    rows = torch.from_numpy((kw["q_offset"] + np.arange(sq))
+                            >= kw["kv_offset"])
+    out, (m, l) = flash.flash_attention_fwd_plain(
+        q.double(), k.double(), v.double(), return_stats=True, **kw)
+    got, gm, gl = _tf32x3_fwd(q, k, v, **kw, **how)
+    m_terms = q.abs().amax(-1) * float(k.abs().max()) / np.sqrt(d)
+    return [_rel_err(torch, got, out, rows),
+            _rel_err(torch, gm.t(), m.t(), rows, m_terms),
+            _rel_err(torch, gl.t(), l.t(), rows)]
+
+
+@pytest.mark.parametrize("shape,offsets,without", [
+    ((45, 67, 3, 320), (True, 17, 9), dict(passes=1)),
+    ((45, 67, 3, 512), (False, 0, 0), dict(passes=1)),
+    ((45, 67, 3, 512), (True, 5, 0), dict(passes=1)),
+    ((45, 67, 3, 1024), (False, 0, 0), dict(one_s=True)),
+    ((16, 8192, 2, 320), (False, 0, 0), dict(one_o=True)),
+    ((16, 8192, 2, 512), (True, 8192, 0), dict(one_o=True)),
+])
+def test_tf32x3_fwd_split_meets_the_f32_tolerance(shape, offsets, without):
+    """The numerical case for K2's wide tf32x3 kernel, checked without a
+    card: its arithmetic, emulated in torch with TF32 rounding as cvt.rna
+    does it, the accumulation as mma.sync does it (toward zero) and the
+    kernel's own boxes, group order and key tiles, stays within 5e-6 of
+    each row's scale (about 1.6e-6) from the plain forward in float64, half
+    of K2's f32 bar in chip_smoke.py (1e-5); without each part of the
+    design it misses that bar: single-pass TF32, one accumulator chain
+    over the head dim where it is long (d = 1024: 192 truncating adds a
+    score at d = 512 already reach about 1.1e-5) in place of a fresh one
+    per 32-column box, and one over 8192 keys (O's whole history, about
+    1e-4) in place of a fresh one per key tile."""
+    kw = dict(zip(("causal", "q_offset", "kv_offset"), offsets))
+    errs = _tf32x3_fwd_errs(*shape, 21, kw)
+    errs_without = _tf32x3_fwd_errs(*shape, 21, kw, **without)
+    assert max(errs) <= 5e-6, errs
+    assert max(errs_without) > 1e-5, errs_without
+
+
+@pytest.mark.parametrize("d,offsets", [
+    (320, (True, 17, 9)), (512, (False, 0, 0)), (1024, (True, 5, 0))])
+def test_tf32x3_fwd_rounds_p_for_bf16_v(d, offsets):
+    """chip_smoke.py's bar for P's rounding in K2's wide tf32x3 kernel on
+    a bf16 v (_p_rounding), checked on the kernel's emulated arithmetic:
+    with P rounded to bf16 as the kernel rounds it, the mean of the rows'
+    worst errors against the plain version in float64 that rounds P in
+    the same key tiles stays under a quarter of that version's distance
+    from the one that does not round; with P left unrounded it does not."""
+    from chip_smoke import WIDE_TF32_KEYS, _rel_err
+
+    kw = dict(zip(("causal", "q_offset", "kv_offset"), offsets))
+    q, k, v = (torch.from_numpy(a) for a in _arrays(
+        23, (45, 3, d), (67, 3, d), (67, 3, d)))
+    v = v.bfloat16().float()
+    rows = torch.from_numpy((kw["q_offset"] + np.arange(45))
+                            >= kw["kv_offset"])
+
+    def plain(p_dtype):
+        m, l, acc = flash.stream_stats(
+            q.double(), k.double(), v.double(), chunk=WIDE_TF32_KEYS,
+            score_dtype=torch.float64, p_dtype=p_dtype, **kw)
+        return flash.normalize(l, acc, torch.float64)
+
+    rounded = plain(torch.bfloat16)
+    dist = _rel_err(torch, plain(None), rounded, rows, mean=True)
+    err, err_without = (
+        _rel_err(torch, _tf32x3_fwd(q, k, v, **kw, round_p=r)[0], rounded,
+                 rows, mean=True) for r in (True, False))
+    assert err <= dist / 4, (err, dist)
+    assert err_without > dist / 4, (err_without, dist)
