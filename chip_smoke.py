@@ -15,9 +15,9 @@ standard output too.  Phases, each printed on its own lines:
    and spill bytes (``-Xptxas -v``), a ``cuobjdump -sass`` check that
    every wgmma kernel of K2, K3 and K4 (their wide ones above D = 256
    among them) holds HGMMA and UTMALDG instructions and spills nothing,
-   and every tf32x3 kernel of K2 (its wide one), K3 and K4 TF32 HMMA
-   ones (the wide ones UTMALDG too), spilling no more than it did when
-   tuned; a 1-rank NCCL process group;
+   and every tf32x3 kernel of K2, K3 and K4 TF32 HMMA ones (the wide
+   ones UTMALDG too), spilling no more than they did when tuned; a
+   1-rank NCCL process group;
 2. kernel K1 (``pencilarrays_tpu_torch/ops/csrc/permute.cu``) against its
    plain PyTorch versions on the card, bit for bit, over the main path's
    shapes, ragged shapes in six dtypes, pack/unpack with P = 1, 2, 4,
@@ -149,7 +149,10 @@ standard output too.  Phases, each printed on its own lines:
    each rank a process of its own on the card (a one-rank NCCL world on a
    (1, 1) topology, ``tests/torch_cluster_worker.py``), joined only by a
    ``FileKV`` under ``chip_smoke_cluster/`` (deleted after); the drill step
-   is one NS RK2 step at 512^3 f32 and an x->y->x round trip of the state.
+   is one NS RK2 step at 512^3 f32 in the world-2 ``elastic`` drill (the
+   time-to-recover metric), 128^3 in the others, and an x->y->x round
+   trip of the state; the uninterrupted runs of the elastic drills run
+   beside the gate-only drills.
    At world 2: ``sdc`` (an agreed retry, then an agreed restore of step 1,
    bit-identical), ``kill`` (a typed ``PeerFailureError`` naming rank 0
    within the lease deadline, with a bundle), ``restore`` (fresh processes
@@ -161,9 +164,9 @@ standard output too.  Phases, each printed on its own lines:
    reformation, ``SERVE_RESUMED=2``), ``storm`` (each rank's service sheds
    4 sheddable reshards typed at submit, rank 1 is killed inside the
    storm batch, the survivor reforms and serves its 4 protected reshards
-   bit-identical), ``scale`` at 256^3 (idle scale-down by
+   bit-identical), ``scale`` (idle scale-down by
    ``announce_leave``, the leaver rejoins pre-warmed, admitted by the
-   scale-up); then ``elastic`` at world 4 and 256^3 (world 4 -> 3); each
+   scale-up); then ``elastic`` at world 4 (world 4 -> 3); each
    rank reports the K1 classes it launched, timed in phase 2 under the
    path ``cluster``; prints ``[cluster]`` lines;
 5g. (run right after 5f) the plan service (``serve/``) at BASELINE config
@@ -236,7 +239,8 @@ standard output too.  Phases, each printed on its own lines:
    f32 and bf16), each with its own asserts, then ``entry()`` and
    ``dryrun(1)`` (no byte across ranks); each example's wall seconds,
    checks and K1–K4 launches (paths ``examples.<name>``,
-   ``entry.dryrun``); then each at a small shape on the card against
+   ``entry.dryrun``; K2 by tf32x3 and wgmma only); then each at a small
+   shape on the card against
    the same on the CPU (which launches no kernel); files in
    ``chip_smoke_examples/``, deleted after; the NCCL world made again
    after it; prints ``[examples]`` lines;
@@ -249,36 +253,36 @@ standard output too.  Phases, each printed on its own lines:
    to its own scale (rows of m, dq and dk to their largest term where it
    is larger: a sum that cancels is held to its rounding); every K2 call
    launches the instance ``fwd_instance`` picks (wgmma for all-bf16
-   operands at every head dim; for any f32 one simt up to 256 and tf32x3
-   above: no call takes the simt tiles above 256) and every K3/K4 call
+   operands, tf32x3 for any f32 one, at every head dim: no call takes the
+   retired simt instance) and every K3/K4 call
    the one ``bwd_instance`` picks (wgmma for all-bf16 operands, tf32x3
    for any f32 one, at every head dim); above 256 all run their wide
    kernels; then the tensor-core instances at their edges, in bf16
-   (K2–K4's wgmma) and in f32 (K3/K4's tf32x3, K2's wide one): head dims
-   40 to 256 and the wide 264 and 1000, Sq < 64, Skv = 1, ragged Skv,
-   k/v views with a storage offset, aligned and not;
+   (K2–K4's wgmma) and in f32 (K2–K4's tf32x3): head dims 40 to 256 and
+   the wide 264 and 1000, Sq < 64, Skv = 1, ragged Skv, k/v views with a
+   storage offset, aligned and not; the worst f32 K2 row and its case;
 7. serving at full width (S = 4096, H = 8, D = 128): Ulysses and causal
    ring attention over NCCL on a (1,) topology, f32 and bf16, each held
    to dense attention, with the K1/K2 launches of each call and K2's by
-   instance (bf16 calls launch only the wgmma one, f32 at D = 128 only the
-   simt one);
+   instance (bf16 calls launch only the wgmma one, f32 only the tf32x3
+   one);
 8. training: the block of ``examples/long_context_training.py``,
    through its port (``pencilarrays_tpu_torch/examples/
    long_context_training.py``), at full width (causal ring attention, which runs the naive schedule on one
    rank; MSE; SGD) for 3 steps, in f32 and in bf16 (f32 master weights,
    bf16 projections and attention): the loss falls, one step's gradients
    match the plain path, K2–K4 launched by the wgmma instances in bf16,
-   K2's simt and K3/K4's tf32x3 ones in f32; then 2 steps a dtype at
+   the tf32x3 ones in f32; then 2 steps a dtype at
    D = 512, where K2, K3 and K4 run their wide kernels, wgmma in bf16 and
    tf32x3 in f32, and nothing else;
 9. K2–K4 times at the headline shape, f32 and bf16, causal and not:
    kernel, plain, SDPA (a yardstick the port never calls; the CUDA
    kernels it launches, from the profiler) and bound, each kernel by the
-   instance its dtype picks, held to the plain version; then D = 512,
-   causal and not: K2–K4's wide kernels and K2's retired simt tiles
-   (launched by name) on the same inputs, SDPA by its default dispatch
-   (flash and cuDNN refuse D = 512; the memory-efficient backend takes
-   it);
+   instance its dtype picks, held to the plain version, and K2's retired
+   simt instance (launched by name) on the same inputs; f32 K2 at D = 256,
+   causal and not, by tf32x3 beside simt; then D = 512, causal and not:
+   K2–K4's wide kernels, SDPA by its default dispatch (flash and cuDNN
+   refuse D = 512; the memory-efficient backend takes it);
 10. a ``{"kernels": [...]}`` line: per kernel its launches on each path
     (each counted from 0 just before its run; K1's on the NS steps, the
     four cycles, the six wired cycles, the reshard runs, the fused hop, the DCT plan, the spectral operators,
@@ -291,9 +295,10 @@ standard output too.  Phases, each printed on its own lines:
     ``grad_ns_checkpoint``, ``dtypes`` and ``topo3``, and phase 5j's
     ``examples.<name>`` and ``entry.dryrun``) and their sum, by
     instance, its error against the plain version and its times (K1's per
-    class in ``timings``); K2, K3 and K4's wide kernels (D > 256) have
+    class in ``timings``; K2's beside its retired simt instance, and f32
+    K2 at D = 256 too); K2, K3 and K4's wide kernels (D > 256) have
     entries of their own, launched on phase 8's wide paths and timed at
-    D = 512 (K2's beside its retired simt tiles);
+    D = 512;
 11. the last line, ``{"ok": true, "device": {...}}``.
 """
 
@@ -307,6 +312,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -409,8 +415,8 @@ def random_tensor(torch, shape, dtype, gen):
 
 # device kernels by the layer that launches them (substrings of the name)
 KERNEL_GROUPS = [
-    ("k2_flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_simt_kernel",
-                      "flash_fwd_wgmma_wide_kernel",
+    ("k2_flash_fwd", ("flash_fwd_wgmma_kernel", "flash_fwd_tf32x3_kernel",
+                      "flash_fwd_simt_kernel", "flash_fwd_wgmma_wide_kernel",
                       "flash_fwd_tf32x3_wide_kernel")),
     ("k3_flash_dq", ("flash_dq_wgmma_kernel", "flash_dq_tf32x3_kernel",
                      "flash_dq_wgmma_wide_kernel",
@@ -536,7 +542,8 @@ SASS_WANT_WIDE = {"wgmma": ["HGMMA", "UTMALDG"],
                   "tf32x3": ["HMMA.TF32", "UTMALDG"]}
 # spill bytes (stores + loads) each instance's kernels of K2–K4 may total:
 # none for wgmma; for tf32x3 what ptxas 12.8 gave when the kernels were
-# tuned (K2 40 + 48 in its wide kernel, at 255 registers; K3 4 + 4 at
+# tuned (K2 40 + 48 in its wide kernel, at 255 registers, and none up to
+# D = 256; K3 4 + 4 at
 # D = 256 and 48 + 32 wide; K4 16 + 20 at D = 128 and 84 + 56 wide: the
 # wide kernels with 16-row streamed tiles spill nothing but run longer),
 # so that growth fails
@@ -3880,13 +3887,22 @@ def _cluster_run(root, d, world, phase, n, kill=None, timeout=420,
     return outs
 
 
+_K1_LOCK = threading.Lock()
+
+
 def _tuples(x):
     return tuple(_tuples(i) for i in x) if isinstance(x, list) else x
 
 
 def _cluster_k1(outs, acc):
     """Add the K1 launches each rank reported (``K1=<n> {...}``) and the
-    classes it launched (``K1_CLASSES=[[class, count], ...]``)."""
+    classes it launched (``K1_CLASSES=[[class, count], ...]``); drills
+    side by side add under one lock."""
+    with _K1_LOCK:
+        _cluster_k1_add(outs, acc)
+
+
+def _cluster_k1_add(outs, acc):
     for out in outs:
         m = re.search(r"^K1=(\d+) (\{.*\})$", out, re.M)
         if m:
@@ -3901,13 +3917,11 @@ def _cluster_k1(outs, acc):
                 acc["recorded"][cls] = acc["recorded"].get(cls, 0) + c
 
 
-def _cluster_elastic(root, d, world, n, acc, device):
-    """``elastic_ref`` then ``elastic`` at ``world`` ranks and n^3: every
-    survivor's digest equals the uninterrupted run's; the reformation's
-    report of each survivor."""
-    ref_d, el_d = os.path.join(d, f"ref{world}"), os.path.join(d, f"el{world}")
+def _cluster_ref(root, d, world, n, acc, device):
+    """``elastic_ref`` at ``world`` ranks and n^3, the uninterrupted run:
+    its digest (every rank's must agree) and its seconds."""
+    ref_d = os.path.join(d, f"ref{world}")
     os.makedirs(ref_d)
-    os.makedirs(el_d)
     t0 = time.perf_counter()
     outs = _cluster_run(root, ref_d, world, "elastic_ref", n, device=device)
     ref_s = time.perf_counter() - t0
@@ -3917,6 +3931,16 @@ def _cluster_elastic(root, d, world, n, acc, device):
         raise AssertionError(f"[cluster] elastic_ref digests differ: "
                              f"{finals}")
     shutil.rmtree(ref_d, ignore_errors=True)
+    return finals.pop(), ref_s
+
+
+def _cluster_elastic(root, d, world, n, acc, device, ref):
+    """``elastic`` at ``world`` ranks and n^3 against ``ref`` (the digest
+    and seconds of ``_cluster_ref``): every survivor's digest equals the
+    uninterrupted run's; the reformation's report of each survivor."""
+    final, ref_s = ref
+    el_d = os.path.join(d, f"el{world}")
+    os.makedirs(el_d)
     t0 = time.perf_counter()
     outs = _cluster_run(root, el_d, world, "elastic", n, kill=world - 1,
                         device=device)
@@ -3929,7 +3953,7 @@ def _cluster_elastic(root, d, world, n, acc, device):
                                  f"plan's requests did not drain after the "
                                  f"reformation\n{out[-2000:]}")
         m = re.search(r"FINAL=([0-9a-f]{64})", out)
-        if not m or m.group(1) not in finals:
+        if not m or m.group(1) != final:
             raise AssertionError(f"[cluster] elastic rank {r}: digest "
                                  f"differs from the uninterrupted run's\n"
                                  f"{out[-2000:]}")
@@ -3942,7 +3966,7 @@ def _cluster_elastic(root, d, world, n, acc, device):
                                               re.M).group(1))
         reports.append(rep)
     shutil.rmtree(el_d, ignore_errors=True)
-    r = dict(world=world, n=n, final=finals.pop(), ref_s=ref_s,
+    r = dict(world=world, n=n, final=final, ref_s=ref_s,
              elastic_s=el_s, survivors=reports)
     log(f"[cluster] elastic world {world} -> {world - 1} at {n}^3: digest "
         f"= the uninterrupted run's; " + json.dumps(r))
@@ -3994,13 +4018,99 @@ def _cluster_scale(root, d, n, acc, device):
     return rep
 
 
-def phase_cluster(torch, k1, n=512, n4=256, device="cuda"):
-    """Phase 5f: the cluster layer on the card, as the JAX package's
-    ``cluster_worker.py`` drills (module docstring).  The rank processes
-    load K1 from ``ops/_build`` (built in phase 1); their launches count
-    under the path ``cluster``."""
+def _side_by_side(*fns):
+    """Each of ``fns`` in a thread of its own (drills whose rank processes
+    share the card and the host); their results in order, or the first
+    exception one raised."""
+    out, errs = [None] * len(fns), [None] * len(fns)
+
+    def run(i, fn):
+        try:
+            out[i] = fn()
+        except BaseException as e:   # re-raised below, in this thread
+            errs[i] = e
+
+    threads = [threading.Thread(target=run, args=(i, fn))
+               for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for e in errs:
+        if e is not None:
+            raise e
+    return out
+
+
+def _cluster_seq(root, d, nd, acc, device, res):
+    """``sdc``, ``kill`` and ``restore`` at world 2 and nd^3 in one KV
+    directory (``restore`` elects the checkpoints ``sdc`` left): their
+    reports into ``res``."""
     from pencilarrays_tpu_torch import obs
 
+    # sdc: agreed retry, then the agreed restore of step 1
+    sd = os.path.join(d, "seq")
+    os.makedirs(sd)
+    t = time.perf_counter()
+    outs = _cluster_run(root, sd, 2, "sdc", nd, device=device)
+    _cluster_k1(outs, acc)
+    events = obs.read_journal(os.path.join(sd, "obs"))
+    if obs.lint_journal(events):
+        raise AssertionError(f"[cluster] sdc journal: "
+                             f"{obs.lint_journal(events)[:5]}")
+    actions = {r: [e["action"] for e in events
+                   if e["ev"] == "cluster.verdict" and e["proc"] == r]
+               for r in range(2)}
+    restores = {r: sorted({e["step"] for e in events
+                           if e["ev"] == "ckpt.restore"
+                           and e["proc"] == r}) for r in range(2)}
+    if any(a != ["retry", "restore", "elect", "ok"]
+           for a in actions.values()) or \
+            any(v != [1] for v in restores.values()):
+        raise AssertionError(f"[cluster] sdc verdicts {actions}, "
+                             f"restores {restores}")
+    res["sdc"] = dict(actions=actions[0], restored_step=1,
+                      seconds=time.perf_counter() - t,
+                      recover_s=[float(re.search(
+                          r"SDC_RECOVERED step=1 s=([0-9.]+)",
+                          o).group(1)) for o in outs])
+    log(f"[cluster] sdc world 2 at {nd}^3: every rank agreed retry, "
+        "restore, elect, ok; restored step 1 bit-identical to the "
+        "uninterrupted step; " + json.dumps(res["sdc"]))
+    # kill: rank 0 dies mid-step, the survivor fails typed
+    t = time.perf_counter()
+    outs = _cluster_run(root, sd, 2, "kill", nd, kill=0, device=device)
+    _cluster_k1(outs, acc)
+    m = re.search(r"peerfail=(\d+) detect_s=([0-9.]+)", outs[1])
+    if not m or int(m.group(1)) != 0 or \
+            float(m.group(2)) > 4 * CLUSTER_TTL + 5.0:
+        raise AssertionError(f"[cluster] kill: survivor {outs[1][-2000:]}")
+    res["kill"] = dict(peer=0, detect_s=float(m.group(2)),
+                       ttl_s=CLUSTER_TTL,
+                       seconds=time.perf_counter() - t)
+    log(f"[cluster] kill world 2 at {nd}^3: rank 0 SIGKILLed at its first "
+        "exchange; rank 1 raised PeerFailureError naming it, with a "
+        "crash bundle; " + json.dumps(res["kill"]))
+    # restore: fresh processes elect and restore step 1
+    t = time.perf_counter()
+    outs = _cluster_run(root, sd, 2, "restore", nd, device=device)
+    _cluster_k1(outs, acc)
+    res["restore"] = dict(step=1, seconds=time.perf_counter() - t)
+    log(f"[cluster] restore world 2 at {nd}^3: fresh processes elected "
+        "step 1 and restored it bit-identical; "
+        + json.dumps(res["restore"]))
+    shutil.rmtree(sd, ignore_errors=True)
+
+
+def phase_cluster(torch, k1, n=512, n4=128, nd=128, device="cuda"):
+    """Phase 5f: the cluster layer on the card, as the JAX package's
+    ``cluster_worker.py`` drills (module docstring): the world-2
+    ``elastic`` drill, whose reformation times are the time-to-recover
+    metric, at n^3; ``sdc``, ``kill``, ``restore`` and ``storm``, which
+    gate outcomes alone, at nd^3; ``scale`` and world 4 at n4^3.  The
+    rank processes load K1 from ``ops/_build`` (built in phase 1); their
+    launches count under the path ``cluster``.  Drills whose times feed
+    no metric run beside one another (``_side_by_side``)."""
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4016,62 +4126,22 @@ def phase_cluster(torch, k1, n=512, n4=256, device="cuda"):
     acc = {"launches": 0, "launches_by_instance": {}, "recorded": {}}
     res = {}
     try:
-        # sdc: agreed retry, then the agreed restore of step 1
-        sd = os.path.join(d, "seq")
-        os.makedirs(sd)
-        t = time.perf_counter()
-        outs = _cluster_run(root, sd, 2, "sdc", n, device=device)
-        _cluster_k1(outs, acc)
-        events = obs.read_journal(os.path.join(sd, "obs"))
-        if obs.lint_journal(events):
-            raise AssertionError(f"[cluster] sdc journal: "
-                                 f"{obs.lint_journal(events)[:5]}")
-        actions = {r: [e["action"] for e in events
-                       if e["ev"] == "cluster.verdict" and e["proc"] == r]
-                   for r in range(2)}
-        restores = {r: sorted({e["step"] for e in events
-                               if e["ev"] == "ckpt.restore"
-                               and e["proc"] == r}) for r in range(2)}
-        if any(a != ["retry", "restore", "elect", "ok"]
-               for a in actions.values()) or \
-                any(v != [1] for v in restores.values()):
-            raise AssertionError(f"[cluster] sdc verdicts {actions}, "
-                                 f"restores {restores}")
-        res["sdc"] = dict(actions=actions[0], restored_step=1,
-                          seconds=time.perf_counter() - t,
-                          recover_s=[float(re.search(
-                              r"SDC_RECOVERED step=1 s=([0-9.]+)",
-                              o).group(1)) for o in outs])
-        log(f"[cluster] sdc world 2 at {n}^3: every rank agreed retry, "
-            "restore, elect, ok; restored step 1 bit-identical to the "
-            "uninterrupted step; " + json.dumps(res["sdc"]))
-        # kill: rank 0 dies mid-step, the survivor fails typed
-        t = time.perf_counter()
-        outs = _cluster_run(root, sd, 2, "kill", n, kill=0, device=device)
-        _cluster_k1(outs, acc)
-        m = re.search(r"peerfail=(\d+) detect_s=([0-9.]+)", outs[1])
-        if not m or int(m.group(1)) != 0 or \
-                float(m.group(2)) > 4 * CLUSTER_TTL + 5.0:
-            raise AssertionError(f"[cluster] kill: survivor {outs[1][-2000:]}")
-        res["kill"] = dict(peer=0, detect_s=float(m.group(2)),
-                           ttl_s=CLUSTER_TTL,
-                           seconds=time.perf_counter() - t)
-        log(f"[cluster] kill world 2 at {n}^3: rank 0 SIGKILLed at its first "
-            "exchange; rank 1 raised PeerFailureError naming it, with a "
-            "crash bundle; " + json.dumps(res["kill"]))
-        # restore: fresh processes elect and restore step 1
-        t = time.perf_counter()
-        outs = _cluster_run(root, sd, 2, "restore", n, device=device)
-        _cluster_k1(outs, acc)
-        res["restore"] = dict(step=1, seconds=time.perf_counter() - t)
-        log(f"[cluster] restore world 2 at {n}^3: fresh processes elected "
-            "step 1 and restored it bit-identical; "
-            + json.dumps(res["restore"]))
-        shutil.rmtree(sd, ignore_errors=True)
-        res["elastic"] = _cluster_elastic(root, d, 2, n, acc, device)
-        res["storm"] = _cluster_storm(root, d, n, acc, device)
-        res["scale"] = _cluster_scale(root, d, n4, acc, device)
-        res["elastic4"] = _cluster_elastic(root, d, 4, n4, acc, device)
+        # beside each other: the uninterrupted world-2 run (the digest
+        # the elastic drill is held to), the gate-only sdc, kill and
+        # restore drills and the scale drill; then the elastic drill alone
+        # (its reformation times are the metric); then the storm drill
+        # beside the uninterrupted world-4 run, and the world-4 elastic
+        # drill
+        ref2, _, res["scale"] = _side_by_side(
+            lambda: _cluster_ref(root, d, 2, n, acc, device),
+            lambda: _cluster_seq(root, d, nd, acc, device, res),
+            lambda: _cluster_scale(root, d, n4, acc, device))
+        res["elastic"] = _cluster_elastic(root, d, 2, n, acc, device, ref2)
+        res["storm"], ref4 = _side_by_side(
+            lambda: _cluster_storm(root, d, nd, acc, device),
+            lambda: _cluster_ref(root, d, 4, n4, acc, device))
+        res["elastic4"] = _cluster_elastic(root, d, 4, n4, acc, device,
+                                           ref4)
     finally:
         shutil.rmtree(d, ignore_errors=True)
     res["recorded"] = acc.pop("recorded")
@@ -4125,7 +4195,9 @@ def _psvc_traffic(np, pat, plan, pin, n_fft, n_resh, seed):
     rng = np.random.default_rng(seed)
 
     def real():
-        return rng.random(plan.shape_physical, dtype=np.float32) - 0.5
+        x = rng.random(plan.shape_physical, dtype=np.float32)
+        x -= 0.5   # in place: no second host field
+        return x
 
     def spec():
         x = np.empty(plan.shape_spectral, np.complex64)
@@ -4745,11 +4817,6 @@ def _fleet_storm(torch, np, pat, root, d, n, small, acc, device, n_whale,
     sd = os.path.join(d, "storm")
     os.makedirs(sd)
     kv = FileKV(os.path.join(sd, "kv"))
-    t = time.perf_counter()
-    reqs = _fleet_payloads(np, np.random.default_rng(SEED + 15), n, small,
-                           [("a", n_whale), ("b", n_whale),
-                            ("c", n_minnow)])
-    make_s = time.perf_counter() - t
     # the router's wire parts by ticket: a harness probe around the
     # codec and the KV writes (neither is changed)
     parts = {}
@@ -4781,6 +4848,7 @@ def _fleet_storm(torch, np, pat, root, d, n, small, acc, device, n_whale,
     def free():
         return torch.cuda.mem_get_info()[0] if device == "cuda" else None
 
+    # the workers start while the payloads are made
     procs = {m: _fleet_spawn(root, sd, m, n, small, device=device,
                              warm={1: "minnow", 2: "whale"}[m],
                              ttl=FLEET_STORM_TTL)
@@ -4789,6 +4857,11 @@ def _fleet_storm(torch, np, pat, root, d, n, small, acc, device, n_whale,
     frees = []
     ok = False
     try:
+        t = time.perf_counter()
+        reqs = _fleet_payloads(np, np.random.default_rng(SEED + 15), n,
+                               small, [("a", n_whale), ("b", n_whale),
+                                       ("c", n_minnow)])
+        make_s = time.perf_counter() - t
         _fleet_await(fleet, kv, procs, sd, ttl=FLEET_STORM_TTL)
         # armed by the environment, as phase 5g arms it: a programmatic
         # disable would keep the journal off for every later phase
@@ -4857,25 +4930,64 @@ def _fleet_storm(torch, np, pat, root, d, n, small, acc, device, n_whale,
         raise AssertionError(f"[fleet] the two workers left "
                              f"{_gib(min(frees)):.2f} GiB of the card free, "
                              f"under {_gib(FLEET_FREE_BYTES):.0f}")
-    # every result against its sequential call on the card
-    diffs = []
-    t = time.perf_counter()
-    for name, size in (("whale", n), ("minnow", small)):
-        mine = [(r, tk) for r, tk in zip(reqs, tickets) if r[1] == name]
-        refs = _fleet_refs(torch, pat, size,
-                           [(r[2], r[3]) for r, _ in mine], device)
-        for ((tenant, _, direction, _), tk), ref in zip(mine, refs):
-            _fleet_check(np, np.asarray(tk.result(0)), ref,
-                         f"storm {tenant} {name} {direction} #{tk.id}",
-                         diffs)
-        refs.close()
-    res["check_s"] = time.perf_counter() - t
-    res["diffs"] = diffs
-    return res
+    def check():
+        # every result against its sequential call on the card
+        diffs = []
+        t = time.perf_counter()
+        for name, size in (("whale", n), ("minnow", small)):
+            mine = [(r, tk) for r, tk in zip(reqs, tickets) if r[1] == name]
+            refs = _fleet_refs(torch, pat, size,
+                               [(r[2], r[3]) for r, _ in mine], device)
+            for ((tenant, _, direction, _), tk), ref in zip(mine, refs):
+                _fleet_check(np, np.asarray(tk.result(0)), ref,
+                             f"storm {tenant} {name} {direction} #{tk.id}",
+                             diffs)
+            refs.close()
+        res["check_s"] = time.perf_counter() - t
+        res["diffs"] = diffs
+
+    return res, check
 
 
-def _fleet_drills(torch, np, pat, root, d, n, small, acc, device):
-    """The drills at whale n^3 and minnow small^3: (a) whole-mesh loss
+def _fleet_submit(router, wave, meshes, what, timeout=60.0):
+    """Submit ``wave`` (tenant, name, direction, payload) once the router
+    counts every mesh of ``meshes`` placeable (registered, not dead, its
+    lease live), printing the wait and each lease's age then; a
+    ``no-mesh`` refusal prints each mesh's lease age on a line of its own
+    and propagates.  The tickets, in order."""
+    from pencilarrays_tpu_torch.serve.errors import AdmissionError
+
+    t0 = time.monotonic()
+    while router.live_meshes() != meshes:
+        if time.monotonic() > t0 + timeout:
+            raise AssertionError(f"[fleet] {what}: meshes "
+                                 f"{router.live_meshes()} placeable after "
+                                 f"{timeout} s, not {meshes}")
+        time.sleep(0.05)
+    ages = {m: router.board.mesh_age(m) for m in meshes}
+    log(f"[fleet] {what}: meshes {meshes} placeable after "
+        f"{time.monotonic() - t0:.3f} s; lease ages at the first submit "
+        + ", ".join(f"mesh {m} {a:.3f} s" for m, a in ages.items()))
+    tickets = []
+    for tenant, name, direction, u in wave:
+        try:
+            tickets.append(router.submit(tenant, u, name=name,
+                                         direction=direction))
+        except AdmissionError as e:
+            if e.reason == "no-mesh":
+                for m in router.meshes():
+                    log(f"[fleet] {what}: no-mesh refusal at submit "
+                        f"{len(tickets)}: mesh {m} lease age "
+                        f"{router.board.mesh_age(m)} s (TTL {FLEET_TTL})")
+            raise
+    return tickets
+
+
+def _fleet_drills(torch, np, pat, root, d, n, small, acc, device,
+                  before=None):
+    """``before()`` while the drills' mesh processes start (their wait
+    for the leases comes after it), then the drills at whale n^3 and
+    minnow small^3: (a) whole-mesh loss
     (``fleet.route:kill%mesh1@4`` in both workers' environments), (b) a
     router process SIGKILLed at its 7th admission and its WAL replayed
     by a fresh router, (c) the surviving mesh retired by its stop key;
@@ -4900,6 +5012,14 @@ def _fleet_drills(torch, np, pat, root, d, n, small, acc, device):
     router = None
     ok = False
     try:
+        if before is not None:
+            before()
+        # both waves' payloads first: a lease must not age while they
+        # are made
+        wave = [_fleet_payloads(np, rng, n, small,
+                                [("a" if i % 3 == 0 else "c", 1)])[0]
+                for i in range(12)]
+        wave2 = _fleet_payloads(np, rng, n, small, [("a", 1), ("c", 3)])
         _fleet_await(fleet, kv, procs, dd)
         os.environ["PENCILARRAYS_TPU_OBS"] = obsdir
         # (a) whole-mesh loss: a mixed burst lands on mesh 1 (both warm,
@@ -4907,12 +5027,8 @@ def _fleet_drills(torch, np, pat, root, d, n, small, acc, device):
         router = fleet.FleetRouter(kv, ttl=FLEET_TTL)
         router.register_mesh(1)
         router.register_mesh(2)
-        wave = [_fleet_payloads(np, rng, n, small,
-                                [("a" if i % 3 == 0 else "c", 1)])[0]
-                for i in range(12)]
         t0 = time.monotonic()
-        tickets = [router.submit(tenant, u, name=name, direction=direction)
-                   for tenant, name, direction, u in wave]
+        tickets = _fleet_submit(router, wave, [1, 2], "drill a")
         t_kill = t_rebind = None
         pumps = []      # (start, seconds) of each pump up to detection
         t_end = time.monotonic() + 120.0
@@ -4960,9 +5076,7 @@ def _fleet_drills(torch, np, pat, root, d, n, small, acc, device):
                 f"[fleet] drill a: mesh loss detected {t_detect - t_kill:.3f}"
                 f" s after the kill, over TTL {FLEET_TTL} + one pump "
                 f"{before:.3f} + harvest {harvest:.3f} + 0.26 s")
-        wave2 = _fleet_payloads(np, rng, n, small, [("a", 1), ("c", 3)])
-        tickets += [router.submit(tenant, u, name=name, direction=direction)
-                    for tenant, name, direction, u in wave2]
+        tickets += _fleet_submit(router, wave2, [2], "drill a, wave 2")
         wave += wave2
         if router.drain(120.0):
             raise AssertionError(f"[fleet] drill a: {router.stats()}")
@@ -5080,16 +5194,21 @@ def _fleet_drills(torch, np, pat, root, d, n, small, acc, device):
     if rt is None or rt.rebinds < 1 or rt.outcome != "ok" or \
             len(rt.ranks) < 2:
         raise AssertionError(f"[fleet] rebound request {rebinds[0]}: {rt}")
-    for args in (["lint", obsdir], ["timeline", obsdir],
-                 ["request", obsdir, rebinds[0]]):
-        p = subprocess.run([sys.executable, "-m",
-                            "pencilarrays_tpu_torch.obs", *args],
-                           capture_output=True, text=True, timeout=120,
-                           cwd=root)
+    # the three reads of the journal at once
+    clis = [(args[0], subprocess.Popen(
+        [sys.executable, "-m", "pencilarrays_tpu_torch.obs", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=root)) for args in (["lint", obsdir], ["timeline", obsdir],
+                                ["request", obsdir, rebinds[0]])]
+    for what, p in clis:
+        try:
+            so, se = p.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
         if p.returncode != 0:
-            raise AssertionError(f"[fleet] pa-obs {args[0]}: rc "
-                                 f"{p.returncode}\n{p.stdout[-2000:]}"
-                                 f"{p.stderr[-2000:]}")
+            raise AssertionError(f"[fleet] pa-obs {what}: rc "
+                                 f"{p.returncode}\n{so[-2000:]}{se[-2000:]}")
     res["journal"] = dict(records=len(events), failovers=len(fo),
                           rebound_request=dict(
                               trace=rebinds[0], ranks=sorted(rt.ranks),
@@ -5127,30 +5246,46 @@ def phase_fleet(torch, k1, n=512, small=128, n_whale=1, n_minnow=16,
     acc = {"launches": 0, "launches_by_instance": {}, "recorded": {}}
     res = {}
     try:
-        res["storm"] = _fleet_storm(torch, np, pat, root, d, n, small, acc,
-                                    device, n_whale, n_minnow)
+        res["storm"], storm_check = _fleet_storm(
+            torch, np, pat, root, d, n, small, acc, device, n_whale,
+            n_minnow)
         st = res["storm"]
-        log(f"[fleet] storm at {n}^3 / {small}^3: {st['requests']} "
-            f"requests, {st['requests_per_s']:.3f} requests/s; latency "
-            f"{json.dumps(st['latency_s'])}; placed "
-            f"{json.dumps(st['placed_per_mesh'])}; min free "
-            f"{st['min_free_gib']} GiB; whale wire parts "
-            f"{json.dumps(st['whale_wire_s'])}; workers "
-            f"{json.dumps(st['workers'])}; off the sequential bits "
-            f"{json.dumps(st['diffs'])}")
-        res["drills"] = _fleet_drills(torch, np, pat, root, d, drill_n,
-                                      small, acc, device)
-        log("[fleet] drills: " + json.dumps(res["drills"]))
+
+        def storm_checked():
+            # the storm's results against their sequential calls, while
+            # the drills' mesh processes start
+            storm_check()
+            log(f"[fleet] storm at {n}^3 / {small}^3: {st['requests']} "
+                f"requests, {st['requests_per_s']:.3f} requests/s; latency "
+                f"{json.dumps(st['latency_s'])}; placed "
+                f"{json.dumps(st['placed_per_mesh'])}; min free "
+                f"{st['min_free_gib']} GiB; whale wire parts "
+                f"{json.dumps(st['whale_wire_s'])}; workers "
+                f"{json.dumps(st['workers'])}; off the sequential bits "
+                f"{json.dumps(st['diffs'])}")
+        # the port's pa-lint (host work on the sources) runs beside the
+        # drills
         t = time.perf_counter()
-        p = subprocess.run([sys.executable, "-m",
-                            "pencilarrays_tpu_torch.analysis", root,
-                            "--no-spmd"], capture_output=True, text=True,
-                           timeout=300, cwd=root)
-        if p.returncode != 0 or "pa-lint: clean" not in p.stdout:
-            raise AssertionError(f"[fleet] pa-lint rc {p.returncode}:\n"
-                                 f"{p.stdout[-3000:]}{p.stderr[-2000:]}")
-        res["pa_lint"] = dict(rc=p.returncode, seconds=time.perf_counter() - t,
-                              summary=p.stdout.strip().splitlines()[-1])
+        lint = subprocess.Popen([sys.executable, "-m",
+                                 "pencilarrays_tpu_torch.analysis", root,
+                                 "--no-spmd"], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, cwd=root)
+        try:
+            res["drills"] = _fleet_drills(torch, np, pat, root, d, drill_n,
+                                          small, acc, device,
+                                          before=storm_checked)
+            log("[fleet] drills: " + json.dumps(res["drills"]))
+            so, se = lint.communicate(timeout=300)
+        finally:
+            if lint.poll() is None:
+                lint.kill()
+                lint.communicate()
+        if lint.returncode != 0 or "pa-lint: clean" not in so:
+            raise AssertionError(f"[fleet] pa-lint rc {lint.returncode}:\n"
+                                 f"{so[-3000:]}{se[-2000:]}")
+        res["pa_lint"] = dict(rc=lint.returncode,
+                              seconds=time.perf_counter() - t,
+                              summary=so.strip().splitlines()[-1])
         log(f"[fleet] pa-lint of the port: {res['pa_lint']['summary']}")
     finally:
         shutil.rmtree(d, ignore_errors=True)
@@ -5885,6 +6020,10 @@ def phase_examples(torch, pat, k1, flash):
     for p, keys in EXAMPLES_KERNELS.items():
         if min((paths[p][k] for k in keys), default=1) <= 0:
             raise AssertionError(f"the {p} path launched {paths[p]}")
+        # f32 and bf16 runs: K2 by tf32x3 and wgmma, never simt
+        if "k2" in keys and (paths[p]["k2_simt"] or min(
+                paths[p]["k2_tf32x3"], paths[p]["k2_wgmma"]) <= 0):
+            raise AssertionError(f"the {p} path launched K2 {paths[p]}")
     return dict(paths=paths, recorded=recorded, seconds=seconds)
 
 
@@ -5981,7 +6120,7 @@ def _bwd_terms(torch, flash, q, k, v, do, L, D, *, causal, q_offset,
 def _fwd_launched(flash, fn, dtypes, what):
     """``fn()``, which must launch K2 once by the instance ``fwd_instance``
     picks for the head dim and the q, k, v dtypes (so no call takes the
-    retired simt tiles above 256)."""
+    retired simt instance)."""
     before = dict(flash.launches_fwd_by_instance)
     out = fn()
     want = flash.fwd_instance(*dtypes)
@@ -6208,17 +6347,22 @@ def _zigzag_emulation(torch, flash, merge, pairs, dtype, b, H, D, P=4):
 MIXED_DTYPES = [("bfloat16", "float32", "float32"),
                 ("float32", "bfloat16", "float32"),
                 ("float32", "float32", "bfloat16")]
-# head dims of the mixed cases: K2's simt instance (64), and its wide
-# tf32x3 kernel, which reads the bf16 operand widened to f32, with one
-# output column block (264, 512) and two (1024)
+# head dims of the mixed cases: K2's tf32x3 instance up to 256 (64),
+# which widens the bf16 operand in shared memory, and its wide kernel,
+# which reads it widened to f32, with one output column block (264, 512)
+# and two (1024)
 MIXED_DIMS = (64, 264, 512, 1024)
-# keys a tile of K2's wide tf32x3 kernel (flash_fwd.cu)
-WIDE_TF32_KEYS = 32
+
+
+def tf32_fwd_keys(d: int) -> int:
+    """Keys a tile of K2's tf32x3 instance at head dim ``d``
+    (flash_fwd.cu: Tf32FwdTiles up to 256, Tf32WideTiles above)."""
+    return 64 if d <= 64 else 16 if 128 < d <= 256 else 32
 
 
 def _p_rounding(torch, flash, q, k, v, causal, q_off, kv_off):
-    """K2 on f32 q, k and bf16 v above d = 256 (the wide tf32x3 kernel)
-    must round P to bf16 before P·V.  Its out against the plain version
+    """K2 on f32 q, k and bf16 v (the tf32x3 instance) must round P to
+    bf16 before P·V.  Its out against the plain version
     in float64 streamed in the kernel's own key tiles, which rounds P
     against the same running maxima, and that plain version's distance
     from itself without the rounding, each as the mean of the rows' worst
@@ -6233,7 +6377,8 @@ def _p_rounding(torch, flash, q, k, v, causal, q_off, kv_off):
 
     def plain(p_dtype):
         m, l, acc = flash.stream_stats(
-            qf.double(), kf.double(), vf.double(), chunk=WIDE_TF32_KEYS,
+            qf.double(), kf.double(), vf.double(),
+            chunk=tf32_fwd_keys(q.shape[-1]),
             score_dtype=torch.float64, p_dtype=p_dtype, **kw)
         return flash.normalize(l, acc, torch.float64).reshape(q.shape)
 
@@ -6246,9 +6391,9 @@ def _mixed_check(torch, flash, attention, own=None, by_d=None):
     """q/k/v of mixed dtypes at each of MIXED_DIMS: K2–K4 against their
     plain versions (flash_compare, which keeps its own-scale rows in
     ``own``), and flash_attention under impl="auto" forward and backward,
-    which must launch K2, K3 and K4 once each (K2 by simt up to d = 256,
-    by tf32x3 above), give grads in the leaves' dtypes and the plain K2's
-    output.  Above 256 with a bf16 v, K2's out must lie nearer the plain
+    which must launch K2, K3 and K4 once each (K2 by tf32x3), give grads
+    in the leaves' dtypes and the plain K2's output.  With a bf16 v, K2's
+    out must lie nearer the plain
     version that rounds P to bf16 than a quarter of that version's
     distance from the one that does not (_p_rounding).  ``by_d`` (a dict)
     keeps each d's worst rows and its P-rounding pairs."""
@@ -6272,7 +6417,7 @@ def _mixed_check(torch, flash, attention, own=None, by_d=None):
                  flash.launches_dkv - n0[2])
             by = {i: c - by0[i]
                   for i, c in flash.launches_fwd_by_instance.items()}
-            inst = "tf32x3" if d > 256 else "simt"
+            inst = flash.fwd_instance(d, q.dtype, k.dtype, v.dtype)
             if n != (1, 1, 1) or by != {i: int(i == inst) for i in by}:
                 raise AssertionError(f"mixed {names} d={d}: impl=auto "
                                      f"launched {n}, K2 by instance {by}")
@@ -6282,7 +6427,7 @@ def _mixed_check(torch, flash, attention, own=None, by_d=None):
             at["fwd"] = max(at["fwd"], _rel_err(
                 torch, out.detach(), flash.flash_attention_fwd_plain(
                     q, k, v, causal=True)))
-            if d > 256 and names[2] == "bfloat16":
+            if names[2] == "bfloat16":
                 for causal, qo, ko in FLASH_OFFSETS:
                     err, dist = _p_rounding(torch, flash, q, k, v, causal,
                                             qo, ko)
@@ -6303,8 +6448,8 @@ def _mixed_check(torch, flash, attention, own=None, by_d=None):
 
 def _tensor_core_edges(torch, flash, keep, dtype, own):
     """The tensor-core instances at their edges: in bf16 the wgmma ones of
-    K2, K3 and K4, in f32 the tf32x3 ones of K3 and K4 and K2's wide one
-    (K2 runs simt up to 256).  Head dims of each class and off its
+    K2, K3 and K4, in f32 their tf32x3 ones.  Head dims of each class and
+    off its
     64-column boxes or 16-row warp tiles (EDGE_DIMS: above 256 the wide
     kernels),
     Sq below one warpgroup, Skv = 1, Skv off the key tile, k/v
@@ -6313,9 +6458,8 @@ def _tensor_core_edges(torch, flash, keep, dtype, own):
     boundary); every mode and offset case of flash_compare (its own-scale
     rows kept in ``own``, but at Skv = 1).  In bf16 K2
     launches only its wgmma instance and K3/K4 theirs, except the partials
-    calls with an f32 dO (tf32x3); in f32 K2 launches simt up to d = 256
-    and tf32x3 above, K3/K4 only tf32x3; as flash_compare checks call by
-    call."""
+    calls with an f32 dO (tf32x3); in f32 K2–K4 launch only tf32x3; as
+    flash_compare checks call by call."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
     name = str(dtype).split(".")[-1]
     inst = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
@@ -6358,9 +6502,8 @@ def _tensor_core_edges(torch, flash, keep, dtype, own):
     n = {key: {i: by[key][i] - n0[key][i] for i in n0[key]} for key in by}
     copies = flash.realigned_copies - copies0
     # each must launch, and no other: in bf16 the partials calls with an
-    # f32 dO take K3/K4's tf32x3; in f32 K2 takes simt up to 256
-    want = {"k2": {inst} if inst == "wgmma" else {"simt", inst},
-            "k3": {inst}, "k4": {inst}}
+    # f32 dO take K3/K4's tf32x3
+    want = {"k2": {inst}, "k3": {inst}, "k4": {inst}}
     allowed = {"k2": want["k2"], "k3": {inst, "tf32x3"},
                "k4": {inst, "tf32x3"}}
     if any(any(n[k][i] <= 0 for i in want[k])
@@ -6389,11 +6532,15 @@ def phase_flash_check(torch, flash, attention):
     cases = 0
     sq, skv, H, B = 237, 301, 3, 2    # ragged: no tile size divides them
 
+    worst_case = {}   # by (direction, dtype): the case of the worst row
+
     def keep(what, key, name, err):
         tol = FLASH_TOL[(key, name)]
         if not err <= tol:
             raise AssertionError(f"{what} {key} {name}: rel err {err} > "
                                  f"{tol}")
+        if err >= worst.get((key, name), 0.0):
+            worst_case[(key, name)] = what
         worst[(key, name)] = max(worst.get((key, name), 0.0), err)
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -6449,6 +6596,9 @@ def phase_flash_check(torch, flash, attention):
         f"(m, dq and dk rows not held to their largest term): "
         f"{json.dumps(own)}"
         + f"; tolerances {json.dumps({f'{a} {b}': v for (a, b), v in FLASH_TOL.items()})}")
+    log(f"[flash] worst f32 K2 row: {worst[('fwd', 'float32')]} "
+        f"(<= {FLASH_TOL[('fwd', 'float32')]}) at "
+        f"{worst_case[('fwd', 'float32')]}")
     return worst
 
 
@@ -6502,13 +6652,10 @@ def _reset_counts(k1, flash):
 
 def expected_instance(name: str, D: int, key: str) -> str:
     """The instance of kernel ``key`` that a call with all operands of
-    dtype ``name`` at head dim ``D`` launches: wgmma for bf16 at every D
-    (the wide kernels above 256); for f32 K2 simt up to D = 256 and
-    tf32x3 above, K3 and K4 tf32x3 at every D (K2's simt tiles above 256
-    never)."""
-    if name == "bfloat16":
-        return "wgmma"
-    return "simt" if key == "k2" and D <= 256 else "tf32x3"
+    dtype ``name`` at head dim ``D`` launches: wgmma for bf16, tf32x3 for
+    f32, at every D (the wide kernels above 256; K2's retired simt
+    instance never)."""
+    return "wgmma" if name == "bfloat16" else "tf32x3"
 
 
 def _check_instance(n, name, what, kernels=("k2",), D=None):
@@ -6567,7 +6714,8 @@ def phase_serving(torch, pat, models, k1, flash):
                 f"H={H_ATT} D={D_ATT} {name} (1,) NCCL: {ms:.3f} ms per call, "
                 f"rel err vs dense {err:.3e} (<= {SERVE_TOL[name]}), "
                 f"launches K1 {n['k1']} K2 {n['k2']} (wgmma "
-                f"{n['k2_wgmma']}, simt {n['k2_simt']})")
+                f"{n['k2_wgmma']}, tf32x3 {n['k2_tf32x3']}, simt "
+                f"{n['k2_simt']})")
             out[f"serve_{scheme}_{name}"] = dict(n, ms=ms)
             del ref, got
     torch.cuda.empty_cache()
@@ -6648,17 +6796,19 @@ def phase_training(torch, pat, models, k1, flash, dtype, steps=3, D=None,
 
 
 # the head dim above 256 of phase 8's wide training steps and phase 9's
-# wide timings (K2-K4's wide kernels and K2's retired simt tiles)
+# wide timings (K2-K4's wide kernels)
 WIDE_D = 512
 
 
 def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
-                       retired=False):
-    """K2, K3 and K4 at S = S_ATT, H = H_ATT and head dim ``D``, f32 and
-    bf16, for each of ``causals``: kernel ms (each by the instance
-    expected_instance names for its dtype and ``D``; with ``retired`` also
-    K2's retired simt tiles, launched by name, on the same inputs; K2's
-    picked instance also through flash_attention_fwd, as wrapper_ms), plain
+                       retired=False, dtypes=("float32", "bfloat16"),
+                       keys=("k2", "k3", "k4")):
+    """``keys`` of K2, K3 and K4 at S = S_ATT, H = H_ATT and head dim
+    ``D``, in each of ``dtypes``, for each of ``causals``: kernel ms (each
+    by the instance expected_instance names for its dtype and ``D``; with
+    ``retired`` also, in f32, K2's retired simt instance, launched by
+    name, on the same inputs; K2's picked instance also through
+    flash_attention_fwd, as wrapper_ms), plain
     ms, SDPA ms (a yardstick the port never calls) with
     the CUDA kernels SDPA launches, bound ms and the error against the
     plain version (rows of dq and dk held to their largest term where it
@@ -6668,8 +6818,8 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
     S, H = S_ATT, H_ATT
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[-1]
+    for name in dtypes:
+        dtype = getattr(torch, name)
         peak = peak_flops(name)
         for causal in causals:
             q, k, v, do = (torch.randn((S, H, 1, D), generator=gen,
@@ -6684,14 +6834,15 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
             o2 = torch.empty_like(qf)
             dq = torch.empty_like(qf)
             dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+            bwd = "k3" in keys or "k4" in keys   # the backward's inputs
             grads_p = [g.reshape(S, H, D) for g in
                        flash.flash_attention_bwd_plain(q, k, v, out, do, m, l,
-                                                       **kw)]
-            tq, tk = _bwd_terms(torch, flash, q, k, v, do, L, Dr, **kw)
+                                                       **kw)] if bwd else None
+            tq, tk = (_bwd_terms(torch, flash, q, k, v, do, L, Dr, **kw)
+                      if bwd else (None, None))
             it = 5
-            timed = [(key, expected_instance(name, D, key))
-                     for key in ("k2", "k3", "k4")]
-            if retired:
+            timed = [(key, expected_instance(name, D, key)) for key in keys]
+            if retired and name == "float32":
                 timed += [("k2", "simt")]
             launch = {
                 "k2": lambda inst: flash.launch_fwd(
@@ -6700,9 +6851,10 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
                     qf, kf, vf, dof, L, Dr, dq, instance=inst, **kw),
                 "k4": lambda inst: flash.launch_dkv(
                     qf, kf, vf, dof, L, Dr, dk, dv, instance=inst, **kw)}
-            pairs = {"k2": [(o2, out_p.reshape(S, H, D), None)],
-                     "k3": [(dq, grads_p[0], tq)],
-                     "k4": [(dk, grads_p[1], tk), (dv, grads_p[2], None)]}
+            pairs = {"k2": [(o2, out_p.reshape(S, H, D), None)]}
+            if bwd:
+                pairs.update(k3=[(dq, grads_p[0], tq)],
+                             k4=[(dk, grads_p[1], tk), (dv, grads_p[2], None)])
             got = {}
             for key, inst in timed:
                 launch[key](inst)
@@ -6730,7 +6882,7 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
             plain_fwd = cuda_ms(torch, lambda: flash.flash_attention_fwd_plain(
                 q, k, v, **kw), it)
             plain_bwd = cuda_ms(torch, lambda: flash.flash_attention_bwd_plain(
-                q, k, v, out, do, m, l, **kw), it)
+                q, k, v, out, do, m, l, **kw), it) if bwd else None
             qt, kt, vt, gt = (x.reshape(S, H, D).transpose(0, 1)[None]
                               .contiguous() for x in (q, k, v, do))
 
@@ -6745,7 +6897,7 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
                 torch.autograd.grad(o, (qg, kg, vg), gt)
 
             lib_fwd = cuda_ms(torch, sdpa_fwd, it)
-            lib_fb = cuda_ms(torch, sdpa_fwd_bwd, it)
+            lib_fb = cuda_ms(torch, sdpa_fwd_bwd, it) if bwd else None
             # the CUDA kernels SDPA launches (names cut to 120
             # characters), from two calls in one profile: a profile of
             # one f32 forward call has recorded no kernel
@@ -6753,7 +6905,7 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
                 torch, lambda: (sdpa_fwd(), sdpa_fwd()))[1]]
             bwd_kernels = [n[:120] for _, _, n in _kernel_rows(
                 torch, lambda: (sdpa_fwd_bwd(), sdpa_fwd_bwd()))[1]
-                if n[:120] not in fwd_kernels]
+                if n[:120] not in fwd_kernels] if bwd else None
             # FLOPs: 4 S^2 H D forward (QK^T, PV); K3 recomputes QK^T and
             # dO V^T and forms dS K (6); K4 adds P^T dO and dS^T Q to the
             # recompute (8); causal halves each
@@ -6786,26 +6938,31 @@ def phase_flash_timing(torch, flash, bw, D=D_ATT, causals=(False, True),
                 rows.append(r)
                 log(f"[time] {key} {inst} S={S} H={H} D={D} {name} "
                     f"{'causal' if causal else 'full'}: " + json.dumps(r))
-            ms = {key: got[(key, inst)]["ms"] for key, inst in timed[:3]}
             log(f"[time] SDPA S={S} H={H} D={D} {name} "
                 f"{'causal' if causal else 'full'}: fwd {lib_fwd} ms, "
                 f"fwd+bwd {lib_fb} ms, kernels fwd {fwd_kernels} bwd "
-                f"{bwd_kernels}; port fwd+bwd "
-                f"{ms['k2'] + ms['k3'] + ms['k4']:.4f} ms (K2+K3+K4); plain fwd+bwd {plain_fwd + plain_bwd:.4f} ms")
+                f"{bwd_kernels}")
+            if bwd:
+                ms = {key: got[(key, inst)]["ms"] for key, inst in timed[:3]}
+                log(f"[time] port fwd+bwd S={S} H={H} D={D} {name} "
+                    f"{'causal' if causal else 'full'}: "
+                    f"{ms['k2'] + ms['k3'] + ms['k4']:.4f} ms (K2+K3+K4); "
+                    f"plain fwd+bwd {plain_fwd + plain_bwd:.4f} ms")
             del q, k, v, do, qt, kt, vt, gt, qg, kg, vg
             torch.cuda.empty_cache()
     return rows
 
 
-def flash_entries(paths, timing, wide, checks, instances) -> list:
+def flash_entries(paths, timing, d256, wide, checks, instances) -> list:
     """The kernels line's K2–K4 entries: K2, K3 and K4 timed at S = S_ATT,
-    H = H_ATT, D = D_ATT in f32 (also per dtype, each by its instance),
+    H = H_ATT, D = D_ATT in f32 (also per dtype, each by its instance;
+    K2's also at D = 256 in f32, and beside its retired simt instance),
     with their launches on every path but phase 8's wide ones; then K2, K3
     and K4's wide kernels (D > 256), timed at D = WIDE_D in f32 (also per
-    dtype; K2's beside its retired simt tiles), with their launches on
-    phase 8's wide paths (the ``_d{WIDE_D}`` runs).  ``paths`` maps each
-    counter of ``_counts`` to its launches by run; ``timing`` and ``wide``
-    are phase 9's rows at D_ATT and WIDE_D."""
+    dtype), with their launches on phase 8's wide paths (the
+    ``_d{WIDE_D}`` runs).  ``paths`` maps each counter of ``_counts`` to
+    its launches by run; ``timing``, ``d256`` and ``wide`` are phase 9's
+    rows at D_ATT, 256 and WIDE_D."""
     out = []
     src = "pencilarrays_tpu_torch/ops/csrc/"
     narrow = {key: {run: c for run, c in by.items()
@@ -6858,23 +7015,27 @@ def flash_entries(paths, timing, wide, checks, instances) -> list:
     pallas = "pencilarrays_tpu/ops/flash_pallas.py"
     kernels = (("k2", "flash_fwd", 287), ("k3", "flash_bwd_dq", 589),
                ("k4", "flash_bwd_dkv", 609))
+    cols = ("dtype", "causal", "head_dim", "instance", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "tflops", "max_abs_err",
+            "rel_err")
     for key, name, line in kernels:
-        insts = ("wgmma", "simt") if key == "k2" else ("wgmma", "tf32x3")
-        out.append(entry(name, key, [r for r in timing if r["kernel"] == key],
-                         narrow, f"{pallas}:{line}", insts, D_ATT))
-    for key, name, line in kernels:
-        rows = [r for r in wide if r["kernel"] == key]
-        e = entry(f"{name}_wide", key,
-                  [r for r in rows if r["instance"] != "simt"], wide_paths,
-                  f"{pallas}:{line}", ("wgmma", "tf32x3"), WIDE_D)
+        rows = [r for r in timing if r["kernel"] == key]
+        e = entry(name, key, [r for r in rows if r["instance"] != "simt"],
+                  narrow, f"{pallas}:{line}", ("wgmma", "tf32x3") + (
+                      ("simt",) if key == "k2" else ()), D_ATT)
         if key == "k2":
-            # the retired simt tiles on the same inputs (0 launches on
-            # every path)
-            e["retired_simt"] = [{k: r[k] for k in (
-                "dtype", "causal", "ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by", "tflops", "max_abs_err", "rel_err")}
-                for r in rows if r["instance"] == "simt"]
+            # f32 at D = 256, and the retired simt instance on the same
+            # inputs as tf32x3 (0 launches on every path)
+            e["d256"] = [{k: r[k] for k in cols} for r in d256
+                         if r["instance"] != "simt"]
+            e["retired_simt"] = [{k: r[k] for k in cols}
+                                 for r in rows + d256
+                                 if r["instance"] == "simt"]
         out.append(e)
+    for key, name, line in kernels:
+        out.append(entry(f"{name}_wide", key,
+                         [r for r in wide if r["kernel"] == key], wide_paths,
+                         f"{pallas}:{line}", ("wgmma", "tf32x3"), WIDE_D))
     return out
 
 
@@ -6967,11 +7128,12 @@ def main() -> int:
                     profiled=False)
                 for dt in (torch.float32, torch.bfloat16)})
             mark("8")
-            timing = phase_flash_timing(torch, flash, bw)
-            # above 256: K2-K4's wide kernels, K2's retired simt tiles on
-            # the same inputs, and SDPA
-            wide = phase_flash_timing(torch, flash, bw, D=WIDE_D,
-                                      retired=True)
+            # K2's retired simt instance by name beside tf32x3, also at
+            # D = 256 in f32; above 256 K2-K4's wide kernels and SDPA
+            timing = phase_flash_timing(torch, flash, bw, retired=True)
+            d256 = phase_flash_timing(torch, flash, bw, D=256, retired=True,
+                                      dtypes=("float32",), keys=("k2",))
+            wide = phase_flash_timing(torch, flash, bw, D=WIDE_D)
             mark("9")
             # phase 2's timings: every class phases 3-5c and 7 launched
             k1_runs = {**cycle, **wired["cycles"], **wired["reshard"],
@@ -7055,7 +7217,7 @@ def main() -> int:
         "timings": [{k: v for k, v in r.items() if k != "bytes"}
                     for r in k1_timed.values()],
     }]
-    kernels += flash_entries(paths, timing, wide, checks, instances)
+    kernels += flash_entries(paths, timing, d256, wide, checks, instances)
     faulthandler.cancel_dump_traceback_later()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log("[phases] wall s by phase (2t: phase 2's timings): " + json.dumps(

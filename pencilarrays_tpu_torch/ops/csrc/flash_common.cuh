@@ -1,9 +1,9 @@
 // Shared pieces of the flash-attention kernels K2 (flash_fwd.cu) and K3/K4
 // (flash_bwd.cu, flash_bwd_tf32.cu): the masked score, dtype codes and the
 // bf16 rounding, the K3/K4 arguments and fragment store, cp.async tile
-// loads into padded shared memory with bf16 widened on arrival (K2's simt
-// instance, K3/K4's tf32x3 one up to D = 256), the causal tile predicates,
-// the CTA order and the launch.
+// loads into padded shared memory with bf16 widened after arrival (K2's
+// and K3/K4's tf32x3 instances up to D = 256, K2's retired simt one), the
+// causal tile predicates, the CTA order and the launch.
 //
 // Layout: every q/k/v/do/out tensor is the folded (S, N, D) layout, row
 // major, N = heads x batch.  A CTA works on one head·batch slice `hb` and

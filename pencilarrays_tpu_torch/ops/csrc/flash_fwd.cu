@@ -1,5 +1,6 @@
-// K2 — forward flash attention for Hopper (sm_90a), CUDA C++: three
-// instances, picked per call by ops/flash.py::fwd_instance.
+// K2 — forward flash attention for Hopper (sm_90a), CUDA C++: two
+// instances, picked per call by ops/flash.py::fwd_instance, and the
+// retired simt one.
 //
 // Replaces the TPU kernel pencilarrays_tpu/ops/flash_pallas.py::_flash_kernel
 // (launched by pallas_flash_attention, pallas_call at :287).  The TPU kernel
@@ -25,14 +26,44 @@
 //   fragment in registers (the bf16 rounding of P is that conversion).
 //   The softmax runs on the accumulator fragment: a row lives in the 4
 //   lanes of a quad.
-// * simt instance (any f32 operand, D <= 256): CUDA-core f32 FMA,
-//   register-blocked.  Each thread computes an RI x CJ block of S and an
-//   RI x DJ block of O from 16-byte shared loads; K and V tiles arrive by
-//   cp.async, V(t) while S(t) is computed and K(t+1) while P(t)·V(t) is,
-//   so every copy overlaps FMAs.  bf16 operands of a mix are copied raw
-//   and widened to f32 in shared memory after they land.  Its D > 256
-//   tiles are retired: no call picks them, chip_smoke.py times them by
-//   name beside the wide kernels.
+// * tf32x3 instance (any f32 operand, D <= 256): tensor cores at f32
+//   accuracy, mma.sync m16n8k8 TF32 with three products per f32 product
+//   (flash_bwd_tf32.cu's header says why).  K3's tf32x3 tiles: a CTA of
+//   BQ / 16 warps, warp w owning q rows [16 w, 16 w + 16), streams key
+//   tiles of BK; the m16n8 S accumulator is P's A fragment (its k slots
+//   t and t + 4 standing for keys 2t and 2t + 1), so P stays in
+//   registers.  K3's kernel splits every fragment value in every warp
+//   (two roundings, four integer operations).  Here every tile is split
+//   once a CTA, when it lands: cp.async copies the raw tile (a bf16
+//   operand of a mix raw, widened in the split pass) into a landing
+//   buffer, and one pass of all threads writes it as (big, big, small,
+//   small) units of two columns, so a fragment load is one 16-byte load
+//   that carries both parts of two k slots.  Q is split once into a resident tile; the copy
+//   of K/V tile i + 1 flies under tile i.  The mma's k slots are permuted
+//   within each k8 step (slots t, t + 4 = columns 2t, 2t + 1) for S, and
+//   O's n index g of n-tile c stands for column 16 (c / 2) + 2 g + c % 2,
+//   so the V loads are units too and a lane's O columns come out as four
+//   consecutive floats.  Units sit at u ^ swz(row) (split_tile), which
+//   puts the quarter-warp of every 16-byte fragment load on 32 distinct
+//   banks.  At D = 256 two groups of warps hold the same rows and split
+//   the head dim (O of 16 rows x 256 columns would take 128 registers a
+//   thread): each reduces S over its 128 columns, they swap the partial
+//   S through shared memory and add it in one order, and each accumulates
+//   its 128 columns of O.  Sums: a fresh accumulator for every 32 columns
+//   of S and for each key tile's P·V, moved into the running value by an
+//   f32 add (the tensor cores round their accumulation toward zero; see
+//   below).  On an H100 it does about 40 TFLOP/s of f32 work at D = 128,
+//   as K3's kernel does with its per-fragment split: a tile's phases
+//   (split, S, softmax, P·V) run one after another in every warp between
+//   the tile's barriers, and neither more accumulator chains nor S on
+//   wgmma's TF32 form moved it; overlapping the phases is the next step
+//   (ROADMAP Queue 2).
+// * simt instance (retired: only launch_fwd(..., instance="simt") runs
+//   it, so chip_smoke.py's phase 9 times it beside tf32x3): CUDA-core f32
+//   FMA, register-blocked, D <= 256.  Each thread computes an RI x CJ
+//   block of S and an RI x DJ block of O from 16-byte shared loads; K and
+//   V tiles arrive by cp.async, bf16 operands of a mix widened in shared
+//   memory after they land.
 // * the wide kernels, 256 < D <= 1024, wgmma (all bf16) and tf32x3 (any
 //   f32 operand): a Q tile, a K/V stage and the O accumulator of a row
 //   tile do not fit there (O of 64 rows x 512 columns is 128 f32 registers
@@ -689,7 +720,316 @@ int run_wgmma_wide(WgArgs& w, void* stream) {
 }
 
 // ---------------------------------------------------------------------------
-// simt instance
+// tf32x3 instance up to D = 256
+// ---------------------------------------------------------------------------
+
+// The unit position of a split tile's row r: unit u (columns 2u, 2u + 1)
+// sits at u ^ swz(r).  A quarter-warp's 16-byte fragment loads read rows
+// g, g + 1 (g even) at units u0 + t (S's operands: swz(g) and swz(g + 1)
+// differ by 4, which maps the two rows' four units to the two halves of
+// a 128-byte line) or rows 2t + e at units 8 c + g (V: swz(2t + e) takes
+// the four even values over t, which keeps g's parity): 32 banks either
+// way.
+__device__ __forceinline__ int swz(int r) {
+  return (((r >> 1) & 3) << 1) ^ ((r & 1) << 2);
+}
+
+// Split ROWS landed rows (start_tile's layout, pitch DMAX + 4 words; bf16
+// raw in the upper half of each row) into dst: pitch 2·DMAX words, unit u
+// = (big(2u), big(2u + 1), small(2u), small(2u + 1)) at u ^ swz(r).
+template <int ROWS, int DMAX, int NT>
+__device__ __forceinline__ void split_tile(uint32_t* dst, const float* src,
+                                           int dt) {
+  constexpr int LD = DMAX + 4, Q4 = DMAX / 4;   // 4-column groups a row
+  for (int idx = threadIdx.x; idx < ROWS * Q4; idx += NT) {
+    const int r = idx / Q4, c = (idx % Q4) * 4;
+    float x[4];
+    if (dt == kBF16) {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(
+          reinterpret_cast<const char*>(src + r * LD) + 2 * DMAX + 16 +
+          2 * c);
+      const float2 lo = __bfloat1622float2(h[0]), hi = __bfloat1622float2(h[1]);
+      x[0] = lo.x, x[1] = lo.y, x[2] = hi.x, x[3] = hi.y;
+    } else {
+      const float4 f = *reinterpret_cast<const float4*>(src + r * LD + c);
+      x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
+    }
+    uint32_t b[4], s[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(x[e], b[e], s[e]);
+    uint4* row = reinterpret_cast<uint4*>(dst + r * 2 * DMAX);
+    const int u = c / 2, sw = swz(r);
+    row[u ^ sw] = make_uint4(b[0], b[1], s[0], s[1]);
+    row[(u + 1) ^ sw] = make_uint4(b[2], b[3], s[2], s[3]);
+  }
+}
+
+// s (16 x 8·NJ; n-tile j at s[4 j ..]) = A·Bᵀ over units [U0, U0 + NU)
+// of rows of LU units: A the warp's 16 rows of a split tile (from A), B
+// the 8·NJ rows of another (from B).  Per k8 step (four units) lane (g, t)
+// reads unit t of rows g, g + 8 (A) and 8 j + g (B): k slots t and t + 4
+// are columns 2t and 2t + 1.  32 columns (16 units) a chunk, each chunk's
+// products a fresh accumulator that one f32 add (round to nearest) moves
+// into s: the tensor cores' accumulation, which rounds toward zero, never
+// runs over more than 32 terms.
+template <int NJ, int LU, int NU>
+__device__ __forceinline__ void split_scores(float (&s)[4 * NJ],
+                                             const uint32_t* A,
+                                             const uint32_t* B, int U0,
+                                             int g, int t) {
+  const uint4* a0 = reinterpret_cast<const uint4*>(A) + g * LU;
+  const uint4* a1 = a0 + 8 * LU;
+  const uint4* b = reinterpret_cast<const uint4*>(B) + g * LU;
+  const int sw = swz(g);   // rows g, g + 8 and 8 j + g alike
+#pragma unroll
+  for (int i = 0; i < 4 * NJ; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int u0 = 0; u0 < NU; u0 += 16) {
+    float part[4 * NJ];
+#pragma unroll
+    for (int i = 0; i < 4 * NJ; ++i) part[i] = 0.f;
+#pragma unroll
+    for (int u = u0; u < u0 + 16; u += 4) {
+      const int x = U0 + ((u + t) ^ sw);   // U0 % 8 == 0
+      const uint4 r0 = a0[x], r8 = a1[x];
+      const uint32_t ab[4] = {r0.x, r8.x, r0.y, r8.y};
+      const uint32_t as[4] = {r0.z, r8.z, r0.w, r8.w};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const uint4 kb = b[8 * j * LU + x];
+        mma3(part, j, ab, as, kb.x, kb.y, kb.z, kb.w);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4 * NJ; ++i) s[i] += part[i];
+  }
+}
+
+// o (16 x 16·NCP; n-tile c at o[4 c ..], its n index g standing for
+// column 16 (c / 2) + 2 g + c % 2 past the group's first) += P·V: P (16 x
+// 8·NJ) the score fragment p as the A operand, whose k slots t and t + 4
+// of step j are keys 8 j + 2 t and 8 j + 2 t + 1; V the split tile at B
+// (rows of LU units), lane (g, t) reading unit U0 + 8 (c / 2) + g of rows
+// 8 j + 2 t (+ 1), which carries n-tiles c and c + 1.  Each n-tile's
+// products over the tile's keys go to a fresh accumulator that one f32
+// add (round to nearest) then moves into o.
+template <int NJ, int LU, int NCP>
+__device__ __forceinline__ void split_outputs(float (&o)[8 * NCP],
+                                              const float (&p)[4 * NJ],
+                                              const uint32_t* B, int U0,
+                                              int g, int t) {
+  uint32_t ab[NJ][4], as[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    split(p[4 * j], ab[j][0], as[j][0]);      // (g, 2t)      -> (g, t)
+    split(p[4 * j + 2], ab[j][1], as[j][1]);  // (g + 8, 2t)  -> (g + 8, t)
+    split(p[4 * j + 1], ab[j][2], as[j][2]);  // (g, 2t + 1)  -> (g, t + 4)
+    split(p[4 * j + 3], ab[j][3], as[j][3]);  // (g + 8, 2t + 1)
+  }
+  const uint4* b0 = reinterpret_cast<const uint4*>(B) + 2 * t * LU + U0;
+  const uint4* b1 = b0 + LU;
+  const int x0 = swz(2 * t), x1 = swz(2 * t + 1);
+#pragma unroll
+  for (int cp = 0; cp < NCP; ++cp) {
+    float pe[4] = {0.f, 0.f, 0.f, 0.f}, po[4] = {0.f, 0.f, 0.f, 0.f};
+    const int u = 8 * cp + g;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const uint4 v0 = b0[8 * j * LU + (u ^ x0)];
+      const uint4 v1 = b1[8 * j * LU + (u ^ x1)];
+      mma3(pe, 0, ab[j], as[j], v0.x, v1.x, v0.z, v1.z);
+      mma3(po, 0, ab[j], as[j], v0.y, v1.y, v0.w, v1.w);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      o[8 * cp + i] += pe[i];
+      o[8 * cp + 4 + i] += po[i];
+    }
+  }
+}
+
+// Tiles of one head-dim class: a CTA keeps BQ q rows split (Q) and
+// streams BK keys a tile: K and V land raw (pitch DMAX + 4 words) and are
+// split into one tile each (pitch 2·DMAX); Q lands once over the K/V area
+// before the first tile.  NG groups of BQ / 16 warps hold the same rows
+// and split the head dim: group G reduces S over columns [G·DG, G·DG + DG)
+// and accumulates O there (DG = DMAX / NG); with NG = 2 the two partial S
+// blocks are swapped through K's split tile once every warp has read it.
+template <int DMAX_, int BQ_, int BK_, int NG_>
+struct Tf32FwdTiles {
+  static constexpr int DMAX = DMAX_, BQ = BQ_, BK = BK_, NG = NG_;
+  static constexpr int NT = 32 * (BQ / 16) * NG, DG = DMAX / NG;
+  static constexpr int LD = DMAX + 4, LS = 2 * DMAX;
+  static constexpr size_t Q_SPLIT = sizeof(float) * (size_t)BQ * LS;
+  static constexpr size_t KV_SPLIT = sizeof(float) * (size_t)BK * LS;
+  static constexpr size_t KV_LAND = sizeof(float) * (size_t)BK * LD;
+  static constexpr size_t SMEM = Q_SPLIT + 2 * KV_SPLIT + 2 * KV_LAND;
+  static_assert(BQ % 16 == 0 && BK % 8 == 0 && DG % 32 == 0 &&
+                    (NG == 1 || NG == 2),
+                "tiles");
+  static_assert(sizeof(float) * (size_t)BQ * LD <= 2 * (KV_SPLIT + KV_LAND),
+                "Q's landing fits the K/V area");
+  static_assert(NG == 1 || sizeof(float) * (size_t)NT * BK / 2 <= KV_SPLIT,
+                "the S exchange fits K's split tile");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// One CTA per (q tile, slice), key tiles inner; warp w owns q rows
+// [16 r, 16 r + 16) of the tile, r = w % (BQ / 16), in group w / (BQ / 16).
+template <class T>
+__global__ void __launch_bounds__(T::NT, 1)
+    flash_fwd_tf32x3_kernel(FwdArgs a) {
+  constexpr int BQ = T::BQ, BK = T::BK, DMAX = T::DMAX, LS = T::LS,
+                NT = T::NT, NG = T::NG, DG = T::DG, NJ = BK / 8;
+  extern __shared__ float4 smem4[];
+  uint32_t* Qs = reinterpret_cast<uint32_t*>(smem4);
+  uint32_t* Ks = Qs + BQ * LS;
+  uint32_t* Vs = Ks + BK * LS;
+  float* Kl = reinterpret_cast<float*>(Vs + BK * LS);
+  float* Vl = Kl + BK * T::LD;
+  float* Ql = reinterpret_cast<float*>(Ks);   // Q lands over the K/V area
+
+  int hb;
+  long long r0;
+  cta_tile(a.n, BQ, r0, hb);
+  const int nk =
+      visible_tiles(a.skv, a.causal, a.q_off, a.kv_off, r0, BQ, BK);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4,
+            t = lane % 4, rg = warp % (BQ / 16), grp = warp / (BQ / 16);
+  const int U0 = grp * DG / 2;            // the group's first unit
+  const long long rw = r0 + 16 * rg;      // the warp's first row
+  const long long qpos[2] = {a.q_off + rw + g, a.q_off + rw + g + 8};
+  const bool round_p = a.v_dt == kBF16;
+  float o[DG / 2];
+#pragma unroll
+  for (int i = 0; i < DG / 2; ++i) o[i] = 0.f;
+  float mrow[2] = {kNeg, kNeg}, lrow[2] = {0.f, 0.f};
+  if (nk > 0) {
+    start_tile<BQ, DMAX, NT>(Ql, a.q, a.q_dt, a.n, hb, a.sq, a.d, r0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    split_tile<BQ, DMAX, NT>(Qs, Ql, a.q_dt);
+    __syncthreads();   // Q's landing read: K/V(0) land over it
+    start_tile<BK, DMAX, NT>(Kl, a.k, a.k_dt, a.n, hb, a.skv, a.d, 0);
+    start_tile<BK, DMAX, NT>(Vl, a.v, a.v_dt, a.n, hb, a.skv, a.d, 0);
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const long long c0 = (long long)kt * BK;
+    cp_async_wait<0>();
+    __syncthreads();   // K/V(kt) landed; tile kt - 1's split K/V read
+    split_tile<BK, DMAX, NT>(Ks, Kl, a.k_dt);
+    split_tile<BK, DMAX, NT>(Vs, Vl, a.v_dt);
+    __syncthreads();   // split: the landing buffers take K/V(kt + 1)
+    if (kt + 1 < nk) {   // K/V(kt + 1) fly while tile kt is computed
+      start_tile<BK, DMAX, NT>(Kl, a.k, a.k_dt, a.n, hb, a.skv, a.d,
+                               c0 + BK);
+      start_tile<BK, DMAX, NT>(Vl, a.v, a.v_dt, a.n, hb, a.skv, a.d,
+                               c0 + BK);
+    }
+    cp_async_commit();
+    // a warp whose rows see no key of the tile skips its products (every
+    // later tile's too): for a row that saw a key, such a tile adds
+    // exp(NEG - m) = 0 to l and O
+    const bool live = !a.causal || a.q_off + rw + 15 >= a.kv_off + c0;
+    float s[BK / 2];
+    if (live)
+      split_scores<NJ, DMAX / 2, DG / 2>(s, Qs + 16 * rg * LS, Ks, U0, g,
+                                         t);
+    if constexpr (NG == 2) {
+      // S = S0 + S1 in both groups (a + b == b + a: both run the
+      // identical softmax), swapped through K's split tile once every
+      // warp has read it; the next tile's split waits for this read
+      float* xch = reinterpret_cast<float*>(Ks);
+      __syncthreads();
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) xch[i * NT + threadIdx.x] = s[i];
+      }
+      __syncthreads();
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          s[i] += xch[i * NT + (threadIdx.x ^ (NT / 2))];
+      }
+    }
+    if (!live) continue;
+    // masks only where the tile crosses the key tail or the warp's
+    // diagonal
+    const bool edge = c0 + BK > a.skv ||
+                      (a.causal && a.q_off + rw < a.kv_off + c0 + BK - 1);
+    float corr[2];
+    online_softmax<BK>(s, mrow, lrow, corr, a, edge, c0, qpos, t, round_p);
+#pragma unroll
+    for (int i = 0; i < DG / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    split_outputs<NJ, DMAX / 2, DG / 16>(o, s, Vs, U0, g, t);
+  }
+  cp_async_wait<0>();
+
+  // out = o / l in out_dt, acc = o raw: the lane's columns of n-tiles
+  // 2 cp and 2 cp + 1 are 16 cp + 4 t .. + 3 past the group's first (n
+  // indices 2t and 2t + 1, even and odd n-tile in turn)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long row = rw + g + 8 * h;
+    if (row >= a.sq) continue;
+    const size_t base = ((size_t)row * a.n + hb) * a.d;
+    const float den = lrow[h] == 0.f ? 1.f : lrow[h];
+#pragma unroll
+    for (int cp = 0; cp < DG / 16; ++cp) {
+      // d % 8 == 0: col < d => col + 3 < d
+      const int col = grp * DG + 16 * cp + 4 * t;
+      if (col >= a.d) continue;
+      const float x[4] = {o[8 * cp + 2 * h], o[8 * cp + 4 + 2 * h],
+                          o[8 * cp + 2 * h + 1], o[8 * cp + 4 + 2 * h + 1]};
+      if (a.out) {
+        if (a.out_dt == kBF16) {
+          __nv_bfloat162* y = reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(a.out) + base + col);
+          y[0] = __floats2bfloat162_rn(x[0] / den, x[1] / den);
+          y[1] = __floats2bfloat162_rn(x[2] / den, x[3] / den);
+        } else {
+          *reinterpret_cast<float4*>(static_cast<float*>(a.out) + base +
+                                     col) =
+              make_float4(x[0] / den, x[1] / den, x[2] / den, x[3] / den);
+        }
+      }
+      if (a.acc)
+        *reinterpret_cast<float4*>(a.acc + base + col) =
+            make_float4(x[0], x[1], x[2], x[3]);
+    }
+    if (a.m && t == 0 && grp == 0) {
+      a.m[(size_t)hb * a.sq + row] = mrow[h];
+      a.l[(size_t)hb * a.sq + row] = lrow[h];
+    }
+  }
+}
+
+// Tiles (DMAX, BQ resident q rows, BK streamed keys, NG column groups):
+// K3's tf32x3 classes, but 64 keys a tile at D = 64 (half the tiles'
+// syncs and split passes: 0.90 against 1.04 ms for 32 keys on an H100 at
+// S = 4096, H = 8) and D = 256 in two column groups (O of 16 rows x 256
+// columns alone is 128 registers a thread: with one group ptxas spilled
+// at 255 registers, and 4 warps an SM left the tensor cores idle); shared =
+// BQ·2·DMAX·4 (Q split) + 2·BK·2·DMAX·4 (K, V split) + 2·BK·(DMAX + 4)·4
+// (their landing) bytes; registers a thread, floats: DG / 2 (O) + BK (S
+// and a chunk's partial sums) + the split P fragments (BK / 8 steps x 8
+// words) + the loaded units (ptxas's count and spills: chip_smoke.py
+// phase 1):
+//   DMAX  64: 128 x 64, 1 group,  256 threads (162.0 KB)
+//   DMAX 128: 128 x 32, 1 group,  256 threads (225.0 KB)
+//   DMAX 256:  64 x 16, 2 groups, 256 threads (224.5 KB)
+template <class T>
+int run_tf32(const FwdArgs& a, void* stream) {
+  dim3 grid((a.sq + T::BQ - 1) / T::BQ, a.n);
+  return launch(flash_fwd_tf32x3_kernel<T>, grid, T::NT, T::SMEM, stream,
+                a);
+}
+
+// ---------------------------------------------------------------------------
+// simt instance (retired)
 // ---------------------------------------------------------------------------
 
 // Tiles of the simt instance: NT = TY x 16 threads, thread (ty, tx) =
@@ -885,8 +1225,6 @@ __global__ void __launch_bounds__(T::NT, T::MINB)
 //   DMAX   64: 64 x 64, 256 threads ( 68.0 KB)
 //   DMAX  128: 64 x 48, 256 threads ( 95.5 KB)
 //   DMAX  256: 32 x 32, 256 threads (102.0 KB)
-//   DMAX  512: 16 x 16, 128 threads ( 98.0 KB)  } retired: launched only
-//   DMAX 1024:  8 x 16, 128 threads (161.3 KB)  } by name (phase 9)
 template <class T>
 int run_simt(const FwdArgs& a, void* stream) {
   dim3 grid((a.sq + T::BQ - 1) / T::BQ, a.n);
@@ -1070,8 +1408,8 @@ int run_tf32_wide(const FwdArgs& a, void* stream) {
 
 }  // namespace pa_flash
 
-// q, k, v each f32 or bf16, d <= 1024 (above 256 the retired tiles, which
-// only a caller that names the instance launches); out in out_dt.
+// The retired simt instance, launched only by a caller that names it: q,
+// k, v each f32 or bf16, d <= 256; out in out_dt.
 extern "C" int pa_flash_fwd_simt(const void* q, const void* k, const void* v,
                                  int q_dt, int k_dt, int v_dt, void* out,
                                  int out_dt, float* acc, float* m, float* l,
@@ -1085,8 +1423,6 @@ extern "C" int pa_flash_fwd_simt(const void* q, const void* k, const void* v,
   if (d <= 64) return run_simt<SimtTiles<16, 4, 4, 64, 2>>(a, stream);
   if (d <= 128) return run_simt<SimtTiles<16, 4, 3, 128, 2>>(a, stream);
   if (d <= 256) return run_simt<SimtTiles<16, 2, 2, 256, 2>>(a, stream);
-  if (d <= 512) return run_simt<SimtTiles<8, 2, 1, 512, 1>>(a, stream);
-  if (d <= 1024) return run_simt<SimtTiles<8, 1, 1, 1024, 1>>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1109,19 +1445,26 @@ extern "C" int pa_flash_fwd_wgmma(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// q, k, v f32 (a bf16 operand of a mixed call widened by the caller) with
-// 256 < d <= 1024; v_dt is v's dtype before that (bf16 rounds P before
-// P·V); out in out_dt.
+// Any f32 operand, d <= 1024; out in out_dt.  Up to d = 256 q, k and v
+// each f32 or bf16, read in their own dtypes (q_dt, k_dt, v_dt).  Above,
+// the wide kernel reads f32 by TMA: q and k must be f32, and v's data f32
+// with v_dt its dtype before the caller widened it (bf16 rounds P before
+// P·V).
 extern "C" int pa_flash_fwd_tf32x3(const void* q, const void* k,
-                                   const void* v, int v_dt, void* out,
-                                   int out_dt, float* acc, float* m, float* l,
-                                   int n, int sq, int skv, int d, float scale,
+                                   const void* v, int q_dt, int k_dt,
+                                   int v_dt, void* out, int out_dt,
+                                   float* acc, float* m, float* l, int n,
+                                   int sq, int skv, int d, float scale,
                                    int causal, long long q_off,
                                    long long kv_off, void* stream) {
   using namespace pa_flash;
-  const FwdArgs a{q,  k,  v,   kF32, kF32,  v_dt,   out,   out_dt, acc,
+  const FwdArgs a{q,  k,  v,   q_dt, k_dt,  v_dt,   out,   out_dt, acc,
                   m,  l,  n,   sq,   skv,   d,      scale, causal, q_off,
                   kv_off};
-  if (d > 256 && d <= 1024) return run_tf32_wide(a, stream);
+  if (d <= 64) return run_tf32<Tf32FwdTiles<64, 128, 64, 1>>(a, stream);
+  if (d <= 128) return run_tf32<Tf32FwdTiles<128, 128, 32, 1>>(a, stream);
+  if (d <= 256) return run_tf32<Tf32FwdTiles<256, 64, 16, 2>>(a, stream);
+  if (d <= 1024 && q_dt == kF32 && k_dt == kF32)
+    return run_tf32_wide(a, stream);
   return (int)cudaErrorInvalidValue;
 }

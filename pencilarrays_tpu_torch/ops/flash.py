@@ -11,20 +11,21 @@ in place: nothing is transposed or padded around a launch.
   package: the normalized output, ``return_stats`` (output plus the folded
   ``(m, l)`` row statistics) and ``partials`` (raw ``(m, l, acc)`` in f32,
   which merge exactly across disjoint key sets — one call per ring round).
-  Three instances, chosen by :func:`fwd_instance`: ``"wgmma"`` (q, k and
-  v all bf16, every ``d``: bf16 tensor cores fed by TMA), ``"tf32x3"``
-  (any f32 operand, ``d > 256``: tensor cores at f32 accuracy, each f32
-  product as three TF32 ones) and ``"simt"`` (any f32 operand, ``d <=
-  256``: register-blocked f32 FMA fed by ``cp.async``).  Above ``d = 256``
-  the wgmma and tf32x3 kernels stream K and V (and Q, but for the wgmma
-  one up to ``d = 512``) in TMA boxes, reduce the scores over the head
-  dim a box at a time in two warp groups and split the output columns
-  between them (the tf32x3 one reads f32 only: a bf16 operand of such a
-  call is widened first).  All load 16-byte
-  units, so an operand whose data does not start on a 16-byte boundary is
-  first copied (counted in :data:`realigned_copies`).  The simt kernel's
-  tiles above ``d = 256`` are retired: only :func:`launch_fwd` with
-  ``instance="simt"`` runs them (``chip_smoke.py`` times them);
+  Two instances, chosen by :func:`fwd_instance`: ``"wgmma"`` (q, k and
+  v all bf16, every ``d``: bf16 tensor cores fed by TMA) and ``"tf32x3"``
+  (any f32 operand, every ``d``: tensor cores at f32 accuracy, each f32
+  product as three TF32 ones; up to ``d = 256`` fed by ``cp.async``, each
+  K/V tile split into its TF32 parts once a CTA, operands read in their
+  own dtypes).  Above ``d = 256`` the wgmma and tf32x3 kernels stream K
+  and V (and Q, but for the wgmma one up to ``d = 512``) in TMA boxes,
+  reduce the scores over the head dim a box at a time in two warp groups
+  and split the output columns between them (the tf32x3 one reads f32
+  only: a bf16 operand of such a call is widened first).  All load
+  16-byte units, so an operand whose data does not start on a 16-byte
+  boundary is first copied (counted in :data:`realigned_copies`).  The
+  ``"simt"`` instance (register-blocked f32 FMA, ``d <= 256``) is
+  retired: only :func:`launch_fwd` with ``instance="simt"`` runs it
+  (``chip_smoke.py`` times it);
 * K3 and K4 (``csrc/flash_bwd.cu``, ``csrc/flash_bwd_tf32.cu``) — the
   backward as two kernels, dq with key tiles inner and dk/dv with q tiles
   inner, rebuilding each score block from the saved logsumexp
@@ -89,9 +90,9 @@ __all__ = [
 launches_fwd = 0
 """K2 launches since the last reset (``flash.launches_fwd = 0``)."""
 launches_fwd_by_instance = {"wgmma": 0, "tf32x3": 0, "simt": 0}
-"""K2 launches by instance (see :func:`fwd_instance`; ``"simt"`` above
-``d = 256`` counts the retired tiles' launches by name) since the last
-reset (set each entry to 0); they sum to :data:`launches_fwd`."""
+"""K2 launches by instance (see :func:`fwd_instance`; ``"simt"`` counts
+the retired instance's launches by name) since the last reset (set each
+entry to 0); they sum to :data:`launches_fwd`."""
 realigned_copies = 0
 """Operands of K2 and of K3/K4's wgmma and tf32x3 instances copied to a
 fresh allocation because their data did not start on a 16-byte
@@ -125,15 +126,13 @@ def supported(d: int, *dtypes) -> bool:
 
 def fwd_instance(d: int, q_dtype: torch.dtype, k_dtype: torch.dtype,
                  v_dtype: torch.dtype) -> str:
-    """Which instance of K2 takes a call: ``"wgmma"`` when q, k and v are
-    all bfloat16 (bf16 tensor cores, at every head dim the kernels take;
-    above ``d = 256`` its wide kernel), else, for any float32 operand,
-    mixes included, ``"tf32x3"`` above ``d = 256`` (tensor cores at f32
-    accuracy) and ``"simt"`` up to it (f32 FMA on the CUDA cores).  None
-    is a fallback for another."""
-    if _all_bf16(q_dtype, k_dtype, v_dtype):
-        return "wgmma"
-    return "tf32x3" if d > 256 else "simt"
+    """Which instance of K2 takes a call, at every head dim the kernels
+    take (``d <= 1024``; above 256 each runs its wide kernel): ``"wgmma"``
+    when q, k and v are all bfloat16 (bf16 tensor cores), else, for any
+    float32 operand, mixes included, ``"tf32x3"`` (tensor cores at f32
+    accuracy).  Neither is a fallback for the other; no call picks the
+    retired ``"simt"`` instance."""
+    return "wgmma" if _all_bf16(q_dtype, k_dtype, v_dtype) else "tf32x3"
 
 
 def bwd_instance(d: int, q_dtype: torch.dtype, k_dtype: torch.dtype,
@@ -338,7 +337,7 @@ _ARGTYPES = {   # the C signatures of csrc/flash_fwd.cu, flash_bwd.cu and
     #               flash_bwd_tf32.cu
     "pa_flash_fwd_simt": "pppiiipipppiiiifillp",
     "pa_flash_fwd_wgmma": "ppppipppiiiifillp",
-    "pa_flash_fwd_tf32x3": "pppipipppiiiifillp",
+    "pa_flash_fwd_tf32x3": "pppiiipipppiiiifillp",
     "pa_flash_bwd_dq_wgmma": "pppppppiiiiifillp",
     "pa_flash_bwd_dkv_wgmma": "ppppppppiiiiifillp",
     "pa_flash_bwd_dq_tf32x3": "ppppiiiipppiiiiifillp",
@@ -426,12 +425,12 @@ def launch_fwd(qf, kf, vf, out, acc, m, l, *, causal, q_offset, kv_offset,
                instance: Optional[str] = None):
     """One K2 launch on folded contiguous 16-byte-aligned ``(S, N, D)``
     operands, by the instance :func:`fwd_instance` picks (or ``instance``:
-    ``"simt"`` above ``d = 256`` launches the retired tiles), into the
+    ``"simt"`` launches the retired instance, ``d <= 256``), into the
     outputs given (``None``: not written): ``out`` ``(Sq, N, D)`` in f32 or
     bf16, ``acc`` ``(Sq, N, D)`` f32, ``m`` and ``l`` ``(N, Sq)`` f32.
-    The tf32x3 instance reads f32 q, k and v: a bf16 operand is widened to
-    a fresh f32 tensor first, one pass each, and v's own dtype still
-    decides the rounding of P."""
+    Above ``d = 256`` the tf32x3 instance reads f32 q, k and v: a bf16
+    operand is widened to a fresh f32 tensor first, one pass each, and v's
+    own dtype still decides the rounding of P."""
     global launches_fwd
     sq, n, d = qf.shape
     inst = instance or fwd_instance(d, qf.dtype, kf.dtype, vf.dtype)
@@ -446,12 +445,11 @@ def launch_fwd(qf, kf, vf, out, acc, m, l, *, causal, q_offset, kv_offset,
             raise TypeError("flash forward: the wgmma instance takes bf16 "
                             "q, k and v")
         entry, head = "pa_flash_fwd_wgmma", ()
-    elif inst == "tf32x3":
-        held = tuple(x.float() for x in held)
-        entry, head = "pa_flash_fwd_tf32x3", (_DT[vf.dtype],)
-    elif inst == "simt":
-        entry = "pa_flash_fwd_simt"
-        head = tuple(_DT[x.dtype] for x in held)
+    elif inst in ("tf32x3", "simt"):
+        if inst == "tf32x3" and d > 256:
+            held = tuple(x.float() for x in held)
+        entry = f"pa_flash_fwd_{inst}"
+        head = (_DT[held[0].dtype], _DT[held[1].dtype], _DT[vf.dtype])
     else:
         raise ValueError(f"flash forward: no instance {inst!r}")
     with torch.cuda.device(qf.device):

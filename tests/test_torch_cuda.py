@@ -106,12 +106,11 @@ def _by_instance():
 def _flash_case(dtype, causal, q_off, kv_off, q, k, v):
     """flash_compare within chip_smoke.py's tolerances, with the launches
     it makes: K2 three times (its three modes), by the wgmma instance in
-    bf16 and in f32 by the simt one up to d = 256, the tf32x3 one above;
-    K3 and K4 twice each in f32 (full and partials backward), by the
-    tf32x3 instance, three times each in bf16 (full and partials with a
-    bf16 dO by the wgmma instance, partials with an f32 dO by the tf32x3
-    one), at every head dim; above d = 256 each by its wide kernels, and
-    K2's simt tiles there never."""
+    bf16 and by the tf32x3 one in f32; K3 and K4 twice each in f32 (full
+    and partials backward), by the tf32x3 instance, three times each in
+    bf16 (full and partials with a bf16 dO by the wgmma instance, partials
+    with an f32 dO by the tf32x3 one), at every head dim; above d = 256
+    each by its wide kernels, and K2's retired simt instance never."""
     from chip_smoke import FLASH_TOL, flash_compare
 
     n0 = (flash.launches_fwd, flash.launches_dq, flash.launches_dkv)
@@ -126,9 +125,7 @@ def _flash_case(dtype, causal, q_off, kv_off, q, k, v):
             flash.launches_dkv - n0[2]) == ((3, 3, 3) if bf16 else (3, 2, 2))
     by = [{i: c[i] - c0[i] for i in c0}
           for c, c0 in zip(_by_instance(), by0)]
-    wide = q.shape[-1] > 256
-    want_fwd = {"wgmma": 3 * bf16, "tf32x3": 3 * (wide and not bf16),
-                "simt": 3 * (not wide and not bf16)}
+    want_fwd = {"wgmma": 3 * bf16, "tf32x3": 3 * (not bf16), "simt": 0}
     want_bwd = ({"wgmma": 2, "tf32x3": 1} if bf16 else
                 {"wgmma": 0, "tf32x3": 2})
     assert by == [want_fwd, want_bwd, want_bwd]
@@ -171,7 +168,7 @@ def test_flash_storage_offset_on_the_card(dtype):
     copies = flash.realigned_copies
     _flash_case(dtype, True, 17, 9, q, k, v)
     # k and v: three K2 calls and every backward call (two in f32, three
-    # in bf16), none of which takes the simt instance at d = 128
+    # in bf16)
     want = 12 if dtype == torch.bfloat16 else 10
     assert flash.realigned_copies - copies == want
 
@@ -180,8 +177,9 @@ def test_flash_storage_offset_on_the_card(dtype):
 def test_mixed_dtypes_launch_the_kernels():
     """flash_attention with q/k/v of mixed f32/bf16 dtypes takes K2–K4
     under impl="auto", and agrees with impl="plain", at each head dim of
-    chip_smoke.MIXED_DIMS (K2 by simt, then by its wide tf32x3 kernel,
-    which must round P to bf16 for a bf16 v)."""
+    chip_smoke.MIXED_DIMS (K2 by its tf32x3 instance, up to d = 256 and
+    by its wide kernel above, which must round P to bf16 for a bf16
+    v)."""
     _skip_without_card()
     from chip_smoke import _mixed_check
     from pencilarrays_tpu_torch.models import attention

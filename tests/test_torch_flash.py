@@ -260,16 +260,16 @@ MIXES = [(a, b, c) for a in ("float32", "bfloat16")
 @pytest.mark.parametrize("mix", MIXES, ids=lambda m: "-".join(m))
 @pytest.mark.parametrize("d", [8, 64, 72, 128, 256, 264, 384, 512, 1024])
 def test_fwd_instance(d, mix):
-    """K2's instance rule: the bf16 tensor-core (wgmma) instance takes q,
-    k and v all bf16 at every head dim (above d = 256 its wide kernel);
-    any f32 operand goes to the tf32x3 instance above d = 256 and to the
-    simt one up to it.  CPU tensors run the plain version and launch
-    none."""
+    """K2's instance rule, the same at every head dim up to 1024: the bf16
+    tensor-core (wgmma) instance takes q, k and v all bf16, the tf32x3 one
+    any mix with an f32 operand (above d = 256 each by its wide kernel),
+    and no call takes the retired simt instance.  CPU tensors run the
+    plain version and launch none."""
     dtypes = [getattr(torch, name) for name in mix]
     if all(dt == torch.bfloat16 for dt in dtypes):
         want = "wgmma"
     else:
-        want = "tf32x3" if d > 256 else "simt"
+        want = "tf32x3"
     assert flash.fwd_instance(d, *dtypes) == want
     q, k, v = (_torch(a).to(dt) for a, dt in zip(
         _arrays(10, (5, 2, 1, d), (7, 2, 1, d), (7, 2, 1, d)), dtypes))
@@ -512,20 +512,26 @@ def _chain(acc, a, b, passes):
 
 def _tf32x3_fwd(q, k, v, *, causal, q_offset, kv_offset, passes=3,
                 one_s=False, one_o=False, round_p=False):
-    """The arithmetic of K2's wide tf32x3 kernel on folded (S, N, D)
-    float32 tensors (``round_p``: P rounded to bf16 after the row sum, as
-    the kernel does for a bf16 v, which it reads widened to f32).  S = Q·Kᵀ by 32-column boxes, each box's
-    split products a fresh accumulator chain; the two warp groups take the
-    boxes in pairs by turns (4 s, 4 s + 1 and 4 s + 2, 4 s + 3), each adds
-    its boxes in order with float32 adds (to nearest), and S is the sum of
-    the two groups' parts.  Then per tile of 32 keys the online softmax
-    (running max m, corr = exp2((m_old - m)·log2 e), P = exp2(S·scale·log2
-    e - m·log2 e) as one fmaf, l = l·corr + rowsum P) and O = O·corr +
-    P·V, P·V of the tile a fresh accumulator chain.  ``one_s``: one chain
-    over the whole head dim in place of a fresh one per box; ``one_o``: O
-    itself the chain over all keys; ``passes=1``: single-pass TF32."""
+    """The arithmetic of K2's tf32x3 instance on folded (S, N, D) float32
+    tensors (``round_p``: P rounded to bf16 after the row sum, as the
+    kernel does for a bf16 v).  S = Q·Kᵀ by 32-column chunks, each
+    chunk's split products a fresh accumulator chain.  Up to d = 256 the
+    chunks' sums are added in order with float32 adds (to nearest); above
+    (the wide kernel) the two warp groups take the 32-column boxes in
+    pairs by turns (4 s, 4 s + 1 and 4 s + 2, 4 s + 3), each adds its
+    boxes in order, and S is the sum of the two groups' parts.  Then per
+    key tile (chip_smoke.tf32_fwd_keys: 64 keys up to d = 64, 16 at
+    128 < d <= 256, else 32) the online softmax (running max m, corr =
+    exp2((m_old - m)·log2 e), P = exp2(S·scale·log2 e - m·log2 e) as one
+    fmaf, l = l·corr + rowsum P) and O = O·corr + P·V, P·V of the tile a fresh
+    accumulator chain.  ``one_s``: one chain over the whole head dim in
+    place of a fresh one per chunk; ``one_o``: O itself the chain over
+    all keys; ``passes=1``: single-pass TF32."""
+    from chip_smoke import tf32_fwd_keys
+
     sq, n, d = q.shape
     skv = k.shape[0]
+    bk = tf32_fwd_keys(d)
     scale = np.float32(1.0 / np.sqrt(d))
     log2e = np.float32(1.4426950408889634)
     qh, vh = q.permute(1, 0, 2), v.permute(1, 0, 2)
@@ -537,15 +543,15 @@ def _tf32x3_fwd(q, k, v, *, causal, q_offset, kv_offset, passes=3,
         part = [zero, zero]
         for b in range((d + 31) // 32):
             c = slice(32 * b, 32 * b + 32)
-            g = (b // 2) % 2
+            g = (b // 2) % 2 if d > 256 else 0
             part[g] = part[g] + _chain(zero, qh[..., c], kt[:, c], passes)
         s = part[0] + part[1]
     rows = q_offset + torch.arange(sq)[:, None]
     m = torch.full((n, sq), flash.NEG)
     l = torch.zeros((n, sq))
     acc = torch.zeros((n, sq, d))
-    for c0 in range(0, skv, 32):
-        x = s[..., c0:c0 + 32] * scale
+    for c0 in range(0, skv, bk):
+        x = s[..., c0:c0 + bk] * scale
         if causal:
             cols = kv_offset + c0 + torch.arange(x.shape[-1])[None, :]
             x = torch.where(rows >= cols, x, torch.tensor(flash.NEG))
@@ -558,9 +564,9 @@ def _tf32x3_fwd(q, k, v, *, causal, q_offset, kv_offset, passes=3,
             p = p.bfloat16().float()
         acc = acc * corr[..., None]
         if one_o:
-            acc = _chain(acc, p, vh[:, c0:c0 + 32], passes)
+            acc = _chain(acc, p, vh[:, c0:c0 + bk], passes)
         else:
-            acc = acc + _chain(torch.zeros_like(acc), p, vh[:, c0:c0 + 32],
+            acc = acc + _chain(torch.zeros_like(acc), p, vh[:, c0:c0 + bk],
                                passes)
         m = mn
     return (acc / l[..., None]).permute(1, 0, 2), m, l
@@ -587,7 +593,13 @@ def _tf32x3_fwd_errs(sq, skv, n, d, seed, kw, **how):
 
 
 @pytest.mark.parametrize("shape,offsets,without", [
-    ((45, 67, 3, 320), (True, 17, 9), dict(passes=1)),
+    ((45, 67, 3, 64), (True, 17, 9), dict(passes=1)),   # up to d = 256
+    ((45, 67, 3, 128), (True, 5, 0), dict(passes=1)),
+    ((45, 67, 3, 256), (True, 17, 9), dict(passes=1)),
+    ((16, 8192, 2, 64), (True, 8192, 0), dict(one_o=True)),
+    ((16, 8192, 2, 128), (False, 0, 0), dict(one_o=True)),
+    ((16, 8192, 2, 256), (True, 8192, 0), dict(one_o=True)),
+    ((45, 67, 3, 320), (True, 17, 9), dict(passes=1)),   # the wide kernel
     ((45, 67, 3, 512), (False, 0, 0), dict(passes=1)),
     ((45, 67, 3, 512), (True, 5, 0), dict(passes=1)),
     ((45, 67, 3, 1024), (False, 0, 0), dict(one_s=True)),
@@ -595,17 +607,18 @@ def _tf32x3_fwd_errs(sq, skv, n, d, seed, kw, **how):
     ((16, 8192, 2, 512), (True, 8192, 0), dict(one_o=True)),
 ])
 def test_tf32x3_fwd_split_meets_the_f32_tolerance(shape, offsets, without):
-    """The numerical case for K2's wide tf32x3 kernel, checked without a
-    card: its arithmetic, emulated in torch with TF32 rounding as cvt.rna
-    does it, the accumulation as mma.sync does it (toward zero) and the
-    kernel's own boxes, group order and key tiles, stays within 5e-6 of
-    each row's scale (about 1.6e-6) from the plain forward in float64, half
-    of K2's f32 bar in chip_smoke.py (1e-5); without each part of the
-    design it misses that bar: single-pass TF32, one accumulator chain
-    over the head dim where it is long (d = 1024: 192 truncating adds a
-    score at d = 512 already reach about 1.1e-5) in place of a fresh one
-    per 32-column box, and one over 8192 keys (O's whole history, about
-    1e-4) in place of a fresh one per key tile."""
+    """The numerical case for K2's tf32x3 instance, up to d = 256 and its
+    wide kernel above, checked without a card: its arithmetic, emulated in
+    torch with TF32 rounding as cvt.rna does it, the accumulation as
+    mma.sync does it (toward zero) and the kernel's own chunks, group
+    order and key tiles, stays within 5e-6 of each row's scale (about
+    1.6e-6) from the plain forward in float64, half of K2's f32 bar in
+    chip_smoke.py (1e-5); without each part of the design it misses that
+    bar: single-pass TF32, one accumulator chain over the head dim where
+    it is long (d = 1024: 192 truncating adds a score at d = 512 already
+    reach about 1.1e-5) in place of a fresh one per 32-column chunk, and
+    one over 8192 keys (O's whole history, about 1e-4) in place of a
+    fresh one per key tile."""
     kw = dict(zip(("causal", "q_offset", "kv_offset"), offsets))
     errs = _tf32x3_fwd_errs(*shape, 21, kw)
     errs_without = _tf32x3_fwd_errs(*shape, 21, kw, **without)
@@ -614,15 +627,16 @@ def test_tf32x3_fwd_split_meets_the_f32_tolerance(shape, offsets, without):
 
 
 @pytest.mark.parametrize("d,offsets", [
-    (320, (True, 17, 9)), (512, (False, 0, 0)), (1024, (True, 5, 0))])
+    (64, (True, 17, 9)), (256, (True, 5, 0)), (320, (True, 17, 9)),
+    (512, (False, 0, 0)), (1024, (True, 5, 0))])
 def test_tf32x3_fwd_rounds_p_for_bf16_v(d, offsets):
-    """chip_smoke.py's bar for P's rounding in K2's wide tf32x3 kernel on
-    a bf16 v (_p_rounding), checked on the kernel's emulated arithmetic:
+    """chip_smoke.py's bar for P's rounding in K2's tf32x3 instance on a
+    bf16 v (_p_rounding), checked on the kernel's emulated arithmetic:
     with P rounded to bf16 as the kernel rounds it, the mean of the rows'
     worst errors against the plain version in float64 that rounds P in
     the same key tiles stays under a quarter of that version's distance
     from the one that does not round; with P left unrounded it does not."""
-    from chip_smoke import WIDE_TF32_KEYS, _rel_err
+    from chip_smoke import _rel_err, tf32_fwd_keys
 
     kw = dict(zip(("causal", "q_offset", "kv_offset"), offsets))
     q, k, v = (torch.from_numpy(a) for a in _arrays(
@@ -633,7 +647,7 @@ def test_tf32x3_fwd_rounds_p_for_bf16_v(d, offsets):
 
     def plain(p_dtype):
         m, l, acc = flash.stream_stats(
-            q.double(), k.double(), v.double(), chunk=WIDE_TF32_KEYS,
+            q.double(), k.double(), v.double(), chunk=tf32_fwd_keys(d),
             score_dtype=torch.float64, p_dtype=p_dtype, **kw)
         return flash.normalize(l, acc, torch.float64)
 
