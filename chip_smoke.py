@@ -449,8 +449,11 @@ def _kernel_rows(torch, fn):
     rows = []
     for e in prof.key_averages():
         if (e.device_type != torch.autograd.DeviceType.CUDA
-                or e.key.startswith("nccl:")):
-            continue  # CPU ops and NCCL ranges repeat their kernels' time
+                or e.key.startswith("nccl:")
+                or getattr(e, "is_user_annotation", False)):
+            # CPU ops, NCCL ranges and the program's spans mirrored on the
+            # device repeat their kernels' time
+            continue
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
         if us > 0:

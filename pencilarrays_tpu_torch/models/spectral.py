@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..obs.tracing import span
 from ..ops import reductions
 from ..ops.fft import PencilFFTPlan
 from ..ops.localgrid import localgrid
@@ -134,46 +135,50 @@ class NavierStokesSpectral:
     def _nonlinear(self, uh: PencilArray) -> PencilArray:
         """Rotational-form nonlinear term, dealiased, in spectral space:
         ``P [ F(u x omega) ]``."""
-        kx, ky, kz = self._ks
-        _, inv_k2, mask = self._operators
-        u0, u1, u2 = (uh.component(i) for i in range(3))
-        wx = (u2 * ky - u1 * kz) * 1j
-        wy = (u0 * kz - u2 * kx) * 1j
-        wz = (u1 * kx - u0 * ky) * 1j
-        uw = self.plan.backward(PencilArray.stack([u0, u1, u2, wx, wy, wz]))
-        a0, a1, a2, b0, b1, b2 = (uw.component(i) for i in range(6))
-        del uw
-        c = PencilArray.stack([a1 * b2 - a2 * b1,
-                               a2 * b0 - a0 * b2,
-                               a0 * b1 - a1 * b0])
-        del a0, a1, a2, b0, b1, b2
-        ch = self.plan.forward(c)
-        chm = ch * mask[..., None]
-        c0, c1, c2 = (chm.component(i) for i in range(3))
-        corr = (c0 * kx + c1 * ky + c2 * kz) * inv_k2
-        return PencilArray.stack(
-            [c0 - corr * kx, c1 - corr * ky, c2 - corr * kz])
+        with span("ns.nonlinear"):
+            kx, ky, kz = self._ks
+            _, inv_k2, mask = self._operators
+            u0, u1, u2 = (uh.component(i) for i in range(3))
+            wx = (u2 * ky - u1 * kz) * 1j
+            wy = (u0 * kz - u2 * kx) * 1j
+            wz = (u1 * kx - u0 * ky) * 1j
+            uw = self.plan.backward(
+                PencilArray.stack([u0, u1, u2, wx, wy, wz]))
+            a0, a1, a2, b0, b1, b2 = (uw.component(i) for i in range(6))
+            del uw
+            c = PencilArray.stack([a1 * b2 - a2 * b1,
+                                   a2 * b0 - a0 * b2,
+                                   a0 * b1 - a1 * b0])
+            del a0, a1, a2, b0, b1, b2
+            ch = self.plan.forward(c)
+            chm = ch * mask[..., None]
+            c0, c1, c2 = (chm.component(i) for i in range(3))
+            corr = (c0 * kx + c1 * ky + c2 * kz) * inv_k2
+            return PencilArray.stack(
+                [c0 - corr * kx, c1 - corr * ky, c2 - corr * kz])
 
     def step(self, uh: PencilArray, dt: float) -> PencilArray:
         """One RK2 (Heun) step with exact viscous integrating factor."""
-        k2, _, _ = self._operators
-        e = torch.exp(-self.nu * k2 * dt)[..., None]
-        n1 = self._nonlinear(uh)
-        u1 = (uh + n1 * dt) * e
-        n2 = self._nonlinear(u1)
-        del u1
-        return (uh + n1 * (0.5 * dt)) * e + n2 * (0.5 * dt)
+        with span("ns.step"):
+            k2, _, _ = self._operators
+            e = torch.exp(-self.nu * k2 * dt)[..., None]
+            n1 = self._nonlinear(uh)
+            u1 = (uh + n1 * dt) * e
+            n2 = self._nonlinear(u1)
+            del u1
+            return (uh + n1 * (0.5 * dt)) * e + n2 * (0.5 * dt)
 
     def step_rk4(self, uh: PencilArray, dt: float) -> PencilArray:
         """One classical integrating-factor RK4 step (Canuto et al.)."""
-        k2, _, _ = self._operators
-        e = torch.exp(-self.nu * k2 * (0.5 * dt))[..., None]
-        a = self._nonlinear(uh)
-        b = self._nonlinear((uh + a * (0.5 * dt)) * e)
-        c = self._nonlinear(uh * e + b * (0.5 * dt))
-        d = self._nonlinear(uh * e * e + c * e * dt)
-        return (uh * e * e
-                + (a * e * e + (b + c) * e * 2.0 + d) * (dt / 6.0))
+        with span("ns.step"):
+            k2, _, _ = self._operators
+            e = torch.exp(-self.nu * k2 * (0.5 * dt))[..., None]
+            a = self._nonlinear(uh)
+            b = self._nonlinear((uh + a * (0.5 * dt)) * e)
+            c = self._nonlinear(uh * e + b * (0.5 * dt))
+            d = self._nonlinear(uh * e * e + c * e * dt)
+            return (uh * e * e
+                    + (a * e * e + (b + c) * e * 2.0 + d) * (dt / 6.0))
 
     def simulate(self, uh: PencilArray, dt: float, n_steps: int, *,
                  record_energy: bool = False, stepper=None):

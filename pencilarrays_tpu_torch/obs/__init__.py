@@ -6,7 +6,10 @@ and the mesh observability plane (the JAX package's ``obs/``).
 * :mod:`~pencilarrays_tpu_torch.obs.events` — the flight recorder, an
   append-only JSONL journal in the JAX package's schema;
 * :mod:`~pencilarrays_tpu_torch.obs.tracing` — spans over
-  ``torch.profiler``, NVTX and the host timers; ``profile`` captures;
+  ``torch.profiler`` and the host timers, with ``span.seconds`` in
+  device seconds on the card; no NVTX sink of its own (Nsight users wrap
+  the run in ``torch.autograd.profiler.emit_nvtx()``); ``profile``
+  captures;
 * :mod:`~pencilarrays_tpu_torch.obs.schema` — ``lint_event``,
   ``lint_journal``;
 * :mod:`~pencilarrays_tpu_torch.obs.drift` — the cost-model drift
@@ -25,7 +28,8 @@ and the mesh observability plane (the JAX package's ``obs/``).
 * ``python -m pencilarrays_tpu_torch.obs`` — the JAX package's
   ``pa-obs`` command line.
 
-Off by default and one cached probe when off; enable with
+Off by default and one cached probe when off (a span with no profiler
+running and no timer to feed enters nothing); enable with
 ``PENCILARRAYS_TPU_OBS`` (``1``: journal under
 ``PENCILARRAYS_TPU_OBS_DIR`` or ``./pa_obs``; any other value is the
 journal directory) or :func:`enable`.  With the cluster layer armed too,

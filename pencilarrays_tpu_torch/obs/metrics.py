@@ -10,7 +10,8 @@ textfile-collector format (:func:`to_prometheus`).  Metric names are
 dotted; labels are keyword pairs.  The snapshot carries the most recent
 benchtime spread (``utils/benchtime.py``) and the cost-model drift report
 (:mod:`~pencilarrays_tpu_torch.obs.drift`), which the Prometheus text
-also exports as gauges.
+also exports as gauges.  Both exports first record the device seconds
+of the card's spans still in flight (``obs/tracing.py``).
 """
 
 from __future__ import annotations
@@ -244,7 +245,9 @@ class MetricsRegistry:
         from ..utils.benchtime import last_spread
         from .drift import drift_report
         from .events import run_id
+        from .tracing import drain_spans
 
+        drain_spans()
         with self._lock:
             metrics = list(self._metrics.values())
         out = {"format": "pencilarrays-tpu-metrics", "version": 1,
@@ -289,6 +292,9 @@ class MetricsRegistry:
         escaping below — a label value carrying ``"`` or a newline
         (plan fingerprints, free-form hop labels) must corrupt neither
         the line it is on nor the lines after it."""
+        from .tracing import drain_spans
+
+        drain_spans()
         with self._lock:
             metrics = list(self._metrics.values())
         lines = []

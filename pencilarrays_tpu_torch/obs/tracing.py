@@ -1,12 +1,28 @@
 """Span and trace layer (the JAX package's ``obs/tracing.py``).
 
-:func:`span` names a section in every sink at once: a
-``torch.profiler.record_function`` range (the role of
-``jax.named_scope``; it names the section in a ``torch.profiler``
-trace), an NVTX range on the card, the host
+:func:`span` names a section in every sink that is listening, and costs
+one cached check where none is: a ``torch.profiler.record_function``
+range while a ``torch.profiler`` runs (the role of ``jax.named_scope``:
+it names the section in the trace, and a device operation there can be
+put down to the span that launched it); the host
 :class:`~pencilarrays_tpu_torch.utils.timers.TimerOutput` when debug
-timings are on, and the ``span.seconds`` histogram when observability is
-on.  :func:`profile` wraps ``torch.profiler.profile`` (the role of
+timings are on and a timer is given; and the ``span.seconds`` histogram
+when observability is on.  On the card that histogram holds device
+seconds: two CUDA events on the current stream, resolved without a
+wait, as later spans end and at every metrics snapshot or export.  On
+the CPU it holds host seconds.  There is no NVTX sink of its own:
+Nsight users wrap the run in ``torch.autograd.profiler.emit_nvtx()``,
+which gives every ``record_function`` range, spans included, an NVTX
+range.
+
+The port opens spans at its layer boundaries, under the JAX package's
+and the reference's names, so that a profile of either reads alike:
+``ns.step`` and ``ns.nonlinear`` (the Navier–Stokes model),
+``plan.forward``, ``plan.backward`` and ``stage_compute`` (a
+``PencilFFTPlan`` and each local transform), ``transpose!`` (one hop),
+and ``pack_data``, ``exchange`` and ``unpack_data`` inside it.
+
+:func:`profile` wraps ``torch.profiler.profile`` (the role of
 ``jax.profiler.trace``), exports a Chrome trace into ``logdir`` and
 stamps the capture with the JAX package's metadata file.  :func:`io_op`
 times, meters and journals one I/O driver operation.
@@ -14,9 +30,19 @@ times, meters and journals one I/O driver operation.
 
 from __future__ import annotations
 
+import threading
 import time
+from collections import deque
 from contextlib import contextmanager, nullcontext
 from typing import Optional
+
+import torch
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
+
+from ..utils import timers as _timers
+from . import events as _events
+from . import metrics as _metrics
 
 __all__ = ["span", "profile", "io_op"]
 
@@ -62,34 +88,90 @@ def io_op(event: str, driver: str, path, dataset: str,
         record_event(event, **payload)
 
 
-def _nvtx(label: str):
-    """An NVTX range on the card (a no-op where CUDA is not in use)."""
-    import torch
-
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        return torch.cuda.nvtx.range(label)
-    return nullcontext()
+_OFF = nullcontext()
+# (label, start event, end event) of the card's spans, in the order they
+# ended; a lock keeps two threads from taking the same pair
+_pending: deque = deque()
+_pending_lock = threading.Lock()
 
 
-@contextmanager
 def span(label: str, timer=None):
-    """One section annotation, every sink (module docstring); a drop-in
-    superset of :func:`~pencilarrays_tpu_torch.utils.timers.timeit`."""
-    from ..utils.timers import timeit
-    from .events import enabled
-    from .metrics import histogram
+    """One section annotation in every sink that is listening (module
+    docstring); a drop-in superset of
+    :func:`~pencilarrays_tpu_torch.utils.timers.timeit`.  With no
+    profiler running, observability off and no timer to feed, it enters
+    nothing."""
+    timed = timer is not None and _timers._ENABLED
+    if not (timed or _profiler_enabled() or _events.enabled()):
+        return _OFF
+    return _Span(label, timer if timed else None)
 
-    if not enabled():
-        with _nvtx(label), timeit(timer, label):
-            yield
-        return
-    t0 = time.perf_counter()
-    try:
-        with _nvtx(label), timeit(timer, label):
-            yield
-    finally:
-        histogram("span.seconds", label=label).observe(
-            time.perf_counter() - t0)
+
+class _Span:
+    """A span some sink listens to: the sinks are chosen at the enter."""
+
+    __slots__ = ("label", "timer", "_ctx", "_t0", "_ev0")
+
+    def __init__(self, label: str, timer):
+        self.label, self.timer = label, timer
+        self._ctx, self._t0, self._ev0 = [], None, None
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self._enter(record_function(self.label.replace(" ", "_")))
+        if self.timer is not None:
+            self._enter(self.timer(self.label))
+        if _events.enabled():
+            if torch.cuda.is_initialized():
+                dev = torch.cuda.current_device()
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev0.record(torch.cuda.current_stream(dev))
+                self._ev0 = (ev0, dev)
+            else:
+                self._t0 = time.perf_counter()
+        return None
+
+    def _enter(self, ctx):
+        ctx.__enter__()
+        self._ctx.append(ctx)
+
+    def __exit__(self, *exc):
+        if self._ev0 is not None:
+            ev0, dev = self._ev0
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record(torch.cuda.current_stream(dev))
+            _pending.append((self.label, ev0, ev1))
+            _drain(wait=False)
+        elif self._t0 is not None:
+            _metrics.histogram("span.seconds", label=self.label).observe(
+                time.perf_counter() - self._t0)
+        while self._ctx:
+            self._ctx.pop().__exit__(*exc)
+        return False
+
+
+def _drain(wait: bool) -> None:
+    """Observe the device seconds of the card's finished spans, in the
+    order they ended; ``wait`` waits for the rest too (a snapshot or an
+    export), else the first unfinished span stops the pass."""
+    with _pending_lock:
+        while _pending:
+            label, ev0, ev1 = _pending[0]
+            if wait:
+                ev0.synchronize()
+                ev1.synchronize()
+            elif not (ev1.query() and ev0.query()):
+                return
+            _pending.popleft()
+            _metrics.histogram("span.seconds", label=label).observe(
+                ev0.elapsed_time(ev1) / 1e3)
+
+
+def drain_spans() -> None:
+    """Wait for the card's open span timings and record them (every
+    metrics snapshot and export calls this first)."""
+    if _pending:
+        _drain(wait=True)
 
 
 @contextmanager
@@ -134,15 +216,25 @@ def profile(logdir: str, plan=None, **metadata):
 
 
 def _plan_stamp(plan) -> dict:
-    """JSON summary of a PencilFFTPlan for capture stamping."""
+    """JSON summary of a PencilFFTPlan for capture stamping: every field
+    that could be read, and an ``error`` naming each that could not (a
+    capture never breaks over its stamp, and says why a field is
+    missing)."""
     out = {"repr": repr(plan)}
-    try:
-        out["transforms"] = list(plan.transforms)
-        out["shape"] = list(plan.shape_physical)
-        out["topo"] = list(plan.topology.dims)
-        out["pipeline_chunks"] = plan.pipeline_chunks
-        out["steps"] = [s[0] for s in plan._steps]
-        out["predicted_costs"] = plan.collective_costs()
-    except Exception:
-        pass  # stamping is best-effort; never break a capture
+    fields = (
+        ("transforms", lambda: list(plan.transforms)),
+        ("shape", lambda: list(plan.shape_physical)),
+        ("topo", lambda: list(plan.topology.dims)),
+        ("pipeline_chunks", lambda: plan.pipeline_chunks),
+        ("steps", lambda: [s[0] for s in plan._steps]),
+        ("predicted_costs", plan.collective_costs),
+    )
+    errors = []
+    for key, read in fields:
+        try:
+            out[key] = read()
+        except Exception as e:  # noqa: BLE001 - reported in the stamp
+            errors.append(f"{key}: {type(e).__name__}: {e}")
+    if errors:
+        out["error"] = "; ".join(errors)
     return out

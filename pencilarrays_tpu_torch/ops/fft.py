@@ -61,6 +61,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..obs.tracing import span
 from ..parallel import collectives as _collectives
 from ..parallel import wire as _wire
 from ..parallel.arrays import PencilArray, as_torch_dtype
@@ -356,8 +357,13 @@ class _FusedProgram:
         return out
 
     def run(self, x: torch.Tensor) -> torch.Tensor:
-        op = _stage_op(self.ops, self.inverse, self.pre_complex, self.norm,
-                       self.nspace)
+        transform = _stage_op(self.ops, self.inverse, self.pre_complex,
+                              self.norm, self.nspace)
+
+        def op(blk, out=None):
+            with span("stage_compute"):
+                return transform(blk, out=out)
+
         if not self.inverse:
             return self._exchange_then(
                 x, lambda k, y, dst: op(y, out=dst),
@@ -1286,59 +1292,63 @@ class PencilFFTPlan:
     def _stage(self, data: torch.Tensor, ops, inverse: bool,
                pre_complex: bool) -> torch.Tensor:
         N = len(self.shape_physical)
-        return _stage_op(ops, inverse, pre_complex, self.normalization,
-                         N)(data)
+        with span("stage_compute"):
+            return _stage_op(ops, inverse, pre_complex, self.normalization,
+                             N)(data)
 
     def forward(self, u: PencilArray) -> PencilArray:
         """Physical -> spectral: the static schedule, in order."""
         if u.pencil != self.input_pencil:
             raise ValueError(f"input must live on plan.input_pencil "
                              f"({self.input_pencil!r}), got {u.pencil!r}")
-        from .. import obs
+        with span("plan.forward"):
+            from .. import obs
 
-        if obs.enabled():
-            from ..obs import correlate
+            if obs.enabled():
+                from ..obs import correlate
 
-            correlate.set_plan(self.plan_key())
-        tap = self._guard_tap_pre(u)
-        x = u
-        for step in self._steps:
-            if step[0] == "t":
-                x = transpose(x, step[2], method=(
-                    step[4] if len(step) > 4 else self.method))
-            elif step[0] == "ft":
-                (_, src, tgt, hop_dtype, post, ops, pre_complex, base, c,
-                 bounds) = step
-                x = PencilArray(post, self._dispatch_fused(
-                    x, src, tgt, hop_dtype, base, bounds,
-                    lambda d: _fused_hop(
-                        d, src, tgt, post, x.ndims_extra, ops, False,
-                        pre_complex, self.normalization, base, c, bounds)),
-                    x.extra_dims)
-            else:
-                _, pre, post, ops, pre_complex = step
-                x = PencilArray(post, self._stage(x.data, ops, False,
-                                                  pre_complex), x.extra_dims)
-        if x.dtype != self.dtype_spectral:
-            x = x.astype(self.dtype_spectral)
-        self._guard_tap_post(tap, "fft.forward", x)
-        return x
+                correlate.set_plan(self.plan_key())
+            tap = self._guard_tap_pre(u)
+            x = u
+            for step in self._steps:
+                if step[0] == "t":
+                    x = transpose(x, step[2], method=(
+                        step[4] if len(step) > 4 else self.method))
+                elif step[0] == "ft":
+                    (_, src, tgt, hop_dtype, post, ops, pre_complex, base, c,
+                     bounds) = step
+                    x = PencilArray(post, self._dispatch_fused(
+                        x, src, tgt, hop_dtype, base, bounds,
+                        lambda d: _fused_hop(
+                            d, src, tgt, post, x.ndims_extra, ops, False,
+                            pre_complex, self.normalization, base, c, bounds)),
+                        x.extra_dims)
+                else:
+                    _, pre, post, ops, pre_complex = step
+                    x = PencilArray(post, self._stage(
+                        x.data, ops, False, pre_complex), x.extra_dims)
+            if x.dtype != self.dtype_spectral:
+                x = x.astype(self.dtype_spectral)
+            self._guard_tap_post(tap, "fft.forward", x)
+            return x
 
     @staticmethod
     def _dispatch_fused(x: PencilArray, hop_src: Pencil, hop_tgt: Pencil,
                         hop_dtype, base, bounds, fn) -> torch.Tensor:
-        """One fused pipelined hop, journaled as a ``hop`` with observability
-        on (the transpose tap, ``fused(K=..)`` in its key, since its time
-        includes the stage); ``hop_src -> hop_tgt`` is the direction the
-        data moves."""
+        """One fused pipelined hop under the ``transpose!`` span, journaled
+        as a ``hop`` with observability on (the transpose tap,
+        ``fused(K=..)`` in its key, since its time includes the stage);
+        ``hop_src -> hop_tgt`` is the direction the data moves."""
         from .. import obs
 
         if not obs.enabled():
-            return fn(x.data)
+            with span("transpose!"):
+                return fn(x.data)
         import time
 
         t0 = time.perf_counter()
-        data = fn(x.data)
+        with span("transpose!"):
+            data = fn(x.data)
         _obs_record_hop(hop_src, hop_tgt, assert_compatible(hop_src,
                                                             hop_tgt),
                         base, x.extra_dims, hop_dtype,
@@ -1375,35 +1385,36 @@ class PencilFFTPlan:
         if uh.pencil != self.output_pencil:
             raise ValueError(f"input must live on plan.output_pencil "
                              f"({self.output_pencil!r}), got {uh.pencil!r}")
-        from .. import obs
+        with span("plan.backward"):
+            from .. import obs
 
-        if obs.enabled():
-            from ..obs import correlate
+            if obs.enabled():
+                from ..obs import correlate
 
-            correlate.set_plan(self.plan_key())
-        tap = self._guard_tap_pre(uh)
-        x = uh
-        for step in reversed(self._steps):
-            if step[0] == "t":
-                x = transpose(x, step[1], method=(
-                    step[4] if len(step) > 4 else self.method))
-            elif step[0] == "ft":
-                (_, src, tgt, hop_dtype, post, ops, pre_complex, base, c,
-                 bounds) = step
-                x = PencilArray(src, self._dispatch_fused(
-                    x, tgt, src, hop_dtype, base, bounds,
-                    lambda d: _fused_hop(
-                        d, src, tgt, post, x.ndims_extra, ops, True,
-                        pre_complex, self.normalization, base, c, bounds)),
-                    x.extra_dims)
-            else:
-                _, pre, post, ops, pre_complex = step
-                x = PencilArray(pre, self._stage(x.data, ops, True,
-                                                 pre_complex), x.extra_dims)
-        if x.dtype != self.dtype_physical:
-            x = x.astype(self.dtype_physical)
-        self._guard_tap_post(tap, "fft.backward", x)
-        return x
+                correlate.set_plan(self.plan_key())
+            tap = self._guard_tap_pre(uh)
+            x = uh
+            for step in reversed(self._steps):
+                if step[0] == "t":
+                    x = transpose(x, step[1], method=(
+                        step[4] if len(step) > 4 else self.method))
+                elif step[0] == "ft":
+                    (_, src, tgt, hop_dtype, post, ops, pre_complex, base, c,
+                     bounds) = step
+                    x = PencilArray(src, self._dispatch_fused(
+                        x, tgt, src, hop_dtype, base, bounds,
+                        lambda d: _fused_hop(
+                            d, src, tgt, post, x.ndims_extra, ops, True,
+                            pre_complex, self.normalization, base, c, bounds)),
+                        x.extra_dims)
+                else:
+                    _, pre, post, ops, pre_complex = step
+                    x = PencilArray(pre, self._stage(
+                        x.data, ops, True, pre_complex), x.extra_dims)
+            if x.dtype != self.dtype_physical:
+                x = x.astype(self.dtype_physical)
+            self._guard_tap_post(tap, "fft.backward", x)
+            return x
 
     def scale_factor(self) -> float:
         """``backward(forward(u)) == scale_factor() * u`` (1 except for

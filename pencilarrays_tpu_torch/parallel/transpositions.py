@@ -63,16 +63,21 @@ the sequence-parallel attention schedules.  :data:`exchange_calls` and
 :data:`exchange_bytes` count the exchange calls this process makes and
 the bytes it hands them, under the op names of :func:`transpose_cost`.
 
-With observability on (``obs/``), each call journals a ``hop`` record,
-meters ``transpose.dispatches`` / ``predicted_bytes`` /
-``dispatch_seconds`` and feeds the drift tracker a ``dispatch`` sample
+Each call runs under the ``transpose!`` span and its pieces under
+``pack_data``, ``exchange`` and ``unpack_data`` (the reference's
+sections, ``obs.span``): a ``torch.profiler`` trace names them, and with
+observability on ``span.seconds{label=transpose!}`` holds each hop's
+device seconds on the card.  With observability on (``obs/``), each call
+also journals a ``hop`` record, meters ``transpose.dispatches`` /
+``predicted_bytes`` and feeds the drift tracker a ``dispatch`` sample
 (the host time of the call: on the card a lower bound, since a dispatch
 returns once its kernels are enqueued).  With the integrity guard on
 (``guard/``), each call runs between two invariant probes, one before
 K1's pack and one after K1's unpack, under the hang watchdog until the
 probes are fetched (:func:`_dispatch_guarded_hop`); the hop itself is
 the unguarded one, so it moves the same bits with the same K1 launches.
-With both off a call pays one cached probe of each gate.
+With both off, and no profiler running, a call pays one cached probe of
+each gate.
 """
 
 from __future__ import annotations
@@ -88,6 +93,7 @@ import torch
 import torch.distributed as dist
 
 from .. import guard, obs
+from ..obs.tracing import span
 from ..ops import permute as k1
 from ..resilience import faults
 from . import collectives as _collectives
@@ -685,16 +691,17 @@ class _Exchange:
                      if isinstance(method, Ring) else None)
 
     def pack(self, x) -> torch.Tensor:
-        x = _take(x)
-        self.dtype = x.dtype
-        if self.wire16:
-            bits = _wire.pack_axis(x, self.wire).contiguous()
-            del x
-            # a complex element's two words move as one 4-byte word
-            x = (bits.view(torch.int32).squeeze(-1) if self.dtype.is_complex
-                 else bits.view(torch.int16))
-            del bits
-        return k1.pack(x, self.pack_axes, self.tile_b, self.P)
+        with span("pack_data"):
+            x = _take(x)
+            self.dtype = x.dtype
+            if self.wire16:
+                bits = _wire.pack_axis(x, self.wire).contiguous()
+                del x
+                # a complex element's two words move as one 4-byte word
+                x = (bits.view(torch.int32).squeeze(-1)
+                     if self.dtype.is_complex else bits.view(torch.int16))
+                del bits
+            return k1.pack(x, self.pack_axes, self.tile_b, self.P)
 
     def _tile_axis(self, tiles: torch.Tensor) -> Tuple[int, int]:
         """``(position in tiles, extent)`` of JAX's fp8 tile axis: the
@@ -711,101 +718,104 @@ class _Exchange:
         passed as ``[tiles]``, an fp8 wire's full-precision tiles are
         freed once wire-packed); the handle holds every buffer until
         :meth:`finish`."""
-        tiles = _take(tiles)
-        h = {"shape": tuple(tiles.shape), "dtype": self.dtype,
-             "axis": None}
-        send = tiles
-        if self.wire is not None and not self.wire16:
-            h["axis"] = self._tile_axis(tiles)
-            send = _wire.pack_axis(tiles, self.wire, h["axis"][0])
-            del tiles
-        h["send"], h["works"] = send, []
-        if not self.topo.connected:
-            h["recv"] = send
-            return h
-        group = self.topo.subcomm(self.R)
-        if self.ring is None:
-            src = send.reshape(-1).view(torch.uint8)
-            dst = torch.empty_like(src)
-            h["works"] = [dist.all_to_all_single(dst, src, group=group,
-                                                 async_op=True)]
-            _count("all-to-all", src.numel(), self.P > 1, group=group,
-                   shape=send.shape, dtype=send.dtype, buffer=send)
-            h["recv"] = dst.view(send.dtype).reshape(send.shape)
-            return h
-        G, S_b = self.ring
-        me = self.topo.coords_local[self.R]
-        if me >= G:
-            h["recv"] = None   # holds only padding: no round
-            return h
-        if G <= 1:
-            h["recv"] = send
-            return h
-        recv = torch.empty_like(send)
-        recv[me].copy_(send[me])
-        coords = list(self.topo.coords_local)
+        with span("exchange"):
+            tiles = _take(tiles)
+            h = {"shape": tuple(tiles.shape), "dtype": self.dtype,
+                 "axis": None}
+            send = tiles
+            if self.wire is not None and not self.wire16:
+                h["axis"] = self._tile_axis(tiles)
+                send = _wire.pack_axis(tiles, self.wire, h["axis"][0])
+                del tiles
+            h["send"], h["works"] = send, []
+            if not self.topo.connected:
+                h["recv"] = send
+                return h
+            group = self.topo.subcomm(self.R)
+            if self.ring is None:
+                src = send.reshape(-1).view(torch.uint8)
+                dst = torch.empty_like(src)
+                h["works"] = [dist.all_to_all_single(dst, src, group=group,
+                                                     async_op=True)]
+                _count("all-to-all", src.numel(), self.P > 1, group=group,
+                       shape=send.shape, dtype=send.dtype, buffer=send)
+                h["recv"] = dst.view(send.dtype).reshape(send.shape)
+                return h
+            G, S_b = self.ring
+            me = self.topo.coords_local[self.R]
+            if me >= G:
+                h["recv"] = None   # holds only padding: no round
+                return h
+            if G <= 1:
+                h["recv"] = send
+                return h
+            recv = torch.empty_like(send)
+            recv[me].copy_(send[me])
+            coords = list(self.topo.coords_local)
 
-        def peer(i):
-            coords[self.R] = i
-            return self.topo.global_rank(self.topo.rank(coords))
+            def peer(i):
+                coords[self.R] = i
+                return self.topo.global_rank(self.topo.rank(coords))
 
-        for r in range(1, G):
-            to, frm = (me + r) % G, (me - r) % G
-            out_t = send[to].reshape(-1).view(torch.uint8)
-            ops = [dist.P2POp(dist.isend, out_t, peer(to), group),
-                   dist.P2POp(dist.irecv, recv[frm].reshape(-1).view(
-                       torch.uint8), peer(frm), group)]
-            h["works"] += dist.batch_isend_irecv(ops)
-            _count("collective-permute", out_t.numel(), True,
-                   shape=send[to].shape, dtype=send.dtype, buffer=send,
-                   pair=(self.topo.global_rank(self.topo.rank_local),
-                         peer(to)))
-        h["recv"] = recv
-        return h
+            for r in range(1, G):
+                to, frm = (me + r) % G, (me - r) % G
+                out_t = send[to].reshape(-1).view(torch.uint8)
+                ops = [dist.P2POp(dist.isend, out_t, peer(to), group),
+                       dist.P2POp(dist.irecv, recv[frm].reshape(-1).view(
+                           torch.uint8), peer(frm), group)]
+                h["works"] += dist.batch_isend_irecv(ops)
+                _count("collective-permute", out_t.numel(), True,
+                       shape=send[to].shape, dtype=send.dtype, buffer=send,
+                       pair=(self.topo.global_rank(self.topo.rank_local),
+                             peer(to)))
+            h["recv"] = recv
+            return h
 
     def finish(self, h: dict) -> Optional[torch.Tensor]:
         """Wait for an exchange and release its send buffer; the received
         tiles (an fp8 wire's back at full precision, a 16-bit wire's
         still its bits), or ``None`` where this rank's output block holds
         only padding (a ring destination past ``S_b``)."""
-        for w in h.pop("works"):
-            w.wait()
-        del h["send"]
-        recv = h.pop("recv")
-        if self.ring is not None and \
-                self.topo.coords_local[self.R] >= self.ring[1]:
-            return None
-        if self.wire is None or self.wire16:
-            return recv
-        axis = h["axis"]
-        return _wire.unpack_axis(recv, h["dtype"], self.wire, axis[0],
-                                 axis[1])
+        with span("exchange"):
+            for w in h.pop("works"):
+                w.wait()
+            del h["send"]
+            recv = h.pop("recv")
+            if self.ring is not None and \
+                    self.topo.coords_local[self.R] >= self.ring[1]:
+                return None
+            if self.wire is None or self.wire16:
+                return recv
+            axis = h["axis"]
+            return _wire.unpack_axis(recv, h["dtype"], self.wire, axis[0],
+                                     axis[1])
 
     def unpack(self, recv, h: dict,
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Received tiles -> the output block (or ``out``, a view of it);
         zeros where ``recv`` is ``None``."""
-        recv = _take(recv)
-        if recv is None:
+        with span("unpack_data"):
+            recv = _take(recv)
+            if recv is None:
+                if out is None:
+                    shape = list(h["shape"][1:])
+                    shape[self.tile_a] = self.n_a
+                    return torch.zeros(shape, dtype=h["dtype"],
+                                       device=self.topo.device)
+                return out.zero_()
+            if not self.wire16:
+                return k1.unpack(recv, self.ident, self.tile_a, self.n_a,
+                                 out=out)
+            bits = k1.unpack(recv, self.ident, self.tile_a, self.n_a)
+            del recv
+            if h["dtype"].is_complex:
+                bits = bits.unsqueeze(-1)
+            full = _wire.unpack_axis(bits.view(torch.int16), h["dtype"],
+                                     self.wire)
+            del bits
             if out is None:
-                shape = list(h["shape"][1:])
-                shape[self.tile_a] = self.n_a
-                return torch.zeros(shape, dtype=h["dtype"],
-                                   device=self.topo.device)
-            return out.zero_()
-        if not self.wire16:
-            return k1.unpack(recv, self.ident, self.tile_a, self.n_a,
-                             out=out)
-        bits = k1.unpack(recv, self.ident, self.tile_a, self.n_a)
-        del recv
-        if h["dtype"].is_complex:
-            bits = bits.unsqueeze(-1)
-        full = _wire.unpack_axis(bits.view(torch.int16), h["dtype"],
-                                 self.wire)
-        del bits
-        if out is None:
-            return full
-        return out.copy_(full)
+                return full
+            return out.copy_(full)
 
 
 def _run_pipeline(n: int, produce, exchange: _Exchange, consume) -> None:
@@ -973,37 +983,40 @@ def _gspmd_exchange(data, pin: Pencil, pout: Pencil,
     sizes_out = [_numel(cross[me][s]) for s in range(len(topo))]
     sizes_in = [_numel(cross[r][me]) for r in range(len(topo))]
     esize = math.prod(extra) * data.element_size()
-    send = torch.empty(sum(sizes_out) * math.prod(extra), dtype=data.dtype,
-                       device=data.device)
-    off = 0
-    for s, piece in enumerate(cross[me]):
-        if piece is None:
-            continue
-        n = _numel(piece) * math.prod(extra)
-        k1.permute(mem_view(data, pin, piece, my_in), axes,
-                   out=send[off:off + n].view(out_shape(piece)))
-        off += n
-    del data
-    recv = torch.empty(sum(sizes_in) * math.prod(extra), dtype=send.dtype,
-                       device=send.device)
-    src8, dst8 = send.view(torch.uint8), recv.view(torch.uint8)
-    dist.all_to_all_single(dst8, src8,
-                           output_split_sizes=[n * esize for n in sizes_in],
-                           input_split_sizes=[n * esize for n in sizes_out],
-                           group=topo.group)
-    _count("all-to-all", src8.numel(), True, group=topo.group,
-           shape=send.shape, dtype=send.dtype, buffer=send)
-    del send, src8
-    ident = tuple(range(out.dim()))
-    off = 0
-    for r in range(len(topo)):
-        piece = cross[r][me]
-        if piece is None:
-            continue
-        n = _numel(piece) * math.prod(extra)
-        k1.permute(recv[off:off + n].view(out_shape(piece)), ident,
-                   out=mem_view(out, pout, piece, my_out))
-        off += n
+    with span("pack_data"):
+        send = torch.empty(sum(sizes_out) * math.prod(extra),
+                           dtype=data.dtype, device=data.device)
+        off = 0
+        for s, piece in enumerate(cross[me]):
+            if piece is None:
+                continue
+            n = _numel(piece) * math.prod(extra)
+            k1.permute(mem_view(data, pin, piece, my_in), axes,
+                       out=send[off:off + n].view(out_shape(piece)))
+            off += n
+        del data
+    with span("exchange"):
+        recv = torch.empty(sum(sizes_in) * math.prod(extra),
+                           dtype=send.dtype, device=send.device)
+        src8, dst8 = send.view(torch.uint8), recv.view(torch.uint8)
+        dist.all_to_all_single(
+            dst8, src8, output_split_sizes=[n * esize for n in sizes_in],
+            input_split_sizes=[n * esize for n in sizes_out],
+            group=topo.group)
+        _count("all-to-all", src8.numel(), True, group=topo.group,
+               shape=send.shape, dtype=send.dtype, buffer=send)
+        del send, src8
+    with span("unpack_data"):
+        ident = tuple(range(out.dim()))
+        off = 0
+        for r in range(len(topo)):
+            piece = cross[r][me]
+            if piece is None:
+                continue
+            n = _numel(piece) * math.prod(extra)
+            k1.permute(recv[off:off + n].view(out_shape(piece)), ident,
+                       out=mem_view(out, pout, piece, my_out))
+            off += n
     return out
 
 
@@ -1100,8 +1113,6 @@ def _obs_record_hop(pin: Pencil, pout: Pencil, R, method:
         hop += f" fused(K={fused_k})"
     obs.counter("transpose.dispatches", method=label).inc()
     obs.counter("transpose.predicted_bytes").inc(nbytes)
-    obs.histogram("transpose.dispatch_seconds", method=label).observe(
-        dispatch_s)
     # the host time of the call: free, a lower bound on the card; local
     # permutes (no bytes) are recorded too, for the straggler detector
     obs.record_hop_sample(hop, nbytes, dispatch_s, source="dispatch")
@@ -1183,24 +1194,26 @@ def _run_hop(pin: Pencil, dest: Pencil, R, method:
              AbstractTransposeMethod, data, extra_dims: tuple,
              ctx: dict) -> torch.Tensor:
     """The eager dispatch of one hop, as the JAX package's ``transpose``
-    and Gspmd ``reshard`` make it: the clock (observability on) starts
-    before the ``hop.exchange`` fault point, so an injected delay is part
-    of the measured dispatch; then the guarded hop, or the plain one
-    (where a ``corrupt`` drill's poke flows through undetected).
+    and Gspmd ``reshard`` make it, under the ``transpose!`` span: the
+    clock (observability on) starts before the ``hop.exchange`` fault
+    point, so an injected delay is part of the measured dispatch; then
+    the guarded hop, or the plain one (where a ``corrupt`` drill's poke
+    flows through undetected).
     ``data`` as in :func:`_dispatch_guarded_hop`."""
     x = data[0] if isinstance(data, list) else data
     dtype, ptr = x.dtype, x.data_ptr()
     del x
     t0 = time.perf_counter() if obs.enabled() else None
-    act = hop_fault(**ctx) if faults.armed("hop.exchange") else None
-    hit = faults.hit_count("hop.exchange") if act == "corrupt" else None
-    if guard.enabled():
-        out = _dispatch_guarded_hop(pin, dest, R, method, data, extra_dims,
-                                    corrupt_hit=hit)
-    else:
-        out = _plain_hop(data, pin, dest, len(extra_dims), method)
-        if hit is not None:
-            out = _poke(out, ptr, dest, extra_dims, hit)
+    with span("transpose!"):
+        act = hop_fault(**ctx) if faults.armed("hop.exchange") else None
+        hit = faults.hit_count("hop.exchange") if act == "corrupt" else None
+        if guard.enabled():
+            out = _dispatch_guarded_hop(pin, dest, R, method, data,
+                                        extra_dims, corrupt_hit=hit)
+        else:
+            out = _plain_hop(data, pin, dest, len(extra_dims), method)
+            if hit is not None:
+                out = _poke(out, ptr, dest, extra_dims, hit)
     if t0 is not None:
         _obs_record_hop(pin, dest, R, method, extra_dims, dtype,
                         time.perf_counter() - t0)

@@ -186,3 +186,38 @@ def test_mixed_dtypes_launch_the_kernels():
 
     errs = _mixed_check(torch, flash, attention)
     assert errs["fwd"] <= 2 ** -6 and errs["bwd"] <= 2 ** -6, errs
+
+
+@pytest.mark.cuda
+def test_span_seconds_is_device_time(tmp_path):
+    """With observability on, ``span.seconds`` over a card-side sleep reads
+    the sleep (timed apart with CUDA events), not its enqueue."""
+    _skip_without_card()
+    from pencilarrays_tpu_torch import obs
+    from pencilarrays_tpu_torch.obs import metrics
+
+    torch.cuda.init()
+    cycles = 50_000_000
+    torch.cuda._sleep(cycles)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    b.synchronize()
+    sleep_s = a.elapsed_time(b) / 1e3
+    metrics.registry.reset()
+    obs.enable(str(tmp_path))
+    try:
+        import time
+
+        t0 = time.perf_counter()
+        with obs.span("sleep"):
+            torch.cuda._sleep(cycles)
+        enqueue_s = time.perf_counter() - t0
+        got = obs.snapshot()["histograms"]["span.seconds{label=sleep}"]
+    finally:
+        obs.disable()
+        metrics.registry.reset()
+    assert got["count"] == 1
+    assert enqueue_s < 0.2 * sleep_s
+    assert got["last"] == pytest.approx(sleep_s, rel=0.1)

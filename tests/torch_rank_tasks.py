@@ -2835,3 +2835,50 @@ def dryrun_case(n):
     from pencilarrays_tpu_torch.entry import dryrun
 
     return dryrun(n, device="cpu")
+
+
+def spans_case(names, n=16):
+    """A 16^3 NS step, a round trip of its plan and an ``AllToAll()``
+    x -> y -> z -> y -> x cycle on a one-rank topology, run once plain
+    and once under ``torch.profiler`` (CPU): the profile's ranges of the
+    spans ``names`` as ``(name, start ns, end ns, thread)``, and whether
+    every output of the profiled run is bit-identical to the plain
+    run's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    topo = topology((1, 1))
+    model = NavierStokesSpectral(topo, (n, n, n), viscosity=1e-2)
+    gen = torch.Generator().manual_seed(0)
+    uh = model.allocate_state()
+    uh = pat.PencilArray(uh.pencil, torch.randn(
+        uh.data.shape, dtype=uh.data.dtype, generator=gen), (3,))
+    u = pat.PencilArray(model.plan.input_pencil, torch.randn(
+        model.plan.allocate_input((3,)).data.shape, generator=gen), (3,))
+    specs = {"x": ((1, 2), (1, 2, 0)), "y": ((0, 2), (0, 2, 1)),
+             "z": ((0, 1), (0, 1, 2))}
+    pens = [pencil((1, 1), (n, n, n), specs[p]) for p in "xyzyx"]
+    x = pat.PencilArray(pens[0], torch.randn(
+        pens[0].padded_size_local(pat.MemoryOrder), generator=gen))
+
+    def run():
+        outs = [model.step(uh, 1e-3).data]
+        uh2 = model.plan.forward(u)
+        outs += [uh2.data, model.plan.backward(uh2).data]
+        v = x
+        for pen in pens[1:]:
+            v = pat.transpose(v, pen, method=pat.AllToAll())
+            outs.append(v.data)
+        return outs
+
+    plain = run()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = run()
+    same = [a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8))
+        for a, b in zip(plain, traced)]
+    spans = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns(),
+              e.start_thread_id())
+             for e in prof.profiler.kineto_results.events()
+             if e.name() in names]
+    return _rank0({"spans": spans, "same": same})
